@@ -5,16 +5,28 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from the checkout's sources, holds each against
-its plain PyTorch version on the card and times both, serves a seeded
-trace with the deepseek-7b smoke config on the card and on the CPU and
-compares them, then serves deepseek-7b at full width (30 layers, d_model
-4096, bf16, random weights from a seed) through the continuous-batching
-engine and checks the per-stream lanes and that every prefill went through
-the flash-attention kernel.  Each phase prints one JSON line; the last line
-is ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
-before that line; without a GPU it fails at once.  The compiler's full
-report is written beside the built libraries, ``build/repro_torch/build.log``.
+It builds the CUDA kernels from the checkout's sources (one ``nvcc`` per
+source, all started together) and drives the port's two paths:
+
+* serving: the flash-attention kernel held against its plain version and
+  timed; the deepseek-7b smoke config served on the card and on the CPU and
+  compared; deepseek-7b at full width (30 layers, d_model 4096, bf16, random
+  weights from a seed) served through the continuous-batching engine, with
+  the per-stream lanes checked and every prefill through the flash kernel;
+* training: the SSD-scan kernel held against the sequential plain scan and
+  timed; the mamba2 smoke config trained, prefilled and decoded on the card
+  and on the CPU and compared; mamba2-130m at its published shape (24
+  layers, d_model 768, bf16 compute, fp32 parameters) trained for a few tens
+  of steps with an eval lane, with the loss, the per-stream lanes and the
+  exact number of SSD launches checked, the kernel held against the plain
+  version on every layer's real inputs, one step at seq 4096, and decode
+  against forward in fp32.
+
+Each phase prints one JSON line; then a ``{"kernels": [...]}`` line, the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+Any failed check exits non-zero before that line; without a GPU it fails at
+once.  The compiler's full report is written beside the built libraries,
+``build/repro_torch/build.log``.
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 #: tests/test_kernels.py's shape set (B, S, Hq, Hkv, D): MHA, GQA, MQA ragged, S < block
@@ -57,6 +70,43 @@ FULL_FP32_REL = 1e-2
 #: from one CUDA graph between a pair of CUDA events; ROUNDS readings per
 #: function, the functions alternating within each round
 LAUNCHES, ROUNDS = 50, 9
+
+#: SSD kernel checks against the sequential plain scan: tests/test_kernels.py's
+#: SSD shapes (B, S, H, P, N, G), grouped B/C among them, plus a P that is not
+#: a multiple of the kernel's 32-row state slice and an S that is not a
+#: multiple of its 64-row tile
+SSD_SHAPES = [(1, 64, 2, 16, 8, 1), (2, 128, 4, 8, 16, 2), (2, 96, 6, 8, 16, 3), (1, 100, 2, 48, 8, 1)]
+SSD_FP32_TOL = dict(atol=5e-5, rtol=1e-3)  # tests/test_kernels.py's SSD tolerance
+SSD_BF16_TOL = dict(atol=2e-2, rtol=2e-2)  # tests/test_kernels.py's bf16 SSD tolerance
+#: mamba2-130m's SSD shape (H, P, N, G); bf16 checks at these lengths
+SSD_WIDTH = (24, 64, 128, 1)
+SSD_SEQS = (1, 37, 256, 1000)
+#: timed: the training microbatch (B=4, S=256) and the train_4k length (B=1, 16 chunks of 256)
+SSD_TIMED = ((4, 256), (1, 4096))
+#: The final state's relative L2 error, kernel against the sequential plain
+#: scan, on each layer's real inputs: both compute in fp32 from the same
+#: bf16 inputs, so they differ by summation order; relative, because
+#: exp(cum) can underflow over a chunk and shrink the state.
+SSD_H_REL = 1e-3
+#: smoke parity, card against CPU, fp32 with TF32 off.  Losses differ by
+#: summation order (the kernel's 64-row tiles against 32-row chunks on the
+#: CPU), ~1e-6 relative.  Grad norms: the CPU tests measured 4.9e-5 at the
+#: first step and 2.0e-3 by the third between two fp32 implementations
+#: (tests/test_torch_train.py), because AdamW's normalisation turns fp32
+#: noise on near-zero gradients into whole steps.  Greedy decode logits
+#: within 1e-4 on logits of magnitude ~1.
+SSM_LOSS_RTOL, SSM_GNORM_RTOL, SSM_LOGITS_ATOL = 1e-4, 1e-2, 1e-4
+#: full-width training: examples/train_100m.py's settings (batch 8 x 256, 2
+#: microbatches, AdamW, warm-up 20 steps, cosine over its default 300 steps),
+#: the first TRAIN_STEPS steps of that run.  At the reference's init the loss
+#: sits at ~ln(vocab) for ~40 steps before it falls, so fewer steps show no fall.
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, EVAL_EVERY, SCHEDULE_STEPS = 60, 8, 256, 2, 10, 300
+#: the loss on one fixed held-out batch must fall by at least this much over the run
+EVAL_DROP = 0.05
+#: decode after prefill against forward on the extended sequence, fp32,
+#: relative L2 of each step's logits: the same weights and math, the SSD
+#: state handed from the kernel to the exact recurrence
+DECODE_FP32_REL = 1e-3
 
 
 class CheckFailed(RuntimeError):
@@ -395,21 +445,356 @@ def phase_full_width():
     return launches, op_err
 
 
+def _ssd_inputs(B, S, H, P, N, G, dtype, seed, h0=False):
+    """Seeded SSD inputs on the card: x, B, C in ``dtype``; dt, A, D, h0 fp32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    x = rn(B, S, H, P).to(dtype)
+    dt = torch.nn.functional.softplus(rn(B, S, H) - 1.0)
+    A = -torch.exp(rn(H) * 0.5)
+    Bm, Cm = (rn(B, S, G, N) * 0.3).to(dtype), (rn(B, S, G, N) * 0.3).to(dtype)
+    D = rn(H) * 0.2
+    return x, dt, A, Bm, Cm, D, (rn(B, H, P, N) * 0.1 if h0 else None)
+
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30)).item()
+
+
+def phase_ssd_kernel(smi: str):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.kernels.ref import ssd_ref
+
+    fp32_err = 0.0
+    for i, shape in enumerate(SSD_SHAPES):
+        for with_h0 in (False, True):
+            x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(*shape, torch.float32, 300 + i, with_h0)
+            y, h = sk.ssd_scan(x, dt, A, Bm, Cm, D, h0, chunk=32)
+            want_y, want_h = ssd_ref(x, dt, A, Bm, Cm, D, h0, return_state=True)
+            torch.cuda.synchronize()
+            fp32_err = max(fp32_err, (y - want_y).abs().max().item(), (h - want_h).abs().max().item())
+            check(torch.allclose(y, want_y, **SSD_FP32_TOL) and torch.allclose(h, want_h, **SSD_FP32_TOL),
+                  f"fp32 SSD kernel disagrees with ssd_ref at {shape} h0={with_h0}")
+    H, P, N, G = SSD_WIDTH
+    bf16_err, h_rel = 0.0, 0.0
+    for S in SSD_SEQS:
+        x, dt, A, Bm, Cm, D, _ = _ssd_inputs(1, S, H, P, N, G, torch.bfloat16, 400 + S)
+        y, h = sk.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256)
+        want_y, want_h = ssd_ref(x, dt, A, Bm, Cm, D, return_state=True)
+        torch.cuda.synchronize()
+        bf16_err = max(bf16_err, (y.float() - want_y.float()).abs().max().item())
+        h_rel = max(h_rel, _rel(h, want_h))
+        check(y.dtype == torch.bfloat16 and h.dtype == torch.float32, "SSD output dtypes")
+        check(torch.allclose(y.float(), want_y.float(), **SSD_BF16_TOL), f"bf16 SSD kernel disagrees on y at S={S}")
+        check(torch.allclose(h, want_h, **SSD_BF16_TOL), f"bf16 SSD kernel disagrees on h_final at S={S}")
+
+    peak_flops, peak_bw, peak_src = peaks(smi)
+    timings = {}
+    for B, S in SSD_TIMED:
+        x, dt, A, Bm, Cm, D, _ = _ssd_inputs(B, S, H, P, N, G, torch.bfloat16, 500 + S)
+        ms = time_interleaved({
+            "kernel": lambda: sk.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256),
+            "plain": lambda: ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256, impl="plain"),
+        })
+        flops = sk.ssd_flops(B, S, H, P, N)
+        # each input read once, each output written once: x, y (bf16), dt (fp32),
+        # B and C once per group (bf16), A and D (fp32), h_final (fp32); no h0
+        nbytes = 2 * 2 * B * S * H * P + 4 * B * S * H + 2 * 2 * B * S * G * N + 2 * 4 * H + 4 * B * H * P * N
+        t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+        timings[f"B{B}_S{S}"] = {
+            "kernel_ms": ms["kernel"]["median"], "plain_ms": ms["plain"]["median"], "library_ms": None,
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes,
+            "spread_ms": {name: [m["min"], m["max"]] for name, m in ms.items()},
+        }
+    emit({"phase": "ssd_kernel", "name": "ssd_scan", "fp32_max_abs_err": fp32_err, "bf16_max_abs_err": bf16_err,
+          "bf16_h_final_rel_l2": h_rel, "tolerances": {"fp32": SSD_FP32_TOL, "bf16": SSD_BF16_TOL},
+          "bound": "FLOPs 2L^2N + 2L^2P + 4LNP per (batch, head, 64-row tile), the causal half counted "
+                   "(the kernel computes it); bytes as listed, at the bf16 dense peak and HBM rate",
+          "timing": timings,
+          "timing_note": f"median of {ROUNDS} readings, each the mean of {LAUNCHES} back-to-back calls "
+                         "replayed from one CUDA graph between CUDA events; kernel and plain alternate; "
+                         "inputs warm in L2; no single PyTorch call computes the SSD scan (library: none)"})
+    return max(bf16_err, fp32_err), timings
+
+
+def phase_ssm_parity():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, make_train_iter
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.optim import ScheduleConfig, adamw_init
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    cfg = get_smoke_config("mamba2-130m")
+    check(cfg.compute_dtype == "float32" and cfg.remat == "full", "mamba2 smoke is fp32 with full remat")
+    tcfg = TrainConfig(schedule=ScheduleConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=10), microbatches=2)
+    cpu_model, cpu_opt = init_train_state(cfg, tcfg, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    gpu_opt = adamw_init(dict(gpu_model.named_parameters()))
+
+    # greedy prefill + decode from the same weights
+    prompt = torch.as_tensor(np.random.default_rng(21).integers(0, cfg.vocab_size, (2, 40)), dtype=torch.long)
+    c_logits, c_cache = cpu_model.prefill(prompt)
+    before = sk.ssd_scan.launches
+    g_logits, g_cache = gpu_model.prefill(prompt.cuda())
+    check(sk.ssd_scan.launches - before == cfg.n_layers, "every card prefill layer runs the SSD kernel once")
+    logits_err, tokens = (g_logits.cpu() - c_logits).abs().max().item(), []
+    pos = torch.full((2,), prompt.shape[1], dtype=torch.long)
+    for _ in range(12):
+        tok = c_logits.argmax(-1)
+        check(torch.equal(g_logits.argmax(-1).cpu(), tok), "greedy tokens differ between card and CPU")
+        tokens.append(tok.tolist())
+        c_logits, c_cache = cpu_model.decode_step(c_cache, tok, pos)
+        g_logits, g_cache = gpu_model.decode_step(g_cache, tok.cuda(), pos.cuda())
+        logits_err = max(logits_err, (g_logits.cpu() - c_logits).abs().max().item())
+        pos = pos + 1
+    check(logits_err <= SSM_LOGITS_ATOL, f"smoke prefill/decode logits card vs CPU differ by {logits_err}")
+
+    it = make_train_iter(DataConfig(global_batch=4, seq_len=64, vocab_size=cfg.vocab_size, seed=5))
+    batches = [next(it) for _ in range(3)]
+    it.close()
+    cpu_step, gpu_step = make_train_step(cpu_model, tcfg), make_train_step(gpu_model, tcfg)
+    before = sk.ssd_scan.launches
+    rows = []
+    for b in batches:
+        cpu_opt, cm = cpu_step(cpu_opt, b)
+        gpu_opt, gm = gpu_step(gpu_opt, b)
+        rows.append({k: (float(gm[k]), float(cm[k])) for k in ("loss", "grad_norm")})
+    launches = sk.ssd_scan.launches - before
+    for i, r in enumerate(rows):
+        (gl, cl), (gg, cg) = r["loss"], r["grad_norm"]
+        check(abs(gl - cl) <= SSM_LOSS_RTOL * abs(cl), f"step {i}: loss card {gl} vs CPU {cl}")
+        check(abs(gg - cg) <= SSM_GNORM_RTOL * abs(cg), f"step {i}: grad norm card {gg} vs CPU {cg}")
+    # each microbatch: one launch per layer forward, one per layer recompute under remat
+    want = len(batches) * tcfg.microbatches * 2 * cfg.n_layers
+    check(launches == want, f"SSD launches in 3 smoke steps: {launches}, want {want}")
+    emit({"phase": "ssm_parity", "config": "mamba2-130m SMOKE", "dtype": "float32, TF32 off",
+          "steps": [{k: {"card": v[0], "cpu": v[1]} for k, v in r.items()} for r in rows],
+          "decode_tokens": tokens, "logits_max_abs_err": logits_err, "card_ssd_launches": launches,
+          "tolerances": {"loss_rtol": SSM_LOSS_RTOL, "grad_norm_rtol": SSM_GNORM_RTOL,
+                         "logits_atol": SSM_LOGITS_ATOL}})
+
+
+def phase_train_full_width():
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_train_iter
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.optim import AdamWConfig, ScheduleConfig
+    from repro_torch.train import TrainConfig, Trainer, make_loss_fn, make_train_step
+
+    cfg = get_config("mamba2-130m")
+    s = cfg.ssm
+    H = s.n_heads(cfg.d_model)
+    check((cfg.n_layers, cfg.d_model, H, s.head_dim, s.d_state, s.n_groups, s.chunk, cfg.vocab_size)
+          == (24, 768, 24, 64, 128, 1, 256, 50280), "mamba2-130m's published shape")
+    tcfg = TrainConfig(adamw=AdamWConfig(weight_decay=0.1, grad_clip=1.0),
+                       schedule=ScheduleConfig(peak_lr=6e-4, warmup_steps=20, decay_steps=SCHEDULE_STEPS),
+                       microbatches=TRAIN_MICRO)
+    dcfg = DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, vocab_size=cfg.vocab_size)
+    train_it = make_train_iter(dcfg)
+    eval_it = make_train_iter(dataclasses.replace(dcfg, seed=99))
+    probe_it = make_train_iter(dataclasses.replace(dcfg, seed=7))
+    probe = next(probe_it)  # one fixed held-out batch
+    probe_it.close()
+    trainer = Trainer(cfg, tcfg, train_it, eval_iter=eval_it, eval_every=EVAL_EVERY, device="cuda")
+    t0 = time.perf_counter()
+    model, opt = trainer.restore_or_init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    held_out = make_loss_fn(model, tcfg)
+    with torch.no_grad():
+        probe_before = float(held_out(probe)[1]["loss"])
+    torch.cuda.reset_peak_memory_stats()
+
+    sk.ssd_scan.launches = fa.flash_attention.launches = 0
+    model, opt, hist = trainer.run(model, opt, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches, flash_launches = sk.ssd_scan.launches, fa.flash_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    train_it.close()
+    eval_it.close()
+
+    with torch.no_grad():
+        probe_after = float(held_out(probe)[1]["loss"])
+    losses = [h["loss"] for h in hist]
+    check(all(np.isfinite(losses)) and all(np.isfinite(e["loss"]) for e in trainer.eval_history), "non-finite loss")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(last < first, f"train loss does not fall: first-10 mean {first}, last-10 mean {last}")
+    check(probe_after < probe_before - EVAL_DROP,
+          f"held-out loss does not fall by {EVAL_DROP}: {probe_before} -> {probe_after}")
+    n_evals = TRAIN_STEPS // EVAL_EVERY
+    train, evals = trainer.stats.summary(trainer.train_stream), trainer.stats.summary(trainer.eval_stream)
+    check(train["steps"] == TRAIN_STEPS == len(hist), f"train lane steps {train['steps']}")
+    check(evals["steps"] == n_evals == len(trainer.eval_history), f"eval lane steps {evals['steps']}")
+    check(train["tokens"] == TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ, f"train lane tokens {train['tokens']}")
+    per_launch = sk.ssd_flops(TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, H, s.head_dim, s.d_state)
+    per_step = TRAIN_MICRO * 2 * cfg.n_layers  # a forward and a remat recompute per layer and microbatch
+    check(trainer.cost_parts["ssd_kernel"] == per_step * per_launch, f"scan FLOPs {trainer.cost_parts}")
+    lane_flops = TRAIN_STEPS * (trainer.cost_parts["counted"] + trainer.cost_parts["ssd_kernel"])
+    check(abs(train["flops"] - lane_flops) <= 1e-9 * lane_flops, "the train lane's FLOPs are the counted plus the scan's")
+    check(evals["flops"] == 0 and flash_launches == 0, "the eval lane carries no cost; no attention here")
+    want = TRAIN_STEPS * per_step + n_evals * cfg.n_layers
+    check(launches == want, f"SSD launches {launches}, want {want} = {TRAIN_STEPS} steps x {per_step} + "
+                            f"{n_evals} evals x {cfg.n_layers}")
+    step_ms = [r.seconds * 1e3 for r in trainer.stats.records if r.stream_id == trainer.train_stream]
+    steady_ms = statistics.median(step_ms[2:])
+
+    # the device's busy time over one more step, traced (the counts were read above); the
+    # idle share is taken against the unprofiled median step, since the profiler's own host
+    # cost would otherwise count as device idle
+    from torch.profiler import ProfilerActivity, profile
+
+    step = make_train_step(model, tcfg)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        opt, _ = step(opt, probe)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t1
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    idle = {"device_busy_ms": busy_s * 1e3, "kernel_launches": len(kernels), "step_ms_median": steady_ms,
+            "idle_share": max(0.0, 1.0 - busy_s * 1e3 / steady_ms) if kernels else "not measured",
+            "traced_step_ms": traced_s * 1e3, "profiler_s": time.perf_counter() - t0}
+
+    # one step at the train_4k length
+    long_batch = {k: np.concatenate([v] * (4096 // TRAIN_SEQ), axis=1)[:2] for k, v in probe.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    opt, m4k = step(opt, long_batch)
+    loss_4k = float(m4k["loss"])
+    step_4k_ms = (time.perf_counter() - t0) * 1e3
+    peak_4k_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(np.isfinite(loss_4k), "non-finite loss at seq 4096")
+
+    emit({
+        "phase": "train_full_width", "config": "mamba2-130m", "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "ssd": {"H": H, "P": s.head_dim, "N": s.d_state, "G": s.n_groups, "chunk": s.chunk},
+        "vocab": cfg.vocab_size, "dtype": {"compute": cfg.compute_dtype, "params": cfg.param_dtype},
+        "remat": cfg.remat, "params": n_params, "init_s": init_s,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO, "steps": TRAIN_STEPS,
+        "schedule_steps": SCHEDULE_STEPS, "loss_first10": first, "loss_last10": last, "losses": losses,
+        "held_out_loss": {"before": probe_before, "after": probe_after, "min_drop": EVAL_DROP},
+        "eval_losses": [e["loss"] for e in trainer.eval_history],
+        "lanes": {"train": train, "eval": evals}, "step_cost": trainer.cost_parts,
+        "ssd_launches": launches, "ssd_launches_expected": want,
+        "tokens_per_s": train["tokens_per_s"], "step_ms_median": steady_ms,
+        "step_ms_first": step_ms[0], "max_memory_allocated_gb": peak_gb, "device_idle": idle,
+        "seq4096": {"batch": 2, "microbatches": TRAIN_MICRO, "loss": loss_4k, "step_ms": step_4k_ms,
+                    "max_memory_allocated_gb": peak_4k_gb},
+    })
+    return model, launches, probe
+
+
+def phase_ssd_op(model, probe):
+    """The SSD inputs every layer hands to ``ops.ssd_scan`` in one forward of
+    a real training microbatch: the kernel against the sequential plain scan
+    (the oracle), with the plain chunked form and an fp64 sequential scan
+    beside them.  All pairings are emitted before any check fails."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_ref
+
+    ssd_op, captured = ops.ssd_scan, []
+
+    def capture(*args, **kw):
+        captured.append((args, kw))
+        return ssd_op(*args, **kw)
+
+    ops.ssd_scan = capture
+    try:
+        with torch.no_grad():
+            model(torch.as_tensor(probe["tokens"][: TRAIN_BATCH // TRAIN_MICRO], device="cuda").long())
+    finally:
+        ops.ssd_scan = ssd_op
+    check(len(captured) == model.cfg.n_layers, f"{len(captured)} SSD calls in one forward")
+
+    def close(a, b):
+        return bool(torch.allclose(a.float(), b.float(), **SSD_BF16_TOL))
+
+    rows = []
+    for args, kw in captured:
+        with torch.no_grad():
+            y, h = ssd_op(*args, **kw)
+            py, ph = ssd_op(*args, **{**kw, "impl": "plain"})
+            sy, sh = ssd_ref(*args, h0=kw.get("h0"), return_state=True)
+            wide = [a.double() if torch.is_tensor(a) else a for a in args]
+            dy, dh = ssd_ref(*wide, return_state=True)
+        x, dt = args[0], args[1]
+        worst = int((y.double() - dy).abs().argmax())
+        rows.append({
+            "kernel_vs_seq": (y.float() - sy.float()).abs().max().item(), "kernel_vs_plain":
+                (y.float() - py.float()).abs().max().item(),
+            "err_vs_fp64": {n: (v.double() - dy).abs().max().item() for n, v in (("kernel", y), ("plain", py),
+                                                                                   ("seq", sy))},
+            "outside_bf16_tol_vs_fp64": {n: int((~torch.isclose(v.double(), dy, **SSD_BF16_TOL)).sum())
+                                         for n, v in (("kernel", y), ("plain", py), ("seq", sy))},
+            "max_abs_out": dy.abs().max().item(), "max_abs_x": x.float().abs().max().item(),
+            "max_dt": dt.max().item(),
+            "worst": {"kernel": y.flatten()[worst].item(), "plain": py.flatten()[worst].item(),
+                      "seq": sy.flatten()[worst].item(), "fp64": dy.flatten()[worst].item()},
+            "h_rel": {"kernel_vs_seq": _rel(h, sh), "kernel_vs_plain": _rel(h, ph), "kernel_vs_fp64": _rel(h, dh)},
+            "ok": {"y_vs_seq": close(y, sy), "y_vs_plain": close(y, py), "h": _rel(h, sh) <= SSD_H_REL},
+        })
+    emit({"phase": "ssd_op", "config": "mamba2-130m", "inputs": "one training microbatch (4 x 256), every layer",
+          "layers": rows, "tolerance": SSD_BF16_TOL, "h_rel_tolerance": SSD_H_REL})
+    for layer, r in enumerate(rows):
+        check(r["ok"]["y_vs_seq"], f"bf16 SSD kernel disagrees with ssd_ref on layer {layer}'s training inputs")
+        check(r["ok"]["h"], f"h_final kernel vs ssd_ref on layer {layer}: {r['h_rel']}")
+    return max(r["kernel_vs_seq"] for r in rows)
+
+
+def phase_decode_full_width(model):
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, compute_dtype="float32")  # params are fp32 already
+    g = torch.Generator(device="cuda").manual_seed(31)
+    toks = torch.randint(0, cfg.vocab_size, (1, 108), generator=g, device="cuda")
+    V = cfg.vocab_size  # the padded entries are -1e9 on every path and would swamp the norm
+    with torch.no_grad():
+        full = model(toks)[0][..., :V]
+    last, cache = model.prefill(toks[:, :100])
+    rels = [_rel(last[..., :V], full[:, 99])]
+    for t in range(100, 108):
+        logits, cache = model.decode_step(cache, toks[:, t], torch.tensor([t], device="cuda"))
+        rels.append(_rel(logits[..., :V], full[:, t]))
+    model.cfg = cfg
+    check(max(rels) <= DECODE_FP32_REL, f"fp32 decode vs forward logits rel L2 {rels}")
+    emit({"phase": "decode_full_width", "config": "mamba2-130m", "dtype": "float32, TF32 off",
+          "prefill_len": 100, "decode_steps": 8, "logits_rel_l2": rels, "tolerance": DECODE_FP32_REL})
+
+
 def main() -> int:
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
 
     smi = phase_device()
     phase_build()
     bf16_err, timings = phase_kernel(smi)
     phase_parity()
     launches, op_err = phase_full_width()
+    ssd_err, ssd_timings = phase_ssd_kernel(smi)
+    phase_ssm_parity()
+    model, ssd_launches, probe = phase_train_full_width()
+    phase_decode_full_width(model)
+    ssd_op_err = phase_ssd_op(model, probe)
     t = timings[512]
+    st = ssd_timings["B4_S256"]
     emit({"kernels": [{
         "name": "flash_attention", "route": "cuda", "source": fa.SOURCE, "replaces": fa.REPLACES,
         "launches": launches, "max_abs_err": max(bf16_err, op_err),
         "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": "B=1 S=512 Hq=Hkv=32 D=128 bf16 causal",
+    }, {
+        "name": "ssd_scan", "route": "cuda", "source": sk.SOURCE, "replaces": sk.REPLACES,
+        "launches": ssd_launches, "max_abs_err": max(ssd_err, ssd_op_err),
+        "ms": st["kernel_ms"], "kernel_ms": st["kernel_ms"], "plain_ms": st["plain_ms"],
+        "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": None,
+        "shape": "B=4 S=256 H=24 P=64 N=128 G=1 bf16 (the training microbatch)",
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,6 @@
-"""Attention ops with kernel dispatch, batch-major ``(B, S, H, D)`` as in the reference.
+"""Attention and SSD ops with kernel dispatch, batch-major as in the reference.
 
-``impl`` of :func:`flash_attention`:
+``impl`` of :func:`flash_attention` and :func:`ssd_scan`:
 
 * ``"auto"``  — the CUDA kernel for a CUDA tensor, the plain version for a
   CPU tensor (the only reason the plain version runs on the main path);
@@ -8,20 +8,22 @@
   ``chip_smoke.py`` can hold the kernel against it.
 
 Prefix-LM masking (``prefix_len > 0``) and a value width other than the key
-width (MLA prefill) are not on this slice's path: on a CUDA tensor they
-raise ``NotImplementedError`` and do not fall back.
+width (MLA prefill) are not on the port's path yet: on a CUDA tensor they
+raise ``NotImplementedError`` and do not fall back.  The flash kernel has no
+backward yet, so a CUDA call that needs a gradient raises as well.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from .flash_attention import flash_attention as flash_attention_cuda
-from .ref import attention_ref
+from .ref import attention_ref, ssd_chunked_ref
+from .ssd_scan import ssd_scan_autograd
 
-__all__ = ["flash_attention", "decode_attention"]
+__all__ = ["flash_attention", "decode_attention", "ssd_scan", "ref_chunk"]
 
 
 def flash_attention(
@@ -38,6 +40,14 @@ def flash_attention(
     the scale default, the shape checks and the CPU branch."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown impl {impl!r} (want 'auto' or 'plain')")
+    if (
+        impl == "auto" and q.device.type != "cpu" and torch.is_grad_enabled()
+        and any(t.requires_grad for t in (q, k, v))
+    ):
+        raise NotImplementedError(
+            "the flash-attention kernel has no backward yet; training through attention on the "
+            "card comes with the dense-training slice"
+        )
     no_kernel = prefix_len > 0 or v.shape[-1] != q.shape[-1]
     if impl == "auto" and no_kernel and q.device.type != "cpu":
         if prefix_len > 0:
@@ -77,3 +87,40 @@ def decode_attention(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
     return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def ref_chunk(S: int, chunk: int) -> int:
+    """The reference's chunk for a sequence of ``S``: ``min(chunk, S)``,
+    halved until it divides ``S`` (``ops.py:207-211``)."""
+    chunk = min(chunk, S)
+    while chunk > 0 and S % chunk != 0:
+        chunk //= 2
+    if chunk == 0:
+        raise ValueError(f"no chunk divides seq len {S}")
+    return chunk
+
+
+def ssd_scan(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H)
+    A: torch.Tensor,  # (H,)
+    Bm: torch.Tensor,  # (B, S, G, N)
+    Cm: torch.Tensor,  # (B, S, G, N)
+    D: Optional[torch.Tensor] = None,
+    h0: Optional[torch.Tensor] = None,
+    *,
+    chunk: int = 128,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan → ``(y (B,S,H,P), final state (B,H,P,N) fp32)``, with
+    a gradient.  ``chunk`` follows the reference's rule (:func:`ref_chunk`)
+    for the plain version and the backward; the CUDA kernel takes any S in
+    its own 64-row tiles (see :mod:`.ssd_scan`).  A CPU tensor takes the
+    plain version with torch's own autograd; a CUDA tensor goes through
+    :class:`~.ssd_scan.SSDScan`, whose forward is the kernel."""
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"unknown impl {impl!r} (want 'auto' or 'plain')")
+    chunk = ref_chunk(x.shape[1], chunk)
+    if impl == "plain" or x.device.type == "cpu":
+        return ssd_chunked_ref(x, dt, A, Bm, Cm, D, h0, chunk=chunk, return_state=True)
+    return ssd_scan_autograd(x, dt, A, Bm, Cm, D, h0, chunk=chunk)

@@ -1,0 +1,146 @@
+"""Mamba-2 block (SSD): projections, causal depthwise conv, gated output.
+
+Sequence mixing runs through :func:`repro_torch.kernels.ops.ssd_scan` (the
+CUDA kernel on the card).  The decode path is the exact single-step
+recurrence over the carried ``(conv windows, SSD state)`` cache.  As in the
+reference, projections are split per tensor (x/z/B/C/dt) and the causal
+conv is ``width`` shifted multiplies instead of a grouped convolution.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..kernels import ops
+from .layers import rmsnorm_defs
+from .params import ParamDef
+
+__all__ = ["mamba_defs", "mamba_apply", "mamba_decode", "init_mamba_cache"]
+
+
+def mamba_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    s = cfg.ssm
+    if s is None:
+        raise ValueError(f"{cfg.name} has no SSM config")
+    H = s.n_heads(cfg.d_model)
+    P, N, G, W = s.head_dim, s.d_state, s.n_groups, s.conv_width
+    return {
+        "w_z": ParamDef((cfg.d_model, H, P), ("embed", "ssm_heads", None)),
+        "w_x": ParamDef((cfg.d_model, H, P), ("embed", "ssm_heads", None)),
+        "w_B": ParamDef((cfg.d_model, G, N), ("embed", None, "ssm_state")),
+        "w_C": ParamDef((cfg.d_model, G, N), ("embed", None, "ssm_state")),
+        "w_dt": ParamDef((cfg.d_model, H), ("embed", "ssm_heads")),
+        "dt_bias": ParamDef((H,), ("ssm_heads",), "zeros"),
+        "A_log": ParamDef((H,), ("ssm_heads",), "zeros"),  # A = -exp(A_log) → -1
+        "D": ParamDef((H,), ("ssm_heads",), "ones"),
+        "conv_x": ParamDef((W, H, P), ("conv", "ssm_heads", None), scale=0.5),
+        "conv_B": ParamDef((W, G, N), ("conv", None, "ssm_state"), scale=0.5),
+        "conv_C": ParamDef((W, G, N), ("conv", None, "ssm_state"), scale=0.5),
+        "gate_norm": rmsnorm_defs(H * P),
+        "out": ParamDef((H, P, cfg.d_model), ("ssm_heads", None, "embed"), init="out_proj"),
+    }
+
+
+def _causal_conv(u: torch.Tensor, w: torch.Tensor, window: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv as shifted multiplies, in fp32, then silu.
+
+    u: (B, S, ...) input; w: (W, ...) taps (tap W-1 is the current step);
+    ``window``: (B, W-1, ...) left context for chunked prefill / decode."""
+    W, S = w.shape[0], u.shape[1]
+    if window is None:
+        window = u.new_zeros((u.shape[0], W - 1) + tuple(u.shape[2:]))
+    ext = torch.cat([window.to(u.dtype), u], dim=1)  # (B, S+W-1, ...)
+    out = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
+    for i in range(W):
+        out = out + ext[:, i : i + S].float() * w[i].float()
+    return F.silu(out).to(u.dtype)
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("...d,d...->...")`` as one matmul in x's dtype."""
+    return (x @ w.to(x.dtype).reshape(w.shape[0], -1)).view(*x.shape[:-1], *w.shape[1:])
+
+
+def _project(params, x: torch.Tensor, cfg: ModelConfig):
+    z = _proj(x, params["w_z"])
+    xs = _proj(x, params["w_x"])
+    Bm = _proj(x, params["w_B"])
+    Cm = _proj(x, params["w_C"])
+    dt = F.softplus(x.float() @ params["w_dt"].float() + params["dt_bias"].float())  # fp32
+    return z, xs, Bm, Cm, dt
+
+
+def _gate_out(params, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Gated RMSNorm + output projection; y, z: (..., H, P)."""
+    lead, (H, P) = y.shape[:-2], y.shape[-2:]
+    g = (y.float() * F.silu(z.float())).reshape(*lead, H * P)
+    g = g * torch.rsqrt(g.square().mean(dim=-1, keepdim=True) + cfg.rms_eps)
+    g = (g * (1.0 + params["gate_norm"]["scale"].float())).to(y.dtype)
+    return g @ params["out"].to(y.dtype).reshape(H * P, -1)
+
+
+def mamba_apply(params, x: torch.Tensor, cfg: ModelConfig, *, return_cache: bool = False):
+    """Full-sequence Mamba-2 mixing (training / prefill) of x (B, S, d_model).
+    With ``return_cache`` also returns the decode cache: the last ``W-1``
+    **pre-conv** features of x, B and C, and the final SSD state ``h``
+    (B, H, P, N) fp32.  (The reference's chunked-prefill arguments, a left
+    conv window and ``h0``, have no caller yet.)"""
+    s = cfg.ssm
+    z, xs, Bm, Cm, dt = _project(params, x, cfg)
+    xs_c = _causal_conv(xs, params["conv_x"])
+    Bm_c = _causal_conv(Bm, params["conv_B"])
+    Cm_c = _causal_conv(Cm, params["conv_C"])
+    A = -torch.exp(params["A_log"].float())
+    y, h = ops.ssd_scan(xs_c, dt, A, Bm_c, Cm_c, params["D"], chunk=s.chunk)
+    out = _gate_out(params, y, z, cfg)
+    if not return_cache:
+        return out
+    W = s.conv_width
+    cache = {
+        "conv_x": xs[:, -(W - 1):],
+        "conv_B": Bm[:, -(W - 1):],
+        "conv_C": Cm[:, -(W - 1):],
+        "h": h,
+    }
+    return out, cache
+
+
+def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device) -> Dict[str, torch.Tensor]:
+    s = cfg.ssm
+    H, P, N, G, W = s.n_heads(cfg.d_model), s.head_dim, s.d_state, s.n_groups, s.conv_width
+    return {
+        "conv_x": torch.zeros((batch, W - 1, H, P), dtype=dtype, device=device),
+        "conv_B": torch.zeros((batch, W - 1, G, N), dtype=dtype, device=device),
+        "conv_C": torch.zeros((batch, W - 1, G, N), dtype=dtype, device=device),
+        "h": torch.zeros((batch, H, P, N), dtype=torch.float32, device=device),
+    }
+
+
+def _step_conv(win: torch.Tensor, new: torch.Tensor, w: torch.Tensor):
+    """Append the new pre-conv features to the window, convolve, slide."""
+    ext = torch.cat([win.to(new.dtype), new[:, None]], dim=1)  # (B, W, ...)
+    out = torch.einsum("bw...,w...->b...", ext.float(), w.float())
+    return F.silu(out).to(new.dtype), ext[:, 1:]
+
+
+def mamba_decode(params, x: torch.Tensor, cfg: ModelConfig, cache: Dict[str, torch.Tensor]):
+    """One-token state update, ``h ← e^{A·dt}h + dt·(x⊗B)``, ``y = C·h + D·x``.
+    x: (B, d_model).  Returns ``(out, new cache)``; ``cache`` is not changed."""
+    z, xs, Bm, Cm, dt = _project(params, x, cfg)  # (B,H,P) / (B,G,N) / (B,H)
+    xs_c, win_x = _step_conv(cache["conv_x"], xs, params["conv_x"])
+    Bm_c, win_B = _step_conv(cache["conv_B"], Bm, params["conv_B"])
+    Cm_c, win_C = _step_conv(cache["conv_C"], Cm, params["conv_C"])
+    rep = xs_c.shape[1] // Bm_c.shape[1]
+    Bh = Bm_c.repeat_interleave(rep, dim=1).float()  # (B,H,N)
+    Ch = Cm_c.repeat_interleave(rep, dim=1).float()
+    A = -torch.exp(params["A_log"].float())
+    decay = torch.exp(A[None] * dt)  # (B,H)
+    xf = xs_c.float()
+    h = cache["h"] * decay[..., None, None] + dt[..., None, None] * xf[..., None] * Bh[:, :, None, :]
+    y = torch.einsum("bhpn,bhn->bhp", h, Ch) + params["D"].float()[None, :, None] * xf
+    out = _gate_out(params, y.to(x.dtype), z, cfg)
+    return out, {"conv_x": win_x, "conv_B": win_B, "conv_C": win_C, "h": h}

@@ -86,9 +86,11 @@ def init_params(defs, generator: torch.Generator, dtype=torch.float32, device="c
 
 class ParamTree(nn.Module):
     """An ``nn.Module`` over a nested dict of tensors: a dict becomes a child
-    module, a tensor an ``nn.Parameter`` (sharing the tensor's storage), each
-    under its key.  ``tree["key"]`` and ``"key" in tree`` read it as the
-    reference's layer functions read a parameter dict."""
+    module, a tensor a trainable ``nn.Parameter`` (sharing the tensor's
+    storage), each under its key.  ``tree["key"]`` and ``"key" in tree`` read
+    it as the reference's layer functions read a parameter dict.  The
+    inference entry points (``prefill``, ``decode_step``) run under
+    ``torch.no_grad()``, so serving records no graph."""
 
     def __init__(self, tree: Dict[str, Any]) -> None:
         super().__init__()
@@ -97,7 +99,7 @@ class ParamTree(nn.Module):
             if isinstance(sub, dict):
                 self.add_module(key, ParamTree(sub))
             else:
-                self.register_parameter(key, nn.Parameter(sub, requires_grad=False))
+                self.register_parameter(key, nn.Parameter(sub))
 
     def __getitem__(self, key: str):
         return getattr(self, key)

@@ -1,19 +1,26 @@
-"""The dense decoder LM (deepseek-7b and the other dense GQA configs).
+"""The decoder LM: the dense GQA family (deepseek-7b and the other dense
+configs) and the pure-SSM family (mamba2-130m).
 
 ``Transformer`` holds the embedding, an ``nn.ModuleList`` of decoder layers,
 the final norm and the LM head, with the reference's parameter shapes leaf
 for leaf (the reference stacks the layers on a leading axis; here each layer
-is its own module, and :mod:`.convert` moves weights across).
+is its own module, and :mod:`.convert` moves weights across).  A layer is
+``ln1`` + ``attn`` (+ ``ln2`` + ``ffn``) or ``ln1`` + ``ssm``.
 
 Entry points, batch-major as in the reference:
 
-    model.init_cache(batch, max_len)              → {"k", "v"}, (L, B, max_len, Hkv, D)
+    model.forward(tokens)                         → (logits (B, S, V_padded), aux)   training
+    model.init_cache(batch, max_len)              → stacked decode cache
     model.prefill(tokens)                         → (last-position logits, prompt cache)
     model.decode_step(cache, tokens, pos)         → (logits, cache), cache written in place
 
-The stacked cache leaf ``(L, B, S, Hkv, D)`` is the reference's, so serving
-writes slots and slices buckets on axis 1 as the reference engine does.
-MoE, MLA, SSM, encoder-decoder and VLM configs raise at construction: they
+The cache is the reference's stacked leaves with the layer axis first:
+``{"k", "v"}`` of ``(L, B, S, Hkv, D)`` for attention, ``{"conv_x",
+"conv_B", "conv_C"}`` of ``(L, B, W-1, ...)`` and ``"h"`` of
+``(L, B, H, P, N)`` fp32 for SSM.  ``forward`` applies ``cfg.remat`` as
+``torch.utils.checkpoint`` per layer (the reference's ``_remat_wrap``;
+``"dots"`` recomputes everything too, the same math).  MoE, MLA, hybrid
+attention+SSM, encoder-decoder and VLM configs raise at construction: they
 come with later slices of the port.
 """
 
@@ -24,6 +31,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig, torch_dtype
 from .attention import gqa_apply, gqa_decode, gqa_defs
@@ -37,11 +45,14 @@ from .layers import (
     rmsnorm,
     rmsnorm_defs,
 )
+from .mamba import init_mamba_cache, mamba_apply, mamba_decode, mamba_defs
 from .params import ParamTree, init_params
 
 __all__ = ["Transformer", "model_defs", "check_supported"]
 
 Cache = Dict[str, torch.Tensor]
+#: the SSM cache leaves, each stacked on a leading layer axis
+SSM_CACHE_KEYS = ("conv_x", "conv_B", "conv_C", "h")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -50,7 +61,8 @@ def check_supported(cfg: ModelConfig) -> None:
     later = [
         (cfg.moe is not None, "MoE", "the MoE/MLA slice"),
         (cfg.mla is not None, "MLA attention", "the MoE/MLA slice"),
-        (cfg.ssm is not None, "SSM layers", "the SSM slice"),
+        (cfg.ssm is not None and cfg.family != "ssm", "hybrid attention+SSM layers",
+         "the MoE/MLA/hybrid slice"),
         (cfg.encdec, "an encoder-decoder stack", "the enc-dec/prefix-LM slice"),
         (cfg.vision_tokens > 0, "vision prefix tokens", "the enc-dec/prefix-LM slice"),
     ]
@@ -59,34 +71,42 @@ def check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(f"{cfg.name} uses {what}, which the port brings in {where}")
 
 
-def _layer_defs(cfg: ModelConfig) -> Dict[str, Any]:
-    d: Dict[str, Any] = {"ln1": rmsnorm_defs(cfg.d_model), "attn": gqa_defs(cfg)}
+def _layer_defs(cfg: ModelConfig, layer: int) -> Dict[str, Any]:
+    d: Dict[str, Any] = {"ln1": rmsnorm_defs(cfg.d_model)}
+    if cfg.layer_is_attn(layer):
+        d["attn"] = gqa_defs(cfg)
+    else:
+        d["ssm"] = mamba_defs(cfg)
     if cfg.d_ff > 0:
         d["ln2"] = rmsnorm_defs(cfg.d_model)
         d["ffn"] = ffn_defs(cfg.d_model, cfg.d_ff)
     # The reference initialises the layer stack as one (n_layers, ...) leaf
-    # per parameter, so a normal init reads n_layers as its fan-in; each
-    # layer's leaf here keeps that std.
+    # per parameter, so a normal init without its own scale reads n_layers
+    # as its fan-in; each layer's leaf here keeps that std.  A def with an
+    # explicit scale (the conv taps' 0.5) keeps it, as in the reference.
     std = cfg.n_layers ** -0.5
-    return {
-        k: {n: replace(p, scale=std) if p.init == "normal" else p for n, p in sub.items()}
-        for k, sub in d.items()
-    }
+
+    def stacked(p):
+        if isinstance(p, dict):
+            return {n: stacked(q) for n, q in p.items()}
+        return replace(p, scale=std) if p.init == "normal" and p.scale is None else p
+
+    return stacked(d)
 
 
 def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
     """ParamDef tree: ``embed``, ``final_norm``, ``lm_head`` (untied) and
-    ``layers/<i>/{ln1, attn, ln2, ffn}``."""
+    ``layers/<i>/{ln1, attn, ln2, ffn}`` or ``layers/<i>/{ln1, ssm}``."""
     check_supported(cfg)
     d: Dict[str, Any] = {"embed": embed_defs(cfg), "final_norm": rmsnorm_defs(cfg.d_model)}
     if not cfg.tie_embeddings:
         d["lm_head"] = lm_head_defs(cfg)
-    d["layers"] = {str(i): _layer_defs(cfg) for i in range(cfg.n_layers)}
+    d["layers"] = {str(i): _layer_defs(cfg, i) for i in range(cfg.n_layers)}
     return d
 
 
 class Transformer(nn.Module):
-    """Dense GQA decoder with seeded random weights on ``device``."""
+    """Dense GQA or pure-SSM decoder with seeded random weights on ``device``."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0) -> None:
         super().__init__()
@@ -104,10 +124,15 @@ class Transformer(nn.Module):
         return self.embed["embedding"].device
 
     def init_cache(self, batch: int, max_len: int, dtype: Optional[torch.dtype] = None) -> Cache:
-        """Zeroed decode cache ``{"k", "v"}`` of ``(L, batch, max_len, Hkv, D)``."""
+        """Zeroed decode cache: ``{"k", "v"}`` of ``(L, batch, max_len, Hkv,
+        D)``, or for SSM the conv windows and the fp32 state (``max_len``
+        unused)."""
         cfg = self.cfg
         if dtype is None:
             dtype = torch_dtype(cfg.kv_cache_dtype) if cfg.kv_cache_dtype else cfg.compute_tdtype()
+        if cfg.family == "ssm":
+            one = init_mamba_cache(cfg, batch, dtype, self.device)
+            return {k: v.expand(cfg.n_layers, *v.shape).clone() for k, v in one.items()}
         shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
         return {
             "k": torch.zeros(shape, dtype=dtype, device=self.device),
@@ -119,26 +144,55 @@ class Transformer(nn.Module):
             return x
         return x + ffn_apply(lp["ffn"], rmsnorm(lp["ln2"], x, self.cfg.rms_eps), self.cfg.hidden_act)
 
-    @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, *, attn_impl: str = "auto") -> Tuple[torch.Tensor, Cache]:
-        """Full causal forward over ``tokens`` ``(B, S)``.  Returns the
-        last-position fp32 logits ``(B, V_padded)`` and the prompt cache
-        ``{"k", "v"}`` of ``(L, B, S, Hkv, D)``; the serving layer copies it
-        into its slot buffers."""
+    def _layer(self, lp, x, positions, attn_impl: str = "auto", return_cache: bool = False):
+        """One full layer on a full sequence → ``(x, mixer cache or None)``."""
+        cfg = self.cfg
+        h = rmsnorm(lp["ln1"], x, cfg.rms_eps)
+        if "attn" in lp:
+            out, cache = gqa_apply(lp["attn"], h, cfg, positions, attn_impl=attn_impl)
+        elif return_cache:
+            out, cache = mamba_apply(lp["ssm"], h, cfg, return_cache=True)
+        else:
+            out, cache = mamba_apply(lp["ssm"], h, cfg), None
+        return self._ffn(lp, x + out), cache
+
+    def forward(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Training forward over ``tokens`` ``(B, S)`` → ``(logits, aux)``:
+        fp32 logits ``(B, S, V_padded)`` and the auxiliary loss (0: no MoE
+        here).  With grad enabled and ``cfg.remat != "none"``, each layer
+        runs under ``torch.utils.checkpoint`` and is recomputed in backward."""
         cfg = self.cfg
         x = embed_apply(self.embed, tokens, cfg)
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-        ks, vs = [], []
+        remat = cfg.remat != "none" and torch.is_grad_enabled()
         for lp in self.layers:
-            h = rmsnorm(lp["ln1"], x, cfg.rms_eps)
-            out, kv = gqa_apply(lp["attn"], h, cfg, positions, attn_impl=attn_impl)
-            x = self._ffn(lp, x + out)
-            ks.append(kv["k"])
-            vs.append(kv["v"])
+            if remat:
+                x = checkpoint(self._layer, lp, x, positions, use_reentrant=False)[0]
+            else:
+                x = self._layer(lp, x, positions)[0]
+        x = rmsnorm(self.final_norm, x, cfg.rms_eps)
+        logits = logits_apply(self.embed, self.lm_head, x, cfg)
+        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, *, attn_impl: str = "auto") -> Tuple[torch.Tensor, Cache]:
+        """Full causal forward over ``tokens`` ``(B, S)``.  Returns the
+        last-position fp32 logits ``(B, V_padded)`` and the prompt cache,
+        stacked on the layer axis: ``{"k", "v"}`` of ``(L, B, S, Hkv, D)``
+        (the serving layer copies it into its slot buffers), or the SSM
+        leaves (pre-conv windows of the last ``W-1`` positions, final state)."""
+        cfg = self.cfg
+        x = embed_apply(self.embed, tokens, cfg)
+        B, S = tokens.shape
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        caches = []
+        for lp in self.layers:
+            x, c = self._layer(lp, x, positions, attn_impl, return_cache=True)
+            caches.append(c)
         x = rmsnorm(self.final_norm, x, cfg.rms_eps)
         logits = logits_apply(self.embed, self.lm_head, x[:, -1:], cfg)[:, 0]
-        return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+        return logits, {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
 
     @torch.no_grad()
     def decode_step(
@@ -149,16 +203,23 @@ class Transformer(nn.Module):
     ) -> Tuple[torch.Tensor, Cache]:
         """One decode step for every sequence in the batch → ``(logits, cache)``.
 
-        The new K/V are written **in place** into ``cache`` (which may be a
-        view, such as a bucket's slice of the engine's cache): the reference
-        donates its cache buffer to the same step, so callers hold no other
-        copy either way.  The returned cache is ``cache`` itself."""
+        The new K/V (or the slid conv windows and the new SSM state) are
+        written **in place** into ``cache`` (which may be a view, such as a
+        bucket's slice of the engine's cache): the reference donates its
+        cache buffer to the same step, so callers hold no other copy either
+        way.  The returned cache is ``cache`` itself."""
         cfg = self.cfg
         x = embed_apply(self.embed, tokens[:, None], cfg)[:, 0]
         for i, lp in enumerate(self.layers):
             h = rmsnorm(lp["ln1"], x, cfg.rms_eps)
-            layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
-            x = self._ffn(lp, x + gqa_decode(lp["attn"], h, cfg, layer_cache, pos))
+            if "attn" in lp:
+                layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
+                out = gqa_decode(lp["attn"], h, cfg, layer_cache, pos)
+            else:
+                out, new = mamba_decode(lp["ssm"], h, cfg, {k: cache[k][i] for k in SSM_CACHE_KEYS})
+                for k in SSM_CACHE_KEYS:
+                    cache[k][i].copy_(new[k])
+            x = self._ffn(lp, x + out)
         x = rmsnorm(self.final_norm, x, cfg.rms_eps)
         logits = logits_apply(self.embed, self.lm_head, x[:, None], cfg)[:, 0]
         return logits, cache

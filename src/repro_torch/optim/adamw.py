@@ -1,0 +1,93 @@
+"""AdamW with decoupled weight decay, as functions on tensor dicts.
+
+The math is the reference's (``optim/adamw.py:48-78``), not
+``torch.optim.AdamW``'s: weight decay on **every** leaf, bias correction
+from the incremented step, the update computed in fp32 and stored back in
+each leaf's dtype, moments in ``ModelConfig.opt_state_dtype``.  Trees are
+flat ``{name: tensor}`` dicts (``dict(model.named_parameters())``).  Unlike
+the reference's pure update, :func:`adamw_update` writes the parameters and
+moments **in place**, so a step holds no second copy of either; the
+elementwise work runs as ``torch._foreach_*`` ops over all leaves at once.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+import torch
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm", "clip_by_global_norm"]
+
+Tree = Dict[str, torch.Tensor]
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+
+
+def adamw_init(params: Tree, moment_dtype: torch.dtype = torch.float32) -> Dict[str, object]:
+    """``{"m", "v"}`` zeroed like ``params`` in ``moment_dtype``, and ``"step"`` 0
+    (an int64 scalar tensor on the CPU)."""
+    zeros = {n: torch.zeros(p.shape, dtype=moment_dtype, device=p.device) for n, p in params.items()}
+    return {
+        "m": zeros,
+        "v": {n: torch.zeros_like(z) for n, z in zeros.items()},
+        "step": torch.zeros((), dtype=torch.int64),
+    }
+
+
+def global_norm(tree: Tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in fp32."""
+    norms = torch._foreach_norm([t.float() for t in tree.values()])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def clip_by_global_norm(tree: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor]:
+    """Scale ``tree`` (fp32 gradients) **in place** by ``min(1, max_norm /
+    norm)``; returns it and its norm before clipping."""
+    norm = global_norm(tree)
+    torch._foreach_mul_(list(tree.values()), torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0))
+    return tree, norm
+
+
+@torch.no_grad()
+def adamw_update(
+    grads: Tree, opt_state: Dict[str, object], params: Tree, lr: float, cfg: AdamWConfig = AdamWConfig()
+) -> Dict[str, object]:
+    """One AdamW step, **in place** on ``params`` and the moments; returns
+    ``opt_state`` with ``step`` incremented."""
+    step = opt_state["step"] + 1
+    stepf = step.to(torch.float32)
+    c1 = float(1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** stepf)
+    c2 = float(1.0 - torch.tensor(cfg.b2, dtype=torch.float32) ** stepf)
+    names = list(params)
+    p_store = [params[n] for n in names]
+    m_store = [opt_state["m"][n] for n in names]
+    v_store = [opt_state["v"][n] for n in names]
+    g = [grads[n].float() for n in names]
+    p32 = [t.float() for t in p_store]  # the tensor itself when it is fp32
+    m32 = [t.float() for t in m_store]
+    v32 = [t.float() for t in v_store]
+
+    torch._foreach_mul_(m32, cfg.b1)
+    torch._foreach_add_(m32, g, alpha=1.0 - cfg.b1)
+    torch._foreach_mul_(v32, cfg.b2)
+    torch._foreach_addcmul_(v32, g, g, value=1.0 - cfg.b2)
+    denom = torch._foreach_div(v32, c2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, cfg.eps)
+    delta = torch._foreach_div(m32, c1)
+    torch._foreach_div_(delta, denom)  # mhat / (sqrt(vhat) + eps)
+    torch._foreach_add_(delta, p32, alpha=cfg.weight_decay)
+    torch._foreach_add_(p32, delta, alpha=-float(lr))
+
+    for store, new in zip(p_store + m_store + v_store, p32 + m32 + v32):
+        if new is not store:  # a leaf kept in another dtype than fp32
+            store.copy_(new)
+    return {**opt_state, "step": step}

@@ -161,8 +161,15 @@ class Engine:
         scfg: ServeConfig,
         sinks: Optional[List[ReportSink]] = None,
     ) -> None:
+        cfg = model.cfg
+        if not any(cfg.layer_is_attn(i) for i in range(cfg.n_layers)):
+            raise NotImplementedError(
+                f"{cfg.name} has no attention layer, and serving a pure-SSM model is not supported: "
+                "the reference engine fails on it too (src/repro/serve/engine.py:228, where "
+                "resolved_head_dim divides by n_heads = 0)"
+            )
         self.model = model
-        self.cfg = cfg = model.cfg
+        self.cfg = cfg
         self.device = model.device
         self.scfg = scfg
         self.streams = StreamManager()

@@ -22,6 +22,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch, repro_torch.configs, repro_torch.core, repro_torch.kernels\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.flash_attention, repro_torch.kernels.build\n"
         "import repro_torch.models, repro_torch.models.convert, repro_torch.serve, repro_torch.serve.loadgen\n"
+        "import repro_torch.kernels.ssd_scan, repro_torch.models.mamba, repro_torch.optim, repro_torch.data\n"
+        "import repro_torch.ckpt, repro_torch.train, repro_torch.train.__main__\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n"
     )

@@ -17,6 +17,8 @@ through ``load_jax_params``.  Tolerances, measured with these inputs:
   the leaf's scale) by the last layer, from 7e-6 at the first.
 """
 
+from dataclasses import replace
+
 import jax
 import numpy as np
 import pytest
@@ -145,17 +147,25 @@ def test_load_jax_params_raises_on_bad_trees(deepseek):
     assert torch.equal(model.final_norm["scale"], snapshot)  # nothing copied
 
 
+def _hybrid_mamba2():
+    """mamba2 with attention every other layer: the hybrid attention+SSM
+    family, which comes after the pure-SSM slice."""
+    return replace(get_smoke_config("mamba2-130m"), family="hybrid", n_heads=4, n_kv_heads=4, attn_every=2)
+
+
 @pytest.mark.parametrize(
-    "arch,slice_name",
+    "make_cfg,slice_name",
     [
-        ("deepseek-v2-lite-16b", "MoE/MLA"),
-        ("llama4-scout-17b-a16e", "MoE/MLA"),
-        ("jamba-1.5-large-398b", "MoE/MLA"),
-        ("mamba2-130m", "SSM"),
-        ("whisper-medium", "enc-dec"),
-        ("paligemma-3b", "enc-dec/prefix-LM"),
+        pytest.param(lambda: get_smoke_config("deepseek-v2-lite-16b"), "MoE/MLA", id="deepseek-v2-lite-16b-MoE/MLA"),
+        pytest.param(lambda: get_smoke_config("llama4-scout-17b-a16e"), "MoE/MLA", id="llama4-scout-17b-a16e-MoE/MLA"),
+        pytest.param(lambda: get_smoke_config("jamba-1.5-large-398b"), "MoE/MLA", id="jamba-1.5-large-398b-MoE/MLA"),
+        pytest.param(_hybrid_mamba2, "SSM", id="mamba2-130m-SSM"),
+        pytest.param(lambda: get_smoke_config("whisper-medium"), "enc-dec", id="whisper-medium-enc-dec"),
+        pytest.param(lambda: get_smoke_config("paligemma-3b"), "enc-dec/prefix-LM", id="paligemma-3b-enc-dec/prefix-LM"),
     ],
 )
-def test_later_slice_configs_raise_at_construction(arch, slice_name):
+def test_later_slice_configs_raise_at_construction(make_cfg, slice_name):
+    """Pure SSM (mamba2-130m itself) runs since the SSM slice; its hybrid
+    with attention layers still raises, naming SSM."""
     with pytest.raises(NotImplementedError, match=slice_name):
-        Transformer(get_smoke_config(arch), device="cpu")
+        Transformer(make_cfg(), device="cpu")

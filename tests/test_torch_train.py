@@ -1,0 +1,256 @@
+"""The port's training stack against the reference's, on the CPU.
+
+Weights come from ``repro.models.init_params`` and move into the port with
+``load_jax_params``; batches come from each package's own copy of the data
+pipeline, which must agree bit for bit.  Tolerances:
+
+* AdamW parameters and moments: rtol 1e-5, atol 1e-7 after 3 steps (fp32;
+  the two differ by the order of the elementwise fp32 operations).
+* The schedule: rtol 1e-6 (the reference computes in fp32, the port in
+  Python floats).
+* Cross-entropy: rtol 1e-6.
+* Three train steps of mamba2 smoke (fp32, remat, 2 microbatches, peak lr
+  1e-3): losses rtol 1e-5 (measured ≤ 3.1e-7).  Grad norms rtol 5e-3: the
+  first step's gradients differ by fp32 summation order, growing from 3e-6
+  of a leaf's scale at the last layer to 5.8e-5 at the first under the
+  reference's init gain (grad norm 4.9e-5); AdamW's normalisation then
+  turns that noise on near-zero gradients into whole-step differences, and
+  the third step's grad norm differs by 2.0e-3.  Parameters within 5e-4
+  after the three steps (measured 1.9e-4; one step moves an entry by up to
+  about the lr).
+* Microbatch 1 against 2 on the port: losses rtol 1e-5, parameters atol
+  1e-5 (the reference's own test, ``test_train_serve.py:54``).
+* Checkpoint round trip and resume: bitwise.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import get_smoke_config as ref_smoke
+from repro.data.pipeline import DataConfig as RefDataConfig
+from repro.data.pipeline import make_train_iter as ref_make_train_iter
+from repro.models import init_params as ref_init_params
+from repro.models import model_defs as ref_model_defs
+from repro.optim import AdamWConfig as RefAdamWConfig
+from repro.optim import ScheduleConfig as RefScheduleConfig
+from repro.optim import adamw_init as ref_adamw_init
+from repro.optim import adamw_update as ref_adamw_update
+from repro.optim import clip_by_global_norm as ref_clip
+from repro.optim import learning_rate as ref_learning_rate
+from repro.train.trainer import TrainConfig as RefTrainConfig
+from repro.train.trainer import cross_entropy as ref_cross_entropy
+from repro.train.trainer import make_train_step as ref_make_train_step
+from repro_torch.ckpt import CheckpointManager
+from repro_torch.configs import get_smoke_config
+from repro_torch.data import DataConfig, make_train_iter
+from repro_torch.models import Transformer, load_jax_params
+from repro_torch.models.convert import flatten_jax_tree
+from repro_torch.optim import AdamWConfig, ScheduleConfig, adamw_init, adamw_update, clip_by_global_norm, learning_rate
+from repro_torch.train import TrainConfig, Trainer, cross_entropy, init_train_state, make_train_step
+from repro_torch.train.__main__ import main as train_main
+
+
+# --------------------------------------------------------------------------- optimizer
+def test_adamw_and_clip_match_reference_over_three_steps():
+    rng = np.random.default_rng(0)
+    shapes = {"w": (16, 8), "b": (8,), "n": (4, 3, 2)}
+    params = {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: (rng.standard_normal(s) * 2).astype(np.float32) for k, s in shapes.items()} for _ in range(3)]
+    cfg = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, grad_clip=1.0)
+    sched = dict(peak_lr=1e-2, warmup_steps=2, decay_steps=10)
+
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    jst = ref_adamw_init(jp)
+    tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    tst = adamw_init(tp)
+    for g in grads:
+        jg, jnorm = ref_clip({k: jnp.asarray(v) for k, v in g.items()}, cfg["grad_clip"])
+        lr = ref_learning_rate(jst["step"], RefScheduleConfig(**sched))
+        jp, jst = ref_adamw_update(jg, jst, jp, lr, RefAdamWConfig(**cfg))
+        tg, tnorm = clip_by_global_norm({k: torch.from_numpy(v.copy()) for k, v in g.items()}, cfg["grad_clip"])
+        np.testing.assert_allclose(float(tnorm), float(jnorm), rtol=1e-6)
+        for k in shapes:
+            np.testing.assert_allclose(tg[k].numpy(), np.asarray(jg[k]), rtol=1e-6, atol=1e-8)
+        tst = adamw_update(tg, tst, tp, learning_rate(int(tst["step"]), ScheduleConfig(**sched)), AdamWConfig(**cfg))
+    assert int(tst["step"]) == int(jst["step"]) == 3
+    for k in shapes:
+        np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), rtol=1e-5, atol=1e-7, err_msg=k)
+        np.testing.assert_allclose(tst["m"][k].numpy(), np.asarray(jst["m"][k]), rtol=1e-5, atol=1e-7, err_msg=k)
+        np.testing.assert_allclose(tst["v"][k].numpy(), np.asarray(jst["v"][k]), rtol=1e-5, atol=1e-7, err_msg=k)
+
+
+def test_adamw_keeps_moment_and_param_dtypes():
+    p = {"w": torch.ones(4, dtype=torch.bfloat16)}
+    st = adamw_init(p, torch.bfloat16)
+    st = adamw_update({"w": torch.full((4,), 0.5)}, st, p, 1e-2)
+    assert st["m"]["w"].dtype == p["w"].dtype == torch.bfloat16 and int(st["step"]) == 1
+    assert (p["w"] < 1).all()  # weight decay and the step both pull it down
+
+
+@pytest.mark.parametrize("kind", ["cosine", "linear", "constant"])
+def test_schedule_matches_reference(kind):
+    kw = dict(peak_lr=6e-4, warmup_steps=20, decay_steps=300, min_lr_ratio=0.1, kind=kind)
+    steps = [0, 1, 5, 19, 20, 21, 100, 299, 300, 1000]
+    want = [float(ref_learning_rate(s, RefScheduleConfig(**kw))) for s in steps]
+    got = [learning_rate(s, ScheduleConfig(**kw)) for s in steps]
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+def test_cross_entropy_matches_reference():
+    rng = np.random.default_rng(1)
+    logits = rng.standard_normal((2, 5, 11)).astype(np.float32) * 3
+    labels = rng.integers(0, 11, (2, 5)).astype(np.int32)
+    labels[0, 1] = labels[1, 4] = -100
+    for z in (0.0, 1e-4):
+        wl, wn = ref_cross_entropy(jnp.asarray(logits), jnp.asarray(labels), z)
+        gl, gn = cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels).long(), z)
+        np.testing.assert_allclose(float(gl), float(wl), rtol=1e-6)
+        assert int(gn) == int(wn) == 8
+
+
+# --------------------------------------------------------------------------- data
+@pytest.mark.parametrize("kw", [dict(global_batch=4, seq_len=16, vocab_size=512),
+                                dict(global_batch=8, seq_len=33, vocab_size=50280, seed=9, host_id=1, n_hosts=2)])
+def test_data_batches_are_bit_identical_to_reference(kw):
+    port, ref = make_train_iter(DataConfig(**kw), start_index=3), ref_make_train_iter(RefDataConfig(**kw), start_index=3)
+    try:
+        for _ in range(3):
+            a, b = next(port), next(ref)
+            assert sorted(a) == sorted(b)
+            for k in a:
+                assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+    finally:
+        port.close()
+        ref.close()
+
+
+# --------------------------------------------------------------------------- train step
+def _batches(cfg, n, batch=4, seq=32, seed=1234):
+    it = make_train_iter(DataConfig(global_batch=batch, seq_len=seq, vocab_size=cfg.vocab_size, seed=seed))
+    out = [next(it) for _ in range(n)]
+    it.close()
+    return out
+
+
+def test_three_train_steps_match_reference():
+    cfg = ref_smoke("mamba2-130m")
+    assert cfg.remat == "full" and cfg.compute_dtype == "float32"
+    rkw = dict(schedule=RefScheduleConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=10), microbatches=2)
+    params = ref_init_params(ref_model_defs(cfg), jax.random.PRNGKey(3), cfg.param_jdtype())
+    model = load_jax_params(Transformer(get_smoke_config("mamba2-130m"), device="cpu"),
+                            jax.tree_util.tree_map(np.asarray, params))
+    jst = ref_adamw_init(params)
+    ref_step = jax.jit(ref_make_train_step(cfg, RefTrainConfig(**rkw)))
+    tcfg = TrainConfig(schedule=ScheduleConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=10), microbatches=2)
+    step = make_train_step(model, tcfg)
+    tst = adamw_init(dict(model.named_parameters()))
+    for batch in _batches(cfg, 3):
+        params, jst, jm = ref_step(params, jst, batch)
+        tst, tm = step(tst, batch)
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]), rtol=5e-3)
+        np.testing.assert_allclose(float(tm["lr"]), float(jm["lr"]), rtol=1e-6)
+        assert int(tm["tokens"]) == int(jm["tokens"]) == 4 * 32
+    flat = flatten_jax_tree(jax.tree_util.tree_map(np.asarray, params), cfg)
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), flat[name], rtol=0, atol=5e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-130m"])
+def test_microbatch_equivalence(arch):
+    """Grad accumulation over 2 microbatches == a single-batch step (fp32)."""
+    cfg = get_smoke_config(arch)
+    batch = _batches(cfg, 1, batch=4, seq=16)[0]
+    outs = {}
+    for n_micro in (1, 2):
+        tcfg = TrainConfig(microbatches=n_micro, seed=5)
+        model, opt = init_train_state(cfg, tcfg, device="cpu")
+        _, m = make_train_step(model, tcfg)(opt, batch)
+        outs[n_micro] = ([p.detach().clone() for p in model.parameters()], float(m["loss"]))
+    assert outs[1][1] == pytest.approx(outs[2][1], rel=1e-5)
+    for a, b in zip(outs[1][0], outs[2][0]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+# --------------------------------------------------------------------------- checkpoints
+def test_checkpoint_round_trip_is_bitwise(tmp_path):
+    g = torch.Generator().manual_seed(0)
+    params = {"a.w": torch.randn(3, 4, generator=g), "b": torch.randn(5, generator=g).to(torch.bfloat16)}
+    opt = adamw_init(params)
+    opt["step"] = torch.tensor(7)
+    ck = CheckpointManager(str(tmp_path), keep=2)
+    for step in (1, 2, 3):
+        ck.save(params, opt, {"step": step, "note": "x"}, step=step)
+    ck.wait()
+    assert ck.committed_steps() == [2, 3]  # retention
+    p2, o2, meta = ck.restore_latest()
+    assert meta == {"step": 3, "note": "x"}
+    for k, v in params.items():
+        assert p2[k].dtype == v.dtype and torch.equal(p2[k], v), k
+    assert torch.equal(o2["step"], opt["step"]) and torch.equal(o2["m"]["b"], opt["m"]["b"])
+    # a save without its COMMIT marker is invisible
+    (tmp_path / "step_00000009").mkdir()
+    assert ck.committed_steps() == [2, 3]
+    # the snapshot is taken at save(): later in-place updates do not leak into it
+    ck.save(params, opt, {}, step=4)
+    params["a.w"].add_(1.0)
+    ck.wait()
+    assert not torch.equal(ck.restore_latest()[0]["a.w"], params["a.w"])
+
+
+def test_resume_replays_the_same_losses(tmp_path):
+    cfg = get_smoke_config("mamba2-130m")
+    tcfg = TrainConfig(microbatches=1)
+    dcfg = DataConfig(global_batch=2, seq_len=16, vocab_size=cfg.vocab_size)
+    it = make_train_iter(dcfg)
+    tr = Trainer(cfg, tcfg, it, ckpt_manager=CheckpointManager(str(tmp_path)), ckpt_every=2, device="cpu")
+    model, opt = tr.restore_or_init()
+    _, _, hist_a = tr.run(model, opt, 3)  # commits step 2 only
+    tr.ckpt.wait()
+    it.close()
+    tr2 = Trainer(cfg, tcfg, make_train_iter(dcfg, start_index=2),
+                  ckpt_manager=CheckpointManager(str(tmp_path)), device="cpu")
+    model2, opt2 = tr2.restore_or_init()
+    assert tr2.step == 2 and int(opt2["step"]) == 2
+    _, _, hist_b = tr2.run(model2, opt2, 1)
+    tr2.data_iter.close()
+    assert hist_b[0]["loss"] == hist_a[2]["loss"]
+
+
+# --------------------------------------------------------------------------- trainer lanes
+def test_train_and_eval_lanes_stay_separate(tmp_path):
+    cfg = get_smoke_config("mamba2-130m")
+    dcfg = DataConfig(global_batch=2, seq_len=16, vocab_size=cfg.vocab_size)
+    it, ev = make_train_iter(dcfg), make_train_iter(DataConfig(global_batch=2, seq_len=16,
+                                                                vocab_size=cfg.vocab_size, seed=9))
+    tr = Trainer(cfg, TrainConfig(), it, eval_iter=ev, ckpt_manager=CheckpointManager(str(tmp_path)),
+                 ckpt_every=2, eval_every=2, device="cpu")
+    model, opt = tr.restore_or_init()
+    _, _, hist = tr.run(model, opt, 4)
+    tr.ckpt.wait()
+    it.close()
+    ev.close()
+    train, evals = tr.stats.summary(tr.train_stream), tr.stats.summary(tr.eval_stream)
+    assert len(hist) == train["steps"] == 4 and evals["steps"] == 2 == len(tr.eval_history)
+    assert train["tokens"] == 4 * 2 * 16 and evals["tokens"] == 0
+    # the cost is counted once and lands on the train lane only; on the CPU
+    # the plain SSD scan's ops are among what the counter sees
+    assert tr.cost_parts["ssd_kernel"] == 0 and tr.cost_parts["counted"] > 0
+    assert train["flops"] == 4 * tr.step_cost.flops and evals["flops"] == 0
+    assert tr.ckpt.committed_steps() == [2, 4]
+    frame = tr.frame()
+    assert frame.filter(stream="train").sum() == frame.filter(stream=tr.train_stream).sum()
+
+
+def test_train_entry_point_runs_and_resumes(tmp_path, capsys):
+    args = ["--small", "--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "16",
+            "--ckpt-dir", str(tmp_path), "--ckpt-every", "1"]
+    train_main(args)
+    out = capsys.readouterr().out
+    assert "training mamba2-130m" in out and "loss:" in out and "stream" in out
+    train_main(args[:4] + ["3"] + args[5:])
+    assert "resumed from checkpoint at step 2" in capsys.readouterr().out
