@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from the checkout's sources (one ``nvcc`` per
-source, all started together) and drives the port's two paths:
+source, all started together) and drives the port's three paths:
 
 * serving: the flash-attention kernel held against its plain version and
   timed; the deepseek-7b smoke config served on the card and on the CPU and
@@ -20,7 +20,17 @@ source, all started together) and drives the port's two paths:
   of steps with an eval lane, with the loss, the per-stream lanes and the
   exact number of SSD launches checked, the kernel held against the plain
   version on every layer's real inputs, one step at seq 4096, and decode
-  against forward in fp32.
+  against forward in fp32;
+* the simulator: the segment-scatter kernel (the batched sweep's stat
+  landing), its accumulate entry and the sequential-fold kernel held bit for
+  bit against their plain versions, on test shapes and on the sweep's real
+  landing inputs, and the segment kernel timed beside ``index_add_``; then
+  the full scenario registry at 64 divergent draws each (1,088 jobs) run
+  through ``BatchRunner(backend="batched")`` on ``array_backend="torch"``,
+  with its signature held against the same jobs on NumPy, zero failed jobs
+  and oracle failures, every kernel's launches equal to the calls that
+  handed it work, the landing traced for the device's idle share, and a
+  compiled-engine sweep whose running sums fold on the card.
 
 Each phase prints one JSON line; then a ``{"kernels": [...]}`` line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -107,6 +117,18 @@ EVAL_DROP = 0.05
 #: relative L2 of each step's logits: the same weights and math, the SSD
 #: state handed from the kernel to the exact recurrence
 DECODE_FP32_REL = 1e-3
+#: the simulator's batched sweep: the full scenario registry at SIM_DRAWS
+#: divergent draws a scenario (1,088 jobs), event engine, as a validation
+#: sweep of the per-kernel, per-stream counts runs it; the segment kernel is
+#: also timed on the SIM_SMALL_DRAWS sweep's landing; the compiled engine
+#: runs SIM_COMPILED_DRAWS draws, whose trace workloads fold bandwidth
+#: pointers through running_sum.  Everything here is compared bit for bit.
+SIM_DRAWS, SIM_SMALL_DRAWS, SIM_COMPILED_DRAWS, SIM_SEED = 64, 2, 2, 0
+#: segment-kernel checks (events, n_segs, row_size): tests/test_batched.py's
+#: shapes, with events on two rows past the table that must drop
+SEG_SHAPES = [(2000, 1, 8), (2000, 5, 64), (2000, 16, 300)]
+#: host-clock readings of the landing op with its copies (median taken)
+HOST_ROUNDS = 3
 
 
 class CheckFailed(RuntimeError):
@@ -129,15 +151,19 @@ def peaks(smi_name: str):
     return 989e12, 3.35e12, "H100 SXM datasheet"
 
 
-def time_interleaved(fns, warmup: int = 3):
+def time_interleaved(fns, warmup: int = 3, eager=()):
     """Device ms per call of each function in ``fns`` (name → callable).
 
     Each function's ``LAUNCHES`` back-to-back calls are captured once into
     a CUDA graph; a reading is one replay between a pair of CUDA events,
     divided by ``LAUNCHES``, so it holds device time without the host's
     per-call cost (an SDPA call costs the host about as long as the card).
-    Each round takes one reading of every function in turn; returns per
-    name the median, min and max of ``ROUNDS`` readings."""
+    A function named in ``eager`` cannot be captured (its output shape
+    depends on the data, which needs a sync): a reading of it is its
+    ``LAUNCHES`` calls run back to back between the two events, so it also
+    holds whatever host time the card waits for.  Each round takes one
+    reading of every function in turn; returns per name the median, min and
+    max of ``ROUNDS`` readings."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up off the default stream, as graph capture wants
@@ -147,17 +173,24 @@ def time_interleaved(fns, warmup: int = 3):
     torch.cuda.current_stream().wait_stream(side)
     graphs = {}
     for name, fn in fns.items():
+        if name in eager:
+            continue
         graphs[name] = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graphs[name]):
             for _ in range(LAUNCHES):
                 fn()
     torch.cuda.synchronize()
+
+    def run_eager(fn):
+        for _ in range(LAUNCHES):
+            fn()
+
     readings = {name: [] for name in fns}
     for _ in range(ROUNDS):
-        for name, graph in graphs.items():
+        for name, fn in fns.items():
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            graph.replay()
+            graphs[name].replay() if name in graphs else run_eager(fn)
             end.record()
             end.synchronize()
             readings[name].append(start.elapsed_time(end) / LAUNCHES)
@@ -767,8 +800,304 @@ def phase_decode_full_width(model):
           "prefill_len": 100, "decode_steps": 8, "logits_rel_l2": rels, "tolerance": DECODE_FP32_REL})
 
 
+def _u64_on_card(a: np.ndarray) -> torch.Tensor:
+    """A numpy int64 or uint64 array on the card as int64 storage (the same bits)."""
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a.view(np.int64) if a.dtype == np.uint64 else a.astype(np.int64, copy=False)).cuda()
+
+
+def _sim_jobs(draws, engine, backend):
+    from repro_torch.sim.batch import BatchJob
+
+    return [BatchJob.make(d["scenario"], d["params"], engine=engine, config=dict(array_backend=backend))
+            for d in draws]
+
+
+class _OpCalls:
+    """Wraps an array-ops object's methods in place for one run: counts the
+    calls that hand a kernel work (non-empty input), sums their host wall,
+    and keeps each ``segment_scatter`` call's inputs when asked to."""
+
+    NON_EMPTY = {
+        "segment_scatter": lambda seg, lin, cnt, n_segs, row_size: len(seg) > 0 and n_segs > 0,
+        "scatter_add_u64": lambda dense, lin, cnt: len(lin) > 0,
+        "running_sum": lambda values: np.asarray(values).size > 0,
+        "sorted_membership": lambda values, table: False,  # torch.searchsorted, no kernel of ours
+    }
+
+    def __init__(self, ops, keep_inputs: bool = False):
+        self.ops, self.keep_inputs = ops, keep_inputs
+        self.calls = {n: 0 for n in self.NON_EMPTY}
+        self.kernel_calls = {n: 0 for n in self.NON_EMPTY}
+        self.wall_s = {n: 0.0 for n in self.NON_EMPTY}
+        self.landings = []  # (seg, lin, cnt, n_segs, row_size, table) of each segment_scatter call
+
+    def __enter__(self):
+        for name, non_empty in self.NON_EMPTY.items():
+            method = getattr(self.ops, name)
+
+            def counted(*args, _name=name, _method=method, _non_empty=non_empty):
+                t0 = time.perf_counter()
+                out = _method(*args)
+                self.wall_s[_name] += time.perf_counter() - t0
+                self.calls[_name] += 1
+                self.kernel_calls[_name] += int(_non_empty(*args))
+                if _name == "segment_scatter" and self.keep_inputs:
+                    self.landings.append((*args, out))
+                return out
+
+            setattr(self.ops, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.NON_EMPTY:
+            delattr(self.ops, name)  # the class's method shows through again
+
+
+def phase_segment_kernel(smi: str):
+    """The segment kernel, its accumulate entry and the fold kernel against
+    their plain versions on the card, bit for bit, on test shapes and on the
+    real landing inputs of the sweep, captured from the port's NumpyOps;
+    then the segment kernel timed at the 64- and 2-draw landing shapes."""
+    from repro_torch.core.array_ops import get_backend
+    from repro_torch.kernels import segment_scatter as ss
+    from repro_torch.kernels.ref import running_sum_ref, scatter_add_ref, segment_scatter_ref
+    from repro_torch.sim.batch import BatchRunner
+    from repro_torch.sim.scenarios import divergent_draws
+
+    # the real landings: the sweeps on the NumPy reference, their scatter inputs kept
+    sweeps = {}
+    for k in (SIM_DRAWS, SIM_SMALL_DRAWS):
+        jobs = _sim_jobs(divergent_draws(k, seed=SIM_SEED), "event", "numpy")
+        with _OpCalls(get_backend("numpy"), keep_inputs=True) as rec:
+            t0 = time.perf_counter()
+            result = BatchRunner(jobs, backend="batched").run()
+            wall = time.perf_counter() - t0
+        check(result.failures() == [] and rec.landings, f"numpy sweep at {k} draws: {result.failures()[:3]}")
+        sweeps[k] = {"result": result, "wall_s": wall, "landings": rec.landings}
+
+    rng = np.random.default_rng(0)
+    cases = []  # (label, seg, lin, cnt uint64, n_segs, row_size, numpy's table or None)
+    for n, n_segs, row_size in SEG_SHAPES:
+        r = np.random.default_rng(n_segs * row_size)
+        cases.append((f"E{n}_({n_segs},{row_size})", r.integers(0, n_segs + 2, n), r.integers(0, row_size, n),
+                      r.integers(1, 50, n).astype(np.uint64), n_segs, row_size, None))
+    cases.append(("all_overflow", np.full(64, 9), np.zeros(64, np.int64), np.ones(64, np.uint64), 4, 16, None))
+    cases.append(("empty", np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, np.uint64), 3, 5, None))
+    big = np.where(rng.random(5000) < 0.5, np.uint64((1 << 64) - 1000), np.uint64((1 << 63) - 10))
+    cases.append(("wraps_2^64", rng.integers(0, 5, 5000), rng.integers(0, 6, 5000), big, 4, 6, None))
+    for k, sw in sweeps.items():
+        for i, (seg, lin, cnt, n_segs, row_size, table) in enumerate(sw["landings"]):
+            cases.append((f"sweep{k}_call{i}", seg, lin, cnt, n_segs, row_size, table))
+
+    rows, max_err = [], 0
+    for label, seg, lin, cnt, n_segs, row_size, np_table in cases:
+        args = (_u64_on_card(seg), _u64_on_card(lin), _u64_on_card(cnt), n_segs, row_size)
+        got, bad = ss.segment_scatter(*args)
+        want, want_bad = segment_scatter_ref(*args)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max()) if got.numel() else 0
+        equal = bool(torch.equal(got, want)) and bad.item() == want_bad.item() == 0
+        if np_table is not None:
+            equal = equal and np.array_equal(got.cpu().numpy().view(np.uint64), np_table)
+        max_err = max(max_err, err)
+        rows.append({"case": label, "events": len(seg), "table": [n_segs, row_size], "equal": equal,
+                     "nonzero_cells": int(torch.count_nonzero(want))})
+        check(equal, f"segment kernel differs from segment_scatter_ref (and NumPy) on {label}")
+
+    # the accumulate entry into a caller's buffer, and the fold kernel
+    lin = rng.integers(0, 100_000, 400_000)
+    cnt = np.where(rng.random(400_000) < 0.5, np.uint64((1 << 64) - 3), rng.integers(1, 9, 400_000).astype(np.uint64))
+    base = _u64_on_card(rng.integers(0, 1 << 62, 100_000))
+    dense, want = base.clone(), base.clone()
+    bad = ss.scatter_add(dense, _u64_on_card(lin), _u64_on_card(cnt))
+    scatter_add_ref(want, _u64_on_card(lin), _u64_on_card(cnt))
+    check(torch.equal(dense, want) and bad.item() == 0, "accumulate entry differs from scatter_add_ref")
+    fold = []
+    for shape in ((7367,), (300, 9), (64, 3), (1,)):
+        vals = rng.uniform(-1.0, 1.0, size=shape) * (10.0 ** rng.integers(-8, 8, size=shape))
+        ints = rng.integers(-(1 << 62), 1 << 62, size=shape)
+        for a in (vals, ints):
+            got = ss.running_sum(torch.from_numpy(a).cuda())
+            equal = torch.equal(got, running_sum_ref(torch.from_numpy(a).cuda()))
+            equal = equal and np.array_equal(got.cpu().numpy(), np.add.accumulate(a, axis=0))
+            fold.append({"shape": list(shape), "dtype": str(a.dtype), "equal": bool(equal)})
+            check(equal, f"fold kernel differs from running_sum_ref / np.add.accumulate at {shape} {a.dtype}")
+
+    # timing at the landing shapes of the 64- and 2-draw sweeps (their largest call: the cumulative table)
+    peak_flops, peak_bw, peak_src = peaks(smi)
+    torch_ops, numpy_ops = get_backend("torch"), get_backend("numpy")
+    timings = {}
+    for k, sw in sweeps.items():
+        seg, lin, cnt, n_segs, row_size, np_table = max(sw["landings"], key=lambda c: len(c[0]))
+        seg_d, lin_d, cnt_d = _u64_on_card(seg), _u64_on_card(lin), _u64_on_card(cnt)
+        keep = seg < n_segs
+        flat_d, kept_d = _u64_on_card(seg[keep] * row_size + lin[keep]), _u64_on_card(cnt[keep])
+        size = n_segs * row_size
+
+        def library():
+            return torch.zeros(size, dtype=torch.int64, device="cuda").index_add_(0, flat_d, kept_d)
+
+        check(np.array_equal(library().cpu().numpy().view(np.uint64), np_table.reshape(-1)),
+              f"index_add_ does not compute the landing at {k} draws")
+        ms = time_interleaved({
+            "kernel": lambda: ss.segment_scatter(seg_d, lin_d, cnt_d, n_segs, row_size),
+            "plain": lambda: segment_scatter_ref(seg_d, lin_d, cnt_d, n_segs, row_size),
+            "library": library,
+        }, eager=("plain",))
+        host = {"torch": [], "numpy": []}
+        for _ in range(HOST_ROUNDS):
+            for name, o in (("torch", torch_ops), ("numpy", numpy_ops)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = o.segment_scatter(seg, lin, cnt, n_segs, row_size)
+                host[name].append((time.perf_counter() - t0) * 1e3)
+                check(np.array_equal(out, np_table), f"{name} op differs from numpy's landing at {k} draws")
+        nbytes = 24 * len(seg) + 8 * size
+        t_bytes = nbytes / peak_bw * 1e3
+        flat = seg[keep] * row_size + lin[keep]
+        per_cell = np.bincount(np.unique(flat, return_inverse=True)[1])
+        timings[f"draws{k}"] = {
+            "events": len(seg), "n_segs": n_segs, "row_size": row_size, "table_bytes": 8 * size,
+            "touched_cells": int(per_cell.size), "busiest_cell_events": int(per_cell.max()),
+            "share_of_unit_counts": float((cnt == 1).mean()),
+            "kernel_ms": ms["kernel"]["median"], "plain_ms": ms["plain"]["median"],
+            "library_ms": ms["library"]["median"], "bound_ms": t_bytes, "bound_by": "bytes", "bytes": nbytes,
+            "op_wall_ms_with_copies": statistics.median(host["torch"]),
+            "numpy_op_wall_ms_host": statistics.median(host["numpy"]),
+            "spread_ms": {name: [m["min"], m["max"]] for name, m in ms.items()},
+            "host_readings_ms": host,
+        }
+        del seg_d, lin_d, cnt_d, flat_d, kept_d
+    emit({"phase": "segment_kernel", "name": "segment_scatter", "cases": rows, "max_abs_err": max_err,
+          "accumulate_entry_equal": True, "fold": fold, "tolerance": "exact equality (uint64 mod 2^64)",
+          "peaks": {"hbm_bytes_s": peak_bw, "source": peak_src},
+          "bound": "(24 bytes per event + 8 per table cell, the zero fill included) / HBM rate",
+          "timing": timings,
+          "timing_note": f"median of {ROUNDS} readings of {LAUNCHES} calls each between CUDA events; kernel "
+                         "and index_add_ (zero fill + one index_add_ of the kept events' precomputed flat "
+                         "index) replayed from a CUDA graph, the plain version (its boolean mask syncs) run "
+                         "eagerly; inputs warm in L2; op walls are host-clock medians of "
+                         f"{HOST_ROUNDS} calls of TorchOps / NumpyOps.segment_scatter, numpy in and out",
+          "numpy_sweep_wall_s": {str(k): sw["wall_s"] for k, sw in sweeps.items()}})
+    ss.segment_scatter.launches = ss.scatter_add.launches = ss.running_sum.launches = 0
+    return max_err, timings, sweeps[SIM_DRAWS]
+
+
+def phase_sim_sweep(numpy_sweep):
+    """The simulator's batched divergent sweep over the full registry on the
+    card, against the same jobs on NumPy; launches of each kernel equal the
+    calls that handed it work.  Then the landing traced once for the device's
+    busy time, and the compiled engine, whose running sums fold on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.array_ops import get_backend
+    from repro_torch.kernels import segment_scatter as ss
+    import repro_torch.sim.batched as batched
+    from repro_torch.sim.batch import BatchRunner
+    from repro_torch.sim.compiled import TRACE_CACHE
+    from repro_torch.sim.scenarios import divergent_draws, list_scenarios
+
+    draws = divergent_draws(SIM_DRAWS, seed=SIM_SEED)
+    ops = get_backend("torch")
+    check(ops.device.type == "cuda", "array_backend='torch' must run on the card")
+    land = batched._land
+    timed = {}
+
+    def timed_land(sims, o):
+        t0 = time.perf_counter()
+        land(sims, o)
+        torch.cuda.synchronize()
+        timed["land_s"] = time.perf_counter() - t0
+
+    def traced_land(sims, o):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            land(sims, o)
+            torch.cuda.synchronize()
+            timed["traced_land_s"] = time.perf_counter() - t0
+        timed["prof"] = prof
+
+    def kernel_launches():
+        return {"segment_scatter": ss.segment_scatter.launches, "scatter_add_u64": ss.scatter_add.launches,
+                "running_sum": ss.running_sum.launches}
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    jobs = _sim_jobs(draws, "event", "torch")
+    batched._land = timed_land
+    try:
+        with _OpCalls(ops) as rec:
+            ss.segment_scatter.launches = ss.scatter_add.launches = ss.running_sum.launches = 0
+            t0 = time.perf_counter()
+            result = BatchRunner(jobs, backend="batched").run()
+            wall = time.perf_counter() - t0
+            launches = kernel_launches()
+    finally:
+        batched._land = land
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(len(jobs) == SIM_DRAWS * len(list_scenarios()), f"{len(jobs)} jobs")
+    check(result.failures() == [], f"failed jobs on the card: {result.failures()[:3]}")
+    check(result.oracle_failures() == [], f"oracle failures: {result.oracle_failures()[:3]}")
+    check(result.signature() == numpy_sweep["result"].signature(), "sweep on the card differs from NumPy's")
+    want = {n: rec.kernel_calls[n] for n in ("segment_scatter", "scatter_add_u64", "running_sum")}
+    check(launches == want, f"launches {launches} != calls that handed a kernel work {want}")
+    check(launches["segment_scatter"] >= 1 and launches["scatter_add_u64"] >= 1, f"kernels not launched: {launches}")
+    events = sum(len(c[0]) for c in numpy_sweep["landings"])
+
+    # one more run of the same sweep, its landing traced (its launches are not counted above)
+    batched._land = traced_land
+    try:
+        traced = BatchRunner(_sim_jobs(draws, "event", "torch"), backend="batched").run()
+    finally:
+        batched._land = land
+    check(traced.failures() == [], "failed jobs in the traced sweep")
+    prof = timed.pop("prof")
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = {}
+    for e in dev:
+        kind = "memcpy" if "Memcpy" in e.name else "memset" if "Memset" in e.name else e.name[:60]
+        busy_us[kind] = busy_us.get(kind, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(busy_us.values()) / 1e3
+    idle = {"device_busy_ms": busy_ms, "device_events": len(dev),
+            "busy_ms_by_kind": {k: v / 1e3 for k, v in sorted(busy_us.items(), key=lambda kv: -kv[1])[:8]},
+            "landing_wall_ms": timed["land_s"] * 1e3, "traced_landing_wall_ms": timed["traced_land_s"] * 1e3,
+            "idle_share_of_landing": max(0.0, 1.0 - busy_ms / (timed["land_s"] * 1e3)) if dev else "not measured",
+            "idle_share_of_sweep": max(0.0, 1.0 - busy_ms / (wall * 1e3)) if dev else "not measured"}
+
+    # the compiled engine: its trace workloads fold bandwidth pointers through running_sum
+    cdraws = divergent_draws(SIM_COMPILED_DRAWS, seed=SIM_SEED)
+    compiled = {}
+    for backend in ("torch", "numpy"):
+        TRACE_CACHE.clear()  # both runs compile every shape
+        with _OpCalls(ops) as crec:
+            ss.segment_scatter.launches = ss.scatter_add.launches = ss.running_sum.launches = 0
+            compiled[backend] = BatchRunner(_sim_jobs(cdraws, "compiled", backend), backend="batched").run()
+            claunches = kernel_launches()
+        if backend == "torch":
+            ccalls = {n: crec.kernel_calls[n] for n in ("segment_scatter", "scatter_add_u64", "running_sum")}
+            c_launches = claunches
+    check(compiled["torch"].failures() == [] and compiled["torch"].oracle_failures() == [],
+          "compiled-engine sweep on the card failed")
+    check(compiled["torch"].signature() == compiled["numpy"].signature(), "compiled sweep: card differs from NumPy")
+    check(c_launches == ccalls and c_launches["running_sum"] >= 1, f"compiled: launches {c_launches}, calls {ccalls}")
+
+    emit({"phase": "sim_sweep", "draws": SIM_DRAWS, "seed": SIM_SEED, "jobs": len(jobs), "engine": "event",
+          "array_backend": "torch", "scenarios": len(list_scenarios()), "signature_equal_numpy": True,
+          "failed_jobs": 0, "oracle_failures": 0, "landing_events": events,
+          "launches": launches, "calls": rec.calls, "op_wall_ms": {n: v * 1e3 for n, v in rec.wall_s.items()},
+          "sweep_wall_s": wall, "numpy_sweep_wall_s": numpy_sweep["wall_s"],
+          "landing_wall_s": timed["land_s"], "simulate_wall_s": wall - timed["land_s"],
+          "max_memory_allocated_gb": peak_gb, "device_idle": idle,
+          "compiled": {"draws": SIM_COMPILED_DRAWS, "jobs": len(cdraws), "signature_equal_numpy": True,
+                       "launches": c_launches, "calls": ccalls}})
+    ss.segment_scatter.launches = ss.scatter_add.launches = ss.running_sum.launches = 0
+    return launches["segment_scatter"]
+
+
 def main() -> int:
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import segment_scatter as ss
     from repro_torch.kernels import ssd_scan as sk
 
     smi = phase_device()
@@ -781,8 +1110,12 @@ def main() -> int:
     model, ssd_launches, probe = phase_train_full_width()
     phase_decode_full_width(model)
     ssd_op_err = phase_ssd_op(model, probe)
+    del model, probe
+    seg_err, seg_timings, numpy_sweep = phase_segment_kernel(smi)
+    seg_launches = phase_sim_sweep(numpy_sweep)
     t = timings[512]
     st = ssd_timings["B4_S256"]
+    gt = seg_timings[f"draws{SIM_DRAWS}"]
     emit({"kernels": [{
         "name": "flash_attention", "route": "cuda", "source": fa.SOURCE, "replaces": fa.REPLACES,
         "launches": launches, "max_abs_err": max(bf16_err, op_err),
@@ -795,6 +1128,13 @@ def main() -> int:
         "ms": st["kernel_ms"], "kernel_ms": st["kernel_ms"], "plain_ms": st["plain_ms"],
         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": None,
         "shape": "B=4 S=256 H=24 P=64 N=128 G=1 bf16 (the training microbatch)",
+    }, {
+        "name": "segment_scatter", "route": "cuda", "source": ss.SOURCE, "replaces": ss.REPLACES,
+        "launches": seg_launches, "max_abs_err": seg_err,
+        "ms": gt["kernel_ms"], "kernel_ms": gt["kernel_ms"], "plain_ms": gt["plain_ms"],
+        "bound_ms": gt["bound_ms"], "bound_by": gt["bound_by"], "library_ms": gt["library_ms"],
+        "shape": f"E={gt['events']} events into a ({gt['n_segs']}, {gt['row_size']}) uint64 table "
+                 f"(the {SIM_DRAWS}-draw sweep's landing)",
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,8 +2,9 @@
 
 The modules here are copies of the reference package's framework-free stats
 core, kept file for file so that the per-stream lanes the port records are
-the reference's by construction.  ``collector.py`` is left out (serving does
-not use it) and ``array_ops.py`` holds only the NumPy backend.
+the reference's by construction.  ``array_ops.py`` differs: beside the NumPy
+backend it holds ``TorchOps``, whose landing ops run the CUDA kernels of
+:mod:`repro_torch.kernels.segment_scatter`, and it has no JAX backend.
 
 Public API:
 
@@ -58,6 +59,7 @@ from .faults import (
 from .timeline import KernelTime, KernelTimeline
 from .stream import Stream, StreamEvent, StreamManager, WorkItem
 from .instrument import StepCost, StepRecord, StreamStats, current_stream, stream_scope
+from .collector import StatCollector, namespace_stream, split_namespaced
 
 __all__ = [
     "DEFAULT_STREAM",
@@ -102,4 +104,7 @@ __all__ = [
     "StreamStats",
     "current_stream",
     "stream_scope",
+    "StatCollector",
+    "namespace_stream",
+    "split_namespaced",
 ]

@@ -6,8 +6,11 @@ are ``ops.flash_attention`` and ``ops.decode_attention``, the SSM entry
 point ``ops.ssd_scan``; the names ``flash_attention`` and ``ssd_scan`` here
 are the kernels' modules, whose wrappers carry the launch counts
 (``flash_attention.flash_attention.launches``, ``ssd_scan.ssd_scan.launches``).
+The simulator's stat landing runs through :mod:`.segment_scatter` (the
+segment-scatter kernel, its accumulate entry and the sequential fold), which
+``repro_torch.core.array_ops.TorchOps`` calls.
 """
 
-from . import flash_attention, ops, ref, ssd_scan
+from . import flash_attention, ops, ref, segment_scatter, ssd_scan
 
-__all__ = ["flash_attention", "ops", "ref", "ssd_scan"]
+__all__ = ["flash_attention", "ops", "ref", "segment_scatter", "ssd_scan"]

@@ -27,7 +27,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 #: kernel name → its source under ``csrc/``
-SOURCES: Dict[str, str] = {"flash_attention": "flash_attention.cu", "ssd_scan": "ssd_scan.cu"}
+SOURCES: Dict[str, str] = {
+    "flash_attention": "flash_attention.cu",
+    "ssd_scan": "ssd_scan.cu",
+    "array_ops": "array_ops.cu",
+}
 
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",

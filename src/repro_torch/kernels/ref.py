@@ -3,7 +3,9 @@
 These are naive on purpose (full score matrices, sequential recurrences,
 fp32 throughout): the CPU path of every wrapper, and what ``chip_smoke.py``
 holds each kernel against on the card.  The SSD forms compute in fp32, or
-in fp64 when given fp64 inputs (for ``torch.autograd.gradcheck``).
+in fp64 when given fp64 inputs (for ``torch.autograd.gradcheck``).  The
+simulator's landing ops keep uint64 counts in int64 storage (the same bits;
+torch's uint64 support is partial) and add with wraparound mod 2^64.
 """
 
 from __future__ import annotations
@@ -12,7 +14,9 @@ from typing import Optional
 
 import torch
 
-__all__ = ["attention_ref", "ssd_ref", "ssd_chunked_ref"]
+__all__ = [
+    "attention_ref", "ssd_ref", "ssd_chunked_ref", "segment_scatter_ref", "scatter_add_ref", "running_sum_ref",
+]
 
 
 def attention_ref(
@@ -159,3 +163,41 @@ def ssd_chunked_ref(
         y = y + D.to(f)[None, None, :, None] * x.to(f)
     y = y.to(x.dtype)
     return (y, h) if return_state else y
+
+
+def scatter_add_ref(dense: torch.Tensor, lin: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
+    """``dense[lin[i]] += cnt[i]`` in place, duplicates summed, on a 1-D
+    int64 ``dense`` (uint64 counts as int64).  An index outside ``dense`` is
+    skipped; returns their number as a ``(1,)`` int64 tensor, as the kernel
+    does, so that the caller can raise."""
+    ok = (lin >= 0) & (lin < dense.numel())
+    dense.index_put_((lin[ok],), cnt[ok], accumulate=True)
+    return (~ok).sum().reshape(1)
+
+
+def segment_scatter_ref(
+    seg: torch.Tensor, lin: torch.Tensor, cnt: torch.Tensor, n_segs: int, row_size: int
+):
+    """The segment scatter: a zeroed ``(n_segs, row_size)`` int64 table with
+    ``cnt[i]`` added at flat index ``seg[i] * row_size + lin[i]`` for every
+    event with ``seg[i] < n_segs``; the rest are dropped.  Returns the table
+    and the ``(1,)`` count of kept events whose flat index lies outside it."""
+    keep = seg < n_segs
+    table = torch.zeros(n_segs * row_size, dtype=torch.int64, device=seg.device)
+    bad = scatter_add_ref(table, seg[keep] * row_size + lin[keep], cnt[keep])
+    return table.reshape(n_segs, row_size), bad
+
+
+def running_sum_ref(values: torch.Tensor) -> torch.Tensor:
+    """Prefix sum along axis 0 as a strict left fold, one row at a time:
+    ``out[r] = out[r - 1] + values[r]``, so float64 rounds as
+    ``np.add.accumulate`` does (``torch.cumsum`` may reassociate)."""
+    out = torch.empty_like(values)
+    if values.shape[0] == 0:
+        return out
+    acc = values[0].clone()
+    out[0] = acc
+    for r in range(1, values.shape[0]):
+        acc = acc + values[r]
+        out[r] = acc
+    return out

@@ -1,4 +1,4 @@
-"""The CUDA kernels (flash attention, the SSD scan) against their plain versions, on the card.
+"""The CUDA kernels (flash attention, the SSD scan, the simulator's landing) against their plain versions, on the card.
 
 Imports torch and the port only (the card's machine has no JAX).  Every
 test needs an NVIDIA GPU and skips without one.  Run on the card:
@@ -6,13 +6,17 @@ test needs an NVIDIA GPU and skips without one.  Run on the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import segment_scatter as ss
 from repro_torch.kernels import ssd_scan as sk
-from repro_torch.kernels.ref import attention_ref, ssd_ref
+from repro_torch.kernels.ref import (
+    attention_ref, running_sum_ref, scatter_add_ref, segment_scatter_ref, ssd_ref,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -161,3 +165,108 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
     big = torch.zeros((1, 16, 1, 512), device=cuda)
     with pytest.raises(ValueError, match="d_state"):
         ops.ssd_scan(x, dt, A, big, big, D, chunk=16)
+
+
+# --------------------------------------------------------------------------- the simulator's landing
+def _events(n, n_segs, row_size, seed, big=False):
+    """seg (with overflow rows past n_segs), lin, cnt as int64 storage on the CPU."""
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(0, n_segs + 2, size=n)
+    lin = rng.integers(0, row_size, size=n)
+    cnt = rng.integers(1, 50, size=n).astype(np.uint64)
+    if big:  # counts near 2**64 and 2**63, so the sums wrap
+        cnt = np.where(rng.random(n) < 0.5, np.uint64((1 << 64) - 1000), np.uint64((1 << 63) - 10))
+    return torch.from_numpy(seg), torch.from_numpy(lin), torch.from_numpy(cnt.view(np.int64))
+
+
+@pytest.mark.parametrize("big", [False, True])
+@pytest.mark.parametrize("n,n_segs,row_size", [(2000, 1, 8), (2000, 5, 64), (2000, 16, 300), (100_000, 40, 1152)])
+def test_segment_kernel_matches_plain_bit_for_bit(cuda, n, n_segs, row_size, big):
+    seg, lin, cnt = _events(n, n_segs, row_size, seed=n_segs * row_size, big=big)
+    want, want_bad = segment_scatter_ref(seg, lin, cnt, n_segs, row_size)
+    before = ss.segment_scatter.launches
+    table, bad = ss.segment_scatter(seg.to(cuda), lin.to(cuda), cnt.to(cuda), n_segs, row_size)
+    torch.cuda.synchronize()
+    assert ss.segment_scatter.launches == before + 1
+    assert torch.equal(table.cpu(), want) and bad.item() == want_bad.item() == 0
+
+
+def test_segment_kernel_edges(cuda):
+    before = ss.segment_scatter.launches
+    e = torch.empty(0, dtype=torch.int64, device=cuda)
+    table, bad = ss.segment_scatter(e, e, e, 3, 5)
+    assert table.shape == (3, 5) and table.count_nonzero() == 0 and bad.item() == 0
+    seg = torch.full((64,), 9, dtype=torch.int64, device=cuda)
+    zero = torch.zeros(64, dtype=torch.int64, device=cuda)
+    assert ss.segment_scatter(seg, zero, zero + 1, 0, 16)[0].shape == (0, 16)
+    assert ss.segment_scatter.launches == before  # empty input and no rows launch nothing
+    table, bad = ss.segment_scatter(seg, zero, zero + 1, 4, 16)  # every event past the last row
+    assert table.count_nonzero() == 0 and bad.item() == 0
+    out_of_table = torch.tensor([0, 3], device=cuda)
+    table, bad = ss.segment_scatter(torch.tensor([0, 1], device=cuda), out_of_table, out_of_table, 2, 2)
+    assert bad.item() == 1 and table.tolist() == [[0, 0], [0, 0]]
+    assert ss.segment_scatter.launches == before + 2
+
+
+@pytest.mark.parametrize("big", [False, True])
+def test_accumulate_entry_matches_plain(cuda, big):
+    _, lin, cnt = _events(50_000, 0, 4096, seed=3, big=big)
+    base = torch.from_numpy(np.random.default_rng(4).integers(0, 1 << 40, size=4096))
+    want = base.clone()
+    assert scatter_add_ref(want, lin, cnt).item() == 0
+    dense = base.to(cuda)
+    before = ss.scatter_add.launches
+    assert ss.scatter_add(dense, lin.to(cuda), cnt.to(cuda)).item() == 0
+    assert ss.scatter_add.launches == before + 1
+    assert torch.equal(dense.cpu(), want)
+
+
+@pytest.mark.parametrize("shape", [(1,), (257,), (7367,), (64, 3), (300, 9)])
+def test_fold_kernel_matches_plain_bit_for_bit(cuda, shape):
+    rng = np.random.default_rng(sum(shape))
+    # adversarial magnitudes so any reassociation changes the rounding
+    vals = rng.uniform(-1.0, 1.0, size=shape) * (10.0 ** rng.integers(-8, 8, size=shape))
+    before = ss.running_sum.launches
+    got = ss.running_sum(torch.from_numpy(vals).to(cuda)).cpu()
+    assert ss.running_sum.launches == before + 1
+    assert torch.equal(got, running_sum_ref(torch.from_numpy(vals)))
+    assert np.array_equal(got.numpy(), np.add.accumulate(vals, axis=0))
+    ints = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, size=shape))
+    assert torch.equal(ss.running_sum(ints.to(cuda)).cpu(), running_sum_ref(ints))
+
+
+def test_batched_sweep_on_the_card_equals_numpy(cuda):
+    from repro_torch.core.array_ops import get_backend
+    from repro_torch.sim.batch import BatchJob, BatchRunner
+    from repro_torch.sim.scenarios import divergent_draws
+
+    ops = get_backend("torch")
+    calls = {"segment_scatter": 0, "scatter_add_u64": 0}
+    seg_op, add_op = ops.segment_scatter, ops.scatter_add_u64
+
+    def seg_counted(seg, lin, cnt, n_segs, row_size):
+        calls["segment_scatter"] += int(len(seg) > 0 and n_segs > 0)
+        return seg_op(seg, lin, cnt, n_segs, row_size)
+
+    def add_counted(dense, lin, cnt):
+        calls["scatter_add_u64"] += int(len(lin) > 0)
+        return add_op(dense, lin, cnt)
+
+    draws = divergent_draws(4, seed=0)
+    runs = {}
+    for backend in ("torch", "numpy"):
+        jobs = [BatchJob.make(d["scenario"], d["params"], config=dict(array_backend=backend)) for d in draws]
+        before = (ss.segment_scatter.launches, ss.scatter_add.launches)
+        ops.segment_scatter, ops.scatter_add_u64 = seg_counted, add_counted
+        try:
+            runs[backend] = BatchRunner(jobs, backend="batched").run()
+        finally:
+            del ops.segment_scatter, ops.scatter_add_u64
+        launched = (ss.segment_scatter.launches - before[0], ss.scatter_add.launches - before[1])
+        if backend == "torch":
+            assert launched == (calls["segment_scatter"], calls["scatter_add_u64"])
+            assert launched[0] >= 1 and launched[1] >= len(jobs) // 2
+        else:
+            assert launched == (0, 0)
+    assert runs["torch"].failures() == [] and runs["torch"].oracle_failures() == []
+    assert runs["torch"].signature() == runs["numpy"].signature()

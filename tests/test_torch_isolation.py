@@ -24,6 +24,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch.models, repro_torch.models.convert, repro_torch.serve, repro_torch.serve.loadgen\n"
         "import repro_torch.kernels.ssd_scan, repro_torch.models.mamba, repro_torch.optim, repro_torch.data\n"
         "import repro_torch.ckpt, repro_torch.train, repro_torch.train.__main__\n"
+        "import repro_torch.sim, repro_torch.sim.scenarios, repro_torch.sim.batch, repro_torch.sim.batched\n"
+        "import repro_torch.launch, repro_torch.launch.mesh_shapes, repro_torch.kernels.segment_scatter\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n"
     )
