@@ -8,11 +8,14 @@ Run from the root of a checkout, with no arguments:
 It builds the CUDA kernels from the checkout's sources (one ``nvcc`` per
 source, all started together) and drives the port's three paths:
 
-* serving: the flash-attention kernel held against its plain version and
-  timed; the deepseek-7b smoke config served on the card and on the CPU and
-  compared; deepseek-7b at full width (30 layers, d_model 4096, bf16, random
-  weights from a seed) served through the continuous-batching engine, with
-  the per-stream lanes checked and every prefill through the flash kernel;
+* serving: the flash-attention kernels held against their plain version
+  (bf16 on the tensor-core kernel, whose SASS must hold ``HGMMA`` and
+  ``UTMALDG``; fp32 on the SIMT kernel) and the bf16 one timed beside SDPA
+  at the serving lengths; the deepseek-7b smoke config served on the card
+  and on the CPU and compared; deepseek-7b at full width (30 layers,
+  d_model 4096, bf16, random weights from a seed) served through the
+  continuous-batching engine, with the per-stream lanes checked and every
+  prefill through the flash kernel;
 * training: the SSD-scan kernel held against the sequential plain scan and
   timed; the mamba2 smoke config trained, prefilled and decoded on the card
   and on the CPU and compared; mamba2-130m at its published shape (24
@@ -44,6 +47,9 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -59,8 +65,15 @@ import torch  # noqa: E402
 #: tests/test_kernels.py's shape set (B, S, Hq, Hkv, D): MHA, GQA, MQA ragged, S < block
 KERNEL_SHAPES = [(1, 128, 4, 4, 32), (2, 256, 8, 2, 64), (1, 192, 6, 1, 64), (2, 64, 2, 2, 128)]
 #: the main path's prefill attention: deepseek-7b, one prompt, 32 heads of 128
-MAIN_SEQS = (1, 17, 128, 500, 1024)
-TIMED_SEQS = (512, 1024)
+MAIN_SEQS = (1, 17, 63, 64, 65, 128, 500, 1024)
+#: timed at B=1, H=32, D=128, bf16, causal; the shortest and longest prompt
+#: that phase_full_width serves are timed beside these
+TIMED_SEQS = (256, 512, 1024)
+#: head dims of the bf16 kernel's shape checks (D = 32 takes the 64-byte swizzle)
+BF16_HEAD_DIMS = (32, 64, 128)
+#: SASS opcodes each instantiation of the bf16 flash kernel must hold: the
+#: tensor-core product (wgmma) and the TMA tile load
+SASS_OPS = ("HGMMA", "UTMALDG")
 FP32_TOL = dict(atol=2e-5, rtol=1e-4)
 BF16_TOL = dict(atol=2e-2, rtol=1e-2)  # as tests/test_kernels.py: bf16 keeps 8 significant bits
 #: smoke parity, card against CPU, both fp32 with TF32 off: the two differ
@@ -222,6 +235,25 @@ def phase_device():
     return smi
 
 
+def sass_counts(lib_path: str, out_path: Path):
+    """Per kernel function of a built library, how many of each of
+    ``SASS_OPS`` its SASS holds (``cuobjdump -sass``; the listing is written
+    to ``out_path``)."""
+    tool = shutil.which("cuobjdump") or str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, timeout=300, check=True).stdout
+    out_path.write_text(sass)
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None:
+            for op in SASS_OPS:
+                counts[fn][op] += len(re.findall(rf"\b{op}\b", line))
+    return counts
+
+
 def phase_build():
     from repro_torch.kernels import build
 
@@ -235,12 +267,23 @@ def phase_build():
         name: [ln.strip() for ln in str(i["log"]).splitlines() if "registers" in ln or "spill" in ln]
         for name, i in info.items()
     }
+    lib = info["flash_attention_wgmma"]["path"]
+    counts = sass_counts(lib, build.BUILD_DIR / "flash_attention_wgmma.sass")
+    per_dim = {}
+    for fn, c in counts.items():
+        m = re.search(r"flash_fwd_wgmmaILi(\d+)E", fn)
+        if m:
+            per_dim[f"D={m.group(1)}"] = c
+    check(sorted(per_dim) == sorted(f"D={d}" for d in BF16_HEAD_DIMS),
+          f"bf16 flash instantiations in the SASS: {sorted(per_dim)}")
+    for name, c in per_dim.items():
+        check(all(c[op] > 0 for op in SASS_OPS), f"bf16 flash kernel {name} lacks {SASS_OPS} in its SASS: {c}")
     emit({"phase": "build", "seconds": round(wall, 3),
           "per_kernel_s": {n: round(float(i["seconds"]), 3) for n, i in info.items()},
-          "ptxas": ptxas})
+          "ptxas": ptxas, "sass_flash_attention_wgmma": per_dim})
 
 
-def phase_kernel(smi: str):
+def phase_kernel(smi: str, served_lens):
     from repro_torch.kernels import ops
     from repro_torch.kernels import flash_attention as fa
 
@@ -260,6 +303,20 @@ def phase_kernel(smi: str):
     check(torch.count_nonzero(edge).item() == 0, "rows that see no key must give 0")
 
     bf16_err = 0.0
+    for i, (B, S, Hq, Hkv, _) in enumerate(KERNEL_SHAPES):
+        for D in BF16_HEAD_DIMS:
+            q, k, v = (randn(s, torch.bfloat16, 50 + 10 * i + j) for j, s in
+                       enumerate(((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))))
+            for causal in (True, False):
+                out = ops.flash_attention(q, k, v, causal=causal)
+                want = ops.flash_attention(q, k, v, causal=causal, impl="plain")
+                torch.cuda.synchronize()
+                bf16_err = max(bf16_err, (out.float() - want.float()).abs().max().item())
+                check(torch.allclose(out.float(), want.float(), **BF16_TOL),
+                      f"bf16 kernel disagrees with plain at {(B, S, Hq, Hkv, D)} causal={causal}")
+    edge = ops.flash_attention(randn((1, 5, 2, 32), torch.bfloat16, 98), empty_k.bfloat16(), empty_k.bfloat16(),
+                               causal=False)
+    check(torch.count_nonzero(edge).item() == 0, "bf16: rows that see no key must give 0")
     for S in MAIN_SEQS:
         q, k, v = (randn((1, S, 32, 128), torch.bfloat16, 100 + S + j) for j in range(3))
         out = ops.flash_attention(q, k, v, causal=True)
@@ -271,7 +328,7 @@ def phase_kernel(smi: str):
 
     peak_flops, peak_bw, peak_src = peaks(smi)
     timings = {}
-    for S in TIMED_SEQS:
+    for S in sorted({*TIMED_SEQS, *served_lens}):
         B, H, D = 1, 32, 128
         q, k, v = (randn((B, S, H, D), torch.bfloat16, 200 + S + j) for j in range(3))
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -294,10 +351,11 @@ def phase_kernel(smi: str):
     emit({"phase": "kernel", "name": "flash_attention", "fp32_max_abs_err": fp32_err,
           "bf16_max_abs_err": bf16_err, "tolerances": {"fp32": FP32_TOL, "bf16": BF16_TOL},
           "peaks": {"bf16_flops": peak_flops, "hbm_bytes_s": peak_bw, "source": peak_src},
-          "timing": {str(S): t for S, t in timings.items()},
-          "timing_note": f"median of {ROUNDS} readings, each the mean of {LAUNCHES} back-to-back "
-                         "calls replayed from one CUDA graph between CUDA events; kernel, plain and "
-                         "SDPA alternate; inputs warm in L2"})
+          "routes": {str(dt): fa.select_route(dt) for dt in fa.ROUTES},
+          "timing": {str(S): t for S, t in timings.items()}, "served_prompt_lens": list(served_lens),
+          "timing_note": f"B=1 H=32 D=128 bf16 causal (the wgmma kernel); median of {ROUNDS} readings, "
+                         f"each the mean of {LAUNCHES} back-to-back calls replayed from one CUDA graph "
+                         "between CUDA events; kernel, plain and SDPA alternate; inputs warm in L2"})
     fa.flash_attention.launches = 0  # comparisons and timings are not the main path's launches
     return bf16_err, timings
 
@@ -356,12 +414,32 @@ def phase_parity():
           "card_kernel_launches": gpu_launches})
 
 
+def _full_width_load(vocab: int):
+    """The serving trace phase_full_width replays: two tenants, 10 requests."""
+    from repro_torch.serve import LoadSpec, TenantSpec, generate_load
+
+    spec = LoadSpec(
+        tenants=(TenantSpec("interactive", rate=0.5, prompt_len=(128, 512), max_new_tokens=(16, 32), priority=1),
+                 TenantSpec("batch", rate=0.4, prompt_len=(128, 512), max_new_tokens=(16, 32))),
+        steps=12, seed=1,
+    )
+    return generate_load(spec, vocab)
+
+
+def served_prompt_lens():
+    """The shortest and longest prompt of the full-width trace."""
+    from repro_torch.configs import get_config
+
+    lens = [len(r.prompt) for _, r in _full_width_load(get_config("deepseek-7b").vocab_size)]
+    return min(lens), max(lens)
+
+
 def phase_full_width():
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models import Transformer
-    from repro_torch.serve import Engine, LoadSpec, ServeConfig, TenantSpec, generate_load, replay_load
+    from repro_torch.serve import Engine, ServeConfig, replay_load
 
     cfg = get_config("deepseek-7b")
     t0 = time.perf_counter()
@@ -370,12 +448,7 @@ def phase_full_width():
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
     eng = Engine(model, ServeConfig(n_slots=4, max_len=1024, batch_buckets=(1, 2)))
-    spec = LoadSpec(
-        tenants=(TenantSpec("interactive", rate=0.5, prompt_len=(128, 512), max_new_tokens=(16, 32), priority=1),
-                 TenantSpec("batch", rate=0.4, prompt_len=(128, 512), max_new_tokens=(16, 32))),
-        steps=12, seed=1,
-    )
-    load = generate_load(spec, cfg.vocab_size)
+    load = _full_width_load(cfg.vocab_size)
     check(8 <= len(load) <= 12, f"trace has {len(load)} requests, want 8-12")
 
     # warm-up outside the measured run: cuBLAS handles, allocator, the kernel library
@@ -1102,7 +1175,7 @@ def main() -> int:
 
     smi = phase_device()
     phase_build()
-    bf16_err, timings = phase_kernel(smi)
+    bf16_err, timings = phase_kernel(smi, served_prompt_lens())
     phase_parity()
     launches, op_err = phase_full_width()
     ssd_err, ssd_timings = phase_ssd_kernel(smi)
@@ -1118,6 +1191,10 @@ def main() -> int:
     gt = seg_timings[f"draws{SIM_DRAWS}"]
     emit({"kernels": [{
         "name": "flash_attention", "route": "cuda", "source": fa.SOURCE, "replaces": fa.REPLACES,
+        "design": "bf16: one warpgroup per 64-row query tile; S = Q K^T and O += P V on wgmma "
+                  "(bf16 in, fp32 accumulate; P from registers as two bf16 terms, V read transposed); Q and a 2-stage "
+                  "K/V ring by TMA with mbarriers, 128B swizzle; fp32 calls run the SIMT kernel "
+                  f"({fa.SIMT_SOURCE})",
         "launches": launches, "max_abs_err": max(bf16_err, op_err),
         "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -11,7 +11,8 @@ fills the engine's 4 slots with 256-token prompts, then traces one
 ``torch.profiler``.  For each window it prints one JSON line: host wall
 time, the summed duration of the CUDA kernels it ran (the device's busy
 time; one stream, so kernels do not overlap), the number of kernel
-launches, and the kernels that took the most device time.  The same work
+launches, the kernels that took the most device time and the flash-attention
+kernels' share.  The same work
 is also timed without the profiler, and the idle share is taken against
 that wall time: the profiler's own host cost is not device idle.
 Exits non-zero without a GPU.
@@ -43,6 +44,7 @@ def kernel_summary(prof, traced_s: float, wall_s: float, n: int):
     for e in kernels:
         by_name[e.name] += e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    flash_us = sum(us for name, us in by_name.items() if "flash_fwd" in name)
     return {
         "per": n,
         "traced_wall_ms": traced_s * 1e3 / n,
@@ -50,6 +52,7 @@ def kernel_summary(prof, traced_s: float, wall_s: float, n: int):
         "idle_share": max(0.0, 1.0 - busy_us / 1e6 / wall_s),
         "kernel_launches": len(kernels) / n,
         "top_kernels_ms": {name[:80]: us / 1e3 / n for name, us in top},
+        "flash_attention_ms": flash_us / 1e3 / n,
     }
 
 

@@ -29,6 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 #: kernel name → its source under ``csrc/``
 SOURCES: Dict[str, str] = {
     "flash_attention": "flash_attention.cu",
+    "flash_attention_wgmma": "flash_attention_wgmma.cu",
     "ssd_scan": "ssd_scan.cu",
     "array_ops": "array_ops.cu",
 }

@@ -1,0 +1,518 @@
+// Flash attention forward for Hopper (sm_90a) in bf16: both products on the
+// tensor cores (wgmma), the Q, K and V tiles brought in by TMA.  Plain C
+// interface.
+//
+// Replaces repro/kernels/flash_attention.py::flash_attention_pallas (the
+// Pallas TPU kernel _flash_kernel) for bf16, the serving path's type.  Same
+// function: softmax(q k^T * scale) v per query head, kv head h / group (GQA
+// read in place, no expanded K/V), causal or not, the ragged Sk edge
+// masked, the online softmax's running max, denominator and accumulator in
+// fp32, a row that sees no key gives 0.  fp32 inputs stay on the SIMT kernel
+// (flash_attention.cu): a TF32 product keeps ~10 bits of mantissa and would
+// miss the fp32 tolerance (2e-5) the fp32 checks hold the kernel to.
+//
+// Layout: q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D), out (B, Sq, Hq, D),
+// read and written through their strides (the head dim contiguous; base and
+// strides 16-byte aligned, as TMA needs: the wrapper checks).  D in 32, 64,
+// 128.
+//
+// Design.  One block of one warpgroup (128 threads) owns one (query head,
+// 64-row query tile, batch) and walks 64-column kv tiles to the causal
+// diagonal; blockIdx.x is the head, so the first wave holds every head's
+// longest causal tiles.  Thread 0 loads the Q tile and a ring of STAGES K/V
+// tiles by TMA (cp.async.bulk.tensor, 4-d tensor maps over the strided
+// inputs, one full mbarrier per tile), so the next tile's copy overlaps
+// this tile's products.  Per kv tile:
+//   S = Q K^T   wgmma m64n64k16, Q and K both K-major in shared memory;
+//   mask + online softmax on the fp32 accumulator fragment in registers
+//               (the causal diagonal and the ragged edge from each value's
+//               row and column; TMA zero-fills rows past Sk, so they must
+//               be masked or a zero could win a row's max);
+//   P -> bf16   in registers, as two terms hi + lo (below): the accumulator
+//               fragment of S is, pair for pair, the A fragment of the next
+//               product, so P never touches shared memory;
+//   O += P V    wgmma m64nNk16 with A from registers (hi, then lo) and V as
+//               B read transposed from shared memory (MN-major, allowed for
+//               16-bit types).
+//
+// Numerics.  One bf16 rounding of P (8 bits) is not enough: at deepseek-7b
+// full width, whose attention is near one-hot with |v| up to ~60, outputs
+// of ~0 where two keys' p v nearly cancel land up to 1.3x past the bf16
+// tolerance (atol 2e-2, rtol 1e-2) against the fp32-P plain version, in
+// every layer (scripts/flash_p_rounding.py counts them).  So P is carried
+// as hi = bf16(p) plus lo = bf16(p - hi), ~16 bits, and O += hi V + lo V:
+// twice the P V products, on tensor cores that this kernel leaves mostly
+// idle.  V and the scores need no such care (V is bf16 already; S
+// accumulates in fp32).
+//
+// Shared memory is 128-byte swizzled (64-byte for D = 32, whose rows are 64
+// bytes): the tensor maps and the wgmma descriptors name the same swizzle,
+// and every tile starts on a 1024-byte boundary so the swizzle phase is the
+// same in both.  A D = 128 tile is two 64-column chunks, each one TMA box.
+//
+// What bounds it.  The work is bound by bytes at these shapes (each of q, k,
+// v, out moved once: 8 B H S D bytes against 2 B H S^2 D causal FLOPs at the
+// bf16 tensor-core rate).  This first version keeps each warpgroup's
+// products and its softmax in sequence (no producer warp, no ping-pong of
+// two warpgroups, no persistent grid), so a block's time is its chain of
+// kv tiles; room is left for those: the ring and its barriers are what a
+// producer warp would drive.
+
+#include <cuda.h>  // CUtensorMap and its enums; libcuda's encoder is looked up at run time
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+#include <stdio.h>
+
+namespace {
+
+constexpr int BQ = 64;        // query rows per block (one wgmma M)
+constexpr int BK = 64;        // kv columns per tile
+constexpr int STAGES = 2;     // K/V ring depth
+constexpr int THREADS = 128;  // one warpgroup
+
+template <int D>
+struct Tile {
+  static constexpr int SW = D * 2 >= 128 ? 128 : D * 2;  // swizzle span = bytes of one chunk row
+  static constexpr int CW = SW / 2;                        // bf16 columns per chunk (one TMA box)
+  static constexpr int NCHUNK = D / CW;
+  static constexpr int CHUNK_BYTES = 64 * SW;               // 64 rows of one chunk
+  static constexpr int TILE_BYTES = NCHUNK * CHUNK_BYTES;   // a 64 x D bf16 tile
+  static constexpr int NB = D >= 64 ? 64 : D;               // output columns per P V wgmma
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;     // descriptor layout: 1 = 128B, 2 = 64B swizzle
+  static constexpr size_t SMEM = 1024 + size_t(1 + 2 * STAGES) * TILE_BYTES + 8 * (1 + 2 * STAGES);
+};
+
+struct Params {
+  void* o;
+  int Sq, Sk, Hq, Hkv;
+  long long o_sb, o_ss, o_sh;  // strides in elements
+  float scale_log2;            // scale * log2(e): the softmax runs in base 2
+  int causal;
+  int n_qtiles;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------- mbarrier and TMA
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// A copy that never lands (a tensor map the hardware refuses) traps after
+// ~2^28 polls instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 28)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// one 64-row tile: NCHUNK boxes of (CW columns x 64 rows), all on one barrier
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar, int row, int head,
+                                          int batch) {
+  using T = Tile<D>;
+  mbar_expect_tx(bar, T::TILE_BYTES);  // TMA counts the whole box, zero-filled rows included
+#pragma unroll
+  for (int c = 0; c < T::NCHUNK; ++c) tma_load(dst + c * T::CHUNK_BYTES, map, bar, c * T::CW, row, head, batch);
+}
+
+// ---------------------------------------------------------------- wgmma
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units) and the swizzle layout.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, uint64_t layout) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) | (uint64_t(sbo >> 4) << 32) |
+         (layout << 62);
+}
+
+// Q or K tile as a K-major operand (K = head dim), k-step kk (16 columns):
+// rows at SW bytes, 8-row groups at 8 SW; within a swizzled row the k-step
+// moves the start by 32 bytes (the hardware applies the swizzle to the
+// address, so the tile's 1024-byte alignment keeps it in phase).
+template <int D>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
+  using T = Tile<D>;
+  const uint32_t addr = tile + (kk * 16 / T::CW) * T::CHUNK_BYTES + (kk * 16 % T::CW) * 2;
+  return make_desc(addr, 16, 8 * T::SW, T::LAYOUT);
+}
+
+// V tile as an MN-major B operand (N = head dim, K = kv rows), output block
+// nb (NB columns, one swizzle atom wide) and k-step j (16 kv rows).  The
+// 8-row K groups lie 8 SW apart; N fits one atom, so the leading offset is
+// never stepped (given the same value, so either reading of the two fields
+// names the K-group stride).
+template <int D>
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int nb, int j) {
+  using T = Tile<D>;
+  const uint32_t addr = tile + nb * (T::NB / T::CW) * T::CHUNK_BYTES + j * 16 * T::SW;
+  return make_desc(addr, 8 * T::SW, 8 * T::SW, T::LAYOUT);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// keep the compiler from moving reads or writes of wgmma registers across
+// the asynchronous product
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define F4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
+#define F16(a, i) F4(a, i), F4(a, i + 4), F4(a, i + 8), F4(a, i + 12)
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], A and B from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : F16(d, 0), F16(d, 16)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], A from registers, B MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : F16(d, 0), F16(d, 16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 32] += A[64 x 16] B[16 x 32], A from registers, B MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : F16(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef F16
+#undef F4
+
+template <int NB>
+__device__ __forceinline__ void wgmma_pv(float (&d)[NB / 2], const uint32_t* a, uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&d)[32], const uint32_t* a, uint64_t db) {
+  wgmma_rs_n64(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<32>(float (&d)[16], const uint32_t* a, uint64_t db) {
+  wgmma_rs_n32(d, a, db);
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) { return *reinterpret_cast<const uint32_t*>(&v); }
+
+// ---------------------------------------------------------------- the kernel
+// Accumulator fragment of a wgmma m64nN (fp32), value i of a thread: row
+// warp*16 + lane/4 + 8*((i/2)%2), column (i/4)*8 + (lane%4)*2 + i%2.  So each
+// thread holds two rows (r0 and r0 + 8), shared with the 3 other threads of
+// its quad.
+template <int D>
+__global__ void __launch_bounds__(THREADS) flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                                                            const __grid_constant__ CUtensorMap tk,
+                                                            const __grid_constant__ CUtensorMap tv,
+                                                            const Params p) {
+  using T = Tile<D>;
+  constexpr int NOB = D / T::NB;  // output blocks per row
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms need 1024-byte alignment
+  const uint32_t sQ = base;
+  const uint32_t sK = sQ + T::TILE_BYTES;           // STAGES tiles
+  const uint32_t sV = sK + STAGES * T::TILE_BYTES;  // STAGES tiles
+  const uint32_t bar_q = sV + STAGES * T::TILE_BYTES;
+  const uint32_t bar_k = bar_q + 8;           // + 8 s
+  const uint32_t bar_v = bar_k + 8 * STAGES;  // + 8 s
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int h = blockIdx.x;
+  const int q0 = (p.n_qtiles - 1 - int(blockIdx.y)) * BQ;  // longest causal tiles first
+  const int b = blockIdx.z;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int k_end = p.causal ? min(p.Sk, q0 + BQ) : p.Sk;
+  const int nkv = (k_end + BK - 1) / BK;  // 0 when Sk == 0: no tile is loaded
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0 && nkv > 0) {
+    load_tile<D>(sQ, &tq, bar_q, q0, h, b);
+    for (int s = 0; s < STAGES && s < nkv; ++s) {
+      load_tile<D>(sK + s * T::TILE_BYTES, &tk, bar_k + 8 * s, s * BK, hk, b);
+      load_tile<D>(sV + s * T::TILE_BYTES, &tv, bar_v + 8 * s, s * BK, hk, b);
+    }
+  }
+
+  const int r0 = q0 + warp * 16 + (lane >> 2);  // this thread's rows: r0 and r0 + 8
+  const int cq = (lane & 3) * 2;                // its column pair within each 8-column group
+
+  float o[NOB][T::NB / 2];
+#pragma unroll
+  for (int nb = 0; nb < NOB; ++nb)
+#pragma unroll
+    for (int i = 0; i < T::NB / 2; ++i) o[nb][i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of s * scale * log2(e), per row
+  float l[2] = {0.f, 0.f};              // this thread's part of the running denominator
+
+  if (nkv > 0) mbar_wait(bar_q, 0);
+  for (int it = 0; it < nkv; ++it) {
+    const int s = it % STAGES;
+    const uint32_t phase = (it / STAGES) & 1;
+    const int k0 = it * BK;
+    const uint32_t tK = sK + s * T::TILE_BYTES, tV = sV + s * T::TILE_BYTES;
+
+    // S = Q K^T
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    mbar_wait(bar_k + 8 * s, phase);
+    pin(sc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(sc, desc_kmajor<D>(sQ, kk), desc_kmajor<D>(tK, kk));
+    wg_commit();
+    wg_wait0();
+    pin(sc);
+
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] *= p.scale_log2;
+    // the ragged edge and the causal diagonal: only the last tiles need it
+    if (k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > q0)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = k0 + (i >> 2) * 8 + cq + (i & 1);
+        const int row = r0 + ((i >> 1) & 1) * 8;
+        if (col >= p.Sk || (p.causal && col > row)) sc[i] = -INFINITY;
+      }
+    }
+
+    // online softmax on the fragment, in base 2
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float shift[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // a row with nothing visible yet keeps m = -inf: shift by 0 so that
+      // exp2 gives 0 instead of nan
+      shift[r] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[r] = exp2f(m[r] - shift[r]);
+      m[r] = m_new;
+    }
+    uint32_t pa[16], pb[16];  // P = hi + lo in bf16: pa[4j .. 4j+3] (hi), pb (lo) the A fragments of k-step j
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = (i >> 1) & 1;
+      const float p0 = exp2f(sc[i] - shift[r]);
+      const float p1 = exp2f(sc[i + 1] - shift[r]);
+      rs[r] += p0 + p1;
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+      const float2 hf = __bfloat1622float2(hi);
+      pa[i >> 1] = bits(hi);
+      pb[i >> 1] = bits(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int nb = 0; nb < NOB; ++nb)
+#pragma unroll
+      for (int i = 0; i < T::NB / 2; ++i) o[nb][i] *= alpha[(i >> 1) & 1];
+
+    // O += P V
+    mbar_wait(bar_v + 8 * s, phase);
+#pragma unroll
+    for (int nb = 0; nb < NOB; ++nb) pin(o[nb]);
+    pin(pa);
+    pin(pb);
+    wg_fence();
+#pragma unroll
+    for (int nb = 0; nb < NOB; ++nb)
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) {
+        const uint64_t dv = desc_mnmajor<D>(tV, nb, j);
+        wgmma_pv<T::NB>(o[nb], pa + 4 * j, dv);
+        wgmma_pv<T::NB>(o[nb], pb + 4 * j, dv);
+      }
+    wg_commit();
+    wg_wait0();
+#pragma unroll
+    for (int nb = 0; nb < NOB; ++nb) pin(o[nb]);
+
+    // every warp is done with stage s: refill it with the tile STAGES ahead
+    __syncthreads();
+    if (tid == 0 && it + STAGES < nkv) {
+      load_tile<D>(tK, &tk, bar_k + 8 * s, (it + STAGES) * BK, hk, b);
+      load_tile<D>(tV, &tv, bar_v + 8 * s, (it + STAGES) * BK, hk, b);
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = l[r] == 0.f ? 0.f : 1.f / l[r];  // a row that sees no key gives 0
+  }
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= p.Sq) continue;
+    __nv_bfloat16* orow = out + row * p.o_ss;
+#pragma unroll
+    for (int nb = 0; nb < NOB; ++nb)
+#pragma unroll
+      for (int g = 0; g < T::NB / 8; ++g) {
+        const int i = g * 4 + 2 * r;
+        *reinterpret_cast<__nv_bfloat162*>(orow + nb * T::NB + g * 8 + cq) =
+            __floats2bfloat162_rn(o[nb][i] * inv[r], o[nb][i + 1] * inv[r]);
+      }
+  }
+}
+
+// ---------------------------------------------------------------- host side
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda, which this library does not link
+// (it links only the CUDA runtime), so take its entry point from the runtime
+// once.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+constexpr int ERR_NO_ENCODE = -1000;  // libcuda offers no cuTensorMapEncodeTiled
+
+// A 4-d map over a (B, S, H, D) bf16 tensor: dims innermost first, strides in
+// bytes of dims 1..3, box = one chunk of CW columns x 64 rows of one head.
+// Returns 0 or the negated CUresult.
+int make_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B, long long ss, long long sh,
+             long long sb, int cw, int swizzle_bytes) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return ERR_NO_ENCODE;
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(S), cuuint64_t(H), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(ss) * 2, cuuint64_t(sh) * 2, cuuint64_t(sb) * 2};
+  const cuuint32_t box[4] = {cuuint32_t(cw), cuuint32_t(BK), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -int(r);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, int B, const Params& p, const long long* st,
+           cudaStream_t stream) {
+  using T = Tile<D>;
+  static_assert(BQ == BK, "one box shape serves Q, K and V");
+  CUtensorMap tq{}, tk{}, tv{};  // K and V stay unencoded when Sk == 0: no tile is loaded
+  int err = make_map(&tq, q, D, p.Sq, p.Hq, B, st[1], st[2], st[0], T::CW, T::SW);
+  if (err == 0 && p.Sk > 0) err = make_map(&tk, k, D, p.Sk, p.Hkv, B, st[4], st[5], st[3], T::CW, T::SW);
+  if (err == 0 && p.Sk > 0) err = make_map(&tv, v, D, p.Sk, p.Hkv, B, st[7], st[8], st[6], T::CW, T::SW);
+  if (err != 0) return err;
+  const cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             int(T::SMEM));
+  if (e != cudaSuccess) return int(e);
+  const dim3 grid(p.Hq, p.n_qtiles, B);
+  flash_fwd_wgmma<D><<<grid, THREADS, T::SMEM, stream>>>(tq, tk, tv, p);
+  return int(cudaGetLastError());
+}
+
+}  // namespace
+
+// bf16 only.  Strides in elements, (batch, seq, head) for q, k, v and out in
+// that order.  Returns 0, a cudaError_t (> 0), or a negated CUresult of the
+// tensor-map encoding (< 0); repro_flash_wgmma_error_string names it.
+extern "C" int repro_flash_attention_fwd_wgmma(
+    const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int Hq, int Hkv, int D,
+    long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long o_sb, long long o_ss, long long o_sh,
+    float scale, int causal, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0) return int(cudaErrorInvalidValue);
+  if (B == 0 || Sq == 0 || Hq == 0) return 0;
+  const Params p{o, Sq, Sk, Hq, Hkv, o_sb, o_ss, o_sh, scale * 1.4426950408889634f, causal, (Sq + BQ - 1) / BQ};
+  const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch<32>(q, k, v, B, p, st, s);
+    case 64: return launch<64>(q, k, v, B, p, st, s);
+    case 128: return launch<128>(q, k, v, B, p, st, s);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" const char* repro_flash_wgmma_error_string(int err) {
+  static char buf[128];
+  if (err == ERR_NO_ENCODE) return "libcuda offers no cuTensorMapEncodeTiled";
+  if (err < 0) {
+    snprintf(buf, sizeof(buf), "cuTensorMapEncodeTiled failed with CUresult %d", -err);
+    return buf;
+  }
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

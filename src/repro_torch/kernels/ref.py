@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 
 __all__ = [
-    "attention_ref", "ssd_ref", "ssd_chunked_ref", "segment_scatter_ref", "scatter_add_ref", "running_sum_ref",
+    "attention_ref", "flash_blocked_ref", "ssd_ref", "ssd_chunked_ref", "segment_scatter_ref", "scatter_add_ref", "running_sum_ref",
 ]
 
 
@@ -65,6 +65,93 @@ def attention_ref(
     p = p * mask.any(dim=-1)[:, None, None, :, None]  # all-masked rows → 0
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
     return o.reshape(B, Sq, Hq, -1).to(q.dtype)
+
+
+def flash_blocked_ref(
+    q: torch.Tensor,  # (B, Sq, Hq, D)
+    k: torch.Tensor,  # (B, Sk, Hkv, D)
+    v: torch.Tensor,  # (B, Sk, Hkv, Dv)
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    prefix_len: int = 0,
+    q_block: int = 256,
+    kv_block: int = 1024,
+    n_causal_chunks: int = 8,
+    p_bf16_terms: int = 0,
+) -> torch.Tensor:
+    """Blocked online-softmax attention, the reference's ``_xla_flash``
+    (``repro/kernels/ops.py:38``) in torch: the same blocks, masks and
+    fp32 running max, denominator and accumulator as a flash kernel.
+
+    Causal attention runs at most ``n_causal_chunks`` query chunks, each over
+    the kv blocks up to its diagonal; every kv block takes the padded-tail,
+    causal and prefix-LM masks.  ``p_bf16_terms`` models the bf16
+    tensor-core kernel's rounding of the probabilities before the second
+    product: 0 keeps them fp32 (the reference), 1 rounds P to bf16, 2
+    carries P as ``hi + lo`` with ``hi = bf16(P)`` and ``lo = bf16(P - hi)``,
+    as the kernel does; the denominator sums them unrounded, as the kernel
+    does."""
+    if p_bf16_terms not in (0, 1, 2):
+        raise ValueError(f"p_bf16_terms is 0, 1 or 2, got {p_bf16_terms}")
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    Dv = v.shape[-1]  # MLA: the value width may differ from the key width
+    G = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qf = q.float().reshape(B, Sq, Hkv, G, D)
+    kf, vf = k.float(), v.float()
+    neg = torch.finfo(torch.float32).min
+
+    def chunk_attn(q0: int, qc: torch.Tensor, k_end: int) -> torch.Tensor:
+        nb = max(1, -(-k_end // kv_block))
+        pad = max(0, nb * kv_block - Sk)
+        kb = torch.nn.functional.pad(kf, (0, 0, 0, 0, 0, pad))[:, : nb * kv_block]
+        vb = torch.nn.functional.pad(vf, (0, 0, 0, 0, 0, pad))[:, : nb * kv_block]
+        rows = q0 + torch.arange(qc.shape[1], device=q.device) + (Sk - Sq)
+        m = torch.full(qc.shape[:-1], neg, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(qc.shape[:-1] + (Dv,), dtype=torch.float32, device=q.device)
+        for ki in range(nb):
+            kblk = kb[:, ki * kv_block : (ki + 1) * kv_block]
+            vblk = vb[:, ki * kv_block : (ki + 1) * kv_block]
+            s = torch.einsum("bqhgd,bkhd->bqhgk", qc, kblk) * scale
+            cols = ki * kv_block + torch.arange(kv_block, device=q.device)
+            mask = cols[None, :] < k_end  # padded kv tail
+            if causal:
+                cmask = rows[:, None] >= cols[None, :]
+                if prefix_len > 0:
+                    cmask = cmask | (cols[None, :] < prefix_len)
+                mask = mask & cmask
+            s = s.masked_fill(~mask[None, :, None, None, :], neg)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            pv = p
+            if p_bf16_terms:
+                pv = p.to(torch.bfloat16).float()
+                if p_bf16_terms == 2:
+                    pv = pv + (p - pv).to(torch.bfloat16).float()
+            acc = acc * alpha[..., None] + torch.einsum("bqhgk,bkhd->bqhgd", pv, vblk)
+            m = m_new
+        l = torch.where(l == 0.0, torch.ones_like(l), l)
+        return acc / l[..., None]
+
+    if not causal:
+        o = chunk_attn(0, qf, Sk)
+        return o.reshape(B, Sq, Hq, Dv).to(q.dtype)
+    n_chunks = min(n_causal_chunks, max(1, -(-Sq // q_block)))
+    qc_size = -(-Sq // n_chunks)
+    outs = []
+    for i in range(n_chunks):
+        q0, q1 = i * qc_size, min((i + 1) * qc_size, Sq)
+        if q0 >= q1:
+            break
+        k_end = min(Sk, q1 + (Sk - Sq))
+        outs.append(chunk_attn(q0, qf[:, q0:q1], max(1, k_end)))
+    o = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    return o.reshape(B, Sq, Hq, Dv).to(q.dtype)
 
 
 def _ssd_dtype(x: torch.Tensor) -> torch.dtype:

@@ -1,4 +1,4 @@
-"""The CUDA kernels (flash attention, the SSD scan, the simulator's landing) against their plain versions, on the card.
+"""The CUDA kernels (flash attention, bf16 on wgmma and fp32 on the CUDA cores; the SSD scan; the simulator's landing) against their plain versions, on the card.
 
 Imports torch and the port only (the card's machine has no JAX).  Every
 test needs an NVIDIA GPU and skips without one.  Run on the card:
@@ -52,13 +52,69 @@ def test_kernel_fp32_matches_plain(cuda, shape, causal):
     torch.testing.assert_close(out, want, atol=2e-5, rtol=1e-4)
 
 
-@pytest.mark.parametrize("S", [1, 17, 128, 500])
+@pytest.mark.parametrize("S", [1, 17, 63, 64, 65, 128, 500, 1024])
 def test_kernel_bf16_matches_plain(cuda, S):
+    """bf16 runs on the tensor-core kernel (wgmma + TMA) at the serving
+    shape: one tile, a tile and one row, ragged lengths."""
     q, k, v = _qkv((1, S, 32, 32, 128), torch.bfloat16, cuda, seed=S)
+    before = fa.flash_attention.launches
     out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1 and fa.select_route(q.dtype) == "wgmma"
     want = attention_ref(q, k, v, causal=True)
     assert out.dtype == torch.bfloat16
     torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_wgmma_kernel_matches_plain_on_kernel_shapes(cuda, shape, causal, D):
+    """MHA, GQA, MQA with a ragged length and a length below one tile, at
+    every head dim the kernel takes (D = 32 uses the 64-byte swizzle)."""
+    q, k, v = _qkv(shape[:4] + (D,), torch.bfloat16, cuda, seed=shape[1] + D)
+    out = ops.flash_attention(q, k, v, causal=causal)
+    want = ops.flash_attention(q, k, v, causal=causal, impl="plain")
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("Sq,Sk,scale", [(48, 150, None), (130, 64, 0.3), (1, 1000, None)])
+def test_wgmma_kernel_cross_length_and_scale(cuda, Sq, Sk, scale):
+    """Non-causal attention whose query and key lengths differ (the Q and K/V
+    tensor maps span different lengths) and a scale other than D^-0.5."""
+    q, k, v = _qkv((2, Sq, 6, 3, 64), torch.bfloat16, cuda, seed=Sq + Sk, Sk=Sk)
+    out = ops.flash_attention(q, k, v, causal=False, scale=scale)
+    want = attention_ref(q, k, v, causal=False, scale=scale)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=1e-2)
+
+
+def test_wgmma_kernel_reads_packed_qkv_and_empty_kv(cuda):
+    qkv = torch.randn(2, 96, 3, 4, 64, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    for causal in (True, False):
+        torch.testing.assert_close(
+            ops.flash_attention(q, k, v, causal=causal).float(),
+            attention_ref(q, k, v, causal=causal).float(), atol=2e-2, rtol=1e-2,
+        )
+    q0, k0, v0 = _qkv((1, 5, 2, 2, 32), torch.bfloat16, cuda, Sk=0)
+    before = fa.flash_attention.launches
+    out = ops.flash_attention(q0, k0, v0, causal=False)
+    assert fa.flash_attention.launches == before + 1  # the kernel writes the zeros itself
+    assert out.shape == (1, 5, 2, 32) and torch.count_nonzero(out) == 0
+
+
+def test_wgmma_kernel_refuses_misaligned_inputs(cuda):
+    """TMA needs a 16-byte-aligned base and strides: such inputs raise and
+    never reach the SIMT kernel or the plain version."""
+    buf = torch.randn(1, 16, 2, 40, device=cuda).to(torch.bfloat16)
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="aligned base"):
+        ops.flash_attention(buf[..., 1:33], buf[..., :32], buf[..., :32])
+    odd = torch.randn(1, 16, 2, 36, device=cuda).to(torch.bfloat16)[..., :32]  # 72-byte head stride
+    with pytest.raises(ValueError, match="aligned strides"):
+        ops.flash_attention(odd, odd, odd)
+    assert fa.flash_attention.launches == before
 
 
 def test_kernel_reads_strided_inputs_and_empty_kv(cuda):

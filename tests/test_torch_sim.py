@@ -274,9 +274,10 @@ def test_kernel_exit_log_text_is_the_reference_text():
     """Character for character, once the kernel uids (each package counts its
     own, process-wide) are renumbered in order of appearance."""
 
-    def text(res):
+    def text(res):  # the log names a uid three ways: "uid: 5", "uid 0", "kernel_launch_uid = 5"
         uids = {}
-        return re.sub(r"uid (\d+)", lambda m: f"uid {uids.setdefault(m.group(1), len(uids))}", "\n".join(res.log))
+        return re.sub(r"(uid:? |uid = )(\d+)", lambda m: f"{m.group(1)}{uids.setdefault(m.group(2), len(uids))}",
+                      "\n".join(res.log))
 
     want = text(ref_build("l2_lat").make_sim(engine="event").run())
     got = text(build("l2_lat").make_sim(engine="event", config=SimConfig(array_backend="torch:cpu")).run())
