@@ -16,8 +16,10 @@ source, all started together) and drives the port's three paths:
   d_model 4096, bf16, random weights from a seed) served through the
   continuous-batching engine, with the per-stream lanes checked and every
   prefill through the flash kernel;
-* training: the SSD-scan kernel held against the sequential plain scan and
-  timed; the mamba2 smoke config trained, prefilled and decoded on the card
+* training: the SSD-scan kernels held against the sequential plain scan
+  (bf16 on the tensor-core kernel, whose SASS must hold ``HGMMA`` and
+  ``UTMALDG``; fp32 on the SIMT kernel) and both timed in bf16; the mamba2
+  smoke config trained, prefilled and decoded on the card
   and on the CPU and compared; mamba2-130m at its published shape (24
   layers, d_model 768, bf16 compute, fp32 parameters) trained for a few tens
   of steps with an eval lane, with the loss, the per-stream lanes and the
@@ -27,7 +29,8 @@ source, all started together) and drives the port's three paths:
 * the simulator: the segment-scatter kernel (the batched sweep's stat
   landing), its accumulate entry and the sequential-fold kernel held bit for
   bit against their plain versions, on test shapes and on the sweep's real
-  landing inputs, and the segment kernel timed beside ``index_add_``; then
+  landing inputs, and the segment kernel and its accumulate entry timed
+  beside ``index_add_``; then
   the full scenario registry at 64 divergent draws each (1,088 jobs) run
   through ``BatchRunner(backend="batched")`` on ``array_backend="torch"``,
   with its signature held against the same jobs on NumPy, zero failed jobs
@@ -209,6 +212,25 @@ def time_interleaved(fns, warmup: int = 3, eager=()):
             readings[name].append(start.elapsed_time(end) / LAUNCHES)
     return {name: {"median": statistics.median(r), "min": min(r), "max": max(r)}
             for name, r in readings.items()}
+
+
+def device_breakdown(fn):
+    """Device microseconds of one call of ``fn`` (after one warm-up call), by
+    kernel, memset or memcpy, from a ``torch.profiler`` trace: where the time
+    of a call that launches more than one kernel goes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.sub(r"\(.*", "", e.name.replace("(anonymous namespace)::", ""))[:48]
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us()
+    return out
 
 
 def randn(shape, dtype, seed):
@@ -568,7 +590,12 @@ def _rel(a, b) -> float:
 
 
 def phase_ssd_kernel(smi: str):
-    from repro_torch.kernels import ops
+    """The SSD kernels against the sequential plain scan: fp32 on the SIMT
+    kernel at SSD_SHAPES, bf16 on the tensor-core kernel (whose SASS must
+    hold HGMMA and UTMALDG) at mamba2-130m's width on every SSD_SEQS length
+    with and without h0; then both kernels timed in bf16 beside the plain
+    chunked form at the training shapes."""
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels import ssd_scan as sk
     from repro_torch.kernels.ref import ssd_ref
 
@@ -583,17 +610,27 @@ def phase_ssd_kernel(smi: str):
             check(torch.allclose(y, want_y, **SSD_FP32_TOL) and torch.allclose(h, want_h, **SSD_FP32_TOL),
                   f"fp32 SSD kernel disagrees with ssd_ref at {shape} h0={with_h0}")
     H, P, N, G = SSD_WIDTH
+    check(sk.select_route(torch.bfloat16) == "wgmma" and sk.select_route(torch.float32) == "simt",
+          "SSD routes: bf16 on the tensor-core kernel, fp32 on the SIMT kernel")
     bf16_err, h_rel = 0.0, 0.0
     for S in SSD_SEQS:
-        x, dt, A, Bm, Cm, D, _ = _ssd_inputs(1, S, H, P, N, G, torch.bfloat16, 400 + S)
-        y, h = sk.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256)
-        want_y, want_h = ssd_ref(x, dt, A, Bm, Cm, D, return_state=True)
-        torch.cuda.synchronize()
-        bf16_err = max(bf16_err, (y.float() - want_y.float()).abs().max().item())
-        h_rel = max(h_rel, _rel(h, want_h))
-        check(y.dtype == torch.bfloat16 and h.dtype == torch.float32, "SSD output dtypes")
-        check(torch.allclose(y.float(), want_y.float(), **SSD_BF16_TOL), f"bf16 SSD kernel disagrees on y at S={S}")
-        check(torch.allclose(h, want_h, **SSD_BF16_TOL), f"bf16 SSD kernel disagrees on h_final at S={S}")
+        for with_h0 in (False, True):
+            x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(1, S, H, P, N, G, torch.bfloat16, 400 + S, with_h0)
+            y, h = sk.ssd_scan(x, dt, A, Bm, Cm, D, h0, chunk=256)
+            want_y, want_h = ssd_ref(x, dt, A, Bm, Cm, D, h0, return_state=True)
+            torch.cuda.synchronize()
+            bf16_err = max(bf16_err, (y.float() - want_y.float()).abs().max().item())
+            h_rel = max(h_rel, _rel(h, want_h))
+            check(y.dtype == torch.bfloat16 and h.dtype == torch.float32, "SSD output dtypes")
+            check(torch.allclose(y.float(), want_y.float(), **SSD_BF16_TOL),
+                  f"bf16 SSD kernel disagrees on y at S={S} h0={with_h0}")
+            check(torch.allclose(h, want_h, **SSD_BF16_TOL), f"bf16 SSD kernel disagrees on h_final at S={S} h0={with_h0}")
+    lib = build.build(["ssd_scan_wgmma"])["ssd_scan_wgmma"]["path"]
+    sass = {fn: c for fn, c in sass_counts(lib, build.BUILD_DIR / "ssd_scan_wgmma.sass").items()
+            if re.search(r"ssd_(prep|out)ILi(64|128)E", fn)}
+    sass = {re.search(r"(ssd_(?:prep|out))ILi(\d+)E", fn).expand(r"\1<N=\2>"): c for fn, c in sass.items()}
+    check(len(sass) == 4 and all(c[op] > 0 for c in sass.values() for op in SASS_OPS),
+          f"bf16 SSD kernels lack {SASS_OPS} in their SASS: {sass}")
 
     peak_flops, peak_bw, peak_src = peaks(smi)
     timings = {}
@@ -601,6 +638,7 @@ def phase_ssd_kernel(smi: str):
         x, dt, A, Bm, Cm, D, _ = _ssd_inputs(B, S, H, P, N, G, torch.bfloat16, 500 + S)
         ms = time_interleaved({
             "kernel": lambda: sk.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256),
+            "simt": lambda: sk.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256, route="simt"),
             "plain": lambda: ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256, impl="plain"),
         })
         flops = sk.ssd_flops(B, S, H, P, N)
@@ -609,19 +647,24 @@ def phase_ssd_kernel(smi: str):
         nbytes = 2 * 2 * B * S * H * P + 4 * B * S * H + 2 * 2 * B * S * G * N + 2 * 4 * H + 4 * B * H * P * N
         t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
         timings[f"B{B}_S{S}"] = {
-            "kernel_ms": ms["kernel"]["median"], "plain_ms": ms["plain"]["median"], "library_ms": None,
-            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "kernel_ms": ms["kernel"]["median"], "simt_ms": ms["simt"]["median"], "plain_ms": ms["plain"]["median"],
+            "library_ms": None, "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes,
+            "tiles_per_chunk": sk.tiles_per_chunk(B, H, S, torch.cuda.get_device_properties(0).multi_processor_count),
             "spread_ms": {name: [m["min"], m["max"]] for name, m in ms.items()},
+            "device_us_by_kernel": device_breakdown(lambda: sk.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256)),
         }
     emit({"phase": "ssd_kernel", "name": "ssd_scan", "fp32_max_abs_err": fp32_err, "bf16_max_abs_err": bf16_err,
           "bf16_h_final_rel_l2": h_rel, "tolerances": {"fp32": SSD_FP32_TOL, "bf16": SSD_BF16_TOL},
+          "routes": {"bfloat16": sk.select_route(torch.bfloat16), "float32": sk.select_route(torch.float32)},
+          "sass_ssd_scan_wgmma": sass,
           "bound": "FLOPs 2L^2N + 2L^2P + 4LNP per (batch, head, 64-row tile), the causal half counted "
-                   "(the kernel computes it); bytes as listed, at the bf16 dense peak and HBM rate",
+                   "and C B^T per head (the SIMT kernel's count, kept); bytes as listed, at the bf16 dense peak and HBM rate",
           "timing": timings,
           "timing_note": f"median of {ROUNDS} readings, each the mean of {LAUNCHES} back-to-back calls "
-                         "replayed from one CUDA graph between CUDA events; kernel and plain alternate; "
-                         "inputs warm in L2; no single PyTorch call computes the SSD scan (library: none)"})
+                         "replayed from one CUDA graph between CUDA events; the tensor-core kernel (kernel), "
+                         "the SIMT kernel on the same bf16 inputs (simt) and the plain chunked form "
+                         "alternate; inputs warm in L2; no single PyTorch call computes the SSD scan (library: none)"})
     return max(bf16_err, fp32_err), timings
 
 
@@ -839,6 +882,7 @@ def phase_ssd_op(model, probe):
                                                                                    ("seq", sy))},
             "outside_bf16_tol_vs_fp64": {n: int((~torch.isclose(v.double(), dy, **SSD_BF16_TOL)).sum())
                                          for n, v in (("kernel", y), ("plain", py), ("seq", sy))},
+            "outside_bf16_tol_vs_seq": int((~torch.isclose(y.float(), sy.float(), **SSD_BF16_TOL)).sum()),
             "max_abs_out": dy.abs().max().item(), "max_abs_x": x.float().abs().max().item(),
             "max_dt": dt.max().item(),
             "worst": {"kernel": y.flatten()[worst].item(), "plain": py.flatten()[worst].item(),
@@ -889,7 +933,11 @@ def _sim_jobs(draws, engine, backend):
 class _OpCalls:
     """Wraps an array-ops object's methods in place for one run: counts the
     calls that hand a kernel work (non-empty input), sums their host wall,
-    and keeps each ``segment_scatter`` call's inputs when asked to."""
+    and, when asked to, keeps each ``segment_scatter`` call's inputs and the
+    largest ``scatter_add_u64`` call's (the buffer before and after) among
+    the calls made from outside the wrapped methods: NumpyOps lands its
+    segment scatter through its own ``scatter_add_u64``, which is not a
+    stats flush."""
 
     NON_EMPTY = {
         "segment_scatter": lambda seg, lin, cnt, n_segs, row_size: len(seg) > 0 and n_segs > 0,
@@ -904,15 +952,27 @@ class _OpCalls:
         self.kernel_calls = {n: 0 for n in self.NON_EMPTY}
         self.wall_s = {n: 0.0 for n in self.NON_EMPTY}
         self.landings = []  # (seg, lin, cnt, n_segs, row_size, table) of each segment_scatter call
+        self.largest_flush = None  # (dense before, lin, cnt, dense after) of the largest scatter_add_u64 call
+        self._depth = 0  # wrapped calls in progress
 
     def __enter__(self):
         for name, non_empty in self.NON_EMPTY.items():
             method = getattr(self.ops, name)
 
             def counted(*args, _name=name, _method=method, _non_empty=non_empty):
+                before = None
+                if _name == "scatter_add_u64" and self.keep_inputs and self._depth == 0 and len(args[1]) > (
+                        len(self.largest_flush[1]) if self.largest_flush else 0):
+                    before = args[0].copy()
                 t0 = time.perf_counter()
-                out = _method(*args)
+                self._depth += 1
+                try:
+                    out = _method(*args)
+                finally:
+                    self._depth -= 1
                 self.wall_s[_name] += time.perf_counter() - t0
+                if before is not None:
+                    self.largest_flush = (before, args[1].copy(), args[2].copy(), args[0].copy())
                 self.calls[_name] += 1
                 self.kernel_calls[_name] += int(_non_empty(*args))
                 if _name == "segment_scatter" and self.keep_inputs:
@@ -947,7 +1007,7 @@ def phase_segment_kernel(smi: str):
             result = BatchRunner(jobs, backend="batched").run()
             wall = time.perf_counter() - t0
         check(result.failures() == [] and rec.landings, f"numpy sweep at {k} draws: {result.failures()[:3]}")
-        sweeps[k] = {"result": result, "wall_s": wall, "landings": rec.landings}
+        sweeps[k] = {"result": result, "wall_s": wall, "landings": rec.landings, "flush": rec.largest_flush}
 
     rng = np.random.default_rng(0)
     cases = []  # (label, seg, lin, cnt uint64, n_segs, row_size, numpy's table or None)
@@ -1042,19 +1102,47 @@ def phase_segment_kernel(smi: str):
             "host_readings_ms": host,
         }
         del seg_d, lin_d, cnt_d, flat_d, kept_d
+
+    # the accumulate entry on the largest stats flush of the SIM_DRAWS sweep, beside index_add_
+    before, lin, cnt, after = sweeps[SIM_DRAWS]["flush"]
+    lin_d, cnt_d, base = _u64_on_card(lin), _u64_on_card(cnt), _u64_on_card(before)
+    got, lib_out = base.clone(), base.clone()
+    bad = ss.scatter_add(got, lin_d, cnt_d)
+    lib_out.index_add_(0, lin_d, cnt_d)
+    for name, out in (("accumulate entry", got), ("index_add_", lib_out)):
+        check(np.array_equal(out.cpu().numpy().view(np.uint64), after), f"{name} differs from numpy's largest flush")
+    check(bad.item() == 0, "accumulate entry counted out-of-buffer indices on the largest flush")
+    dense_k, dense_p, dense_l = base.clone(), base.clone(), base.clone()
+    ms = time_interleaved({
+        "kernel": lambda: ss.scatter_add(dense_k, lin_d, cnt_d),
+        "plain": lambda: scatter_add_ref(dense_p, lin_d, cnt_d),
+        "library": lambda: dense_l.index_add_(0, lin_d, cnt_d),
+    }, eager=("plain",))
+    touched = int(np.unique(lin).size)
+    nbytes = 16 * len(lin) + 16 * touched
+    accumulate = {
+        "events": len(lin), "buffer_cells": int(before.size), "touched_cells": touched,
+        "kernel_ms": ms["kernel"]["median"], "plain_ms": ms["plain"]["median"], "library_ms": ms["library"]["median"],
+        "bound_ms": nbytes / peak_bw * 1e3, "bound_by": "bytes", "bytes": nbytes,
+        "spread_ms": {name: [m["min"], m["max"]] for name, m in ms.items()},
+    }
+    del lin_d, cnt_d, base, got, lib_out, dense_k, dense_p, dense_l
     emit({"phase": "segment_kernel", "name": "segment_scatter", "cases": rows, "max_abs_err": max_err,
           "accumulate_entry_equal": True, "fold": fold, "tolerance": "exact equality (uint64 mod 2^64)",
           "peaks": {"hbm_bytes_s": peak_bw, "source": peak_src},
           "bound": "(24 bytes per event + 8 per table cell, the zero fill included) / HBM rate",
-          "timing": timings,
+          "timing": timings, "accumulate_entry": accumulate,
           "timing_note": f"median of {ROUNDS} readings of {LAUNCHES} calls each between CUDA events; kernel "
                          "and index_add_ (zero fill + one index_add_ of the kept events' precomputed flat "
                          "index) replayed from a CUDA graph, the plain version (its boolean mask syncs) run "
                          "eagerly; inputs warm in L2; op walls are host-clock medians of "
-                         f"{HOST_ROUNDS} calls of TorchOps / NumpyOps.segment_scatter, numpy in and out",
+                         f"{HOST_ROUNDS} calls of TorchOps / NumpyOps.segment_scatter, numpy in and out; "
+                         f"the accumulate entry and index_add_ add the {SIM_DRAWS}-draw sweep's largest flush "
+                         "into their own copy of its buffer, in place, call after call (bound: 16 bytes an "
+                         "event + 16 a touched cell)",
           "numpy_sweep_wall_s": {str(k): sw["wall_s"] for k, sw in sweeps.items()}})
     ss.segment_scatter.launches = ss.scatter_add.launches = ss.running_sum.launches = 0
-    return max_err, timings, sweeps[SIM_DRAWS]
+    return max_err, timings, accumulate, sweeps[SIM_DRAWS]
 
 
 def phase_sim_sweep(numpy_sweep):
@@ -1165,7 +1253,7 @@ def phase_sim_sweep(numpy_sweep):
           "compiled": {"draws": SIM_COMPILED_DRAWS, "jobs": len(cdraws), "signature_equal_numpy": True,
                        "launches": c_launches, "calls": ccalls}})
     ss.segment_scatter.launches = ss.scatter_add.launches = ss.running_sum.launches = 0
-    return launches["segment_scatter"]
+    return launches
 
 
 def main() -> int:
@@ -1184,7 +1272,7 @@ def main() -> int:
     phase_decode_full_width(model)
     ssd_op_err = phase_ssd_op(model, probe)
     del model, probe
-    seg_err, seg_timings, numpy_sweep = phase_segment_kernel(smi)
+    seg_err, seg_timings, acc_timing, numpy_sweep = phase_segment_kernel(smi)
     seg_launches = phase_sim_sweep(numpy_sweep)
     t = timings[512]
     st = ssd_timings["B4_S256"]
@@ -1201,17 +1289,31 @@ def main() -> int:
         "shape": "B=1 S=512 Hq=Hkv=32 D=128 bf16 causal",
     }, {
         "name": "ssd_scan", "route": "cuda", "source": sk.SOURCE, "replaces": sk.REPLACES,
+        "design": "bf16: the chunked-parallel form in three kernels; C B^T once per (batch, group, 64-row tile) "
+                  "and each chunk's own state X^T (B w) in parallel, the states passed across chunks in fp32, "
+                  "then per (batch, head, chunk) y = exp(cum) (C h^T) + M X; every product on wgmma (bf16 in, "
+                  "fp32 accumulate; M, x w and the entering state as two bf16 terms), x/B/C tiles by TMA, 128B "
+                  f"swizzle; fp32 calls run the SIMT kernel ({sk.SIMT_SOURCE}: one block per (batch, head, "
+                  "32 state rows) walking the tiles in order, fp32 FMAs), timed beside it in bf16 as simt_ms",
         "launches": ssd_launches, "max_abs_err": max(ssd_err, ssd_op_err),
-        "ms": st["kernel_ms"], "kernel_ms": st["kernel_ms"], "plain_ms": st["plain_ms"],
+        "ms": st["kernel_ms"], "kernel_ms": st["kernel_ms"], "plain_ms": st["plain_ms"], "simt_ms": st["simt_ms"],
         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": None,
         "shape": "B=4 S=256 H=24 P=64 N=128 G=1 bf16 (the training microbatch)",
+        "long": {k: ssd_timings["B1_S4096"][k] for k in ("kernel_ms", "simt_ms", "plain_ms", "bound_ms")},
     }, {
         "name": "segment_scatter", "route": "cuda", "source": ss.SOURCE, "replaces": ss.REPLACES,
-        "launches": seg_launches, "max_abs_err": seg_err,
+        "design": "zero fill by cudaMemsetAsync; a warp takes 64 consecutive events (16-byte loads where "
+                  "aligned), sums equal keys (__match_any_sync + a uint64 shuffle tree) and lands each key "
+                  "with one 64-bit atomicAdd from its lowest lane; the accumulate entry (no seg column, no "
+                  "fill) the same",
+        "launches": seg_launches["segment_scatter"], "max_abs_err": seg_err,
         "ms": gt["kernel_ms"], "kernel_ms": gt["kernel_ms"], "plain_ms": gt["plain_ms"],
         "bound_ms": gt["bound_ms"], "bound_by": gt["bound_by"], "library_ms": gt["library_ms"],
         "shape": f"E={gt['events']} events into a ({gt['n_segs']}, {gt['row_size']}) uint64 table "
                  f"(the {SIM_DRAWS}-draw sweep's landing)",
+        "accumulate_entry": {"launches": seg_launches["scatter_add_u64"],
+                             **{k: acc_timing[k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                                                           "events", "buffer_cells")}},
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C interface.  ``nvcc``
-compiles it for ``sm_90a`` into a shared library under ``build/repro_torch/``
-at the root of the checkout, named by a digest of its source and flags, so a
-changed source rebuilds and an unchanged one is loaded as it is.  The
+Each kernel is one ``csrc/*.cu`` file with a plain C interface; the
+tensor-core kernels share ``csrc/hopper.cuh``.  ``nvcc`` compiles each source
+for ``sm_90a`` into a shared library under ``build/repro_torch/`` at the root
+of the checkout, named by a digest of its source, the shared headers and the
+flags, so a changed source or header rebuilds and an unchanged one is loaded
+as it is.  The
 wrappers load the library with ``ctypes`` at their first launch; importing
 this module runs no compiler, so the package imports on a host without
 ``nvcc``.
@@ -31,6 +33,7 @@ SOURCES: Dict[str, str] = {
     "flash_attention": "flash_attention.cu",
     "flash_attention_wgmma": "flash_attention_wgmma.cu",
     "ssd_scan": "ssd_scan.cu",
+    "ssd_scan_wgmma": "ssd_scan_wgmma.cu",
     "array_ops": "array_ops.cu",
 }
 
@@ -59,8 +62,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    parts = [(CSRC / SOURCES[name]).read_bytes()] + [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

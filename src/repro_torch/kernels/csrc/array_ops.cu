@@ -13,23 +13,34 @@
 //
 // Design.  The TPU kernel walks the events in order with a fori_loop over
 // one VMEM-resident table and masks a dropped event onto row 0 with a zero
-// count.  Here one thread takes one event (a grid-stride loop, 64-bit
-// indices) and lands it with a 64-bit atomicAdd, so events land in no fixed
-// order.  uint64 addition is associative and commutative mod 2^64, so the
-// order cannot change a bit of the result: it equals the sequential fold
-// exactly, wraparound included.  A dropped event is skipped, not masked.
-// An event whose flat index falls outside the table is skipped as well and
-// counted in *bad, so that a bad index can never write outside the buffer
-// and the caller can raise (NumPy raises an IndexError there).
+// count.  Here the events land with 64-bit atomicAdds, so they land in no
+// fixed order.  uint64 addition is associative and commutative mod 2^64,
+// so neither the order nor any grouping of the adds can change a bit of the
+// result: it equals the sequential fold exactly, wraparound included.  A
+// dropped event is skipped, not masked.  An event whose flat index falls
+// outside the table is skipped as well and counted in *bad, so that a bad
+// index can never write outside the buffer and the caller can raise (NumPy
+// raises an IndexError there).
+//
+// Equal keys are summed before they reach device memory.  A warp takes a
+// window of 64 consecutive events, two per lane, each column read with one
+// 16-byte load per lane where the three columns are 16-byte aligned (plain
+// 8-byte loads otherwise).  A lane whose two events share a key adds them.
+// Then, once for the lanes' first events and once for their second,
+// __match_any_sync groups the lanes by key, the group's counts are summed
+// down a shuffle tree (uint64) and the group's lowest lane issues the one
+// atomicAdd.  The landing's seg column is sorted (run-major, then report
+// segment), so a window's events fall on a few cells of one or two table
+// rows and most windows land with a handful of atomics instead of 64; any
+// order stays exact, sortedness only makes it faster.  Dropped, bad and
+// missing events carry the key -1, which no lane lands.
 //
 // What bounds it.  The work is one add per event; the bytes are 24 per event
 // (seg, lin, cnt) and 8 per table cell (the zero fill and the write back),
 // so it is bound by bytes, and at the simulator's sizes mostly by the table:
-// 99.9 % of the cells stay zero.  This first kernel leaves the zero fill to
-// cudaMemsetAsync and lands every event with its own atomic; events that
-// hit one cell serialise on it in L2.  Aggregating equal keys within a warp
-// (__match_any_sync) or in shared memory first is later work.
-//
+// 99.9 % of the cells stay zero.  The zero fill is cudaMemsetAsync; the
+// scatter then reads its columns once and writes only the touched cells.
+
 // Sequential fold.  The device path of ArrayOps.running_sum: out[r, c] =
 // out[r - 1, c] + in[r, c], a strict left fold down each column, so float64
 // rounds exactly as np.add.accumulate does (a parallel scan would
@@ -38,30 +49,92 @@
 // behaviour.  The reference's JaxOps folds with lax.scan, outside Pallas.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr long long MAX_BLOCKS = 132 * 16;  // 16 blocks per SM; the grid strides over the rest
 
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WINDOW = 64;  // events a warp takes per step: two per lane
+
+// Sum v over the lanes of `peers` (the lanes holding this lane's key) into
+// the group's lowest lane, by a shuffle tree: each round a lane adds the
+// partial sum of the next peer above it that is still open, and the peers
+// at odd positions drop out (the scheme of NVIDIA's "Voting and Shuffling to
+// Optimize Atomic Operations").  Every lane of the warp takes part.
+__device__ __forceinline__ unsigned long long sum_peers(unsigned peers, unsigned long long v, int lane) {
+  unsigned rank = __popc(peers & ((1u << lane) - 1u));  // peers below this lane
+  peers &= ~((2u << lane) - 1u);                       // peers above this lane
+  while (__any_sync(FULL, peers != 0)) {
+    const int next = __ffs(peers);  // 1 + the nearest open peer above, or 0
+    const unsigned long long t = __shfl_sync(FULL, v, next > 0 ? next - 1 : lane);
+    if (next > 0) v += t;
+    peers &= ~__ballot_sync(FULL, rank & 1u);  // peers at odd positions are summed in
+    rank >>= 1;
+  }
+  return v;
+}
+
+// One key per lane: lanes of equal key (>= 0) land their summed count once.
+__device__ __forceinline__ void land(long long key, unsigned long long c, int lane,
+                                     unsigned long long* __restrict__ table) {
+  const unsigned peers = __match_any_sync(FULL, key);
+  const unsigned long long sum = sum_peers(peers, c, lane);
+  if (key >= 0 && lane == __ffs(peers) - 1) atomicAdd(table + key, sum);
+}
+
+template <bool VEC, typename T>
+__device__ __forceinline__ void load2(const T* __restrict__ col, long long i, long long n, T (&v)[2]) {
+  if (VEC && i + 1 < n) {
+    const ulonglong2 p = *reinterpret_cast<const ulonglong2*>(col + i);  // i is even: 16-byte aligned
+    v[0] = static_cast<T>(p.x);
+    v[1] = static_cast<T>(p.y);
+  } else {
+    v[0] = i < n ? col[i] : 0;
+    v[1] = i + 1 < n ? col[i + 1] : 0;
+  }
+}
+
+template <bool VEC>
 __global__ void scatter_kernel(const long long* __restrict__ seg, const long long* __restrict__ lin,
                                const unsigned long long* __restrict__ cnt, long long n,
                                long long n_segs, long long row_size, long long size,
                                unsigned long long* __restrict__ table, unsigned long long* __restrict__ bad) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n; i += stride) {
-    long long flat = lin[i];
-    if (seg != nullptr) {
-      const long long s = seg[i];
-      if (s >= n_segs) continue;  // after the final report boundary: dropped
-      flat += s * row_size;
+  const int lane = threadIdx.x & 31;
+  const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const long long warps = (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
+  unsigned long long n_bad = 0;
+  for (long long base = warp * WINDOW; base < n; base += warps * WINDOW) {  // uniform across the warp
+    const long long i = base + 2 * lane;
+    long long key[2], s[2] = {0, 0};
+    unsigned long long c[2];
+    load2<VEC>(lin, i, n, key);
+    load2<VEC>(cnt, i, n, c);
+    if (seg != nullptr) load2<VEC>(seg, i, n, s);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (i + j >= n || (seg != nullptr && s[j] >= n_segs)) {  // no event, or dropped past the last row
+        key[j] = -1;
+        continue;
+      }
+      if (seg != nullptr) key[j] += s[j] * row_size;
+      if (key[j] < 0 || key[j] >= size) {
+        ++n_bad;
+        key[j] = -1;
+      }
     }
-    if (flat < 0 || flat >= size) {
-      atomicAdd(bad, 1ULL);
-      continue;
+    if (key[0] >= 0 && key[0] == key[1]) {
+      c[0] += c[1];  // wraps mod 2^64, as every add here does
+      key[1] = -1;
     }
-    atomicAdd(table + flat, cnt[i]);
+    land(key[0], c[0], lane, table);
+    if (__any_sync(FULL, key[1] >= 0)) land(key[1], c[1], lane, table);
   }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) n_bad += __shfl_xor_sync(FULL, n_bad, off);
+  if (lane == 0 && n_bad > 0) atomicAdd(bad, n_bad);
 }
 
 template <typename T>
@@ -77,9 +150,23 @@ __global__ void fold_kernel(const T* __restrict__ in, T* __restrict__ out, long 
   }
 }
 
-int grid_for(long long n) {
-  const long long blocks = (n + THREADS - 1) / THREADS;
+int grid_for(long long n) {  // one warp per window of events; the grid strides over the rest
+  const long long blocks = (n + WINDOW * (THREADS / 32) - 1) / (WINDOW * (THREADS / 32));
   return static_cast<int>(blocks < MAX_BLOCKS ? blocks : MAX_BLOCKS);
+}
+
+bool aligned16(const void* p) { return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// the scatter, with 16-byte loads where every column allows them
+int launch_scatter(const long long* seg, const long long* lin, const unsigned long long* cnt, long long n,
+                   long long n_segs, long long row_size, long long size, unsigned long long* table,
+                   unsigned long long* bad, cudaStream_t s) {
+  if (aligned16(seg) && aligned16(lin) && aligned16(cnt)) {
+    scatter_kernel<true><<<grid_for(n), THREADS, 0, s>>>(seg, lin, cnt, n, n_segs, row_size, size, table, bad);
+  } else {
+    scatter_kernel<false><<<grid_for(n), THREADS, 0, s>>>(seg, lin, cnt, n, n_segs, row_size, size, table, bad);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -98,8 +185,7 @@ extern "C" int repro_segment_scatter(const long long* seg, const long long* lin,
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n == 0) return 0;
-  scatter_kernel<<<grid_for(n), THREADS, 0, s>>>(seg, lin, cnt, n, n_segs, row_size, size, table, bad);
-  return static_cast<int>(cudaGetLastError());
+  return launch_scatter(seg, lin, cnt, n, n_segs, row_size, size, table, bad, s);
 }
 
 // Accumulate entry: dense[lin[i]] += cnt[i] into the caller's dense buffer of
@@ -111,8 +197,7 @@ extern "C" int repro_scatter_add(const long long* lin, const unsigned long long*
   cudaError_t err = cudaMemsetAsync(bad, 0, sizeof(unsigned long long), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n == 0) return 0;
-  scatter_kernel<<<grid_for(n), THREADS, 0, s>>>(nullptr, lin, cnt, n, 1, size, size, dense, bad);
-  return static_cast<int>(cudaGetLastError());
+  return launch_scatter(nullptr, lin, cnt, n, 1, size, size, dense, bad, s);
 }
 
 // Sequential fold down axis 0 of a contiguous (rows, cols) array; dtype 0 is

@@ -58,14 +58,13 @@
 // kv tiles; room is left for those: the ring and its barriers are what a
 // producer warp would drive.
 
-#include <cuda.h>  // CUtensorMap and its enums; libcuda's encoder is looked up at run time
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
-#include <stdio.h>
+
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int BQ = 64;        // query rows per block (one wgmma M)
 constexpr int BK = 64;        // kv columns per tile
@@ -93,44 +92,6 @@ struct Params {
   int n_qtiles;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---------------------------------------------------------------- mbarrier and TMA
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-// A copy that never lands (a tensor map the hardware refuses) traps after
-// ~2^28 polls instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    if (polls == (1u << 28)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
 // one 64-row tile: NCHUNK boxes of (CW columns x 64 rows), all on one barrier
 template <int D>
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar, int row, int head,
@@ -141,14 +102,7 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, 
   for (int c = 0; c < T::NCHUNK; ++c) tma_load(dst + c * T::CHUNK_BYTES, map, bar, c * T::CW, row, head, batch);
 }
 
-// ---------------------------------------------------------------- wgmma
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle layout.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, uint64_t layout) {
-  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) | (uint64_t(sbo >> 4) << 32) |
-         (layout << 62);
-}
-
+// ---------------------------------------------------------------- wgmma operands
 // Q or K tile as a K-major operand (K = head dim), k-step kk (16 columns):
 // rows at SW bytes, 8-row groups at 8 SW; within a swizzled row the k-step
 // moves the start by 32 bytes (the hardware applies the swizzle to the
@@ -172,64 +126,6 @@ __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int nb, int j) {
   return make_desc(addr, 8 * T::SW, 8 * T::SW, T::LAYOUT);
 }
 
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-
-// keep the compiler from moving reads or writes of wgmma registers across
-// the asynchronous product
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define F4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
-#define F16(a, i) F4(a, i), F4(a, i + 4), F4(a, i + 8), F4(a, i + 12)
-
-// d[64 x 64] += A[64 x 16] B[16 x 64], A and B from shared memory, both K-major
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : F16(d, 0), F16(d, 16)
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// d[64 x 64] += A[64 x 16] B[16 x 64], A from registers, B MN-major (transposed)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : F16(d, 0), F16(d, 16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[64 x 32] += A[64 x 16] B[16 x 32], A from registers, B MN-major (transposed)
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : F16(d, 0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef F16
-#undef F4
-
 template <int NB>
 __device__ __forceinline__ void wgmma_pv(float (&d)[NB / 2], const uint32_t* a, uint64_t db);
 template <>
@@ -240,8 +136,6 @@ template <>
 __device__ __forceinline__ void wgmma_pv<32>(float (&d)[16], const uint32_t* a, uint64_t db) {
   wgmma_rs_n32(d, a, db);
 }
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) { return *reinterpret_cast<const uint32_t*>(&v); }
 
 // ---------------------------------------------------------------- the kernel
 // Accumulator fragment of a wgmma m64nN (fp32), value i of a thread: row
@@ -423,58 +317,15 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma(const __grid_constant
 }
 
 // ---------------------------------------------------------------- host side
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda, which this library does not link
-// (it links only the CUDA runtime), so take its entry point from the runtime
-// once.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-constexpr int ERR_NO_ENCODE = -1000;  // libcuda offers no cuTensorMapEncodeTiled
-
-// A 4-d map over a (B, S, H, D) bf16 tensor: dims innermost first, strides in
-// bytes of dims 1..3, box = one chunk of CW columns x 64 rows of one head.
-// Returns 0 or the negated CUresult.
-int make_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B, long long ss, long long sh,
-             long long sb, int cw, int swizzle_bytes) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return ERR_NO_ENCODE;
-  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(S), cuuint64_t(H), cuuint64_t(B)};
-  const cuuint64_t strides[3] = {cuuint64_t(ss) * 2, cuuint64_t(sh) * 2, cuuint64_t(sb) * 2};
-  const cuuint32_t box[4] = {cuuint32_t(cw), cuuint32_t(BK), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -int(r);
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, int B, const Params& p, const long long* st,
            cudaStream_t stream) {
   using T = Tile<D>;
   static_assert(BQ == BK, "one box shape serves Q, K and V");
   CUtensorMap tq{}, tk{}, tv{};  // K and V stay unencoded when Sk == 0: no tile is loaded
-  int err = make_map(&tq, q, D, p.Sq, p.Hq, B, st[1], st[2], st[0], T::CW, T::SW);
-  if (err == 0 && p.Sk > 0) err = make_map(&tk, k, D, p.Sk, p.Hkv, B, st[4], st[5], st[3], T::CW, T::SW);
-  if (err == 0 && p.Sk > 0) err = make_map(&tv, v, D, p.Sk, p.Hkv, B, st[7], st[8], st[6], T::CW, T::SW);
+  int err = make_map(&tq, q, D, p.Sq, p.Hq, B, st[1], st[2], st[0], T::CW, BK, T::SW);
+  if (err == 0 && p.Sk > 0) err = make_map(&tk, k, D, p.Sk, p.Hkv, B, st[4], st[5], st[3], T::CW, BK, T::SW);
+  if (err == 0 && p.Sk > 0) err = make_map(&tv, v, D, p.Sk, p.Hkv, B, st[7], st[8], st[6], T::CW, BK, T::SW);
   if (err != 0) return err;
   const cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              int(T::SMEM));
@@ -507,12 +358,4 @@ extern "C" int repro_flash_attention_fwd_wgmma(
   }
 }
 
-extern "C" const char* repro_flash_wgmma_error_string(int err) {
-  static char buf[128];
-  if (err == ERR_NO_ENCODE) return "libcuda offers no cuTensorMapEncodeTiled";
-  if (err < 0) {
-    snprintf(buf, sizeof(buf), "cuTensorMapEncodeTiled failed with CUresult %d", -err);
-    return buf;
-  }
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+extern "C" const char* repro_flash_wgmma_error_string(int err) { return hopper::error_string(err); }

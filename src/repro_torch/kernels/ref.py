@@ -15,7 +15,8 @@ from typing import Optional
 import torch
 
 __all__ = [
-    "attention_ref", "flash_blocked_ref", "ssd_ref", "ssd_chunked_ref", "segment_scatter_ref", "scatter_add_ref", "running_sum_ref",
+    "attention_ref", "flash_blocked_ref", "ssd_ref", "ssd_chunked_ref", "ssd_tiled_ref", "segment_scatter_ref",
+    "segment_scatter_warp_ref", "scatter_add_ref", "running_sum_ref",
 ]
 
 
@@ -250,6 +251,125 @@ def ssd_chunked_ref(
         y = y + D.to(f)[None, None, :, None] * x.to(f)
     y = y.to(x.dtype)
     return (y, h) if return_state else y
+
+
+def _bf16_terms(v: torch.Tensor, terms: int) -> torch.Tensor:
+    """``v`` as the tensor cores see it: 0 keeps it (fp32), 1 rounds it to
+    bf16, 2 carries it as ``hi + lo`` with ``hi = bf16(v)`` and ``lo =
+    bf16(v - hi)``."""
+    if terms == 0:
+        return v
+    hi = v.to(torch.bfloat16).float()
+    return hi if terms == 1 else hi + (v - hi).to(torch.bfloat16).float()
+
+
+def ssd_tiled_ref(
+    x, dt, A, Bm, Cm, D=None, h0=None, *, tile: int = 64, tiles_per_chunk: int = 1,
+    m_terms: int = 0, h_terms: int = 0, xw_terms: int = 0,
+):
+    """The bf16 tensor-core SSD kernel's three phases in plain torch, fp32.
+
+    The sequence is cut into tiles of ``tile`` rows (the last one padded
+    with dt = 0, which leaves it inert) and the tiles into chunks of
+    ``tiles_per_chunk``.  (1) Per tile: ``cum`` = inclusive prefix of A·dt,
+    ``C Bᵀ`` per (batch, group), and per chunk its own state, tile by tile
+    from 0: ``h = exp(cum_L)·h + Xwᵀ B`` with ``Xw = x ⊙ exp(cum_L − cum)·dt``.
+    (2) Across chunks in order: the entering state ``h_in[c]``, from ``h0``,
+    and the final state.  (3) Per tile, from the entering state and the
+    state update inside the chunk: ``y = M X + exp(cum_t)·(C hᵀ)`` with
+    ``M = tril(C Bᵀ) ⊙ exp(cum_t − cum_s) ⊙ dt_s + diag(D)`` (the skip term on
+    M's diagonal, as the kernel does).
+
+    ``m_terms``, ``h_terms`` and ``xw_terms`` round M, the state entering
+    each tile's ``C hᵀ`` and ``Xw`` to bf16 before their products as the
+    kernel does (:func:`_bf16_terms`: 0 none, 1 one term, 2 hi + lo); C, B
+    and x enter as given.  Returns y in x's dtype and the final state."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    L, Q = tile, tiles_per_chunk
+    nT = -(-S // L)
+    pad = nT * L - S
+    f = torch.float32
+    xf = torch.nn.functional.pad(x.to(f), (0, 0, 0, 0, 0, pad)).reshape(Bsz, nT, L, H, P)
+    dtf = torch.nn.functional.pad(dt.to(f), (0, 0, 0, pad)).reshape(Bsz, nT, L, H)
+    Bf = torch.nn.functional.pad(Bm.to(f), (0, 0, 0, 0, 0, pad)).reshape(Bsz, nT, L, G, N)
+    Cf = torch.nn.functional.pad(Cm.to(f), (0, 0, 0, 0, 0, pad)).reshape(Bsz, nT, L, G, N)
+    Bh, Ch = Bf.repeat_interleave(rep, dim=3), Cf.repeat_interleave(rep, dim=3)  # (B, nT, L, H, N)
+
+    cum = torch.cumsum(A.to(f) * dtf, dim=2)  # (B, nT, L, H)
+    cum_L = cum[:, :, -1]  # (B, nT, H)
+    w = torch.exp(cum_L[:, :, None] - cum) * dtf
+    xw = _bf16_terms(xf * w[..., None], xw_terms)
+    local = torch.einsum("btlhp,btlhn->bthpn", xw, Bh)  # each tile's own state
+
+    # (1) each chunk's own state, tile by tile from 0; (2) the pass across chunks
+    nC = -(-nT // Q)
+    h = h0.to(f) if h0 is not None else x.new_zeros((Bsz, H, P, N), dtype=f)
+    h_tile = []  # the state entering each tile
+    for c in range(nC):
+        own = torch.zeros_like(h)
+        for q in range(c * Q, min((c + 1) * Q, nT)):
+            own = own * torch.exp(cum_L[:, q])[..., None, None] + local[:, q]
+        enter = h
+        h = h * torch.exp(cum_L[:, c * Q : (c + 1) * Q].sum(1))[..., None, None] + own
+        # (3) inside the chunk, the state moves on tile by tile from its entering state
+        for q in range(c * Q, min((c + 1) * Q, nT)):
+            h_tile.append(enter)
+            enter = enter * torch.exp(cum_L[:, q])[..., None, None] + local[:, q]
+    h_in = _bf16_terms(torch.stack(h_tile, dim=1), h_terms) if nT else xf.new_zeros((Bsz, 0, H, P, N))
+
+    CB = torch.einsum("btlgn,btsgn->btgls", Cf, Bf).repeat_interleave(rep, dim=2)  # (B, nT, H, L, L)
+    diff = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).movedim(-1, 2)  # (B, nT, H, L, L): cum_t − cum_s
+    tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    M = CB.masked_fill(~tri, 0.0) * torch.exp(diff.masked_fill(~tri, float("-inf")))
+    M = M * dtf.movedim(-1, 2)[:, :, :, None, :]
+    if D is not None:
+        M = M + torch.diag_embed(D.to(f)[None, None, :, None].expand(Bsz, nT, H, L))
+    M = _bf16_terms(M, m_terms)
+    y = torch.einsum("bthls,btshp->btlhp", M, xf)
+    y = y + torch.exp(cum)[..., None] * torch.einsum("btlhn,bthpn->btlhp", Ch, h_in)
+    y = y.reshape(Bsz, nT * L, H, P)[:, :S].to(x.dtype)
+    return y, h
+
+
+def segment_scatter_warp_ref(
+    seg: torch.Tensor, lin: torch.Tensor, cnt: torch.Tensor, n_segs: int, row_size: int, seg_col: bool = True
+):
+    """The segment kernel's warp-aggregated landing, step for step.
+
+    A warp takes a window of 64 consecutive events, lane ``l`` holding
+    events ``2l`` and ``2l + 1``.  A dropped (``seg >= n_segs``), missing
+    (past the end) or out-of-table event carries key -1 and lands nothing
+    (the out-of-table ones are counted).  A lane whose two events share a
+    key adds the second's count into the first.  Then, once for the lanes'
+    first events and once for their second, the lanes of equal key sum
+    their counts (uint64 as int64, wrapping) and the lowest of them lands
+    the sum.  ``seg_col=False`` is the accumulate entry (``seg`` ignored,
+    the key is ``lin``).  Returns the table, the ``(1,)`` count of kept
+    events outside it, and the number of landings (the kernel's atomics)."""
+    n, size = lin.numel(), n_segs * row_size
+    key = (seg * row_size + lin) if seg_col else lin.clone()
+    kept = (seg < n_segs) if seg_col else torch.ones(n, dtype=torch.bool, device=lin.device)
+    bad = kept & ((key < 0) | (key >= size))
+    key = torch.where(kept & ~bad, key, torch.full_like(key, -1))
+    pad = -n % 64
+    key = torch.nn.functional.pad(key, (0, pad), value=-1).reshape(-1, 32, 2)  # (window, lane, event)
+    c = torch.nn.functional.pad(cnt, (0, pad)).reshape(-1, 32, 2).clone()
+    pair = (key[..., 0] >= 0) & (key[..., 0] == key[..., 1])
+    c[..., 0] += torch.where(pair, c[..., 1], torch.zeros_like(c[..., 1]))
+    key[..., 1] = torch.where(pair, torch.full_like(key[..., 1], -1), key[..., 1])
+    table = torch.zeros(size, dtype=torch.int64, device=lin.device)
+    landings = 0
+    for j in (0, 1):
+        k, v = key[..., j], c[..., j]  # (window, lane)
+        peers = k[:, :, None] == k[:, None, :]  # (window, lane, other lane)
+        leader = peers.int().argmax(dim=2) == torch.arange(32, device=lin.device)  # lowest lane of its key
+        total = (peers * v[:, None, :]).sum(dim=2)
+        lands = leader & (k >= 0)
+        table.index_put_((k[lands],), total[lands], accumulate=True)
+        landings += int(lands.sum())
+    return table.reshape(n_segs, row_size), bad.sum().reshape(1), landings
 
 
 def scatter_add_ref(dense: torch.Tensor, lin: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:

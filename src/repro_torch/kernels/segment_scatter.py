@@ -15,9 +15,11 @@ op that depends on sign touches them.  uint64 addition is exact mod 2^64 in
 any order, so the kernels' atomics give the plain versions' bits exactly.
 
 What bounds the scatter on an H100: bytes (24 per event, 8 per table cell,
-the zero fill included); each event lands with its own atomic, so events
-that share a cell serialise on it.  ``PERF.md`` holds its measured time
-beside its bound.
+the zero fill included).  Each warp sums the counts of equal keys among its
+64 events (``__match_any_sync``) and lands each key with one atomic, so the
+sorted landing's ~74 events a cell cost a few atomics per window instead of
+one each; the zero fill is then most of the time.  ``PERF.md`` holds its
+measured time beside its bound.
 
 Each wrapper takes tensors on one device.  A CUDA tensor launches the kernel
 (and adds one to the wrapper's ``launches``) or raises; only a CPU tensor

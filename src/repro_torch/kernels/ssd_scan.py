@@ -1,24 +1,40 @@
-"""Mamba-2 SSD scan: the hand-written CUDA kernel, its wrapper, its gradient.
+"""Mamba-2 SSD scan: the hand-written CUDA kernels, their wrapper, its gradient.
 
 Replaces ``repro/kernels/ssd_scan.py::ssd_scan_pallas`` (the Pallas TPU
-kernel ``_ssd_kernel``).  The kernel is ``csrc/ssd_scan.cu``, built for
-``sm_90a`` by :mod:`.build` at its first launch and called through
-``ctypes``.
+kernel ``_ssd_kernel``).  Two kernels, built for ``sm_90a`` by :mod:`.build`
+at their first launch and called through ``ctypes``; a CUDA call picks one
+by dtype (:func:`select_route`):
 
-What bounds it on an H100: the work (2L²N + 2L²P + 4LNP FLOPs per tile of L
-rows and head) is small against the bytes it moves (x, y, dt, B, C, the
-final state), so the function is bound by bytes; this first kernel runs the
-three products as fp32 FMAs from shared memory and recomputes C·Bᵀ for each
-slice of 32 state rows, so it is bound by shared-memory reads and FMA issue.
-Its design: one block per (batch, head, slice of the state rows) walks the
-sequence in 64-row tiles with its slice of the fp32 state in shared memory;
-it reads batch-major tensors through their strides and B/C of group
-``h // (H/G)`` in place, and masks the ragged last tile itself, so it takes
-any sequence length.  ``PERF.md`` holds its measured time beside its bound.
+* **bf16 → ``csrc/ssd_scan_wgmma.cu``** (route ``"wgmma"``), the training
+  path's kernel: the chunked-parallel form in three kernels on one stream.
+  ``C·Bᵀ`` once per (batch, group, 64-row tile) and each chunk's own state
+  ``Xᵀ(B ⊙ w)`` in parallel; the states passed across chunks in order in
+  fp32; then per (batch, head, chunk) the outputs ``exp(cum)·(C hᵀ) + M X``.
+  Every product runs on the tensor cores (``wgmma``, bf16 in, fp32
+  accumulate), x, B and C tiles arrive by TMA, and the fp32 operands M,
+  ``x·w`` and the entering state are carried as two bf16 terms (hi + lo):
+  one bf16 rounding of ``x·w`` alone puts the final state past the 1e-3
+  relative error it is held to, and one of M or of the state puts outputs
+  past the bf16 tolerance where large terms cancel.  It takes P = 64 and d_state 64 or 128
+  and needs the base and the batch/seq/head strides of x, B and C 16-byte
+  aligned (TMA); the wrapper checks and raises.  Chunks hold
+  :func:`tiles_per_chunk` tiles, picked to fill the output kernel's waves.
+* **fp32 → ``csrc/ssd_scan.cu``** (route ``"simt"``): one block per (batch,
+  head, 32 state rows) walks the 64-row tiles in order with its slice of the
+  state in shared memory, all products as fp32 FMAs; any P and d_state up
+  to :data:`MAX_STATE`.  fp32 stays off the tensor cores on purpose: their
+  fp32 input type is TF32, which misses the fp32 tolerance.
+
+What bounds the function on an H100: the work (2L²N + 2L²P + 4LNP FLOPs per
+tile of L rows and head) is small against the bytes it moves (x, y, dt, B,
+C, the final state), so the function is bound by bytes.  Both kernels read
+batch-major tensors through their strides and B/C of group ``h // (H/G)`` in
+place, and mask the ragged last tile themselves, so they take any sequence
+length.  ``PERF.md`` holds their measured times beside the bound.
 
 **Chunk.** The reference takes ``min(chunk, S)`` and halves it until it
 divides S (``ops.py:207-211``), so a 300-token prompt runs with chunk 4.  The
-kernel always works in 64-row tiles and masks the last one; the chunk only
+kernels always work in 64-row tiles and mask the last one; the chunk only
 names the block size of the result the reference computes, and the math is
 the same up to rounding.
 
@@ -30,8 +46,8 @@ backward recomputes the port's chunked torch form
 and returns the gradients of x, dt, A, B, C, D and h0.  A backward kernel is
 later work (``ROADMAP.md``).
 
-A CUDA tensor launches the kernel or raises; only a CPU tensor takes the
-plain version.
+A CUDA tensor launches a kernel or raises; nothing falls back to the other
+kernel or to the plain version.  Only a CPU tensor takes the plain version.
 """
 
 from __future__ import annotations
@@ -42,37 +58,87 @@ from typing import Optional, Tuple
 import torch
 
 from . import build
+from .flash_attention import tma_strides
 from .ref import ssd_chunked_ref
 
-__all__ = ["ssd_scan", "SSDScan", "ssd_scan_autograd", "ssd_flops", "MAX_STATE", "TILE", "SOURCE", "REPLACES"]
+__all__ = [
+    "ssd_scan", "SSDScan", "ssd_scan_autograd", "ssd_flops", "select_route", "tiles_per_chunk", "ROUTES",
+    "MAX_STATE", "MAX_CHUNK_TILES", "TILE", "WGMMA_HEAD_DIM", "WGMMA_STATES", "SOURCE", "SIMT_SOURCE", "REPLACES",
+]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: the kernel's tile of sequence rows, and the largest d_state it takes
+#: dtype → the kernel a CUDA call of that dtype launches
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
+#: the kernels' tile of sequence rows, and the largest d_state the SIMT kernel takes
 TILE, MAX_STATE = 64, 256
+#: the head dim and the d_states the tensor-core kernel takes
+WGMMA_HEAD_DIM, WGMMA_STATES = 64, (64, 128)
+#: the longest state chunk the tensor-core kernel takes, in tiles, and the
+#: chunk states that cost one output tile's time (measured on an H100:
+#: ~6 µs a tile, ~0.05 µs a state)
+MAX_CHUNK_TILES, _STATES_PER_TILE = 8, 120
 
-#: where the kernel lives, and which TPU kernel it replaces
-SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+#: where the kernels live, and which TPU kernel they replace (SOURCE is the
+#: main path's: training runs in bf16)
+SOURCE = "src/repro_torch/kernels/csrc/ssd_scan_wgmma.cu"
+SIMT_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 REPLACES = "src/repro/kernels/ssd_scan.py:145 (ssd_scan_pallas / _ssd_kernel)"
 
 
+def select_route(dtype: torch.dtype) -> str:
+    """The kernel that a CUDA call on ``dtype`` launches: ``"wgmma"`` (the
+    tensor-core kernel) for bf16, ``"simt"`` for fp32; anything else raises."""
+    route = ROUTES.get(dtype)
+    if route is None:
+        raise ValueError(f"kernel takes float32 or bfloat16 x/B/C, got {dtype}")
+    return route
+
+
+def tiles_per_chunk(B: int, H: int, S: int, sms: int) -> int:
+    """Tiles per state chunk of the tensor-core kernel (1 to
+    :data:`MAX_CHUNK_TILES`).  Its output kernel holds two blocks per SM,
+    each walking its chunk's tiles in turn, so that kernel's time goes as
+    waves × tiles per chunk, while every chunk adds a state that its
+    kernels write, pass on and read.  On an H100 one block's tile costs
+    about as much as :data:`_STATES_PER_TILE` chunk states
+    (``scripts/ssd_chunk_sweep.py``); the chunk length that minimises the
+    sum is taken, the longest among equals."""
+    n_tiles = -(-S // TILE)
+
+    def cost(q: int):
+        items = B * H * -(-n_tiles // q)
+        return -(-items // (2 * sms)) * q + items / _STATES_PER_TILE, -q
+
+    return min(range(1, MAX_CHUNK_TILES + 1), key=cost)
+
+
 def ssd_flops(B: int, S: int, H: int, P: int, N: int) -> int:
-    """FLOPs the kernel does for one call: ``2L²N + 2L²P + 4LNP`` per
-    (batch, head, tile of L = :data:`TILE` rows), the full L×L tile counted
-    (the kernel computes the causal half's zeros too)."""
+    """FLOPs of one call as the SIMT kernel does them, the yardstick both
+    kernels are timed against: ``2L²N + 2L²P + 4LNP`` per (batch, head, tile
+    of L = :data:`TILE` rows), the full L×L tile and ``C·Bᵀ`` per head
+    counted.  (The tensor-core kernel computes ``C·Bᵀ`` once per group and
+    runs each two-term product twice.)"""
     L = TILE
     return B * H * -(-S // L) * (2 * L * L * N + 2 * L * L * P + 4 * L * N * P)
 
 
-def _kernel_fn():
-    lib = build.load("ssd_scan")
-    fn = lib.repro_ssd_scan_fwd
+def _kernel_fn(route: str):
+    """The route's C entry point and its error-string function."""
+    ll, i, p = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+    if route == "wgmma":
+        lib = build.load("ssd_scan_wgmma")
+        fn, err_str = lib.repro_ssd_scan_fwd_wgmma, lib.repro_ssd_wgmma_error_string
+        argtypes = [p] * 13 + [i] * 7 + [ll] * 12 + [p]
+    else:
+        lib = build.load("ssd_scan")
+        fn, err_str = lib.repro_ssd_scan_fwd, lib.repro_ssd_error_string
+        argtypes = [p] * 9 + [i] * 7 + [ll] * 12 + [p]
     if fn.argtypes is None:  # first use of this library handle
-        ll, i, p = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [p] * 9 + [i] * 7 + [ll] * 12 + [p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        lib.repro_ssd_error_string.argtypes = [i]
-        lib.repro_ssd_error_string.restype = ctypes.c_char_p
-    return lib, fn
+        err_str.argtypes = [i]
+        err_str.restype = ctypes.c_char_p
+    return fn, err_str
 
 
 def _check(x, dt, A, Bm, Cm, D, h0) -> None:
@@ -102,15 +168,20 @@ def ssd_scan(
     h0: Optional[torch.Tensor] = None,  # (B, H, P, N)
     *,
     chunk: int,
+    route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batch-major SSD scan → ``(y (B,S,H,P) in x's dtype, h_final (B,H,P,N))``.
 
-    On a CUDA tensor it launches the kernel (x, B, C fp32 or bf16 of one
-    dtype with the last dimension contiguous; dt, A, D, h0 fp32; N up to
-    :data:`MAX_STATE`) and counts the launch in ``ssd_scan.launches``; on a
-    CPU tensor it computes the plain chunked version at ``chunk`` (which must
-    divide S).  Anything the kernel does not take raises.  No gradient flows
-    through this function: :class:`SSDScan` is its differentiable form."""
+    On a CUDA tensor it launches the kernel that :func:`select_route` names
+    for x's dtype (x, B, C fp32 or bf16 of one dtype with the last dimension
+    contiguous; dt, A, D, h0 fp32; bf16 also with the shapes and alignment
+    the tensor-core kernel takes) and counts the launch in
+    ``ssd_scan.launches``; ``route="simt"`` asks for the SIMT kernel on bf16
+    too (for timing it beside the tensor-core one; nothing on the main path
+    passes it).  On a CPU tensor it computes the plain chunked version at
+    ``chunk`` (which must divide S).  Anything the kernels do not take
+    raises.  No gradient flows through this function: :class:`SSDScan` is
+    its differentiable form."""
     _check(x, dt, A, Bm, Cm, D, h0)
     tensors = [t for t in (x, dt, A, Bm, Cm, D, h0) if t is not None]
     devices = {t.device for t in tensors}
@@ -125,6 +196,9 @@ def ssd_scan(
         raise ValueError(
             f"kernel takes float32 or bfloat16 x/B/C of one dtype, got {x.dtype}, {Bm.dtype}, {Cm.dtype}"
         )
+    route = select_route(x.dtype) if route is None else route
+    if route not in ("wgmma", "simt") or (route == "wgmma" and x.dtype != torch.bfloat16):
+        raise ValueError(f"route {route!r} does not take {x.dtype} (the tensor-core kernel is bf16 only)")
     for name, t in (("dt", dt), ("A", A), ("D", D), ("h0", h0)):
         if t is not None and t.dtype != torch.float32:
             raise ValueError(f"kernel takes {name} in float32, got {t.dtype}")
@@ -140,21 +214,54 @@ def ssd_scan(
     h0 = h0.contiguous() if h0 is not None else None
     y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
     h_out = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
-    lib, fn = _kernel_fn()
+    fn, err_str = _kernel_fn(route)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            D.data_ptr() if D is not None else None, h0.data_ptr() if h0 is not None else None,
-            y.data_ptr(), h_out.data_ptr(), _DTYPE_CODES[x.dtype],
-            Bsz, S, H, G, P, N,
-            *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3],
-            stream,
-        )
+        if route == "wgmma":
+            args = _wgmma_args(x, Bm, Cm, h0)
+            err = fn(
+                ptr(x), ptr(dt), ptr(A), ptr(Bm), ptr(Cm), ptr(D), ptr(args["h0"]), ptr(y), ptr(h_out),
+                *(ptr(t) for t in args["scratch"]), Bsz, S, H, G, P, N, args["tiles_per_chunk"],
+                *args["x_strides"], *dt.stride(), *args["b_strides"], *args["c_strides"], stream,
+            )
+        else:
+            err = fn(
+                ptr(x), ptr(dt), ptr(A), ptr(Bm), ptr(Cm), ptr(D), ptr(h0), ptr(y), ptr(h_out),
+                _DTYPE_CODES[x.dtype], Bsz, S, H, G, P, N,
+                *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3], stream,
+            )
     if err != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: {lib.repro_ssd_error_string(err).decode()}")
+        raise RuntimeError(f"ssd_scan kernel launch failed: {err_str(err).decode()}")
     ssd_scan.launches += 1
     return y, h_out
+
+
+def _wgmma_args(x, Bm, Cm, h0):
+    """What the tensor-core kernel needs beyond the tensors: its TMA strides
+    (raising where TMA cannot read x, B or C), an h0 on a 16-byte boundary,
+    its chunk length and its fp32 scratch (C Bᵀ per tile; each chunk's own
+    and entering state; each chunk's log decay)."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if P != WGMMA_HEAD_DIM or N not in WGMMA_STATES:
+        raise ValueError(f"the bf16 kernel takes head dim {WGMMA_HEAD_DIM} and d_state in {WGMMA_STATES}, "
+                         f"got P={P}, N={N}")
+    strides = {name: tma_strides(t) for name, t in (("x", x), ("b", Bm), ("c", Cm))}
+    if h0 is not None and h0.data_ptr() % 16:
+        h0 = h0.clone()  # the state pass reads h0 four floats at a time
+    q = tiles_per_chunk(Bsz, H, S, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    n_tiles = -(-S // TILE)
+    n_chunks = -(-n_tiles // q)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    scratch = (
+        torch.empty((Bsz, G, n_tiles, TILE, TILE), **f32),
+        torch.empty((Bsz, n_chunks, H, P, N), **f32),
+        torch.empty((Bsz, n_chunks, H, P, N), **f32),
+        torch.empty((Bsz, n_chunks, H), **f32),
+    )
+    return {"x_strides": strides["x"], "b_strides": strides["b"], "c_strides": strides["c"], "h0": h0,
+            "tiles_per_chunk": q, "scratch": scratch}
 
 
 #: launches of the CUDA kernel since the count was last set to 0

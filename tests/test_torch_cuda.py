@@ -1,4 +1,4 @@
-"""The CUDA kernels (flash attention, bf16 on wgmma and fp32 on the CUDA cores; the SSD scan; the simulator's landing) against their plain versions, on the card.
+"""The CUDA kernels (flash attention and the SSD scan, bf16 on wgmma and fp32 on the CUDA cores; the simulator's landing) against their plain versions, on the card.
 
 Imports torch and the port only (the card's machine has no JAX).  Every
 test needs an NVIDIA GPU and skips without one.  Run on the card:
@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import segment_scatter as ss
@@ -223,6 +224,86 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
         ops.ssd_scan(x, dt, A, big, big, D, chunk=16)
 
 
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("S", [1, 37, 64, 65, 256, 1000])
+def test_ssd_wgmma_kernel_matches_sequential_ref(cuda, S, h0):
+    """bf16 at mamba2-130m's SSD width runs the tensor-core kernel: one row,
+    ragged tiles, one and several chunks, with and without h0."""
+    x, dt, A, Bm, Cm, D, h = _ssd((1, S, 24, 64, 128, 1), torch.bfloat16, cuda, seed=S, h0=h0)
+    before = sk.ssd_scan.launches
+    y, hf = ops.ssd_scan(x, dt, A, Bm, Cm, D, h, chunk=256)
+    torch.cuda.synchronize()
+    assert sk.ssd_scan.launches == before + 1 and sk.select_route(x.dtype) == "wgmma"
+    assert "ssd_scan_wgmma" in build._LOADED
+    want_y, want_h = ssd_ref(x, dt, A, Bm, Cm, D, h, return_state=True)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=2e-2, rtol=2e-2)
+    assert ((hf - want_h).norm() / want_h.norm()).item() <= 1e-3
+
+
+@pytest.mark.parametrize("B,S,H,N,G", [(4, 256, 24, 128, 1), (1, 4096, 24, 128, 1), (2, 300, 4, 64, 2), (3, 130, 6, 128, 3)])
+def test_ssd_wgmma_kernel_shapes_and_chunks(cuda, B, S, H, N, G):
+    """The timed shapes (1 and 4 tiles per chunk), d_state 64, grouped B/C."""
+    x, dt, A, Bm, Cm, D, h = _ssd((B, S, H, 64, N, G), torch.bfloat16, cuda, seed=B * S, h0=True)
+    y, hf = ops.ssd_scan(x, dt, A, Bm, Cm, D, h, chunk=256)
+    want_y, want_h = ssd_ref(x, dt, A, Bm, Cm, D, h, return_state=True)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=2e-2, rtol=2e-2)
+    assert ((hf - want_h).norm() / want_h.norm()).item() <= 1e-3
+
+
+def test_ssd_wgmma_kernel_reads_strided_inputs(cuda):
+    """x, B and C as slices of one packed bf16 projection (16-byte aligned
+    strides, as TMA needs), dt a strided fp32 slice, with h0."""
+    Bsz, S, H, P, N = 2, 200, 4, 64, 128
+    width = H * P + 2 * N + 8
+    packed = (torch.randn(Bsz, S, width, device=cuda) * 0.3).to(torch.bfloat16)
+    x = packed[..., : H * P].unflatten(-1, (H, P))
+    Bm = packed[..., H * P : H * P + N].unflatten(-1, (1, N))
+    Cm = packed[..., H * P + N : H * P + 2 * N].unflatten(-1, (1, N))
+    dt = (torch.nn.functional.softplus(torch.randn(Bsz, S, 2 * H, device=cuda)) * 0.1)[..., ::2]
+    A = -torch.rand(H, device=cuda) - 0.5
+    h0 = torch.randn(Bsz, H, P, N, device=cuda) * 0.1
+    assert not any(t.is_contiguous() for t in (x, dt, Bm, Cm))
+    y, hf = ops.ssd_scan(x, dt, A, Bm, Cm, None, h0, chunk=8)
+    want_y, want_h = ssd_ref(x, dt, A, Bm, Cm, None, h0, return_state=True)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=2e-2, rtol=2e-2)
+    assert ((hf - want_h).norm() / want_h.norm()).item() <= 1e-3
+
+
+def test_ssd_wgmma_kernel_empty_sequence_passes_h0_through(cuda):
+    x, dt, A, Bm, Cm, D, h = _ssd((2, 0, 4, 64, 128, 1), torch.bfloat16, cuda, h0=True)
+    y, hf = sk.ssd_scan(x, dt, A, Bm, Cm, D, h, chunk=1)
+    assert y.shape == (2, 0, 4, 64) and torch.equal(hf, h)
+
+
+def test_ssd_wgmma_kernel_refuses_what_it_does_not_take(cuda):
+    before = sk.ssd_scan.launches
+    x, dt, A, Bm, Cm, D, _ = _ssd((1, 64, 2, 32, 128, 1), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=64)
+    x, dt, A, Bm, Cm, D, _ = _ssd((1, 64, 2, 64, 256, 1), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="d_state"):
+        ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=64)
+    x, dt, A, Bm, Cm, D, _ = _ssd((1, 64, 2, 64, 128, 1), torch.bfloat16, cuda)
+    odd = torch.zeros(1, 64, 2 * 64 + 4, dtype=torch.bfloat16, device=cuda)[..., : 2 * 64].unflatten(-1, (2, 64))
+    with pytest.raises(ValueError, match="TMA"):  # a seq stride of 132 elements: not 16-byte aligned
+        ops.ssd_scan(odd, dt, A, Bm, Cm, D, chunk=64)
+    with pytest.raises(ValueError, match="bf16 only"):
+        sk.ssd_scan(x.float(), dt, A, Bm.float(), Cm.float(), D, chunk=64, route="wgmma")
+    assert sk.ssd_scan.launches == before
+
+
+def test_ssd_simt_route_still_takes_bf16(cuda):
+    """The SIMT kernel on bf16 (the route the timing asks for beside the
+    tensor-core kernel) agrees with the tensor-core kernel and the plain scan."""
+    x, dt, A, Bm, Cm, D, h = _ssd((2, 150, 24, 64, 128, 1), torch.bfloat16, cuda, seed=5, h0=True)
+    ys, hs = sk.ssd_scan(x, dt, A, Bm, Cm, D, h, chunk=256, route="simt")
+    yw, hw = sk.ssd_scan(x, dt, A, Bm, Cm, D, h, chunk=256)
+    want_y, want_h = ssd_ref(x, dt, A, Bm, Cm, D, h, return_state=True)
+    for y, hf in ((ys, hs), (yw, hw)):
+        torch.testing.assert_close(y.float(), want_y.float(), atol=2e-2, rtol=2e-2)
+        assert ((hf - want_h).norm() / want_h.norm()).item() <= 1e-3
+
+
 # --------------------------------------------------------------------------- the simulator's landing
 def _events(n, n_segs, row_size, seed, big=False):
     """seg (with overflow rows past n_segs), lin, cnt as int64 storage on the CPU."""
@@ -262,6 +343,33 @@ def test_segment_kernel_edges(cuda):
     table, bad = ss.segment_scatter(torch.tensor([0, 1], device=cuda), out_of_table, out_of_table, 2, 2)
     assert bad.item() == 1 and table.tolist() == [[0, 0], [0, 0]]
     assert ss.segment_scatter.launches == before + 2
+
+
+@pytest.mark.parametrize("order", ["shuffled", "sorted"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_segment_kernel_heavy_duplication(cuda, order, offset):
+    """All events on 3 cells (most lanes of a window share a key), shuffled
+    or sorted, with 16-byte loads (offset 0) and with columns one element
+    off that alignment (offset 1: 8-byte loads); counts that wrap."""
+    rng = np.random.default_rng(21)
+    n = 300_001
+    cells = np.array([[0, 5], [2, 1151], [7, 300]])
+    pick = rng.integers(0, 3, size=n)
+    seg, lin = cells[pick, 0], cells[pick, 1]
+    if order == "sorted":
+        idx = np.argsort(seg, kind="stable")
+        seg, lin = seg[idx], lin[idx]
+    cnt = np.where(rng.random(n) < 0.5, np.uint64((1 << 64) - 1000), rng.integers(1, 9, size=n).astype(np.uint64))
+    cols = [torch.from_numpy(np.ascontiguousarray(a).view(np.int64)) for a in (seg, lin, cnt)]
+    want, want_bad = segment_scatter_ref(*cols, 8, 1152)
+    dev = [torch.cat([c[:1], c]).to(cuda)[1:] if offset else c.to(cuda) for c in cols]
+    assert all((c.data_ptr() % 16 == 0) == (offset == 0) for c in dev)
+    table, bad = ss.segment_scatter(*dev, 8, 1152)
+    assert torch.equal(table.cpu(), want) and bad.item() == want_bad.item() == 0
+    dense = torch.zeros(8 * 1152, dtype=torch.int64, device=cuda)
+    flat = (cols[0] * 1152 + cols[1]).to(cuda)
+    assert ss.scatter_add(dense, flat, dev[2]).item() == 0
+    assert torch.equal(dense.cpu(), want.reshape(-1))
 
 
 @pytest.mark.parametrize("big", [False, True])
