@@ -11,11 +11,21 @@ source, all started together) and drives the port's three paths:
 * serving: the flash-attention kernels held against their plain version
   (bf16 on the tensor-core kernel, whose SASS must hold ``HGMMA`` and
   ``UTMALDG``; fp32 on the SIMT kernel) and the bf16 one timed beside SDPA
-  at the serving lengths; the deepseek-7b smoke config served on the card
+  at the serving lengths; gemma-7b's head dim of 256 (bf16 on the SIMT
+  kernel) checked forward and backward and timed beside SDPA; the deepseek-7b smoke config served on the card
   and on the CPU and compared; deepseek-7b at full width (30 layers,
   d_model 4096, bf16, random weights from a seed) served through the
   continuous-batching engine, with the per-stream lanes checked and every
   prefill through the flash kernel;
+* dense training: the flash backward kernel held against the plain FA-2
+  backward and timed at B=1, S=2048, 32 heads of 128 beside SDPA's
+  backward; the deepseek-7b smoke config trained in fp32 on the card and on
+  the CPU and compared; deepseek-7b at its published width cut to 8 layers
+  (bf16, remat full, AdamW, global batch 4 x 2048 in 2 microbatches)
+  trained for 10 steps with an eval lane, with the held-out loss, the
+  per-stream lanes and the exact forward and backward launches checked,
+  and every layer's real q, k, v and dO held through both kernels against
+  the plain versions;
 * training: the SSD-scan kernels held against the sequential plain scan
   (bf16 on the tensor-core kernel, whose SASS must hold ``HGMMA`` and
   ``UTMALDG``; fp32 on the SIMT kernel) and both timed in bf16; the mamba2
@@ -129,6 +139,69 @@ SSM_LOSS_RTOL, SSM_GNORM_RTOL, SSM_LOGITS_ATOL = 1e-4, 1e-2, 1e-4
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, EVAL_EVERY, SCHEDULE_STEPS = 60, 8, 256, 2, 10, 300
 #: the loss on one fixed held-out batch must fall by at least this much over the run
 EVAL_DROP = 0.05
+#: gemma-7b's attention: 16 heads of 256, bf16 (the SIMT kernel), checked and
+#: timed at the served prompt lengths
+GEMMA_HEADS, GEMMA_HEAD_DIM = 16, 256
+#: the flash backward, timed at B=1, S=2048, Hq=Hkv=32, D=128, bf16, causal:
+#: one sequence of dense training's length at deepseek-7b's attention width
+BWD_TIMED = (1, 2048, 32, 128)
+#: The backward kernel against flash_backward_ref on the same bf16 inputs
+#: (the kernel's own o and lse): both compute in fp32 and round each output
+#: once to bf16 (2^-8 relative), from fp32 sums taken in another order.  A
+#: gradient is held to rtol BWD_RTOL plus an atol of BWD_ATOL_OF_MAX times
+#: the tensor's largest entry: at the reference's init attention is near
+#: one-hot, so dS = P (dP - D) cancels and the gradients' entries span many
+#: decades.  The lse (fp32 both) to LSE_TOL on random inputs; on the
+#: training inputs the scores reach the hundreds and the lse ~3,000 (fp32's
+#: spacing there is 2.4e-4), and their fp32 sums, taken in another order on
+#: the tensor cores, differ by up to 1.46e-3 (measured 9.8e-4 to 1.46e-3 a
+#: layer on the H100): atol LSE_TRAIN_ATOL there.
+BWD_RTOL, BWD_ATOL_OF_MAX = 1e-2, 1e-3
+LSE_TOL = dict(atol=1e-4, rtol=1e-5)
+LSE_TRAIN_ATOL = 5e-3
+#: dense smoke parity, card against CPU, fp32 with TF32 off, three steps from
+#: the same weights.  The first step differs only by summation order and is
+#: held tightly: loss and grad norm to rtol DENSE_STEP1_RTOL (measured 7e-8
+#: and 9e-7 on the H100); each leaf's gradient, read as AdamW's first moment
+#: after the step ((1 - b1) times the clipped gradient), within
+#: DENSE_GRAD_REL of the CPU's in relative L2, and each leaf's change within
+#: DENSE_STEP1_CHANGE_REL (AdamW's first step is lr g / (|g| + eps), so an
+#: entry whose gradient sits near eps moves by a share of the lr that the
+#: noise sets): measured 1.8e-4 and 1.4e-2 on the H100 (the CPU tests,
+#: tests/test_torch_train.py, 4.5e-4 and 3.2e-2 between the port and the
+#: reference).  After it the runs drift:
+#: the reference's init makes attention near one-hot, so entries whose
+#: gradient is at the noise level step in opposite directions, and the grad
+#: norm moved 6 % at the second step and 10.6 % at the third, the loss
+#: 1.8e-3 (measured on the H100).  Later steps: losses rtol DENSE_LOSS_RTOL,
+#: grad norms rtol DENSE_GNORM_RTOL, each leaf's change over the three steps
+#: within DENSE_CHANGE_REL (measured 0.31 on the H100; 0.22 in the CPU
+#: tests).  The control, one card step with the backward kernel's gradients
+#: zeroed and one with them negated, must fail the first step's checks: it
+#: measured grad norms off by 0.85 and 0.076, gradients by 5.6 and 2.1.
+DENSE_STEP1_RTOL, DENSE_GRAD_REL, DENSE_STEP1_CHANGE_REL = 1e-5, 2e-3, 0.1
+DENSE_LOSS_RTOL, DENSE_GNORM_RTOL, DENSE_CHANGE_REL = 5e-3, 0.25, 0.5
+#: dense training at full width: deepseek-7b's published width (d_model 4096,
+#: 32 heads of 128, d_ff 11008, vocab 102400, bf16 params and compute, fp32
+#: AdamW moments, remat full) cut to DENSE_LAYERS layers, the only cut: at
+#: ~16 bytes a parameter (bf16 weight and gradient, fp32 accumulator, m and
+#: v) 30 layers (6.9 B) need ~110 GB, 8 layers (2.46 B) ~39 GB.  Global batch
+#: 4 x 2048 in 2 microbatches, AdamW (wd 0.1, clip 1.0), 10 steps, an eval
+#: every 5, peak lr 4.2e-4 (DeepSeek LLM 7B's, arXiv:2401.02954) after 2
+#: warm-up steps.  At the reference's init (layer weights at std 8^-0.5, so
+#: attention near one-hot) ten steps on fresh batches move the held-out loss
+#: by thousandths, so that check cannot tell a working backward from a
+#: broken one; the attention-only check below can.
+DENSE_LAYERS, DENSE_STEPS, DENSE_BATCH, DENSE_SEQ, DENSE_MICRO, DENSE_EVAL_EVERY, DENSE_LR = 8, 10, 4, 2048, 2, 5, 4.2e-4
+#: the attention-only check: from the trained weights, only every layer's wq,
+#: wk and wv (whose gradients reach them through the backward kernel's dq,
+#: dk and dv alone) take DENSE_STEPS AdamW steps of the phase's schedule on
+#: one repeated microbatch (the probe's first), everything else frozen.  The
+#: loss on it must fall by ATTN_ONLY_DROP; the same run with the backward
+#: kernel's gradients zeroed, and with them negated, must not.  Measured on
+#: the H100: 11.8976 -> 11.7191 (a drop of 0.178) with the kernel's
+#: gradients, no change zeroed, a rise of 0.170 negated.
+ATTN_ONLY_DROP = 0.05
 #: decode after prefill against forward on the extended sequence, fp32,
 #: relative L2 of each step's logits: the same weights and math, the SSD
 #: state handed from the kernel to the exact recurrence
@@ -359,27 +432,85 @@ def phase_kernel(smi: str, served_lens):
             "plain": lambda: ops.flash_attention(q, k, v, causal=True, impl="plain"),
             "library": lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
         })
-        flops = 2 * B * H * S * S * D
-        nbytes = 2 * (2 * B * H * S * D + 2 * B * H * S * D)
-        t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+        flops, nbytes = fa.flash_flops(B, S, S, H, D, causal=True), fa.flash_bytes(B, S, S, H, H, D, 2)
+        bound_ms, bound_by = _bound(flops, nbytes, smi)
         timings[S] = {
             "kernel_ms": ms["kernel"]["median"], "plain_ms": ms["plain"]["median"],
-            "library_ms": ms["library"]["median"],
-            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": ms["library"]["median"], "bound_ms": bound_ms, "bound_by": bound_by,
             "flops": flops, "bytes": nbytes,
             "kernel_tflops": flops / (ms["kernel"]["median"] * 1e-3) / 1e12,
             "spread_ms": {name: [m["min"], m["max"]] for name, m in ms.items()},
         }
+    d256 = phase_kernel_d256(smi, served_lens)
     emit({"phase": "kernel", "name": "flash_attention", "fp32_max_abs_err": fp32_err,
           "bf16_max_abs_err": bf16_err, "tolerances": {"fp32": FP32_TOL, "bf16": BF16_TOL},
           "peaks": {"bf16_flops": peak_flops, "hbm_bytes_s": peak_bw, "source": peak_src},
-          "routes": {str(dt): fa.select_route(dt) for dt in fa.ROUTES},
+          "routes": {f"{dt}, D={D}": fa.select_route(dt, D) for dt in fa.ROUTES for D in fa.SUPPORTED_HEAD_DIMS},
+          "d256": d256,
           "timing": {str(S): t for S, t in timings.items()}, "served_prompt_lens": list(served_lens),
           "timing_note": f"B=1 H=32 D=128 bf16 causal (the wgmma kernel); median of {ROUNDS} readings, "
                          f"each the mean of {LAUNCHES} back-to-back calls replayed from one CUDA graph "
                          "between CUDA events; kernel, plain and SDPA alternate; inputs warm in L2"})
     fa.flash_attention.launches = 0  # comparisons and timings are not the main path's launches
-    return bf16_err, timings
+    return bf16_err, timings, d256
+
+
+def _bound(flops, nbytes, smi):
+    peak_flops, peak_bw, _ = peaks(smi)
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _grads_close(got, want):
+    """Per gradient: max abs error, the largest entry, and whether it is
+    within rtol BWD_RTOL plus BWD_ATOL_OF_MAX of the largest entry."""
+    out = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        scale = w.abs().max().item()
+        out[name] = {"max_abs_err": (g - w).abs().max().item(), "max_abs": scale,
+                     "ok": bool(torch.allclose(g, w, rtol=BWD_RTOL, atol=BWD_ATOL_OF_MAX * scale))}
+    return out
+
+
+def phase_kernel_d256(smi: str, served_lens):
+    """gemma-7b's attention shape (16 heads of 256) at the served prompt
+    lengths, bf16, which takes the SIMT kernel: forward against the plain
+    version and timed beside SDPA; lse and the backward kernel against the
+    plain versions."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_lse_ref, flash_backward_ref
+
+    H, D = GEMMA_HEADS, GEMMA_HEAD_DIM
+    check(fa.select_route(torch.bfloat16, D) == "simt", "bf16 at head dim 256 takes the SIMT kernel")
+    err, bwd_err, rows = 0.0, {}, {}
+    for S in served_lens:
+        q, k, v, do = (randn((1, S, H, D), torch.bfloat16, 300 + S + j) for j in range(4))
+        out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        want = ops.flash_attention(q, k, v, causal=True, impl="plain")
+        torch.cuda.synchronize()
+        err = max(err, (out.float() - want.float()).abs().max().item())
+        check(torch.allclose(out.float(), want.float(), **BF16_TOL), f"D=256 bf16 kernel disagrees at S={S}")
+        check(torch.allclose(lse, attention_lse_ref(q, k, v, causal=True), **LSE_TOL),
+              f"D=256 lse disagrees at S={S}")
+        g = _grads_close(fa.flash_attention_backward(q, k, v, out, lse, do, causal=True),
+                         flash_backward_ref(q, k, v, out, lse, do, causal=True))
+        bwd_err[str(S)] = g
+        check(all(r["ok"] for r in g.values()), f"D=256 backward disagrees at S={S}: {g}")
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        ms = time_interleaved({
+            "kernel": lambda: ops.flash_attention(q, k, v, causal=True),
+            "plain": lambda: ops.flash_attention(q, k, v, causal=True, impl="plain"),
+            "library": lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
+        })
+        bound_ms, bound_by = _bound(fa.flash_flops(1, S, S, H, D, causal=True),
+                                    fa.flash_bytes(1, S, S, H, H, D, 2), smi)
+        rows[str(S)] = {"kernel_ms": ms["kernel"]["median"], "plain_ms": ms["plain"]["median"],
+                        "library_ms": ms["library"]["median"], "bound_ms": bound_ms, "bound_by": bound_by,
+                        "spread_ms": {name: [m["min"], m["max"]] for name, m in ms.items()}}
+    return {"shape": f"B=1 Hq=Hkv={H} D={D} bf16 causal (gemma-7b), route simt", "max_abs_err": err,
+            "backward": bwd_err, "timing": rows}
 
 
 def _replay(model, scfg, spec, vocab):
@@ -632,7 +763,6 @@ def phase_ssd_kernel(smi: str):
     check(len(sass) == 4 and all(c[op] > 0 for c in sass.values() for op in SASS_OPS),
           f"bf16 SSD kernels lack {SASS_OPS} in their SASS: {sass}")
 
-    peak_flops, peak_bw, peak_src = peaks(smi)
     timings = {}
     for B, S in SSD_TIMED:
         x, dt, A, Bm, Cm, D, _ = _ssd_inputs(B, S, H, P, N, G, torch.bfloat16, 500 + S)
@@ -641,14 +771,11 @@ def phase_ssd_kernel(smi: str):
             "simt": lambda: sk.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256, route="simt"),
             "plain": lambda: ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256, impl="plain"),
         })
-        flops = sk.ssd_flops(B, S, H, P, N)
-        # each input read once, each output written once: x, y (bf16), dt (fp32),
-        # B and C once per group (bf16), A and D (fp32), h_final (fp32); no h0
-        nbytes = 2 * 2 * B * S * H * P + 4 * B * S * H + 2 * 2 * B * S * G * N + 2 * 4 * H + 4 * B * H * P * N
-        t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+        flops, nbytes = sk.ssd_flops(B, S, H, P, N), sk.ssd_bytes(B, S, H, P, N, G, 2)  # no h0
+        bound_ms, bound_by = _bound(flops, nbytes, smi)
         timings[f"B{B}_S{S}"] = {
             "kernel_ms": ms["kernel"]["median"], "simt_ms": ms["simt"]["median"], "plain_ms": ms["plain"]["median"],
-            "library_ms": None, "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             "flops": flops, "bytes": nbytes,
             "tiles_per_chunk": sk.tiles_per_chunk(B, H, S, torch.cuda.get_device_properties(0).multi_processor_count),
             "spread_ms": {name: [m["min"], m["max"]] for name, m in ms.items()},
@@ -915,6 +1042,354 @@ def phase_decode_full_width(model):
     check(max(rels) <= DECODE_FP32_REL, f"fp32 decode vs forward logits rel L2 {rels}")
     emit({"phase": "decode_full_width", "config": "mamba2-130m", "dtype": "float32, TF32 off",
           "prefill_len": 100, "decode_steps": 8, "logits_rel_l2": rels, "tolerance": DECODE_FP32_REL})
+
+
+def phase_flash_bwd_kernel(smi: str):
+    """The backward kernel timed at BWD_TIMED beside its bound, the plain
+    FA-2 backward and SDPA's backward (autograd through
+    ``scaled_dot_product_attention``, which the port never calls), after a
+    check against the plain version on the same inputs."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_backward_ref
+
+    B, S, H, D = BWD_TIMED
+    q, k, v, do = (randn((B, S, H, D), torch.bfloat16, 400 + j) for j in range(4))
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    g = _grads_close(fa.flash_attention_backward(q, k, v, o, lse, do, causal=True),
+                     flash_backward_ref(q, k, v, o, lse, do, causal=True))
+    check(all(r["ok"] for r in g.values()), f"backward kernel disagrees at {BWD_TIMED}: {g}")
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    oh = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    doh = do.transpose(1, 2).contiguous()
+    ms = time_interleaved({
+        "kernel": lambda: fa.flash_attention_backward(q, k, v, o, lse, do, causal=True),
+        "plain": lambda: flash_backward_ref(q, k, v, o, lse, do, causal=True),
+        "library": lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True),
+    }, eager=("library",))
+    flops = fa.flash_flops(B, S, S, H, D, causal=True, backward=True)
+    nbytes = fa.flash_bytes(B, S, S, H, H, D, 2, backward=True)
+    bound_ms, bound_by = _bound(flops, nbytes, smi)
+    timing = {"kernel_ms": ms["kernel"]["median"], "plain_ms": ms["plain"]["median"],
+              "library_ms": ms["library"]["median"], "bound_ms": bound_ms, "bound_by": bound_by,
+              "flops": flops, "bytes": nbytes, "kernel_tflops": flops / (ms["kernel"]["median"] * 1e-3) / 1e12,
+              "spread_ms": {name: [m["min"], m["max"]] for name, m in ms.items()},
+              "device_us_by_kernel_10_calls": device_breakdown(
+                  lambda: [fa.flash_attention_backward(q, k, v, o, lse, do, causal=True) for _ in range(10)])}
+    emit({"phase": "flash_bwd_kernel", "name": "flash_attention_backward",
+          "shape": f"B={B} S={S} Hq=Hkv={H} D={D} bf16 causal", "check": g, "timing": timing,
+          "launches_per_call": fa.BWD_LAUNCHES,
+          "timing_note": f"median of {ROUNDS} readings of {LAUNCHES} calls; kernel and plain replayed from a "
+                         "CUDA graph, SDPA's backward (autograd.grad, retain_graph) run eagerly"})
+    fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
+    return timing, max(r["max_abs_err"] for r in g.values())
+
+
+def _rel(a, b) -> float:
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def _step1_gaps(metrics, model, opt, want):
+    """A first train step against the CPU's (``want``: its metrics, first
+    moments and parameters after the step, and the start): the relative
+    gaps of loss and grad norm, and the largest per-leaf relative L2 gap of
+    the gradient (AdamW's first moment) and of the parameter change."""
+    params = dict(model.named_parameters())
+    return {
+        "loss": abs(float(metrics["loss"]) / want["loss"] - 1),
+        "grad_norm": abs(float(metrics["grad_norm"]) / want["grad_norm"] - 1),
+        "grad": max(_rel(opt["m"][n].cpu(), m) for n, m in want["m"].items()),
+        "change": max(_rel(params[n].detach().cpu() - x0, want["params"][n] - x0) for n, x0 in want["start"].items()),
+    }
+
+
+def _step1_ok(g) -> bool:
+    return (g["loss"] <= DENSE_STEP1_RTOL and g["grad_norm"] <= DENSE_STEP1_RTOL
+            and g["grad"] <= DENSE_GRAD_REL and g["change"] <= DENSE_STEP1_CHANGE_REL)
+
+
+def phase_dense_parity():
+    """The deepseek-7b smoke config (fp32, head dim 32: the SIMT kernels
+    forward and backward) trained 3 steps on the card and on the CPU from the
+    same weights; then the control: one card step with the backward
+    kernel's gradients zeroed, and one with them negated, must fail the
+    first step's checks."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, make_train_iter
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.optim import ScheduleConfig, adamw_init
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    cfg = get_smoke_config("deepseek-7b")
+    check(cfg.compute_dtype == "float32" and cfg.remat == "none", "deepseek-7b smoke is fp32 without remat")
+    tcfg = TrainConfig(schedule=ScheduleConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=10), microbatches=2)
+    cpu_model, cpu_opt = init_train_state(cfg, tcfg, device="cpu")
+    start_model = copy.deepcopy(cpu_model)
+    start = {n: p.detach().clone() for n, p in cpu_model.named_parameters()}
+
+    def card_run():
+        model = copy.deepcopy(start_model).to("cuda")
+        return model, adamw_init(dict(model.named_parameters())), make_train_step(model, tcfg)
+
+    gpu_model, gpu_opt, gpu_step = card_run()
+    it = make_train_iter(DataConfig(global_batch=4, seq_len=64, vocab_size=cfg.vocab_size, seed=5))
+    batches = [next(it) for _ in range(3)]
+    it.close()
+    cpu_step = make_train_step(cpu_model, tcfg)
+    before = (fa.flash_attention.launches, fa.flash_attention_backward.launches)
+    rows, step1 = [], None
+    for i, b in enumerate(batches):
+        cpu_opt, cm = cpu_step(cpu_opt, b)
+        gpu_opt, gm = gpu_step(gpu_opt, b)
+        rows.append({k: (float(gm[k]), float(cm[k])) for k in ("loss", "grad_norm")})
+        if i == 0:
+            want = {"loss": float(cm["loss"]), "grad_norm": float(cm["grad_norm"]), "start": start,
+                    "m": {n: m.clone() for n, m in cpu_opt["m"].items()},
+                    "params": {n: p.detach().clone() for n, p in cpu_model.named_parameters()}}
+            step1 = _step1_gaps(gm, gpu_model, gpu_opt, want)
+    launches = (fa.flash_attention.launches - before[0], fa.flash_attention_backward.launches - before[1])
+    cpu_params = dict(cpu_model.named_parameters())
+    change = max(_rel(p.detach().cpu() - start[n], cpu_params[n].detach() - start[n])
+                 for n, p in gpu_model.named_parameters())
+
+    # the control: the same first step with the backward kernel's gradients scaled
+    backward, controls = ops.flash_attention_backward, {}
+    for label, factor in (("zeroed", 0.0), ("negated", -1.0)):
+        model, opt, step = card_run()
+        ops.flash_attention_backward = lambda *a, f=factor, **kw: tuple(f * t for t in backward(*a, **kw))
+        try:
+            opt, m = step(opt, batches[0])
+        finally:
+            ops.flash_attention_backward = backward
+        controls[label] = _step1_gaps(m, model, opt, want)
+        del model, opt, step
+    emit({"phase": "dense_parity", "config": "deepseek-7b SMOKE", "dtype": "float32, TF32 off",
+          "steps": [{k: {"card": v[0], "cpu": v[1]} for k, v in r.items()} for r in rows],
+          "step1_gaps": step1, "change_rel_over_3_steps": change,
+          "control_step1_gaps": controls,
+          "flash_launches": {"forward": launches[0], "backward": launches[1]},
+          "tolerances": {"step1_rtol": DENSE_STEP1_RTOL, "step1_grad_rel": DENSE_GRAD_REL,
+                         "step1_change_rel": DENSE_STEP1_CHANGE_REL, "loss_rtol": DENSE_LOSS_RTOL,
+                         "grad_norm_rtol": DENSE_GNORM_RTOL, "change_rel": DENSE_CHANGE_REL}})
+    check(_step1_ok(step1), f"step 1 card vs CPU: {step1}")
+    for i, r in enumerate(rows[1:], start=1):
+        (gl, cl), (gg, cg) = r["loss"], r["grad_norm"]
+        check(abs(gl - cl) <= DENSE_LOSS_RTOL * abs(cl), f"step {i}: loss card {gl} vs CPU {cl}")
+        check(abs(gg - cg) <= DENSE_GNORM_RTOL * abs(cg), f"step {i}: grad norm card {gg} vs CPU {cg}")
+    check(change <= DENSE_CHANGE_REL, f"parameter changes over three steps, card vs CPU: {change}")
+    for label, g in controls.items():
+        check(not _step1_ok(g), f"the {label} control passes the first step's checks: {g}")
+    # no remat: one forward and one backward per layer and microbatch
+    want_launches = len(batches) * tcfg.microbatches * cfg.n_layers
+    check(launches == (want_launches, want_launches),
+          f"flash launches in 3 smoke steps: {launches}, want {want_launches} each")
+
+
+def _train_only(model, tcfg, batch, names, steps):
+    """``steps`` AdamW steps (``tcfg``'s schedule and settings) on the
+    parameters ``names`` alone, the rest frozen, on one repeated batch:
+    the loss before each step and after the last."""
+    from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm, learning_rate
+    from repro_torch.train import make_loss_fn
+
+    params = dict(model.named_parameters())
+    leaves = {n: params[n] for n in names}
+    opt, loss_fn, losses = adamw_init(leaves), make_loss_fn(model, tcfg), []
+    for _ in range(steps):
+        total, metrics = loss_fn(batch)
+        grads = torch.autograd.grad(total, list(leaves.values()))
+        losses.append(float(metrics["loss"].detach()))
+        grads, _ = clip_by_global_norm({n: g.float() for n, g in zip(leaves, grads)}, tcfg.adamw.grad_clip)
+        opt = adamw_update(grads, opt, leaves, learning_rate(int(opt["step"]), tcfg.schedule), tcfg.adamw)
+    with torch.no_grad():
+        losses.append(float(loss_fn(batch)[1]["loss"]))
+    return losses
+
+
+def phase_dense_train_full_width(smi: str):
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_train_iter
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_lse_ref, flash_backward_ref
+    from repro_torch.optim import AdamWConfig, ScheduleConfig
+    from repro_torch.train import TrainConfig, Trainer, make_loss_fn, make_train_step
+
+    cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=DENSE_LAYERS)
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size)
+          == (4096, 32, 32, 128, 11008, 102400), "deepseek-7b's published width")
+    check((cfg.param_dtype, cfg.compute_dtype, cfg.opt_state_dtype, cfg.remat)
+          == ("bfloat16", "bfloat16", "float32", "full"), "deepseek-7b's own dtypes and remat")
+    L = cfg.n_layers
+    tcfg = TrainConfig(adamw=AdamWConfig(weight_decay=0.1, grad_clip=1.0),
+                       schedule=ScheduleConfig(peak_lr=DENSE_LR, warmup_steps=2, decay_steps=DENSE_STEPS),
+                       microbatches=DENSE_MICRO)
+    dcfg = DataConfig(global_batch=DENSE_BATCH, seq_len=DENSE_SEQ, vocab_size=cfg.vocab_size)
+    train_it = make_train_iter(dcfg)
+    eval_it = make_train_iter(dataclasses.replace(dcfg, seed=99))
+    probe_it = make_train_iter(dataclasses.replace(dcfg, seed=7))
+    probe = next(probe_it)  # one fixed held-out batch
+    probe_it.close()
+    trainer = Trainer(cfg, tcfg, train_it, eval_iter=eval_it, eval_every=DENSE_EVAL_EVERY, device="cuda")
+    t0 = time.perf_counter()
+    model, opt = trainer.restore_or_init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    held_out = make_loss_fn(model, tcfg)
+    with torch.no_grad():
+        probe_before = float(held_out(probe)[1]["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
+    model, opt, hist = trainer.run(model, opt, DENSE_STEPS)
+    torch.cuda.synchronize()
+    fwd, bwd = fa.flash_attention.launches, fa.flash_attention_backward.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    train_it.close()
+    eval_it.close()
+    with torch.no_grad():
+        probe_after = float(held_out(probe)[1]["loss"])
+
+    losses = [h["loss"] for h in hist]
+    n_evals = DENSE_STEPS // DENSE_EVAL_EVERY
+    train, evals = trainer.stats.summary(trainer.train_stream), trainer.stats.summary(trainer.eval_stream)
+    # a step: each layer and microbatch runs the forward kernel twice (forward, remat recompute) and
+    # the backward once; an eval runs the forward once per layer
+    want_fwd = DENSE_STEPS * DENSE_MICRO * 2 * L + n_evals * L
+    want_bwd = DENSE_STEPS * DENSE_MICRO * L
+    mb = (DENSE_BATCH // DENSE_MICRO, DENSE_SEQ, DENSE_SEQ, cfg.n_heads, cfg.resolved_head_dim)
+    parts, cost = trainer.cost_parts, trainer.step_cost
+    later = [  # judged after the phase's line is printed
+        (all(np.isfinite(losses)) and all(np.isfinite(e["loss"]) for e in trainer.eval_history), "non-finite loss"),
+        (probe_after < probe_before, f"held-out loss does not fall: {probe_before} -> {probe_after}"),
+        (train["steps"] == DENSE_STEPS == len(hist), f"train lane steps {train['steps']}"),
+        (evals["steps"] == n_evals == len(trainer.eval_history), f"eval lane steps {evals['steps']}"),
+        (train["tokens"] == DENSE_STEPS * DENSE_BATCH * DENSE_SEQ, f"train lane tokens {train['tokens']}"),
+        ((fwd, bwd) == (want_fwd, want_bwd), f"flash launches {fwd}, {bwd}; want {want_fwd}, {want_bwd}"),
+        (parts["flash_forward"] == DENSE_MICRO * 2 * L * fa.flash_flops(*mb, causal=True)
+         and parts["flash_backward"] == DENSE_MICRO * L * fa.flash_flops(*mb, causal=True, backward=True),
+         f"flash FLOPs in the step cost {parts}"),
+        (abs(train["flops"] - DENSE_STEPS * cost.flops) <= 1e-9 * train["flops"], "train lane FLOPs"),
+        (cost.hbm_bytes > 0 and abs(train["hbm_bytes"] - DENSE_STEPS * cost.hbm_bytes) <= 1e-9 * train["hbm_bytes"],
+         f"train lane bytes {train['hbm_bytes']}"),
+        (evals["flops"] == 0 and evals["hbm_bytes"] == 0, "the eval lane carries no cost"),
+    ]
+    step_ms = [r.seconds * 1e3 for r in trainer.stats.records if r.stream_id == trainer.train_stream]
+    steady_ms = statistics.median(step_ms[2:])
+
+    # one step traced for the device's busy time (idle share against the unprofiled median step)
+    from torch.profiler import ProfilerActivity, profile
+
+    step = make_train_step(model, tcfg)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        opt, _ = step(opt, probe)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t1
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    by_name = {}
+    for e in kernels:
+        name = re.sub(r"\(.*", "", e.name.replace("(anonymous namespace)::", ""))[:48]
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])
+    idle = {"device_busy_ms": busy_s * 1e3, "kernel_launches": len(kernels), "step_ms_median": steady_ms,
+            "idle_share": max(0.0, 1.0 - busy_s * 1e3 / steady_ms) if kernels else "not measured",
+            "traced_step_ms": traced_s * 1e3, "profiler_s": time.perf_counter() - t0, "device_ms_by_kernel": top}
+    del prof
+
+    # every layer's real q, k, v and upstream dO from one microbatch of the probe, captured from
+    # the op; the recompute under remat calls the op again, but only the first forward's outputs
+    # receive a gradient
+    flash, calls = ops.flash_attention, []
+
+    def capture(q, k, v, **kw):
+        out = flash(q, k, v, **kw)
+        if out.requires_grad:
+            rec = {"q": q.detach(), "k": k.detach(), "v": v.detach(), "kw": kw}
+            out.register_hook(lambda g, rec=rec: rec.__setitem__("do", g))
+            calls.append(rec)
+        return out
+
+    ops.flash_attention = capture
+    try:
+        total, _ = held_out({k: v[: DENSE_BATCH // DENSE_MICRO] for k, v in probe.items()})
+        torch.autograd.grad(total, list(model.parameters()))
+    finally:
+        ops.flash_attention = flash
+    del total
+    layers = [c for c in calls if "do" in c]
+    check(len(layers) == L and len(calls) == 2 * L, f"{len(layers)} of {len(calls)} attention calls got a gradient")
+    rows = []
+    for c in layers:
+        q, k, v, do = c["q"], c["k"], c["v"], c["do"]
+        check(c["kw"].get("causal", True) and do.dtype == torch.bfloat16, "a causal bf16 attention")
+        o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        lse_ref = attention_lse_ref(q, k, v, causal=True)
+        g = _grads_close(fa.flash_attention_backward(q, k, v, o, lse, do, causal=True),
+                         flash_backward_ref(q, k, v, o, lse, do, causal=True))
+        lse_max = lse_ref.abs().max().item()
+        g["lse"] = {"max_abs_err": (lse - lse_ref).abs().max().item(), "max_abs": lse_max,
+                    "ok": bool(torch.allclose(lse, lse_ref, rtol=0, atol=LSE_TRAIN_ATOL))}
+        rows.append(g)
+        del o, lse, lse_ref
+    del calls, layers
+
+    # the attention-only check and its controls, each from the same weights
+    attn = [f"layers.{i}.attn.{w}" for i in range(L) for w in ("wq", "wk", "wv")]
+    params = dict(model.named_parameters())
+    check(all(n in params for n in attn), "every layer has attn.wq, attn.wk and attn.wv")
+    saved = {n: params[n].detach().clone() for n in attn}
+    repeated = {k: v[: DENSE_BATCH // DENSE_MICRO] for k, v in probe.items()}
+    backward, attn_only = ops.flash_attention_backward, {}
+    for label, factor in (("kernel", None), ("zeroed", 0.0), ("negated", -1.0)):
+        if factor is not None:
+            ops.flash_attention_backward = lambda *a, f=factor, **kw: tuple(f * t for t in backward(*a, **kw))
+        try:
+            attn_only[label] = _train_only(model, tcfg, repeated, attn, DENSE_STEPS)
+        finally:
+            ops.flash_attention_backward = backward
+            with torch.no_grad():
+                for n in attn:
+                    params[n].copy_(saved[n])
+    del saved, params
+    drops = {label: losses[0] - losses[-1] for label, losses in attn_only.items()}
+    later += [
+        (drops["kernel"] >= ATTN_ONLY_DROP, f"attention-only: the loss fell by {drops['kernel']}, want {ATTN_ONLY_DROP}"),
+        (drops["zeroed"] < ATTN_ONLY_DROP and drops["negated"] < ATTN_ONLY_DROP,
+         f"attention-only: a control passes the check: {drops}"),
+    ]
+    emit({
+        "phase": "dense_train_full_width", "config": "deepseek-7b", "n_layers": L, "d_model": cfg.d_model,
+        "n_heads": cfg.n_heads, "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+        "dtype": {"params": cfg.param_dtype, "compute": cfg.compute_dtype, "moments": cfg.opt_state_dtype},
+        "remat": cfg.remat, "params": n_params, "init_s": init_s,
+        "batch": DENSE_BATCH, "seq": DENSE_SEQ, "microbatches": DENSE_MICRO, "steps": DENSE_STEPS,
+        "peak_lr": DENSE_LR, "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+        "held_out_loss": {"before": probe_before, "after": probe_after},
+        "attention_only": {"losses": attn_only, "drops": drops, "min_drop": ATTN_ONLY_DROP, "steps": DENSE_STEPS,
+                           "batch": f"the probe's first microbatch ({DENSE_BATCH // DENSE_MICRO} x {DENSE_SEQ}), "
+                                    "repeated", "trained": "every layer's attn.wq, attn.wk, attn.wv"},
+        "eval_losses": [e["loss"] for e in trainer.eval_history],
+        "lanes": {"train": train, "eval": evals}, "step_cost": parts,
+        "flash_launches": {"forward": fwd, "backward": bwd, "forward_expected": want_fwd,
+                           "backward_expected": want_bwd, "kernels_per_backward": fa.BWD_LAUNCHES},
+        "tokens_per_s": train["tokens_per_s"], "step_ms_median": steady_ms, "step_ms_first": step_ms[0],
+        "max_memory_allocated_gb": peak_gb, "device_idle": idle,
+        "attention_op_bf16": {"layers": rows, "inputs": f"one probe microbatch ({DENSE_BATCH // DENSE_MICRO} x "
+                                                        f"{DENSE_SEQ}), every layer's q, k, v and dO",
+                              "tolerance": {"rtol": BWD_RTOL, "atol_of_max": BWD_ATOL_OF_MAX,
+                                            "lse": {"atol": LSE_TRAIN_ATOL}}},
+    })
+    for cond, what in later:
+        check(cond, what)
+    for layer, r in enumerate(rows):
+        check(all(r[n]["ok"] for n in ("dq", "dk", "dv", "lse")),
+              f"layer {layer}: the kernels disagree with the plain versions on the training inputs: {r}")
+    return fwd, bwd, max(r[n]["max_abs_err"] for r in rows for n in ("dq", "dk", "dv"))
 
 
 def _u64_on_card(a: np.ndarray) -> torch.Tensor:
@@ -1263,7 +1738,7 @@ def main() -> int:
 
     smi = phase_device()
     phase_build()
-    bf16_err, timings = phase_kernel(smi, served_prompt_lens())
+    bf16_err, timings, d256 = phase_kernel(smi, served_prompt_lens())
     phase_parity()
     launches, op_err = phase_full_width()
     ssd_err, ssd_timings = phase_ssd_kernel(smi)
@@ -1272,6 +1747,11 @@ def main() -> int:
     phase_decode_full_width(model)
     ssd_op_err = phase_ssd_op(model, probe)
     del model, probe
+    bwd_timing, bwd_err = phase_flash_bwd_kernel(smi)
+    phase_dense_parity()
+    torch.cuda.empty_cache()
+    dense_fwd, dense_bwd, dense_err = phase_dense_train_full_width(smi)
+    torch.cuda.empty_cache()
     seg_err, seg_timings, acc_timing, numpy_sweep = phase_segment_kernel(smi)
     seg_launches = phase_sim_sweep(numpy_sweep)
     t = timings[512]
@@ -1283,10 +1763,27 @@ def main() -> int:
                   "(bf16 in, fp32 accumulate; P from registers as two bf16 terms, V read transposed); Q and a 2-stage "
                   "K/V ring by TMA with mbarriers, 128B swizzle; fp32 calls run the SIMT kernel "
                   f"({fa.SIMT_SOURCE})",
-        "launches": launches, "max_abs_err": max(bf16_err, op_err),
+        "launches": launches + dense_fwd, "launches_by_path": {"serving": launches, "dense_training": dense_fwd},
+        "max_abs_err": max(bf16_err, op_err),
         "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": "B=1 S=512 Hq=Hkv=32 D=128 bf16 causal",
+        "d256": {"route": "simt", "source": fa.SIMT_SOURCE, "shape": d256["shape"], "max_abs_err": d256["max_abs_err"],
+                 "timing": {S: {k: r[k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                            for S, r in d256["timing"].items()}},
+    }, {
+        "name": "flash_attention_backward", "route": "cuda", "source": fa.BWD_SOURCE, "replaces": fa.BWD_REPLACES,
+        "design": "the FlashAttention-2 backward in three launches, no atomics: D_i = rowsum(dO O); dK/dV per "
+                  "(kv tile, kv head, batch) looping over the group's q heads and the q tiles from the diagonal; "
+                  "dQ per (q tile, q head, batch) looping over the kv tiles to the diagonal; P recomputed from "
+                  "the forward's lse; 64-row tiles (32 at D=256) staged in shared memory as fp32, all products "
+                  "as fp32 FMAs on the CUDA cores; fp32 or bf16 in and out",
+        "launches": dense_bwd, "kernels_per_launch": fa.BWD_LAUNCHES, "max_abs_err": max(bwd_err, dense_err),
+        "ms": bwd_timing["kernel_ms"], "kernel_ms": bwd_timing["kernel_ms"], "plain_ms": bwd_timing["plain_ms"],
+        "bound_ms": bwd_timing["bound_ms"], "bound_by": bwd_timing["bound_by"],
+        "library_ms": bwd_timing["library_ms"], "library": "SDPA backward (autograd through "
+                                                           "scaled_dot_product_attention)",
+        "shape": "B=1 S=2048 Hq=Hkv=32 D=128 bf16 causal",
     }, {
         "name": "ssd_scan", "route": "cuda", "source": sk.SOURCE, "replaces": sk.REPLACES,
         "design": "bf16: the chunked-parallel form in three kernels; C B^T once per (batch, group, 64-row tile) "

@@ -32,6 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES: Dict[str, str] = {
     "flash_attention": "flash_attention.cu",
     "flash_attention_wgmma": "flash_attention_wgmma.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
     "ssd_scan": "ssd_scan.cu",
     "ssd_scan_wgmma": "ssd_scan_wgmma.cu",
     "array_ops": "array_ops.cu",

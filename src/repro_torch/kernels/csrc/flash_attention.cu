@@ -1,8 +1,10 @@
-// Flash attention forward for Hopper (sm_90a) in fp32, on the CUDA cores,
-// with a plain C interface.  bf16 runs on the tensor-core kernel
-// (flash_attention_wgmma.cu); fp32 stays here because the tensor cores'
-// fp32 input type is TF32 (~10 bits of mantissa), which misses the fp32
-// tolerance (2e-5) the fp32 checks hold the kernel to.
+// Flash attention forward for Hopper (sm_90a) on the CUDA cores, with a
+// plain C interface.  fp32 runs here because the tensor cores' fp32 input
+// type is TF32 (~10 bits of mantissa), which misses the fp32 tolerance
+// (2e-5) the fp32 checks hold the kernel to.  bf16 runs on the tensor-core
+// kernel (flash_attention_wgmma.cu) for head dims 32, 64 and 128, and here
+// for head dim 256 (gemma-7b, paligemma-3b): the wrapper's select_route
+// names the kernel by dtype and head dim.
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention_pallas (the
 // Pallas TPU kernel _flash_kernel).  Same function: softmax(q k^T * scale) v
@@ -12,14 +14,20 @@
 //
 // Layout: q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D), out (B, Sq, Hq, D), all
 // read and written through their strides (the last dimension contiguous),
-// so the caller needs no transposes.  fp32 in, fp32 out.
+// so the caller needs no transposes.  fp32 at D in 32, 64, 128, 256, or
+// bf16 at D = 256 only, in and out (one type for all four), fp32 inside.
+// Any other pair returns cudaErrorInvalidValue.  With a non-null lse
+// pointer each row also writes its logsumexp, lse (B, Hq, Sq) fp32: the
+// natural log of sum_j exp(s_ij * scale), +inf for a row that sees no key
+// (the backward, flash_attention_bwd.cu, recomputes P from it).
 //
 // Design.  The TPU kernel walks the kv blocks as the innermost, sequential
 // grid dimension and carries m, l and acc in VMEM scratch between grid
 // steps.  CUDA blocks run in no order, so here one thread block owns one
 // (batch, query head, 64-row query tile) and loops over 64-column kv tiles
 // itself, stopping at the causal diagonal.  The query tile and each K/V
-// tile are staged in shared memory as fp32; 256 threads form a 16 x 16 grid
+// tile are staged in shared memory as fp32 (213,760 bytes at D = 256, which
+// fits the 227 KB a block may take); 256 threads form a 16 x 16 grid
 // in which each thread holds 4 query rows x 4 score columns of the 64 x 64
 // score tile and 4 rows x D/16 columns of the output accumulator, all in
 // registers.  The 16 threads that share a row (one half-warp) reduce its
@@ -31,10 +39,16 @@
 // rate (and by shared-memory reads, 8 loads per 16 FMAs in q k^T).  That
 // keeps fp32 inputs exact to the reference's tolerance.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void st(float* p, float x) { *p = x; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // kv columns per tile
@@ -47,6 +61,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, Hq, Sq), or null: not written
   int Sq, Sk, Hq, Hkv;
   long long q_sb, q_ss, q_sh;  // strides in elements
   long long k_sb, k_ss, k_sh;
@@ -63,7 +78,7 @@ constexpr size_t smem_floats() {
   return size_t(BQ) * (D + 1) + size_t(BK) * (D + 1) + size_t(BK) * D + size_t(BQ) * (BK + 1);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   constexpr int NC = D / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -80,15 +95,15 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   const int b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
 
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i % D;
     const int row = q0 + r;
-    sQ[r * (D + 1) + d] = row < p.Sq ? q[row * p.q_ss + d] : 0.f;
+    sQ[r * (D + 1) + d] = row < p.Sq ? ld(q + row * p.q_ss + d) : 0.f;
   }
 
   float acc[TR][NC];
@@ -108,8 +123,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
       const int c = i / D, d = i % D;
       const int col = k0 + c;
       const bool ok = col < p.Sk;
-      sK[c * (D + 1) + d] = ok ? k[col * p.k_ss + d] : 0.f;
-      sV[c * D + d] = ok ? v[col * p.v_ss + d] : 0.f;
+      sK[c * (D + 1) + d] = ok ? ld(k + col * p.k_ss + d) : 0.f;
+      sV[c * D + d] = ok ? ld(v + col * p.v_ss + d) : 0.f;
     }
     __syncthreads();
 
@@ -187,38 +202,44 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const float val = lt == 0.f ? 0.f : acc[i][c] / lt;  // fully masked row → 0
-        o[row * p.o_ss + tx + 16 * c] = val;
+        st(o + row * p.o_ss + tx + 16 * c, val);
       }
+      // m is the row's max (every thread of the row holds it), lt its denominator
+      if (p.lse != nullptr && tx == 0)
+        p.lse[(size_t(b) * p.Hq + h) * p.Sq + row] = lt == 0.f ? INFINITY : m[i] + logf(lt);
     }
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch(const Params& p, int B, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.Hq, B);
-  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(p);
+  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
   return int(cudaGetLastError());
 }
 
+template <typename T>
 int dispatch_dim(const Params& p, int B, int D, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<32>(p, B, stream);
-    case 64: return launch<64>(p, B, stream);
-    case 128: return launch<128>(p, B, stream);
+    case 32: return launch<T, 32>(p, B, stream);
+    case 64: return launch<T, 64>(p, B, stream);
+    case 128: return launch<T, 128>(p, B, stream);
+    case 256: return launch<T, 256>(p, B, stream);
     default: return int(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// fp32 only.  Returns a cudaError_t (0 on success).
+// dtype: 0 = fp32, 1 = bf16 (q, k, v and o alike).  lse may be null.
+// Returns a cudaError_t (0 on success).
 extern "C" int repro_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o,
-    int B, int Sq, int Sk, int Hq, int Hkv, int D,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int B, int Sq, int Sk, int Hq, int Hkv, int D, int dtype,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
@@ -226,11 +247,16 @@ extern "C" int repro_flash_attention_fwd(
     float scale, int causal, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0) return int(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
-  const Params p{q, k, v, o, Sq, Sk, Hq, Hkv,
+  const Params p{q, k, v, o, lse, Sq, Sk, Hq, Hkv,
                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
                  scale, causal};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch_dim(p, B, D, s);
+  switch (dtype) {
+    case 0: return dispatch_dim<float>(p, B, D, s);
+    // bf16 comes here only at D = 256 (the tensor-core kernel takes 32-128)
+    case 1: return D == 256 ? launch<__nv_bfloat16, 256>(p, B, s) : int(cudaErrorInvalidValue);
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -14,7 +14,11 @@
 // Layout: q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D), out (B, Sq, Hq, D),
 // read and written through their strides (the head dim contiguous; base and
 // strides 16-byte aligned, as TMA needs: the wrapper checks).  D in 32, 64,
-// 128.
+// 128 (bf16 at D = 256 runs the SIMT kernel).  With a non-null lse pointer
+// each row also writes its logsumexp, lse (B, Hq, Sq) fp32, in natural log
+// (the softmax runs in base 2: lse = (m + log2 l) * ln 2), +inf for a row
+// that sees no key; the backward (flash_attention_bwd.cu) recomputes P
+// from it.  Serving's prefill passes null and writes nothing.
 //
 // Design.  One block of one warpgroup (128 threads) owns one (query head,
 // 64-row query tile, batch) and walks 64-column kv tiles to the causal
@@ -85,6 +89,7 @@ struct Tile {
 
 struct Params {
   void* o;
+  float* lse;  // (B, Hq, Sq), or null: not written
   int Sq, Sk, Hq, Hkv;
   long long o_sb, o_ss, o_sh;  // strides in elements
   float scale_log2;            // scale * log2(e): the softmax runs in base 2
@@ -298,6 +303,10 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma(const __grid_constant
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = l[r] == 0.f ? 0.f : 1.f / l[r];  // a row that sees no key gives 0
+    const int row = r0 + 8 * r;
+    if (p.lse != nullptr && (lane & 3) == 0 && row < p.Sq)
+      p.lse[(size_t(b) * p.Hq + h) * p.Sq + row] =
+          l[r] == 0.f ? INFINITY : (m[r] + log2f(l[r])) * 0.6931471805599453f;
   }
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
@@ -341,13 +350,13 @@ int launch(const void* q, const void* k, const void* v, int B, const Params& p, 
 // that order.  Returns 0, a cudaError_t (> 0), or a negated CUresult of the
 // tensor-map encoding (< 0); repro_flash_wgmma_error_string names it.
 extern "C" int repro_flash_attention_fwd_wgmma(
-    const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int Hq, int Hkv, int D,
+    const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int D,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb, long long o_ss, long long o_sh,
     float scale, int causal, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0) return int(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
-  const Params p{o, Sq, Sk, Hq, Hkv, o_sb, o_ss, o_sh, scale * 1.4426950408889634f, causal, (Sq + BQ - 1) / BQ};
+  const Params p{o, lse, Sq, Sk, Hq, Hkv, o_sb, o_ss, o_sh, scale * 1.4426950408889634f, causal, (Sq + BQ - 1) / BQ};
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {

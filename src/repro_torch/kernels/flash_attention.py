@@ -1,72 +1,121 @@
-"""Flash attention: the hand-written CUDA kernels, their wrapper and its plain version.
+"""Flash attention: the hand-written CUDA kernels, their wrappers and their plain versions.
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas`` (the
-Pallas TPU kernel ``_flash_kernel``).  Two kernels, built for ``sm_90a`` by
-:mod:`.build` at their first launch and called through ``ctypes``; a CUDA
-call picks one by dtype (:func:`select_route`):
+Pallas TPU kernel ``_flash_kernel``).  Two forward kernels, built for
+``sm_90a`` by :mod:`.build` at their first launch and called through
+``ctypes``; a CUDA call picks one by dtype and head dim
+(:func:`select_route`):
 
-* **bf16 → ``csrc/flash_attention_wgmma.cu``** (route ``"wgmma"``), the
-  serving path's kernel: both products on the tensor cores (``wgmma``, bf16
-  in, fp32 accumulate), Q and a two-stage ring of K/V tiles brought into
-  shared memory by TMA, the online softmax on the accumulator fragment in
-  registers, P carried in registers as two bf16 terms (hi + lo, so that
-  rows whose p·v nearly cancel stay within the bf16 tolerance) as the
-  second product's A operand.  TMA needs the base address and the
-  seq/head/batch strides of q, k and v 16-byte aligned; the wrapper checks
-  and raises.
-* **fp32 → ``csrc/flash_attention.cu``** (route ``"simt"``), both products as
-  fp32 FMAs on the CUDA cores.  fp32 stays off the tensor cores on purpose:
-  their fp32 input type is TF32, ~10 bits of mantissa, which misses the fp32
-  tolerance (2e-5) that the fp32 checks hold the kernel to.
+* **bf16, D in 32/64/128 → ``csrc/flash_attention_wgmma.cu``** (route
+  ``"wgmma"``), the serving and training path's kernel: both products on
+  the tensor cores (``wgmma``, bf16 in, fp32 accumulate), Q and a
+  two-stage ring of K/V tiles brought into shared memory by TMA, the online
+  softmax on the accumulator fragment in registers, P carried in registers
+  as two bf16 terms (hi + lo, so that rows whose p·v nearly cancel stay
+  within the bf16 tolerance) as the second product's A operand.  TMA needs
+  the base address and the seq/head/batch strides of q, k and v 16-byte
+  aligned; the wrapper checks and raises.
+* **fp32, and bf16 at D = 256 → ``csrc/flash_attention.cu``** (route
+  ``"simt"``), both products as fp32 FMAs on the CUDA cores.  fp32 stays
+  off the tensor cores on purpose: their fp32 input type is TF32, ~10 bits
+  of mantissa, which misses the fp32 tolerance (2e-5) that the fp32 checks
+  hold the kernel to.  Head dim 256 (gemma-7b, paligemma-3b) takes this
+  kernel in bf16 too: its 64 x 256 tiles fit the block's shared memory as
+  fp32, the tensor-core kernel's ring would not.
 
-What bounds the function on an H100: two products of 2·S²·D per head pair
-(halved by causality) against 8·B·H·S·D bytes moved; at the serving shapes
-the bytes bound it.  Both kernels keep the online softmax's state in
-registers, read GQA kv heads in place (``h // group``), read batch-major
-tensors through their strides and mask the ragged edge themselves, so they
-move no byte beyond the inputs and the output.  ``PERF.md`` holds their
-measured times beside the bound.
+Both forward kernels can write the rows' logsumexp (``return_lse=True``),
+which the backward reads.  The backward is one more kernel,
+``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_backward`), the
+FlashAttention-2 split in three launches (``Dᵢ = rowsum(dO ∘ O)``; dK and
+dV per kv tile; dQ per q tile), all products as fp32 FMAs, fp32 or bf16 in
+and out.  The JAX package has no backward kernel: off the TPU it lets XLA
+differentiate its blocked jnp form (``repro/kernels/ops.py::_xla_flash``),
+so that gradient is the function the backward replaces.
 
-A CUDA tensor launches a kernel or raises; nothing falls back to the other
-kernel or to the plain version.  Only a CPU tensor takes the plain version
-(:func:`repro_torch.kernels.ref.attention_ref`).
+What bounds the function on an H100: the forward's two products of
+2·Sq·Sk·D per head (halved by causality) against q, k, v and out moved
+once; the backward's five products against q, k, v, o, dO read and dq,
+dk, dv written once (:func:`flash_flops`, :func:`flash_bytes`).  At the
+serving shapes the forward is bound by bytes, at training's S = 2048 by
+operations.  Every kernel reads GQA kv heads in place (``h // group``),
+reads batch-major tensors through their strides and masks the ragged edge
+itself.  ``PERF.md`` holds their measured times beside the bound.
+
+A CUDA tensor launches a kernel or raises; nothing falls back to another
+kernel or to the plain version.  Only a CPU tensor takes the plain versions
+(:func:`repro_torch.kernels.ref.attention_ref`,
+:func:`~repro_torch.kernels.ref.attention_lse_ref`,
+:func:`~repro_torch.kernels.ref.flash_backward_ref`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
 from . import build
-from .ref import attention_ref
+from .ref import attention_lse_ref, attention_ref, flash_backward_ref
 
 __all__ = [
-    "flash_attention", "select_route", "tma_strides", "ROUTES", "SUPPORTED_HEAD_DIMS",
-    "SOURCE", "SIMT_SOURCE", "REPLACES",
+    "flash_attention", "flash_attention_backward", "flash_flops", "flash_bytes", "select_route", "tma_strides",
+    "ROUTES", "SUPPORTED_HEAD_DIMS", "WGMMA_HEAD_DIMS", "BWD_LAUNCHES", "SOURCE", "SIMT_SOURCE", "BWD_SOURCE",
+    "REPLACES", "BWD_REPLACES",
 ]
 
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
-#: dtype → the kernel a CUDA call of that dtype launches
+SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
+#: the head dims the tensor-core kernel takes; bf16 at any other runs the SIMT kernel
+WGMMA_HEAD_DIMS = (32, 64, 128)
+#: dtype → the kernel a CUDA call of that dtype launches at a head dim in WGMMA_HEAD_DIMS
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
+#: the SIMT kernels' element-type codes
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: CUDA kernels one backward call launches: the Dᵢ pre-pass, dK/dV, dQ
+BWD_LAUNCHES = 3
 
-#: where the kernels live, and which TPU kernel they replace (SOURCE is the
-#: main path's: serving runs in bf16)
+#: where the kernels live, and which TPU kernel (or, for the backward, which
+#: function) they replace (SOURCE is the main path's: serving and training run in bf16)
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
 SIMT_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:167 (flash_attention_pallas / _flash_kernel)"
+BWD_REPLACES = "src/repro/kernels/ops.py:38 (the gradient XLA takes of _xla_flash; no Pallas backward)"
 #: bytes of alignment TMA needs of a tensor map's base address and strides
 TMA_ALIGN = 16
 
 
-def select_route(dtype: torch.dtype) -> str:
-    """The kernel that a CUDA call on ``dtype`` launches: ``"wgmma"`` (the
-    tensor-core kernel) for bf16, ``"simt"`` for fp32; anything else raises."""
+def select_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that a CUDA call on ``dtype`` at ``head_dim`` launches:
+    ``"wgmma"`` (the tensor-core kernel) for bf16 at a head dim in
+    :data:`WGMMA_HEAD_DIMS`, ``"simt"`` for fp32 and for bf16 at head dim
+    256; any other dtype or head dim raises."""
     route = ROUTES.get(dtype)
     if route is None:
         raise ValueError(f"kernel takes float32 or bfloat16 q/k/v, got {dtype}")
-    return route
+    if head_dim not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"kernel takes head dim in {SUPPORTED_HEAD_DIMS}, got {head_dim}")
+    return route if head_dim in WGMMA_HEAD_DIMS else "simt"
+
+
+def flash_flops(B: int, Sq: int, Sk: int, Hq: int, D: int, *, causal: bool, backward: bool = False) -> int:
+    """The FLOPs attention needs: two products of 2·Sq·Sk·D per query head
+    forward, five backward (S, dP, dV, dQ, dK), halved when causal.  The
+    backward kernel computes S and dP in both its dK/dV and its dQ kernel
+    (seven products), which is not counted: this is the work of the
+    function, not of the kernel."""
+    per_product = 2 * B * Hq * Sq * Sk * D // (2 if causal else 1)
+    return (5 if backward else 2) * per_product
+
+
+def flash_bytes(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int, esize: int, *, backward: bool = False) -> int:
+    """The bytes attention must move: forward q, k, v read and out written
+    once; backward q, k, v, o, dO and the fp32 lse read and dq, dk, dv
+    written once (element size ``esize``)."""
+    q, kv = B * Sq * Hq * D, B * Sk * Hkv * D
+    if not backward:
+        return esize * (2 * q + 2 * kv)
+    return esize * (4 * q + 4 * kv) + 4 * B * Hq * Sq
 
 
 def tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
@@ -92,20 +141,27 @@ def tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
     return out[0], out[1], out[2]
 
 
-def _kernel_fn(route: str):
-    """The route's C entry point and its error-string function; both kernels
-    take the same arguments."""
-    if route == "wgmma":
-        lib = build.load("flash_attention_wgmma")
-        fn, err_str = lib.repro_flash_attention_fwd_wgmma, lib.repro_flash_wgmma_error_string
-    else:
-        lib = build.load("flash_attention")
-        fn, err_str = lib.repro_flash_attention_fwd, lib.repro_cuda_error_string
+_LL, _I, _P, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+#: kernel → (library, C entry point, its error-string function, argtypes)
+_ENTRIES = {
+    "wgmma": ("flash_attention_wgmma", "repro_flash_attention_fwd_wgmma", "repro_flash_wgmma_error_string",
+              [_P] * 5 + [_I] * 6 + [_LL] * 12 + [_F, _I, _P]),
+    "simt": ("flash_attention", "repro_flash_attention_fwd", "repro_cuda_error_string",
+             [_P] * 5 + [_I] * 7 + [_LL] * 12 + [_F, _I, _P]),
+    "bwd": ("flash_attention_bwd", "repro_flash_attention_bwd", "repro_flash_bwd_error_string",
+            [_P] * 10 + [_I] * 7 + [_LL] * 15 + [_F, _I, _P]),
+}
+
+
+def _kernel_fn(kernel: str):
+    """The kernel's C entry point and its error-string function."""
+    lib_name, fn_name, err_name, argtypes = _ENTRIES[kernel]
+    lib = build.load(lib_name)
+    fn, err_str = getattr(lib, fn_name), getattr(lib, err_name)
     if fn.argtypes is None:  # first use of this library handle
-        ll, i, p = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [p, p, p, p] + [i] * 6 + [ll] * 12 + [ctypes.c_float, i, p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        err_str.argtypes = [i]
+        err_str.argtypes = [_I]
         err_str.restype = ctypes.c_char_p
     return fn, err_str
 
@@ -123,6 +179,28 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> N
         raise ValueError("causal flash attention expects Sq == Sk self-attention")
 
 
+def _device(*ts: torch.Tensor) -> torch.device:
+    """The one device of ``ts``; raises unless it is a CPU or CUDA device."""
+    devices = {t.device for t in ts}
+    if len(devices) != 1:
+        raise ValueError(f"inputs lie on different devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {dev}")
+    return dev
+
+
+def _check_cuda(ts, D: int) -> str:
+    """Dtype, head dim and layout checks of a CUDA call; returns its route."""
+    dtype = ts[0].dtype
+    if any(t.dtype != dtype for t in ts):
+        raise ValueError(f"kernel takes q/k/v (and o, dO) of one dtype, got {[t.dtype for t in ts]}")
+    route = select_route(dtype, D)
+    if any(t.stride(-1) != 1 for t in ts):
+        raise ValueError("kernel needs the last (head) dimension contiguous")
+    return route
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, Sq, Hq, D)
     k: torch.Tensor,  # (B, Sk, Hkv, D)
@@ -130,55 +208,107 @@ def flash_attention(
     *,
     causal: bool = True,
     scale: Optional[float] = None,
-) -> torch.Tensor:
-    """Batch-major flash attention, out ``(B, Sq, Hq, D)`` in q's dtype.
+    return_lse: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Batch-major flash attention, out ``(B, Sq, Hq, D)`` in q's dtype, and
+    with ``return_lse`` also the rows' logsumexp ``(B, Hq, Sq)`` fp32
+    (``+inf`` for a row that sees no key), which :func:`flash_attention_backward` reads.
 
     On a CUDA tensor it launches the kernel that :func:`select_route` names
-    for q's dtype (bf16: the tensor-core kernel, fp32: the SIMT kernel; ``D``
-    in :data:`SUPPORTED_HEAD_DIMS`, last dimension contiguous; for bf16 also
-    the alignment :func:`tma_strides` checks) and counts the launch in
+    for q's dtype and head dim (``D`` in :data:`SUPPORTED_HEAD_DIMS`, last
+    dimension contiguous; for the tensor-core kernel also the alignment
+    :func:`tma_strides` checks) and counts the launch in
     ``flash_attention.launches``; on a CPU tensor it computes the plain
     version.  Anything the kernels do not take raises."""
     _check(q, k, v, causal)
     D = q.shape[-1]
     scale = float(scale if scale is not None else D ** -0.5)
-    devices = {q.device, k.device, v.device}
-    if len(devices) != 1:
-        raise ValueError(f"q, k and v lie on different devices: {sorted(map(str, devices))}")
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"kernel takes q/k/v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    route = select_route(q.dtype)
-    if D not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"kernel takes head dim in {SUPPORTED_HEAD_DIMS}, got {D}")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("kernel needs the last (head) dimension contiguous")
+    if _device(q, k, v).type == "cpu":
+        out = attention_ref(q, k, v, causal=causal, scale=scale)
+        return (out, attention_lse_ref(q, k, v, causal=causal, scale=scale)) if return_lse else out
+    route = _check_cuda((q, k, v), D)
 
     B, Sq, Hq, _ = q.shape
     _, Sk, Hkv, _ = k.shape
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) if return_lse else None
+    dims = [B, Sq, Sk, Hq, Hkv, D]
     if route == "wgmma":
         # a tensor with no rows is never read (Sk == 0 loads no tile)
         strides = [tma_strides(t) if t.shape[1] else t.stride()[:3] for t in (q, k, v)]
     else:
         strides = [t.stride()[:3] for t in (q, k, v)]
+        dims.append(_DTYPE_CODES[q.dtype])
     fn, err_str = _kernel_fn(route)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Sk, Hq, Hkv, D,
-            *strides[0], *strides[1], *strides[2], *out.stride()[:3],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr() if lse is not None else None,
+            *dims, *strides[0], *strides[1], *strides[2], *out.stride()[:3],
             scale, int(causal), stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention {route} kernel launch failed: {err_str(err).decode()}")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
-#: launches of either CUDA kernel since the count was last set to 0
+#: launches of either forward kernel since the count was last set to 0
 flash_attention.launches = 0
+
+
+def flash_attention_backward(
+    q: torch.Tensor,  # (B, Sq, Hq, D)
+    k: torch.Tensor,  # (B, Sk, Hkv, D)
+    v: torch.Tensor,  # (B, Sk, Hkv, D)
+    o: torch.Tensor,  # (B, Sq, Hq, D)  the forward's output
+    lse: torch.Tensor,  # (B, Hq, Sq)   the forward's logsumexp, fp32
+    do: torch.Tensor,  # (B, Sq, Hq, D) the output's gradient
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`flash_attention`, contiguous, in q's dtype.
+
+    On a CUDA tensor it launches ``csrc/flash_attention_bwd.cu`` (fp32 or
+    bf16, one dtype for q, k, v, o and dO; ``D`` in
+    :data:`SUPPORTED_HEAD_DIMS`; last dimension contiguous, any other
+    strides; causal only with Sq == Sk) and counts the call in
+    ``flash_attention_backward.launches`` (each call launches
+    :data:`BWD_LAUNCHES` CUDA kernels); on a CPU tensor it computes the plain
+    version (:func:`~repro_torch.kernels.ref.flash_backward_ref`).
+    Anything the kernel does not take raises."""
+    _check(q, k, v, causal)
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and dO {tuple(do.shape)} must have q's shape {tuple(q.shape)}")
+    if lse.shape != (B, Hq, Sq):
+        raise ValueError(f"lse must be (B, Hq, Sq) = {(B, Hq, Sq)}, got {tuple(lse.shape)}")
+    scale = float(scale if scale is not None else D ** -0.5)
+    if _device(q, k, v, o, lse, do).type == "cpu":
+        return flash_backward_ref(q, k, v, o, lse, do, causal=causal, scale=scale)
+    _check_cuda((q, k, v, o, do), D)
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"kernel takes a contiguous float32 lse, got {lse.dtype}")
+
+    dq = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, Hkv, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, Sk, Hkv, D), dtype=q.dtype, device=q.device)
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    fn, err_str = _kernel_fn("bwd")
+    strides = [s for t in (q, k, v, o, do) for s in t.stride()[:3]]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv, delta)),
+            B, Sq, Sk, Hq, Hkv, D, _DTYPE_CODES[q.dtype], *strides, scale, int(causal), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_backward kernel launch failed: {err_str(err).decode()}")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+#: calls of the backward that launched its kernels since the count was last set to 0
+flash_attention_backward.launches = 0

@@ -9,8 +9,9 @@
 
 Prefix-LM masking (``prefix_len > 0``) and a value width other than the key
 width (MLA prefill) are not on the port's path yet: on a CUDA tensor they
-raise ``NotImplementedError`` and do not fall back.  The flash kernel has no
-backward yet, so a CUDA call that needs a gradient raises as well.
+raise ``NotImplementedError`` and do not fall back.  A CUDA call that needs
+a gradient goes through :class:`FlashAttention`: the forward kernel with
+the rows' logsumexp, and the backward kernel.
 """
 
 from __future__ import annotations
@@ -20,10 +21,34 @@ from typing import Optional, Tuple
 import torch
 
 from .flash_attention import flash_attention as flash_attention_cuda
+from .flash_attention import flash_attention_backward
 from .ref import attention_ref, ssd_chunked_ref
 from .ssd_scan import ssd_scan_autograd
 
-__all__ = ["flash_attention", "decode_attention", "ssd_scan", "ref_chunk"]
+__all__ = ["flash_attention", "FlashAttention", "decode_attention", "ssd_scan", "ref_chunk"]
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with a gradient: forward by the forward kernel, which
+    also writes the rows' logsumexp; backward by the backward kernel, which
+    recomputes P from it (:func:`~.flash_attention.flash_attention_backward`).
+    Saves q, k, v, the output and the logsumexp.  On CPU tensors both
+    wrappers compute their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:  # autograd may hand over an expanded or transposed gradient
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do, causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(
@@ -37,17 +62,10 @@ def flash_attention(
     impl: str = "auto",
 ) -> torch.Tensor:
     """Dispatch on ``impl`` and on what the kernel covers; the wrapper owns
-    the scale default, the shape checks and the CPU branch."""
+    the scale default, the shape checks and the CPU branch.  Off the CPU, a
+    call that needs a gradient goes through :class:`FlashAttention`."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown impl {impl!r} (want 'auto' or 'plain')")
-    if (
-        impl == "auto" and q.device.type != "cpu" and torch.is_grad_enabled()
-        and any(t.requires_grad for t in (q, k, v))
-    ):
-        raise NotImplementedError(
-            "the flash-attention kernel has no backward yet; training through attention on the "
-            "card comes with the dense-training slice"
-        )
     no_kernel = prefix_len > 0 or v.shape[-1] != q.shape[-1]
     if impl == "auto" and no_kernel and q.device.type != "cpu":
         if prefix_len > 0:
@@ -60,6 +78,8 @@ def flash_attention(
         )
     if impl == "plain" or no_kernel:
         return attention_ref(q, k, v, causal=causal, scale=scale, prefix_len=prefix_len)
+    if q.device.type != "cpu" and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, scale)
     return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
 
 

@@ -15,8 +15,8 @@ from typing import Optional
 import torch
 
 __all__ = [
-    "attention_ref", "flash_blocked_ref", "ssd_ref", "ssd_chunked_ref", "ssd_tiled_ref", "segment_scatter_ref",
-    "segment_scatter_warp_ref", "scatter_add_ref", "running_sum_ref",
+    "attention_ref", "attention_lse_ref", "flash_backward_ref", "flash_blocked_ref", "ssd_ref", "ssd_chunked_ref",
+    "ssd_tiled_ref", "segment_scatter_ref", "segment_scatter_warp_ref", "scatter_add_ref", "running_sum_ref",
 ]
 
 
@@ -153,6 +153,78 @@ def flash_blocked_ref(
         outs.append(chunk_attn(q0, qf[:, q0:q1], max(1, k_end)))
     o = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
     return o.reshape(B, Sq, Hq, Dv).to(q.dtype)
+
+
+def _scores(q, k, causal, scale):
+    """fp32 scores ``(B, Hkv, G, Sq, Sk)`` (already scaled) and the visible
+    mask ``(Sq, Sk)``; with ``causal`` the last query aligns with the last key."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    if Hq % Hkv != 0:
+        raise ValueError(f"query heads {Hq} not a multiple of kv heads {Hkv}")
+    qf = q.float().reshape(B, Sq, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = (torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)) >= torch.arange(Sk, device=q.device)[None, :]
+    return s, mask
+
+
+def attention_lse_ref(
+    q: torch.Tensor,  # (B, Sq, Hq, D)
+    k: torch.Tensor,  # (B, Sk, Hkv, D)
+    v: torch.Tensor,  # (B, Sk, Hkv, Dv)
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Per-row logsumexp of the scaled, masked scores, ``(B, Hq, Sq)`` fp32:
+    what the flash kernels write beside their output for the backward.  A
+    row that sees no key gets ``+inf``, which the backward reads as "no
+    mass": ``exp(s - inf)`` is 0 for every score.  ``v`` is not read; it is
+    taken so that the call matches :func:`attention_ref`'s."""
+    B, Sq, Hq, D = q.shape
+    scale = scale if scale is not None else D ** -0.5
+    s, mask = _scores(q, k, causal, scale)
+    lse = torch.logsumexp(s.masked_fill(~mask, -torch.inf), dim=-1)  # -inf where no key
+    lse = torch.where(mask.any(-1), lse, torch.inf)
+    return lse.reshape(B, Hq, Sq)
+
+
+def flash_backward_ref(
+    q: torch.Tensor,  # (B, Sq, Hq, D)
+    k: torch.Tensor,  # (B, Sk, Hkv, D)
+    v: torch.Tensor,  # (B, Sk, Hkv, Dv)
+    o: torch.Tensor,  # (B, Sq, Hq, Dv)  the forward's output
+    lse: torch.Tensor,  # (B, Hq, Sq)    the forward's logsumexp
+    do: torch.Tensor,  # (B, Sq, Hq, Dv) the output's gradient
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+):
+    """The FlashAttention-2 backward in plain torch, ``(dq, dk, dv)`` in the
+    inputs' dtypes; everything in between is fp32:
+
+    ``Dᵢ = rowsum(dO ∘ O)``; P recomputed from the saved logsumexp,
+    ``P = exp(S·scale − lse)`` on visible entries and 0 elsewhere;
+    ``dV = Pᵀ dO``, ``dP = dO Vᵀ``, ``dS = P ∘ (dP − Dᵢ)``,
+    ``dQ = dS K · scale``, ``dK = dSᵀ Q · scale``; dK and dV summed over
+    each GQA group.  A row whose lse is ``+inf`` (no visible key) has
+    ``P = 0`` and gives no gradient.  This is what the backward kernel
+    computes; the JAX package differentiates its blocked form instead."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, Dv = v.shape
+    G = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    s, mask = _scores(q, k, causal, scale)
+    p = torch.where(mask, torch.exp(s - lse.float().reshape(B, Hkv, G, Sq, 1)), 0.0)
+    dof = do.float().reshape(B, Sq, Hkv, G, Dv)
+    delta = (dof * o.float().reshape(B, Sq, Hkv, G, Dv)).sum(-1).permute(0, 2, 3, 1)  # (B, Hkv, G, Sq)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    ds = p * (torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float()) - delta[..., None])
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()).reshape(B, Sq, Hq, D) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, q.float().reshape(B, Sq, Hkv, G, D)) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _ssd_dtype(x: torch.Tensor) -> torch.dtype:

@@ -62,7 +62,7 @@ from .flash_attention import tma_strides
 from .ref import ssd_chunked_ref
 
 __all__ = [
-    "ssd_scan", "SSDScan", "ssd_scan_autograd", "ssd_flops", "select_route", "tiles_per_chunk", "ROUTES",
+    "ssd_scan", "SSDScan", "ssd_scan_autograd", "ssd_flops", "ssd_bytes", "select_route", "tiles_per_chunk", "ROUTES",
     "MAX_STATE", "MAX_CHUNK_TILES", "TILE", "WGMMA_HEAD_DIM", "WGMMA_STATES", "SOURCE", "SIMT_SOURCE", "REPLACES",
 ]
 
@@ -120,6 +120,13 @@ def ssd_flops(B: int, S: int, H: int, P: int, N: int) -> int:
     runs each two-term product twice.)"""
     L = TILE
     return B * H * -(-S // L) * (2 * L * L * N + 2 * L * L * P + 4 * L * N * P)
+
+
+def ssd_bytes(B: int, S: int, H: int, P: int, N: int, G: int, esize: int) -> int:
+    """The bytes one call must move: x read and y written (``esize`` each), B
+    and C read (``esize``), dt, A and D read and the final state written
+    (fp32)."""
+    return esize * (2 * B * S * H * P + 2 * B * S * G * N) + 4 * B * S * H + 2 * 4 * H + 4 * B * H * P * N
 
 
 def _kernel_fn(route: str):

@@ -9,8 +9,11 @@ A copy of the reference package's simulator, file for file with only its
 imports changed, except that ``SimConfig.array_backend`` defaults to
 ``"torch"`` (the stat landings run through the CUDA kernels of
 :mod:`repro_torch.kernels.segment_scatter`), the batch runner's pool spawns
-its workers once CUDA is initialised, and ``hlo_costs`` (KernelDescs from
-compiled HLO) is left out until the perf tooling is ported.
+its workers once CUDA is initialised, its pooled sweep maps one job per
+chunk (the reference's larger chunks make ``imap`` return a generator with
+no ``next(timeout=...)``, so its pooled sweep fails its first job), and
+``hlo_costs`` (KernelDescs from compiled HLO) is left out until the perf
+tooling is ported.
 """
 
 from .kernel_desc import Access, KernelDesc, LINE_SIZE, pointer_chase_trace, streaming_trace

@@ -435,11 +435,10 @@ class BatchRunner:
     Two backends:
 
     * ``backend="pool"`` (default) — one simulation per job.  The pooled
-      path orders jobs shape-grouped (same-shape jobs land in the same pool
-      chunk) and maps with an explicit ``chunksize`` so small-job sweeps
-      stop paying one IPC round-trip per job; payloads are restored to job
-      order before merging, so the pooled and serial paths stay
-      bit-identical.
+      path orders jobs shape-grouped (same-shape jobs run back to back)
+      and maps them one job per chunk, so that each result has its own
+      timeout; payloads are restored to job order before merging, so the
+      pooled and serial paths stay bit-identical.
     * ``backend="vector"`` — shape-grouped trace-compile/replay: each
       distinct shape simulates once (the compiled engine's phase 1) and all
       its jobs replay in lockstep (phase 2).  Cross-shape groups still fan
@@ -611,23 +610,21 @@ class BatchRunner:
                     payloads[i] = self._run_one(i, jobs[i], first_attempt=0)
                     self._journal_append(jfh, i, payloads[i])
                 return payloads  # type: ignore[return-value]
-            # Shape-grouped order: one chunk tends to hold one shape's jobs,
-            # so a worker's trace/descriptor caches stay warm within a chunk.
-            # One job per chunk under an injecting plan: a crash/hang must
-            # take down only its own job, never innocent chunk-mates.
+            # Shape-grouped order: consecutive jobs tend to share a shape, so
+            # a worker's trace/descriptor caches stay warm.  One job per
+            # chunk: only then does ``imap`` return an iterator with
+            # ``next(timeout=...)`` (with a larger chunksize CPython returns
+            # a plain generator, the reference's pooled sweep then fails its
+            # first job), and a crash/hang takes down only its own job.
             pending_set = set(pending)
             order = [i for grp in self._shape_groups() for i in grp
                      if i in pending_set]
-            injecting = plan is not None and bool(plan.crash_jobs or plan.hang_jobs)
-            chunksize = 1 if injecting else max(
-                1, (len(order) + 4 * self.workers - 1) // (4 * self.workers))
             timeout = plan.job_timeout_s if plan is not None else _DEFAULT_JOB_TIMEOUT_S
             finished = 0
             if order:
                 with _pool_context().Pool(self.workers) as pool:
                     it = pool.imap(
-                        _pool_worker, [(i, jobs[i], plan) for i in order],
-                        chunksize=chunksize,
+                        _pool_worker, [(i, jobs[i], plan) for i in order], chunksize=1,
                     )
                     try:
                         for k, i in enumerate(order):

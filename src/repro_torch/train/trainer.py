@@ -16,11 +16,14 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import FlopCounterMode
 
 from ..configs.base import ModelConfig, torch_dtype
 from ..core import ReportSink, StepCost, StreamManager, StreamStats
 from ..core.query import StatsFrame
+from ..kernels import flash_attention as flash_kernel
 from ..kernels import ssd_scan as ssd_kernel
 from ..models import Transformer
 from ..optim import AdamWConfig, ScheduleConfig, adamw_init, adamw_update, clip_by_global_norm, learning_rate
@@ -117,6 +120,31 @@ def make_train_step(model: Transformer, tcfg: TrainConfig) -> Callable:
     return train_step
 
 
+class _ByteCounter(TorchDispatchMode):
+    """Sums the bytes of every dispatched op's tensor inputs and outputs.
+
+    An unfused count: each eager op is taken to read its inputs and write its
+    outputs in full, once.  Views and allocations move nothing and are
+    skipped.  It is not XLA's ``bytes accessed`` (the reference's count,
+    taken after fusion), and it cannot see a kernel launched through ctypes,
+    whose bytes the trainer adds by formula."""
+
+    _NO_DATA = {
+        torch.ops.aten.empty.memory_format, torch.ops.aten.empty_strided.default, torch.ops.aten.empty_like.default,
+        torch.ops.aten._unsafe_view.default, torch.ops.aten.detach.default, torch.ops.aten.lift_fresh.default,
+    }
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not func.is_view and func not in self._NO_DATA:
+            self.bytes += sum(t.nbytes for t in tree_flatten((args, kwargs, out))[0] if isinstance(t, torch.Tensor))
+        return out
+
+
 def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, *, device="cuda") -> Tuple[Transformer, Dict]:
     """(model, opt_state): seeded random weights from ``tcfg.seed`` and
     zeroed moments in ``cfg.opt_state_dtype``."""
@@ -131,10 +159,15 @@ class Trainer:
     The train lane and the (optional) eval lane are distinct *streams*: their
     step records and byte/FLOP attribution never mix
     (``stats.summary(train_stream)`` vs ``stats.summary(eval_stream)``).
-    The train lane's cost per step is counted once, over the first step, by
-    ``torch.utils.flop_counter.FlopCounterMode`` plus the SSD kernel's FLOPs
-    by formula (the counter cannot see a kernel launched through ctypes);
-    its ``hbm_bytes`` is 0 (not counted).
+    The train lane's cost per step is counted once, over the first step:
+    FLOPs by ``torch.utils.flop_counter.FlopCounterMode`` and ``hbm_bytes``
+    by an unfused count of every dispatched op's inputs and outputs
+    (:class:`_ByteCounter`; not XLA's ``bytes accessed``), each plus what the
+    kernels launched through ctypes (the SSD scan, flash attention forward
+    and backward) add by formula, since neither counter can see them.
+    :attr:`cost_parts` names each part.  ``hbm_bytes`` lands on the train
+    lane's ``GLOBAL_ACC_R`` MISS counter, as the reference's compiled cost
+    does.
     """
 
     def __init__(
@@ -164,8 +197,10 @@ class Trainer:
         self.train_stream = self.streams.create_stream("train").stream_id
         self.eval_stream = self.streams.create_stream("eval").stream_id
         self.step = 0
-        #: the train lane's per-step cost, and its parts: what the counter saw
-        #: and what the SSD kernel's launches add by formula
+        #: the train lane's per-step cost, and its parts: FLOPs ("counted",
+        #: "ssd_kernel", "flash_forward", "flash_backward") and bytes (the same
+        #: names after "bytes_"): what the counters saw and what each kernel's
+        #: launches add by formula
         self.step_cost: Optional[StepCost] = None
         self.cost_parts: Dict[str, float] = {}
         self.eval_history: List[Dict[str, float]] = []
@@ -184,14 +219,36 @@ class Trainer:
             self.step = int(meta.get("step", 0))
         return model, opt_state
 
-    def _ssd_flops(self, batch) -> int:
-        """FLOPs of one SSD kernel launch at this batch's microbatch shape."""
-        s = self.cfg.ssm
-        if s is None:
-            return 0
+    @staticmethod
+    def _launches() -> Dict[str, int]:
+        return {"ssd_kernel": ssd_kernel.ssd_scan.launches, "flash_forward": flash_kernel.flash_attention.launches,
+                "flash_backward": flash_kernel.flash_attention_backward.launches}
+
+    def _kernel_costs(self, batch, launched: Dict[str, int]) -> Dict[str, float]:
+        """FLOPs and bytes that the kernels launched through ctypes add, by
+        formula at this batch's microbatch shape; a kernel that did not
+        launch adds nothing."""
+        cfg = self.cfg
         rows, S = np.asarray(batch["tokens"]).shape
-        H = s.n_heads(self.cfg.d_model)
-        return ssd_kernel.ssd_flops(rows // self.tcfg.microbatches, S, H, s.head_dim, s.d_state)
+        B = rows // self.tcfg.microbatches
+        esize = cfg.compute_tdtype().itemsize
+        per = {}
+        if launched["ssd_kernel"]:
+            s = cfg.ssm
+            H = s.n_heads(cfg.d_model)
+            per["ssd_kernel"] = (ssd_kernel.ssd_flops(B, S, H, s.head_dim, s.d_state),
+                                 ssd_kernel.ssd_bytes(B, S, H, s.head_dim, s.d_state, s.n_groups, esize))
+        for name, backward in (("flash_forward", False), ("flash_backward", True)):
+            if launched[name]:
+                shape = (B, S, S, cfg.n_heads)
+                per[name] = (flash_kernel.flash_flops(*shape, cfg.resolved_head_dim, causal=True, backward=backward),
+                             flash_kernel.flash_bytes(*shape, cfg.n_kv_heads, cfg.resolved_head_dim, esize,
+                                                      backward=backward))
+        out = {}
+        for name, n in launched.items():
+            flops, nbytes = per.get(name, (0, 0))
+            out[name], out[f"bytes_{name}"] = float(n * flops), float(n * nbytes)
+        return out
 
     def run(self, model: Transformer, opt_state, num_steps: int):
         step_fn = make_train_step(model, self.tcfg)
@@ -201,12 +258,15 @@ class Trainer:
             batch = next(self.data_iter)
             uid = self.stats.step_begin("train_step", self.train_stream)
             if self.step_cost is None:
-                launches = ssd_kernel.ssd_scan.launches
-                with FlopCounterMode(display=False) as counter:
+                before = self._launches()
+                with FlopCounterMode(display=False) as counter, _ByteCounter() as moved:
                     opt_state, metrics = step_fn(opt_state, batch)
-                kernel = (ssd_kernel.ssd_scan.launches - launches) * self._ssd_flops(batch)
-                self.cost_parts = {"counted": float(counter.get_total_flops()), "ssd_kernel": float(kernel)}
-                self.step_cost = StepCost(flops=self.cost_parts["counted"] + kernel)
+                launched = {name: n - before[name] for name, n in self._launches().items()}
+                self.cost_parts = {"counted": float(counter.get_total_flops()), "bytes_counted": float(moved.bytes),
+                                   **self._kernel_costs(batch, launched)}
+                parts = self.cost_parts.items()
+                self.step_cost = StepCost(flops=sum(v for k, v in parts if not k.startswith("bytes_")),
+                                          hbm_bytes=sum(v for k, v in parts if k.startswith("bytes_")))
             else:
                 opt_state, metrics = step_fn(opt_state, batch)
             metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device

@@ -1,4 +1,6 @@
-"""The CUDA kernels (flash attention and the SSD scan, bf16 on wgmma and fp32 on the CUDA cores; the simulator's landing) against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card: flash attention
+forward and backward and the SSD scan (bf16 on wgmma, fp32 and head dim 256
+on the CUDA cores) and the simulator's landing.
 
 Imports torch and the port only (the card's machine has no JAX).  Every
 test needs an NVIDIA GPU and skips without one.  Run on the card:
@@ -16,7 +18,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import segment_scatter as ss
 from repro_torch.kernels import ssd_scan as sk
 from repro_torch.kernels.ref import (
-    attention_ref, running_sum_ref, scatter_add_ref, segment_scatter_ref, ssd_ref,
+    attention_lse_ref, attention_ref, flash_backward_ref, running_sum_ref, scatter_add_ref, segment_scatter_ref,
+    ssd_ref,
 )
 
 pytestmark = pytest.mark.cuda
@@ -61,7 +64,7 @@ def test_kernel_bf16_matches_plain(cuda, S):
     before = fa.flash_attention.launches
     out = ops.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
-    assert fa.flash_attention.launches == before + 1 and fa.select_route(q.dtype) == "wgmma"
+    assert fa.flash_attention.launches == before + 1 and fa.select_route(q.dtype, 128) == "wgmma"
     want = attention_ref(q, k, v, causal=True)
     assert out.dtype == torch.bfloat16
     torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=1e-2)
@@ -143,6 +146,125 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         ops.flash_attention(q, k, v, prefix_len=4)
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+
+
+FP32_TOL = dict(atol=2e-5, rtol=1e-4)
+BF16_TOL = dict(atol=2e-2, rtol=1e-2)
+#: the kernels' logsumexp against the plain one: both fp32 from the same
+#: inputs, differing by summation order and exp/log rounding
+LSE_TOL = dict(atol=1e-4, rtol=1e-5)
+#: backward in fp32: the kernel and the plain version differ by the order of
+#: their fp32 sums over up to 200 rows or columns
+BWD_FP32_TOL = dict(atol=1e-4, rtol=1e-4)
+#: (B, Sq, Sk, Hq, Hkv, D, causal): every head dim, GQA groups 1, 2, 3 and 4,
+#: lengths that are not a multiple of the 64-row (32 at D = 256) tile, and
+#: non-causal cross lengths
+BWD_GRID = [
+    (1, 128, 128, 4, 4, 32, True), (2, 100, 100, 4, 2, 64, True), (1, 70, 150, 6, 2, 64, False),
+    (2, 65, 65, 2, 2, 128, True), (1, 200, 90, 4, 1, 128, False), (1, 97, 97, 2, 1, 256, True),
+    (2, 40, 77, 4, 2, 256, False), (1, 1, 1, 2, 2, 64, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BWD_GRID)
+def test_backward_kernel_matches_plain(cuda, shape, dtype):
+    """The forward kernel's lse and the backward kernel's dq, dk, dv against
+    the plain versions on the same inputs (the kernel's own o and lse)."""
+    B, Sq, Sk, Hq, Hkv, D, causal = shape
+    q, k, v = _qkv((B, Sq, Hq, Hkv, D), dtype, cuda, seed=Sq + Sk + D, Sk=Sk)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    torch.testing.assert_close(lse, attention_lse_ref(q, k, v, causal=causal), **LSE_TOL)
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(D)).to(device=cuda, dtype=dtype)
+    before = fa.flash_attention_backward.launches
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_backward.launches == before + 1
+    want = flash_backward_ref(q, k, v, o, lse, do, causal=causal)
+    tol = BWD_FP32_TOL if dtype == torch.float32 else BF16_TOL
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), **tol, msg=lambda m: f"d{name}: {m}")
+
+
+def test_backward_kernel_reads_strided_inputs_and_masked_rows(cuda):
+    """q/k/v as slices of one packed projection and a transposed dO (last dim
+    contiguous); rows that see no key (Sk = 0) give zero gradients, not nan."""
+    qkv = torch.randn(2, 96, 3, 4, 64, device=cuda)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    do = torch.randn(2, 4, 96, 64, device=cuda).transpose(1, 2)
+    assert not do.is_contiguous() and do.stride(-1) == 1
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=True)
+    for g, w in zip(got, flash_backward_ref(q, k, v, o, lse, do, causal=True)):
+        torch.testing.assert_close(g, w, **BWD_FP32_TOL)
+    q0, k0, v0 = _qkv((1, 5, 2, 2, 32), torch.float32, cuda, Sk=0)
+    o0, lse0 = fa.flash_attention(q0, k0, v0, causal=False, return_lse=True)
+    assert torch.isinf(lse0).all() and (lse0 > 0).all()
+    dq, dk, dv = fa.flash_attention_backward(q0, k0, v0, o0, lse0, torch.ones_like(o0), causal=False)
+    assert torch.count_nonzero(dq) == 0 and dk.shape == (1, 0, 2, 32) and dv.shape == (1, 0, 2, 32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_gradient_goes_through_both_kernels(cuda, dtype):
+    """ops.flash_attention on CUDA tensors that need a gradient: the forward
+    kernel once, the backward kernel once, and the gradients of autograd
+    through the plain version (an expanded dO from ``sum()`` included)."""
+    q, k, v = (t.requires_grad_() for t in _qkv((2, 80, 4, 2, 64), dtype, cuda, seed=5))
+    before = (fa.flash_attention.launches, fa.flash_attention_backward.launches)
+    out = ops.flash_attention(q, k, v, causal=True)
+    got = torch.autograd.grad(out.float().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_backward.launches) == (before[0] + 1, before[1] + 1)
+    want = torch.autograd.grad(attention_ref(q, k, v, causal=True).float().sum(), (q, k, v))
+    tol = BWD_FP32_TOL if dtype == torch.float32 else BF16_TOL
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), **tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 63, 132, 404])
+def test_head_dim_256_runs_the_simt_kernel_in_bf16(cuda, S, causal):
+    """gemma-7b's attention (16 heads of 256) at served lengths: bf16 takes
+    the SIMT kernel, a stated dispatch by head dim."""
+    assert fa.select_route(torch.bfloat16, 256) == "simt" and fa.select_route(torch.bfloat16, 128) == "wgmma"
+    q, k, v = _qkv((1, S, 16, 16, 256), torch.bfloat16, cuda, seed=S)
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), attention_ref(q, k, v, causal=causal).float(), **BF16_TOL)
+    q, k, v = _qkv((1, S, 16, 16, 256), torch.float32, cuda, seed=S)
+    torch.testing.assert_close(ops.flash_attention(q, k, v, causal=causal),
+                               attention_ref(q, k, v, causal=causal), **FP32_TOL)
+
+
+def test_gemma_head_dim_256_serves_on_the_card_as_on_the_cpu(cuda):
+    """The gemma-7b smoke config at its published head dim of 256, served on
+    the card and on the CPU from the same weights: the same greedy tokens and
+    statuses, every card prefill through the flash kernel."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Transformer
+    from repro_torch.serve import Engine, LoadSpec, ServeConfig, TenantSpec, generate_load, replay_load
+
+    cfg = dataclasses.replace(get_smoke_config("gemma-7b"), head_dim=256)
+    cpu_model = Transformer(cfg, device="cpu", seed=0)
+    gpu_model = copy.deepcopy(cpu_model).to(cuda)
+    spec = LoadSpec(tenants=(TenantSpec("solo", rate=0.6, prompt_len=(8, 48), max_new_tokens=(4, 10)),),
+                    steps=10, seed=3)
+    scfg = ServeConfig(n_slots=4, max_len=128, batch_buckets=(1, 2))
+    reqs = {}
+    before = fa.flash_attention.launches
+    for name, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+        load = generate_load(spec, cfg.vocab_size)
+        replay_load(Engine(model, scfg), load)
+        reqs[name] = [r for _, r in load]
+    assert fa.flash_attention.launches - before == cfg.n_layers * len(reqs["cuda"])
+    assert [r.status for r in reqs["cuda"]] == [r.status for r in reqs["cpu"]]
+    assert [r.generated for r in reqs["cuda"]] == [r.generated for r in reqs["cpu"]]
+    tokens = torch.as_tensor(reqs["cpu"][0].prompt, dtype=torch.long)[None]
+    torch.testing.assert_close(gpu_model.prefill(tokens.to(cuda))[0].cpu(), cpu_model.prefill(tokens)[0],
+                               atol=1e-4, rtol=0)
 
 
 # --------------------------------------------------------------------------- SSD scan

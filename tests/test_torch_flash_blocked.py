@@ -129,11 +129,17 @@ def test_one_bf16_rounding_of_p_misses_the_tolerance_on_a_cancelling_row():
 
 
 def test_route_selection():
-    assert fa.select_route(torch.bfloat16) == "wgmma"
-    assert fa.select_route(torch.float32) == "simt"
+    for D in fa.WGMMA_HEAD_DIMS:
+        assert fa.select_route(torch.bfloat16, D) == "wgmma"
+    assert fa.select_route(torch.bfloat16, 256) == "simt"  # head dim 256 (gemma-7b) takes the SIMT kernel
+    for D in fa.SUPPORTED_HEAD_DIMS:
+        assert fa.select_route(torch.float32, D) == "simt"
     for dtype in (torch.float16, torch.float64, torch.int32, torch.float8_e4m3fn):
         with pytest.raises(ValueError, match="float32 or bfloat16"):
-            fa.select_route(dtype)
+            fa.select_route(dtype, 64)
+    for D in (16, 48, 96, 512):
+        with pytest.raises(ValueError, match="head dim"):
+            fa.select_route(torch.bfloat16, D)
     assert set(fa.ROUTES.values()) == {"wgmma", "simt"}
     assert fa.SOURCE.endswith("flash_attention_wgmma.cu") and fa.SIMT_SOURCE.endswith("flash_attention.cu")
 

@@ -165,17 +165,19 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     assert fa.REPLACES.startswith("src/repro/kernels/flash_attention.py")
 
 
-def test_flash_refuses_a_gradient_off_the_cpu():
-    """The flash kernel has no backward: a call off the CPU that needs a
-    gradient raises instead of reaching it (``meta`` stands in for the card
-    here); on the CPU the plain version carries the gradient."""
+def test_flash_gradient_off_the_cpu_reaches_the_kernel_wrapper():
+    """Off the CPU a call that needs a gradient goes through ``FlashAttention``
+    to the kernel wrapper, which launches or raises: a ``meta`` tensor (standing
+    in for a device without a kernel) raises "cuda or cpu" there instead of
+    falling back to the plain version.  On the CPU the gradient still flows."""
     q, k, v = (torch.empty((1, 16, 4, 32), device="meta", requires_grad=True) for _ in range(3))
-    before = fa.flash_attention.launches
-    with pytest.raises(NotImplementedError, match="no backward.*dense-training slice"):
+    before = (fa.flash_attention.launches, fa.flash_attention_backward.launches)
+    with pytest.raises(ValueError, match="cuda or cpu"):
         ops.flash_attention(q, k, v)
-    with torch.no_grad(), pytest.raises(ValueError, match="cuda or cpu"):  # no grad needed: on to the wrapper
-        ops.flash_attention(q, k, v)
-    assert fa.flash_attention.launches == before
+    lse = torch.empty((1, 4, 16), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa.flash_attention_backward(q, k, v, q, lse, q)
+    assert (fa.flash_attention.launches, fa.flash_attention_backward.launches) == before
     cq, ck, cv = (torch.from_numpy(a).requires_grad_() for a in _qkv(1, 16, 4, 2, 32, seed=4))
     ops.flash_attention(cq, ck, cv).sum().backward()
     assert cq.grad is not None and torch.isfinite(cq.grad).all()

@@ -17,6 +17,7 @@ also held against the reference's Pallas kernel itself
 with the method's x64 scope bound to ``jax.enable_x64``.
 """
 
+import multiprocessing as mp
 import re
 
 import jax
@@ -36,6 +37,7 @@ from repro_torch.core import array_ops
 from repro_torch.core.array_ops import TorchOps, get_backend
 from repro_torch.kernels import segment_scatter as ss
 from repro_torch.sim import SimConfig, TPUSimulator
+from repro_torch.sim import batch as batch_mod
 from repro_torch.sim.batch import BatchJob, BatchRunner
 from repro_torch.sim.scenarios import build, divergent_draws, list_scenarios
 
@@ -244,6 +246,21 @@ def test_full_registry_divergent_sweep_matches_reference():
     got = _port_batched(draws, "event")
     assert got.failures() == [] and got.oracle_failures() == []
     assert got.signature() == _ref_serial(draws, "event").signature()
+
+
+def test_pooled_sweep_equals_serial_sweep(monkeypatch):
+    """The port's pooled sweep over the full registry equals its serial sweep
+    with 2 workers, and no job fails (the reference's pooled sweep fails its
+    first job here: its chunks of 3 jobs make ``imap`` return a generator
+    with no ``next(timeout=...)``).  The workers are spawned: this process
+    has loaded jax, whose threads make a fork unsafe (the reference's own
+    rule; the port forks unless CUDA is initialised)."""
+    monkeypatch.setattr(batch_mod, "_pool_context", lambda: mp.get_context("spawn"))
+    jobs = [BatchJob.make(name, engine="event", config=dict(array_backend="numpy")) for name in list_scenarios()]
+    runner = BatchRunner(jobs, workers=2)
+    pooled, serial = runner.run(parallel=True), runner.run(parallel=False)
+    assert pooled.failures() == [] and serial.failures() == []
+    assert pooled.signature() == serial.signature()
 
 
 @pytest.mark.parametrize("engine,backend", [("cycle", "torch:cpu"), ("compiled", "torch:cpu"),
