@@ -11,15 +11,18 @@ source, all started together) and drives the port's three paths:
 * serving: the flash-attention kernels held against their plain version
   (bf16 on the tensor-core kernel, whose SASS must hold ``HGMMA`` and
   ``UTMALDG``; fp32 on the SIMT kernel) and the bf16 one timed beside SDPA
-  at the serving lengths; gemma-7b's head dim of 256 (bf16 on the SIMT
-  kernel) checked forward and backward and timed beside SDPA; the deepseek-7b smoke config served on the card
+  at the serving lengths; gemma-7b's head dim of 256 (bf16 on the
+  tensor-core kernel) checked forward and backward and timed beside SDPA
+  and the SIMT kernel; the deepseek-7b smoke config served on the card
   and on the CPU and compared; deepseek-7b at full width (30 layers,
   d_model 4096, bf16, random weights from a seed) served through the
   continuous-batching engine, with the per-stream lanes checked and every
   prefill through the flash kernel;
-* dense training: the flash backward kernel held against the plain FA-2
-  backward and timed at B=1, S=2048, 32 heads of 128 beside SDPA's
-  backward; the deepseek-7b smoke config trained in fp32 on the card and on
+* dense training: the bf16 flash backward kernel (tensor cores; its dK/dV
+  and dQ kernels' SASS must hold ``HGMMA`` and ``UTMALDG``) held against the
+  plain FA-2 backward at edge shapes and at B=1, S=2048, 32 heads of 128,
+  and timed there beside SDPA's backward and the SIMT backward; the
+  deepseek-7b smoke config trained in fp32 (the SIMT kernels) on the card and on
   the CPU and compared; deepseek-7b at its published width cut to 8 layers
   (bf16, remat full, AdamW, global batch 4 x 2048 in 2 microbatches)
   trained for 10 steps with an eval lane, with the held-out loss, the
@@ -145,6 +148,11 @@ GEMMA_HEADS, GEMMA_HEAD_DIM = 16, 256
 #: the flash backward, timed at B=1, S=2048, Hq=Hkv=32, D=128, bf16, causal:
 #: one sequence of dense training's length at deepseek-7b's attention width
 BWD_TIMED = (1, 2048, 32, 128)
+#: the tensor-core backward's edge shapes (B, Sq, Sk, Hq, Hkv, D, causal): a
+#: ragged causal length, GQA group 2 at D = 64, non-causal Sq != Sk both ways
+#: (D = 32 takes the 64-byte swizzle)
+BWD_EDGES = [(2, 1000, 1000, 8, 8, 128, True), (1, 517, 517, 16, 8, 64, True),
+             (1, 300, 700, 8, 4, 128, False), (2, 450, 130, 4, 2, 32, False)]
 #: The backward kernel against flash_backward_ref on the same bf16 inputs
 #: (the kernel's own o and lse): both compute in fp32 and round each output
 #: once to bf16 (2^-8 relative), from fp32 sums taken in another order.  A
@@ -238,6 +246,11 @@ def peaks(smi_name: str):
     if "PCIe" in smi_name:
         return 756e12, 2.0e12, "H100 PCIe datasheet"
     return 989e12, 3.35e12, "H100 SXM datasheet"
+
+
+def fp32_peak(smi_name: str) -> float:
+    """Datasheet fp32 FLOP/s outside the tensor cores (the SIMT kernels' type)."""
+    return 51e12 if "PCIe" in smi_name else 67e12
 
 
 def time_interleaved(fns, warmup: int = 3, eager=()):
@@ -362,20 +375,30 @@ def phase_build():
         name: [ln.strip() for ln in str(i["log"]).splitlines() if "registers" in ln or "spill" in ln]
         for name, i in info.items()
     }
-    lib = info["flash_attention_wgmma"]["path"]
-    counts = sass_counts(lib, build.BUILD_DIR / "flash_attention_wgmma.sass")
-    per_dim = {}
-    for fn, c in counts.items():
-        m = re.search(r"flash_fwd_wgmmaILi(\d+)E", fn)
-        if m:
-            per_dim[f"D={m.group(1)}"] = c
-    check(sorted(per_dim) == sorted(f"D={d}" for d in BF16_HEAD_DIMS),
-          f"bf16 flash instantiations in the SASS: {sorted(per_dim)}")
-    for name, c in per_dim.items():
-        check(all(c[op] > 0 for op in SASS_OPS), f"bf16 flash kernel {name} lacks {SASS_OPS} in its SASS: {c}")
+    from repro_torch.kernels import flash_attention as fa
+
+    sass = {}
+    # library → (pattern of its tensor-core kernels' mangled names, the instantiations each must have)
+    for lib, pattern, dims in (
+        ("flash_attention_wgmma", r"(flash_fwd_wgmma)ILi(\d+)E", fa.WGMMA_HEAD_DIMS),
+        ("flash_attention_bwd_wgmma", r"(flash_bwd_dkdv_wgmma|flash_bwd_dq_wgmma)ILi(\d+)E", fa.BWD_WGMMA_HEAD_DIMS),
+    ):
+        per_fn = {}
+        for fn, c in sass_counts(info[lib]["path"], build.BUILD_DIR / f"{lib}.sass").items():
+            m = re.search(pattern, fn)
+            if m:
+                per_fn[f"{m.group(1)} D={m.group(2)}"] = c
+        kernels = sorted({name.split()[0] for name in per_fn})
+        check(sorted(per_fn) == sorted(f"{k} D={d}" for k in kernels for d in dims) and per_fn,
+              f"{lib}: tensor-core instantiations in the SASS: {sorted(per_fn)}")
+        for name, c in per_fn.items():
+            check(all(c[op] > 0 for op in SASS_OPS), f"{lib} {name} lacks {SASS_OPS} in its SASS: {c}")
+        sass[lib] = per_fn
+    check(len({n.split()[0] for n in sass["flash_attention_bwd_wgmma"]}) == 2, "the dK/dV and the dQ kernel")
     emit({"phase": "build", "seconds": round(wall, 3),
           "per_kernel_s": {n: round(float(i["seconds"]), 3) for n, i in info.items()},
-          "ptxas": ptxas, "sass_flash_attention_wgmma": per_dim})
+          "ptxas": ptxas, "sass_flash_attention_wgmma": sass["flash_attention_wgmma"],
+          "sass_flash_attention_bwd_wgmma": sass["flash_attention_bwd_wgmma"]})
 
 
 def phase_kernel(smi: str, served_lens):
@@ -455,8 +478,12 @@ def phase_kernel(smi: str, served_lens):
     return bf16_err, timings, d256
 
 
-def _bound(flops, nbytes, smi):
+def _bound(flops, nbytes, smi, fp32=False):
+    """The least ms the card could take: bytes over the HBM rate or FLOPs
+    over the peak of their type (bf16 tensor cores, or fp32 with ``fp32``)."""
     peak_flops, peak_bw, _ = peaks(smi)
+    if fp32:
+        peak_flops = fp32_peak(smi)
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -475,15 +502,17 @@ def _grads_close(got, want):
 
 def phase_kernel_d256(smi: str, served_lens):
     """gemma-7b's attention shape (16 heads of 256) at the served prompt
-    lengths, bf16, which takes the SIMT kernel: forward against the plain
-    version and timed beside SDPA; lse and the backward kernel against the
-    plain versions."""
+    lengths, bf16, which takes the tensor-core kernel: forward against the
+    plain version and timed beside SDPA and the SIMT kernel
+    (``route="simt"``); lse against the plain version, and the backward (the
+    SIMT one at D = 256) on that lse against the plain backward."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import attention_lse_ref, flash_backward_ref
 
     H, D = GEMMA_HEADS, GEMMA_HEAD_DIM
-    check(fa.select_route(torch.bfloat16, D) == "simt", "bf16 at head dim 256 takes the SIMT kernel")
+    check(fa.select_route(torch.bfloat16, D) == "wgmma", "bf16 at head dim 256 takes the tensor-core kernel")
+    check(fa.select_bwd_route(torch.bfloat16, D) == "simt", "bf16 at head dim 256 takes the SIMT backward")
     err, bwd_err, rows = 0.0, {}, {}
     for S in served_lens:
         q, k, v, do = (randn((1, S, H, D), torch.bfloat16, 300 + S + j) for j in range(4))
@@ -499,17 +528,21 @@ def phase_kernel_d256(smi: str, served_lens):
         bwd_err[str(S)] = g
         check(all(r["ok"] for r in g.values()), f"D=256 backward disagrees at S={S}: {g}")
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        simt = fa.flash_attention(q, k, v, causal=True, route="simt")
+        check(torch.allclose(simt.float(), want.float(), **BF16_TOL), f"D=256 SIMT kernel disagrees at S={S}")
         ms = time_interleaved({
             "kernel": lambda: ops.flash_attention(q, k, v, causal=True),
+            "simt": lambda: fa.flash_attention(q, k, v, causal=True, route="simt"),
             "plain": lambda: ops.flash_attention(q, k, v, causal=True, impl="plain"),
             "library": lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
         })
         bound_ms, bound_by = _bound(fa.flash_flops(1, S, S, H, D, causal=True),
                                     fa.flash_bytes(1, S, S, H, H, D, 2), smi)
-        rows[str(S)] = {"kernel_ms": ms["kernel"]["median"], "plain_ms": ms["plain"]["median"],
+        rows[str(S)] = {"kernel_ms": ms["kernel"]["median"], "simt_ms": ms["simt"]["median"],
+                        "plain_ms": ms["plain"]["median"],
                         "library_ms": ms["library"]["median"], "bound_ms": bound_ms, "bound_by": bound_by,
                         "spread_ms": {name: [m["min"], m["max"]] for name, m in ms.items()}}
-    return {"shape": f"B=1 Hq=Hkv={H} D={D} bf16 causal (gemma-7b), route simt", "max_abs_err": err,
+    return {"shape": f"B=1 Hq=Hkv={H} D={D} bf16 causal (gemma-7b), route wgmma", "max_abs_err": err,
             "backward": bwd_err, "timing": rows}
 
 
@@ -1045,47 +1078,159 @@ def phase_decode_full_width(model):
 
 
 def phase_flash_bwd_kernel(smi: str):
-    """The backward kernel timed at BWD_TIMED beside its bound, the plain
-    FA-2 backward and SDPA's backward (autograd through
-    ``scaled_dot_product_attention``, which the port never calls), after a
-    check against the plain version on the same inputs."""
+    """The tensor-core backward held against the plain FA-2 backward at
+    BWD_TIMED and at BWD_EDGES, then timed at BWD_TIMED beside its bound, the
+    plain backward, the SIMT backward (``route="simt"``) and
+    SDPA's backward (autograd through ``scaled_dot_product_attention``,
+    which the port never calls)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_backward_ref
 
+    checks = {}
+    for i, (B, Sq, Sk, Hq, Hkv, D, causal) in enumerate(BWD_EDGES):
+        check(fa.select_bwd_route(torch.bfloat16, D) == "wgmma", f"bf16 at head dim {D} takes the tensor-core backward")
+        q, do = (randn((B, Sq, Hq, D), torch.bfloat16, 500 + 10 * i + j) for j in range(2))
+        k, v = (randn((B, Sk, Hkv, D), torch.bfloat16, 502 + 10 * i + j) for j in range(2))
+        o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+        g = _grads_close(fa.flash_attention_backward(q, k, v, o, lse, do, causal=causal),
+                         flash_backward_ref(q, k, v, o, lse, do, causal=causal))
+        checks[f"B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} causal={causal}"] = g
+        check(all(r["ok"] for r in g.values()), f"backward kernel disagrees at {(B, Sq, Sk, Hq, Hkv, D, causal)}: {g}")
     B, S, H, D = BWD_TIMED
     q, k, v, do = (randn((B, S, H, D), torch.bfloat16, 400 + j) for j in range(4))
     o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
-    g = _grads_close(fa.flash_attention_backward(q, k, v, o, lse, do, causal=True),
-                     flash_backward_ref(q, k, v, o, lse, do, causal=True))
+    want = flash_backward_ref(q, k, v, o, lse, do, causal=True)
+    g = _grads_close(fa.flash_attention_backward(q, k, v, o, lse, do, causal=True), want)
     check(all(r["ok"] for r in g.values()), f"backward kernel disagrees at {BWD_TIMED}: {g}")
+    simt = _grads_close(fa.flash_attention_backward(q, k, v, o, lse, do, causal=True, route="simt"), want)
+    check(all(r["ok"] for r in simt.values()), f"SIMT backward kernel disagrees at {BWD_TIMED}: {simt}")
+    del want
     qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
     oh = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
     doh = do.transpose(1, 2).contiguous()
     ms = time_interleaved({
         "kernel": lambda: fa.flash_attention_backward(q, k, v, o, lse, do, causal=True),
+        "simt": lambda: fa.flash_attention_backward(q, k, v, o, lse, do, causal=True, route="simt"),
         "plain": lambda: flash_backward_ref(q, k, v, o, lse, do, causal=True),
         "library": lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True),
     }, eager=("library",))
     flops = fa.flash_flops(B, S, S, H, D, causal=True, backward=True)
     nbytes = fa.flash_bytes(B, S, S, H, H, D, 2, backward=True)
     bound_ms, bound_by = _bound(flops, nbytes, smi)
-    timing = {"kernel_ms": ms["kernel"]["median"], "plain_ms": ms["plain"]["median"],
+    by_kernel = {
+        route: device_breakdown(
+            lambda route=route: [fa.flash_attention_backward(q, k, v, o, lse, do, causal=True, route=route)
+                                 for _ in range(10)])
+        for route in ("wgmma", "simt")
+    }
+    timing = {"kernel_ms": ms["kernel"]["median"], "simt_ms": ms["simt"]["median"], "plain_ms": ms["plain"]["median"],
               "library_ms": ms["library"]["median"], "bound_ms": bound_ms, "bound_by": bound_by,
               "flops": flops, "bytes": nbytes, "kernel_tflops": flops / (ms["kernel"]["median"] * 1e-3) / 1e12,
+              "simt_tflops": flops / (ms["simt"]["median"] * 1e-3) / 1e12,
               "spread_ms": {name: [m["min"], m["max"]] for name, m in ms.items()},
-              "device_us_by_kernel_10_calls": device_breakdown(
-                  lambda: [fa.flash_attention_backward(q, k, v, o, lse, do, causal=True) for _ in range(10)])}
+              "device_us_by_kernel_10_calls": by_kernel}
     emit({"phase": "flash_bwd_kernel", "name": "flash_attention_backward",
-          "shape": f"B={B} S={S} Hq=Hkv={H} D={D} bf16 causal", "check": g, "timing": timing,
-          "launches_per_call": fa.BWD_LAUNCHES,
-          "timing_note": f"median of {ROUNDS} readings of {LAUNCHES} calls; kernel and plain replayed from a "
-                         "CUDA graph, SDPA's backward (autograd.grad, retain_graph) run eagerly"})
+          "shape": f"B={B} S={S} Hq=Hkv={H} D={D} bf16 causal", "route": fa.select_bwd_route(torch.bfloat16, D),
+          "check": g, "simt_check": simt, "edge_checks": checks, "timing": timing,
+          "launches_per_call": fa.BWD_LAUNCHES, "bf16_terms": {"p": fa.BWD_P_TERMS, "ds": fa.BWD_DS_TERMS},
+          "timing_note": f"median of {ROUNDS} readings of {LAUNCHES} calls; kernel, SIMT kernel and plain replayed "
+                         "from a CUDA graph, SDPA's backward (autograd.grad, retain_graph) run eagerly"})
     fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
-    return timing, max(r["max_abs_err"] for r in g.values())
+    errs = [r["max_abs_err"] for c in (g, *checks.values()) for r in c.values()]
+    return timing, max(errs)
 
 
 def _rel(a, b) -> float:
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def phase_routes(smi: str):
+    """The kernels' routes off the bf16 main path, each checked against and
+    timed beside its plain version, its bound and the PyTorch call that
+    computes the same function: the fp32 flash forward and backward (SIMT;
+    fp32 is dense_parity's type), the bf16 backward at head dim 256 (SIMT;
+    gemma-7b's training), the fp32 SSD scan (SIMT) and the fold kernel
+    behind ``running_sum`` (the compiled sweep's)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_scatter as ss
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.kernels.ref import flash_backward_ref, running_sum_ref
+
+    rows = {}
+
+    def row(name, shape, fns, flops, nbytes, fp32, eager=()):
+        ms = time_interleaved(fns, eager=eager)
+        bound_ms, bound_by = _bound(flops, nbytes, smi, fp32=fp32)
+        rows[name] = {"shape": shape, **{f"{k}_ms": m["median"] for k, m in ms.items()},
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "spread_ms": {k: [m["min"], m["max"]] for k, m in ms.items()}}
+        if "library" not in ms:
+            rows[name]["library_ms"] = None
+
+    # fp32 forward at the bf16 row's shape
+    B, S, H, D = 1, 512, 32, 128
+    q, k, v = (randn((B, S, H, D), torch.float32, 600 + j) for j in range(3))
+    check(fa.select_route(q.dtype, D) == "simt", "fp32 takes the SIMT forward")
+    check(torch.allclose(fa.flash_attention(q, k, v), ops.flash_attention(q, k, v, impl="plain"), **FP32_TOL),
+          "fp32 forward disagrees")
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    row("flash_forward_fp32", f"B={B} S={S} Hq=Hkv={H} D={D} fp32 causal",
+        {"kernel": lambda: fa.flash_attention(q, k, v, causal=True),
+         "plain": lambda: ops.flash_attention(q, k, v, causal=True, impl="plain"),
+         "library": lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True)},
+        fa.flash_flops(B, S, S, H, D, causal=True), fa.flash_bytes(B, S, S, H, H, D, 4), fp32=True)
+
+    # backward: fp32 at BWD_TIMED, bf16 at gemma-7b's 16 x 256 and its longest served prompt
+    for name, (B, S, H, D), dtype in (("flash_backward_fp32", BWD_TIMED, torch.float32),
+                                      ("flash_backward_bf16_d256", (1, 404, GEMMA_HEADS, GEMMA_HEAD_DIM),
+                                       torch.bfloat16)):
+        check(fa.select_bwd_route(dtype, D) == "simt", f"{dtype} at head dim {D} takes the SIMT backward")
+        q, k, v, do = (randn((B, S, H, D), dtype, 610 + j) for j in range(4))
+        o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        g = _grads_close(fa.flash_attention_backward(q, k, v, o, lse, do, causal=True),
+                         flash_backward_ref(q, k, v, o, lse, do, causal=True))
+        check(all(r["ok"] for r in g.values()), f"{name} disagrees: {g}")
+        qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        oh = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+        doh = do.transpose(1, 2).contiguous()
+        row(name, f"B={B} S={S} Hq=Hkv={H} D={D} {str(dtype)[6:]} causal",
+            {"kernel": lambda: fa.flash_attention_backward(q, k, v, o, lse, do, causal=True),
+             "plain": lambda: flash_backward_ref(q, k, v, o, lse, do, causal=True),
+             "library": lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True)},
+            fa.flash_flops(B, S, S, H, D, causal=True, backward=True),
+            fa.flash_bytes(B, S, S, H, H, D, torch.finfo(dtype).bits // 8, backward=True),
+            fp32=dtype == torch.float32, eager=("library",))
+        del q, k, v, do, o, lse, qh, kh, vh, oh, doh
+
+    # fp32 SSD at the training microbatch's shape
+    B, S = SSD_TIMED[0]
+    H, P, N, G = SSD_WIDTH
+    x, dt, A, Bm, Cm, Dm, _ = _ssd_inputs(B, S, H, P, N, G, torch.float32, 620)
+    check(sk.select_route(x.dtype) == "simt", "fp32 takes the SIMT SSD kernel")
+    y, h = sk.ssd_scan(x, dt, A, Bm, Cm, Dm, chunk=256)
+    yr, hr = ops.ssd_scan(x, dt, A, Bm, Cm, Dm, chunk=256, impl="plain")
+    check(torch.allclose(y, yr, **SSD_FP32_TOL), "fp32 SSD disagrees")
+    row("ssd_scan_fp32", f"B={B} S={S} H={H} P={P} N={N} G={G} fp32",
+        {"kernel": lambda: sk.ssd_scan(x, dt, A, Bm, Cm, Dm, chunk=256),
+         "plain": lambda: ops.ssd_scan(x, dt, A, Bm, Cm, Dm, chunk=256, impl="plain")},
+        sk.ssd_flops(B, S, H, P, N), sk.ssd_bytes(B, S, H, P, N, G, 4), fp32=True)
+
+    # the fold at a 2-d shape phase_segment_kernel checks bit for bit; the plain fold launches two
+    # ops a row, so it runs eagerly
+    vals = torch.from_numpy(np.random.default_rng(0).standard_normal((300, 9))).cuda()
+    check(torch.equal(ss.running_sum(vals), running_sum_ref(vals)), "fold kernel differs")
+    row("running_sum_fold", "(300, 9) float64",
+        {"kernel": lambda: ss.running_sum(vals), "plain": lambda: running_sum_ref(vals),
+         "library": lambda: torch.cumsum(vals, 0)},
+        vals.numel(), 2 * 8 * vals.numel(), fp32=True, eager=("plain",))
+    emit({"phase": "routes", "rows": rows,
+          "bound_note": "fp32 FLOPs over the fp32 rate outside the tensor cores (67 TFLOP/s SXM), bf16 over 989; "
+                        "bytes over 3.35 TB/s; the fold counts one add a value",
+          "timing_note": f"median of {ROUNDS} readings of {LAUNCHES} calls; SDPA's backward run eagerly"})
+    fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
+    sk.ssd_scan.launches = ss.running_sum.launches = 0
+    return rows
 
 
 def _step1_gaps(metrics, model, opt, want):
@@ -1206,6 +1351,38 @@ def _train_only(model, tcfg, batch, names, steps):
     return losses
 
 
+def attention_inputs(model, loss_fn, batch):
+    """Every layer's real q, k, v and upstream dO on ``batch``, captured from
+    ``ops.flash_attention`` during one forward and backward of ``loss_fn``
+    (remat recomputes the forward and calls the op again, but only the first
+    forward's outputs receive a gradient)."""
+    from repro_torch.kernels import ops
+
+    flash, calls = ops.flash_attention, []
+
+    def capture(q, k, v, **kw):
+        out = flash(q, k, v, **kw)
+        if out.requires_grad:
+            rec = {"q": q.detach(), "k": k.detach(), "v": v.detach(), "kw": kw}
+            out.register_hook(lambda g, rec=rec: rec.__setitem__("do", g))
+            calls.append(rec)
+        return out
+
+    ops.flash_attention = capture
+    try:
+        total, _ = loss_fn(batch)
+        torch.autograd.grad(total, list(model.parameters()))
+    finally:
+        ops.flash_attention = flash
+    del total
+    L = model.cfg.n_layers
+    layers = [c for c in calls if "do" in c]
+    check(len(layers) == L and len(calls) == 2 * L, f"{len(layers)} of {len(calls)} attention calls got a gradient")
+    for c in layers:
+        check(c["kw"].get("causal", True) and c["do"].dtype == torch.bfloat16, "a causal bf16 attention")
+    return layers
+
+
 def phase_dense_train_full_width(smi: str):
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, make_train_iter
@@ -1298,35 +1475,15 @@ def phase_dense_train_full_width(smi: str):
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])
     idle = {"device_busy_ms": busy_s * 1e3, "kernel_launches": len(kernels), "step_ms_median": steady_ms,
             "idle_share": max(0.0, 1.0 - busy_s * 1e3 / steady_ms) if kernels else "not measured",
-            "traced_step_ms": traced_s * 1e3, "profiler_s": time.perf_counter() - t0, "device_ms_by_kernel": top}
+            "traced_step_ms": traced_s * 1e3, "profiler_s": time.perf_counter() - t0, "device_ms_by_kernel": top,
+            "flash_device_ms": {n: ms for n, ms in by_name.items() if "flash" in n}}
     del prof
 
-    # every layer's real q, k, v and upstream dO from one microbatch of the probe, captured from
-    # the op; the recompute under remat calls the op again, but only the first forward's outputs
-    # receive a gradient
-    flash, calls = ops.flash_attention, []
-
-    def capture(q, k, v, **kw):
-        out = flash(q, k, v, **kw)
-        if out.requires_grad:
-            rec = {"q": q.detach(), "k": k.detach(), "v": v.detach(), "kw": kw}
-            out.register_hook(lambda g, rec=rec: rec.__setitem__("do", g))
-            calls.append(rec)
-        return out
-
-    ops.flash_attention = capture
-    try:
-        total, _ = held_out({k: v[: DENSE_BATCH // DENSE_MICRO] for k, v in probe.items()})
-        torch.autograd.grad(total, list(model.parameters()))
-    finally:
-        ops.flash_attention = flash
-    del total
-    layers = [c for c in calls if "do" in c]
-    check(len(layers) == L and len(calls) == 2 * L, f"{len(layers)} of {len(calls)} attention calls got a gradient")
+    layers = attention_inputs(model, held_out, {k: v[: DENSE_BATCH // DENSE_MICRO] for k, v in probe.items()})
+    check(fa.select_bwd_route(torch.bfloat16, cfg.resolved_head_dim) == "wgmma", "the tensor-core backward")
     rows = []
     for c in layers:
         q, k, v, do = c["q"], c["k"], c["v"], c["do"]
-        check(c["kw"].get("causal", True) and do.dtype == torch.bfloat16, "a causal bf16 attention")
         o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
         lse_ref = attention_lse_ref(q, k, v, causal=True)
         g = _grads_close(fa.flash_attention_backward(q, k, v, o, lse, do, causal=True),
@@ -1336,7 +1493,7 @@ def phase_dense_train_full_width(smi: str):
                     "ok": bool(torch.allclose(lse, lse_ref, rtol=0, atol=LSE_TRAIN_ATOL))}
         rows.append(g)
         del o, lse, lse_ref
-    del calls, layers
+    del layers
 
     # the attention-only check and its controls, each from the same weights
     attn = [f"layers.{i}.attn.{w}" for i in range(L) for w in ("wq", "wk", "wv")]
@@ -1748,6 +1905,7 @@ def main() -> int:
     ssd_op_err = phase_ssd_op(model, probe)
     del model, probe
     bwd_timing, bwd_err = phase_flash_bwd_kernel(smi)
+    phase_routes(smi)
     phase_dense_parity()
     torch.cuda.empty_cache()
     dense_fwd, dense_bwd, dense_err = phase_dense_train_full_width(smi)
@@ -1759,27 +1917,32 @@ def main() -> int:
     gt = seg_timings[f"draws{SIM_DRAWS}"]
     emit({"kernels": [{
         "name": "flash_attention", "route": "cuda", "source": fa.SOURCE, "replaces": fa.REPLACES,
-        "design": "bf16: one warpgroup per 64-row query tile; S = Q K^T and O += P V on wgmma "
-                  "(bf16 in, fp32 accumulate; P from registers as two bf16 terms, V read transposed); Q and a 2-stage "
-                  "K/V ring by TMA with mbarriers, 128B swizzle; fp32 calls run the SIMT kernel "
+        "design": "bf16 at every head dim (32-256): one warpgroup per 64-row query tile; S = Q K^T and O += P V "
+                  "on wgmma (bf16 in, fp32 accumulate; P from registers as two bf16 terms, V read transposed); Q "
+                  "and a 2-stage K/V ring by TMA with mbarriers, 128B swizzle; fp32 calls run the SIMT kernel "
                   f"({fa.SIMT_SOURCE})",
         "launches": launches + dense_fwd, "launches_by_path": {"serving": launches, "dense_training": dense_fwd},
         "max_abs_err": max(bf16_err, op_err),
         "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": "B=1 S=512 Hq=Hkv=32 D=128 bf16 causal",
-        "d256": {"route": "simt", "source": fa.SIMT_SOURCE, "shape": d256["shape"], "max_abs_err": d256["max_abs_err"],
-                 "timing": {S: {k: r[k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        "d256": {"route": "wgmma", "source": fa.SOURCE, "shape": d256["shape"], "max_abs_err": d256["max_abs_err"],
+                 "timing": {S: {k: r[k] for k in ("kernel_ms", "simt_ms", "plain_ms", "library_ms", "bound_ms",
+                                                  "bound_by")}
                             for S, r in d256["timing"].items()}},
     }, {
         "name": "flash_attention_backward", "route": "cuda", "source": fa.BWD_SOURCE, "replaces": fa.BWD_REPLACES,
-        "design": "the FlashAttention-2 backward in three launches, no atomics: D_i = rowsum(dO O); dK/dV per "
-                  "(kv tile, kv head, batch) looping over the group's q heads and the q tiles from the diagonal; "
-                  "dQ per (q tile, q head, batch) looping over the kv tiles to the diagonal; P recomputed from "
-                  "the forward's lse; 64-row tiles (32 at D=256) staged in shared memory as fp32, all products "
-                  "as fp32 FMAs on the CUDA cores; fp32 or bf16 in and out",
+        "design": "bf16 at D 32-128: the FlashAttention-2 backward in three launches, no atomics: D_i = "
+                  "rowsum(dO O) and lse log2(e), padded to the 64-row tile; dK/dV per (kv head, 64-row kv tile, "
+                  "batch), one warpgroup, K and V by TMA once and (Q, lse), (dO, D_i) through a 2-stage TMA ring "
+                  "over the group's q heads and the q tiles from the diagonal: S^T = K Q^T, dP^T = V dO^T (ss), "
+                  "dV += P^T dO, dK += dS^T Q (rs, A from the accumulator fragment); dQ per (q head, q tile, "
+                  "batch) with K/V through the ring: S, dP (ss), dQ += dS K (rs); every product on wgmma, P and "
+                  "dS as two bf16 terms, 128B swizzle; fp32 and bf16 at D=256 run the SIMT backward "
+                  f"({fa.BWD_SIMT_SOURCE}), timed beside it as simt_ms",
         "launches": dense_bwd, "kernels_per_launch": fa.BWD_LAUNCHES, "max_abs_err": max(bwd_err, dense_err),
         "ms": bwd_timing["kernel_ms"], "kernel_ms": bwd_timing["kernel_ms"], "plain_ms": bwd_timing["plain_ms"],
+        "simt_ms": bwd_timing["simt_ms"],
         "bound_ms": bwd_timing["bound_ms"], "bound_by": bwd_timing["bound_by"],
         "library_ms": bwd_timing["library_ms"], "library": "SDPA backward (autograd through "
                                                            "scaled_dot_product_attention)",

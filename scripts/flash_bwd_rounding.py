@@ -1,0 +1,110 @@
+#!/usr/bin/env python3
+"""How the bf16 flash backward's rounding of P and dS meets its tolerance on real activations.
+
+Run from the root of a checkout on a machine with an NVIDIA GPU:
+
+    python3 scripts/flash_bwd_rounding.py
+
+It builds deepseek-7b at its published width cut to ``chip_smoke.py``'s 8
+layers (bf16, random weights from seed 0), runs one forward and backward of
+the loss on ``chip_smoke.py``'s held-out probe microbatch (2 x 2048) and keeps
+the q, k, v and upstream dO that each layer's attention sees.  On each
+layer's inputs (o and lse from the forward kernel) it counts the entries of
+dq, dk and dv outside ``chip_smoke.py``'s backward tolerance (``_grads_close``:
+rtol 1e-2 plus 1e-3 of the gradient's largest entry) against the plain
+backward with fp32 P and dS: for the two CUDA backward kernels (the
+tensor-core one, the SIMT one), and for the plain backward with P carried
+in one bf16 term and in two (dS fp32), and with dS in one term and in two
+(P fp32).  The same counts follow on ``chip_smoke.py``'s random bf16
+inputs at its timed backward shape and its edge shapes.  One JSON line per
+case, then the totals over the layers and over the random cases.  Exits
+non-zero without a GPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+
+#: (P terms, dS terms) of the plain backward's rounding model
+VARIANTS = {"p_one_term": (1, 0), "p_two_terms": (2, 0), "ds_one_term": (0, 1), "ds_two_terms": (0, 2)}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("flash_bwd_rounding: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_train_iter
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_backward_ref
+    from repro_torch.models import Transformer
+    from repro_torch.train import TrainConfig, make_loss_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=chip_smoke.DENSE_LAYERS)
+    model = Transformer(cfg, device="cuda", seed=0)
+    it = make_train_iter(DataConfig(global_batch=chip_smoke.DENSE_BATCH, seq_len=chip_smoke.DENSE_SEQ,
+                                    vocab_size=cfg.vocab_size, seed=7))
+    probe = next(it)
+    it.close()
+    micro = {k: v[: chip_smoke.DENSE_BATCH // chip_smoke.DENSE_MICRO] for k, v in probe.items()}
+    layers = chip_smoke.attention_inputs(model, make_loss_fn(model, TrainConfig()), micro)
+    del model
+
+    B, S, H, D = chip_smoke.BWD_TIMED
+    shapes = [(B, S, S, H, H, D, True), *chip_smoke.BWD_EDGES]
+
+    def cases():
+        for layer, c in enumerate(layers):
+            yield "layers", f"layer {layer}", c["q"], c["k"], c["v"], c["do"], True
+        for i, (B, Sq, Sk, Hq, Hkv, D, causal) in enumerate(shapes):
+            q, do = (chip_smoke.randn((B, Sq, Hq, D), torch.bfloat16, 700 + 10 * i + j) for j in range(2))
+            k, v = (chip_smoke.randn((B, Sk, Hkv, D), torch.bfloat16, 702 + 10 * i + j) for j in range(2))
+            yield "random", f"B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} causal={causal}", q, k, v, do, causal
+
+    names = ["kernel_wgmma", "kernel_simt", *VARIANTS]
+    totals = {group: {name: {"dq": 0, "dk": 0, "dv": 0} for name in names} for group in ("layers", "random")}
+    for group, case, q, k, v, do, causal in cases():
+        o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+        want = flash_backward_ref(q, k, v, o, lse, do, causal=causal)
+        got = {"kernel_wgmma": lambda: fa.flash_attention_backward(q, k, v, o, lse, do, causal=causal),
+               "kernel_simt": lambda: fa.flash_attention_backward(q, k, v, o, lse, do, causal=causal, route="simt"),
+               **{name: (lambda t=t: flash_backward_ref(q, k, v, o, lse, do, causal=causal, p_bf16_terms=t[0],
+                                                        ds_bf16_terms=t[1]))
+                  for name, t in VARIANTS.items()}}
+        row = {"case": case, "entries": {"dq": q.numel(), "dk": k.numel(), "dv": v.numel()}}
+        for name in names:
+            out = got[name]()
+            row[name] = {}
+            for grad, g, w in zip(("dq", "dk", "dv"), out, want):
+                g, w = g.float(), w.float()
+                tol = chip_smoke.BWD_RTOL * w.abs() + chip_smoke.BWD_ATOL_OF_MAX * w.abs().max()
+                err = (g - w).abs()
+                n_out = int((err > tol).sum())
+                row[name][grad] = {"outside_tol": n_out, "worst_share_of_tol": (err / tol).max().item()}
+                totals[group][name][grad] += n_out
+            del out
+        print(json.dumps(row), flush=True)
+        del o, lse, want
+    print(json.dumps({"layers": len(layers), "inputs": {
+                          "layers": "the probe's first microbatch (2 x 2048), every layer",
+                          "random": "chip_smoke.py's randn at BWD_TIMED and BWD_EDGES"},
+                      "outside_tol_total": totals,
+                      "tolerance": {"rtol": chip_smoke.BWD_RTOL, "atol_of_max": chip_smoke.BWD_ATOL_OF_MAX},
+                      "kernel_terms": {"p": fa.BWD_P_TERMS, "ds": fa.BWD_DS_TERMS},
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Each kernel is one ``csrc/*.cu`` file with a plain C interface; the
-tensor-core kernels share ``csrc/hopper.cuh``.  ``nvcc`` compiles each source
+tensor-core kernels share ``csrc/hopper.cuh`` (and the flash ones
+``csrc/flash_tile.cuh``).  ``nvcc`` compiles each source
 for ``sm_90a`` into a shared library under ``build/repro_torch/`` at the root
 of the checkout, named by a digest of its source, the shared headers and the
 flags, so a changed source or header rebuilds and an unchanged one is loaded
@@ -19,6 +20,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -33,6 +35,7 @@ SOURCES: Dict[str, str] = {
     "flash_attention": "flash_attention.cu",
     "flash_attention_wgmma": "flash_attention_wgmma.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
+    "flash_attention_bwd_wgmma": "flash_attention_bwd_wgmma.cu",
     "ssd_scan": "ssd_scan.cu",
     "ssd_scan_wgmma": "ssd_scan_wgmma.cu",
     "array_ops": "array_ops.cu",
@@ -44,6 +47,7 @@ NVCC_FLAGS = (
     "-O3",
     "-lineinfo",
     "-Xptxas=-v",
+    "-split-compile=0",  # a source's kernels optimised in parallel: the largest library bounds the build
     "-shared",
     "-Xcompiler=-fPIC",
 )
@@ -87,10 +91,16 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Dict[str, object]]
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, target, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, target, t0) in running.items():
+
+    def finish(item):  # each build's own wall time, not the time its turn to be read came
+        name, (proc, tmp, target, t0) = item
         log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
+        return name, proc, tmp, target, log, time.perf_counter() - t0
+
+    failed = []
+    with ThreadPoolExecutor(max_workers=max(1, len(running))) as pool:
+        done = list(pool.map(finish, running.items()))
+    for name, proc, tmp, target, log, seconds in done:
         if proc.returncode != 0:
             failed.append(f"{name} (exit {proc.returncode}):\n{log}")
             continue

@@ -2,9 +2,9 @@
 // plain C interface.  fp32 runs here because the tensor cores' fp32 input
 // type is TF32 (~10 bits of mantissa), which misses the fp32 tolerance
 // (2e-5) the fp32 checks hold the kernel to.  bf16 runs on the tensor-core
-// kernel (flash_attention_wgmma.cu) for head dims 32, 64 and 128, and here
-// for head dim 256 (gemma-7b, paligemma-3b): the wrapper's select_route
-// names the kernel by dtype and head dim.
+// kernel (flash_attention_wgmma.cu) at every head dim; this kernel takes
+// bf16 at head dim 256 only when asked (route "simt"), so that the two can
+// be timed side by side.
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention_pallas (the
 // Pallas TPU kernel _flash_kernel).  Same function: softmax(q k^T * scale) v
@@ -19,7 +19,7 @@
 // Any other pair returns cudaErrorInvalidValue.  With a non-null lse
 // pointer each row also writes its logsumexp, lse (B, Hq, Sq) fp32: the
 // natural log of sum_j exp(s_ij * scale), +inf for a row that sees no key
-// (the backward, flash_attention_bwd.cu, recomputes P from it).
+// (the backward recomputes P from it).
 //
 // Design.  The TPU kernel walks the kv blocks as the innermost, sequential
 // grid dimension and carries m, l and acc in VMEM scratch between grid
@@ -253,7 +253,7 @@ extern "C" int repro_flash_attention_fwd(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return dispatch_dim<float>(p, B, D, s);
-    // bf16 comes here only at D = 256 (the tensor-core kernel takes 32-128)
+    // bf16 comes here only at D = 256, when the caller asks for this kernel
     case 1: return D == 256 ? launch<__nv_bfloat16, 256>(p, B, s) : int(cudaErrorInvalidValue);
     default: return int(cudaErrorInvalidValue);
   }

@@ -1,5 +1,10 @@
 // Flash attention backward for Hopper (sm_90a) on the CUDA cores, with a
-// plain C interface.
+// plain C interface: the fp32 route, and bf16 at head dim 256 (gemma-7b,
+// paligemma-3b).  bf16 at head dims 32-128, dense training's, runs the
+// tensor-core backward (flash_attention_bwd_wgmma.cu); this kernel also
+// takes those when asked (route "simt"), so the two can be timed side by
+// side.  fp32 stays here because the tensor cores' fp32 input type is TF32,
+// which would miss the fp32 tolerance.
 //
 // Replaces the gradient that XLA takes of repro/kernels/ops.py::_xla_flash,
 // the blocked online-softmax form the JAX package trains through off the
@@ -41,11 +46,11 @@
 //
 // What bounds it: five products of 2 Sq Sk D per head (halved when causal)
 // against q, k, v, o, dO read once and dq, dk, dv written once; at
-// training's S = 2048, D = 128 the products bound it.  This first version
-// runs them as fp32 FMAs on the CUDA cores (S and dP are computed twice,
-// once per kernel: seven products), so it is bound by the fp32 FMA rate and
-// by shared-memory reads, far from the bf16 tensor-core bound; moving the
-// products onto wgmma is later work.
+// training's S = 2048, D = 128 the products bound it.  This kernel runs
+// them as fp32 FMAs on the CUDA cores (S and dP are computed twice, once
+// per kernel: seven products), so it is bound by the fp32 FMA rate and by
+// shared-memory reads, far from the bf16 tensor-core bound that the
+// tensor-core backward works toward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

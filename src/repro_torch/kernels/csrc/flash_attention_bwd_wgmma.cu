@@ -1,0 +1,500 @@
+// Flash attention backward for Hopper (sm_90a) in bf16: every product on the
+// tensor cores (wgmma), the q, k, v and dO tiles brought in by TMA.  Plain C
+// interface.
+//
+// Replaces the gradient that XLA takes of repro/kernels/ops.py::_xla_flash,
+// the blocked online-softmax form the JAX package trains through off the
+// TPU (the Pallas kernel _flash_kernel has no backward), for bf16 at head
+// dims 32, 64 and 128: dense training's type and widths.  Same function as
+// flash_attention_bwd.cu, which keeps fp32 (TF32 would miss the fp32
+// tolerance) and bf16 at D = 256: the gradients of softmax(q k^T * scale) v
+// with respect to q, k and v, per query head, kv head h / group (GQA: dK and
+// dV summed over the group), causal (Sq == Sk) or not.
+//
+// Layout: q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D), o and dO (B, Sq, Hq, D)
+// read through their strides (the head dim contiguous; q, k, v and dO with
+// base and strides 16-byte aligned, as TMA needs: the wrapper checks); lse
+// (B, Hq, Sq) fp32 as the forward kernels write it (natural log, +inf for a
+// row that sees no key); dq (B, Sq, Hq, D), dk and dv (B, Sk, Hkv, D) written
+// contiguous; scratch of 2 (B, Hq, Sq_pad) fp32 rows, Sq_pad = Sq rounded up
+// to 64.
+//
+// Design: the FlashAttention-2 backward in three launches, so that no block
+// adds into another's output (no atomics: every run gives the same result):
+//   1. flash_bwd_prep: D_i = rowsum(dO_i * O_i), one warp a row (the SIMT
+//      backward's flash_bwd_delta), which also writes lse * log2(e); both
+//      padded to Sq_pad with D_i = 0 and lse = +inf, so that a q tile's 64
+//      values are one aligned 256-byte bulk copy and padded rows get P = 0;
+//   2. flash_bwd_dkdv_wgmma: one warpgroup per (kv head, 64-row kv tile,
+//      batch) loads its K and V tile once by TMA, then streams (Q, lse) and
+//      (dO, D_i) tiles through a two-stage TMA ring on mbarriers, over the
+//      GQA group's q heads and the q tiles from the causal diagonal on.  Per
+//      q tile, on the fp32 accumulator fragments in registers:
+//        S^T = K Q^T          ss, K and Q both K-major over D;
+//        P^T = exp2(S^T scale log2e - lse log2e), lse by column; the causal
+//                             diagonal masked by row and column, padded q
+//                             columns by lse = +inf;
+//        dV += P^T dO         rs: P^T's fragment is, pair for pair, the A
+//                             fragment, dO read transposed (MN-major);
+//                             issued before dP^T is formed, so P's bf16
+//                             fragment dies early;
+//        dP^T = V dO^T        ss;
+//        dS^T = P^T (dP^T - D_i), D_i by column;
+//        dK += dS^T Q         rs, Q read transposed;
+//      dK takes the scale once at the end;
+//   3. flash_bwd_dq_wgmma: one warpgroup per (q head, 64-row q tile, batch)
+//      loads Q and dO once and streams K and V through a two-stage ring up
+//      to the diagonal: S = Q K^T and dP = dO V^T (ss, issued together), P
+//      and dS on the fragment with lse and D_i per row, the ragged kv edge
+//      and the diagonal masked (TMA zero-fills K rows past Sk, and a zero
+//      score would give P > 0), dQ += dS K (rs, K read transposed).
+//
+// Numerics.  P and dS enter their products as bf16: P as P_TERMS terms and
+// dS as DS_TERMS (one term = bf16(x), two = hi + bf16(x - hi), ~16 bits),
+// chosen by scripts/flash_bwd_rounding.py's counts of gradient entries
+// outside chip_smoke.py's tolerance on every full-width layer's real inputs
+// (PERF.md §6).  S, dP and every sum are fp32.
+//
+// What bounds it: five products of 2 Sq Sk D per head (halved when causal)
+// against q, k, v, o, dO read and dq, dk, dv written once; at training's
+// S = 2048, D = 128 the products bound it.  The kernels run seven (S and dP
+// in both), plus one for each second bf16 term.  This first version keeps a
+// warpgroup's products in sequence (no producer warp, no second consumer
+// warpgroup), so a block's time is its chain of tiles; shared memory is
+// ~98 KB a dK/dV block at D = 128, so two blocks can share an SM.
+
+#include <math.h>
+
+#include "flash_tile.cuh"
+
+namespace {
+
+using namespace flash;
+
+constexpr int BR = ROWS;      // rows of every q and kv tile
+constexpr int STAGES = 2;     // ring depth
+constexpr int THREADS = 128;  // one warpgroup
+constexpr int PREP_THREADS = 256;
+constexpr int P_TERMS = 2;   // bf16 terms of P in dV += P^T dO
+constexpr int DS_TERMS = 2;  // bf16 terms of dS in dK += dS^T Q and dQ += dS K
+constexpr int ROW_BYTES = BR * 4;  // one q tile's lse or D_i
+constexpr float LOG2E = 1.4426950408889634f;
+
+// K, V, the (Q, dO) ring, each stage's lse and D_i rows, the barriers
+template <int D>
+constexpr size_t dkdv_smem() {
+  return 1024 + size_t(2 + 2 * STAGES) * Tile<D>::TILE_BYTES + STAGES * 2 * ROW_BYTES + 8 * (1 + 2 * STAGES);
+}
+// Q, dO, the K/V ring, the barriers
+template <int D>
+constexpr size_t dq_smem() {
+  return 1024 + size_t(2 + 2 * STAGES) * Tile<D>::TILE_BYTES + 8 * (1 + 2 * STAGES);
+}
+
+struct Params {
+  const void* o;
+  const void* dout;
+  const float* lse;  // (B, Hq, Sq)
+  float* lse2;       // (B, Hq, Sq_pad): lse * log2(e), +inf past Sq
+  float* delta;      // (B, Hq, Sq_pad): D_i, 0 past Sq
+  void* dq;          // (B, Sq, Hq, D) contiguous
+  void* dk;          // (B, Sk, Hkv, D) contiguous
+  void* dv;          // (B, Sk, Hkv, D) contiguous
+  int B, Sq, Sk, Hq, Hkv, Sq_pad;
+  long long o_sb, o_ss, o_sh;  // strides in elements
+  long long d_sb, d_ss, d_sh;
+  float scale, scale_log2;
+  int causal;
+};
+
+// D_i = rowsum(dO_i * O_i) and lse_i log2(e) for every (batch, head, row <
+// Sq_pad), one warp a row.
+template <int D>
+__global__ void __launch_bounds__(PREP_THREADS) flash_bwd_prep(const Params p) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * (PREP_THREADS / 32) + warp;  // (b * Hq + h) * Sq_pad + i
+  if (row >= (long long)p.B * p.Hq * p.Sq_pad) return;                      // the whole warp leaves
+  const int i = int(row % p.Sq_pad);
+  const long long bh = row / p.Sq_pad;
+  if (i >= p.Sq) {
+    if (lane == 0) {
+      p.delta[row] = 0.f;
+      p.lse2[row] = INFINITY;
+    }
+    return;
+  }
+  const int h = int(bh % p.Hq), b = int(bh / p.Hq);
+  const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(p.o) + b * p.o_sb + i * p.o_ss + h * p.o_sh;
+  const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(p.dout) + b * p.d_sb + i * p.d_ss + h * p.d_sh;
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32) acc = fmaf(__bfloat162float(o[d]), __bfloat162float(g[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    p.delta[row] = acc;
+    p.lse2[row] = p.lse[bh * p.Sq + i] * LOG2E;  // +inf stays +inf
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void zero(float (&a)[Tile<D>::NOB][Tile<D>::NB / 2]) {
+#pragma unroll
+  for (int nb = 0; nb < Tile<D>::NOB; ++nb)
+#pragma unroll
+    for (int i = 0; i < Tile<D>::NB / 2; ++i) a[nb][i] = 0.f;
+}
+
+template <int D>
+__device__ __forceinline__ void pin_all(float (&a)[Tile<D>::NOB][Tile<D>::NB / 2]) {
+#pragma unroll
+  for (int nb = 0; nb < Tile<D>::NOB; ++nb) pin(a[nb]);
+}
+
+// acc[64 x 64] = A B^T over the head dim, both 64 x D tiles K-major
+template <int D>
+__device__ __forceinline__ void issue_scores(float (&acc)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  pin(acc);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(acc, desc_kmajor<D>(a, kk), desc_kmajor<D>(b, kk));
+}
+
+// acc[64 x D] += X[64 x 64] T[64 x D], X as TERMS bf16 A fragments, T a tile
+// read transposed (MN-major)
+template <int D, int TERMS>
+__device__ __forceinline__ void accumulate(float (&acc)[Tile<D>::NOB][Tile<D>::NB / 2], const uint32_t (&hi)[16],
+                                           const uint32_t (&lo)[16], uint32_t tile) {
+  using T = Tile<D>;
+  pin_all<D>(acc);
+  wg_fence();
+#pragma unroll
+  for (int nb = 0; nb < T::NOB; ++nb)
+#pragma unroll
+    for (int j = 0; j < BR / 16; ++j) {
+      const uint64_t db = desc_mnmajor<D>(tile, nb, j);
+      wgmma_rs<T::NB>(acc[nb], hi + 4 * j, db);
+      if constexpr (TERMS == 2) wgmma_rs<T::NB>(acc[nb], lo + 4 * j, db);
+    }
+  wg_commit();
+  wg_wait0();
+  pin_all<D>(acc);
+}
+
+// dK and dV of one 64-row kv tile.  Fragment rows are kv rows, columns q rows.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
+                                                                    const __grid_constant__ CUtensorMap tk,
+                                                                    const __grid_constant__ CUtensorMap tv,
+                                                                    const __grid_constant__ CUtensorMap tdo,
+                                                                    const Params p) {
+  using T = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // swizzle atoms need 1024-byte alignment
+  const uint32_t sK = base, sV = sK + T::TILE_BYTES;
+  const uint32_t sQ = sV + T::TILE_BYTES;             // STAGES tiles
+  const uint32_t sdO = sQ + STAGES * T::TILE_BYTES;   // STAGES tiles
+  const uint32_t sRow = sdO + STAGES * T::TILE_BYTES;  // per stage: lse log2(e), then D_i
+  const uint32_t bar_kv = sRow + STAGES * 2 * ROW_BYTES;
+  const uint32_t bar_q = bar_kv + 8;          // + 8 s: Q and lse of stage s
+  const uint32_t bar_do = bar_q + 8 * STAGES;  // + 8 s: dO and D_i of stage s
+  const float* rows = reinterpret_cast<const float*>(smem_raw + (sRow - raw));
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int hk = blockIdx.x;
+  const int k0 = blockIdx.y * BR;  // causal: the first kv tiles see the most q tiles and start first
+  const int b = blockIdx.z;
+  const int G = p.Hq / p.Hkv;
+  const int q_begin = p.causal ? k0 : 0;  // causal (Sq == Sk): q rows below k0 see nothing of this tile
+  const int nq = q_begin < p.Sq ? (p.Sq - q_begin + BR - 1) / BR : 0;
+  const int n_it = G * nq;  // (q head of the group, q tile) pairs, head-major
+
+  // thread 0: bring q tile `it` of the walk into stage s
+  auto issue = [&](int it, int s) {
+    const int h = hk * G + it / nq, q0 = q_begin + (it % nq) * BR;
+    const size_t off = (size_t(b) * p.Hq + h) * p.Sq_pad + q0;
+    mbar_expect_tx(bar_q + 8 * s, T::TILE_BYTES + ROW_BYTES);
+    tma_tile<D>(sQ + s * T::TILE_BYTES, &tq, bar_q + 8 * s, q0, h, b);
+    bulk_load(sRow + s * 2 * ROW_BYTES, p.lse2 + off, ROW_BYTES, bar_q + 8 * s);
+    mbar_expect_tx(bar_do + 8 * s, T::TILE_BYTES + ROW_BYTES);
+    tma_tile<D>(sdO + s * T::TILE_BYTES, &tdo, bar_do + 8 * s, q0, h, b);
+    bulk_load(sRow + s * 2 * ROW_BYTES + ROW_BYTES, p.delta + off, ROW_BYTES, bar_do + 8 * s);
+  };
+
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_q + 8 * s, 1);
+      mbar_init(bar_do + 8 * s, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0 && n_it > 0) {
+    mbar_expect_tx(bar_kv, 2 * T::TILE_BYTES);
+    tma_tile<D>(sK, &tk, bar_kv, k0, hk, b);
+    tma_tile<D>(sV, &tv, bar_kv, k0, hk, b);
+    for (int s = 0; s < STAGES && s < n_it; ++s) issue(s, s);
+  }
+
+  const int r0 = k0 + warp * 16 + (lane >> 2);  // this thread's kv rows: r0 and r0 + 8
+  const int cq = (lane & 3) * 2;                // its q column pair within each 8-column group
+
+  float dk[T::NOB][T::NB / 2], dv[T::NOB][T::NB / 2];
+  zero<D>(dk);
+  zero<D>(dv);
+
+  if (n_it > 0) mbar_wait(bar_kv, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % STAGES;
+    const uint32_t phase = (it / STAGES) & 1;
+    const int q0 = q_begin + (it % nq) * BR;
+    const uint32_t tQ = sQ + s * T::TILE_BYTES, tdO = sdO + s * T::TILE_BYTES;
+    const float* lse2 = rows + s * 2 * BR;
+    const float* dl = lse2 + BR;
+
+    // S^T = K Q^T
+    float st[32];
+    mbar_wait(bar_q + 8 * s, phase);
+    issue_scores<D>(st, sK, tQ);
+    wg_commit();
+    wg_wait0();
+    pin(st);
+
+    // P^T on the fragment; only the diagonal tile needs the causal mask
+    const bool diag = p.causal && q0 < k0 + BR;
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int c = (i >> 2) * 8 + cq;
+      const int row = r0 + ((i >> 1) & 1) * 8;
+      const float2 l = *reinterpret_cast<const float2*>(lse2 + c);
+      const float p0 = exp2f(st[i] * p.scale_log2 - l.x);
+      const float p1 = exp2f(st[i + 1] * p.scale_log2 - l.y);
+      st[i] = diag && q0 + c < row ? 0.f : p0;
+      st[i + 1] = diag && q0 + c + 1 < row ? 0.f : p1;
+    }
+    uint32_t pa[16], pb[16];
+    to_bf16_a<P_TERMS>(st, pa, pb);
+
+    // dV += P^T dO
+    mbar_wait(bar_do + 8 * s, phase);
+    pin(pa);
+    if constexpr (P_TERMS == 2) pin(pb);
+    accumulate<D, P_TERMS>(dv, pa, pb, tdO);
+
+    // dP^T = V dO^T, then dS^T = P^T (dP^T - D_i) in its place
+    float dp[32];
+    issue_scores<D>(dp, sV, tdO);
+    wg_commit();
+    wg_wait0();
+    pin(dp);
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const float2 d = *reinterpret_cast<const float2*>(dl + (i >> 2) * 8 + cq);
+      dp[i] = st[i] * (dp[i] - d.x);
+      dp[i + 1] = st[i + 1] * (dp[i + 1] - d.y);
+    }
+    uint32_t sa[16], sb[16];
+    to_bf16_a<DS_TERMS>(dp, sa, sb);
+
+    // dK += dS^T Q
+    pin(sa);
+    if constexpr (DS_TERMS == 2) pin(sb);
+    accumulate<D, DS_TERMS>(dk, sa, sb, tQ);
+
+    // every warp is done with stage s: refill it with the tile STAGES ahead
+    __syncthreads();
+    if (tid == 0 && it + STAGES < n_it) issue(it + STAGES, s);
+  }
+
+  const float one[2] = {1.f, 1.f}, scale[2] = {p.scale, p.scale};
+  const size_t out = (size_t(b) * p.Sk * p.Hkv + hk) * D;  // row r at + r Hkv D
+  store_rows<D>(static_cast<__nv_bfloat16*>(p.dk) + out, (long long)p.Hkv * D, k0, p.Sk, dk, scale);
+  store_rows<D>(static_cast<__nv_bfloat16*>(p.dv) + out, (long long)p.Hkv * D, k0, p.Sk, dv, one);
+}
+
+// dQ of one 64-row q tile.  Fragment rows are q rows, columns kv rows.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                                                                  const __grid_constant__ CUtensorMap tk,
+                                                                  const __grid_constant__ CUtensorMap tv,
+                                                                  const __grid_constant__ CUtensorMap tdo,
+                                                                  const Params p) {
+  using T = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base, sdO = sQ + T::TILE_BYTES;
+  const uint32_t sK = sdO + T::TILE_BYTES;          // STAGES tiles
+  const uint32_t sV = sK + STAGES * T::TILE_BYTES;  // STAGES tiles
+  const uint32_t bar_q = sV + STAGES * T::TILE_BYTES;
+  const uint32_t bar_k = bar_q + 8;           // + 8 s
+  const uint32_t bar_v = bar_k + 8 * STAGES;  // + 8 s
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int h = blockIdx.x;
+  const int q0 = (p.Sq_pad / BR - 1 - int(blockIdx.y)) * BR;  // causal: the last q tiles see the most kv tiles
+  const int b = blockIdx.z;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int k_end = p.causal ? min(p.Sk, q0 + BR) : p.Sk;
+  const int nkv = (k_end + BR - 1) / BR;  // 0 when Sk == 0: dQ = 0
+
+  const int r0 = q0 + warp * 16 + (lane >> 2);  // this thread's q rows: r0 and r0 + 8
+  const int cq = (lane & 3) * 2;
+  const size_t bh = size_t(b) * p.Hq + h;
+  float lse2[2], dl[2];  // rows past Sq read the padding: +inf and 0
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse2[r] = p.lse2[bh * p.Sq_pad + r0 + 8 * r];
+    dl[r] = p.delta[bh * p.Sq_pad + r0 + 8 * r];
+  }
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto issue = [&](int it, int s) {
+    mbar_expect_tx(bar_k + 8 * s, T::TILE_BYTES);
+    tma_tile<D>(sK + s * T::TILE_BYTES, &tk, bar_k + 8 * s, it * BR, hk, b);
+    mbar_expect_tx(bar_v + 8 * s, T::TILE_BYTES);
+    tma_tile<D>(sV + s * T::TILE_BYTES, &tv, bar_v + 8 * s, it * BR, hk, b);
+  };
+  if (tid == 0 && nkv > 0) {
+    mbar_expect_tx(bar_q, 2 * T::TILE_BYTES);
+    tma_tile<D>(sQ, &tq, bar_q, q0, h, b);
+    tma_tile<D>(sdO, &tdo, bar_q, q0, h, b);
+    for (int s = 0; s < STAGES && s < nkv; ++s) issue(s, s);
+  }
+
+  float dq[T::NOB][T::NB / 2];
+  zero<D>(dq);
+
+  if (nkv > 0) mbar_wait(bar_q, 0);
+  for (int it = 0; it < nkv; ++it) {
+    const int s = it % STAGES;
+    const uint32_t phase = (it / STAGES) & 1;
+    const int k0 = it * BR;
+    const uint32_t tK = sK + s * T::TILE_BYTES, tV = sV + s * T::TILE_BYTES;
+
+    // S = Q K^T and dP = dO V^T in one group
+    float sc[32], dp[32];
+    mbar_wait(bar_k + 8 * s, phase);
+    issue_scores<D>(sc, sQ, tK);
+    mbar_wait(bar_v + 8 * s, phase);
+    issue_scores<D>(dp, sdO, tV);
+    wg_commit();
+    wg_wait0();
+    pin(sc);
+    pin(dp);
+
+    // P, then dS = P (dP - D_i), on the fragment; the ragged kv edge and the
+    // causal diagonal only in the last tiles
+    const bool edge = k0 + BR > p.Sk || (p.causal && k0 + BR - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const int col = k0 + (i >> 2) * 8 + cq + (i & 1);
+      float pv = exp2f(sc[i] * p.scale_log2 - lse2[r]);
+      if (edge && (col >= p.Sk || (p.causal && col > r0 + 8 * r))) pv = 0.f;
+      dp[i] = pv * (dp[i] - dl[r]);
+    }
+    uint32_t sa[16], sb[16];
+    to_bf16_a<DS_TERMS>(dp, sa, sb);
+
+    // dQ += dS K
+    pin(sa);
+    if constexpr (DS_TERMS == 2) pin(sb);
+    accumulate<D, DS_TERMS>(dq, sa, sb, tK);
+
+    __syncthreads();
+    if (tid == 0 && it + STAGES < nkv) issue(it + STAGES, s);
+  }
+
+  const float scale[2] = {p.scale, p.scale};
+  const size_t out = (size_t(b) * p.Sq * p.Hq + h) * D;  // row r at + r Hq D
+  store_rows<D>(static_cast<__nv_bfloat16*>(p.dq) + out, (long long)p.Hq * D, q0, p.Sq, dq, scale);
+}
+
+// ---------------------------------------------------------------- host side
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* dout, const Params& p, const long long* st,
+           cudaStream_t stream) {
+  using T = Tile<D>;
+  // a map over a tensor with no rows is never read (and cannot be encoded)
+  CUtensorMap tq{}, tk{}, tv{}, tdo{};
+  int err = 0;
+  if (p.Sq > 0) {
+    err = make_map(&tq, q, D, p.Sq, p.Hq, p.B, st[1], st[2], st[0], T::CW, BR, T::SW);
+    if (err == 0) err = make_map(&tdo, dout, D, p.Sq, p.Hq, p.B, st[13], st[14], st[12], T::CW, BR, T::SW);
+  }
+  if (err == 0 && p.Sk > 0) {
+    err = make_map(&tk, k, D, p.Sk, p.Hkv, p.B, st[4], st[5], st[3], T::CW, BR, T::SW);
+    if (err == 0) err = make_map(&tv, v, D, p.Sk, p.Hkv, p.B, st[7], st[8], st[6], T::CW, BR, T::SW);
+  }
+  if (err != 0) return err;
+  constexpr size_t SMEM_KV = dkdv_smem<D>(), SMEM_Q = dq_smem<D>();
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       int(SMEM_KV));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_Q));
+  if (e != cudaSuccess) return int(e);
+  const long long rows = (long long)p.B * p.Hq * p.Sq_pad;
+  if (rows > 0) {
+    const int per_block = PREP_THREADS / 32;
+    flash_bwd_prep<D><<<unsigned((rows + per_block - 1) / per_block), PREP_THREADS, 0, stream>>>(p);
+    if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
+  }
+  if (p.Sk > 0) {  // with Sq == 0 the kernel writes dK = dV = 0
+    flash_bwd_dkdv_wgmma<D><<<dim3(p.Hkv, (p.Sk + BR - 1) / BR, p.B), THREADS, SMEM_KV, stream>>>(tq, tk, tv, tdo,
+                                                                                                    p);
+    if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
+  }
+  if (p.Sq > 0) {  // with Sk == 0 the kernel writes dQ = 0
+    flash_bwd_dq_wgmma<D><<<dim3(p.Hq, p.Sq_pad / BR, p.B), THREADS, SMEM_Q, stream>>>(tq, tk, tv, tdo, p);
+    if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
+  }
+  return 0;
+}
+
+}  // namespace
+
+// bf16 only.  Strides in elements, (batch, seq, head) for q, k, v, o and dO
+// in that order.  scratch holds 2 B Hq Sq_pad floats (Sq_pad = Sq rounded up
+// to 64) and is 256-byte aligned.  Launches three kernels on the stream.
+// Returns 0, a cudaError_t (> 0), or a negated CUresult of the tensor-map
+// encoding (< 0); repro_flash_bwd_wgmma_error_string names it.
+extern "C" int repro_flash_attention_bwd_wgmma(
+    const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse,
+    void* dq, void* dk, void* dv, void* scratch,
+    int B, int Sq, int Sk, int Hq, int Hkv, int D,
+    long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long o_sb, long long o_ss, long long o_sh,
+    long long d_sb, long long d_ss, long long d_sh,
+    float scale, int causal, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || (causal && Sq != Sk)) return int(cudaErrorInvalidValue);
+  if (B == 0 || Hq == 0) return 0;
+  const int Sq_pad = (Sq + BR - 1) / BR * BR;
+  float* lse2 = static_cast<float*>(scratch);
+  const Params p{o, dout, static_cast<const float*>(lse), lse2, lse2 + size_t(B) * Hq * Sq_pad, dq, dk, dv,
+                 B, Sq, Sk, Hq, Hkv, Sq_pad, o_sb, o_ss, o_sh, d_sb, d_ss, d_sh,
+                 scale, scale * LOG2E, causal};
+  const long long st[15] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                            o_sb, o_ss, o_sh, d_sb, d_ss, d_sh};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch<32>(q, k, v, dout, p, st, s);
+    case 64: return launch<64>(q, k, v, dout, p, st, s);
+    case 128: return launch<128>(q, k, v, dout, p, st, s);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" const char* repro_flash_bwd_wgmma_error_string(int err) { return hopper::error_string(err); }

@@ -14,11 +14,13 @@
 // Layout: q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D), out (B, Sq, Hq, D),
 // read and written through their strides (the head dim contiguous; base and
 // strides 16-byte aligned, as TMA needs: the wrapper checks).  D in 32, 64,
-// 128 (bf16 at D = 256 runs the SIMT kernel).  With a non-null lse pointer
+// 128, 256.  With a non-null lse pointer
 // each row also writes its logsumexp, lse (B, Hq, Sq) fp32, in natural log
 // (the softmax runs in base 2: lse = (m + log2 l) * ln 2), +inf for a row
 // that sees no key; the backward (flash_attention_bwd.cu) recomputes P
-// from it.  Serving's prefill passes null and writes nothing.
+// from it (the tensor-core backward, flash_attention_bwd_wgmma.cu, at D up
+// to 128; the SIMT one at D = 256).  Serving's prefill passes null and
+// writes nothing.
 //
 // Design.  One block of one warpgroup (128 threads) owns one (query head,
 // 64-row query tile, batch) and walks 64-column kv tiles to the causal
@@ -49,10 +51,13 @@
 // idle.  V and the scores need no such care (V is bf16 already; S
 // accumulates in fp32).
 //
-// Shared memory is 128-byte swizzled (64-byte for D = 32, whose rows are 64
-// bytes): the tensor maps and the wgmma descriptors name the same swizzle,
-// and every tile starts on a 1024-byte boundary so the swizzle phase is the
-// same in both.  A D = 128 tile is two 64-column chunks, each one TMA box.
+// Shared memory is 128-byte swizzled (64-byte for D = 32), the tiles of
+// flash_tile.cuh: a D = 128 tile is two 64-column chunks, each one TMA box,
+// a D = 256 tile four.  At D = 256 (gemma-7b, paligemma-3b) Q and the
+// two-stage K/V ring take 1,024 + 5 x 32,768 + 40 = 164,904 bytes of the
+// 232,448 a block may have; what it strains is registers: the 64 x 256 fp32
+// accumulator is 128 a thread, beside 32 for the scores and 32 for P's two
+// terms.
 //
 // What bounds it.  The work is bound by bytes at these shapes (each of q, k,
 // v, out moved once: 8 B H S D bytes against 2 B H S^2 D causal FLOPs at the
@@ -64,28 +69,22 @@
 
 #include <math.h>
 
-#include "hopper.cuh"
+#include "flash_tile.cuh"
 
 namespace {
 
-using namespace hopper;
+using namespace flash;
 
-constexpr int BQ = 64;        // query rows per block (one wgmma M)
-constexpr int BK = 64;        // kv columns per tile
+constexpr int BQ = ROWS;      // query rows per block (one wgmma M)
+constexpr int BK = ROWS;      // kv columns per tile
 constexpr int STAGES = 2;     // K/V ring depth
 constexpr int THREADS = 128;  // one warpgroup
 
+// Q, the K/V ring and their barriers, from a 1024-byte boundary
 template <int D>
-struct Tile {
-  static constexpr int SW = D * 2 >= 128 ? 128 : D * 2;  // swizzle span = bytes of one chunk row
-  static constexpr int CW = SW / 2;                        // bf16 columns per chunk (one TMA box)
-  static constexpr int NCHUNK = D / CW;
-  static constexpr int CHUNK_BYTES = 64 * SW;               // 64 rows of one chunk
-  static constexpr int TILE_BYTES = NCHUNK * CHUNK_BYTES;   // a 64 x D bf16 tile
-  static constexpr int NB = D >= 64 ? 64 : D;               // output columns per P V wgmma
-  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;     // descriptor layout: 1 = 128B, 2 = 64B swizzle
-  static constexpr size_t SMEM = 1024 + size_t(1 + 2 * STAGES) * TILE_BYTES + 8 * (1 + 2 * STAGES);
-};
+constexpr size_t smem_bytes() {
+  return 1024 + size_t(1 + 2 * STAGES) * Tile<D>::TILE_BYTES + 8 * (1 + 2 * STAGES);
+}
 
 struct Params {
   void* o;
@@ -97,49 +96,12 @@ struct Params {
   int n_qtiles;
 };
 
-// one 64-row tile: NCHUNK boxes of (CW columns x 64 rows), all on one barrier
+// one 64-row tile on its own barrier
 template <int D>
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar, int row, int head,
                                           int batch) {
-  using T = Tile<D>;
-  mbar_expect_tx(bar, T::TILE_BYTES);  // TMA counts the whole box, zero-filled rows included
-#pragma unroll
-  for (int c = 0; c < T::NCHUNK; ++c) tma_load(dst + c * T::CHUNK_BYTES, map, bar, c * T::CW, row, head, batch);
-}
-
-// ---------------------------------------------------------------- wgmma operands
-// Q or K tile as a K-major operand (K = head dim), k-step kk (16 columns):
-// rows at SW bytes, 8-row groups at 8 SW; within a swizzled row the k-step
-// moves the start by 32 bytes (the hardware applies the swizzle to the
-// address, so the tile's 1024-byte alignment keeps it in phase).
-template <int D>
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
-  using T = Tile<D>;
-  const uint32_t addr = tile + (kk * 16 / T::CW) * T::CHUNK_BYTES + (kk * 16 % T::CW) * 2;
-  return make_desc(addr, 16, 8 * T::SW, T::LAYOUT);
-}
-
-// V tile as an MN-major B operand (N = head dim, K = kv rows), output block
-// nb (NB columns, one swizzle atom wide) and k-step j (16 kv rows).  The
-// 8-row K groups lie 8 SW apart; N fits one atom, so the leading offset is
-// never stepped (given the same value, so either reading of the two fields
-// names the K-group stride).
-template <int D>
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int nb, int j) {
-  using T = Tile<D>;
-  const uint32_t addr = tile + nb * (T::NB / T::CW) * T::CHUNK_BYTES + j * 16 * T::SW;
-  return make_desc(addr, 8 * T::SW, 8 * T::SW, T::LAYOUT);
-}
-
-template <int NB>
-__device__ __forceinline__ void wgmma_pv(float (&d)[NB / 2], const uint32_t* a, uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&d)[32], const uint32_t* a, uint64_t db) {
-  wgmma_rs_n64(d, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<32>(float (&d)[16], const uint32_t* a, uint64_t db) {
-  wgmma_rs_n32(d, a, db);
+  mbar_expect_tx(bar, Tile<D>::TILE_BYTES);
+  tma_tile<D>(dst, map, bar, row, head, batch);
 }
 
 // ---------------------------------------------------------------- the kernel
@@ -153,7 +115,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma(const __grid_constant
                                                             const __grid_constant__ CUtensorMap tv,
                                                             const Params p) {
   using T = Tile<D>;
-  constexpr int NOB = D / T::NB;  // output blocks per row
+  constexpr int NOB = T::NOB;  // output blocks per row
 
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms need 1024-byte alignment
@@ -281,8 +243,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma(const __grid_constant
 #pragma unroll
       for (int j = 0; j < BK / 16; ++j) {
         const uint64_t dv = desc_mnmajor<D>(tV, nb, j);
-        wgmma_pv<T::NB>(o[nb], pa + 4 * j, dv);
-        wgmma_pv<T::NB>(o[nb], pb + 4 * j, dv);
+        wgmma_rs<T::NB>(o[nb], pa + 4 * j, dv);
+        wgmma_rs<T::NB>(o[nb], pb + 4 * j, dv);
       }
     wg_commit();
     wg_wait0();
@@ -308,21 +270,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma(const __grid_constant
       p.lse[(size_t(b) * p.Hq + h) * p.Sq + row] =
           l[r] == 0.f ? INFINITY : (m[r] + log2f(l[r])) * 0.6931471805599453f;
   }
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + 8 * r;
-    if (row >= p.Sq) continue;
-    __nv_bfloat16* orow = out + row * p.o_ss;
-#pragma unroll
-    for (int nb = 0; nb < NOB; ++nb)
-#pragma unroll
-      for (int g = 0; g < T::NB / 8; ++g) {
-        const int i = g * 4 + 2 * r;
-        *reinterpret_cast<__nv_bfloat162*>(orow + nb * T::NB + g * 8 + cq) =
-            __floats2bfloat162_rn(o[nb][i] * inv[r], o[nb][i + 1] * inv[r]);
-      }
-  }
+  store_rows<D>(static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh, p.o_ss, q0, p.Sq, o, inv);
 }
 
 // ---------------------------------------------------------------- host side
@@ -336,11 +284,12 @@ int launch(const void* q, const void* k, const void* v, int B, const Params& p, 
   if (err == 0 && p.Sk > 0) err = make_map(&tk, k, D, p.Sk, p.Hkv, B, st[4], st[5], st[3], T::CW, BK, T::SW);
   if (err == 0 && p.Sk > 0) err = make_map(&tv, v, D, p.Sk, p.Hkv, B, st[7], st[8], st[6], T::CW, BK, T::SW);
   if (err != 0) return err;
+  constexpr size_t SMEM = smem_bytes<D>();
   const cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             int(T::SMEM));
+                                             int(SMEM));
   if (e != cudaSuccess) return int(e);
   const dim3 grid(p.Hq, p.n_qtiles, B);
-  flash_fwd_wgmma<D><<<grid, THREADS, T::SMEM, stream>>>(tq, tk, tv, p);
+  flash_fwd_wgmma<D><<<grid, THREADS, SMEM, stream>>>(tq, tk, tv, p);
   return int(cudaGetLastError());
 }
 
@@ -363,6 +312,7 @@ extern "C" int repro_flash_attention_fwd_wgmma(
     case 32: return launch<32>(q, k, v, B, p, st, s);
     case 64: return launch<64>(q, k, v, B, p, st, s);
     case 128: return launch<128>(q, k, v, B, p, st, s);
+    case 256: return launch<256>(q, k, v, B, p, st, s);
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (flash_attention_wgmma.cu, ssd_scan_wgmma.cu): mbarriers, TMA tile loads
-// and their tensor maps, wgmma descriptors and the m64n64k16 bf16 products.
+// (flash_attention_wgmma.cu, flash_attention_bwd_wgmma.cu, ssd_scan_wgmma.cu):
+// mbarriers, TMA tile and bulk loads and their tensor maps, wgmma
+// descriptors and the m64n64k16 bf16 products.
 // Each kernel source includes this header and is compiled on its own; the
 // device functions are inline and the host ones static.  (No unnamed
 // namespace here: nvcc's generated stubs name the including file's unnamed
@@ -51,6 +52,15 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A 1-d copy of `bytes` bytes (a multiple of 16; both addresses 16-byte
+// aligned) from device memory, completing on `bar` like a tile.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

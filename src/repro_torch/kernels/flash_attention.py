@@ -1,36 +1,44 @@
 """Flash attention: the hand-written CUDA kernels, their wrappers and their plain versions.
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas`` (the
-Pallas TPU kernel ``_flash_kernel``).  Two forward kernels, built for
-``sm_90a`` by :mod:`.build` at their first launch and called through
-``ctypes``; a CUDA call picks one by dtype and head dim
-(:func:`select_route`):
+Pallas TPU kernel ``_flash_kernel``) and the gradient the JAX package lets
+XLA take of its blocked form.  Four kernels, built for ``sm_90a`` by
+:mod:`.build` at their first launch and called through ``ctypes``; a CUDA
+call picks one by dtype and head dim (:func:`select_route` forward,
+:func:`select_bwd_route` backward):
 
-* **bf16, D in 32/64/128 → ``csrc/flash_attention_wgmma.cu``** (route
-  ``"wgmma"``), the serving and training path's kernel: both products on
-  the tensor cores (``wgmma``, bf16 in, fp32 accumulate), Q and a
-  two-stage ring of K/V tiles brought into shared memory by TMA, the online
-  softmax on the accumulator fragment in registers, P carried in registers
-  as two bf16 terms (hi + lo, so that rows whose p·v nearly cancel stay
-  within the bf16 tolerance) as the second product's A operand.  TMA needs
-  the base address and the seq/head/batch strides of q, k and v 16-byte
-  aligned; the wrapper checks and raises.
-* **fp32, and bf16 at D = 256 → ``csrc/flash_attention.cu``** (route
-  ``"simt"``), both products as fp32 FMAs on the CUDA cores.  fp32 stays
-  off the tensor cores on purpose: their fp32 input type is TF32, ~10 bits
-  of mantissa, which misses the fp32 tolerance (2e-5) that the fp32 checks
-  hold the kernel to.  Head dim 256 (gemma-7b, paligemma-3b) takes this
-  kernel in bf16 too: its 64 x 256 tiles fit the block's shared memory as
-  fp32, the tensor-core kernel's ring would not.
+* **forward, bf16 at D in 32/64/128/256 → ``csrc/flash_attention_wgmma.cu``**
+  (route ``"wgmma"``), the serving and training path's kernel: both
+  products on the tensor cores (``wgmma``, bf16 in, fp32 accumulate), Q and
+  a two-stage ring of K/V tiles brought into shared memory by TMA, the
+  online softmax on the accumulator fragment in registers, P carried in
+  registers as two bf16 terms (hi + lo, so that rows whose p·v nearly
+  cancel stay within the bf16 tolerance) as the second product's A
+  operand.  At D = 256 (gemma-7b, paligemma-3b) Q and the ring take
+  164,904 bytes of shared memory, within a block's 232,448; the 64 x 256
+  fp32 accumulator takes 128 registers a thread.
+* **forward, fp32 → ``csrc/flash_attention.cu``** (route ``"simt"``), both
+  products as fp32 FMAs on the CUDA cores.  fp32 stays off the tensor
+  cores on purpose: their fp32 input type is TF32, ~10 bits of mantissa,
+  which misses the fp32 tolerance (2e-5) that the fp32 checks hold the
+  kernel to.  It also takes bf16 at D = 256 when asked (``route="simt"``),
+  so that the two can be timed side by side.
+* **backward, bf16 at D in 32/64/128 → ``csrc/flash_attention_bwd_wgmma.cu``**
+  (route ``"wgmma"``), dense training's: the FlashAttention-2 split in
+  three launches (``Dᵢ = rowsum(dO ∘ O)``; dK and dV per kv tile; dQ per q
+  tile), all seven products on ``wgmma``, q/k/v/dO tiles by TMA, P and dS
+  as the A operands from registers, each as two bf16 terms
+  (:data:`BWD_P_TERMS`, :data:`BWD_DS_TERMS`).
+* **backward, fp32, and bf16 at D = 256 → ``csrc/flash_attention_bwd.cu``**
+  (route ``"simt"``), the same split with every product as fp32 FMAs.
 
-Both forward kernels can write the rows' logsumexp (``return_lse=True``),
-which the backward reads.  The backward is one more kernel,
-``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_backward`), the
-FlashAttention-2 split in three launches (``Dᵢ = rowsum(dO ∘ O)``; dK and
-dV per kv tile; dQ per q tile), all products as fp32 FMAs, fp32 or bf16 in
-and out.  The JAX package has no backward kernel: off the TPU it lets XLA
-differentiate its blocked jnp form (``repro/kernels/ops.py::_xla_flash``),
-so that gradient is the function the backward replaces.
+Every forward kernel can write the rows' logsumexp (``return_lse=True``),
+which the backward reads.  The JAX package has no backward kernel: off the
+TPU it lets XLA differentiate its blocked jnp form
+(``repro/kernels/ops.py::_xla_flash``), so that gradient is the function
+the backward replaces.  The tensor-core kernels need the base address and
+the seq/head/batch strides of what they read by TMA 16-byte aligned
+(:func:`tma_strides`); the wrapper checks and raises.
 
 What bounds the function on an H100: the forward's two products of
 2·Sq·Sk·D per head (halved by causality) against q, k, v and out moved
@@ -59,43 +67,65 @@ from . import build
 from .ref import attention_lse_ref, attention_ref, flash_backward_ref
 
 __all__ = [
-    "flash_attention", "flash_attention_backward", "flash_flops", "flash_bytes", "select_route", "tma_strides",
-    "ROUTES", "SUPPORTED_HEAD_DIMS", "WGMMA_HEAD_DIMS", "BWD_LAUNCHES", "SOURCE", "SIMT_SOURCE", "BWD_SOURCE",
-    "REPLACES", "BWD_REPLACES",
+    "flash_attention", "flash_attention_backward", "flash_flops", "flash_bytes", "select_route", "select_bwd_route",
+    "tma_strides", "ROUTES", "SUPPORTED_HEAD_DIMS", "WGMMA_HEAD_DIMS", "BWD_WGMMA_HEAD_DIMS", "BWD_LAUNCHES",
+    "BWD_P_TERMS", "BWD_DS_TERMS",
+    "SOURCE", "SIMT_SOURCE", "BWD_SOURCE", "BWD_SIMT_SOURCE", "REPLACES", "BWD_REPLACES",
 ]
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
-#: the head dims the tensor-core kernel takes; bf16 at any other runs the SIMT kernel
-WGMMA_HEAD_DIMS = (32, 64, 128)
-#: dtype → the kernel a CUDA call of that dtype launches at a head dim in WGMMA_HEAD_DIMS
+#: the head dims the tensor-core forward kernel takes (every supported one)
+WGMMA_HEAD_DIMS = (32, 64, 128, 256)
+#: the head dims the tensor-core backward kernel takes; bf16 at D = 256 runs the SIMT backward
+BWD_WGMMA_HEAD_DIMS = (32, 64, 128)
+#: dtype → the kernel a CUDA call of that dtype launches at a head dim the tensor-core kernel takes
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
 #: the SIMT kernels' element-type codes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: CUDA kernels one backward call launches: the Dᵢ pre-pass, dK/dV, dQ
+#: CUDA kernels one backward call launches, on either route: the Dᵢ pre-pass, dK/dV, dQ
 BWD_LAUNCHES = 3
+#: bf16 terms in which the tensor-core backward carries P into dV = Pᵀ dO and dS into
+#: dK = dSᵀ Q and dQ = dS K (``P_TERMS``, ``DS_TERMS`` in its source), as
+#: :func:`~repro_torch.kernels.ref.flash_backward_ref` models them
+BWD_P_TERMS, BWD_DS_TERMS = 2, 2
 
 #: where the kernels live, and which TPU kernel (or, for the backward, which
 #: function) they replace (SOURCE is the main path's: serving and training run in bf16)
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
 SIMT_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
-BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu"
+BWD_SIMT_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:167 (flash_attention_pallas / _flash_kernel)"
 BWD_REPLACES = "src/repro/kernels/ops.py:38 (the gradient XLA takes of _xla_flash; no Pallas backward)"
 #: bytes of alignment TMA needs of a tensor map's base address and strides
 TMA_ALIGN = 16
+#: rows of the tensor-core backward's q tiles: its lse/Dᵢ scratch pads Sq to a multiple
+_BWD_ROWS = 64
 
 
-def select_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel that a CUDA call on ``dtype`` at ``head_dim`` launches:
-    ``"wgmma"`` (the tensor-core kernel) for bf16 at a head dim in
-    :data:`WGMMA_HEAD_DIMS`, ``"simt"`` for fp32 and for bf16 at head dim
-    256; any other dtype or head dim raises."""
+def _route(dtype: torch.dtype, head_dim: int, wgmma_dims) -> str:
     route = ROUTES.get(dtype)
     if route is None:
         raise ValueError(f"kernel takes float32 or bfloat16 q/k/v, got {dtype}")
     if head_dim not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"kernel takes head dim in {SUPPORTED_HEAD_DIMS}, got {head_dim}")
-    return route if head_dim in WGMMA_HEAD_DIMS else "simt"
+    return route if head_dim in wgmma_dims else "simt"
+
+
+def select_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The forward kernel that a CUDA call on ``dtype`` at ``head_dim``
+    launches: ``"wgmma"`` (the tensor-core kernel) for bf16 at every head
+    dim in :data:`SUPPORTED_HEAD_DIMS`, ``"simt"`` for fp32; any other dtype
+    or head dim raises."""
+    return _route(dtype, head_dim, WGMMA_HEAD_DIMS)
+
+
+def select_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernel that a CUDA call on ``dtype`` at ``head_dim``
+    launches: ``"wgmma"`` for bf16 at a head dim in
+    :data:`BWD_WGMMA_HEAD_DIMS`, ``"simt"`` for fp32 and for bf16 at head dim
+    256; any other dtype or head dim raises."""
+    return _route(dtype, head_dim, BWD_WGMMA_HEAD_DIMS)
 
 
 def flash_flops(B: int, Sq: int, Sk: int, Hq: int, D: int, *, causal: bool, backward: bool = False) -> int:
@@ -148,8 +178,10 @@ _ENTRIES = {
               [_P] * 5 + [_I] * 6 + [_LL] * 12 + [_F, _I, _P]),
     "simt": ("flash_attention", "repro_flash_attention_fwd", "repro_cuda_error_string",
              [_P] * 5 + [_I] * 7 + [_LL] * 12 + [_F, _I, _P]),
-    "bwd": ("flash_attention_bwd", "repro_flash_attention_bwd", "repro_flash_bwd_error_string",
-            [_P] * 10 + [_I] * 7 + [_LL] * 15 + [_F, _I, _P]),
+    "bwd_wgmma": ("flash_attention_bwd_wgmma", "repro_flash_attention_bwd_wgmma", "repro_flash_bwd_wgmma_error_string",
+                  [_P] * 10 + [_I] * 6 + [_LL] * 15 + [_F, _I, _P]),
+    "bwd_simt": ("flash_attention_bwd", "repro_flash_attention_bwd", "repro_flash_bwd_error_string",
+                 [_P] * 10 + [_I] * 7 + [_LL] * 15 + [_F, _I, _P]),
 }
 
 
@@ -190,15 +222,25 @@ def _device(*ts: torch.Tensor) -> torch.device:
     return dev
 
 
-def _check_cuda(ts, D: int) -> str:
-    """Dtype, head dim and layout checks of a CUDA call; returns its route."""
+def _check_route(dtype: torch.dtype, D: int, route: str, select, wgmma_dims, simt_bf16_dims) -> None:
+    """Raise unless the kernel ``route`` names takes ``dtype`` at head dim
+    ``D`` (``"wgmma"`` bf16 at ``wgmma_dims``; ``"simt"`` fp32, and bf16 at
+    ``simt_bf16_dims``), checked on every device."""
+    select(dtype, D)  # a dtype or head dim no kernel takes
+    takes = {"wgmma": dtype == torch.bfloat16 and D in wgmma_dims,
+             "simt": dtype == torch.float32 or D in simt_bf16_dims}
+    if not takes.get(route, False):
+        raise ValueError(f"route {route!r} does not take {dtype} at head dim {D} (the tensor-core kernel takes "
+                         f"bfloat16 at head dims {wgmma_dims}, the SIMT one float32 and bfloat16 at {simt_bf16_dims})")
+
+
+def _check_cuda(ts) -> None:
+    """Dtype and layout checks of a CUDA call."""
     dtype = ts[0].dtype
     if any(t.dtype != dtype for t in ts):
         raise ValueError(f"kernel takes q/k/v (and o, dO) of one dtype, got {[t.dtype for t in ts]}")
-    route = select_route(dtype, D)
     if any(t.stride(-1) != 1 for t in ts):
         raise ValueError("kernel needs the last (head) dimension contiguous")
-    return route
 
 
 def flash_attention(
@@ -209,6 +251,7 @@ def flash_attention(
     causal: bool = True,
     scale: Optional[float] = None,
     return_lse: bool = False,
+    route: Optional[str] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Batch-major flash attention, out ``(B, Sq, Hq, D)`` in q's dtype, and
     with ``return_lse`` also the rows' logsumexp ``(B, Hq, Sq)`` fp32
@@ -218,15 +261,20 @@ def flash_attention(
     for q's dtype and head dim (``D`` in :data:`SUPPORTED_HEAD_DIMS`, last
     dimension contiguous; for the tensor-core kernel also the alignment
     :func:`tma_strides` checks) and counts the launch in
-    ``flash_attention.launches``; on a CPU tensor it computes the plain
-    version.  Anything the kernels do not take raises."""
+    ``flash_attention.launches``; ``route="simt"`` asks for the SIMT kernel
+    on bf16 at D = 256 too (for timing it beside the tensor-core one;
+    nothing on the main path passes it).  On a CPU tensor it computes the
+    plain version.  Anything the kernels do not take raises."""
     _check(q, k, v, causal)
     D = q.shape[-1]
     scale = float(scale if scale is not None else D ** -0.5)
+    if route is not None:  # a CPU call with it runs the plain version
+        _check_route(q.dtype, D, route, select_route, WGMMA_HEAD_DIMS, (256,))
     if _device(q, k, v).type == "cpu":
         out = attention_ref(q, k, v, causal=causal, scale=scale)
         return (out, attention_lse_ref(q, k, v, causal=causal, scale=scale)) if return_lse else out
-    route = _check_cuda((q, k, v), D)
+    route = route or select_route(q.dtype, D)
+    _check_cuda((q, k, v))
 
     B, Sq, Hq, _ = q.shape
     _, Sk, Hkv, _ = k.shape
@@ -267,17 +315,23 @@ def flash_attention_backward(
     *,
     causal: bool = True,
     scale: Optional[float] = None,
+    route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of :func:`flash_attention`, contiguous, in q's dtype.
 
-    On a CUDA tensor it launches ``csrc/flash_attention_bwd.cu`` (fp32 or
-    bf16, one dtype for q, k, v, o and dO; ``D`` in
-    :data:`SUPPORTED_HEAD_DIMS`; last dimension contiguous, any other
-    strides; causal only with Sq == Sk) and counts the call in
+    On a CUDA tensor it launches the backward that :func:`select_bwd_route`
+    names (one dtype for q, k, v, o and dO; ``D`` in
+    :data:`SUPPORTED_HEAD_DIMS`; last dimension contiguous; causal only
+    with Sq == Sk): ``csrc/flash_attention_bwd_wgmma.cu`` for bf16 at
+    :data:`BWD_WGMMA_HEAD_DIMS` (q, k, v and dO also aligned as
+    :func:`tma_strides` checks), ``csrc/flash_attention_bwd.cu`` for fp32
+    and bf16 at D = 256 (any strides).  ``route="simt"`` asks for the SIMT
+    kernel on bf16 at every head dim (for timing it beside the tensor-core
+    one; nothing on the main path passes it).  It counts the call in
     ``flash_attention_backward.launches`` (each call launches
-    :data:`BWD_LAUNCHES` CUDA kernels); on a CPU tensor it computes the plain
-    version (:func:`~repro_torch.kernels.ref.flash_backward_ref`).
-    Anything the kernel does not take raises."""
+    :data:`BWD_LAUNCHES` CUDA kernels).  On a CPU tensor it computes the
+    plain version (:func:`~repro_torch.kernels.ref.flash_backward_ref`).
+    Anything the kernels do not take raises."""
     _check(q, k, v, causal)
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
@@ -286,26 +340,37 @@ def flash_attention_backward(
     if lse.shape != (B, Hq, Sq):
         raise ValueError(f"lse must be (B, Hq, Sq) = {(B, Hq, Sq)}, got {tuple(lse.shape)}")
     scale = float(scale if scale is not None else D ** -0.5)
+    if route is not None:  # a CPU call with it runs the plain version
+        _check_route(q.dtype, D, route, select_bwd_route, BWD_WGMMA_HEAD_DIMS, SUPPORTED_HEAD_DIMS)
     if _device(q, k, v, o, lse, do).type == "cpu":
         return flash_backward_ref(q, k, v, o, lse, do, causal=causal, scale=scale)
-    _check_cuda((q, k, v, o, do), D)
+    route = route or select_bwd_route(q.dtype, D)
+    _check_cuda((q, k, v, o, do))
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"kernel takes a contiguous float32 lse, got {lse.dtype}")
 
     dq = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Sk, Hkv, D), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, Sk, Hkv, D), dtype=q.dtype, device=q.device)
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    fn, err_str = _kernel_fn("bwd")
-    strides = [s for t in (q, k, v, o, do) for s in t.stride()[:3]]
+    dims = [B, Sq, Sk, Hq, Hkv, D]
+    if route == "wgmma":
+        # lse·log2(e) and Dᵢ, each (B, Hq, Sq padded to the kernel's 64-row tile)
+        scratch = torch.empty(2 * B * Hq * -(-Sq // _BWD_ROWS) * _BWD_ROWS, dtype=torch.float32, device=q.device)
+        strides = [s for t in (q, k, v) for s in (tma_strides(t) if t.shape[1] else t.stride()[:3])]
+        strides += [*o.stride()[:3], *(tma_strides(do) if Sq else do.stride()[:3])]
+    else:
+        scratch = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)  # Dᵢ
+        strides = [s for t in (q, k, v, o, do) for s in t.stride()[:3]]
+        dims.append(_DTYPE_CODES[q.dtype])
+    fn, err_str = _kernel_fn("bwd_" + route)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
-            *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv, delta)),
-            B, Sq, Sk, Hq, Hkv, D, _DTYPE_CODES[q.dtype], *strides, scale, int(causal), stream,
+            *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv, scratch)),
+            *dims, *strides, scale, int(causal), stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_attention_backward kernel launch failed: {err_str(err).decode()}")
+        raise RuntimeError(f"flash_attention_backward {route} kernel launch failed: {err_str(err).decode()}")
     flash_attention_backward.launches += 1
     return dq, dk, dv
 

@@ -201,6 +201,8 @@ def flash_backward_ref(
     *,
     causal: bool = True,
     scale: Optional[float] = None,
+    p_bf16_terms: int = 0,
+    ds_bf16_terms: int = 0,
 ):
     """The FlashAttention-2 backward in plain torch, ``(dq, dk, dv)`` in the
     inputs' dtypes; everything in between is fp32:
@@ -210,8 +212,18 @@ def flash_backward_ref(
     ``dV = Pᵀ dO``, ``dP = dO Vᵀ``, ``dS = P ∘ (dP − Dᵢ)``,
     ``dQ = dS K · scale``, ``dK = dSᵀ Q · scale``; dK and dV summed over
     each GQA group.  A row whose lse is ``+inf`` (no visible key) has
-    ``P = 0`` and gives no gradient.  This is what the backward kernel
-    computes; the JAX package differentiates its blocked form instead."""
+    ``P = 0`` and gives no gradient.  This is what the backward kernels
+    compute; the JAX package differentiates its blocked form instead.
+
+    ``p_bf16_terms`` and ``ds_bf16_terms`` model the bf16 tensor-core
+    kernel's rounding of P before ``dV = Pᵀ dO`` and of dS before
+    ``dQ = dS K`` and ``dK = dSᵀ Q``: 0 keeps them fp32 (the SIMT kernel), 1
+    rounds to bf16, 2 carries ``hi + lo`` with ``hi = bf16(x)`` and ``lo =
+    bf16(x - hi)``; dS itself is formed from the unrounded P, as the
+    kernel forms it."""
+    for name, terms in (("p_bf16_terms", p_bf16_terms), ("ds_bf16_terms", ds_bf16_terms)):
+        if terms not in (0, 1, 2):
+            raise ValueError(f"{name} is 0, 1 or 2, got {terms}")
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, Dv = v.shape
     G = Hq // Hkv
@@ -220,8 +232,9 @@ def flash_backward_ref(
     p = torch.where(mask, torch.exp(s - lse.float().reshape(B, Hkv, G, Sq, 1)), 0.0)
     dof = do.float().reshape(B, Sq, Hkv, G, Dv)
     delta = (dof * o.float().reshape(B, Sq, Hkv, G, Dv)).sum(-1).permute(0, 2, 3, 1)  # (B, Hkv, G, Sq)
-    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", _bf16_terms(p, p_bf16_terms), dof)
     ds = p * (torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float()) - delta[..., None])
+    ds = _bf16_terms(ds, ds_bf16_terms)
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()).reshape(B, Sq, Hq, D) * scale
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, q.float().reshape(B, Sq, Hkv, G, D)) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

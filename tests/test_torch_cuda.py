@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain versions, on the card: flash attention
-forward and backward and the SSD scan (bf16 on wgmma, fp32 and head dim 256
-on the CUDA cores) and the simulator's landing.
+forward (bf16 on wgmma at every head dim, fp32 on the CUDA cores) and
+backward (bf16 on wgmma at head dims 32-128; fp32 and bf16 at 256 on the
+CUDA cores), the SSD scan (bf16 on wgmma, fp32 on the CUDA cores) and the
+simulator's landing.
 
 Imports torch and the port only (the card's machine has no JAX).  Every
 test needs an NVIDIA GPU and skips without one.  Run on the card:
@@ -222,15 +224,105 @@ def test_attention_gradient_goes_through_both_kernels(cuda, dtype):
         torch.testing.assert_close(g.float(), w.float(), **tol)
 
 
+#: the tensor-core backward against the plain one: rtol BWD_RTOL plus
+#: BWD_ATOL_OF_MAX of the gradient's largest entry (chip_smoke.py's
+#: _grads_close): P and dS enter the products as bf16 terms, and each output
+#: is rounded once to bf16.  A gradient that is exactly 0 (one query that
+#: sees one key: dS = P (dP - D_i) = 0) is held to BWD_ZERO_ATOL, the fp32
+#: noise of dP - D_i summed in two orders (measured 3.7e-7 on the H100).
+BWD_RTOL, BWD_ATOL_OF_MAX, BWD_ZERO_ATOL = 1e-2, 1e-3, 1e-6
+#: (B, Sq, Sk, Hq, Hkv, D, causal): head dims 32/64/128, GQA groups 1-4,
+#: ragged lengths (one row, one tile and one row, below one tile), non-causal
+#: Sq != Sk both ways
+WGMMA_BWD_GRID = [
+    (1, 128, 128, 4, 4, 32, True), (2, 100, 100, 4, 2, 64, True), (1, 65, 65, 8, 2, 128, True),
+    (1, 1, 1, 2, 2, 64, True), (1, 70, 150, 6, 2, 64, False), (1, 200, 90, 4, 1, 128, False),
+    (2, 40, 77, 4, 4, 32, False), (1, 257, 257, 3, 3, 128, True),
+]
+
+
+def _assert_grads_close(got, want):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        atol = BWD_ATOL_OF_MAX * w.abs().max().item() or BWD_ZERO_ATOL
+        torch.testing.assert_close(g, w, rtol=BWD_RTOL, atol=atol, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("shape", WGMMA_BWD_GRID)
+def test_wgmma_backward_matches_plain(cuda, shape):
+    """bf16 at head dims 32-128 runs the tensor-core backward: one call, three
+    CUDA kernels, against the plain FA-2 backward on the kernel's own o and
+    lse; the SIMT backward, asked for by ``route``, agrees too."""
+    B, Sq, Sk, Hq, Hkv, D, causal = shape
+    assert fa.select_bwd_route(torch.bfloat16, D) == "wgmma"
+    q, k, v = _qkv((B, Sq, Hq, Hkv, D), torch.bfloat16, cuda, seed=Sq + 3 * Sk + D, Sk=Sk)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(Sq + D)).to(device=cuda, dtype=torch.bfloat16)
+    before = fa.flash_attention_backward.launches
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_backward.launches == before + 1
+    want = flash_backward_ref(q, k, v, o, lse, do, causal=causal)
+    assert all(g.dtype == torch.bfloat16 and g.shape == w.shape and g.is_contiguous() for g, w in zip(got, want))
+    _assert_grads_close(got, want)
+    _assert_grads_close(fa.flash_attention_backward(q, k, v, o, lse, do, causal=causal, route="simt"), want)
+
+
+def test_wgmma_backward_reads_strided_inputs_and_masked_rows(cuda):
+    """q/k/v as slices of one packed projection, dO transposed (last dim
+    contiguous, 16-byte-aligned strides), a scale other than D^-0.5; rows
+    that see no key (Sk = 0) give zero dQ, and no query rows (Sq = 0) give
+    zero dK and dV."""
+    qkv = torch.randn(2, 96, 3, 4, 64, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    o, lse = fa.flash_attention(q, k, v, causal=True, scale=0.3, return_lse=True)
+    do = torch.randn(2, 4, 96, 64, device=cuda).to(torch.bfloat16).transpose(1, 2)
+    assert not do.is_contiguous() and do.stride(-1) == 1 and not q.is_contiguous()
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=True, scale=0.3)
+    _assert_grads_close(got, flash_backward_ref(q, k, v, o, lse, do, causal=True, scale=0.3))
+    q0, k0, v0 = _qkv((1, 5, 2, 2, 32), torch.bfloat16, cuda, Sk=0)
+    o0, lse0 = fa.flash_attention(q0, k0, v0, causal=False, return_lse=True)
+    assert torch.isinf(lse0).all() and (lse0 > 0).all()
+    dq, dk, dv = fa.flash_attention_backward(q0, k0, v0, o0, lse0, torch.ones_like(o0), causal=False)
+    assert torch.count_nonzero(dq) == 0 and dk.shape == dv.shape == (1, 0, 2, 32)
+    q1, k1, v1 = _qkv((1, 0, 2, 2, 32), torch.bfloat16, cuda, Sk=70)
+    o1, lse1 = fa.flash_attention(q1, k1, v1, causal=False, return_lse=True)
+    dq, dk, dv = fa.flash_attention_backward(q1, k1, v1, o1, lse1, o1, causal=False)
+    assert dq.shape == (1, 0, 2, 32) and torch.count_nonzero(dk) == 0 and torch.count_nonzero(dv) == 0
+
+
+def test_wgmma_backward_refuses_what_it_does_not_take(cuda):
+    """A dO whose strides TMA cannot read raises and launches nothing; so does
+    a route that does not take the call (nothing falls back)."""
+    q, k, v = _qkv((1, 16, 2, 2, 32), torch.bfloat16, cuda)
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    odd = torch.randn(1, 16, 2, 36, device=cuda).to(torch.bfloat16)[..., :32]  # 72-byte head stride
+    before = fa.flash_attention_backward.launches
+    with pytest.raises(ValueError, match="aligned strides"):
+        fa.flash_attention_backward(q, k, v, o, lse, odd, causal=True)
+    with pytest.raises(ValueError, match="route 'wgmma'"):
+        fa.flash_attention_backward(*(t.float() for t in (q, k, v, o)), lse, o.float(), route="wgmma")
+    assert fa.flash_attention_backward.launches == before
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S", [1, 63, 132, 404])
-def test_head_dim_256_runs_the_simt_kernel_in_bf16(cuda, S, causal):
+def test_head_dim_256_runs_the_wgmma_kernel_in_bf16(cuda, S, causal):
     """gemma-7b's attention (16 heads of 256) at served lengths: bf16 takes
-    the SIMT kernel, a stated dispatch by head dim."""
-    assert fa.select_route(torch.bfloat16, 256) == "simt" and fa.select_route(torch.bfloat16, 128) == "wgmma"
+    the tensor-core kernel (four 64-column chunks a tile), its lse within
+    LSE_TOL; the SIMT kernel, asked for by ``route``, agrees too; fp32 stays
+    on the SIMT kernel."""
+    assert fa.select_route(torch.bfloat16, 256) == "wgmma" and fa.select_route(torch.float32, 256) == "simt"
     q, k, v = _qkv((1, S, 16, 16, 256), torch.bfloat16, cuda, seed=S)
-    out = ops.flash_attention(q, k, v, causal=causal)
-    torch.testing.assert_close(out.float(), attention_ref(q, k, v, causal=causal).float(), **BF16_TOL)
+    before = fa.flash_attention.launches
+    out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = attention_ref(q, k, v, causal=causal).float()
+    torch.testing.assert_close(out.float(), want, **BF16_TOL)
+    torch.testing.assert_close(lse, attention_lse_ref(q, k, v, causal=causal), **LSE_TOL)
+    simt = fa.flash_attention(q, k, v, causal=causal, route="simt")
+    torch.testing.assert_close(simt.float(), want, **BF16_TOL)
     q, k, v = _qkv((1, S, 16, 16, 256), torch.float32, cuda, seed=S)
     torch.testing.assert_close(ops.flash_attention(q, k, v, causal=causal),
                                attention_ref(q, k, v, causal=causal), **FP32_TOL)

@@ -129,19 +129,52 @@ def test_one_bf16_rounding_of_p_misses_the_tolerance_on_a_cancelling_row():
 
 
 def test_route_selection():
-    for D in fa.WGMMA_HEAD_DIMS:
-        assert fa.select_route(torch.bfloat16, D) == "wgmma"
-    assert fa.select_route(torch.bfloat16, 256) == "simt"  # head dim 256 (gemma-7b) takes the SIMT kernel
+    """Forward: bf16 at every head dim on the tensor-core kernel (head dim 256,
+    gemma-7b's, included), fp32 on the SIMT one.  Backward: bf16 at 32-128 on
+    the tensor-core kernel, fp32 and bf16 at 256 on the SIMT one."""
+    assert fa.WGMMA_HEAD_DIMS == fa.SUPPORTED_HEAD_DIMS == (32, 64, 128, 256)
+    assert fa.BWD_WGMMA_HEAD_DIMS == (32, 64, 128)
     for D in fa.SUPPORTED_HEAD_DIMS:
+        assert fa.select_route(torch.bfloat16, D) == "wgmma"
         assert fa.select_route(torch.float32, D) == "simt"
-    for dtype in (torch.float16, torch.float64, torch.int32, torch.float8_e4m3fn):
-        with pytest.raises(ValueError, match="float32 or bfloat16"):
-            fa.select_route(dtype, 64)
-    for D in (16, 48, 96, 512):
-        with pytest.raises(ValueError, match="head dim"):
-            fa.select_route(torch.bfloat16, D)
+        assert fa.select_bwd_route(torch.bfloat16, D) == ("wgmma" if D <= 128 else "simt")
+        assert fa.select_bwd_route(torch.float32, D) == "simt"
+    for select in (fa.select_route, fa.select_bwd_route):
+        for dtype in (torch.float16, torch.float64, torch.int32, torch.float8_e4m3fn):
+            with pytest.raises(ValueError, match="float32 or bfloat16"):
+                select(dtype, 64)
+        for D in (16, 48, 96, 512):
+            with pytest.raises(ValueError, match="head dim"):
+                select(torch.bfloat16, D)
     assert set(fa.ROUTES.values()) == {"wgmma", "simt"}
     assert fa.SOURCE.endswith("flash_attention_wgmma.cu") and fa.SIMT_SOURCE.endswith("flash_attention.cu")
+    assert fa.BWD_SOURCE.endswith("flash_attention_bwd_wgmma.cu")
+    assert fa.BWD_SIMT_SOURCE.endswith("flash_attention_bwd.cu")
+
+
+def test_route_argument_the_kernels_refuse_raises_on_any_device():
+    """``route=`` names a kernel for timing beside the chosen one; a kernel
+    that does not take the call's dtype or head dim is refused before any
+    device branch, so the CPU path raises as the card's would."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 16, 2, 2, 64, seed=5))
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    with pytest.raises(ValueError, match="route 'wgmma' does not take torch.float32"):
+        fa.flash_attention_backward(q, k, v, o, lse, o, route="wgmma")
+    with pytest.raises(ValueError, match="route 'wgmma' does not take torch.float32"):
+        fa.flash_attention(q, k, v, route="wgmma")
+    b16 = [t.to(torch.bfloat16) for t in (q, k, v, o)]
+    with pytest.raises(ValueError, match="route 'simt' does not take torch.bfloat16 at head dim 64"):
+        fa.flash_attention(*b16[:3], route="simt")  # the SIMT forward takes bf16 at 256 only
+    with pytest.raises(ValueError, match="route 'triton'"):
+        fa.flash_attention_backward(*b16, lse, b16[3], route="triton")
+    q256, k256, v256 = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(1, 8, 2, 2, 256, seed=6))
+    o256, lse256 = fa.flash_attention(q256, k256, v256, causal=True, return_lse=True, route="simt")
+    with pytest.raises(ValueError, match="route 'wgmma' does not take torch.bfloat16 at head dim 256"):
+        fa.flash_attention_backward(q256, k256, v256, o256, lse256, o256, route="wgmma")
+    # a route the kernels take runs the plain version on the CPU
+    got = fa.flash_attention_backward(*b16, lse, b16[3], route="simt")
+    want = fa.flash_attention_backward(*b16, lse, b16[3])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_tma_strides_of_contiguous_and_packed_inputs():
