@@ -12,23 +12,28 @@ source, all started together) and drives the port's three paths:
   (bf16 on the tensor-core kernel, whose SASS must hold ``HGMMA`` and
   ``UTMALDG``; fp32 on the SIMT kernel) and the bf16 one timed beside SDPA
   at the serving lengths; gemma-7b's head dim of 256 (bf16 on the
-  tensor-core kernel) checked forward and backward and timed beside SDPA
+  tensor-core kernels) checked forward and backward and timed beside SDPA
   and the SIMT kernel; the deepseek-7b smoke config served on the card
   and on the CPU and compared; deepseek-7b at full width (30 layers,
   d_model 4096, bf16, random weights from a seed) served through the
   continuous-batching engine, with the per-stream lanes checked and every
   prefill through the flash kernel;
-* dense training: the bf16 flash backward kernel (tensor cores; its dK/dV
-  and dQ kernels' SASS must hold ``HGMMA`` and ``UTMALDG``) held against the
-  plain FA-2 backward at edge shapes and at B=1, S=2048, 32 heads of 128,
-  and timed there beside SDPA's backward and the SIMT backward; the
-  deepseek-7b smoke config trained in fp32 (the SIMT kernels) on the card and on
-  the CPU and compared; deepseek-7b at its published width cut to 8 layers
-  (bf16, remat full, AdamW, global batch 4 x 2048 in 2 microbatches)
-  trained for 10 steps with an eval lane, with the held-out loss, the
-  per-stream lanes and the exact forward and backward launches checked,
-  and every layer's real q, k, v and dO held through both kernels against
-  the plain versions;
+* dense training: the bf16 flash backward kernel (tensor cores at every
+  head dim, two warpgroups a block at 256; its dK/dV and dQ kernels' SASS
+  must hold ``HGMMA`` and ``UTMALDG``) held against the plain FA-2 backward
+  at edge shapes (head dim 256 and MQA among them), at B=1, S=2048, 32
+  heads of 128 and at gemma-7b's 16 heads of 256 (S = 2048 and 404), and
+  timed there beside SDPA's backward (replayed from a CUDA graph, and
+  eagerly) and the SIMT backward; the fp32 SIMT backward timed beside SDPA's
+  fp32 backward; the deepseek-7b smoke config trained in fp32 (the SIMT
+  kernels) on the card and on the CPU and compared; deepseek-7b at its
+  published width cut to 8 layers and gemma-7b at its published width cut
+  to 7 (bf16, remat full, AdamW, global batch 4 x 2048 in 2 microbatches)
+  trained through ``Trainer`` with an eval lane, with the held-out loss,
+  the per-stream lanes and the exact forward and backward launches (every
+  backward on the tensor-core route) checked, every layer's real q, k, v
+  and dO held through both kernels against the plain versions, and
+  attention's weights alone trained beside zeroed and negated gradients;
 * training: the SSD-scan kernels held against the sequential plain scan
   (bf16 on the tensor-core kernel, whose SASS must hold ``HGMMA`` and
   ``UTMALDG``; fp32 on the SIMT kernel) and both timed in bf16; the mamba2
@@ -142,17 +147,24 @@ SSM_LOSS_RTOL, SSM_GNORM_RTOL, SSM_LOGITS_ATOL = 1e-4, 1e-2, 1e-4
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, EVAL_EVERY, SCHEDULE_STEPS = 60, 8, 256, 2, 10, 300
 #: the loss on one fixed held-out batch must fall by at least this much over the run
 EVAL_DROP = 0.05
-#: gemma-7b's attention: 16 heads of 256, bf16 (the SIMT kernel), checked and
-#: timed at the served prompt lengths
+#: gemma-7b's attention: 16 heads of 256, bf16 (the tensor-core kernels
+#: forward and backward), checked and timed at the served prompt lengths
 GEMMA_HEADS, GEMMA_HEAD_DIM = 16, 256
 #: the flash backward, timed at B=1, S=2048, Hq=Hkv=32, D=128, bf16, causal:
-#: one sequence of dense training's length at deepseek-7b's attention width
+#: one sequence of dense training's length at deepseek-7b's attention width;
+#: and at gemma-7b's 16 heads of 256 at that length and at the longest
+#: served prompt (404 tokens)
 BWD_TIMED = (1, 2048, 32, 128)
+GEMMA_BWD_TIMED = (1, 2048, 16, 256)
+GEMMA_BWD_SHORT = (1, 404, 16, 256)
 #: the tensor-core backward's edge shapes (B, Sq, Sk, Hq, Hkv, D, causal): a
 #: ragged causal length, GQA group 2 at D = 64, non-causal Sq != Sk both ways
-#: (D = 32 takes the 64-byte swizzle)
+#: (D = 32 takes the 64-byte swizzle); at D = 256 (two warpgroups a block) a
+#: ragged causal length and MQA, 8 q heads on 1 kv head, as paligemma-3b's
+#: backbone has it
 BWD_EDGES = [(2, 1000, 1000, 8, 8, 128, True), (1, 517, 517, 16, 8, 64, True),
-             (1, 300, 700, 8, 4, 128, False), (2, 450, 130, 4, 2, 32, False)]
+             (1, 300, 700, 8, 4, 128, False), (2, 450, 130, 4, 2, 32, False),
+             (1, 777, 777, 16, 16, 256, True), (2, 333, 333, 8, 1, 256, True)]
 #: The backward kernel against flash_backward_ref on the same bf16 inputs
 #: (the kernel's own o and lse): both compute in fp32 and round each output
 #: once to bf16 (2^-8 relative), from fp32 sums taken in another order.  A
@@ -165,6 +177,10 @@ BWD_EDGES = [(2, 1000, 1000, 8, 8, 128, True), (1, 517, 517, 16, 8, 64, True),
 #: the tensor cores, differ by up to 1.46e-3 (measured 9.8e-4 to 1.46e-3 a
 #: layer on the H100): atol LSE_TRAIN_ATOL there.
 BWD_RTOL, BWD_ATOL_OF_MAX = 1e-2, 1e-3
+#: the fp32 backward kernel against the plain backward, both fp32 from the
+#: same inputs: they differ by the order of their fp32 sums over up to 2,048
+#: rows or columns (tests/test_torch_cuda.py's BWD_FP32_TOL)
+BWD_FP32_TOL = dict(atol=1e-4, rtol=1e-4)
 LSE_TOL = dict(atol=1e-4, rtol=1e-5)
 LSE_TRAIN_ATOL = 5e-3
 #: dense smoke parity, card against CPU, fp32 with TF32 off, three steps from
@@ -201,15 +217,28 @@ DENSE_LOSS_RTOL, DENSE_GNORM_RTOL, DENSE_CHANGE_REL = 5e-3, 0.25, 0.5
 #: by thousandths, so that check cannot tell a working backward from a
 #: broken one; the attention-only check below can.
 DENSE_LAYERS, DENSE_STEPS, DENSE_BATCH, DENSE_SEQ, DENSE_MICRO, DENSE_EVAL_EVERY, DENSE_LR = 8, 10, 4, 2048, 2, 5, 4.2e-4
+#: gemma-7b at its published width (d_model 3072, 16 heads of 256, kv 16,
+#: GeGLU d_ff 24576, vocab 256,000 with tied and scaled embeddings, bf16
+#: params and compute, fp32 AdamW moments, remat full) cut to GEMMA_LAYERS
+#: layers, the only cut: a layer is 276.8 M parameters and the tied
+#: embedding 786.4 M.  Measured on the H100: 6 layers (2.45 B parameters)
+#: peak at 63.9 GB and 7 (2.72 B) at 70.9 GB, 6.7-7.0 GB a layer, so 7 is
+#: the deepest cut that peaks under 72 GB of the card's 80 (8 would reach
+#: ~78).  Global batch 4 x 2048 in 2 microbatches,
+#: GEMMA_STEPS steps, an eval every GEMMA_EVAL_EVERY.  Gemma's report
+#: (arXiv:2403.08295) publishes no learning rate, so the peak lr is
+#: DENSE_LR, DeepSeek LLM 7B's, a dense decoder of the same size.
+GEMMA_LAYERS, GEMMA_STEPS, GEMMA_EVAL_EVERY = 7, 6, 3
 #: the attention-only check: from the trained weights, only every layer's wq,
 #: wk and wv (whose gradients reach them through the backward kernel's dq,
-#: dk and dv alone) take DENSE_STEPS AdamW steps of the phase's schedule on
-#: one repeated microbatch (the probe's first), everything else frozen.  The
-#: loss on it must fall by ATTN_ONLY_DROP; the same run with the backward
-#: kernel's gradients zeroed, and with them negated, must not.  Measured on
-#: the H100: 11.8976 -> 11.7191 (a drop of 0.178) with the kernel's
-#: gradients, no change zeroed, a rise of 0.170 negated.
-ATTN_ONLY_DROP = 0.05
+#: dk and dv alone) take ATTN_ONLY_STEPS AdamW steps (warm-up 2, cosine over
+#: ATTN_ONLY_STEPS, the phase's peak lr) on one repeated microbatch (the
+#: probe's first), everything else frozen.  The loss on it must fall by
+#: ATTN_ONLY_DROP; the same run with the backward kernel's gradients zeroed,
+#: and with them negated, must not.  Measured on the H100 (deepseek-7b):
+#: 11.8976 -> 11.7191 (a drop of 0.178) with the kernel's gradients, no
+#: change zeroed, a rise of 0.170 negated.
+ATTN_ONLY_DROP, ATTN_ONLY_STEPS = 0.05, 10
 #: decode after prefill against forward on the extended sequence, fp32,
 #: relative L2 of each step's logits: the same weights and math, the SSD
 #: state handed from the kernel to the exact recurrence
@@ -362,6 +391,56 @@ def sass_counts(lib_path: str, out_path: Path):
     return counts
 
 
+def _demangle(name: str) -> str:
+    """``kernel<args>`` of a kernel's mangled name (``_ZN`` and length-prefixed
+    names: the source's unnamed namespace, then the kernel); the name as it
+    is when it is not of that form."""
+    i, parts = 3, []
+    while name.startswith("_ZN") and i < len(name) and name[i].isdigit():
+        n = re.match(r"\d+", name[i:]).group()
+        i += len(n)
+        parts.append(name[i:i + int(n)])
+        i += int(n)
+    if not parts:
+        return name
+    args = []
+    if name[i:i + 1] == "I":
+        i += 1
+        while i < len(name) and name[i] != "E":
+            if name[i] == "L":  # a literal: L <type> <value> E
+                j = name.find("E", i)
+                if j < 0:
+                    return name
+                args.append(name[i + 2:j])
+                i = j + 1
+            elif name[i].isdigit():  # a named type
+                n = re.match(r"\d+", name[i:]).group()
+                i += len(n)
+                args.append(name[i:i + int(n)])
+                i += int(n)
+            else:
+                args.append({"f": "float", "d": "double", "i": "int", "j": "unsigned", "x": "long long",
+                             "y": "unsigned long long"}.get(name[i], name[i]))
+                i += 1
+    return f"{parts[-1]}<{', '.join(args)}>" if args else parts[-1]
+
+
+def _ptxas_by_kernel(log: str):
+    """Registers a thread and spill bytes of every kernel in ``nvcc -Xptxas=-v``'s report."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            fn = _demangle(m.group(1))
+            out.setdefault(fn, {})
+        elif fn is not None and "spill stores" in line:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
+            out[fn].update(spill_stores=int(st), spill_loads=int(ld))
+        elif fn is not None and "registers" in line:
+            out[fn]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
 def phase_build():
     from repro_torch.kernels import build
 
@@ -371,10 +450,7 @@ def phase_build():
     (build.BUILD_DIR / "build.log").write_text(
         "\n".join(f"== {name}\n{i['log']}" for name, i in info.items())
     )
-    ptxas = {
-        name: [ln.strip() for ln in str(i["log"]).splitlines() if "registers" in ln or "spill" in ln]
-        for name, i in info.items()
-    }
+    ptxas = {name: _ptxas_by_kernel(str(i["log"])) for name, i in info.items()}
     from repro_torch.kernels import flash_attention as fa
 
     sass = {}
@@ -395,6 +471,10 @@ def phase_build():
             check(all(c[op] > 0 for op in SASS_OPS), f"{lib} {name} lacks {SASS_OPS} in its SASS: {c}")
         sass[lib] = per_fn
     check(len({n.split()[0] for n in sass["flash_attention_bwd_wgmma"]}) == 2, "the dK/dV and the dQ kernel")
+    for lib in ("flash_attention_wgmma", "flash_attention_bwd_wgmma", "flash_attention_bwd"):
+        spill_lines = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", str(info[lib]["log"]))
+        check(not info[lib]["seconds"] or spill_lines, f"{lib}: no spill report from ptxas")  # built in this run
+        check(all(a == b == "0" for a, b in spill_lines), f"{lib}: a kernel spills: {ptxas[lib]}")
     emit({"phase": "build", "seconds": round(wall, 3),
           "per_kernel_s": {n: round(float(i["seconds"]), 3) for n, i in info.items()},
           "ptxas": ptxas, "sass_flash_attention_wgmma": sass["flash_attention_wgmma"],
@@ -505,14 +585,14 @@ def phase_kernel_d256(smi: str, served_lens):
     lengths, bf16, which takes the tensor-core kernel: forward against the
     plain version and timed beside SDPA and the SIMT kernel
     (``route="simt"``); lse against the plain version, and the backward (the
-    SIMT one at D = 256) on that lse against the plain backward."""
+    tensor-core one) on that lse against the plain backward."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import attention_lse_ref, flash_backward_ref
 
     H, D = GEMMA_HEADS, GEMMA_HEAD_DIM
     check(fa.select_route(torch.bfloat16, D) == "wgmma", "bf16 at head dim 256 takes the tensor-core kernel")
-    check(fa.select_bwd_route(torch.bfloat16, D) == "simt", "bf16 at head dim 256 takes the SIMT backward")
+    check(fa.select_bwd_route(torch.bfloat16, D) == "wgmma", "bf16 at head dim 256 takes the tensor-core backward")
     err, bwd_err, rows = 0.0, {}, {}
     for S in served_lens:
         q, k, v, do = (randn((1, S, H, D), torch.bfloat16, 300 + S + j) for j in range(4))
@@ -1077,12 +1157,90 @@ def phase_decode_full_width(model):
           "prefill_len": 100, "decode_steps": 8, "logits_rel_l2": rels, "tolerance": DECODE_FP32_REL})
 
 
+def _sdpa_backward_fns(q, k, v, do):
+    """SDPA's backward (which the port never calls) on the (B, S, H, D) causal
+    inputs, as three functions for ``time_interleaved``: its forward and
+    backward together (``library_fwd_bwd``) and its forward alone
+    (``library_fwd``), both replayed from a CUDA graph, so that their
+    difference is the backward's device time; and the backward alone on a
+    forward kept from outside (``library_eager``), which a graph cannot
+    capture and which runs eagerly, host time and all.  The captured ones
+    make their leaves inside the call, so that autograd runs on the
+    capturing stream."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+
+    def leaves():
+        return [t.detach().requires_grad_() for t in (qh, kh, vh)]
+
+    def fwd_bwd():
+        x = leaves()
+        return torch.autograd.grad(sdpa(*x, is_causal=True), x, doh)
+
+    kept = leaves()
+    oh = sdpa(*kept, is_causal=True)
+    return {"library_fwd_bwd": fwd_bwd, "library_fwd": lambda: sdpa(*leaves(), is_causal=True),
+            "library_eager": lambda: torch.autograd.grad(oh, kept, doh, retain_graph=True)}
+
+
+def _sdpa_backward_ms(ms):
+    """SDPA's backward ms from ``_sdpa_backward_fns``' readings: graph-replayed
+    (forward and backward less the forward) and eager."""
+    return {"library_ms": ms["library_fwd_bwd"]["median"] - ms["library_fwd"]["median"],
+            "library_eager_ms": ms["library_eager"]["median"],
+            "library_fwd_bwd_ms": ms["library_fwd_bwd"]["median"], "library_fwd_ms": ms["library_fwd"]["median"]}
+
+
+def _bwd_timing(smi, shape, seed, by_kernel=False):
+    """The bf16 backward at ``shape`` = (B, S, H, D), Hq = Hkv, causal: the
+    tensor-core kernel and the SIMT one (``route="simt"``) held against the
+    plain FA-2 backward, then timed beside it, its bound and SDPA's backward
+    (graph-replayed and eager); with ``by_kernel`` also the device time of
+    each route's three kernels over 10 calls."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_backward_ref
+
+    B, S, H, D = shape
+    check(fa.select_bwd_route(torch.bfloat16, D) == "wgmma", f"bf16 at head dim {D} takes the tensor-core backward")
+    q, k, v, do = (randn((B, S, H, D), torch.bfloat16, seed + j) for j in range(4))
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    want = flash_backward_ref(q, k, v, o, lse, do, causal=True)
+    g = _grads_close(fa.flash_attention_backward(q, k, v, o, lse, do, causal=True), want)
+    check(all(r["ok"] for r in g.values()), f"backward kernel disagrees at {shape}: {g}")
+    simt = _grads_close(fa.flash_attention_backward(q, k, v, o, lse, do, causal=True, route="simt"), want)
+    check(all(r["ok"] for r in simt.values()), f"SIMT backward kernel disagrees at {shape}: {simt}")
+    del want
+    ms = time_interleaved({
+        "kernel": lambda: fa.flash_attention_backward(q, k, v, o, lse, do, causal=True),
+        "simt": lambda: fa.flash_attention_backward(q, k, v, o, lse, do, causal=True, route="simt"),
+        "plain": lambda: flash_backward_ref(q, k, v, o, lse, do, causal=True),
+        **_sdpa_backward_fns(q, k, v, do),
+    }, eager=("library_eager",))
+    flops = fa.flash_flops(B, S, S, H, D, causal=True, backward=True)
+    nbytes = fa.flash_bytes(B, S, S, H, H, D, 2, backward=True)
+    bound_ms, bound_by = _bound(flops, nbytes, smi)
+    timing = {"kernel_ms": ms["kernel"]["median"], "simt_ms": ms["simt"]["median"], "plain_ms": ms["plain"]["median"],
+              **_sdpa_backward_ms(ms), "bound_ms": bound_ms, "bound_by": bound_by,
+              "flops": flops, "bytes": nbytes, "kernel_tflops": flops / (ms["kernel"]["median"] * 1e-3) / 1e12,
+              "simt_tflops": flops / (ms["simt"]["median"] * 1e-3) / 1e12,
+              "spread_ms": {name: [m["min"], m["max"]] for name, m in ms.items()}}
+    if by_kernel:
+        timing["device_us_by_kernel_10_calls"] = {
+            route: device_breakdown(
+                lambda route=route: [fa.flash_attention_backward(q, k, v, o, lse, do, causal=True, route=route)
+                                     for _ in range(10)])
+            for route in ("wgmma", "simt")
+        }
+    return g, simt, timing
+
+
 def phase_flash_bwd_kernel(smi: str):
     """The tensor-core backward held against the plain FA-2 backward at
-    BWD_TIMED and at BWD_EDGES, then timed at BWD_TIMED beside its bound, the
-    plain backward, the SIMT backward (``route="simt"``) and
-    SDPA's backward (autograd through ``scaled_dot_product_attention``,
-    which the port never calls)."""
+    BWD_EDGES (head dim 256 and MQA among them), then at BWD_TIMED and at
+    gemma-7b's GEMMA_BWD_TIMED and GEMMA_BWD_SHORT, with the SIMT backward
+    (``route="simt"``), and timed there beside its bound, the plain
+    backward, the SIMT backward and SDPA's backward."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_backward_ref
 
@@ -1096,48 +1254,24 @@ def phase_flash_bwd_kernel(smi: str):
                          flash_backward_ref(q, k, v, o, lse, do, causal=causal))
         checks[f"B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} causal={causal}"] = g
         check(all(r["ok"] for r in g.values()), f"backward kernel disagrees at {(B, Sq, Sk, Hq, Hkv, D, causal)}: {g}")
+    g, simt, timing = _bwd_timing(smi, BWD_TIMED, 400, by_kernel=True)
+    d256 = {}
+    for shape, seed in ((GEMMA_BWD_TIMED, 420), (GEMMA_BWD_SHORT, 440)):
+        B, S, H, D = shape
+        dg, dsimt, dt = _bwd_timing(smi, shape, seed, by_kernel=shape == GEMMA_BWD_TIMED)
+        d256[f"B={B} S={S} Hq=Hkv={H} D={D} bf16 causal"] = {"check": dg, "simt_check": dsimt, "timing": dt}
     B, S, H, D = BWD_TIMED
-    q, k, v, do = (randn((B, S, H, D), torch.bfloat16, 400 + j) for j in range(4))
-    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
-    want = flash_backward_ref(q, k, v, o, lse, do, causal=True)
-    g = _grads_close(fa.flash_attention_backward(q, k, v, o, lse, do, causal=True), want)
-    check(all(r["ok"] for r in g.values()), f"backward kernel disagrees at {BWD_TIMED}: {g}")
-    simt = _grads_close(fa.flash_attention_backward(q, k, v, o, lse, do, causal=True, route="simt"), want)
-    check(all(r["ok"] for r in simt.values()), f"SIMT backward kernel disagrees at {BWD_TIMED}: {simt}")
-    del want
-    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
-    oh = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
-    doh = do.transpose(1, 2).contiguous()
-    ms = time_interleaved({
-        "kernel": lambda: fa.flash_attention_backward(q, k, v, o, lse, do, causal=True),
-        "simt": lambda: fa.flash_attention_backward(q, k, v, o, lse, do, causal=True, route="simt"),
-        "plain": lambda: flash_backward_ref(q, k, v, o, lse, do, causal=True),
-        "library": lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True),
-    }, eager=("library",))
-    flops = fa.flash_flops(B, S, S, H, D, causal=True, backward=True)
-    nbytes = fa.flash_bytes(B, S, S, H, H, D, 2, backward=True)
-    bound_ms, bound_by = _bound(flops, nbytes, smi)
-    by_kernel = {
-        route: device_breakdown(
-            lambda route=route: [fa.flash_attention_backward(q, k, v, o, lse, do, causal=True, route=route)
-                                 for _ in range(10)])
-        for route in ("wgmma", "simt")
-    }
-    timing = {"kernel_ms": ms["kernel"]["median"], "simt_ms": ms["simt"]["median"], "plain_ms": ms["plain"]["median"],
-              "library_ms": ms["library"]["median"], "bound_ms": bound_ms, "bound_by": bound_by,
-              "flops": flops, "bytes": nbytes, "kernel_tflops": flops / (ms["kernel"]["median"] * 1e-3) / 1e12,
-              "simt_tflops": flops / (ms["simt"]["median"] * 1e-3) / 1e12,
-              "spread_ms": {name: [m["min"], m["max"]] for name, m in ms.items()},
-              "device_us_by_kernel_10_calls": by_kernel}
     emit({"phase": "flash_bwd_kernel", "name": "flash_attention_backward",
           "shape": f"B={B} S={S} Hq=Hkv={H} D={D} bf16 causal", "route": fa.select_bwd_route(torch.bfloat16, D),
-          "check": g, "simt_check": simt, "edge_checks": checks, "timing": timing,
+          "check": g, "simt_check": simt, "edge_checks": checks, "timing": timing, "d256": d256,
           "launches_per_call": fa.BWD_LAUNCHES, "bf16_terms": {"p": fa.BWD_P_TERMS, "ds": fa.BWD_DS_TERMS},
           "timing_note": f"median of {ROUNDS} readings of {LAUNCHES} calls; kernel, SIMT kernel and plain replayed "
-                         "from a CUDA graph, SDPA's backward (autograd.grad, retain_graph) run eagerly"})
+                         "from a CUDA graph; SDPA's backward graph-replayed as its forward and backward less its "
+                         "forward (library_ms), and eagerly (library_eager_ms: autograd.grad, retain_graph)"})
     fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
-    errs = [r["max_abs_err"] for c in (g, *checks.values()) for r in c.values()]
-    return timing, max(errs)
+    errs = [r["max_abs_err"] for c in (g, *checks.values(), *(x["check"] for x in d256.values()))
+            for r in c.values()]
+    return timing, {name: x["timing"] for name, x in d256.items()}, max(errs)
 
 
 def _rel(a, b) -> float:
@@ -1148,9 +1282,10 @@ def phase_routes(smi: str):
     """The kernels' routes off the bf16 main path, each checked against and
     timed beside its plain version, its bound and the PyTorch call that
     computes the same function: the fp32 flash forward and backward (SIMT;
-    fp32 is dense_parity's type), the bf16 backward at head dim 256 (SIMT;
-    gemma-7b's training), the fp32 SSD scan (SIMT) and the fold kernel
-    behind ``running_sum`` (the compiled sweep's)."""
+    fp32 is dense_parity's type; the backward beside SDPA's fp32 backward,
+    graph-replayed and eager), the fp32 SSD scan (SIMT) and the fold kernel
+    behind ``running_sum`` (the compiled sweep's).  bf16 at head dim 256
+    backward runs the tensor-core kernel and is timed in flash_bwd_kernel."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import segment_scatter as ss
@@ -1162,11 +1297,10 @@ def phase_routes(smi: str):
     def row(name, shape, fns, flops, nbytes, fp32, eager=()):
         ms = time_interleaved(fns, eager=eager)
         bound_ms, bound_by = _bound(flops, nbytes, smi, fp32=fp32)
-        rows[name] = {"shape": shape, **{f"{k}_ms": m["median"] for k, m in ms.items()},
-                      "bound_ms": bound_ms, "bound_by": bound_by,
+        times = _sdpa_backward_ms(ms) if "library_fwd_bwd" in ms else {f"{k}_ms": m["median"] for k, m in ms.items()}
+        rows[name] = {"shape": shape, "kernel_ms": ms["kernel"]["median"], "plain_ms": ms["plain"]["median"],
+                      "library_ms": None, **times, "bound_ms": bound_ms, "bound_by": bound_by,
                       "spread_ms": {k: [m["min"], m["max"]] for k, m in ms.items()}}
-        if "library" not in ms:
-            rows[name]["library_ms"] = None
 
     # fp32 forward at the bf16 row's shape
     B, S, H, D = 1, 512, 32, 128
@@ -1181,27 +1315,30 @@ def phase_routes(smi: str):
          "library": lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True)},
         fa.flash_flops(B, S, S, H, D, causal=True), fa.flash_bytes(B, S, S, H, H, D, 4), fp32=True)
 
-    # backward: fp32 at BWD_TIMED, bf16 at gemma-7b's 16 x 256 and its longest served prompt
-    for name, (B, S, H, D), dtype in (("flash_backward_fp32", BWD_TIMED, torch.float32),
-                                      ("flash_backward_bf16_d256", (1, 404, GEMMA_HEADS, GEMMA_HEAD_DIM),
-                                       torch.bfloat16)):
-        check(fa.select_bwd_route(dtype, D) == "simt", f"{dtype} at head dim {D} takes the SIMT backward")
-        q, k, v, do = (randn((B, S, H, D), dtype, 610 + j) for j in range(4))
-        o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
-        g = _grads_close(fa.flash_attention_backward(q, k, v, o, lse, do, causal=True),
-                         flash_backward_ref(q, k, v, o, lse, do, causal=True))
-        check(all(r["ok"] for r in g.values()), f"{name} disagrees: {g}")
-        qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
-        oh = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
-        doh = do.transpose(1, 2).contiguous()
-        row(name, f"B={B} S={S} Hq=Hkv={H} D={D} {str(dtype)[6:]} causal",
-            {"kernel": lambda: fa.flash_attention_backward(q, k, v, o, lse, do, causal=True),
-             "plain": lambda: flash_backward_ref(q, k, v, o, lse, do, causal=True),
-             "library": lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True)},
-            fa.flash_flops(B, S, S, H, D, causal=True, backward=True),
-            fa.flash_bytes(B, S, S, H, H, D, torch.finfo(dtype).bits // 8, backward=True),
-            fp32=dtype == torch.float32, eager=("library",))
-        del q, k, v, do, o, lse, qh, kh, vh, oh, doh
+    # fp32 backward at BWD_TIMED
+    B, S, H, D = BWD_TIMED
+    check(fa.select_bwd_route(torch.float32, D) == "simt", "fp32 takes the SIMT backward")
+    q, k, v, do = (randn((B, S, H, D), torch.float32, 610 + j) for j in range(4))
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    want = flash_backward_ref(q, k, v, o, lse, do, causal=True)
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=True)
+    g = _grads_close(got, want)
+    check(all(r["ok"] for r in g.values()), f"fp32 backward disagrees: {g}")
+    fp32_err = max(r["max_abs_err"] for r in g.values())
+    fp32_ok = all(torch.allclose(x, w, **BWD_FP32_TOL) for x, w in zip(got, want))
+    check(fp32_ok, f"fp32 backward outside {BWD_FP32_TOL}: {g}")
+    del want, got
+    row("flash_backward_fp32", f"B={B} S={S} Hq=Hkv={H} D={D} float32 causal",
+        {"kernel": lambda: fa.flash_attention_backward(q, k, v, o, lse, do, causal=True),
+         "plain": lambda: flash_backward_ref(q, k, v, o, lse, do, causal=True),
+         **_sdpa_backward_fns(q, k, v, do)},
+        fa.flash_flops(B, S, S, H, D, causal=True, backward=True),
+        fa.flash_bytes(B, S, S, H, H, D, 4, backward=True), fp32=True, eager=("library_eager",))
+    rows["flash_backward_fp32"].update(
+        max_abs_err=fp32_err, tolerance=BWD_FP32_TOL,
+        device_us_by_kernel_10_calls=device_breakdown(
+            lambda: [fa.flash_attention_backward(q, k, v, o, lse, do, causal=True) for _ in range(10)]))
+    del q, k, v, do, o, lse
 
     # fp32 SSD at the training microbatch's shape
     B, S = SSD_TIMED[0]
@@ -1227,7 +1364,8 @@ def phase_routes(smi: str):
     emit({"phase": "routes", "rows": rows,
           "bound_note": "fp32 FLOPs over the fp32 rate outside the tensor cores (67 TFLOP/s SXM), bf16 over 989; "
                         "bytes over 3.35 TB/s; the fold counts one add a value",
-          "timing_note": f"median of {ROUNDS} readings of {LAUNCHES} calls; SDPA's backward run eagerly"})
+          "timing_note": f"median of {ROUNDS} readings of {LAUNCHES} calls; SDPA's backward graph-replayed as its "
+                         "forward and backward less its forward (library_ms) and eagerly (library_eager_ms)"})
     fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
     sk.ssd_scan.launches = ss.running_sum.launches = 0
     return rows
@@ -1383,8 +1521,16 @@ def attention_inputs(model, loss_fn, batch):
     return layers
 
 
-def phase_dense_train_full_width(smi: str):
-    from repro_torch.configs import get_config
+def _train_full_width(phase: str, cfg, steps: int, eval_every: int):
+    """Train ``cfg`` (a dense config at its published width, cut in depth
+    only) on the card through ``Trainer``'s entry point for ``steps`` steps
+    with an eval every ``eval_every``, and check it: the exact forward and
+    backward flash launches (every backward on the tensor-core route), the
+    train and eval lanes, the held-out loss; one step traced for the device's
+    idle share and time by kernel; every layer's real q, k, v and dO through
+    both flash kernels against the plain versions; the attention-only check
+    beside its zeroed and negated controls.  Prints the phase's line and
+    returns the launches and the largest gradient error."""
     from repro_torch.data import DataConfig, make_train_iter
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -1392,14 +1538,12 @@ def phase_dense_train_full_width(smi: str):
     from repro_torch.optim import AdamWConfig, ScheduleConfig
     from repro_torch.train import TrainConfig, Trainer, make_loss_fn, make_train_step
 
-    cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=DENSE_LAYERS)
-    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size)
-          == (4096, 32, 32, 128, 11008, 102400), "deepseek-7b's published width")
+    L, D = cfg.n_layers, cfg.resolved_head_dim
     check((cfg.param_dtype, cfg.compute_dtype, cfg.opt_state_dtype, cfg.remat)
-          == ("bfloat16", "bfloat16", "float32", "full"), "deepseek-7b's own dtypes and remat")
-    L = cfg.n_layers
+          == ("bfloat16", "bfloat16", "float32", "full"), f"{cfg.name}'s own dtypes and remat")
+    check(fa.select_bwd_route(torch.bfloat16, D) == "wgmma", f"bf16 at head dim {D} takes the tensor-core backward")
     tcfg = TrainConfig(adamw=AdamWConfig(weight_decay=0.1, grad_clip=1.0),
-                       schedule=ScheduleConfig(peak_lr=DENSE_LR, warmup_steps=2, decay_steps=DENSE_STEPS),
+                       schedule=ScheduleConfig(peak_lr=DENSE_LR, warmup_steps=2, decay_steps=steps),
                        microbatches=DENSE_MICRO)
     dcfg = DataConfig(global_batch=DENSE_BATCH, seq_len=DENSE_SEQ, vocab_size=cfg.vocab_size)
     train_it = make_train_iter(dcfg)
@@ -1407,7 +1551,7 @@ def phase_dense_train_full_width(smi: str):
     probe_it = make_train_iter(dataclasses.replace(dcfg, seed=7))
     probe = next(probe_it)  # one fixed held-out batch
     probe_it.close()
-    trainer = Trainer(cfg, tcfg, train_it, eval_iter=eval_it, eval_every=DENSE_EVAL_EVERY, device="cuda")
+    trainer = Trainer(cfg, tcfg, train_it, eval_iter=eval_it, eval_every=eval_every, device="cuda")
     t0 = time.perf_counter()
     model, opt = trainer.restore_or_init()
     torch.cuda.synchronize()
@@ -1419,10 +1563,22 @@ def phase_dense_train_full_width(smi: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
+    # the route of every backward call, as the wrapper picks it (no caller passes one)
+    backward, bwd_routes = ops.flash_attention_backward, {}
+
+    def routed(*a, **kw):
+        route = kw.get("route") or fa.select_bwd_route(a[0].dtype, a[0].shape[-1])
+        bwd_routes[route] = bwd_routes.get(route, 0) + 1
+        return backward(*a, **kw)
+
+    ops.flash_attention_backward = routed
     fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
-    model, opt, hist = trainer.run(model, opt, DENSE_STEPS)
-    torch.cuda.synchronize()
-    fwd, bwd = fa.flash_attention.launches, fa.flash_attention_backward.launches
+    try:
+        model, opt, hist = trainer.run(model, opt, steps)
+        torch.cuda.synchronize()
+        fwd, bwd = fa.flash_attention.launches, fa.flash_attention_backward.launches
+    finally:
+        ops.flash_attention_backward = backward
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     train_it.close()
     eval_it.close()
@@ -1430,26 +1586,27 @@ def phase_dense_train_full_width(smi: str):
         probe_after = float(held_out(probe)[1]["loss"])
 
     losses = [h["loss"] for h in hist]
-    n_evals = DENSE_STEPS // DENSE_EVAL_EVERY
+    n_evals = steps // eval_every
     train, evals = trainer.stats.summary(trainer.train_stream), trainer.stats.summary(trainer.eval_stream)
     # a step: each layer and microbatch runs the forward kernel twice (forward, remat recompute) and
     # the backward once; an eval runs the forward once per layer
-    want_fwd = DENSE_STEPS * DENSE_MICRO * 2 * L + n_evals * L
-    want_bwd = DENSE_STEPS * DENSE_MICRO * L
-    mb = (DENSE_BATCH // DENSE_MICRO, DENSE_SEQ, DENSE_SEQ, cfg.n_heads, cfg.resolved_head_dim)
+    want_fwd = steps * DENSE_MICRO * 2 * L + n_evals * L
+    want_bwd = steps * DENSE_MICRO * L
+    mb = (DENSE_BATCH // DENSE_MICRO, DENSE_SEQ, DENSE_SEQ, cfg.n_heads, D)
     parts, cost = trainer.cost_parts, trainer.step_cost
     later = [  # judged after the phase's line is printed
         (all(np.isfinite(losses)) and all(np.isfinite(e["loss"]) for e in trainer.eval_history), "non-finite loss"),
         (probe_after < probe_before, f"held-out loss does not fall: {probe_before} -> {probe_after}"),
-        (train["steps"] == DENSE_STEPS == len(hist), f"train lane steps {train['steps']}"),
+        (train["steps"] == steps == len(hist), f"train lane steps {train['steps']}"),
         (evals["steps"] == n_evals == len(trainer.eval_history), f"eval lane steps {evals['steps']}"),
-        (train["tokens"] == DENSE_STEPS * DENSE_BATCH * DENSE_SEQ, f"train lane tokens {train['tokens']}"),
+        (train["tokens"] == steps * DENSE_BATCH * DENSE_SEQ, f"train lane tokens {train['tokens']}"),
         ((fwd, bwd) == (want_fwd, want_bwd), f"flash launches {fwd}, {bwd}; want {want_fwd}, {want_bwd}"),
+        (bwd_routes == {"wgmma": want_bwd}, f"backward calls by route {bwd_routes}; want {want_bwd} on wgmma"),
         (parts["flash_forward"] == DENSE_MICRO * 2 * L * fa.flash_flops(*mb, causal=True)
          and parts["flash_backward"] == DENSE_MICRO * L * fa.flash_flops(*mb, causal=True, backward=True),
          f"flash FLOPs in the step cost {parts}"),
-        (abs(train["flops"] - DENSE_STEPS * cost.flops) <= 1e-9 * train["flops"], "train lane FLOPs"),
-        (cost.hbm_bytes > 0 and abs(train["hbm_bytes"] - DENSE_STEPS * cost.hbm_bytes) <= 1e-9 * train["hbm_bytes"],
+        (abs(train["flops"] - steps * cost.flops) <= 1e-9 * train["flops"], "train lane FLOPs"),
+        (cost.hbm_bytes > 0 and abs(train["hbm_bytes"] - steps * cost.hbm_bytes) <= 1e-9 * train["hbm_bytes"],
          f"train lane bytes {train['hbm_bytes']}"),
         (evals["flops"] == 0 and evals["hbm_bytes"] == 0, "the eval lane carries no cost"),
     ]
@@ -1479,8 +1636,8 @@ def phase_dense_train_full_width(smi: str):
             "flash_device_ms": {n: ms for n, ms in by_name.items() if "flash" in n}}
     del prof
 
-    layers = attention_inputs(model, held_out, {k: v[: DENSE_BATCH // DENSE_MICRO] for k, v in probe.items()})
-    check(fa.select_bwd_route(torch.bfloat16, cfg.resolved_head_dim) == "wgmma", "the tensor-core backward")
+    micro = {k: v[: DENSE_BATCH // DENSE_MICRO] for k, v in probe.items()}
+    layers = attention_inputs(model, held_out, micro)
     rows = []
     for c in layers:
         q, k, v, do = c["q"], c["k"], c["v"], c["do"]
@@ -1500,13 +1657,13 @@ def phase_dense_train_full_width(smi: str):
     params = dict(model.named_parameters())
     check(all(n in params for n in attn), "every layer has attn.wq, attn.wk and attn.wv")
     saved = {n: params[n].detach().clone() for n in attn}
-    repeated = {k: v[: DENSE_BATCH // DENSE_MICRO] for k, v in probe.items()}
-    backward, attn_only = ops.flash_attention_backward, {}
+    attn_cfg = dataclasses.replace(tcfg, schedule=dataclasses.replace(tcfg.schedule, decay_steps=ATTN_ONLY_STEPS))
+    attn_only = {}
     for label, factor in (("kernel", None), ("zeroed", 0.0), ("negated", -1.0)):
         if factor is not None:
             ops.flash_attention_backward = lambda *a, f=factor, **kw: tuple(f * t for t in backward(*a, **kw))
         try:
-            attn_only[label] = _train_only(model, tcfg, repeated, attn, DENSE_STEPS)
+            attn_only[label] = _train_only(model, attn_cfg, micro, attn, ATTN_ONLY_STEPS)
         finally:
             ops.flash_attention_backward = backward
             with torch.no_grad():
@@ -1520,20 +1677,23 @@ def phase_dense_train_full_width(smi: str):
          f"attention-only: a control passes the check: {drops}"),
     ]
     emit({
-        "phase": "dense_train_full_width", "config": "deepseek-7b", "n_layers": L, "d_model": cfg.d_model,
-        "n_heads": cfg.n_heads, "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+        "phase": phase, "config": cfg.name, "n_layers": L, "d_model": cfg.d_model,
+        "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "head_dim": D, "d_ff": cfg.d_ff,
+        "vocab": cfg.vocab_size, "hidden_act": cfg.hidden_act, "tie_embeddings": cfg.tie_embeddings,
+        "scale_embedding": cfg.scale_embedding,
         "dtype": {"params": cfg.param_dtype, "compute": cfg.compute_dtype, "moments": cfg.opt_state_dtype},
         "remat": cfg.remat, "params": n_params, "init_s": init_s,
-        "batch": DENSE_BATCH, "seq": DENSE_SEQ, "microbatches": DENSE_MICRO, "steps": DENSE_STEPS,
+        "batch": DENSE_BATCH, "seq": DENSE_SEQ, "microbatches": DENSE_MICRO, "steps": steps,
         "peak_lr": DENSE_LR, "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
         "held_out_loss": {"before": probe_before, "after": probe_after},
-        "attention_only": {"losses": attn_only, "drops": drops, "min_drop": ATTN_ONLY_DROP, "steps": DENSE_STEPS,
+        "attention_only": {"losses": attn_only, "drops": drops, "min_drop": ATTN_ONLY_DROP, "steps": ATTN_ONLY_STEPS,
                            "batch": f"the probe's first microbatch ({DENSE_BATCH // DENSE_MICRO} x {DENSE_SEQ}), "
                                     "repeated", "trained": "every layer's attn.wq, attn.wk, attn.wv"},
         "eval_losses": [e["loss"] for e in trainer.eval_history],
         "lanes": {"train": train, "eval": evals}, "step_cost": parts,
         "flash_launches": {"forward": fwd, "backward": bwd, "forward_expected": want_fwd,
-                           "backward_expected": want_bwd, "kernels_per_backward": fa.BWD_LAUNCHES},
+                           "backward_expected": want_bwd, "backward_by_route": bwd_routes,
+                           "kernels_per_backward": fa.BWD_LAUNCHES},
         "tokens_per_s": train["tokens_per_s"], "step_ms_median": steady_ms, "step_ms_first": step_ms[0],
         "max_memory_allocated_gb": peak_gb, "device_idle": idle,
         "attention_op_bf16": {"layers": rows, "inputs": f"one probe microbatch ({DENSE_BATCH // DENSE_MICRO} x "
@@ -1547,6 +1707,33 @@ def phase_dense_train_full_width(smi: str):
         check(all(r[n]["ok"] for n in ("dq", "dk", "dv", "lse")),
               f"layer {layer}: the kernels disagree with the plain versions on the training inputs: {r}")
     return fwd, bwd, max(r[n]["max_abs_err"] for r in rows for n in ("dq", "dk", "dv"))
+
+
+def phase_dense_train_full_width():
+    """deepseek-7b at its published width, cut to DENSE_LAYERS layers, trained
+    on the card (head dim 128)."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=DENSE_LAYERS)
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size)
+          == (4096, 32, 32, 128, 11008, 102400), "deepseek-7b's published width")
+    return _train_full_width("dense_train_full_width", cfg, DENSE_STEPS, DENSE_EVAL_EVERY)
+
+
+def phase_gemma_train_full_width():
+    """gemma-7b at its published width, cut to GEMMA_LAYERS layers (the only
+    cut; see GEMMA_LAYERS), trained on the card: its 16 heads of 256 run the
+    tensor-core flash backward at D = 256, forward and backward, and its
+    GeGLU, tied and scaled embedding go through the trainer's own entry
+    point."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("gemma-7b"), n_layers=GEMMA_LAYERS)
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size)
+          == (3072, GEMMA_HEADS, GEMMA_HEADS, GEMMA_HEAD_DIM, 24576, 256000), "gemma-7b's published width")
+    check((cfg.hidden_act, cfg.tie_embeddings, cfg.scale_embedding) == ("gelu", True, True),
+          "gemma-7b's GeGLU, tied and scaled embedding")
+    return _train_full_width("gemma_train_full_width", cfg, GEMMA_STEPS, GEMMA_EVAL_EVERY)
 
 
 def _u64_on_card(a: np.ndarray) -> torch.Tensor:
@@ -1904,11 +2091,13 @@ def main() -> int:
     phase_decode_full_width(model)
     ssd_op_err = phase_ssd_op(model, probe)
     del model, probe
-    bwd_timing, bwd_err = phase_flash_bwd_kernel(smi)
+    bwd_timing, d256_bwd, bwd_err = phase_flash_bwd_kernel(smi)
     phase_routes(smi)
     phase_dense_parity()
     torch.cuda.empty_cache()
-    dense_fwd, dense_bwd, dense_err = phase_dense_train_full_width(smi)
+    dense_fwd, dense_bwd, dense_err = phase_dense_train_full_width()
+    torch.cuda.empty_cache()
+    gemma_fwd, gemma_bwd, gemma_err = phase_gemma_train_full_width()
     torch.cuda.empty_cache()
     seg_err, seg_timings, acc_timing, numpy_sweep = phase_segment_kernel(smi)
     seg_launches = phase_sim_sweep(numpy_sweep)
@@ -1921,7 +2110,8 @@ def main() -> int:
                   "on wgmma (bf16 in, fp32 accumulate; P from registers as two bf16 terms, V read transposed); Q "
                   "and a 2-stage K/V ring by TMA with mbarriers, 128B swizzle; fp32 calls run the SIMT kernel "
                   f"({fa.SIMT_SOURCE})",
-        "launches": launches + dense_fwd, "launches_by_path": {"serving": launches, "dense_training": dense_fwd},
+        "launches": launches + dense_fwd + gemma_fwd,
+        "launches_by_path": {"serving": launches, "dense_training": dense_fwd, "gemma_training": gemma_fwd},
         "max_abs_err": max(bf16_err, op_err),
         "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -1932,20 +2122,28 @@ def main() -> int:
                             for S, r in d256["timing"].items()}},
     }, {
         "name": "flash_attention_backward", "route": "cuda", "source": fa.BWD_SOURCE, "replaces": fa.BWD_REPLACES,
-        "design": "bf16 at D 32-128: the FlashAttention-2 backward in three launches, no atomics: D_i = "
-                  "rowsum(dO O) and lse log2(e), padded to the 64-row tile; dK/dV per (kv head, 64-row kv tile, "
-                  "batch), one warpgroup, K and V by TMA once and (Q, lse), (dO, D_i) through a 2-stage TMA ring "
-                  "over the group's q heads and the q tiles from the diagonal: S^T = K Q^T, dP^T = V dO^T (ss), "
-                  "dV += P^T dO, dK += dS^T Q (rs, A from the accumulator fragment); dQ per (q head, q tile, "
-                  "batch) with K/V through the ring: S, dP (ss), dQ += dS K (rs); every product on wgmma, P and "
-                  "dS as two bf16 terms, 128B swizzle; fp32 and bf16 at D=256 run the SIMT backward "
-                  f"({fa.BWD_SIMT_SOURCE}), timed beside it as simt_ms",
-        "launches": dense_bwd, "kernels_per_launch": fa.BWD_LAUNCHES, "max_abs_err": max(bwd_err, dense_err),
+        "design": "bf16 at every head dim (32-256): the FlashAttention-2 backward in three launches, no atomics: "
+                  "D_i = rowsum(dO O) and lse log2(e), padded to the 64-row tile; dK/dV per (kv head, 64-row kv "
+                  "tile, batch), K and V by TMA once and (Q, lse), (dO, D_i) through a 2-stage TMA ring over the "
+                  "group's q heads and the q tiles from the diagonal: S^T = K Q^T, dP^T = V dO^T (ss), dV += P^T "
+                  "dO, dK += dS^T Q (rs, A from the accumulator fragment); dQ per (q head, q tile, batch) with K/V "
+                  "through the ring: S, dP (ss), dQ += dS K (rs); every product on wgmma, P and dS as two bf16 "
+                  "terms, 128B swizzle; one warpgroup a block at D <= 128, two at D = 256, each owning half of D's "
+                  "outputs and computing S and dP itself; fp32 runs the SIMT backward "
+                  f"({fa.BWD_SIMT_SOURCE}: 4 x 4 score micro-tiles of S and dP, float4 reads of swizzled tiles, "
+                  "cp.async double buffering), timed beside it as simt_ms",
+        "launches": dense_bwd + gemma_bwd,
+        "launches_by_path": {"dense_training": dense_bwd, "gemma_training": gemma_bwd},
+        "kernels_per_launch": fa.BWD_LAUNCHES, "max_abs_err": max(bwd_err, dense_err, gemma_err),
         "ms": bwd_timing["kernel_ms"], "kernel_ms": bwd_timing["kernel_ms"], "plain_ms": bwd_timing["plain_ms"],
         "simt_ms": bwd_timing["simt_ms"],
         "bound_ms": bwd_timing["bound_ms"], "bound_by": bwd_timing["bound_by"],
-        "library_ms": bwd_timing["library_ms"], "library": "SDPA backward (autograd through "
-                                                           "scaled_dot_product_attention)",
+        "library_ms": bwd_timing["library_ms"], "library_eager_ms": bwd_timing["library_eager_ms"],
+        "library": "SDPA backward: its forward and backward replayed from a CUDA graph less its forward "
+                   "(library_eager_ms: autograd through scaled_dot_product_attention, eager)",
+        "d256": {shape: {k: r[k] for k in ("kernel_ms", "simt_ms", "plain_ms", "library_ms", "library_eager_ms",
+                                           "bound_ms", "bound_by")}
+                 for shape, r in d256_bwd.items()},
         "shape": "B=1 S=2048 Hq=Hkv=32 D=128 bf16 causal",
     }, {
         "name": "ssd_scan", "route": "cuda", "source": sk.SOURCE, "replaces": sk.REPLACES,

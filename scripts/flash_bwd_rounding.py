@@ -3,12 +3,14 @@
 
 Run from the root of a checkout on a machine with an NVIDIA GPU:
 
-    python3 scripts/flash_bwd_rounding.py
+    python3 scripts/flash_bwd_rounding.py                    # deepseek-7b, head dim 128
+    python3 scripts/flash_bwd_rounding.py --model gemma-7b   # head dim 256
 
-It builds deepseek-7b at its published width cut to ``chip_smoke.py``'s 8
-layers (bf16, random weights from seed 0), runs one forward and backward of
-the loss on ``chip_smoke.py``'s held-out probe microbatch (2 x 2048) and keeps
-the q, k, v and upstream dO that each layer's attention sees.  On each
+It builds the model at its published width cut to ``chip_smoke.py``'s depth
+(deepseek-7b 8 layers, gemma-7b 7; bf16, random weights from seed 0), runs
+one forward and backward of the loss on ``chip_smoke.py``'s held-out probe
+microbatch (2 x 2048) and keeps the q, k, v and upstream dO that each
+layer's attention sees.  On each
 layer's inputs (o and lse from the forward kernel) it counts the entries of
 dq, dk and dv outside ``chip_smoke.py``'s backward tolerance (``_grads_close``:
 rtol 1e-2 plus 1e-3 of the gradient's largest entry) against the plain
@@ -16,13 +18,16 @@ backward with fp32 P and dS: for the two CUDA backward kernels (the
 tensor-core one, the SIMT one), and for the plain backward with P carried
 in one bf16 term and in two (dS fp32), and with dS in one term and in two
 (P fp32).  The same counts follow on ``chip_smoke.py``'s random bf16
-inputs at its timed backward shape and its edge shapes.  One JSON line per
+inputs at its timed backward shape and its edge shapes of the model's head
+dim (gemma-7b: ``GEMMA_BWD_TIMED``, ``GEMMA_BWD_SHORT`` and the D = 256
+edges, MQA among them).  One JSON line per
 case, then the totals over the layers and over the random cases.  Exits
 non-zero without a GPU.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import sys
@@ -38,7 +43,14 @@ import torch  # noqa: E402
 VARIANTS = {"p_one_term": (1, 0), "p_two_terms": (2, 0), "ds_one_term": (0, 1), "ds_two_terms": (0, 2)}
 
 
-def main() -> int:
+#: model → chip_smoke.py's depth for it
+DEPTHS = {"deepseek-7b": "DENSE_LAYERS", "gemma-7b": "GEMMA_LAYERS"}
+
+
+def main(argv=None) -> int:
+    args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    args.add_argument("--model", choices=sorted(DEPTHS), default="deepseek-7b")
+    model_name = args.parse_args(argv).model
     if not torch.cuda.is_available():
         print("flash_bwd_rounding: no CUDA device", file=sys.stderr)
         return 1
@@ -51,7 +63,7 @@ def main() -> int:
     from repro_torch.train import TrainConfig, make_loss_fn
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=chip_smoke.DENSE_LAYERS)
+    cfg = dataclasses.replace(get_config(model_name), n_layers=getattr(chip_smoke, DEPTHS[model_name]))
     model = Transformer(cfg, device="cuda", seed=0)
     it = make_train_iter(DataConfig(global_batch=chip_smoke.DENSE_BATCH, seq_len=chip_smoke.DENSE_SEQ,
                                     vocab_size=cfg.vocab_size, seed=7))
@@ -61,8 +73,11 @@ def main() -> int:
     layers = chip_smoke.attention_inputs(model, make_loss_fn(model, TrainConfig()), micro)
     del model
 
-    B, S, H, D = chip_smoke.BWD_TIMED
-    shapes = [(B, S, S, H, H, D, True), *chip_smoke.BWD_EDGES]
+    D = cfg.resolved_head_dim
+    timed = [chip_smoke.BWD_TIMED] if D != chip_smoke.GEMMA_HEAD_DIM else [chip_smoke.GEMMA_BWD_TIMED,
+                                                                            chip_smoke.GEMMA_BWD_SHORT]
+    shapes = [(B, S, S, H, H, D, True) for B, S, H, D in timed]
+    shapes += [e for e in chip_smoke.BWD_EDGES if (e[5] == D) == (D == chip_smoke.GEMMA_HEAD_DIM)]
 
     def cases():
         for layer, c in enumerate(layers):
@@ -96,9 +111,9 @@ def main() -> int:
             del out
         print(json.dumps(row), flush=True)
         del o, lse, want
-    print(json.dumps({"layers": len(layers), "inputs": {
+    print(json.dumps({"model": model_name, "layers": len(layers), "inputs": {
                           "layers": "the probe's first microbatch (2 x 2048), every layer",
-                          "random": "chip_smoke.py's randn at BWD_TIMED and BWD_EDGES"},
+                          "random": f"chip_smoke.py's randn at {[s[:6] for s in shapes]}"},
                       "outside_tol_total": totals,
                       "tolerance": {"rtol": chip_smoke.BWD_RTOL, "atol_of_max": chip_smoke.BWD_ATOL_OF_MAX},
                       "kernel_terms": {"p": fa.BWD_P_TERMS, "ds": fa.BWD_DS_TERMS},

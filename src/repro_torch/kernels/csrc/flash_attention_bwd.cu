@@ -1,10 +1,9 @@
 // Flash attention backward for Hopper (sm_90a) on the CUDA cores, with a
-// plain C interface: the fp32 route, and bf16 at head dim 256 (gemma-7b,
-// paligemma-3b).  bf16 at head dims 32-128, dense training's, runs the
-// tensor-core backward (flash_attention_bwd_wgmma.cu); this kernel also
-// takes those when asked (route "simt"), so the two can be timed side by
-// side.  fp32 stays here because the tensor cores' fp32 input type is TF32,
-// which would miss the fp32 tolerance.
+// plain C interface: the fp32 route.  bf16 runs the tensor-core backward
+// (flash_attention_bwd_wgmma.cu) at every head dim; this kernel also takes
+// bf16 when asked (route "simt"), so that the two can be timed side by side.
+// fp32 stays here because the tensor cores' fp32 input type is TF32, which
+// would miss the fp32 tolerance.
 //
 // Replaces the gradient that XLA takes of repro/kernels/ops.py::_xla_flash,
 // the blocked online-softmax form the JAX package trains through off the
@@ -34,27 +33,45 @@
 //   3. flash_bwd_dq: one block per (q tile, q head, batch) keeps its Q and
 //      dO tile resident and walks the kv tiles up to the diagonal: the same
 //      P and dS, dQ += dS K.
-// dQ and dK take the scale once at the end.  Tiles are 64 rows (32 at
-// D = 256, to fit shared memory), staged in shared memory as fp32 with one
-// float of padding a row, so the 16 threads reading 16 rows at the same
-// column fall into 16 banks.  256 threads form a 16 x 16 grid: in a score
-// tile each thread holds TR q rows x TR kv columns (columns strided by 16),
-// in an accumulator TR rows x D/16 columns.  A score is masked by the
+// dQ and dK take the scale once at the end.  A score is masked by the
 // causal diagonal and the ragged edges of both tiles; masked and padded
 // entries give P = 0 and dS = 0, and a row whose lse is +inf has
 // exp(s - inf) = 0, so fully masked rows give zero gradients, not nan.
 //
 // What bounds it: five products of 2 Sq Sk D per head (halved when causal)
 // against q, k, v, o, dO read once and dq, dk, dv written once; at
-// training's S = 2048, D = 128 the products bound it.  This kernel runs
-// them as fp32 FMAs on the CUDA cores (S and dP are computed twice, once
-// per kernel: seven products), so it is bound by the fp32 FMA rate and by
-// shared-memory reads, far from the bf16 tensor-core bound that the
-// tensor-core backward works toward.
+// training's S = 2048, D = 128 the products bound it, and in fp32 on the
+// CUDA cores (S and dP are computed twice, once per kernel: seven products)
+// the FMA rate would.  An SM reads 128 bytes a clock from shared memory
+// against 128 FMAs, so the tiling is built to read as few floats per FMA as
+// the 227 KB of shared memory allows:
+//   * tiles are 64 rows (32 at D = 256, to fit shared memory), staged as
+//     fp32 rows of D with their 16-byte chunks swizzled (chunk c of row r at
+//     c ^ (r & 7)), so that float4 reads of eight rows at one chunk, and of
+//     eight chunks of one row, fall in distinct banks;
+//   * the score products split the block: 128 threads compute S (S^T in the
+//     dK/dV kernel), 128 dP, each thread an 8 x 4 micro-tile read as float4s
+//     along D (12 float4 reads for 128 FMAs); the raw tiles go to shared
+//     memory transposed, and one pass of all threads forms P (exp2, the
+//     causal and ragged masks) and dS = P (dP - D_i) in their place;
+//   * the accumulators read P or dS as the A operand (one float4 of four
+//     rows) and a staged tile as B: in the dK/dV kernel 128 threads hold dV
+//     and 128 dK, each an 8 x 8 block (4 float4 reads for 64 FMAs); in the
+//     dQ kernel all 256 hold dQ, 4 x 8 each;
+//   * the next q tile (dK/dV) or kv tile (dQ) comes in by cp.async, 16 bytes
+//     a copy (4 where a base or stride is not 16-byte aligned), into the
+//     second of two stages while the current one is computed, so a tile
+//     takes three barriers; bf16 inputs are converted on the way in, by the
+//     threads, so their loads do not overlap.
+// Shared memory at D = 128: 232,448 bytes a dK/dV block (K, V, two stages
+// of Q and dO, P, dS, two stages of lse and D_i), all a block may take;
+// 231,936 a dQ block.  scripts/flash_bwd_simt_parts.py times the kernel
+// with each part taken out.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -63,17 +80,20 @@ __device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162
 __device__ __forceinline__ void st(float* p, float x) { *p = x; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-constexpr int THREADS = 256;  // 16 x 16
+constexpr int THREADS = 256;
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Cfg {
   static constexpr int BR = D >= 256 ? 32 : 64;  // rows of every q and kv tile
-  static constexpr int LD = D + 1;               // padded row of a staged tile
-  static constexpr int SP = BR + 1;              // padded row of a score tile
-  static constexpr int TR = BR / 16;             // tile rows (or score columns) per thread
-  static constexpr int NC = D / 16;              // head-dim columns per thread
-  // four staged BR x D tiles, two BR x BR score tiles, lse and delta of BR rows
-  static constexpr size_t SMEM = (4 * size_t(BR) * LD + 2 * size_t(BR) * SP + 2 * BR) * sizeof(float);
+  static constexpr int TI = BR / 8, TJ = BR / 16;  // score micro-tile: TI x TJ of S or of dP a thread
+  static constexpr int SPAD = BR + 4;              // row of a P or dS tile (16-byte aligned)
+  static constexpr int TILE = BR * D;              // floats of a staged tile
+  // dK/dV: K, V, two stages of Q and dO, P, dS, two stages of lse and D_i
+  static constexpr size_t SMEM_KV = (size_t(6) * TILE + 2 * BR * SPAD + 4 * BR) * sizeof(float);
+  // dQ: Q, dO, two stages of K and V, P, dS, lse and D_i
+  static constexpr size_t SMEM_Q = (size_t(6) * TILE + 2 * BR * SPAD + 2 * BR) * sizeof(float);
+  static_assert(D / 4 >= 8 && SMEM_KV <= 232448, "tiling");
 };
 
 struct Params {
@@ -93,8 +113,9 @@ struct Params {
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
   long long d_sb, d_ss, d_sh;
-  float scale;
+  float scale, scale_log2;
   int causal;
+  int vec;  // fp32 q, k, v and dO can be copied 16 bytes at a time
 };
 
 // D_i = rowsum(dO_i * O_i) for every (batch, head, row), one warp a row.
@@ -115,238 +136,404 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_delta(const Params p) {
   if (lane == 0) p.delta[row] = acc;
 }
 
-// Rows [r0, r0 + BR) of one (batch, head) slice into shared memory as fp32,
-// zero past row n.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long row_stride, int r0, int n) {
-  using C = Cfg<D>;
-  for (int idx = threadIdx.x; idx < C::BR * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D;
-    const int row = r0 + r;
-    dst[r * C::LD + d] = row < n ? ld(src + row * row_stride + d) : 0.f;
+// ---------------------------------------------------------------- staging
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+// copies of 16 or 4 bytes that zero-fill the destination when !valid
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// float index of column c of row r in a staged tile: 16-byte chunk c / 4 of
+// the row swizzled by r & 7
+template <int D>
+__device__ __forceinline__ int sw(int r, int c) {
+  return r * D + ((((c >> 2) ^ (r & 7))) << 2) + (c & 3);
+}
+
+// Rows [r0, r0 + BR) of one (batch, head) slice into a staged tile, zero
+// past row n: fp32 by cp.async (the caller commits the group) ...
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* src, long long row_stride, int r0, int n, int vec) {
+  constexpr int C4 = D / 4;
+  for (int idx = threadIdx.x; idx < Cfg<D>::BR * C4; idx += THREADS) {
+    const int r = idx / C4, c = (idx % C4) * 4;
+    const bool ok = r0 + r < n;
+    const float* s = ok ? src + (r0 + r) * row_stride + c : src;  // not read when !ok
+    float* d = dst + sw<D>(r, c);
+    if (vec) {
+      cp_async16(d, s, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cp_async4(d + e, ok ? s + e : src, ok);
+    }
+  }
+}
+// ... bf16 converted by the threads
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src, long long row_stride, int r0, int n,
+                                      int) {
+  constexpr int C4 = D / 4;
+  for (int idx = threadIdx.x; idx < Cfg<D>::BR * C4; idx += THREADS) {
+    const int r = idx / C4, c = (idx % C4) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < n) {
+      const __nv_bfloat16* s = src + (r0 + r) * row_stride + c;
+      x = make_float4(ld(s), ld(s + 1), ld(s + 2), ld(s + 3));
+    }
+    *reinterpret_cast<float4*>(dst + sw<D>(r, c)) = x;
   }
 }
 
-// lse and delta of rows [q0, q0 + BR) of one (batch, head); +inf and 0 past Sq
+// lse and D_i of rows [q0, q0 + BR) of one (batch, head) by cp.async; rows
+// past Sq read 0 (their scores are masked)
 __device__ __forceinline__ void stage_rows(float* sLse, float* sDelta, const Params& p, size_t bh, int q0, int BR) {
   for (int r = threadIdx.x; r < BR; r += THREADS) {
-    const int row = q0 + r;
-    sLse[r] = row < p.Sq ? p.lse[bh * p.Sq + row] : INFINITY;
-    sDelta[r] = row < p.Sq ? p.delta[bh * p.Sq + row] : 0.f;
+    const bool ok = q0 + r < p.Sq;
+    const size_t i = bh * p.Sq + (ok ? q0 + r : 0);
+    cp_async4(sLse + r, p.lse + i, ok);
+    cp_async4(sDelta + r, p.delta + i, ok);
   }
 }
 
-// The score tile of q rows [q0, q0 + BR) against kv rows [k0, k0 + BR), from
-// the staged Q, dO, K, V tiles: P = exp(S * scale - lse) on visible entries
-// (0 elsewhere) and dS = P (dP - D_i), written [q row][kv row] at stride SP
-// (P only where sP is not null).  Thread (ty, tx) takes q rows ty*TR + i and
-// kv rows tx + 16 j.
+// ---------------------------------------------------------------- products
+// The score products split the block in two halves of 128 threads: one
+// computes S (or S^T), the other dP (or dP^T), each thread a TI x TJ
+// micro-tile (rows rg + 8 i, columns cg + 16 j).  A quarter-warp spans one
+// row group and 8 column groups: a float4 that one address serves for the
+// whole quarter takes 2 of the shared memory's cycles, one of 8 addresses
+// 4, so the 8 rows are the broadcast operand.  s[i][j] = sum_d
+// X[rg + 8 i][d] Y[cg + 16 j][d], four columns of D at a time.
 template <int D>
-__device__ __forceinline__ void score_tile(const Params& p, const float* sQ, const float* sdO, const float* sK,
-                                           const float* sV, const float* sLse, const float* sDelta, float* sP,
-                                           float* sdS, int q0, int k0) {
-  using C = Cfg<D>;
-  constexpr int TR = C::TR, LD = C::LD, SP = C::SP;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float s[TR][TR], dp[TR][TR];
+__device__ __forceinline__ void scores(const float* X, const float* Y, float (&s)[Cfg<D>::TI][Cfg<D>::TJ], int rg,
+                                       int cg) {
+  constexpr int TI = Cfg<D>::TI, TJ = Cfg<D>::TJ;
 #pragma unroll
-  for (int i = 0; i < TR; ++i)
+  for (int i = 0; i < TI; ++i)
 #pragma unroll
-    for (int j = 0; j < TR; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qv[TR], gv[TR], kv[TR], vv[TR];
+    for (int j = 0; j < TJ; ++j) s[i][j] = 0.f;
+  // rows rg + 8 i all swizzle by rg & 7, rows cg + 16 j by cg & 7: walk D in
+  // runs of 8 chunks, where chunk u of a run sits at u ^ (row & 7), so that
+  // every load is a run pointer plus a constant
+  const float* xr = X + rg * D;
+  const float* yr = Y + cg * D;
+  const int mx = rg & 7, my = cg & 7;
+#pragma unroll 1
+  for (int c = 0; c < D; c += 32, xr += 32, yr += 32) {
 #pragma unroll
-    for (int i = 0; i < TR; ++i) {
-      qv[i] = sQ[(ty * TR + i) * LD + d];
-      gv[i] = sdO[(ty * TR + i) * LD + d];
-    }
+    for (int u = 0; u < 8; ++u) {
+      const float* xp = xr + ((u ^ mx) << 2);
+      const float* yp = yr + ((u ^ my) << 2);
+      float4 x[TI], y[TJ];
 #pragma unroll
-    for (int j = 0; j < TR; ++j) {
-      kv[j] = sK[(tx + 16 * j) * LD + d];
-      vv[j] = sV[(tx + 16 * j) * LD + d];
-    }
+      for (int i = 0; i < TI; ++i) x[i] = *reinterpret_cast<const float4*>(xp + 8 * i * D);
 #pragma unroll
-    for (int i = 0; i < TR; ++i)
+      for (int j = 0; j < TJ; ++j) y[j] = *reinterpret_cast<const float4*>(yp + 16 * j * D);
 #pragma unroll
-      for (int j = 0; j < TR; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-      }
-  }
+      for (int i = 0; i < TI; ++i)
 #pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int r = ty * TR + i, row = q0 + r;
-    const float lse = sLse[r], dl = sDelta[r];
-#pragma unroll
-    for (int j = 0; j < TR; ++j) {
-      const int c = tx + 16 * j, col = k0 + c;
-      const bool ok = row < p.Sq && col < p.Sk && (!p.causal || col <= row);
-      const float pij = ok ? expf(s[i][j] * p.scale - lse) : 0.f;
-      if (sP != nullptr) sP[r * SP + c] = pij;
-      sdS[r * SP + c] = pij * (dp[i][j] - dl);
+        for (int j = 0; j < TJ; ++j)
+          s[i][j] = fmaf(x[i].x, y[j].x, fmaf(x[i].y, y[j].y, fmaf(x[i].z, y[j].z, fmaf(x[i].w, y[j].w, s[i][j]))));
     }
   }
 }
 
-// dK and dV of one kv tile: a block per (kv tile, kv head, batch).
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkdv(const Params p) {
-  using C = Cfg<D>;
-  constexpr int BR = C::BR, LD = C::LD, SP = C::SP, TR = C::TR, NC = C::NC;
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + BR * LD;
-  float* sQ = sV + BR * LD;
-  float* sdO = sQ + BR * LD;
-  float* sP = sdO + BR * LD;
-  float* sdS = sP + BR * SP;
-  float* sLse = sdS + BR * SP;
-  float* sDelta = sLse + BR;
+// P and dS of a BR x BR tile, from the raw S in sP and dP in sdS, in their
+// places: P = exp2(S scale log2(e) - lse log2(e)) on entries the causal
+// diagonal and both ragged edges leave visible (0 elsewhere), dS = P (dP -
+// D_i).  Both tiles are [column][row] at SPAD, four rows at a time; q is the
+// column and kv the row (the dK/dV kernel, KV_ROWS) or the other way round
+// (the dQ kernel).  lse and dl are the q tile's lse and D_i.
+template <int D, bool KV_ROWS>
+__device__ __forceinline__ void form_p_ds(float* sP, float* sdS, const float* lse, const float* dl, int q0, int k0,
+                                          const Params& p) {
+  constexpr int BR = Cfg<D>::BR, SPAD = Cfg<D>::SPAD, R4 = BR / 4;
+  for (int idx = threadIdx.x; idx < BR * R4; idx += THREADS) {
+    const int c = idx / R4, r = (idx % R4) * 4;
+    float4 sv = *reinterpret_cast<const float4*>(sP + c * SPAD + r);
+    float4 dv = *reinterpret_cast<const float4*>(sdS + c * SPAD + r);
+    float* s4 = &sv.x;
+    float* d4 = &dv.x;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = KV_ROWS ? c : r + e;  // q within the tile
+      const int qr = q0 + qi, kv = KV_ROWS ? k0 + r + e : k0 + c;
+      const bool ok = qr < p.Sq && kv < p.Sk && (!p.causal || kv <= qr);
+      const float pv = ok ? exp2f(fmaf(s4[e], p.scale_log2, -lse[qi] * LOG2E)) : 0.f;
+      s4[e] = pv;
+      d4[e] = pv * (d4[e] - dl[qi]);
+    }
+    *reinterpret_cast<float4*>(sP + c * SPAD + r) = sv;
+    *reinterpret_cast<float4*>(sdS + c * SPAD + r) = dv;
+  }
+}
 
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+// The accumulator products: NT threads hold a BR x D output (dK, dV or dQ),
+// each RQ quads of rows (4 (ra + NRG q) + r) x NCOL head-dim columns (VW
+// floats at (ca + NCG v) VW); a warp spans 4 row groups and 8 column groups,
+// a quarter-warp 8 column groups of one row group.
+template <int D, int NT, int RQ>
+struct Acc {
+  static constexpr int BR = Cfg<D>::BR;
+  static constexpr int NRG = BR / (4 * RQ);  // row groups
+  static constexpr int NCG = NT / NRG;       // column groups
+  static constexpr int NCOL = D / NCG;       // head-dim columns a thread holds
+  static constexpr int VW = NCOL < 4 ? NCOL : 4;
+  static constexpr int NV = NCOL / VW;
+  static constexpr int RW = NRG / 4;  // warps across the row groups
+  static_assert(NRG % 4 == 0 && NCG * NCOL == D && NV * VW == NCOL && NT / 32 / RW * 8 == NCG, "accumulator tiling");
+  using Tile = float[4 * RQ][NCOL];
+
+  // this thread's row group and column group; w = its warp among the NT threads
+  __device__ __forceinline__ static int ra(int w, int lane) { return (lane >> 3) + 4 * (w % RW); }
+  __device__ __forceinline__ static int ca(int w, int lane) { return (lane & 7) + 8 * (w / RW); }
+  __device__ __forceinline__ static int row(int ra, int q, int r) { return 4 * (ra + NRG * q) + r; }
+  __device__ __forceinline__ static int col(int ca, int v) { return (ca + NCG * v) * VW; }
+};
+
+template <int VW>
+__device__ __forceinline__ void load_vec(float (&x)[VW], const float* src);
+template <>
+__device__ __forceinline__ void load_vec<4>(float (&x)[4], const float* src) {
+  const float4 f = *reinterpret_cast<const float4*>(src);
+  x[0] = f.x, x[1] = f.y, x[2] = f.z, x[3] = f.w;
+}
+template <>
+__device__ __forceinline__ void load_vec<2>(float (&x)[2], const float* src) {
+  const float2 f = *reinterpret_cast<const float2*>(src);
+  x[0] = f.x, x[1] = f.y;
+}
+
+// acc[.][.] += sum_k A[k][this thread's rows] B[k][its columns], over the
+// BR rows k of A (a P or dS tile, [k][row] at SPAD) and of B (a staged tile)
+template <int D, int NT, int RQ>
+__device__ __forceinline__ void accumulate(const float* A, const float* B, typename Acc<D, NT, RQ>::Tile& acc,
+                                           int ra, int ca) {
+  using G = Acc<D, NT, RQ>;
+  // in runs of 8 rows k, where row k & 7 = u of the staged tile swizzles by u
+  const float* ap = A + G::row(ra, 0, 0);
+  int c4[G::NV];  // this thread's column vectors, as chunk and offset in it
+#pragma unroll
+  for (int v = 0; v < G::NV; ++v) c4[v] = G::col(ca, v) >> 2;
+  const int e0 = G::col(ca, 0) & 3;
+#pragma unroll 1
+  for (int k = 0; k < G::BR; k += 8, ap += 8 * Cfg<D>::SPAD) {
+    const float* bp = B + k * D + e0;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      float av[4 * RQ];
+#pragma unroll
+      for (int q = 0; q < RQ; ++q) {
+        const float4 f = *reinterpret_cast<const float4*>(ap + u * Cfg<D>::SPAD + 4 * G::NRG * q);
+        av[4 * q] = f.x, av[4 * q + 1] = f.y, av[4 * q + 2] = f.z, av[4 * q + 3] = f.w;
+      }
+#pragma unroll
+      for (int v = 0; v < G::NV; ++v) {
+        float bv[G::VW];
+        load_vec<G::VW>(bv, bp + u * D + ((c4[v] ^ u) << 2));
+#pragma unroll
+        for (int r = 0; r < 4 * RQ; ++r)
+#pragma unroll
+          for (int e = 0; e < G::VW; ++e) acc[r][v * G::VW + e] = fmaf(av[r], bv[e], acc[r][v * G::VW + e]);
+      }
+    }
+  }
+}
+
+// this thread's rows of a (.., S, .., D) output whose row i starts at out +
+// i * row_stride, from row0, times mul; rows at or past n are not written
+template <typename T, int D, int NT, int RQ>
+__device__ __forceinline__ void store_acc(T* out, long long row_stride, int row0, int n,
+                                          const typename Acc<D, NT, RQ>::Tile& acc, float mul, int ra, int ca) {
+  using G = Acc<D, NT, RQ>;
+#pragma unroll
+  for (int q = 0; q < RQ; ++q)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = row0 + G::row(ra, q, r);
+      if (row >= n) continue;
+#pragma unroll
+      for (int v = 0; v < G::NV; ++v)
+#pragma unroll
+        for (int e = 0; e < G::VW; ++e)
+          st(out + row * row_stride + G::col(ca, v) + e, acc[4 * q + r][v * G::VW + e] * mul);
+    }
+}
+
+template <int D, int NT, int RQ>
+__device__ __forceinline__ void zero(typename Acc<D, NT, RQ>::Tile& acc) {
+#pragma unroll
+  for (int r = 0; r < 4 * RQ; ++r)
+#pragma unroll
+    for (int c = 0; c < Acc<D, NT, RQ>::NCOL; ++c) acc[r][c] = 0.f;
+}
+
+// dK and dV of one kv tile: a block per (kv tile, kv head, batch).  The
+// first half of the threads computes S^T, P^T and then dV; the second dP^T
+// and then dK.
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv(const Params p) {
+  using C = Cfg<D>;
+  using G = Acc<D, THREADS / 2, 2>;
+  constexpr int BR = C::BR, TI = C::TI, TJ = C::TJ, TILE = C::TILE, SPAD = C::SPAD;
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;
+  float* sV = sK + TILE;
+  float* sQ = sV + TILE;          // two stages
+  float* sdO = sQ + 2 * TILE;     // two stages
+  float* sP = sdO + 2 * TILE;     // [q row][kv row]
+  float* sdS = sP + BR * SPAD;    // [q row][kv row]: dP^T, then dS^T
+  float* sRow = sdS + BR * SPAD;  // per stage: lse, then D_i
+
+  const int half = threadIdx.x / (THREADS / 2), w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int rg = (lane >> 3) + 4 * (w & 1), cg = (lane & 7) + 8 * (w >> 1);  // score micro-tile
+  const int ra = G::ra(w, lane), ca = G::ca(w, lane);  // accumulator
   const int k0 = blockIdx.x * BR;  // causal: the first kv tiles see the most q tiles and start first
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
-  const int G = p.Hq / p.Hkv;
+  const int G_ = p.Hq / p.Hkv;
+  const int q_begin = p.causal ? k0 : 0;  // causal (Sq == Sk): q rows below k0 see nothing of this tile
+  const int nq = q_begin < p.Sq ? (p.Sq - q_begin + BR - 1) / BR : 0;
+  const int n_it = G_ * nq;  // (q head of the group, q tile) pairs, head-major
 
-  stage<T, D>(sK, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Sk);
-  stage<T, D>(sV, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Sk);
+  // bring q tile `it` of the walk into stage it & 1, as one cp.async group
+  auto issue = [&](int it) {
+    const int s = it & 1, h = hk * G_ + it / nq, q0 = q_begin + (it % nq) * BR;
+    stage<D>(sQ + s * TILE, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq, p.vec);
+    stage<D>(sdO + s * TILE, static_cast<const T*>(p.dout) + b * p.d_sb + h * p.d_sh, p.d_ss, q0, p.Sq, p.vec);
+    stage_rows(sRow + s * 2 * BR, sRow + s * 2 * BR + BR, p, size_t(b) * p.Hq + h, q0, BR);
+    cp_commit();
+  };
+  stage<D>(sK, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Sk, p.vec);
+  stage<D>(sV, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Sk, p.vec);
+  cp_commit();
+  if (n_it > 0) issue(0);
 
-  float dk[TR][NC], dv[TR][NC];
-#pragma unroll
-  for (int a = 0; a < TR; ++a)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dk[a][c] = dv[a][c] = 0.f;
+  typename G::Tile acc;  // dV (first half) or dK (second half)
+  zero<D, THREADS / 2, 2>(acc);
 
-  // causal (Sq == Sk): q rows below k0 see nothing of this tile
-  const int q_begin = p.causal ? k0 : 0;
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
-    const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const T* gO = static_cast<const T*>(p.dout) + b * p.d_sb + h * p.d_sh;
-    for (int q0 = q_begin; q0 < p.Sq; q0 += BR) {
-      __syncthreads();  // the previous tile's reads of sQ, sdO, sP, sdS are done
-      stage<T, D>(sQ, q, p.q_ss, q0, p.Sq);
-      stage<T, D>(sdO, gO, p.d_ss, q0, p.Sq);
-      stage_rows(sLse, sDelta, p, size_t(b) * p.Hq + h, q0, BR);
-      __syncthreads();
-      score_tile<D>(p, sQ, sdO, sK, sV, sLse, sDelta, sP, sdS, q0, k0);
-      __syncthreads();
-      // thread (ty, tx): kv rows ty*TR + a, head-dim columns tx + 16 c
-#pragma unroll 4
-      for (int r = 0; r < BR; ++r) {
-        float pv[TR], sv[TR], gv[NC], qv[NC];
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it & 1, q0 = q_begin + (it % nq) * BR;
+    cp_wait<0>();
+    __syncthreads();  // stage s has landed for every thread, and every read of stage s ^ 1 is done
+    if (it + 1 < n_it) issue(it + 1);
+    const float* tQ = sQ + s * TILE;
+    const float* tdO = sdO + s * TILE;
+    const float* lse = sRow + s * 2 * BR;
+
+    // S^T = K Q^T or dP^T = V dO^T, rows kv and columns q, stored transposed
+    float sc[TI][TJ];
+    scores<D>(half ? sV : sK, half ? tdO : tQ, sc, rg, cg);
+    float* dst = half ? sdS : sP;
 #pragma unroll
-        for (int a = 0; a < TR; ++a) {
-          pv[a] = sP[r * SP + ty * TR + a];
-          sv[a] = sdS[r * SP + ty * TR + a];
-        }
+    for (int i = 0; i < TI; ++i)
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          gv[c] = sdO[r * LD + tx + 16 * c];
-          qv[c] = sQ[r * LD + tx + 16 * c];
-        }
-#pragma unroll
-        for (int a = 0; a < TR; ++a)
-#pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            dv[a][c] = fmaf(pv[a], gv[c], dv[a][c]);
-            dk[a][c] = fmaf(sv[a], qv[c], dk[a][c]);
-          }
-      }
-    }
+      for (int j = 0; j < TJ; ++j) dst[(cg + 16 * j) * SPAD + rg + 8 * i] = sc[i][j];
+    __syncthreads();
+    form_p_ds<D, true>(sP, sdS, lse, lse + BR, q0, k0, p);
+    __syncthreads();
+    // dV += P^T dO or dK += dS^T Q, reduced over the tile's q rows
+    accumulate<D, THREADS / 2, 2>(half ? sdS : sP, half ? tQ : tdO, acc, ra, ca);
   }
+  cp_wait<0>();  // with no q tile, nothing waited for K and V
 
-  T* dk_out = static_cast<T*>(p.dk);
-  T* dv_out = static_cast<T*>(p.dv);
-#pragma unroll
-  for (int a = 0; a < TR; ++a) {
-    const int row = k0 + ty * TR + a;
-    if (row >= p.Sk) continue;
-    const size_t base = ((size_t(b) * p.Sk + row) * p.Hkv + hk) * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      st(dk_out + base + tx + 16 * c, dk[a][c] * p.scale);
-      st(dv_out + base + tx + 16 * c, dv[a][c]);
-    }
-  }
+  const size_t out = (size_t(b) * p.Sk * p.Hkv + hk) * D;  // row r at + r Hkv D
+  store_acc<T, D, THREADS / 2, 2>(static_cast<T*>(half ? p.dk : p.dv) + out, (long long)p.Hkv * D, k0, p.Sk, acc,
+                                  half ? p.scale : 1.f, ra, ca);
 }
 
-// dQ of one q tile: a block per (q tile, q head, batch).
+// dQ of one q tile: a block per (q tile, q head, batch).  The first half of
+// the threads computes S and P, the second dP; all of them dQ.
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq(const Params p) {
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq(const Params p) {
   using C = Cfg<D>;
-  constexpr int BR = C::BR, LD = C::LD, SP = C::SP, TR = C::TR, NC = C::NC;
-  extern __shared__ float smem[];
+  constexpr int RQ = D >= 64 ? 2 : 1;  // dQ's row quads a thread: 8 x 4 blocks (4 x 8 at D = 32)
+  using G = Acc<D, THREADS, RQ>;
+  constexpr int BR = C::BR, TI = C::TI, TJ = C::TJ, TILE = C::TILE, SPAD = C::SPAD;
+  extern __shared__ __align__(16) float smem[];
   float* sQ = smem;
-  float* sdO = sQ + BR * LD;
-  float* sK = sdO + BR * LD;
-  float* sV = sK + BR * LD;
-  float* sdS = sV + BR * LD;
-  float* sLse = sdS + 2 * BR * SP;  // the layout of flash_bwd_dkdv; the P tile is not needed here
+  float* sdO = sQ + TILE;
+  float* sK = sdO + TILE;        // two stages
+  float* sV = sK + 2 * TILE;     // two stages
+  float* sP = sV + 2 * TILE;     // [kv row][q row]
+  float* sdS = sP + BR * SPAD;   // [kv row][q row]: dP, then dS
+  float* sLse = sdS + BR * SPAD;
   float* sDelta = sLse + BR;
 
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int half = threadIdx.x / (THREADS / 2), w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int rg = (lane >> 3) + 4 * (w & 1), cg = (lane & 7) + 8 * (w >> 1);  // score micro-tile
+  const int ra = G::ra(threadIdx.x >> 5, lane), ca = G::ca(threadIdx.x >> 5, lane);
   const int n_qtiles = (p.Sq + BR - 1) / BR;
   const int q0 = (n_qtiles - 1 - int(blockIdx.x)) * BR;  // causal: the last q tiles see the most kv tiles
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
-
-  stage<T, D>(sQ, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq);
-  stage<T, D>(sdO, static_cast<const T*>(p.dout) + b * p.d_sb + h * p.d_sh, p.d_ss, q0, p.Sq);
-  stage_rows(sLse, sDelta, p, size_t(b) * p.Hq + h, q0, BR);
+  const int k_end = p.causal ? min(p.Sk, q0 + BR) : p.Sk;
+  const int nkv = (k_end + BR - 1) / BR;  // 0 when Sk == 0: dQ = 0
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  float dq[TR][NC];
-#pragma unroll
-  for (int a = 0; a < TR; ++a)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dq[a][c] = 0.f;
+  auto issue = [&](int it) {
+    const int s = it & 1;
+    stage<D>(sK + s * TILE, k, p.k_ss, it * BR, p.Sk, p.vec);
+    stage<D>(sV + s * TILE, v, p.v_ss, it * BR, p.Sk, p.vec);
+    cp_commit();
+  };
+  stage<D>(sQ, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq, p.vec);
+  stage<D>(sdO, static_cast<const T*>(p.dout) + b * p.d_sb + h * p.d_sh, p.d_ss, q0, p.Sq, p.vec);
+  stage_rows(sLse, sDelta, p, size_t(b) * p.Hq + h, q0, BR);
+  cp_commit();
+  if (nkv > 0) issue(0);
 
-  const int k_end = p.causal ? min(p.Sk, q0 + BR) : p.Sk;
-  for (int k0 = 0; k0 < k_end; k0 += BR) {
-    __syncthreads();  // the previous tile's reads of sK, sdS are done
-    stage<T, D>(sK, k, p.k_ss, k0, p.Sk);
-    stage<T, D>(sV, v, p.v_ss, k0, p.Sk);
-    __syncthreads();
-    score_tile<D>(p, sQ, sdO, sK, sV, sLse, sDelta, nullptr, sdS, q0, k0);
-    __syncthreads();
-    // thread (ty, tx): q rows ty*TR + a, head-dim columns tx + 16 c
-#pragma unroll 4
-    for (int c2 = 0; c2 < BR; ++c2) {
-      float sv[TR], kv[NC];
-#pragma unroll
-      for (int a = 0; a < TR; ++a) sv[a] = sdS[(ty * TR + a) * SP + c2];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) kv[c] = sK[c2 * LD + tx + 16 * c];
-#pragma unroll
-      for (int a = 0; a < TR; ++a)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) dq[a][c] = fmaf(sv[a], kv[c], dq[a][c]);
-    }
-  }
+  typename G::Tile dq;
+  zero<D, THREADS, RQ>(dq);
 
-  T* dq_out = static_cast<T*>(p.dq);
+  for (int it = 0; it < nkv; ++it) {
+    const int s = it & 1, k0 = it * BR;
+    cp_wait<0>();
+    __syncthreads();  // stage s has landed for every thread, and every read of stage s ^ 1 is done
+    if (it + 1 < nkv) issue(it + 1);
+    const float* tK = sK + s * TILE;
+
+    // S = Q K^T or dP = dO V^T, rows q and columns kv, stored transposed
+    float sc[TI][TJ];
+    scores<D>(half ? sdO : sQ, half ? sV + s * TILE : tK, sc, rg, cg);
+    float* dst = half ? sdS : sP;
 #pragma unroll
-  for (int a = 0; a < TR; ++a) {
-    const int row = q0 + ty * TR + a;
-    if (row >= p.Sq) continue;
-    const size_t base = ((size_t(b) * p.Sq + row) * p.Hq + h) * D;
+    for (int i = 0; i < TI; ++i)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) st(dq_out + base + tx + 16 * c, dq[a][c] * p.scale);
+      for (int j = 0; j < TJ; ++j) dst[(cg + 16 * j) * SPAD + rg + 8 * i] = sc[i][j];
+    __syncthreads();
+    form_p_ds<D, false>(sP, sdS, sLse, sDelta, q0, k0, p);
+    __syncthreads();
+    // dQ += dS K, reduced over the tile's kv rows
+    accumulate<D, THREADS, RQ>(sdS, tK, dq, ra, ca);
   }
+  cp_wait<0>();
+
+  const size_t out = (size_t(b) * p.Sq * p.Hq + h) * D;  // row r at + r Hq D
+  store_acc<T, D, THREADS, RQ>(static_cast<T*>(p.dq) + out, (long long)p.Hq * D, q0, p.Sq, dq, p.scale, ra, ca);
 }
 
 template <typename T, int D>
 int launch(const Params& p, cudaStream_t stream) {
   using C = Cfg<D>;
   cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       int(C::SMEM));
+                                       int(C::SMEM_KV));
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(flash_bwd_dq<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::SMEM));
+    e = cudaFuncSetAttribute(flash_bwd_dq<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::SMEM_Q));
   if (e != cudaSuccess) return int(e);
   const long long rows = (long long)p.B * p.Hq * p.Sq;
   if (rows > 0) {
@@ -354,14 +541,21 @@ int launch(const Params& p, cudaStream_t stream) {
     if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
   }
   if (p.Sk > 0) {  // with Sq == 0 the kernel writes dK = dV = 0
-    flash_bwd_dkdv<T, D><<<dim3((p.Sk + C::BR - 1) / C::BR, p.Hkv, p.B), THREADS, C::SMEM, stream>>>(p);
+    flash_bwd_dkdv<T, D><<<dim3((p.Sk + C::BR - 1) / C::BR, p.Hkv, p.B), THREADS, C::SMEM_KV, stream>>>(p);
     if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
   }
   if (p.Sq > 0) {  // with Sk == 0 the kernel writes dQ = 0
-    flash_bwd_dq<T, D><<<dim3((p.Sq + C::BR - 1) / C::BR, p.Hq, p.B), THREADS, C::SMEM, stream>>>(p);
+    flash_bwd_dq<T, D><<<dim3((p.Sq + C::BR - 1) / C::BR, p.Hq, p.B), THREADS, C::SMEM_Q, stream>>>(p);
     if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
   }
   return 0;
+}
+
+// whether a (B, S, H, D) fp32 tensor's rows can be copied 16 bytes at a time:
+// its base and the strides of its dimensions longer than 1 16-byte aligned
+bool rows_aligned(const void* ptr, long long sb, long long ss, long long sh, int B, int S, int H) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && (B <= 1 || sb % 4 == 0) && (S <= 1 || ss % 4 == 0) &&
+         (H <= 1 || sh % 4 == 0);
 }
 
 template <typename T>
@@ -390,10 +584,12 @@ extern "C" int repro_flash_attention_bwd(
     float scale, int causal, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || (causal && Sq != Sk)) return int(cudaErrorInvalidValue);
   if (B == 0 || Hq == 0) return 0;
+  const int vec = rows_aligned(q, q_sb, q_ss, q_sh, B, Sq, Hq) && rows_aligned(dout, d_sb, d_ss, d_sh, B, Sq, Hq) &&
+                  rows_aligned(k, k_sb, k_ss, k_sh, B, Sk, Hkv) && rows_aligned(v, v_sb, v_ss, v_sh, B, Sk, Hkv);
   const Params p{q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(delta), dq, dk, dv,
                  B, Sq, Sk, Hq, Hkv,
                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, d_sb, d_ss, d_sh,
-                 scale, causal};
+                 scale, scale * LOG2E, causal, vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return dispatch_dim<float>(p, D, s);

@@ -4,12 +4,13 @@
 //
 // Replaces the gradient that XLA takes of repro/kernels/ops.py::_xla_flash,
 // the blocked online-softmax form the JAX package trains through off the
-// TPU (the Pallas kernel _flash_kernel has no backward), for bf16 at head
-// dims 32, 64 and 128: dense training's type and widths.  Same function as
-// flash_attention_bwd.cu, which keeps fp32 (TF32 would miss the fp32
-// tolerance) and bf16 at D = 256: the gradients of softmax(q k^T * scale) v
-// with respect to q, k and v, per query head, kv head h / group (GQA: dK and
-// dV summed over the group), causal (Sq == Sk) or not.
+// TPU (the Pallas kernel _flash_kernel has no backward), for bf16 at every
+// head dim (32, 64, 128 and 256): dense training's type and widths, gemma-7b's
+// and paligemma-3b's 256 among them.  Same function as flash_attention_bwd.cu,
+// which keeps fp32 (TF32 would miss the fp32 tolerance): the gradients of
+// softmax(q k^T * scale) v with respect to q, k and v, per query head, kv
+// head h / group (GQA and MQA: dK and dV summed over the group), causal
+// (Sq == Sk) or not.
 //
 // Layout: q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D), o and dO (B, Sq, Hq, D)
 // read through their strides (the head dim contiguous; q, k, v and dO with
@@ -25,7 +26,7 @@
 //      backward's flash_bwd_delta), which also writes lse * log2(e); both
 //      padded to Sq_pad with D_i = 0 and lse = +inf, so that a q tile's 64
 //      values are one aligned 256-byte bulk copy and padded rows get P = 0;
-//   2. flash_bwd_dkdv_wgmma: one warpgroup per (kv head, 64-row kv tile,
+//   2. flash_bwd_dkdv_wgmma: one block per (kv head, 64-row kv tile,
 //      batch) loads its K and V tile once by TMA, then streams (Q, lse) and
 //      (dO, D_i) tiles through a two-stage TMA ring on mbarriers, over the
 //      GQA group's q heads and the q tiles from the causal diagonal on.  Per
@@ -42,12 +43,26 @@
 //        dS^T = P^T (dP^T - D_i), D_i by column;
 //        dK += dS^T Q         rs, Q read transposed;
 //      dK takes the scale once at the end;
-//   3. flash_bwd_dq_wgmma: one warpgroup per (q head, 64-row q tile, batch)
+//   3. flash_bwd_dq_wgmma: one block per (q head, 64-row q tile, batch)
 //      loads Q and dO once and streams K and V through a two-stage ring up
 //      to the diagonal: S = Q K^T and dP = dO V^T (ss, issued together), P
 //      and dS on the fragment with lse and D_i per row, the ragged kv edge
 //      and the diagonal masked (TMA zero-fills K rows past Sk, and a zero
 //      score would give P > 0), dQ += dS K (rs, K read transposed).
+//
+// Head dim 256 (Split<256>): a block runs two consumer warpgroups, and each
+// owns one half of D of the block's outputs (dK and dV, or dQ): 64 x 128
+// accumulators, 128 registers a thread in the dK/dV kernel as at D = 128,
+// where one warpgroup holding all of D would need 256.  Both halves need the
+// whole S^T and dP^T (sums over all of D), and each warpgroup computes both
+// from the shared tiles itself, rather than one computing S^T and the other
+// dP^T and trading P and dS through shared memory: no exchange buffer, no
+// barrier between the two inside a tile, and each keeps the D <= 128
+// kernel's register layout, at 1.33x the tensor work of one warpgroup
+// holding all of D (S and dP twice; dV and dK, with their second bf16 term,
+// split).  The dQ kernel takes the same split: one warpgroup would hold a
+// 128-register dQ plus S and dP, and a ~198 KB block leaves one warpgroup an
+// SM.  Shared memory at D = 256: dkdv_smem 198,696 and dq_smem 197,672 bytes.
 //
 // Numerics.  P and dS enter their products as bf16: P as P_TERMS terms and
 // dS as DS_TERMS (one term = bf16(x), two = hi + bf16(x - hi), ~16 bits),
@@ -58,10 +73,10 @@
 // What bounds it: five products of 2 Sq Sk D per head (halved when causal)
 // against q, k, v, o, dO read and dq, dk, dv written once; at training's
 // S = 2048, D = 128 the products bound it.  The kernels run seven (S and dP
-// in both), plus one for each second bf16 term.  This first version keeps a
-// warpgroup's products in sequence (no producer warp, no second consumer
-// warpgroup), so a block's time is its chain of tiles; shared memory is
-// ~98 KB a dK/dV block at D = 128, so two blocks can share an SM.
+// in both), plus one for each second bf16 term.  A warpgroup keeps its
+// products in sequence (no producer warp), so a block's time is its chain of
+// tiles; shared memory is ~98 KB a dK/dV block at D = 128, so two blocks can
+// share an SM, and ~198 KB at D = 256, one block of two warpgroups.
 
 #include <math.h>
 
@@ -71,14 +86,28 @@ namespace {
 
 using namespace flash;
 
-constexpr int BR = ROWS;      // rows of every q and kv tile
-constexpr int STAGES = 2;     // ring depth
-constexpr int THREADS = 128;  // one warpgroup
+constexpr int BR = ROWS;   // rows of every q and kv tile
+constexpr int STAGES = 2;  // ring depth
+constexpr int WG_THREADS = 128;
 constexpr int PREP_THREADS = 256;
 constexpr int P_TERMS = 2;   // bf16 terms of P in dV += P^T dO
 constexpr int DS_TERMS = 2;  // bf16 terms of dS in dK += dS^T Q and dQ += dS K
 constexpr int ROW_BYTES = BR * 4;  // one q tile's lse or D_i
 constexpr float LOG2E = 1.4426950408889634f;
+
+// Consumer warpgroups of a dK/dV or dQ block: one up to D = 128; two at
+// D = 256, each owning half of D's output columns (its accumulators alone
+// would otherwise take 256 registers a thread).  Both run the score products
+// S and dP over the whole of D.
+template <int D>
+struct Split {
+  static constexpr int WG = D > 128 ? 2 : 1;
+  static constexpr int THREADS = WG * WG_THREADS;
+  static constexpr int NBW = Tile<D>::NOB / WG;  // NB-column output blocks a warpgroup owns
+  static_assert(Tile<D>::NOB % WG == 0, "whole output blocks per warpgroup");
+};
+template <int D>
+using Acc = float[Split<D>::NBW][Tile<D>::NB / 2];  // a warpgroup's 64-row share of a dK, dV or dQ tile
 
 // K, V, the (Q, dO) ring, each stage's lse and D_i rows, the barriers
 template <int D>
@@ -137,17 +166,17 @@ __global__ void __launch_bounds__(PREP_THREADS) flash_bwd_prep(const Params p) {
 }
 
 template <int D>
-__device__ __forceinline__ void zero(float (&a)[Tile<D>::NOB][Tile<D>::NB / 2]) {
+__device__ __forceinline__ void zero(Acc<D>& a) {
 #pragma unroll
-  for (int nb = 0; nb < Tile<D>::NOB; ++nb)
+  for (int nb = 0; nb < Split<D>::NBW; ++nb)
 #pragma unroll
     for (int i = 0; i < Tile<D>::NB / 2; ++i) a[nb][i] = 0.f;
 }
 
 template <int D>
-__device__ __forceinline__ void pin_all(float (&a)[Tile<D>::NOB][Tile<D>::NB / 2]) {
+__device__ __forceinline__ void pin_all(Acc<D>& a) {
 #pragma unroll
-  for (int nb = 0; nb < Tile<D>::NOB; ++nb) pin(a[nb]);
+  for (int nb = 0; nb < Split<D>::NBW; ++nb) pin(a[nb]);
 }
 
 // acc[64 x 64] = A B^T over the head dim, both 64 x D tiles K-major
@@ -161,19 +190,20 @@ __device__ __forceinline__ void issue_scores(float (&acc)[32], uint32_t a, uint3
   for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(acc, desc_kmajor<D>(a, kk), desc_kmajor<D>(b, kk));
 }
 
-// acc[64 x D] += X[64 x 64] T[64 x D], X as TERMS bf16 A fragments, T a tile
-// read transposed (MN-major)
+// acc[64 x D / WG] += X[64 x 64] T[64 x D / WG], X as TERMS bf16 A
+// fragments, T the output blocks [nb0, nb0 + NBW) of a tile read transposed
+// (MN-major)
 template <int D, int TERMS>
-__device__ __forceinline__ void accumulate(float (&acc)[Tile<D>::NOB][Tile<D>::NB / 2], const uint32_t (&hi)[16],
-                                           const uint32_t (&lo)[16], uint32_t tile) {
+__device__ __forceinline__ void accumulate(Acc<D>& acc, const uint32_t (&hi)[16], const uint32_t (&lo)[16],
+                                           uint32_t tile, int nb0) {
   using T = Tile<D>;
   pin_all<D>(acc);
   wg_fence();
 #pragma unroll
-  for (int nb = 0; nb < T::NOB; ++nb)
+  for (int nb = 0; nb < Split<D>::NBW; ++nb)
 #pragma unroll
     for (int j = 0; j < BR / 16; ++j) {
-      const uint64_t db = desc_mnmajor<D>(tile, nb, j);
+      const uint64_t db = desc_mnmajor<D>(tile, nb0 + nb, j);
       wgmma_rs<T::NB>(acc[nb], hi + 4 * j, db);
       if constexpr (TERMS == 2) wgmma_rs<T::NB>(acc[nb], lo + 4 * j, db);
     }
@@ -184,7 +214,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[Tile<D>::NOB][Tile<D>::N
 
 // dK and dV of one 64-row kv tile.  Fragment rows are kv rows, columns q rows.
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
+__global__ void __launch_bounds__(Split<D>::THREADS, 1) flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                                                                     const __grid_constant__ CUtensorMap tk,
                                                                     const __grid_constant__ CUtensorMap tv,
                                                                     const __grid_constant__ CUtensorMap tdo,
@@ -202,8 +232,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_wgmma(const __grid_
   const uint32_t bar_do = bar_q + 8 * STAGES;  // + 8 s: dO and D_i of stage s
   const float* rows = reinterpret_cast<const float*>(smem_raw + (sRow - raw));
 
+  constexpr int NBW = Split<D>::NBW;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
+  const int wg = tid / WG_THREADS, warp = (tid >> 5) & 3, lane = tid & 31;  // warp within its warpgroup
   const int hk = blockIdx.x;
   const int k0 = blockIdx.y * BR;  // causal: the first kv tiles see the most q tiles and start first
   const int b = blockIdx.z;
@@ -243,7 +274,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_wgmma(const __grid_
   const int r0 = k0 + warp * 16 + (lane >> 2);  // this thread's kv rows: r0 and r0 + 8
   const int cq = (lane & 3) * 2;                // its q column pair within each 8-column group
 
-  float dk[T::NOB][T::NB / 2], dv[T::NOB][T::NB / 2];
+  Acc<D> dk, dv;  // this warpgroup's output blocks [wg NBW, (wg + 1) NBW)
   zero<D>(dk);
   zero<D>(dv);
 
@@ -283,7 +314,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_wgmma(const __grid_
     mbar_wait(bar_do + 8 * s, phase);
     pin(pa);
     if constexpr (P_TERMS == 2) pin(pb);
-    accumulate<D, P_TERMS>(dv, pa, pb, tdO);
+    accumulate<D, P_TERMS>(dv, pa, pb, tdO, wg * NBW);
 
     // dP^T = V dO^T, then dS^T = P^T (dP^T - D_i) in its place
     float dp[32];
@@ -303,7 +334,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_wgmma(const __grid_
     // dK += dS^T Q
     pin(sa);
     if constexpr (DS_TERMS == 2) pin(sb);
-    accumulate<D, DS_TERMS>(dk, sa, sb, tQ);
+    accumulate<D, DS_TERMS>(dk, sa, sb, tQ, wg * NBW);
 
     // every warp is done with stage s: refill it with the tile STAGES ahead
     __syncthreads();
@@ -311,14 +342,14 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_wgmma(const __grid_
   }
 
   const float one[2] = {1.f, 1.f}, scale[2] = {p.scale, p.scale};
-  const size_t out = (size_t(b) * p.Sk * p.Hkv + hk) * D;  // row r at + r Hkv D
-  store_rows<D>(static_cast<__nv_bfloat16*>(p.dk) + out, (long long)p.Hkv * D, k0, p.Sk, dk, scale);
-  store_rows<D>(static_cast<__nv_bfloat16*>(p.dv) + out, (long long)p.Hkv * D, k0, p.Sk, dv, one);
+  const size_t out = (size_t(b) * p.Sk * p.Hkv + hk) * D + wg * NBW * T::NB;  // row r at + r Hkv D
+  store_rows<D, NBW>(static_cast<__nv_bfloat16*>(p.dk) + out, (long long)p.Hkv * D, k0, p.Sk, dk, scale);
+  store_rows<D, NBW>(static_cast<__nv_bfloat16*>(p.dv) + out, (long long)p.Hkv * D, k0, p.Sk, dv, one);
 }
 
 // dQ of one 64-row q tile.  Fragment rows are q rows, columns kv rows.
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+__global__ void __launch_bounds__(Split<D>::THREADS, 1) flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                                                                   const __grid_constant__ CUtensorMap tk,
                                                                   const __grid_constant__ CUtensorMap tv,
                                                                   const __grid_constant__ CUtensorMap tdo,
@@ -333,8 +364,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma(const __grid_co
   const uint32_t bar_k = bar_q + 8;           // + 8 s
   const uint32_t bar_v = bar_k + 8 * STAGES;  // + 8 s
 
+  constexpr int NBW = Split<D>::NBW;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
+  const int wg = tid / WG_THREADS, warp = (tid >> 5) & 3, lane = tid & 31;  // warp within its warpgroup
   const int h = blockIdx.x;
   const int q0 = (p.Sq_pad / BR - 1 - int(blockIdx.y)) * BR;  // causal: the last q tiles see the most kv tiles
   const int b = blockIdx.z;
@@ -374,7 +406,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma(const __grid_co
     for (int s = 0; s < STAGES && s < nkv; ++s) issue(s, s);
   }
 
-  float dq[T::NOB][T::NB / 2];
+  Acc<D> dq;  // this warpgroup's output blocks [wg NBW, (wg + 1) NBW)
   zero<D>(dq);
 
   if (nkv > 0) mbar_wait(bar_q, 0);
@@ -412,15 +444,15 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma(const __grid_co
     // dQ += dS K
     pin(sa);
     if constexpr (DS_TERMS == 2) pin(sb);
-    accumulate<D, DS_TERMS>(dq, sa, sb, tK);
+    accumulate<D, DS_TERMS>(dq, sa, sb, tK, wg * NBW);
 
     __syncthreads();
     if (tid == 0 && it + STAGES < nkv) issue(it + STAGES, s);
   }
 
   const float scale[2] = {p.scale, p.scale};
-  const size_t out = (size_t(b) * p.Sq * p.Hq + h) * D;  // row r at + r Hq D
-  store_rows<D>(static_cast<__nv_bfloat16*>(p.dq) + out, (long long)p.Hq * D, q0, p.Sq, dq, scale);
+  const size_t out = (size_t(b) * p.Sq * p.Hq + h) * D + wg * NBW * T::NB;  // row r at + r Hq D
+  store_rows<D, NBW>(static_cast<__nv_bfloat16*>(p.dq) + out, (long long)p.Hq * D, q0, p.Sq, dq, scale);
 }
 
 // ---------------------------------------------------------------- host side
@@ -453,12 +485,13 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
     if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
   }
   if (p.Sk > 0) {  // with Sq == 0 the kernel writes dK = dV = 0
-    flash_bwd_dkdv_wgmma<D><<<dim3(p.Hkv, (p.Sk + BR - 1) / BR, p.B), THREADS, SMEM_KV, stream>>>(tq, tk, tv, tdo,
-                                                                                                    p);
+    flash_bwd_dkdv_wgmma<D><<<dim3(p.Hkv, (p.Sk + BR - 1) / BR, p.B), Split<D>::THREADS, SMEM_KV, stream>>>(
+        tq, tk, tv, tdo, p);
     if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
   }
   if (p.Sq > 0) {  // with Sk == 0 the kernel writes dQ = 0
-    flash_bwd_dq_wgmma<D><<<dim3(p.Hq, p.Sq_pad / BR, p.B), THREADS, SMEM_Q, stream>>>(tq, tk, tv, tdo, p);
+    flash_bwd_dq_wgmma<D><<<dim3(p.Hq, p.Sq_pad / BR, p.B), Split<D>::THREADS, SMEM_Q, stream>>>(tq, tk, tv, tdo,
+                                                                                                 p);
     if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
   }
   return 0;
@@ -493,6 +526,7 @@ extern "C" int repro_flash_attention_bwd_wgmma(
     case 32: return launch<32>(q, k, v, dout, p, st, s);
     case 64: return launch<64>(q, k, v, dout, p, st, s);
     case 128: return launch<128>(q, k, v, dout, p, st, s);
+    case 256: return launch<256>(q, k, v, dout, p, st, s);
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -23,14 +23,19 @@ call picks one by dtype and head dim (:func:`select_route` forward,
   which misses the fp32 tolerance (2e-5) that the fp32 checks hold the
   kernel to.  It also takes bf16 at D = 256 when asked (``route="simt"``),
   so that the two can be timed side by side.
-* **backward, bf16 at D in 32/64/128 → ``csrc/flash_attention_bwd_wgmma.cu``**
+* **backward, bf16 at every head dim → ``csrc/flash_attention_bwd_wgmma.cu``**
   (route ``"wgmma"``), dense training's: the FlashAttention-2 split in
   three launches (``Dᵢ = rowsum(dO ∘ O)``; dK and dV per kv tile; dQ per q
   tile), all seven products on ``wgmma``, q/k/v/dO tiles by TMA, P and dS
   as the A operands from registers, each as two bf16 terms
-  (:data:`BWD_P_TERMS`, :data:`BWD_DS_TERMS`).
-* **backward, fp32, and bf16 at D = 256 → ``csrc/flash_attention_bwd.cu``**
-  (route ``"simt"``), the same split with every product as fp32 FMAs.
+  (:data:`BWD_P_TERMS`, :data:`BWD_DS_TERMS`).  At D = 256 (gemma-7b,
+  paligemma-3b) a block runs two consumer warpgroups, each owning half of
+  D's output columns, so that the dK and dV accumulators fit the registers.
+* **backward, fp32 → ``csrc/flash_attention_bwd.cu``** (route ``"simt"``),
+  the same split with every product as fp32 FMAs on register-blocked
+  micro-tiles, float4 reads of swizzled tiles and ``cp.async`` double
+  buffering.  It also takes bf16 when asked (``route="simt"``), for timing
+  beside the tensor-core kernel.
 
 Every forward kernel can write the rows' logsumexp (``return_lse=True``),
 which the backward reads.  The JAX package has no backward kernel: off the
@@ -76,8 +81,8 @@ __all__ = [
 SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
 #: the head dims the tensor-core forward kernel takes (every supported one)
 WGMMA_HEAD_DIMS = (32, 64, 128, 256)
-#: the head dims the tensor-core backward kernel takes; bf16 at D = 256 runs the SIMT backward
-BWD_WGMMA_HEAD_DIMS = (32, 64, 128)
+#: the head dims the tensor-core backward kernel takes (every supported one)
+BWD_WGMMA_HEAD_DIMS = (32, 64, 128, 256)
 #: dtype → the kernel a CUDA call of that dtype launches at a head dim the tensor-core kernel takes
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
 #: the SIMT kernels' element-type codes
@@ -122,9 +127,9 @@ def select_route(dtype: torch.dtype, head_dim: int) -> str:
 
 def select_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """The backward kernel that a CUDA call on ``dtype`` at ``head_dim``
-    launches: ``"wgmma"`` for bf16 at a head dim in
-    :data:`BWD_WGMMA_HEAD_DIMS`, ``"simt"`` for fp32 and for bf16 at head dim
-    256; any other dtype or head dim raises."""
+    launches: ``"wgmma"`` (the tensor-core kernel) for bf16 at every head dim
+    in :data:`BWD_WGMMA_HEAD_DIMS`, ``"simt"`` for fp32; any other dtype or
+    head dim raises."""
     return _route(dtype, head_dim, BWD_WGMMA_HEAD_DIMS)
 
 
@@ -325,7 +330,7 @@ def flash_attention_backward(
     with Sq == Sk): ``csrc/flash_attention_bwd_wgmma.cu`` for bf16 at
     :data:`BWD_WGMMA_HEAD_DIMS` (q, k, v and dO also aligned as
     :func:`tma_strides` checks), ``csrc/flash_attention_bwd.cu`` for fp32
-    and bf16 at D = 256 (any strides).  ``route="simt"`` asks for the SIMT
+    (any strides).  ``route="simt"`` asks for the SIMT
     kernel on bf16 at every head dim (for timing it beside the tensor-core
     one; nothing on the main path passes it).  It counts the call in
     ``flash_attention_backward.launches`` (each call launches

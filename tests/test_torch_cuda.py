@@ -160,7 +160,8 @@ LSE_TOL = dict(atol=1e-4, rtol=1e-5)
 BWD_FP32_TOL = dict(atol=1e-4, rtol=1e-4)
 #: (B, Sq, Sk, Hq, Hkv, D, causal): every head dim, GQA groups 1, 2, 3 and 4,
 #: lengths that are not a multiple of the 64-row (32 at D = 256) tile, and
-#: non-causal cross lengths
+#: non-causal cross lengths; fp32 runs the SIMT kernel, bf16 the tensor-core
+#: one
 BWD_GRID = [
     (1, 128, 128, 4, 4, 32, True), (2, 100, 100, 4, 2, 64, True), (1, 70, 150, 6, 2, 64, False),
     (2, 65, 65, 2, 2, 128, True), (1, 200, 90, 4, 1, 128, False), (1, 97, 97, 2, 1, 256, True),
@@ -207,6 +208,20 @@ def test_backward_kernel_reads_strided_inputs_and_masked_rows(cuda):
     assert torch.count_nonzero(dq) == 0 and dk.shape == (1, 0, 2, 32) and dv.shape == (1, 0, 2, 32)
 
 
+@pytest.mark.parametrize("D", [32, 128, 256])
+def test_backward_kernel_fp32_copies_unaligned_rows(cuda, D):
+    """fp32 q, k, v and dO whose rows are not 16-byte aligned (head stride D +
+    1 floats) take the SIMT kernel's 4-byte copies and agree with the plain
+    backward as the aligned ones do."""
+    g = torch.Generator().manual_seed(D)
+    q, k, v, do = (torch.randn(1, 70, 3, D + 1, generator=g).to(cuda)[..., :D] for _ in range(4))
+    assert q.stride(2) % 4 != 0 and q.stride(-1) == 1
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=True)
+    for g_, w in zip(got, flash_backward_ref(q, k, v, o, lse, do, causal=True)):
+        torch.testing.assert_close(g_, w, **BWD_FP32_TOL)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_gradient_goes_through_both_kernels(cuda, dtype):
     """ops.flash_attention on CUDA tensors that need a gradient: the forward
@@ -227,30 +242,35 @@ def test_attention_gradient_goes_through_both_kernels(cuda, dtype):
 #: the tensor-core backward against the plain one: rtol BWD_RTOL plus
 #: BWD_ATOL_OF_MAX of the gradient's largest entry (chip_smoke.py's
 #: _grads_close): P and dS enter the products as bf16 terms, and each output
-#: is rounded once to bf16.  A gradient that is exactly 0 (one query that
-#: sees one key: dS = P (dP - D_i) = 0) is held to BWD_ZERO_ATOL, the fp32
-#: noise of dP - D_i summed in two orders (measured 3.7e-7 on the H100).
+#: is rounded once to bf16.  A gradient that is 0 in exact arithmetic (one
+#: query that sees one key: dS = P (dP - D_i) = 0) is held to BWD_ZERO_ATOL,
+#: the fp32 noise of dP - D_i summed in two orders, which both the kernel
+#: and the plain version leave (measured 3.7e-7 at D = 64 and 5.5e-7 at D =
+#: 256 on the H100); every other gradient's BWD_ATOL_OF_MAX share is above it.
 BWD_RTOL, BWD_ATOL_OF_MAX, BWD_ZERO_ATOL = 1e-2, 1e-3, 1e-6
-#: (B, Sq, Sk, Hq, Hkv, D, causal): head dims 32/64/128, GQA groups 1-4,
-#: ragged lengths (one row, one tile and one row, below one tile), non-causal
-#: Sq != Sk both ways
+#: (B, Sq, Sk, Hq, Hkv, D, causal): every head dim, GQA groups 1-4, MQA at
+#: D = 256 (8 q heads on 1 kv head, as paligemma-3b's backbone), ragged
+#: lengths (one row, one tile and one row, below one tile), non-causal Sq !=
+#: Sk both ways
 WGMMA_BWD_GRID = [
     (1, 128, 128, 4, 4, 32, True), (2, 100, 100, 4, 2, 64, True), (1, 65, 65, 8, 2, 128, True),
     (1, 1, 1, 2, 2, 64, True), (1, 70, 150, 6, 2, 64, False), (1, 200, 90, 4, 1, 128, False),
     (2, 40, 77, 4, 4, 32, False), (1, 257, 257, 3, 3, 128, True),
+    (1, 130, 130, 16, 16, 256, True), (2, 97, 97, 8, 1, 256, True), (1, 70, 150, 4, 2, 256, False),
+    (1, 1, 1, 2, 2, 256, True),
 ]
 
 
 def _assert_grads_close(got, want):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         g, w = g.float(), w.float()
-        atol = BWD_ATOL_OF_MAX * w.abs().max().item() or BWD_ZERO_ATOL
+        atol = max(BWD_ATOL_OF_MAX * w.abs().max().item(), BWD_ZERO_ATOL)
         torch.testing.assert_close(g, w, rtol=BWD_RTOL, atol=atol, msg=lambda m: f"{name}: {m}")
 
 
 @pytest.mark.parametrize("shape", WGMMA_BWD_GRID)
 def test_wgmma_backward_matches_plain(cuda, shape):
-    """bf16 at head dims 32-128 runs the tensor-core backward: one call, three
+    """bf16 at every head dim runs the tensor-core backward: one call, three
     CUDA kernels, against the plain FA-2 backward on the kernel's own o and
     lse; the SIMT backward, asked for by ``route``, agrees too."""
     B, Sq, Sk, Hq, Hkv, D, causal = shape
@@ -268,15 +288,16 @@ def test_wgmma_backward_matches_plain(cuda, shape):
     _assert_grads_close(fa.flash_attention_backward(q, k, v, o, lse, do, causal=causal, route="simt"), want)
 
 
-def test_wgmma_backward_reads_strided_inputs_and_masked_rows(cuda):
-    """q/k/v as slices of one packed projection, dO transposed (last dim
-    contiguous, 16-byte-aligned strides), a scale other than D^-0.5; rows
-    that see no key (Sk = 0) give zero dQ, and no query rows (Sq = 0) give
-    zero dK and dV."""
-    qkv = torch.randn(2, 96, 3, 4, 64, device=cuda).to(torch.bfloat16)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+@pytest.mark.parametrize("D,Hq,Hkv", [(64, 4, 4), (256, 8, 1)])
+def test_wgmma_backward_reads_strided_inputs_and_masked_rows(cuda, D, Hq, Hkv):
+    """q/k/v as slices of one packed projection (q, k and v heads side by
+    side; MQA at D = 256), dO transposed (last dim contiguous,
+    16-byte-aligned strides), a scale other than D^-0.5; rows that see no key
+    (Sk = 0) give zero dQ, and no query rows (Sq = 0) give zero dK and dV."""
+    qkv = torch.randn(2, 96, Hq + 2 * Hkv, D, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :Hq], qkv[:, :, Hq:Hq + Hkv], qkv[:, :, Hq + Hkv:]
     o, lse = fa.flash_attention(q, k, v, causal=True, scale=0.3, return_lse=True)
-    do = torch.randn(2, 4, 96, 64, device=cuda).to(torch.bfloat16).transpose(1, 2)
+    do = torch.randn(2, Hq, 96, D, device=cuda).to(torch.bfloat16).transpose(1, 2)
     assert not do.is_contiguous() and do.stride(-1) == 1 and not q.is_contiguous()
     got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=True, scale=0.3)
     _assert_grads_close(got, flash_backward_ref(q, k, v, o, lse, do, causal=True, scale=0.3))

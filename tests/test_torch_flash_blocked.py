@@ -129,15 +129,15 @@ def test_one_bf16_rounding_of_p_misses_the_tolerance_on_a_cancelling_row():
 
 
 def test_route_selection():
-    """Forward: bf16 at every head dim on the tensor-core kernel (head dim 256,
-    gemma-7b's, included), fp32 on the SIMT one.  Backward: bf16 at 32-128 on
-    the tensor-core kernel, fp32 and bf16 at 256 on the SIMT one."""
+    """Forward and backward: bf16 at every head dim on the tensor-core kernels
+    (head dim 256, gemma-7b's and paligemma-3b's, included), fp32 on the SIMT
+    ones."""
     assert fa.WGMMA_HEAD_DIMS == fa.SUPPORTED_HEAD_DIMS == (32, 64, 128, 256)
-    assert fa.BWD_WGMMA_HEAD_DIMS == (32, 64, 128)
+    assert fa.BWD_WGMMA_HEAD_DIMS == (32, 64, 128, 256)
     for D in fa.SUPPORTED_HEAD_DIMS:
         assert fa.select_route(torch.bfloat16, D) == "wgmma"
         assert fa.select_route(torch.float32, D) == "simt"
-        assert fa.select_bwd_route(torch.bfloat16, D) == ("wgmma" if D <= 128 else "simt")
+        assert fa.select_bwd_route(torch.bfloat16, D) == "wgmma"
         assert fa.select_bwd_route(torch.float32, D) == "simt"
     for select in (fa.select_route, fa.select_bwd_route):
         for dtype in (torch.float16, torch.float64, torch.int32, torch.float8_e4m3fn):
@@ -169,8 +169,12 @@ def test_route_argument_the_kernels_refuse_raises_on_any_device():
         fa.flash_attention_backward(*b16, lse, b16[3], route="triton")
     q256, k256, v256 = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(1, 8, 2, 2, 256, seed=6))
     o256, lse256 = fa.flash_attention(q256, k256, v256, causal=True, return_lse=True, route="simt")
-    with pytest.raises(ValueError, match="route 'wgmma' does not take torch.bfloat16 at head dim 256"):
-        fa.flash_attention_backward(q256, k256, v256, o256, lse256, o256, route="wgmma")
+    # bf16 at 256 takes the tensor-core backward as every head dim does; fp32 there does not
+    got = fa.flash_attention_backward(q256, k256, v256, o256, lse256, o256, route="wgmma")
+    want = fa.flash_attention_backward(q256, k256, v256, o256, lse256, o256)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError, match="route 'wgmma' does not take torch.float32 at head dim 256"):
+        fa.flash_attention_backward(*(t.float() for t in (q256, k256, v256, o256)), lse256, o256.float(), route="wgmma")
     # a route the kernels take runs the plain version on the CPU
     got = fa.flash_attention_backward(*b16, lse, b16[3], route="simt")
     want = fa.flash_attention_backward(*b16, lse, b16[3])

@@ -164,7 +164,7 @@ def _bf16(a):
 
 
 @pytest.mark.parametrize("impl", ["xla", "ref"])
-@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal", CASES + [(1, 96, 96, 4, 2, 128, True)])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal", CASES + [(1, 96, 96, 4, 2, 128, True), (1, 96, 96, 4, 1, 256, True)])
 def test_kernel_rounding_model_matches_jax_vjp_in_bf16(B, Sq, Sk, Hq, Hkv, D, causal, impl):
     """The plain backward with the tensor-core kernel's bf16 terms of P and
     dS, on bf16 q, k, v and dO (fp32 o and lse; bf16 gradients), against

@@ -34,11 +34,19 @@ pipeline, which must agree bit for bit.  Tolerances:
   over the three steps within 0.5 of the reference's in relative L2
   (measured 0.22; the zeroed and negated controls reach 1.4 and 1.9).  An
   absolute parameter tolerance cannot fail there: three steps of at most the
-  lr each keep any two runs from the same weights within 5e-3.
+  lr each keep any two runs from the same weights within 5e-3.  gemma-7b
+  smoke (fp32, no remat; GeGLU, tied and scaled embedding) takes
+  deepseek-7b's tolerances: measured at head dim 32 step 1 loss 0, grad
+  norm 4.1e-6, gradients 6.8e-5, changes 1.0e-2, then losses 6.6e-6, grad
+  norms 1.1e-2, changes 5.0e-2 over three steps; at its published head dim
+  of 256, 1.5e-7, 2.4e-5, 3.9e-4 and 1.2e-2 at step 1, then 9.3e-5, 5.3e-2
+  and 0.23, where attention is as near one-hot as deepseek-7b's.
 * Microbatch 1 against 2 on the port: losses rtol 1e-5, parameters atol
   1e-5 (the reference's own test, ``test_train_serve.py:54``).
 * Checkpoint round trip and resume: bitwise.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -158,23 +166,24 @@ def _batches(cfg, n, batch=4, seq=32, seed=1234):
 STEP1_TOL = dict(loss=1e-6, grad_norm=1e-3, grad=2e-3, change=1e-1)
 #: steps 2 and 3: (loss rtol, grad norm rtol, parameter atol or None, per-leaf
 #: relative L2 of the parameter change over the three steps)
-LATER_TOL = {"mamba2-130m": (1e-5, 5e-3, 5e-4, 1e-2), "deepseek-7b": (1e-3, 1e-1, None, 0.5)}
+LATER_TOL = {"mamba2-130m": (1e-5, 5e-3, 5e-4, 1e-2), "deepseek-7b": (1e-3, 1e-1, None, 0.5),
+             "gemma-7b": (1e-3, 1e-1, None, 0.5)}
 
 
 def _rel(a, b):
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
-def _three_steps_against_reference(arch):
-    """Train three steps of the smoke config on the port and on the reference
-    from the same weights and hold them together; raises AssertionError
-    naming the step that fails."""
+def _three_steps_against_reference(arch, **overrides):
+    """Train three steps of the smoke config (with ``overrides`` of its
+    fields) on the port and on the reference from the same weights and hold
+    them together; raises AssertionError naming the step that fails."""
     loss_rtol, gnorm_rtol, param_atol, change_rel = LATER_TOL[arch]
-    cfg = ref_smoke(arch)
+    cfg = dataclasses.replace(ref_smoke(arch), **overrides)
     assert cfg.compute_dtype == "float32" and cfg.remat == ("full" if arch == "mamba2-130m" else "none")
     rkw = dict(schedule=RefScheduleConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=10), microbatches=2)
     params = ref_init_params(ref_model_defs(cfg), jax.random.PRNGKey(3), cfg.param_jdtype())
-    model = load_jax_params(Transformer(get_smoke_config(arch), device="cpu"),
+    model = load_jax_params(Transformer(dataclasses.replace(get_smoke_config(arch), **overrides), device="cpu"),
                             jax.tree_util.tree_map(np.asarray, params))
     start = {name: p.detach().numpy().copy() for name, p in model.named_parameters()}
     jst = ref_adamw_init(params)
@@ -216,9 +225,16 @@ def _three_steps_against_reference(arch):
             np.testing.assert_allclose(p.detach().numpy(), ref[name], rtol=0, atol=param_atol, err_msg=name)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "deepseek-7b"])
-def test_three_train_steps_match_reference(arch):
-    _three_steps_against_reference(arch)
+#: the smoke configs trained against the reference, and gemma-7b's at its
+#: published head dim of 256 (16 x 256 on the card runs the tensor-core
+#: flash kernels at D = 256 forward and backward)
+TRAINED = [("mamba2-130m", {}), ("deepseek-7b", {}), ("gemma-7b", {}), ("gemma-7b", {"head_dim": 256})]
+TRAINED_IDS = ["mamba2-130m", "deepseek-7b", "gemma-7b", "gemma-7b-head_dim256"]
+
+
+@pytest.mark.parametrize("arch,overrides", TRAINED, ids=TRAINED_IDS)
+def test_three_train_steps_match_reference(arch, overrides):
+    _three_steps_against_reference(arch, **overrides)
 
 
 class _ScaleGrad(torch.autograd.Function):
@@ -332,12 +348,23 @@ def test_train_and_eval_lanes_stay_separate(tmp_path):
     assert frame.filter(stream="train").sum() == frame.filter(stream=tr.train_stream).sum()
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "deepseek-7b"])
-def test_train_lane_counts_hbm_bytes(arch):
+@pytest.mark.parametrize("scale", [0.0, -1.0, 1.01], ids=["zeroed", "negated", "one_percent_large"])
+def test_three_train_steps_catch_a_wrong_attention_gradient_at_head_dim_256(monkeypatch, scale):
+    """The same control on gemma-7b's smoke config at head dim 256."""
+    from repro_torch.kernels import ops
+
+    flash = ops.flash_attention
+    monkeypatch.setattr(ops, "flash_attention", lambda *a, **kw: _ScaleGrad.apply(flash(*a, **kw), scale))
+    with pytest.raises(AssertionError, match="step 1"):
+        _three_steps_against_reference("gemma-7b", head_dim=256)
+
+
+@pytest.mark.parametrize("arch,overrides", TRAINED, ids=TRAINED_IDS)
+def test_train_lane_counts_hbm_bytes(arch, overrides):
     """The train lane's ``GLOBAL_ACC_R`` MISS counter reads steps × the first
     step's counted bytes (the reference fills it from its compiled cost);
     the eval lane carries none."""
-    cfg = get_smoke_config(arch)
+    cfg = dataclasses.replace(get_smoke_config(arch), **overrides)
     dcfg = DataConfig(global_batch=2, seq_len=16, vocab_size=cfg.vocab_size)
     it, ev = make_train_iter(dcfg), make_train_iter(DataConfig(global_batch=2, seq_len=16,
                                                                 vocab_size=cfg.vocab_size, seed=9))
