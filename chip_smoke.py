@@ -24,8 +24,8 @@ source, all started together) and drives the port's three paths:
   at edge shapes (head dim 256 and MQA among them), at B=1, S=2048, 32
   heads of 128 and at gemma-7b's 16 heads of 256 (S = 2048 and 404), and
   timed there beside SDPA's backward (replayed from a CUDA graph, and
-  eagerly) and the SIMT backward; the fp32 SIMT backward timed beside SDPA's
-  fp32 backward; the deepseek-7b smoke config trained in fp32 (the SIMT
+  eagerly) and the SIMT backward; the fp32 SIMT forward and backward timed
+  beside SDPA in fp32; the deepseek-7b smoke config trained in fp32 (the SIMT
   kernels) on the card and on the CPU and compared; deepseek-7b at its
   published width cut to 8 layers and gemma-7b at its published width cut
   to 7 (bf16, remat full, AdamW, global batch 4 x 2048 in 2 microbatches)
@@ -43,7 +43,8 @@ source, all started together) and drives the port's three paths:
   of steps with an eval lane, with the loss, the per-stream lanes and the
   exact number of SSD launches checked, the kernel held against the plain
   version on every layer's real inputs, one step at seq 4096, and decode
-  against forward in fp32;
+  against forward in fp32; the fp32 SSD kernels checked at the same shapes
+  and timed at the training microbatch and at seq 4096, kernel by kernel;
 * the simulator: the segment-scatter kernel (the batched sweep's stat
   landing), its accumulate entry and the sequential-fold kernel held bit for
   bit against their plain versions, on test shapes and on the sweep's real
@@ -85,6 +86,8 @@ import torch  # noqa: E402
 
 #: tests/test_kernels.py's shape set (B, S, Hq, Hkv, D): MHA, GQA, MQA ragged, S < block
 KERNEL_SHAPES = [(1, 128, 4, 4, 32), (2, 256, 8, 2, 64), (1, 192, 6, 1, 64), (2, 64, 2, 2, 128)]
+#: the fp32 forward's checks in phase_routes: every head dim, MHA, GQA and MQA, ragged tiles (64 rows, 32 at D = 256)
+FP32_FWD_SHAPES = [*KERNEL_SHAPES, (1, 200, 8, 2, 128), (2, 97, 4, 4, 256), (1, 404, 16, 1, 256), (1, 33, 4, 2, 256)]
 #: the main path's prefill attention: deepseek-7b, one prompt, 32 heads of 128
 MAIN_SEQS = (1, 17, 63, 64, 65, 128, 500, 1024)
 #: timed at B=1, H=32, D=128, bf16, causal; the shortest and longest prompt
@@ -114,6 +117,9 @@ FULL_FP32_REL = 1e-2
 #: from one CUDA graph between a pair of CUDA events; ROUNDS readings per
 #: function, the functions alternating within each round
 LAUNCHES, ROUNDS = 50, 9
+#: device_breakdown's spin kernels ahead of the traced call (the profiler may
+#: drop a trace's first device events late in a long run)
+BREAKDOWN_SPINS = 64
 
 #: SSD kernel checks against the sequential plain scan: tests/test_kernels.py's
 #: SSD shapes (B, S, H, P, N, G), grouped B/C among them, plus a P that is not
@@ -150,6 +156,13 @@ EVAL_DROP = 0.05
 #: gemma-7b's attention: 16 heads of 256, bf16 (the tensor-core kernels
 #: forward and backward), checked and timed at the served prompt lengths
 GEMMA_HEADS, GEMMA_HEAD_DIM = 16, 256
+#: the fp32 forward's timed rows in phase_routes, (B, S, Hq = Hkv, D), causal: the bf16 row's shape, gemma-7b's 16
+#: heads of 256 at the longest served prompt (S = None), the same 32 heads at D = 64 and 32, and dense_parity's
+#: attention (the deepseek-7b smoke config's 4 heads of 32, microbatches of 2 x 64): D <= 64 has its own tiling
+FP32_FWD_TIMED = {"flash_forward_fp32": (1, 512, 32, 128),
+                  "flash_forward_fp32_d256": (1, None, GEMMA_HEADS, GEMMA_HEAD_DIM),
+                  "flash_forward_fp32_d64": (1, 512, 32, 64), "flash_forward_fp32_d32": (1, 512, 32, 32),
+                  "flash_forward_fp32_dense_parity": (2, 64, 4, 32)}
 #: the flash backward, timed at B=1, S=2048, Hq=Hkv=32, D=128, bf16, causal:
 #: one sequence of dense training's length at deepseek-7b's attention width;
 #: and at gemma-7b's 16 heads of 256 at that length and at the longest
@@ -332,19 +345,30 @@ def time_interleaved(fns, warmup: int = 3, eager=()):
 def device_breakdown(fn):
     """Device microseconds of one call of ``fn`` (after one warm-up call), by
     kernel, memset or memcpy, from a ``torch.profiler`` trace: where the time
-    of a call that launches more than one kernel goes."""
+    of a call that launches more than one kernel goes.  Late in a long run
+    the profiler drops the first few device events of a trace (a one-call
+    trace of the fp32 SSD came back empty after the training phases), so
+    the trace starts with BREAKDOWN_SPINS short spin kernels, left out of the
+    result; the check fails unless some of them remain, which shows that
+    every event of ``fn`` came through."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(BREAKDOWN_SPINS):
+            torch.cuda._sleep(100)
         fn()
         torch.cuda.synchronize()
-    out = {}
+    out, spins = {}, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
+            if "spin_kernel" in e.name:
+                spins += 1
+                continue
             name = re.sub(r"\(.*", "", e.name.replace("(anonymous namespace)::", ""))[:48]
             out[name] = out.get(name, 0.0) + e.time_range.elapsed_us()
+    check(spins > 0, f"the profiler dropped all {BREAKDOWN_SPINS} spin kernels of a trace, so some of the call's too")
     return out
 
 
@@ -471,9 +495,10 @@ def phase_build():
             check(all(c[op] > 0 for op in SASS_OPS), f"{lib} {name} lacks {SASS_OPS} in its SASS: {c}")
         sass[lib] = per_fn
     check(len({n.split()[0] for n in sass["flash_attention_bwd_wgmma"]}) == 2, "the dK/dV and the dQ kernel")
-    for lib in ("flash_attention_wgmma", "flash_attention_bwd_wgmma", "flash_attention_bwd"):
+    for lib in ("flash_attention", "flash_attention_wgmma", "flash_attention_bwd", "flash_attention_bwd_wgmma",
+                "ssd_scan"):
         spill_lines = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", str(info[lib]["log"]))
-        check(not info[lib]["seconds"] or spill_lines, f"{lib}: no spill report from ptxas")  # built in this run
+        check(spill_lines, f"{lib}: no spill report from ptxas")
         check(all(a == b == "0" for a, b in spill_lines), f"{lib}: a kernel spills: {ptxas[lib]}")
     emit({"phase": "build", "seconds": round(wall, 3),
           "per_kernel_s": {n: round(float(i["seconds"]), 3) for n, i in info.items()},
@@ -884,7 +909,7 @@ def phase_ssd_kernel(smi: str):
             "simt": lambda: sk.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256, route="simt"),
             "plain": lambda: ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256, impl="plain"),
         })
-        flops, nbytes = sk.ssd_flops(B, S, H, P, N), sk.ssd_bytes(B, S, H, P, N, G, 2)  # no h0
+        flops, nbytes = sk.ssd_flops(B, S, H, P, N, G), sk.ssd_bytes(B, S, H, P, N, G, 2)  # no h0
         bound_ms, bound_by = _bound(flops, nbytes, smi)
         timings[f"B{B}_S{S}"] = {
             "kernel_ms": ms["kernel"]["median"], "simt_ms": ms["simt"]["median"], "plain_ms": ms["plain"]["median"],
@@ -894,12 +919,16 @@ def phase_ssd_kernel(smi: str):
             "spread_ms": {name: [m["min"], m["max"]] for name, m in ms.items()},
             "device_us_by_kernel": device_breakdown(lambda: sk.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256)),
         }
+        by_kernel = timings[f"B{B}_S{S}"]["device_us_by_kernel"]
+        check(len(by_kernel) == sk.KERNELS_PER_CALL,
+              f"a bf16 SSD call launched {sorted(by_kernel)}, not {sk.KERNELS_PER_CALL} kernels")
     emit({"phase": "ssd_kernel", "name": "ssd_scan", "fp32_max_abs_err": fp32_err, "bf16_max_abs_err": bf16_err,
           "bf16_h_final_rel_l2": h_rel, "tolerances": {"fp32": SSD_FP32_TOL, "bf16": SSD_BF16_TOL},
           "routes": {"bfloat16": sk.select_route(torch.bfloat16), "float32": sk.select_route(torch.float32)},
           "sass_ssd_scan_wgmma": sass,
-          "bound": "FLOPs 2L^2N + 2L^2P + 4LNP per (batch, head, 64-row tile), the causal half counted "
-                   "and C B^T per head (the SIMT kernel's count, kept); bytes as listed, at the bf16 dense peak and HBM rate",
+          "bound": "FLOPs of the least work (ssd_flops): C B^T once per (batch, group, 64-row tile) and M X, "
+                   "each the causal half, C h^T and the state product per (batch, head, tile); bytes as listed; "
+                   "at the bf16 dense peak and HBM rate",
           "timing": timings,
           "timing_note": f"median of {ROUNDS} readings, each the mean of {LAUNCHES} back-to-back calls "
                          "replayed from one CUDA graph between CUDA events; the tensor-core kernel (kernel), "
@@ -1020,7 +1049,7 @@ def phase_train_full_width():
     check(train["steps"] == TRAIN_STEPS == len(hist), f"train lane steps {train['steps']}")
     check(evals["steps"] == n_evals == len(trainer.eval_history), f"eval lane steps {evals['steps']}")
     check(train["tokens"] == TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ, f"train lane tokens {train['tokens']}")
-    per_launch = sk.ssd_flops(TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, H, s.head_dim, s.d_state)
+    per_launch = sk.ssd_flops(TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, H, s.head_dim, s.d_state, s.n_groups)
     per_step = TRAIN_MICRO * 2 * cfg.n_layers  # a forward and a remat recompute per layer and microbatch
     check(trainer.cost_parts["ssd_kernel"] == per_step * per_launch, f"scan FLOPs {trainer.cost_parts}")
     lane_flops = TRAIN_STEPS * (trainer.cost_parts["counted"] + trainer.cost_parts["ssd_kernel"])
@@ -1232,6 +1261,9 @@ def _bwd_timing(smi, shape, seed, by_kernel=False):
                                      for _ in range(10)])
             for route in ("wgmma", "simt")
         }
+        for route, by_kernel in timing["device_us_by_kernel_10_calls"].items():
+            check(len(by_kernel) == fa.BWD_LAUNCHES,
+                  f"a {route} backward call launched {sorted(by_kernel)}, not {fa.BWD_LAUNCHES} kernels")
     return g, simt, timing
 
 
@@ -1278,19 +1310,24 @@ def _rel(a, b) -> float:
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
 
-def phase_routes(smi: str):
+def phase_routes(smi: str, served_lens):
     """The kernels' routes off the bf16 main path, each checked against and
     timed beside its plain version, its bound and the PyTorch call that
-    computes the same function: the fp32 flash forward and backward (SIMT;
-    fp32 is dense_parity's type; the backward beside SDPA's fp32 backward,
-    graph-replayed and eager), the fp32 SSD scan (SIMT) and the fold kernel
+    computes the same function: the fp32 flash forward (SIMT; at every head
+    dim, causal and not, GQA and MQA, with its lse; timed at FP32_FWD_TIMED:
+    32 heads of 128, 64 and 32 at S = 512, gemma-7b's 16 heads of 256 at
+    the longest served prompt and dense_parity's attention, beside SDPA in
+    fp32) and backward (SIMT; fp32 is dense_parity's type;
+    beside SDPA's fp32 backward, graph-replayed and eager), the fp32 SSD
+    scan (SIMT; at SSD_SHAPES and the full width with and without h0; timed
+    at SSD_TIMED with its three kernels' device time) and the fold kernel
     behind ``running_sum`` (the compiled sweep's).  bf16 at head dim 256
     backward runs the tensor-core kernel and is timed in flash_bwd_kernel."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import segment_scatter as ss
     from repro_torch.kernels import ssd_scan as sk
-    from repro_torch.kernels.ref import flash_backward_ref, running_sum_ref
+    from repro_torch.kernels.ref import attention_lse_ref, flash_backward_ref, running_sum_ref, ssd_ref
 
     rows = {}
 
@@ -1302,18 +1339,34 @@ def phase_routes(smi: str):
                       "library_ms": None, **times, "bound_ms": bound_ms, "bound_by": bound_by,
                       "spread_ms": {k: [m["min"], m["max"]] for k, m in ms.items()}}
 
-    # fp32 forward at the bf16 row's shape
-    B, S, H, D = 1, 512, 32, 128
-    q, k, v = (randn((B, S, H, D), torch.float32, 600 + j) for j in range(3))
-    check(fa.select_route(q.dtype, D) == "simt", "fp32 takes the SIMT forward")
-    check(torch.allclose(fa.flash_attention(q, k, v), ops.flash_attention(q, k, v, impl="plain"), **FP32_TOL),
-          "fp32 forward disagrees")
-    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    row("flash_forward_fp32", f"B={B} S={S} Hq=Hkv={H} D={D} fp32 causal",
-        {"kernel": lambda: fa.flash_attention(q, k, v, causal=True),
-         "plain": lambda: ops.flash_attention(q, k, v, causal=True, impl="plain"),
-         "library": lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True)},
-        fa.flash_flops(B, S, S, H, D, causal=True), fa.flash_bytes(B, S, S, H, H, D, 4), fp32=True)
+    # fp32 forward: every head dim, causal and not, GQA and MQA, against the plain version; then timed at
+    # FP32_FWD_TIMED
+    fwd_err = 0.0
+    for i, (B, S, Hq, Hkv, D) in enumerate(FP32_FWD_SHAPES):
+        check(fa.select_route(torch.float32, D) == "simt", f"fp32 at head dim {D} takes the SIMT forward")
+        q, k, v = (randn(sh, torch.float32, 640 + 4 * i + j) for j, sh in
+                   enumerate(((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))))
+        for causal in (True, False):
+            out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+            want = ops.flash_attention(q, k, v, causal=causal, impl="plain")
+            torch.cuda.synchronize()
+            fwd_err = max(fwd_err, (out - want).abs().max().item())
+            check(torch.allclose(out, want, **FP32_TOL), f"fp32 forward disagrees at {(B, S, Hq, Hkv, D)} causal={causal}")
+            check(torch.allclose(lse, attention_lse_ref(q, k, v, causal=causal), **LSE_TOL),
+                  f"fp32 forward lse disagrees at {(B, S, Hq, Hkv, D)} causal={causal}")
+    for name, (B, S, H, D) in FP32_FWD_TIMED.items():
+        S = S or max(served_lens)
+        q, k, v = (randn((B, S, H, D), torch.float32, 600 + j) for j in range(3))
+        check(torch.allclose(fa.flash_attention(q, k, v), ops.flash_attention(q, k, v, impl="plain"), **FP32_TOL),
+              f"fp32 forward disagrees at {(B, S, H, D)}")
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        row(name, f"B={B} S={S} Hq=Hkv={H} D={D} fp32 causal",
+            {"kernel": lambda: fa.flash_attention(q, k, v, causal=True),
+             "plain": lambda: ops.flash_attention(q, k, v, causal=True, impl="plain"),
+             "library": lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True)},
+            fa.flash_flops(B, S, S, H, D, causal=True), fa.flash_bytes(B, S, S, H, H, D, 4), fp32=True)
+    rows["flash_forward_fp32"]["max_abs_err"] = fwd_err
+    del q, k, v, qh, kh, vh
 
     # fp32 backward at BWD_TIMED
     B, S, H, D = BWD_TIMED
@@ -1340,18 +1393,38 @@ def phase_routes(smi: str):
             lambda: [fa.flash_attention_backward(q, k, v, o, lse, do, causal=True) for _ in range(10)]))
     del q, k, v, do, o, lse
 
-    # fp32 SSD at the training microbatch's shape
-    B, S = SSD_TIMED[0]
+    # fp32 SSD: SSD_SHAPES and the full width (with and without h0) against the sequential scan; then timed at
+    # the training microbatch (B=4, S=256) and at train_4k's length (B=1, S=4096), with its kernels' device time
     H, P, N, G = SSD_WIDTH
-    x, dt, A, Bm, Cm, Dm, _ = _ssd_inputs(B, S, H, P, N, G, torch.float32, 620)
-    check(sk.select_route(x.dtype) == "simt", "fp32 takes the SIMT SSD kernel")
-    y, h = sk.ssd_scan(x, dt, A, Bm, Cm, Dm, chunk=256)
-    yr, hr = ops.ssd_scan(x, dt, A, Bm, Cm, Dm, chunk=256, impl="plain")
-    check(torch.allclose(y, yr, **SSD_FP32_TOL), "fp32 SSD disagrees")
-    row("ssd_scan_fp32", f"B={B} S={S} H={H} P={P} N={N} G={G} fp32",
-        {"kernel": lambda: sk.ssd_scan(x, dt, A, Bm, Cm, Dm, chunk=256),
-         "plain": lambda: ops.ssd_scan(x, dt, A, Bm, Cm, Dm, chunk=256, impl="plain")},
-        sk.ssd_flops(B, S, H, P, N), sk.ssd_bytes(B, S, H, P, N, G, 4), fp32=True)
+    check(sk.select_route(torch.float32) == "simt", "fp32 takes the SIMT SSD kernel")
+    ssd_err = 0.0
+    for i, shape in enumerate([*SSD_SHAPES, (4, 256, H, P, N, G), (1, 1000, H, P, N, G)]):
+        for with_h0 in (False, True):
+            x, dt, A, Bm, Cm, Dm, h0 = _ssd_inputs(*shape, torch.float32, 630 + i, with_h0)
+            y, h = sk.ssd_scan(x, dt, A, Bm, Cm, Dm, h0, chunk=32)
+            want_y, want_h = ssd_ref(x, dt, A, Bm, Cm, Dm, h0, return_state=True)
+            torch.cuda.synchronize()
+            ssd_err = max(ssd_err, (y - want_y).abs().max().item(), (h - want_h).abs().max().item())
+            check(torch.allclose(y, want_y, **SSD_FP32_TOL) and torch.allclose(h, want_h, **SSD_FP32_TOL),
+                  f"fp32 SSD disagrees with ssd_ref at {shape} h0={with_h0}")
+    for B, S in SSD_TIMED:
+        name = "ssd_scan_fp32" if (B, S) == SSD_TIMED[0] else f"ssd_scan_fp32_B{B}_S{S}"
+        x, dt, A, Bm, Cm, Dm, _ = _ssd_inputs(B, S, H, P, N, G, torch.float32, 620 + S)
+        y, h = sk.ssd_scan(x, dt, A, Bm, Cm, Dm, chunk=256)
+        yr, hr = ops.ssd_scan(x, dt, A, Bm, Cm, Dm, chunk=256, impl="plain")
+        check(torch.allclose(y, yr, **SSD_FP32_TOL) and torch.allclose(h, hr, **SSD_FP32_TOL),
+              f"fp32 SSD disagrees with the plain form at B={B} S={S}")
+        row(name, f"B={B} S={S} H={H} P={P} N={N} G={G} fp32",
+            {"kernel": lambda: sk.ssd_scan(x, dt, A, Bm, Cm, Dm, chunk=256),
+             "plain": lambda: ops.ssd_scan(x, dt, A, Bm, Cm, Dm, chunk=256, impl="plain")},
+            sk.ssd_flops(B, S, H, P, N, G), sk.ssd_bytes(B, S, H, P, N, G, 4), fp32=True)
+        by_kernel = rows[name]["device_us_by_kernel"] = device_breakdown(
+            lambda: sk.ssd_scan(x, dt, A, Bm, Cm, Dm, chunk=256))
+        check(len(by_kernel) == sk.KERNELS_PER_CALL,
+              f"an fp32 SSD call launched {sorted(by_kernel)}, not {sk.KERNELS_PER_CALL} kernels")
+        rows[name]["kernels_per_call"] = len(by_kernel)
+    rows["ssd_scan_fp32"].update(max_abs_err=ssd_err, tolerance=SSD_FP32_TOL)
+    del x, dt, A, Bm, Cm, Dm, y, h, yr, hr
 
     # the fold at a 2-d shape phase_segment_kernel checks bit for bit; the plain fold launches two
     # ops a row, so it runs eagerly
@@ -2092,7 +2165,7 @@ def main() -> int:
     ssd_op_err = phase_ssd_op(model, probe)
     del model, probe
     bwd_timing, d256_bwd, bwd_err = phase_flash_bwd_kernel(smi)
-    phase_routes(smi)
+    routes = phase_routes(smi, served_prompt_lens())
     phase_dense_parity()
     torch.cuda.empty_cache()
     dense_fwd, dense_bwd, dense_err = phase_dense_train_full_width()
@@ -2109,7 +2182,10 @@ def main() -> int:
         "design": "bf16 at every head dim (32-256): one warpgroup per 64-row query tile; S = Q K^T and O += P V "
                   "on wgmma (bf16 in, fp32 accumulate; P from registers as two bf16 terms, V read transposed); Q "
                   "and a 2-stage K/V ring by TMA with mbarriers, 128B swizzle; fp32 calls run the SIMT kernel "
-                  f"({fa.SIMT_SOURCE})",
+                  f"({fa.SIMT_SOURCE}: 64-row tiles (32 at D = 256) of swizzled fp32 rows, K/V by cp.async in two "
+                  "stages; S = Q K^T as 8 x 4 micro-tiles over two parts of D (eight at 256, one at D <= 64) summed "
+                  "in one softmax pass (natural exp, as the plain version; P in shared memory), O += P V in 8 x 4 "
+                  "register blocks), timed in fp32 as fp32",
         "launches": launches + dense_fwd + gemma_fwd,
         "launches_by_path": {"serving": launches, "dense_training": dense_fwd, "gemma_training": gemma_fwd},
         "max_abs_err": max(bf16_err, op_err),
@@ -2120,6 +2196,9 @@ def main() -> int:
                  "timing": {S: {k: r[k] for k in ("kernel_ms", "simt_ms", "plain_ms", "library_ms", "bound_ms",
                                                   "bound_by")}
                             for S, r in d256["timing"].items()}},
+        "fp32": {name: {k: routes[name][k] for k in ("shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                                                     "bound_by")}
+                 for name in FP32_FWD_TIMED},
     }, {
         "name": "flash_attention_backward", "route": "cuda", "source": fa.BWD_SOURCE, "replaces": fa.BWD_REPLACES,
         "design": "bf16 at every head dim (32-256): the FlashAttention-2 backward in three launches, no atomics: "
@@ -2130,11 +2209,12 @@ def main() -> int:
                   "through the ring: S, dP (ss), dQ += dS K (rs); every product on wgmma, P and dS as two bf16 "
                   "terms, 128B swizzle; one warpgroup a block at D <= 128, two at D = 256, each owning half of D's "
                   "outputs and computing S and dP itself; fp32 runs the SIMT backward "
-                  f"({fa.BWD_SIMT_SOURCE}: 4 x 4 score micro-tiles of S and dP, float4 reads of swizzled tiles, "
+                  f"({fa.BWD_SIMT_SOURCE}: 8 x 4 score micro-tiles of S and dP, float4 reads of swizzled tiles, "
                   "cp.async double buffering), timed beside it as simt_ms",
         "launches": dense_bwd + gemma_bwd,
         "launches_by_path": {"dense_training": dense_bwd, "gemma_training": gemma_bwd},
-        "kernels_per_launch": fa.BWD_LAUNCHES, "max_abs_err": max(bwd_err, dense_err, gemma_err),
+        "kernels_per_launch": len(bwd_timing["device_us_by_kernel_10_calls"]["wgmma"]),
+        "max_abs_err": max(bwd_err, dense_err, gemma_err),
         "ms": bwd_timing["kernel_ms"], "kernel_ms": bwd_timing["kernel_ms"], "plain_ms": bwd_timing["plain_ms"],
         "simt_ms": bwd_timing["simt_ms"],
         "bound_ms": bwd_timing["bound_ms"], "bound_by": bwd_timing["bound_by"],
@@ -2151,13 +2231,20 @@ def main() -> int:
                   "and each chunk's own state X^T (B w) in parallel, the states passed across chunks in fp32, "
                   "then per (batch, head, chunk) y = exp(cum) (C h^T) + M X; every product on wgmma (bf16 in, "
                   "fp32 accumulate; M, x w and the entering state as two bf16 terms), x/B/C tiles by TMA, 128B "
-                  f"swizzle; fp32 calls run the SIMT kernel ({sk.SIMT_SOURCE}: one block per (batch, head, "
-                  "32 state rows) walking the tiles in order, fp32 FMAs), timed beside it in bf16 as simt_ms",
+                  f"swizzle; fp32 calls run the SIMT kernels ({sk.SIMT_SOURCE}: the same three phases one 64-row "
+                  "tile a chunk, C B^T once per group and tile, tile states passed in fp32, y = [exp(cum) C | M] "
+                  "[h^T ; X] in 8 x 4 register blocks over half the depth a half-block; fp32 FMAs on float4 reads), "
+                  "timed beside it in bf16 as simt_ms and in fp32 as fp32",
         "launches": ssd_launches, "max_abs_err": max(ssd_err, ssd_op_err),
+        "kernels_per_launch": {"bfloat16": len(st["device_us_by_kernel"]),
+                               "float32": routes["ssd_scan_fp32"]["kernels_per_call"]},
         "ms": st["kernel_ms"], "kernel_ms": st["kernel_ms"], "plain_ms": st["plain_ms"], "simt_ms": st["simt_ms"],
         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": None,
         "shape": "B=4 S=256 H=24 P=64 N=128 G=1 bf16 (the training microbatch)",
         "long": {k: ssd_timings["B1_S4096"][k] for k in ("kernel_ms", "simt_ms", "plain_ms", "bound_ms")},
+        "fp32": {name: {k: routes[name][k] for k in ("shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                                                     "bound_by")}
+                 for name in ("ssd_scan_fp32", f"ssd_scan_fp32_B{SSD_TIMED[1][0]}_S{SSD_TIMED[1][1]}")},
     }, {
         "name": "segment_scatter", "route": "cuda", "source": ss.SOURCE, "replaces": ss.REPLACES,
         "design": "zero fill by cudaMemsetAsync; a warp takes 64 consecutive events (16-byte loads where "

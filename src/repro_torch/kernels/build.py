@@ -76,7 +76,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Dict[str, object]]
     """Compile the named kernels (all by default) that are not built yet, one
     ``nvcc`` per source, all started together.  Returns, per kernel, the
     library path, the seconds its build took (0 when it was already built)
-    and the compiler's report (``ptxas`` registers and shared memory).
+    and the compiler's report (``ptxas`` registers and shared memory; kept
+    beside the library, so an earlier build's report comes back too).
     Raises ``RuntimeError`` with the compiler's output if any build fails."""
     names = list(SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -85,7 +86,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Dict[str, object]]
     for name in names:
         target = _target(name)
         if target.exists():
-            out[name] = {"path": str(target), "seconds": 0.0, "log": ""}
+            log = target.with_suffix(".log")
+            out[name] = {"path": str(target), "seconds": 0.0, "log": log.read_text() if log.exists() else ""}
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
@@ -104,6 +106,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Dict[str, object]]
         if proc.returncode != 0:
             failed.append(f"{name} (exit {proc.returncode}):\n{log}")
             continue
+        target.with_suffix(".log").write_text(log)  # the report of a library built earlier is read back from it
         os.replace(tmp, target)
         out[name] = {"path": str(target), "seconds": seconds, "log": log}
     if failed:

@@ -23,38 +23,69 @@
 //
 // Design.  The TPU kernel walks the kv blocks as the innermost, sequential
 // grid dimension and carries m, l and acc in VMEM scratch between grid
-// steps.  CUDA blocks run in no order, so here one thread block owns one
-// (batch, query head, 64-row query tile) and loops over 64-column kv tiles
-// itself, stopping at the causal diagonal.  The query tile and each K/V
-// tile are staged in shared memory as fp32 (213,760 bytes at D = 256, which
-// fits the 227 KB a block may take); 256 threads form a 16 x 16 grid
-// in which each thread holds 4 query rows x 4 score columns of the 64 x 64
-// score tile and 4 rows x D/16 columns of the output accumulator, all in
-// registers.  The 16 threads that share a row (one half-warp) reduce its
-// max and denominator with shuffles.  The ragged Sk edge and the causal
-// diagonal are masked in the kernel; nothing is padded in memory.
+// steps.  CUDA blocks run in no order, so here one block of 256 threads
+// owns one (query head, query tile, batch) and loops over the kv tiles
+// itself, stopping at the causal diagonal; the heads vary fastest across
+// the grid, so every head's last query tiles, which see the most kv tiles,
+// start in the first wave.  Both products run as fp32 FMAs, and an
+// SM reads 128 bytes a clock from shared memory against 128 FMAs, so the
+// tiling follows the fp32 backward's (flash_attention_bwd.cu) to read as few
+// floats per FMA as it can (simt_tile.cuh):
+//   * tiles of BR = 64 rows (32 at D = 256, to fit shared memory), Q once
+//     and K, V in two stages, staged as fp32 rows of D with their 16-byte
+//     chunks swizzled (chunk c of row r at c ^ (r & 7)), brought in by
+//     cp.async (16 bytes a copy, 4 where a base or stride is not 16-byte
+//     aligned; bf16 converted by the threads), the next kv tile's copy
+//     overlapping the current tile's products;
+//   * S = Q K^T: every thread an 8 x 4 micro-tile read as float4s along D (12
+//     float4 reads for 128 FMAs, the 8 rows broadcast across a quarter-warp),
+//     so a tile's 64 x 64 (32 x 32) scores take 128 (32) threads and the
+//     block splits D in KS = 2 (8 at D = 256) parts, each part's raw scores
+//     written transposed to its own shared tile; at D <= 64 one part (half
+//     the threads) sums each score over D in order, as the plain product
+//     does: split sums drift the fp32 smoke parity past its three-step
+//     tolerance (PERF.md §6);
+//   * one pass of all threads sums the parts and forms P = exp(S scale - m)
+//     in place (the causal and ragged masks; each row's max and rescale
+//     factor by shuffles across the threads of its row quad), and keeps the
+//     rows' running max and partial denominator in registers;
+//   * O += P V: all threads hold O (BR x D), each an 8 x 4 register block
+//     (8 x 2 at D = 64, 4 x 2 at 32), P read as the float4 A operand of
+//     four rows and V as a staged tile; the rows' rescale factors come
+//     through shared memory.
+// Three barriers a kv tile.  Shared memory: 199,168 bytes a block at D = 128
+// (Q, two stages of K and V, two raw score tiles), 200,960 at D = 256.
 //
-// What bounds it.  Both products run as fp32 FMAs on the CUDA cores, not on
-// the tensor cores, so the kernel is bound by operations at the fp32 FMA
-// rate (and by shared-memory reads, 8 loads per 16 FMAs in q k^T).  That
-// keeps fp32 inputs exact to the reference's tolerance.
+// What bounds it: two products of 2 Sq Sk D per head (halved when causal)
+// against q, k, v and out moved once; at S = 512, D = 128 the products, at
+// the fp32 FMA rate, and the shared-memory reads that feed them.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "simt_tile.cuh"
 
 namespace {
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void st(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+using namespace simt;
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // kv columns per tile
-constexpr int THREADS = 256;  // 16 x 16 threads
-constexpr int TR = 4;         // query rows per thread (BQ / 16)
-constexpr int TC = 4;         // score columns per thread (BK / 16)
+template <int D>
+struct Fwd : Rows<D> {  // BR, SPAD, TILE
+  using Rows<D>::BR;
+  using Rows<D>::SPAD;
+  using Rows<D>::TILE;
+  static constexpr int TI = 8, TJ = 4;               // score micro-tile a thread: rows, columns
+  static constexpr int NRG = BR / TI, NCG = BR / TJ;  // its row and column groups: 8, 16 (BR = 64) or 4, 8
+  static constexpr int TPS = NRG * NCG;               // threads a part of D: 128 or 32
+  // parts of D: 2 (8 at D = 256); one at D <= 64, where S is cheap, so each score is one sum over D in order
+  static constexpr int KS = D <= 64 ? 1 : THREADS / TPS;
+  static constexpr int DK = D / KS;                   // head-dim columns a part: runs of 8 chunks
+  static constexpr int TPR = THREADS / (BR / 4);      // softmax pass: threads a row quad, 16 or 32
+  static constexpr int CPT = BR / TPR;                // its columns a thread: 4 or 1
+  static constexpr int RQ = D >= 64 ? 2 : 1;          // O: row quads a thread
+  // Q, two stages of K and V, KS raw score tiles (the first holds P), the rows' rescale factors and sums
+  static constexpr size_t SMEM = (size_t(5) * TILE + size_t(KS) * BR * SPAD + 2 * BR) * sizeof(float);
+  static_assert(DK % 32 == 0 && TPR <= 32 && CPT * TPR == BR && SMEM <= 232448, "tiling");
+};
 
 struct Params {
   const void* q;
@@ -69,156 +100,218 @@ struct Params {
   long long o_sb, o_ss, o_sh;
   float scale;
   int causal;
+  int vec;  // fp32 q, k and v can be copied 16 bytes at a time
 };
 
+// This thread's 8 x 4 scores of a BR x BR tile over head-dim columns [c0, c0
+// + DK): s[i][j] = sum_d X[rg + NRG i][d] Y[cg + NCG j][d], four columns at a
+// time.  Row r's chunk u sits at u ^ (r & 7); rows cg + NCG j all swizzle by
+// cg & 7, and rows rg + NRG i by rg & 7 (NRG = 8) or by rg ^ 4 (i & 1) (NRG =
+// 4, rg < 4), so every load is one of three run pointers plus a constant.
 template <int D>
-constexpr size_t smem_floats() {
-  // sQ and sK rows padded by one float so that the 16 threads reading 16
-  // different rows at the same d fall into 16 different banks
-  return size_t(BQ) * (D + 1) + size_t(BK) * (D + 1) + size_t(BK) * D + size_t(BQ) * (BK + 1);
+__device__ __forceinline__ void scores_part(const float* X, const float* Y, float (&s)[8][4], int rg, int cg,
+                                            int c0) {
+  using F = Fwd<D>;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+  const float* xr = X + rg * D;
+  const float* yr = Y + cg * D;
+#pragma unroll 1
+  for (int c = c0 / 4; c < (c0 + F::DK) / 4; c += 8) {
+    // c is a multiple of 8, so chunk c + u of row r sits at (c ^ (r & 7)) ^ u
+    const int bx = c ^ (rg & 7), by = c ^ (cg & 7);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const float* xp0 = xr + ((bx ^ u) << 2);
+      const float* xp1 = xr + ((bx ^ u ^ 4) << 2);
+      const float* yp = yr + ((by ^ u) << 2);
+      float4 x[8], y[4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        x[i] = *reinterpret_cast<const float4*>((F::NRG == 4 && (i & 1) ? xp1 : xp0) + F::NRG * i * D);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) y[j] = *reinterpret_cast<const float4*>(yp + F::NCG * j * D);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          s[i][j] = fmaf(x[i].w, y[j].w, fmaf(x[i].z, y[j].z, fmaf(x[i].y, y[j].y, fmaf(x[i].x, y[j].x, s[i][j]))));
+    }
+  }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
-  constexpr int NC = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;                    // BQ x (D + 1)
-  float* sK = sQ + BQ * (D + 1);       // BK x (D + 1)
-  float* sV = sK + BK * (D + 1);       // BK x D
-  float* sP = sV + BK * D;             // BQ x (BK + 1)
+__global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(const Params p) {
+  using F = Fwd<D>;
+  using G = Acc<D, THREADS, F::RQ>;
+  constexpr int BR = F::BR, TILE = F::TILE, SPAD = F::SPAD, NRG = F::NRG, NCG = F::NCG;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* sK = sQ + TILE;              // two stages
+  float* sV = sK + 2 * TILE;          // two stages
+  float* sS = sV + 2 * TILE;          // KS raw score tiles, [kv col][q row] at SPAD; the first then holds P
+  float* sAlpha = sS + F::KS * BR * SPAD;  // each row's rescale factor for this tile
+  float* sL = sAlpha + BR;                 // each row's denominator, at the end
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;  // rows ty*TR .. ty*TR+TR-1
-  const int tx = tid & 15;  // score columns and output columns tx + 16*j
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest causal tiles start first
-  const int h = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // S = Q K^T: part `part` of D, an 8 x 4 micro-tile at rows rg + NRG i, columns cg + NCG j
+  const int part = tid / F::TPS, pw = (tid % F::TPS) >> 5;  // pw: the warp within the part
+  const int rg = (lane >> 3) + 4 * (pw % (NRG / 4)), cg = (lane & 7) + 8 * (pw / (NRG / 4));
+  // softmax pass: rows 4 rq .. 4 rq + 3, columns ci + TPR m
+  const int rq = tid / F::TPR, ci = tid % F::TPR;
+  // O: Acc's register blocks
+  const int ra = G::ra(tid >> 5, lane), ca = G::ca(tid >> 5, lane);
+
+  // blocks start in the order of blockIdx.x, then y: every head's longest causal tiles (the last q tiles)
+  // go first, and the short ones fill in behind them
+  const int h = blockIdx.x;
+  const int q0 = (int(gridDim.y) - 1 - int(blockIdx.y)) * BR;
   const int b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
-
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const int k_end = p.causal ? min(p.Sk, q0 + BR) : p.Sk;
+  const int nkv = (k_end + BR - 1) / BR;  // 0 when Sk == 0: the rows give 0
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    const int row = q0 + r;
-    sQ[r * (D + 1) + d] = row < p.Sq ? ld(q + row * p.q_ss + d) : 0.f;
-  }
+  auto issue = [&](int it) {
+    const int s = it & 1;
+    stage<D>(sK + s * TILE, k, p.k_ss, it * BR, p.Sk, p.vec);
+    stage<D>(sV + s * TILE, v, p.v_ss, it * BR, p.Sk, p.vec);
+  };
+  stage<D>(sQ, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq, p.vec);
+  if (nkv > 0) issue(0);
+  cp_commit();
 
-  float acc[TR][NC];
-  float m[TR], l[TR];  // running max (shared by the row's 16 threads), partial denominator
+  typename G::Tile acc;
+  zero<D, THREADS, F::RQ>(acc);
+  float m[4], l[4];  // the softmax pass's rows: running max of s scale, this thread's part of the sum
 #pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
+  for (int e = 0; e < 4; ++e) m[e] = -INFINITY, l[e] = 0.f;
 
-  const int k_end = p.causal ? min(p.Sk, q0 + BQ) : p.Sk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile's sK / sV / sP reads are done
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int c = i / D, d = i % D;
-      const int col = k0 + c;
-      const bool ok = col < p.Sk;
-      sK[c * (D + 1) + d] = ok ? ld(k + col * p.k_ss + d) : 0.f;
-      sV[c * D + d] = ok ? ld(v + col * p.v_ss + d) : 0.f;
+  for (int it = 0; it < nkv; ++it) {
+    const int s = it & 1, k0 = it * BR;
+    cp_wait<0>();
+    __syncthreads();  // stage s has landed for every thread, and every read of stage s ^ 1, P and alpha is done
+    if (it + 1 < nkv) {
+      issue(it + 1);
+      cp_commit();
+    }
+
+    if (part < F::KS) {  // this part's raw scores, stored transposed
+      float sc[8][4];
+      scores_part<D>(sQ, sK + s * TILE, sc, rg, cg, part * F::DK);
+      float* dst = sS + part * BR * SPAD;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dst[(cg + NCG * j) * SPAD + rg + NRG * i] = sc[i][j];
     }
     __syncthreads();
 
-    float s[TR][TC];
+    {  // P = exp(S scale - m) in place of the first part, and each row's rescale factor
+      float4 sv[F::CPT];
 #pragma unroll
-    for (int i = 0; i < TR; ++i)
+      for (int c = 0; c < F::CPT; ++c) {
+        const float* src = sS + (ci + F::TPR * c) * SPAD + 4 * rq;
+        sv[c] = *reinterpret_cast<const float4*>(src);
 #pragma unroll
-      for (int j = 0; j < TC; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[TR], kv[TC];
+        for (int kp = 1; kp < F::KS; ++kp) {
+          const float4 t = *reinterpret_cast<const float4*>(src + kp * BR * SPAD);
+          sv[c].x += t.x, sv[c].y += t.y, sv[c].z += t.z, sv[c].w += t.w;
+        }
+      }
+      float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
 #pragma unroll
-      for (int i = 0; i < TR; ++i) qv[i] = sQ[(ty * TR + i) * (D + 1) + d];
+      for (int c = 0; c < F::CPT; ++c) {
+        float* s4 = &sv[c].x;
+        const int col = k0 + ci + F::TPR * c;
 #pragma unroll
-      for (int j = 0; j < TC; ++j) kv[j] = sK[(tx + 16 * j) * (D + 1) + d];
+        for (int e = 0; e < 4; ++e) {
+          const int row = q0 + 4 * rq + e;
+          const bool ok = col < p.Sk && (!p.causal || col <= row);
+          s4[e] = ok ? s4[e] * p.scale : -INFINITY;
+          mx[e] = fmaxf(mx[e], s4[e]);
+        }
+      }
+      float alpha[4], shift[4];
 #pragma unroll
-      for (int i = 0; i < TR; ++i)
+      for (int e = 0; e < 4; ++e) {
 #pragma unroll
-        for (int j = 0; j < TC; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
+        for (int off = F::TPR / 2; off > 0; off >>= 1) mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], off));
+        const float m_new = fmaxf(m[e], mx[e]);
+        // a row with nothing visible yet keeps m = -inf: take 0 as its shift, so exp gives 0, not nan
+        shift[e] = m_new == -INFINITY ? 0.f : m_new;
+        alpha[e] = expf(m[e] - shift[e]);
+        m[e] = m_new;
+      }
+      float rs[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < TR; ++i) {
-      const int row = q0 + ty * TR + i;
-      float mx = -INFINITY;
+      for (int c = 0; c < F::CPT; ++c) {
+        float* s4 = &sv[c].x;
 #pragma unroll
-      for (int j = 0; j < TC; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool ok = col < p.Sk && (!p.causal || col <= row);
-        s[i][j] = ok ? s[i][j] * p.scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          s4[e] = expf(s4[e] - shift[e]);
+          rs[e] += s4[e];
+        }
+        *reinterpret_cast<float4*>(sS + (ci + F::TPR * c) * SPAD + 4 * rq) = sv[c];
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      // a row with nothing visible yet keeps m = -inf: take 0 as its shift
-      // so that exp gives 0 instead of nan
-      const float shift = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = expf(m[i] - shift);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < TC; ++j) {
-        const float pj = expf(s[i][j] - shift);
-        sP[(ty * TR + i) * (BK + 1) + tx + 16 * j] = pj;
-        rs += pj;
-      }
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+      for (int e = 0; e < 4; ++e) l[e] = l[e] * alpha[e] + rs[e];
+      if (ci == 0) *reinterpret_cast<float4*>(sAlpha + 4 * rq) = make_float4(alpha[0], alpha[1], alpha[2], alpha[3]);
     }
     __syncthreads();
 
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[TR], vv[NC];
+    // O = alpha O + P V
 #pragma unroll
-      for (int i = 0; i < TR; ++i) pv[i] = sP[(ty * TR + i) * (BK + 1) + kk];
+    for (int q = 0; q < F::RQ; ++q) {
+      const float4 a = *reinterpret_cast<const float4*>(sAlpha + G::row(ra, q, 0));
+      const float a4[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = sV[kk * D + tx + 16 * c];
+      for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+        for (int c = 0; c < G::NCOL; ++c) acc[4 * q + r][c] *= a4[r];
     }
+    accumulate<D, THREADS, F::RQ>(sS, sV + s * TILE, acc, ra, ca);
   }
+  cp_wait<0>();  // with no kv tile, nothing waited for Q
 
+  // each row's denominator, summed over the threads of its row quad; its lse
 #pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    float lt = l[i];
+  for (int e = 0; e < 4; ++e)
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) lt += __shfl_xor_sync(0xffffffffu, lt, off);
-    const int row = q0 + ty * TR + i;
-    if (row < p.Sq) {
+    for (int off = F::TPR / 2; off > 0; off >>= 1) l[e] += __shfl_xor_sync(0xffffffffu, l[e], off);
+  if (ci == 0) {
+    *reinterpret_cast<float4*>(sL + 4 * rq) = make_float4(l[0], l[1], l[2], l[3]);
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float val = lt == 0.f ? 0.f : acc[i][c] / lt;  // fully masked row → 0
-        st(o + row * p.o_ss + tx + 16 * c, val);
-      }
-      // m is the row's max (every thread of the row holds it), lt its denominator
-      if (p.lse != nullptr && tx == 0)
-        p.lse[(size_t(b) * p.Hq + h) * p.Sq + row] = lt == 0.f ? INFINITY : m[i] + logf(lt);
+    for (int e = 0; e < 4; ++e) {
+      const int row = q0 + 4 * rq + e;
+      if (p.lse != nullptr && row < p.Sq)
+        p.lse[(size_t(b) * p.Hq + h) * p.Sq + row] = l[e] == 0.f ? INFINITY : m[e] + logf(l[e]);
     }
   }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < F::RQ; ++q)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float lt = sL[G::row(ra, q, r)];
+#pragma unroll
+      for (int c = 0; c < G::NCOL; ++c) acc[4 * q + r][c] = lt == 0.f ? 0.f : acc[4 * q + r][c] / lt;  // masked row: 0
+    }
+  store_acc<T, D, THREADS, F::RQ>(static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh, p.o_ss, q0, p.Sq, acc, 1.f, ra,
+                                  ca);
 }
 
 template <typename T, int D>
 int launch(const Params& p, int B, cudaStream_t stream) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  using F = Fwd<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(F::SMEM));
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.Hq, B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+  const dim3 grid(p.Hq, (p.Sq + F::BR - 1) / F::BR, B);
+  flash_fwd_kernel<T, D><<<grid, THREADS, F::SMEM, stream>>>(p);
   return int(cudaGetLastError());
 }
 
@@ -247,9 +340,11 @@ extern "C" int repro_flash_attention_fwd(
     float scale, int causal, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0) return int(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
+  const int vec = rows_aligned(q, q_sb, q_ss, q_sh, B, Sq, Hq) && rows_aligned(k, k_sb, k_ss, k_sh, B, Sk, Hkv) &&
+                  rows_aligned(v, v_sb, v_ss, v_sh, B, Sk, Hkv);
   const Params p{q, k, v, o, lse, Sq, Sk, Hq, Hkv,
                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
-                 scale, causal};
+                 scale, causal, vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return dispatch_dim<float>(p, B, D, s);

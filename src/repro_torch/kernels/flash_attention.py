@@ -18,10 +18,13 @@ call picks one by dtype and head dim (:func:`select_route` forward,
   164,904 bytes of shared memory, within a block's 232,448; the 64 x 256
   fp32 accumulator takes 128 registers a thread.
 * **forward, fp32 → ``csrc/flash_attention.cu``** (route ``"simt"``), both
-  products as fp32 FMAs on the CUDA cores.  fp32 stays off the tensor
-  cores on purpose: their fp32 input type is TF32, ~10 bits of mantissa,
-  which misses the fp32 tolerance (2e-5) that the fp32 checks hold the
-  kernel to.  It also takes bf16 at D = 256 when asked (``route="simt"``),
+  products as fp32 FMAs on the CUDA cores, tiled as the fp32 backward is:
+  8 × 4 score micro-tiles read as float4s from swizzled shared tiles over
+  parts of D, summed in one softmax pass, O in 8 × 4 register blocks, K/V
+  by ``cp.async`` in two stages (``csrc/simt_tile.cuh``).  fp32 stays off
+  the tensor cores on purpose: their fp32 input type is TF32, ~10 bits of
+  mantissa, which misses the fp32 tolerance (2e-5) that the fp32 checks
+  hold the kernel to.  It also takes bf16 at D = 256 when asked (``route="simt"``),
   so that the two can be timed side by side.
 * **backward, bf16 at every head dim → ``csrc/flash_attention_bwd_wgmma.cu``**
   (route ``"wgmma"``), dense training's: the FlashAttention-2 split in

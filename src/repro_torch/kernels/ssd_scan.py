@@ -19,15 +19,25 @@ by dtype (:func:`select_route`):
   and needs the base and the batch/seq/head strides of x, B and C 16-byte
   aligned (TMA); the wrapper checks and raises.  Chunks hold
   :func:`tiles_per_chunk` tiles, picked to fill the output kernel's waves.
-* **fp32 → ``csrc/ssd_scan.cu``** (route ``"simt"``): one block per (batch,
-  head, 32 state rows) walks the 64-row tiles in order with its slice of the
-  state in shared memory, all products as fp32 FMAs; any P and d_state up
-  to :data:`MAX_STATE`.  fp32 stays off the tensor cores on purpose: their
-  fp32 input type is TF32, which misses the fp32 tolerance.
+* **fp32 → ``csrc/ssd_scan.cu``** (route ``"simt"``): the same
+  chunked-parallel form on the CUDA cores, one 64-row tile a chunk, in three
+  kernels: ``C·Bᵀ`` once per (batch, group, tile) and each tile's own state
+  ``Xwᵀ B`` per (batch, head, tile); the states passed across tiles in order
+  in fp32 from h0; then per (batch, head, tile) ``y = M X + exp(cum)·(C
+  h_inᵀ)``.  Every product is an fp32 FMA on register-blocked micro-tiles
+  read as float4s; any P (slices of :data:`SIMT_SLICE` state rows) and
+  d_state up to :data:`MAX_STATE`.  Its plain model, in its order of sums,
+  is :func:`repro_torch.kernels.ref.ssd_tiled_ref` with no rounding terms and
+  one tile a chunk.  fp32 stays off the tensor cores on purpose: their fp32
+  input type is TF32, which misses the fp32 tolerance.
 
-What bounds the function on an H100: the work (2L²N + 2L²P + 4LNP FLOPs per
-tile of L rows and head) is small against the bytes it moves (x, y, dt, B,
-C, the final state), so the function is bound by bytes.  Both kernels read
+Either route launches :data:`KERNELS_PER_CALL` CUDA kernels a call (only
+the pass when S = 0); ``ssd_scan.launches`` counts calls.  What bounds the
+function on an H100: the work (:func:`ssd_flops`: ``C·Bᵀ`` once per group and tile, the causal
+halves of the L×L products, ``C hᵀ`` and the state product per head and
+tile) is small against the bytes it moves (x, y, dt, B, C, the final
+state: :func:`ssd_bytes`), so the function is bound by bytes in bf16; in
+fp32 at the fp32 FMA rate it is bound by operations.  Both kernels read
 batch-major tensors through their strides and B/C of group ``h // (H/G)`` in
 place, and mask the ragged last tile themselves, so they take any sequence
 length.  ``PERF.md`` holds their measured times beside the bound.
@@ -63,7 +73,8 @@ from .ref import ssd_chunked_ref
 
 __all__ = [
     "ssd_scan", "SSDScan", "ssd_scan_autograd", "ssd_flops", "ssd_bytes", "select_route", "tiles_per_chunk", "ROUTES",
-    "MAX_STATE", "MAX_CHUNK_TILES", "TILE", "WGMMA_HEAD_DIM", "WGMMA_STATES", "SOURCE", "SIMT_SOURCE", "REPLACES",
+    "MAX_STATE", "MAX_CHUNK_TILES", "TILE", "SIMT_SLICE", "KERNELS_PER_CALL", "WGMMA_HEAD_DIM", "WGMMA_STATES",
+    "SOURCE", "SIMT_SOURCE", "REPLACES", "simt_scratch",
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -71,6 +82,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
 #: the kernels' tile of sequence rows, and the largest d_state the SIMT kernel takes
 TILE, MAX_STATE = 64, 256
+#: the SIMT kernel's slice of state rows (P), and the widths it pads d_state to
+SIMT_SLICE, _SIMT_STATES = 64, (64, 128, 256)
+#: CUDA kernels one call launches, on either route: prep, the pass across chunks, the outputs
+KERNELS_PER_CALL = 3
 #: the head dim and the d_states the tensor-core kernel takes
 WGMMA_HEAD_DIM, WGMMA_STATES = 64, (64, 128)
 #: the longest state chunk the tensor-core kernel takes, in tiles, and the
@@ -112,14 +127,18 @@ def tiles_per_chunk(B: int, H: int, S: int, sms: int) -> int:
     return min(range(1, MAX_CHUNK_TILES + 1), key=cost)
 
 
-def ssd_flops(B: int, S: int, H: int, P: int, N: int) -> int:
-    """FLOPs of one call as the SIMT kernel does them, the yardstick both
-    kernels are timed against: ``2L²N + 2L²P + 4LNP`` per (batch, head, tile
-    of L = :data:`TILE` rows), the full L×L tile and ``C·Bᵀ`` per head
-    counted.  (The tensor-core kernel computes ``C·Bᵀ`` once per group and
-    runs each two-term product twice.)"""
-    L = TILE
-    return B * H * -(-S // L) * (2 * L * L * N + 2 * L * L * P + 4 * L * N * P)
+def ssd_flops(B: int, S: int, H: int, P: int, N: int, G: int = 1) -> int:
+    """The FLOPs of the function's least work in the chunked form, the
+    yardstick both kernels are timed against: per (batch, group, tile of
+    r ≤ L = :data:`TILE` rows) ``C·Bᵀ``'s causal half, ``r(r+1)/2·2N``; per
+    (batch, head, tile) ``M X``'s causal half, ``r(r+1)/2·2P``, the
+    inter-tile ``C h_inᵀ``, ``2rNP``, and the state update ``Xwᵀ B``,
+    ``2rNP``.  (The kernels compute whole L×L tiles, and the tensor-core
+    kernel runs each two-term product twice.)"""
+    full, r = divmod(S, TILE)
+    rows = [TILE] * full + ([r] if r else [])
+    tri = sum(n * (n + 1) // 2 for n in rows)
+    return B * (G * tri * 2 * N + H * (tri * 2 * P + 4 * S * N * P))
 
 
 def ssd_bytes(B: int, S: int, H: int, P: int, N: int, G: int, esize: int) -> int:
@@ -139,7 +158,7 @@ def _kernel_fn(route: str):
     else:
         lib = build.load("ssd_scan")
         fn, err_str = lib.repro_ssd_scan_fwd, lib.repro_ssd_error_string
-        argtypes = [p] * 9 + [i] * 7 + [ll] * 12 + [p]
+        argtypes = [p] * 12 + [i] * 7 + [ll] * 12 + [p]
     if fn.argtypes is None:  # first use of this library handle
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -233,15 +252,28 @@ def ssd_scan(
                 *args["x_strides"], *dt.stride(), *args["b_strides"], *args["c_strides"], stream,
             )
         else:
+            scratch = [torch.empty(shape, dtype=torch.float32, device=x.device)
+                       for shape in simt_scratch(Bsz, S, H, G, P, N)]
             err = fn(
                 ptr(x), ptr(dt), ptr(A), ptr(Bm), ptr(Cm), ptr(D), ptr(h0), ptr(y), ptr(h_out),
-                _DTYPE_CODES[x.dtype], Bsz, S, H, G, P, N,
+                *(ptr(t) for t in scratch), _DTYPE_CODES[x.dtype], Bsz, S, H, G, P, N,
                 *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3], stream,
             )
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: {err_str(err).decode()}")
     ssd_scan.launches += 1
     return y, h_out
+
+
+def simt_scratch(B: int, S: int, H: int, G: int, P: int, N: int):
+    """The SIMT kernel's fp32 scratch shapes: ``C·Bᵀ`` per (batch, group,
+    tile), each tile's state as (n, p) rows per (batch, tile, head, slice of
+    :data:`SIMT_SLICE` state rows), d_state padded to 64, 128 or 256 (its
+    own state, then the state entering it), and each tile's decay per
+    (batch, tile, head)."""
+    n_tiles, slices = -(-S // TILE), -(-P // SIMT_SLICE)
+    ns = next(w for w in _SIMT_STATES if N <= w)
+    return ((B, G, n_tiles, TILE, TILE), (B, n_tiles, H, slices, ns, SIMT_SLICE), (B, n_tiles, H))
 
 
 def _wgmma_args(x, Bm, Cm, h0):

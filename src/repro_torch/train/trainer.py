@@ -236,7 +236,7 @@ class Trainer:
         if launched["ssd_kernel"]:
             s = cfg.ssm
             H = s.n_heads(cfg.d_model)
-            per["ssd_kernel"] = (ssd_kernel.ssd_flops(B, S, H, s.head_dim, s.d_state),
+            per["ssd_kernel"] = (ssd_kernel.ssd_flops(B, S, H, s.head_dim, s.d_state, s.n_groups),
                                  ssd_kernel.ssd_bytes(B, S, H, s.head_dim, s.d_state, s.n_groups, esize))
         for name, backward in (("flash_forward", False), ("flash_backward", True)):
             if launched[name]:

@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: flash attention
-forward (bf16 on wgmma at every head dim, fp32 on the CUDA cores) and
-backward (bf16 on wgmma at head dims 32-128; fp32 and bf16 at 256 on the
-CUDA cores), the SSD scan (bf16 on wgmma, fp32 on the CUDA cores) and the
+forward (bf16 on wgmma at every head dim, fp32 on the CUDA cores at every
+head dim) and backward (bf16 on wgmma at every head dim; fp32 on the CUDA
+cores), the SSD scan (bf16 on wgmma, fp32 on the CUDA cores) and the
 simulator's landing.
 
 Imports torch and the port only (the card's machine has no JAX).  Every
@@ -155,6 +155,47 @@ BF16_TOL = dict(atol=2e-2, rtol=1e-2)
 #: the kernels' logsumexp against the plain one: both fp32 from the same
 #: inputs, differing by summation order and exp/log rounding
 LSE_TOL = dict(atol=1e-4, rtol=1e-5)
+
+
+#: the fp32 forward's tiles are 64 rows (32 at D = 256): every head dim, MHA,
+#: GQA and MQA, lengths off the tile, and cross lengths (non-causal)
+FP32_FWD_GRID = [
+    (1, 70, 70, 2, 1, 32), (2, 130, 130, 4, 2, 64), (1, 200, 200, 8, 2, 128), (1, 97, 97, 4, 4, 256),
+    (1, 404, 404, 16, 1, 256), (1, 48, 150, 6, 3, 128), (1, 33, 75, 4, 2, 256), (1, 1, 1, 2, 2, 64),
+]
+
+
+@pytest.mark.parametrize("shape,causal", [(s, c) for s in FP32_FWD_GRID for c in (True, False) if not c or s[1] == s[2]])
+def test_fp32_forward_every_head_dim_matches_plain(cuda, shape, causal):
+    """The fp32 SIMT forward and its logsumexp against the plain versions
+    (causal only where Sq == Sk, as the kernels take it)."""
+    B, Sq, Sk, Hq, Hkv, D = shape
+    q, k, v = _qkv((B, Sq, Hq, Hkv, D), torch.float32, cuda, seed=Sq + Sk + D, Sk=Sk)
+    assert fa.select_route(q.dtype, D) == "simt"
+    out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, attention_ref(q, k, v, causal=causal), **FP32_TOL)
+    torch.testing.assert_close(lse, attention_lse_ref(q, k, v, causal=causal), **LSE_TOL)
+
+
+@pytest.mark.parametrize("D", [32, 128, 256])
+def test_fp32_forward_copies_unaligned_rows(cuda, D):
+    """fp32 q, k and v whose rows are not 16-byte aligned (head stride D + 1
+    floats) take the forward's 4-byte copies and agree as aligned ones do."""
+    g = torch.Generator().manual_seed(D)
+    q, k, v = (torch.randn(1, 70, 3, D + 1, generator=g).to(cuda)[..., :D] for _ in range(3))
+    assert q.stride(2) % 4 != 0 and q.stride(-1) == 1
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    torch.testing.assert_close(out, attention_ref(q, k, v, causal=True), **FP32_TOL)
+    torch.testing.assert_close(lse, attention_lse_ref(q, k, v, causal=True), **LSE_TOL)
+
+
+@pytest.mark.parametrize("D", [64, 256])
+def test_fp32_forward_masked_rows_give_zero_and_infinite_lse(cuda, D):
+    """Rows that see no key (Sk = 0) give 0 and an lse of +inf at every tile size."""
+    q, k, v = _qkv((2, 40, 4, 2, D), torch.float32, cuda, Sk=0)
+    out, lse = fa.flash_attention(q, k, v, causal=False, return_lse=True)
+    assert torch.count_nonzero(out) == 0 and torch.isinf(lse).all() and (lse > 0).all()
 #: backward in fp32: the kernel and the plain version differ by the order of
 #: their fp32 sums over up to 200 rows or columns
 BWD_FP32_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -537,6 +578,53 @@ def test_ssd_simt_route_still_takes_bf16(cuda):
     for y, hf in ((ys, hs), (yw, hw)):
         torch.testing.assert_close(y.float(), want_y.float(), atol=2e-2, rtol=2e-2)
         assert ((hf - want_h).norm() / want_h.norm()).item() <= 1e-3
+
+
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("B,S", [(4, 256), (1, 1000), (1, 4096)])
+def test_ssd_fp32_full_width_matches_sequential_ref(cuda, B, S, h0):
+    """fp32 at mamba2-130m's SSD width (H=24, P=64, N=128) runs the SIMT
+    kernels: the training microbatch, a ragged length and train_4k's."""
+    x, dt, A, Bm, Cm, D, h = _ssd((B, S, 24, 64, 128, 1), torch.float32, cuda, seed=B + S, h0=h0)
+    assert sk.select_route(x.dtype) == "simt"
+    y, hf = ops.ssd_scan(x, dt, A, Bm, Cm, D, h, chunk=256)
+    want_y, want_h = ssd_ref(x, dt, A, Bm, Cm, D, h, return_state=True)
+    torch.testing.assert_close(y, want_y, atol=5e-5, rtol=1e-3)
+    torch.testing.assert_close(hf, want_h, atol=5e-5, rtol=1e-3)
+
+
+@pytest.mark.parametrize("P,N", [(72, 200), (6, 5)])
+def test_ssd_fp32_state_slices_and_odd_widths(cuda, P, N):
+    """A head dim over one 64-row state slice and a d_state padded to 256;
+    widths that are not a multiple of 4 (4-byte copies), with h0."""
+    x, dt, A, Bm, Cm, D, h = _ssd((2, 150, 4, P, N, 2), torch.float32, cuda, seed=P + N, h0=True)
+    y, hf = ops.ssd_scan(x, dt, A, Bm, Cm, D, h, chunk=50)
+    want_y, want_h = ssd_ref(x, dt, A, Bm, Cm, D, h, return_state=True)
+    torch.testing.assert_close(y, want_y, atol=5e-5, rtol=1e-3)
+    torch.testing.assert_close(hf, want_h, atol=5e-5, rtol=1e-3)
+
+
+def test_ssd_fp32_unaligned_strides_and_empty_sequence(cuda):
+    """x, B and C as slices of one packed projection at an odd offset (the
+    4-byte copies), with h0; S = 0 passes h0 through as h_final."""
+    Bsz, S, H, P, N = 2, 130, 4, 32, 64
+    packed = (torch.randn(Bsz, S, H * P + 2 * N + 1, device=cuda) * 0.3)[..., 1:]
+    x = packed[..., : H * P].unflatten(-1, (H, P))
+    Bm = packed[..., H * P : H * P + N].unflatten(-1, (1, N))
+    Cm = packed[..., H * P + N :].unflatten(-1, (1, N))
+    dt = torch.nn.functional.softplus(torch.randn(Bsz, S, H, device=cuda)) * 0.1
+    A = -torch.rand(H, device=cuda) - 0.5
+    h0 = torch.randn(Bsz, H, P, N, device=cuda) * 0.1
+    assert x.data_ptr() % 16 != 0
+    y, hf = ops.ssd_scan(x, dt, A, Bm, Cm, None, h0, chunk=130)
+    want_y, want_h = ssd_ref(x, dt, A, Bm, Cm, None, h0, return_state=True)
+    torch.testing.assert_close(y, want_y, atol=5e-5, rtol=1e-3)
+    torch.testing.assert_close(hf, want_h, atol=5e-5, rtol=1e-3)
+    x, dt, A, Bm, Cm, D, h = _ssd((2, 0, 4, 16, 8, 1), torch.float32, cuda, h0=True)
+    before = sk.ssd_scan.launches
+    y, hf = sk.ssd_scan(x, dt, A, Bm, Cm, D, h, chunk=1)
+    assert sk.ssd_scan.launches == before + 1
+    assert y.shape == (2, 0, 4, 16) and torch.equal(hf, h)
 
 
 # --------------------------------------------------------------------------- the simulator's landing

@@ -173,7 +173,9 @@ def test_ssd_wrapper_refuses_what_it_does_not_take():
         sk.ssd_scan(*meta, chunk=16)
     assert sk.ssd_scan.launches == before
     assert sk.REPLACES.startswith("src/repro/kernels/ssd_scan.py")
-    assert sk.ssd_flops(4, 256, 24, 64, 128) == 4 * 24 * 4 * (2 * 64 * 64 * 128 + 2 * 64 * 64 * 64 + 4 * 64 * 128 * 64)
+    # the least work: C Bᵀ once per (batch, group, tile) and M X each the causal half (2080 of 64 x 64 entries
+    # with the diagonal), C h_inᵀ and the state product per (batch, head, tile)
+    assert sk.ssd_flops(4, 256, 24, 64, 128) == 4 * 4 * (2080 * 2 * 128 + 24 * (2080 * 2 * 64 + 4 * 64 * 128 * 64))
 
 
 # --------------------------------------------------------------------------- mamba2 model
