@@ -18,6 +18,17 @@ source, all started together) and drives the port's three paths:
   d_model 4096, bf16, random weights from a seed) served through the
   continuous-batching engine, with the per-stream lanes checked and every
   prefill through the flash kernel;
+* MoE/MLA serving: the flash forward at MLA's widths (q/k 192, v 128) on
+  both kernels held against the plain version (SASS as above) and the bf16
+  one timed beside SDPA; llama4-scout's and deepseek-v2-lite's smoke
+  configs (the latter at the published MLA head dims) served on the card
+  and on the CPU in fp32, experts compared first (a differing expert must
+  be a tie), then tokens, statuses and lanes; deepseek-v2-lite at its
+  published size, uncut (27 layers, 15.7 B parameters, bf16), served
+  through the engine with every prefill's attention on the (192, 128)
+  kernel, the kernel and the sparse MoE layer held on real inputs, no host
+  sync in a decode step, and the device's idle share of a prefill and a
+  decode step;
 * dense training: the bf16 flash backward kernel (tensor cores at every
   head dim, two warpgroups a block at 256; its dK/dV and dQ kernels' SASS
   must hold ``HGMMA`` and ``UTMALDG``) held against the plain FA-2 backward
@@ -76,6 +87,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -117,9 +129,19 @@ FULL_FP32_REL = 1e-2
 #: from one CUDA graph between a pair of CUDA events; ROUNDS readings per
 #: function, the functions alternating within each round
 LAUNCHES, ROUNDS = 50, 9
-#: device_breakdown's spin kernels ahead of the traced call (the profiler may
-#: drop a trace's first device events late in a long run)
-BREAKDOWN_SPINS = 64
+#: device_breakdown's witnesses.  torch.profiler keeps only the device events
+#: whose timestamps fall inside the trace's window, and late in a long run the
+#: device clock's conversion to the host's drifts, so the events near an edge
+#: of the window are dropped.  The traced call is bracketed on each side by
+#: BREAKDOWN_SPINS spin kernels and BREAKDOWN_MARGIN_S of host sleep between
+#: them and the window's edge; a trace that lost every spin of one side is
+#: taken again with twice the margin, BREAKDOWN_TRIES traces in all
+BREAKDOWN_SPINS, BREAKDOWN_MARGIN_S, BREAKDOWN_TRIES = 16, 0.05, 4
+#: the margins of the traces that device_breakdown took again, and each kept
+#: trace's first device event's start less its margin (ms after the window
+#: opens; far below 0, the clock drift), printed at the end
+BREAKDOWN_RETAKEN: list[float] = []
+BREAKDOWN_LEAD_MS: list[float] = []
 
 #: SSD kernel checks against the sequential plain scan: tests/test_kernels.py's
 #: SSD shapes (B, S, H, P, N, G), grouped B/C among them, plus a P that is not
@@ -256,6 +278,26 @@ ATTN_ONLY_DROP, ATTN_ONLY_STEPS = 0.05, 10
 #: relative L2 of each step's logits: the same weights and math, the SSD
 #: state handed from the kernel to the exact recurrence
 DECODE_FP32_REL = 1e-3
+#: MLA's prefill attention at deepseek-v2's published widths: 16 heads, q and k 128 + 64 rope columns, v 128
+MLA_HEADS, MLA_DQK, MLA_DV = 16, 192, 128
+#: the (192, 128) kernel timed at these lengths (the served trace's prompts are 132 to 404), bf16, causal
+MLA_TIMED = (132, 404, 1024)
+#: moe_parity: where the card and the CPU pick different experts for a token, the check passes only if that
+#: token's top-(k+1) router probabilities lie within TIE_EPS of each other (a tie, not an error): both run
+#: fp32 with TF32 off, so the router's inputs differ by summation order, ~1e-6 relative after three layers,
+#: and its probabilities by ~1e-7
+TIE_EPS = 1e-5
+#: deepseek-v2-lite at its published size, counted from repro.models.model_defs (and model_defs here)
+MOE_FULL_PARAMS = 15_706_484_224
+#: moe_full_width holds the sparse MoE layer (at capacity factor n_experts, so nothing drops) against the
+#: all-experts path on one layer's real hidden states in fp32 (the bf16 weights and hidden states upcast
+#: exactly), at FP32_TOL: the two compute one function in another summation order.  Not in bf16: there the
+#: sparse path adds each token's k = 6 weighted expert outputs and the shared expert's one after another in
+#: bf16, as the reference's segment_sum does, where the all-experts path sums in fp32 and rounds once, so the
+#: two differ by design by up to 2^-9 of a partial sum at each of those roundings (1.0 apart on outputs up
+#: to 206 measured)
+#: operations of one decode step listed from its device breakdown
+TOP_OPS = 12
 #: the simulator's batched sweep: the full scenario registry at SIM_DRAWS
 #: divergent draws a scenario (1,088 jobs), event engine, as a validation
 #: sweep of the per-kernel, per-stream counts runs it; the segment kernel is
@@ -266,7 +308,8 @@ SIM_DRAWS, SIM_SMALL_DRAWS, SIM_COMPILED_DRAWS, SIM_SEED = 64, 2, 2, 0
 #: segment-kernel checks (events, n_segs, row_size): tests/test_batched.py's
 #: shapes, with events on two rows past the table that must drop
 SEG_SHAPES = [(2000, 1, 8), (2000, 5, 64), (2000, 16, 300)]
-#: host-clock readings of the landing op with its copies (median taken)
+#: host-clock readings (median taken) of the landing op with its copies, and of
+#: one prefill and one decode step in moe_full_width
 HOST_ROUNDS = 3
 
 
@@ -345,31 +388,47 @@ def time_interleaved(fns, warmup: int = 3, eager=()):
 def device_breakdown(fn):
     """Device microseconds of one call of ``fn`` (after one warm-up call), by
     kernel, memset or memcpy, from a ``torch.profiler`` trace: where the time
-    of a call that launches more than one kernel goes.  Late in a long run
-    the profiler drops the first few device events of a trace (a one-call
-    trace of the fp32 SSD came back empty after the training phases), so
-    the trace starts with BREAKDOWN_SPINS short spin kernels, left out of the
-    result; the check fails unless some of them remain, which shows that
-    every event of ``fn`` came through."""
+    of a call that launches more than one kernel goes.  The call sits between
+    two runs of BREAKDOWN_SPINS spin kernels, left out of the result, each
+    BREAKDOWN_MARGIN_S of host sleep inside the trace's window (see there);
+    a spin that came through on each side shows that every event of ``fn``
+    did, and the check fails if no trace of BREAKDOWN_TRIES shows that."""
     from torch.profiler import ProfilerActivity, profile
+
+    def spins():
+        for _ in range(BREAKDOWN_SPINS):
+            torch.cuda._sleep(100)
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(BREAKDOWN_SPINS):
-            torch.cuda._sleep(100)
-        fn()
-        torch.cuda.synchronize()
-    out, spins = {}, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            if "spin_kernel" in e.name:
-                spins += 1
-                continue
-            name = re.sub(r"\(.*", "", e.name.replace("(anonymous namespace)::", ""))[:48]
-            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us()
-    check(spins > 0, f"the profiler dropped all {BREAKDOWN_SPINS} spin kernels of a trace, so some of the call's too")
-    return out
+    margin = BREAKDOWN_MARGIN_S
+    for _ in range(BREAKDOWN_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(margin)
+            spins()
+            fn()
+            spins()
+            torch.cuda.synchronize()
+            time.sleep(margin)
+        events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        own = [e for e in events if "spin_kernel" not in e.name]
+        if own:
+            first, last = own[0].time_range.start, own[-1].time_range.start
+            spin_starts = [e.time_range.start for e in events if "spin_kernel" in e.name]
+            if any(t < first for t in spin_starts) and any(t > last for t in spin_starts):
+                BREAKDOWN_LEAD_MS.append(events[0].time_range.start / 1e3 - margin * 1e3)
+                out = {}
+                for e in own:
+                    name = re.sub(r"\(.*", "", e.name.replace("(anonymous namespace)::", ""))[:48]
+                    out[name] = out.get(name, 0.0) + e.time_range.elapsed_us()
+                return out
+        BREAKDOWN_RETAKEN.append(margin)
+        print(f"chip_smoke: a profiler trace lost every spin kernel of one side at a margin of {margin} s; "
+              "taking it again", file=sys.stderr, flush=True)
+        margin *= 2
+    check(False, f"{BREAKDOWN_TRIES} profiler traces each lost every spin kernel on one side of the call, "
+                 "so some of the call's events too")
 
 
 def randn(shape, dtype, seed):
@@ -465,6 +524,10 @@ def _ptxas_by_kernel(log: str):
     return out
 
 
+def _dims_label(dqk: int, dv: int) -> str:
+    return f"D={dqk}" if dqk == dv else f"D={dqk}/{dv}"
+
+
 def phase_build():
     from repro_torch.kernels import build
 
@@ -478,18 +541,20 @@ def phase_build():
     from repro_torch.kernels import flash_attention as fa
 
     sass = {}
-    # library → (pattern of its tensor-core kernels' mangled names, the instantiations each must have)
+    # library → (pattern of its tensor-core kernels' mangled names, the instantiations each must have); the
+    # forward's template takes the q/k and the v head dim, named "D=<d>" when they are equal
     for lib, pattern, dims in (
-        ("flash_attention_wgmma", r"(flash_fwd_wgmma)ILi(\d+)E", fa.WGMMA_HEAD_DIMS),
-        ("flash_attention_bwd_wgmma", r"(flash_bwd_dkdv_wgmma|flash_bwd_dq_wgmma)ILi(\d+)E", fa.BWD_WGMMA_HEAD_DIMS),
+        ("flash_attention_wgmma", r"(flash_fwd_wgmma)ILi(\d+)ELi(\d+)E", [_dims_label(*p) for p in fa.FWD_PAIRS]),
+        ("flash_attention_bwd_wgmma", r"(flash_bwd_dkdv_wgmma|flash_bwd_dq_wgmma)ILi(\d+)E()",
+         [_dims_label(d, d) for d in fa.SUPPORTED_HEAD_DIMS]),
     ):
         per_fn = {}
         for fn, c in sass_counts(info[lib]["path"], build.BUILD_DIR / f"{lib}.sass").items():
             m = re.search(pattern, fn)
             if m:
-                per_fn[f"{m.group(1)} D={m.group(2)}"] = c
+                per_fn[f"{m.group(1)} {_dims_label(int(m.group(2)), int(m.group(3) or m.group(2)))}"] = c
         kernels = sorted({name.split()[0] for name in per_fn})
-        check(sorted(per_fn) == sorted(f"{k} D={d}" for k in kernels for d in dims) and per_fn,
+        check(sorted(per_fn) == sorted(f"{k} {d}" for k in kernels for d in dims) and per_fn,
               f"{lib}: tensor-core instantiations in the SASS: {sorted(per_fn)}")
         for name, c in per_fn.items():
             check(all(c[op] > 0 for op in SASS_OPS), f"{lib} {name} lacks {SASS_OPS} in its SASS: {c}")
@@ -504,6 +569,7 @@ def phase_build():
           "per_kernel_s": {n: round(float(i["seconds"]), 3) for n, i in info.items()},
           "ptxas": ptxas, "sass_flash_attention_wgmma": sass["flash_attention_wgmma"],
           "sass_flash_attention_bwd_wgmma": sass["flash_attention_bwd_wgmma"]})
+    return sass
 
 
 def phase_kernel(smi: str, served_lens):
@@ -840,6 +906,376 @@ def phase_full_width():
         "logits_rel_l2": logits, "logits_tolerance": {"fp32_kernel_vs_plain": FULL_FP32_REL},
     })
     return launches, op_err
+
+
+def phase_mla_kernel(smi: str, served_lens, sass):
+    """MLA's prefill attention at deepseek-v2's widths, (q/k 192, v 128) over
+    16 heads: both routes against the plain version (bf16 on the tensor-core
+    kernel, fp32 on the SIMT one) at MAIN_SEQS and the served lengths,
+    causal, and on a non-causal call, a B = 2 ragged call and GQA 16 over 4;
+    the bf16 kernel timed at MLA_TIMED beside the plain version, SDPA at the
+    same widths and the bound, the fp32 one at the longest served prompt."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    H, DQK, DV = MLA_HEADS, MLA_DQK, MLA_DV
+    scale = DQK ** -0.5
+    routes = {str(dt): fa.select_route(dt, DQK, DV) for dt in (torch.bfloat16, torch.float32)}
+    check(routes == {"torch.bfloat16": "wgmma", "torch.float32": "simt"}, f"(192, 128) routes {routes}")
+
+    def qkv(B, S, Hq, Hkv, dtype, seed, Sk=None):
+        Sk = S if Sk is None else Sk
+        return (randn((B, S, Hq, DQK), dtype, seed), randn((B, Sk, Hkv, DQK), dtype, seed + 1),
+                randn((B, Sk, Hkv, DV), dtype, seed + 2))
+
+    # (B, Sq, Hq, Hkv, causal, Sk)
+    cases = [(1, S, H, H, True, S) for S in sorted({*MAIN_SEQS, *served_lens})]
+    cases += [(1, 404, H, H, False, 404), (2, 333, H, H, True, 333), (1, 404, H, 4, True, 404),
+              (2, 77, H, 4, False, 150)]
+    err = {}
+    for i, (B, S, Hq, Hkv, causal, Sk) in enumerate(cases):
+        for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+            q, k, v = qkv(B, S, Hq, Hkv, dtype, 700 + 3 * i, Sk)
+            out = ops.flash_attention(q, k, v, causal=causal, scale=scale)
+            want = ops.flash_attention(q, k, v, causal=causal, scale=scale, impl="plain")
+            torch.cuda.synchronize()
+            check(out.shape == (B, S, Hq, DV), f"(192, 128) output shape {tuple(out.shape)}")
+            e = (out.float() - want.float()).abs().max().item()
+            err[str(dtype)] = max(err.get(str(dtype), 0.0), e)
+            check(torch.allclose(out.float(), want.float(), **tol),
+                  f"(192, 128) {dtype} kernel disagrees with plain at B={B} S={S} Sk={Sk} Hq={Hq} Hkv={Hkv} "
+                  f"causal={causal}: {e}")
+
+    rows = {}
+    for S in sorted({*MLA_TIMED, *served_lens}):
+        q, k, v = qkv(1, S, H, H, torch.bfloat16, 800 + S)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True, scale=scale)
+        ms = time_interleaved({
+            "kernel": lambda: ops.flash_attention(q, k, v, causal=True, scale=scale),
+            "plain": lambda: ops.flash_attention(q, k, v, causal=True, scale=scale, impl="plain"),
+            "library": sdpa,
+        })
+        flops = fa.flash_flops(1, S, S, H, DQK, causal=True, v_head_dim=DV)
+        nbytes = fa.flash_bytes(1, S, S, H, H, DQK, 2, v_head_dim=DV)
+        bound_ms, bound_by = _bound(flops, nbytes, smi)
+        rows[str(S)] = {"kernel_ms": ms["kernel"]["median"], "plain_ms": ms["plain"]["median"],
+                        "library_ms": ms["library"]["median"], "bound_ms": bound_ms, "bound_by": bound_by,
+                        "flops": flops, "bytes": nbytes,
+                        "spread_ms": {name: [m["min"], m["max"]] for name, m in ms.items()}}
+    # which SDPA backend takes Dv != Dqk: the kernels it launches
+    sdpa_kernels = sorted(device_breakdown(sdpa))
+
+    S = max(served_lens)
+    q, k, v = qkv(1, S, H, H, torch.float32, 900)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    ms = time_interleaved({
+        "kernel": lambda: ops.flash_attention(q, k, v, causal=True, scale=scale),
+        "plain": lambda: ops.flash_attention(q, k, v, causal=True, scale=scale, impl="plain"),
+        "library": lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True, scale=scale),
+    })
+    bound_ms, bound_by = _bound(fa.flash_flops(1, S, S, H, DQK, causal=True, v_head_dim=DV),
+                                fa.flash_bytes(1, S, S, H, H, DQK, 4, v_head_dim=DV), smi, fp32=True)
+    fp32_row = {"shape": f"B=1 S={S} Hq=Hkv={H} Dqk={DQK} Dv={DV} fp32 causal, route simt",
+                "kernel_ms": ms["kernel"]["median"], "plain_ms": ms["plain"]["median"],
+                "library_ms": ms["library"]["median"], "bound_ms": bound_ms, "bound_by": bound_by}
+    line = {"phase": "mla_kernel", "shape": f"B=1 Hq=Hkv={H} Dqk={DQK} Dv={DV} bf16 causal, scale {DQK}^-0.5, "
+                                            "route wgmma", "routes": routes, "max_abs_err": err,
+            "tolerances": {"bfloat16": BF16_TOL, "float32": FP32_TOL}, "checked": len(cases),
+            "sass": sass, "timing": rows, "sdpa_kernels": sdpa_kernels, "fp32": fp32_row,
+            "timing_note": f"median of {ROUNDS} readings, each the mean of {LAUNCHES} back-to-back calls replayed "
+                           "from one CUDA graph; kernel, plain and SDPA alternate; inputs warm in L2"}
+    emit(line)
+    fa.flash_attention.launches = 0
+    return line
+
+
+class _RouterTrace:
+    """Every router call of one engine run over the requests ``reqs``: each
+    token's experts, the smallest gap between its top-(k+1) router
+    probabilities (from the router's own top-k, asked for one more), and the
+    request and token index its row works for (None for a decode bucket's
+    empty rows).  Installed over ``moe.router_topk`` alone; the owners come
+    from the engine's public state: a prefill's rows belong to the one
+    submitted request that has left the queue with no token yet, a decode
+    step's row i to the request in slot i."""
+
+    def __init__(self, eng, reqs):
+        from repro_torch.models import moe as moe_mod
+
+        self.calls, self._eng, self._reqs, self._mod = [], eng, reqs, moe_mod
+        self._real = moe_mod.router_topk
+
+    def _owners(self, rows: int):
+        eng = self._eng
+        prefilling = [r for r in self._reqs if r.stream_id >= 0 and not r.generated
+                      and all(r is not q for q in eng.queue)]
+        check(len(prefilling) <= 1, f"{len(prefilling)} requests between the queue and their first token")
+        if prefilling:
+            req = prefilling[0]
+            owners = [(req.name, 0)] * len(req.prompt)
+        else:
+            owners = [(r.name, len(r.generated)) if r is not None else None for r in eng.slots[:rows]]
+        check(rows == len(owners), f"{rows} router rows, {len(owners)} rows the engine runs")
+        return owners
+
+    def __enter__(self):
+        def traced(params, x, moe):
+            w, idx, aux = self._real(params, x, moe)
+            more = dataclasses.replace(moe, top_k=min(moe.top_k + 1, moe.n_experts), router_scale=False)
+            top = self._real(params, x, more)[0].float()
+            gap = (top[..., :-1] - top[..., 1:]).min(-1).values
+            self.calls.append((idx.cpu(), gap.cpu(), self._owners(idx.shape[0])))
+            return w, idx, aux
+
+        self._mod.router_topk = traced
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.router_topk = self._real
+
+
+def _ties(cpu_calls, gpu_calls):
+    """Compare the two runs' experts call by call.  A token whose experts
+    differ must be a tie (its top-(k+1) probabilities within TIE_EPS on both
+    devices); from there on its request's routing is not compared.  Returns
+    each such request's first tied token index and the ties."""
+    check(len(cpu_calls) == len(gpu_calls), f"{len(cpu_calls)} router calls on the CPU, {len(gpu_calls)} on the card")
+    first, ties = {}, []
+    for n, ((ci, cgap, owners), (gi, ggap, gowners)) in enumerate(zip(cpu_calls, gpu_calls)):
+        check(owners == gowners, "the two engines ran different schedules")
+        for t, owner in enumerate(owners):
+            if owner is None or owner[0] in first or torch.equal(ci[t], gi[t]):
+                continue
+            margin = max(cgap[t].item(), ggap[t].item())
+            check(margin < TIE_EPS, f"router call {n}, {owner}: experts {ci[t].tolist()} on the CPU and "
+                                    f"{gi[t].tolist()} on the card with a top-k margin of {margin}")
+            first[owner[0]] = owner[1]
+            ties.append({"call": n, "request": owner[0], "token": owner[1], "margin": margin,
+                         "cpu": ci[t].tolist(), "card": gi[t].tolist()})
+    return first, ties
+
+
+def phase_moe_parity():
+    """MoE serving, card against CPU, fp32 with TF32 off, the same weights on
+    both devices: llama4-scout's smoke config (GQA, 4 experts top-1 and a
+    shared one; the fp32 flash kernel at head dim 32) and deepseek-v2-lite's
+    at deepseek-v2's published MLA head dims (q/k 192, v 128, on the fp32
+    (192, 128) kernel; 8 experts top-2 and a shared one after a dense first
+    layer), each serving a two-tenant trace through the engine.  Experts are
+    compared first, then greedy tokens up to each request's first tie;
+    statuses, TOKENS_OUT, KV_ACC_W and fault_summary() in full."""
+    from repro_torch.configs import MLAConfig, get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Transformer
+    from repro_torch.serve import Engine, LoadSpec, ServeConfig, TenantSpec, generate_load, replay_load
+
+    published = MLAConfig(kv_lora_rank=32, qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128)
+    configs = {"llama4-scout-17b-a16e SMOKE": get_smoke_config("llama4-scout-17b-a16e"),
+               "deepseek-v2-lite-16b SMOKE at the published MLA head dims":
+                   dataclasses.replace(get_smoke_config("deepseek-v2-lite-16b"), mla=published)}
+    spec = LoadSpec(tenants=(TenantSpec("online", rate=0.6, prompt_len=(8, 48), max_new_tokens=(4, 12), priority=1),
+                             TenantSpec("batch", rate=0.5, prompt_len=(8, 48), max_new_tokens=(4, 12))),
+                    steps=12, seed=13)
+    scfg = ServeConfig(n_slots=4, max_len=128, batch_buckets=(1, 2))
+    out = {}
+    for name, cfg in configs.items():
+        cpu_model = Transformer(cfg, device="cpu", seed=0)
+        gpu_model = copy.deepcopy(cpu_model).to("cuda")
+        runs = {}
+        for dev, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+            eng = Engine(model, scfg)
+            load = generate_load(spec, cfg.vocab_size)
+            before = fa.flash_attention.launches
+            reqs = [r for _, r in load]
+            with _RouterTrace(eng, reqs) as trace:
+                replay_load(eng, load)
+            runs[dev] = (eng, reqs, trace.calls, fa.flash_attention.launches - before)
+        (cpu_eng, cpu_reqs, cpu_calls, _), (gpu_eng, gpu_reqs, gpu_calls, launches) = runs["cpu"], runs["cuda"]
+        check(launches == cfg.n_layers * len(gpu_reqs), f"{name}: {launches} card flash launches")
+        first, ties = _ties(cpu_calls, gpu_calls)
+        check([r.status for r in gpu_reqs] == [r.status for r in cpu_reqs], f"{name}: request statuses differ")
+        for c, g in zip(cpu_reqs, gpu_reqs):
+            upto = first.get(c.name, len(c.generated))
+            check(g.generated[:upto] == c.generated[:upto] and len(g.generated) == len(c.generated),
+                  f"{name}: {c.name}'s greedy tokens differ before its first tie ({upto}): {c.generated} vs "
+                  f"{g.generated}")
+        check(_lanes(gpu_eng, gpu_reqs) == _lanes(cpu_eng, cpu_reqs), f"{name}: TOKENS_OUT/KV_ACC_W differ")
+        check(gpu_eng.fault_summary() == cpu_eng.fault_summary(), f"{name}: fault_summary differs")
+        out[name] = {"requests": len(gpu_reqs), "tokens_out": sum(len(r.generated) for r in gpu_reqs),
+                     "router_calls": len(gpu_calls), "routed_tokens": sum(len(c[2]) for c in gpu_calls),
+                     "ties": ties, "tokens_compared": sum(first.get(r.name, len(r.generated)) for r in cpu_reqs),
+                     "card_kernel_launches": launches, "fault_summary": gpu_eng.fault_summary()}
+        del cpu_model, gpu_model, runs
+    fa.flash_attention.launches = 0
+    emit({"phase": "moe_parity", "dtype": "float32, TF32 off", "tie_eps": TIE_EPS, "configs": out,
+          "lanes_equal": True, "statuses_equal": True})
+
+
+def _wall_and_busy(fn):
+    """One call of ``fn``: its median wall ms over HOST_ROUNDS (host clock to
+    synchronize, no profiler), its device time by operation
+    (``device_breakdown``) and the device's idle share of the wall time."""
+    walls = []
+    for _ in range(HOST_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    by_op = device_breakdown(fn)
+    wall = statistics.median(walls)
+    busy = sum(by_op.values()) / 1e3
+    return {"wall_ms": wall, "device_busy_ms": busy, "idle_share": max(0.0, 1.0 - busy / wall),
+            "device_ops": len(by_op)}, by_op
+
+
+def phase_moe_full_width(smi: str):
+    """deepseek-v2-lite at its published size, uncut (27 layers, d_model 2048,
+    16 heads of MLA with a 512-wide latent, 64 experts top-6 of 1408 and 2
+    shared after a dense first layer of 10944, vocab 102400; bf16, random
+    weights from seed 0 with the reference's init recipe), served through the
+    continuous-batching engine on _full_width_load's two-tenant trace: the
+    lanes, every prefill's attention on the (192, 128) tensor-core kernel,
+    the kernel against the plain version on every layer's real q, k and v,
+    and the sparse MoE layer against the all-experts path on one layer's
+    real hidden states."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import Transformer
+    from repro_torch.models import transformer as tmod
+    from repro_torch.models.moe import moe_apply, moe_apply_dense
+    from repro_torch.serve import Engine, ServeConfig, replay_load
+
+    t_phase = time.perf_counter()
+    cfg = get_config("deepseek-v2-lite-16b")
+    m = cfg.mla
+    check(cfg.n_layers == 27 and cfg.d_model == 2048 and (m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim) == (192, 128),
+          "deepseek-v2-lite's published config")
+    check(fa.select_route(cfg.compute_tdtype(), MLA_DQK, MLA_DV) == "wgmma", "bf16 MLA takes the tensor-core kernel")
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == MOE_FULL_PARAMS, f"{n_params} parameters, want {MOE_FULL_PARAMS}")
+    eng = Engine(model, ServeConfig(n_slots=4, max_len=1024, batch_buckets=(1, 2)))
+    load = _full_width_load(cfg.vocab_size)
+    check(len(load) == 10, f"trace has {len(load)} requests, want 10")
+
+    warm = torch.randint(0, cfg.vocab_size, (1, 64), device="cuda")
+    model.prefill(warm)
+    scratch = model.init_cache(1, 80)
+    model.decode_step(scratch, warm[:, 0], torch.zeros(1, dtype=torch.long, device="cuda"))
+    del scratch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    fa.flash_attention.launches = 0
+    rep = replay_load(eng, load)
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches
+
+    reqs = [r for _, r in load]
+    check(all(r.status == "done" for r in reqs), f"statuses {[r.status for r in reqs]}")
+    kvb = eng._kv_bytes_per_token
+    check(kvb == (m.kv_lora_rank + m.qk_rope_dim) * cfg.n_layers * 2, f"kv bytes per token {kvb}")
+    lanes = _lanes(eng, reqs)
+    for r in reqs:
+        tok_out, kv = lanes[r.name]
+        check(tok_out == len(r.generated) == r.max_new_tokens, f"{r.name}: TOKENS_OUT {tok_out}, {len(r.generated)}")
+        check(kv == (len(r.prompt) + len(r.generated) - 1) * kvb, f"{r.name}: KV_ACC_W {kv}")
+    check(launches == cfg.n_layers * len(reqs), f"flash launches {launches} != {cfg.n_layers} x {len(reqs)} prefills")
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    prefill_s = sum(r.prefill_s for r in reqs)
+    decode_tokens = sum(len(r.generated) - 1 for r in reqs)
+    decode_s = sum(r.decode_s for r in reqs)
+    ttft_ms = sorted(r.ttft_s * 1e3 for r in reqs)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # one real prompt: every layer's attention inputs and every MoE layer's hidden states
+    probe = torch.as_tensor(reqs[0].prompt, dtype=torch.long, device="cuda")[None]
+    flash, real_moe, captured, moe_in = ops.flash_attention, tmod.moe_apply, [], []
+
+    def capture(q, k, v, **kw):
+        captured.append((q, k, v, kw))
+        return flash(q, k, v, **kw)
+
+    def capture_moe(params, x, *args, **kw):
+        moe_in.append((params, x))
+        return real_moe(params, x, *args, **kw)
+
+    ops.flash_attention, tmod.moe_apply = capture, capture_moe
+    try:
+        logits = model.prefill(probe)[0][..., :cfg.vocab_size]
+    finally:
+        ops.flash_attention, tmod.moe_apply = flash, real_moe
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    check(len(captured) == cfg.n_layers, f"{len(captured)} attention calls in one prefill")
+    op_err, op_scale = 0.0, 0.0
+    for layer, (q, k, v, kw) in enumerate(captured):
+        check(q.dtype == torch.bfloat16 and (q.shape[-1], v.shape[-1]) == (MLA_DQK, MLA_DV),
+              f"layer {layer}: attention at {q.dtype}, ({q.shape[-1]}, {v.shape[-1]})")
+        out = flash(q, k, v, **kw).float()
+        want = flash(q, k, v, **{**kw, "impl": "plain"}).float()
+        op_err = max(op_err, (out - want).abs().max().item())
+        op_scale = max(op_scale, want.abs().max().item())
+        check(torch.allclose(out, want, **BF16_TOL), f"(192, 128) kernel disagrees with plain on layer {layer}")
+    check(len(moe_in) == cfg.n_layers - cfg.moe.first_k_dense, f"{len(moe_in)} MoE calls in one prefill")
+    layer = len(moe_in) // 2
+    params, h = moe_in[layer]
+    up = lambda t: {**{n: p.float() for n, p in t._parameters.items()}, **{n: up(c) for n, c in t._modules.items()}}
+    ps, x = up(params), h.float()
+    sparse = moe_apply(ps, x, cfg, cfg.moe, capacity_factor=float(cfg.moe.n_experts))[0]
+    dense = moe_apply_dense(ps, x, cfg, cfg.moe)[0]
+    err = (sparse - dense).abs()
+    moe_check = {"moe_layer": layer, "capacity_factor": cfg.moe.n_experts, "dtype": "float32",
+                 "max_abs_err": err.max().item(), "max_abs_out": dense.abs().max().item(), "tolerance": FP32_TOL,
+                 "worst_err_over_tol": (err / (FP32_TOL["atol"] + FP32_TOL["rtol"] * dense.abs())).max().item()}
+    check(torch.allclose(sparse, dense, **FP32_TOL),
+          f"sparse MoE disagrees with the all-experts path on MoE layer {layer}: {moe_check}")
+    del captured, moe_in, out, want, sparse, dense, err, params, h, ps, x
+
+    # the device's share of one prefill (the probe) and of one decode step of the full batch
+    prefill_busy, prefill_ops = _wall_and_busy(lambda: model.prefill(probe))
+    cache = model.init_cache(4, 1024)
+    tok = torch.randint(0, cfg.vocab_size, (4,), device="cuda")
+    pos = torch.tensor([400, 300, 200, 132], device="cuda")
+    # a decode step waits on the host nowhere: no op in it (26 MoE layers among them) synchronises
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            model.decode_step(cache, tok, pos)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message)[:160] for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    check(not syncs, f"a decode step synchronised with the host: {syncs}")
+    decode_busy, decode_ops = _wall_and_busy(lambda: model.decode_step(cache, tok, pos))
+    top = dict(sorted(decode_ops.items(), key=lambda kv: -kv[1])[:TOP_OPS])
+    del cache, eng, model
+    torch.cuda.empty_cache()
+    line = {
+        "phase": "moe_full_width", "config": "deepseek-v2-lite-16b", "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "n_heads": cfg.n_heads, "mla": dataclasses.asdict(m),
+        "moe": dataclasses.asdict(cfg.moe), "d_ff_dense": cfg.d_ff, "vocab": cfg.vocab_size,
+        "dtype": cfg.param_dtype, "params": n_params, "init_s": init_s, "requests": len(reqs),
+        "engine_steps": rep.steps, "flash_launches": launches, "flash_route": "wgmma (192, 128)",
+        "prompt_tokens": prompt_tokens, "prefill_tok_s": prompt_tokens / prefill_s,
+        "decode_tokens": decode_tokens, "decode_tok_s": decode_tokens / decode_s,
+        "ttft_p50_ms": statistics.median(ttft_ms), "ttft_max_ms": ttft_ms[-1], "wall_s": rep.wall_s,
+        "max_memory_allocated_gb": peak_gb, "kv_bytes_per_token": kvb,
+        "attention_op_bf16": {"layers": cfg.n_layers, "prompt_len": probe.shape[1], "max_abs_err": op_err,
+                              "max_abs_out": op_scale, "tolerance": BF16_TOL},
+        "moe_sparse_vs_dense": moe_check,
+        "prefill_device": {"prompt_len": probe.shape[1], **prefill_busy},
+        "decode_step_device": {"batch": 4, "host_syncs": len(syncs), **decode_busy}, "decode_step_top_ops_us": top,
+        "phase_wall_s": time.perf_counter() - t_phase,
+    }
+    emit(line)
+    fa.flash_attention.launches = 0
+    return line
 
 
 def _ssd_inputs(B, S, H, P, N, G, dtype, seed, h0=False):
@@ -1430,9 +1866,10 @@ def phase_routes(smi: str, served_lens):
     # ops a row, so it runs eagerly
     vals = torch.from_numpy(np.random.default_rng(0).standard_normal((300, 9))).cuda()
     check(torch.equal(ss.running_sum(vals), running_sum_ref(vals)), "fold kernel differs")
+    # "empty": a kernel that does nothing (a spin of 0 cycles), the floor of one launch beside the byte bound
     row("running_sum_fold", "(300, 9) float64",
         {"kernel": lambda: ss.running_sum(vals), "plain": lambda: running_sum_ref(vals),
-         "library": lambda: torch.cumsum(vals, 0)},
+         "library": lambda: torch.cumsum(vals, 0), "empty": lambda: torch.cuda._sleep(0)},
         vals.numel(), 2 * 8 * vals.numel(), fp32=True, eager=("plain",))
     emit({"phase": "routes", "rows": rows,
           "bound_note": "fp32 FLOPs over the fp32 rate outside the tensor cores (67 TFLOP/s SXM), bf16 over 989; "
@@ -2153,11 +2590,17 @@ def main() -> int:
     from repro_torch.kernels import segment_scatter as ss
     from repro_torch.kernels import ssd_scan as sk
 
+    t_start = time.perf_counter()
     smi = phase_device()
-    phase_build()
+    sass = phase_build()
     bf16_err, timings, d256 = phase_kernel(smi, served_prompt_lens())
+    mla = phase_mla_kernel(smi, served_prompt_lens(),
+                           sass["flash_attention_wgmma"][f"flash_fwd_wgmma {_dims_label(MLA_DQK, MLA_DV)}"])
     phase_parity()
+    phase_moe_parity()
     launches, op_err = phase_full_width()
+    torch.cuda.empty_cache()
+    moe_full = phase_moe_full_width(smi)
     ssd_err, ssd_timings = phase_ssd_kernel(smi)
     phase_ssm_parity()
     model, ssd_launches, probe = phase_train_full_width()
@@ -2175,6 +2618,8 @@ def main() -> int:
     seg_err, seg_timings, acc_timing, numpy_sweep = phase_segment_kernel(smi)
     seg_launches = phase_sim_sweep(numpy_sweep)
     t = timings[512]
+    mt = mla["timing"][str(max(served_prompt_lens()))]
+    mla_launches = moe_full["flash_launches"]
     st = ssd_timings["B4_S256"]
     gt = seg_timings[f"draws{SIM_DRAWS}"]
     emit({"kernels": [{
@@ -2186,9 +2631,11 @@ def main() -> int:
                   "stages; S = Q K^T as 8 x 4 micro-tiles over two parts of D (eight at 256, one at D <= 64) summed "
                   "in one softmax pass (natural exp, as the plain version; P in shared memory), O += P V in 8 x 4 "
                   "register blocks), timed in fp32 as fp32",
-        "launches": launches + dense_fwd + gemma_fwd,
-        "launches_by_path": {"serving": launches, "dense_training": dense_fwd, "gemma_training": gemma_fwd},
-        "max_abs_err": max(bf16_err, op_err),
+        "launches": launches + mla_launches + dense_fwd + gemma_fwd,
+        "launches_by_path": {"serving": launches, "moe_mla_serving": mla_launches, "dense_training": dense_fwd,
+                             "gemma_training": gemma_fwd},
+        "max_abs_err": max(bf16_err, op_err, *mla["max_abs_err"].values(),
+                           moe_full["attention_op_bf16"]["max_abs_err"]),
         "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": "B=1 S=512 Hq=Hkv=32 D=128 bf16 causal",
@@ -2199,6 +2646,12 @@ def main() -> int:
         "fp32": {name: {k: routes[name][k] for k in ("shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
                                                      "bound_by")}
                  for name in FP32_FWD_TIMED},
+        "mla_192_128": {"route": "wgmma", "source": fa.SOURCE, "shape": mla["shape"], "launches": mla_launches,
+                        "max_abs_err": mla["max_abs_err"], "sdpa_kernels": mla["sdpa_kernels"],
+                        "timing": {S: {k: r[k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                                                         "bound_by")}
+                                   for S, r in mla["timing"].items()},
+                        "fp32": mla["fp32"], "longest_served": {k: mt[k] for k in ("kernel_ms", "bound_ms")}},
     }, {
         "name": "flash_attention_backward", "route": "cuda", "source": fa.BWD_SOURCE, "replaces": fa.BWD_REPLACES,
         "design": "bf16 at every head dim (32-256): the FlashAttention-2 backward in three launches, no atomics: "
@@ -2260,6 +2713,9 @@ def main() -> int:
                              **{k: acc_timing[k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
                                                            "events", "buffer_cells")}},
     }]})
+    print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s; profiler traces taken again at margins "
+          f"{BREAKDOWN_RETAKEN} s; kept traces' first device event {min(BREAKDOWN_LEAD_MS):.3f} to "
+          f"{max(BREAKDOWN_LEAD_MS):.3f} ms after their margin", flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

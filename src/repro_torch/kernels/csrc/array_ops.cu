@@ -44,9 +44,22 @@
 // Sequential fold.  The device path of ArrayOps.running_sum: out[r, c] =
 // out[r - 1, c] + in[r, c], a strict left fold down each column, so float64
 // rounds exactly as np.add.accumulate does (a parallel scan would
-// reassociate).  One thread per column walks the rows in order; int64 is
-// folded as uint64, which gives the same bits and wraps without undefined
-// behaviour.  The reference's JaxOps folds with lax.scan, outside Pallas.
+// reassociate).  int64 is folded as uint64, which gives the same bits and
+// wraps without undefined behaviour.  The reference's JaxOps folds with
+// lax.scan, outside Pallas.
+//
+// The fold's own work is one add a value, in a chain no thread can split, so
+// what it can save is the wait for device memory: the compiled sweep's call
+// is (300, 9) float64, and one thread walking each column's 300 rows pays a
+// memory round trip a row.  Here a block takes up to FOLD_COLS columns and
+// stages a chunk of their rows in shared memory with all its threads'
+// cp.async copies, neighbouring threads on neighbouring addresses (the
+// whole (300, 9) array is one chunk of 21.6 KB); one thread per column then
+// folds the chunk in place in strict row order, from shared memory, reading
+// eight rows ahead of its adds; all threads write the chunk back with
+// coalesced stores.  A taller input goes in chunks of FOLD_STAGE values, two
+// stages: the next chunk's copy is in flight while this one folds, and each
+// column's running sum carries over in a register.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -137,16 +150,79 @@ __global__ void scatter_kernel(const long long* __restrict__ seg, const long lon
   if (lane == 0 && n_bad > 0) atomicAdd(bad, n_bad);
 }
 
+constexpr int FOLD_THREADS = 256;
+constexpr int FOLD_COLS = 32;     // columns a block folds, one thread each
+constexpr int FOLD_STAGE = 2816;  // 8-byte values a stage holds (22,528 bytes; two stages)
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// Block b folds columns [b FOLD_COLS, + nc) of a contiguous (rows, cols) array,
+// FOLD_STAGE / nc rows a chunk.
 template <typename T>
-__global__ void fold_kernel(const T* __restrict__ in, T* __restrict__ out, long long rows, long long cols) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long c = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; c < cols; c += stride) {
-    T acc = in[c];
-    out[c] = acc;
-    for (long long r = 1; r < rows; ++r) {
-      acc = acc + in[r * cols + c];
-      out[r * cols + c] = acc;
+__global__ void __launch_bounds__(FOLD_THREADS) fold_kernel(const T* __restrict__ in, T* __restrict__ out,
+                                                            long long rows, long long cols) {
+  __shared__ __align__(16) T buf[2][FOLD_STAGE];
+  const long long c0 = static_cast<long long>(blockIdx.x) * FOLD_COLS;
+  const int nc = static_cast<int>(cols - c0 < FOLD_COLS ? cols - c0 : FOLD_COLS);
+  const int rc = FOLD_STAGE / nc;
+  const long long n_chunks = (rows + rc - 1) / rc;
+  const int tid = threadIdx.x;
+  auto chunk_rows = [&](long long ch) { return static_cast<int>(rows - ch * rc < rc ? rows - ch * rc : rc); };
+  auto issue = [&](long long ch) {
+    T* dst = buf[ch & 1];
+    const T* src = in + ch * rc * cols + c0;
+    const int n = chunk_rows(ch) * nc;
+    for (int i = tid; i < n; i += FOLD_THREADS) {
+      const int r = i / nc;
+      cp_async8(dst + i, src + r * cols + (i - r * nc));
     }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  issue(0);
+  T acc = 0;
+  for (long long ch = 0; ch < n_chunks; ++ch) {
+    if (ch + 1 < n_chunks) {
+      issue(ch + 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();  // chunk ch has landed for every thread
+    T* s = buf[ch & 1];
+    const int nr = chunk_rows(ch);
+    if (tid < nc) {
+      int r = 0;
+      if (ch == 0) {  // the fold starts from the first value (0 + x would turn -0.0 into 0.0)
+        acc = s[tid];
+        r = 1;
+      }
+      for (; r + 8 <= nr; r += 8) {
+        T v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) v[u] = s[(r + u) * nc + tid];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          acc = acc + v[u];
+          s[(r + u) * nc + tid] = acc;
+        }
+      }
+      for (; r < nr; ++r) {
+        acc = acc + s[r * nc + tid];
+        s[r * nc + tid] = acc;
+      }
+    }
+    __syncthreads();
+    T* dst = out + ch * rc * cols + c0;
+    for (int i = tid; i < nr * nc; i += FOLD_THREADS) {
+      const int r = i / nc;
+      dst[r * cols + (i - r * nc)] = s[i];
+    }
+    __syncthreads();  // every write-back of this stage is done before issue(ch + 2) refills it
   }
 }
 
@@ -206,13 +282,13 @@ extern "C" int repro_running_sum(const void* in, void* out, long long rows, long
   if (rows < 1 || cols < 0 || (dtype != 0 && dtype != 1)) return static_cast<int>(cudaErrorInvalidValue);
   if (cols == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 128;
-  const long long want = (cols + threads - 1) / threads;
-  const int blocks = static_cast<int>(want < MAX_BLOCKS ? want : MAX_BLOCKS);
+  const long long blocks = (cols + FOLD_COLS - 1) / FOLD_COLS;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) {
-    fold_kernel<double><<<blocks, threads, 0, s>>>(static_cast<const double*>(in), static_cast<double*>(out), rows, cols);
+    fold_kernel<double><<<static_cast<unsigned>(blocks), FOLD_THREADS, 0, s>>>(
+        static_cast<const double*>(in), static_cast<double*>(out), rows, cols);
   } else {
-    fold_kernel<unsigned long long><<<blocks, threads, 0, s>>>(
+    fold_kernel<unsigned long long><<<static_cast<unsigned>(blocks), FOLD_THREADS, 0, s>>>(
         static_cast<const unsigned long long*>(in), static_cast<unsigned long long*>(out), rows, cols);
   }
   return static_cast<int>(cudaGetLastError());

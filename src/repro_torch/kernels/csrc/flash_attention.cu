@@ -12,11 +12,12 @@
 // not, the online softmax's running max, denominator and accumulator in
 // fp32, a row that sees no key gives 0.
 //
-// Layout: q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D), out (B, Sq, Hq, D), all
-// read and written through their strides (the last dimension contiguous),
-// so the caller needs no transposes.  fp32 at D in 32, 64, 128, 256, or
-// bf16 at D = 256 only, in and out (one type for all four), fp32 inside.
-// Any other pair returns cudaErrorInvalidValue.  With a non-null lse
+// Layout: q (B, Sq, Hq, D), k (B, Sk, Hkv, D), v (B, Sk, Hkv, Dv), out (B,
+// Sq, Hq, Dv), all read and written through their strides (the last
+// dimension contiguous), so the caller needs no transposes.  fp32 at (D, Dv)
+// in (32, 32), (64, 64), (128, 128), (256, 256) and MLA's (192, 128), or
+// bf16 at (256, 256) only, in and out (one type for all four), fp32 inside.
+// Any other combination returns cudaErrorInvalidValue.  With a non-null lse
 // pointer each row also writes its logsumexp, lse (B, Hq, Sq) fp32: the
 // natural log of sum_j exp(s_ij * scale), +inf for a row that sees no key
 // (the backward recomputes P from it).
@@ -31,7 +32,7 @@
 // SM reads 128 bytes a clock from shared memory against 128 FMAs, so the
 // tiling follows the fp32 backward's (flash_attention_bwd.cu) to read as few
 // floats per FMA as it can (simt_tile.cuh):
-//   * tiles of BR = 64 rows (32 at D = 256, to fit shared memory), Q once
+//   * tiles of BR = 64 rows (32 at D > 128, to fit shared memory), Q once
 //     and K, V in two stages, staged as fp32 rows of D with their 16-byte
 //     chunks swizzled (chunk c of row r at c ^ (r & 7)), brought in by
 //     cp.async (16 bytes a copy, 4 where a base or stride is not 16-byte
@@ -40,7 +41,7 @@
 //   * S = Q K^T: every thread an 8 x 4 micro-tile read as float4s along D (12
 //     float4 reads for 128 FMAs, the 8 rows broadcast across a quarter-warp),
 //     so a tile's 64 x 64 (32 x 32) scores take 128 (32) threads and the
-//     block splits D in KS = 2 (8 at D = 256) parts, each part's raw scores
+//     block splits D in KS = 2 (8 at D = 256, 6 at 192) parts, each part's raw scores
 //     written transposed to its own shared tile; at D <= 64 one part (half
 //     the threads) sums each score over D in order, as the plain product
 //     does: split sums drift the fp32 smoke parity past its three-step
@@ -55,6 +56,11 @@
 //     through shared memory.
 // Three barriers a kv tile.  Shared memory: 199,168 bytes a block at D = 128
 // (Q, two stages of K and V, two raw score tiles), 200,960 at D = 256.
+// MLA's (192, 128) separates the two widths: Q, K and the scores' parts run
+// over 192 columns, V and O over 128.  At 64-row tiles Q and two stages of K
+// and V alone take 213 KB, so it takes the 32-row tiles of D = 256: six
+// parts of 32 columns (192 of the 256 threads compute scores), O in 8 x 2
+// register blocks, 134,400 bytes of shared memory.
 //
 // What bounds it: two products of 2 Sq Sk D per head (halved when causal)
 // against q, k, v and out moved once; at S = 512, D = 128 the products, at
@@ -68,23 +74,26 @@ namespace {
 
 using namespace simt;
 
-template <int D>
-struct Fwd : Rows<D> {  // BR, SPAD, TILE
-  using Rows<D>::BR;
-  using Rows<D>::SPAD;
-  using Rows<D>::TILE;
+// DQK: the head dim of q and k (the scores), DV: that of v and out
+template <int DQK, int DV>
+struct Fwd : Rows<DQK> {  // BR, SPAD: the q/k width sets every tile's rows
+  using Rows<DQK>::BR;
+  using Rows<DQK>::SPAD;
+  static constexpr int TQK = BR * DQK, TV = BR * DV;  // floats of a staged Q or K tile, of a V tile
   static constexpr int TI = 8, TJ = 4;               // score micro-tile a thread: rows, columns
   static constexpr int NRG = BR / TI, NCG = BR / TJ;  // its row and column groups: 8, 16 (BR = 64) or 4, 8
   static constexpr int TPS = NRG * NCG;               // threads a part of D: 128 or 32
-  // parts of D: 2 (8 at D = 256); one at D <= 64, where S is cheap, so each score is one sum over D in order
-  static constexpr int KS = D <= 64 ? 1 : THREADS / TPS;
-  static constexpr int DK = D / KS;                   // head-dim columns a part: runs of 8 chunks
+  // parts of D: as many as the threads hold, each 32 columns or more: 2 (8 at D = 256, 6 at 192); one at
+  // D <= 64, where S is cheap, so each score is one sum over D in order
+  static constexpr int KS = DQK <= 64 ? 1 : (THREADS / TPS < DQK / 32 ? THREADS / TPS : DQK / 32);
+  static constexpr int DK = DQK / KS;                 // head-dim columns a part: runs of 8 chunks
   static constexpr int TPR = THREADS / (BR / 4);      // softmax pass: threads a row quad, 16 or 32
   static constexpr int CPT = BR / TPR;                // its columns a thread: 4 or 1
-  static constexpr int RQ = D >= 64 ? 2 : 1;          // O: row quads a thread
+  static constexpr int RQ = DV >= 64 ? 2 : 1;         // O: row quads a thread
   // Q, two stages of K and V, KS raw score tiles (the first holds P), the rows' rescale factors and sums
-  static constexpr size_t SMEM = (size_t(5) * TILE + size_t(KS) * BR * SPAD + 2 * BR) * sizeof(float);
-  static_assert(DK % 32 == 0 && TPR <= 32 && CPT * TPR == BR && SMEM <= 232448, "tiling");
+  static constexpr size_t SMEM =
+      (size_t(3) * TQK + size_t(2) * TV + size_t(KS) * BR * SPAD + 2 * BR) * sizeof(float);
+  static_assert(DK % 32 == 0 && KS * DK == DQK && TPR <= 32 && CPT * TPR == BR && SMEM <= 232448, "tiling");
 };
 
 struct Params {
@@ -108,10 +117,9 @@ struct Params {
 // time.  Row r's chunk u sits at u ^ (r & 7); rows cg + NCG j all swizzle by
 // cg & 7, and rows rg + NRG i by rg & 7 (NRG = 8) or by rg ^ 4 (i & 1) (NRG =
 // 4, rg < 4), so every load is one of three run pointers plus a constant.
-template <int D>
+template <typename F, int D>
 __device__ __forceinline__ void scores_part(const float* X, const float* Y, float (&s)[8][4], int rg, int cg,
                                             int c0) {
-  using F = Fwd<D>;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -142,16 +150,16 @@ __device__ __forceinline__ void scores_part(const float* X, const float* Y, floa
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(const Params p) {
-  using F = Fwd<D>;
-  using G = Acc<D, THREADS, F::RQ>;
-  constexpr int BR = F::BR, TILE = F::TILE, SPAD = F::SPAD, NRG = F::NRG, NCG = F::NCG;
+  using F = Fwd<DQK, DV>;
+  constexpr int BR = F::BR, TQK = F::TQK, TV = F::TV, SPAD = F::SPAD, NRG = F::NRG, NCG = F::NCG;
+  using G = Acc<DV, THREADS, F::RQ, BR>;
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;
-  float* sK = sQ + TILE;              // two stages
-  float* sV = sK + 2 * TILE;          // two stages
-  float* sS = sV + 2 * TILE;          // KS raw score tiles, [kv col][q row] at SPAD; the first then holds P
+  float* sK = sQ + TQK;               // two stages
+  float* sV = sK + 2 * TQK;           // two stages
+  float* sS = sV + 2 * TV;            // KS raw score tiles, [kv col][q row] at SPAD; the first then holds P
   float* sAlpha = sS + F::KS * BR * SPAD;  // each row's rescale factor for this tile
   float* sL = sAlpha + BR;                 // each row's denominator, at the end
 
@@ -177,15 +185,15 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(const Params p) {
 
   auto issue = [&](int it) {
     const int s = it & 1;
-    stage<D>(sK + s * TILE, k, p.k_ss, it * BR, p.Sk, p.vec);
-    stage<D>(sV + s * TILE, v, p.v_ss, it * BR, p.Sk, p.vec);
+    stage<DQK, BR>(sK + s * TQK, k, p.k_ss, it * BR, p.Sk, p.vec);
+    stage<DV, BR>(sV + s * TV, v, p.v_ss, it * BR, p.Sk, p.vec);
   };
-  stage<D>(sQ, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq, p.vec);
+  stage<DQK, BR>(sQ, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq, p.vec);
   if (nkv > 0) issue(0);
   cp_commit();
 
   typename G::Tile acc;
-  zero<D, THREADS, F::RQ>(acc);
+  zero<DV, THREADS, F::RQ, BR>(acc);
   float m[4], l[4];  // the softmax pass's rows: running max of s scale, this thread's part of the sum
 #pragma unroll
   for (int e = 0; e < 4; ++e) m[e] = -INFINITY, l[e] = 0.f;
@@ -201,7 +209,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(const Params p) {
 
     if (part < F::KS) {  // this part's raw scores, stored transposed
       float sc[8][4];
-      scores_part<D>(sQ, sK + s * TILE, sc, rg, cg, part * F::DK);
+      scores_part<F, DQK>(sQ, sK + s * TQK, sc, rg, cg, part * F::DK);
       float* dst = sS + part * BR * SPAD;
 #pragma unroll
       for (int i = 0; i < 8; ++i)
@@ -273,7 +281,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(const Params p) {
 #pragma unroll
         for (int c = 0; c < G::NCOL; ++c) acc[4 * q + r][c] *= a4[r];
     }
-    accumulate<D, THREADS, F::RQ>(sS, sV + s * TILE, acc, ra, ca);
+    accumulate<DV, THREADS, F::RQ, BR>(sS, sV + s * TV, acc, ra, ca);
   }
   cp_wait<0>();  // with no kv tile, nothing waited for Q
 
@@ -300,39 +308,42 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(const Params p) {
 #pragma unroll
       for (int c = 0; c < G::NCOL; ++c) acc[4 * q + r][c] = lt == 0.f ? 0.f : acc[4 * q + r][c] / lt;  // masked row: 0
     }
-  store_acc<T, D, THREADS, F::RQ>(static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh, p.o_ss, q0, p.Sq, acc, 1.f, ra,
-                                  ca);
+  store_acc<T, DV, THREADS, F::RQ, BR>(static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh, p.o_ss, q0, p.Sq, acc, 1.f,
+                                       ra, ca);
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 int launch(const Params& p, int B, cudaStream_t stream) {
-  using F = Fwd<D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(F::SMEM));
+  using F = Fwd<DQK, DV>;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(F::SMEM));
   if (err != cudaSuccess) return int(err);
   const dim3 grid(p.Hq, (p.Sq + F::BR - 1) / F::BR, B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, F::SMEM, stream>>>(p);
+  flash_fwd_kernel<T, DQK, DV><<<grid, THREADS, F::SMEM, stream>>>(p);
   return int(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_dim(const Params& p, int B, int D, cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch<T, 32>(p, B, stream);
-    case 64: return launch<T, 64>(p, B, stream);
-    case 128: return launch<T, 128>(p, B, stream);
-    case 256: return launch<T, 256>(p, B, stream);
-    default: return int(cudaErrorInvalidValue);
+int dispatch_fp32(const Params& p, int B, int D, int Dv, cudaStream_t stream) {
+  if (D == Dv) {
+    switch (D) {
+      case 32: return launch<float, 32, 32>(p, B, stream);
+      case 64: return launch<float, 64, 64>(p, B, stream);
+      case 128: return launch<float, 128, 128>(p, B, stream);
+      case 256: return launch<float, 256, 256>(p, B, stream);
+    }
   }
+  if (D == 192 && Dv == 128) return launch<float, 192, 128>(p, B, stream);
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16 (q, k, v and o alike).  lse may be null.
-// Returns a cudaError_t (0 on success).
+// D: the head dim of q and k, Dv: that of v and o.  dtype: 0 = fp32, 1 =
+// bf16 (q, k, v and o alike).  lse may be null.  Returns a cudaError_t (0 on
+// success).
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse,
-    int B, int Sq, int Sk, int Hq, int Hkv, int D, int dtype,
+    int B, int Sq, int Sk, int Hq, int Hkv, int D, int Dv, int dtype,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
@@ -347,9 +358,9 @@ extern "C" int repro_flash_attention_fwd(
                  scale, causal, vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch_dim<float>(p, B, D, s);
-    // bf16 comes here only at D = 256, when the caller asks for this kernel
-    case 1: return D == 256 ? launch<__nv_bfloat16, 256>(p, B, s) : int(cudaErrorInvalidValue);
+    case 0: return dispatch_fp32(p, B, D, Dv, s);
+    // bf16 comes here only at D = Dv = 256, when the caller asks for this kernel
+    case 1: return D == 256 && Dv == 256 ? launch<__nv_bfloat16, 256, 256>(p, B, s) : int(cudaErrorInvalidValue);
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -11,10 +11,12 @@
 // (flash_attention.cu): a TF32 product keeps ~10 bits of mantissa and would
 // miss the fp32 tolerance (2e-5) the fp32 checks hold the kernel to.
 //
-// Layout: q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D), out (B, Sq, Hq, D),
-// read and written through their strides (the head dim contiguous; base and
-// strides 16-byte aligned, as TMA needs: the wrapper checks).  D in 32, 64,
-// 128, 256.  With a non-null lse pointer
+// Layout: q (B, Sq, Hq, DQK), k (B, Sk, Hkv, DQK), v (B, Sk, Hkv, DV), out
+// (B, Sq, Hq, DV), read and written through their strides (the head dim
+// contiguous; base and strides 16-byte aligned, as TMA needs: the wrapper
+// checks).  (DQK, DV) in (32, 32), (64, 64), (128, 128), (256, 256) and
+// (192, 128), MLA's prefill (deepseek-v2: 128 + 64 rope columns of q and k,
+// 128 of v).  With a non-null lse pointer
 // each row also writes its logsumexp, lse (B, Hq, Sq) fp32, in natural log
 // (the softmax runs in base 2: lse = (m + log2 l) * ln 2), +inf for a row
 // that sees no key; the backward (flash_attention_bwd.cu) recomputes P
@@ -57,7 +59,10 @@
 // two-stage K/V ring take 1,024 + 5 x 32,768 + 40 = 164,904 bytes of the
 // 232,448 a block may have; what it strains is registers: the 64 x 256 fp32
 // accumulator is 128 a thread, beside 32 for the scores and 32 for P's two
-// terms.
+// terms.  Q and K tiles are DQK wide and V and O DV wide, so at (192, 128)
+// S = Q K^T runs 12 k-steps over three 64-column chunks of Q and K, O += P V
+// two 64-column output blocks over V's two chunks, and Q and the ring take
+// 1,024 + 3 x 24,576 + 2 x 16,384 + 40 = 107,560 bytes.
 //
 // What bounds it.  The work is bound by bytes at these shapes (each of q, k,
 // v, out moved once: 8 B H S D bytes against 2 B H S^2 D causal FLOPs at the
@@ -81,9 +86,10 @@ constexpr int STAGES = 2;     // K/V ring depth
 constexpr int THREADS = 128;  // one warpgroup
 
 // Q, the K/V ring and their barriers, from a 1024-byte boundary
-template <int D>
+template <int DQK, int DV>
 constexpr size_t smem_bytes() {
-  return 1024 + size_t(1 + 2 * STAGES) * Tile<D>::TILE_BYTES + 8 * (1 + 2 * STAGES);
+  return 1024 + size_t(1 + STAGES) * Tile<DQK>::TILE_BYTES + size_t(STAGES) * Tile<DV>::TILE_BYTES +
+         8 * (1 + 2 * STAGES);
 }
 
 struct Params {
@@ -96,7 +102,7 @@ struct Params {
   int n_qtiles;
 };
 
-// one 64-row tile on its own barrier
+// one 64-row tile, D columns, on its own barrier
 template <int D>
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar, int row, int head,
                                           int batch) {
@@ -109,19 +115,20 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, 
 // warp*16 + lane/4 + 8*((i/2)%2), column (i/4)*8 + (lane%4)*2 + i%2.  So each
 // thread holds two rows (r0 and r0 + 8), shared with the 3 other threads of
 // its quad.
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                                                             const __grid_constant__ CUtensorMap tk,
                                                             const __grid_constant__ CUtensorMap tv,
                                                             const Params p) {
-  using T = Tile<D>;
+  using TQ = Tile<DQK>;  // Q and K tiles
+  using T = Tile<DV>;    // V tiles and O
   constexpr int NOB = T::NOB;  // output blocks per row
 
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms need 1024-byte alignment
   const uint32_t sQ = base;
-  const uint32_t sK = sQ + T::TILE_BYTES;           // STAGES tiles
-  const uint32_t sV = sK + STAGES * T::TILE_BYTES;  // STAGES tiles
+  const uint32_t sK = sQ + TQ::TILE_BYTES;           // STAGES tiles
+  const uint32_t sV = sK + STAGES * TQ::TILE_BYTES;  // STAGES tiles
   const uint32_t bar_q = sV + STAGES * T::TILE_BYTES;
   const uint32_t bar_k = bar_q + 8;           // + 8 s
   const uint32_t bar_v = bar_k + 8 * STAGES;  // + 8 s
@@ -145,10 +152,10 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma(const __grid_constant
   }
   __syncthreads();
   if (tid == 0 && nkv > 0) {
-    load_tile<D>(sQ, &tq, bar_q, q0, h, b);
+    load_tile<DQK>(sQ, &tq, bar_q, q0, h, b);
     for (int s = 0; s < STAGES && s < nkv; ++s) {
-      load_tile<D>(sK + s * T::TILE_BYTES, &tk, bar_k + 8 * s, s * BK, hk, b);
-      load_tile<D>(sV + s * T::TILE_BYTES, &tv, bar_v + 8 * s, s * BK, hk, b);
+      load_tile<DQK>(sK + s * TQ::TILE_BYTES, &tk, bar_k + 8 * s, s * BK, hk, b);
+      load_tile<DV>(sV + s * T::TILE_BYTES, &tv, bar_v + 8 * s, s * BK, hk, b);
     }
   }
 
@@ -168,7 +175,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma(const __grid_constant
     const int s = it % STAGES;
     const uint32_t phase = (it / STAGES) & 1;
     const int k0 = it * BK;
-    const uint32_t tK = sK + s * T::TILE_BYTES, tV = sV + s * T::TILE_BYTES;
+    const uint32_t tK = sK + s * TQ::TILE_BYTES, tV = sV + s * T::TILE_BYTES;
 
     // S = Q K^T
     float sc[32];
@@ -178,7 +185,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma(const __grid_constant
     pin(sc);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(sc, desc_kmajor<D>(sQ, kk), desc_kmajor<D>(tK, kk));
+    for (int kk = 0; kk < DQK / 16; ++kk) wgmma_ss_n64(sc, desc_kmajor<DQK>(sQ, kk), desc_kmajor<DQK>(tK, kk));
     wg_commit();
     wg_wait0();
     pin(sc);
@@ -242,7 +249,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma(const __grid_constant
     for (int nb = 0; nb < NOB; ++nb)
 #pragma unroll
       for (int j = 0; j < BK / 16; ++j) {
-        const uint64_t dv = desc_mnmajor<D>(tV, nb, j);
+        const uint64_t dv = desc_mnmajor<DV>(tV, nb, j);
         wgmma_rs<T::NB>(o[nb], pa + 4 * j, dv);
         wgmma_rs<T::NB>(o[nb], pb + 4 * j, dv);
       }
@@ -254,8 +261,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma(const __grid_constant
     // every warp is done with stage s: refill it with the tile STAGES ahead
     __syncthreads();
     if (tid == 0 && it + STAGES < nkv) {
-      load_tile<D>(tK, &tk, bar_k + 8 * s, (it + STAGES) * BK, hk, b);
-      load_tile<D>(tV, &tv, bar_v + 8 * s, (it + STAGES) * BK, hk, b);
+      load_tile<DQK>(tK, &tk, bar_k + 8 * s, (it + STAGES) * BK, hk, b);
+      load_tile<DV>(tV, &tv, bar_v + 8 * s, (it + STAGES) * BK, hk, b);
     }
   }
 
@@ -270,37 +277,40 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma(const __grid_constant
       p.lse[(size_t(b) * p.Hq + h) * p.Sq + row] =
           l[r] == 0.f ? INFINITY : (m[r] + log2f(l[r])) * 0.6931471805599453f;
   }
-  store_rows<D>(static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh, p.o_ss, q0, p.Sq, o, inv);
+  store_rows<DV>(static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh, p.o_ss, q0, p.Sq, o, inv);
 }
 
 // ---------------------------------------------------------------- host side
-template <int D>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, int B, const Params& p, const long long* st,
            cudaStream_t stream) {
-  using T = Tile<D>;
+  using TQ = Tile<DQK>;
+  using T = Tile<DV>;
   static_assert(BQ == BK, "one box shape serves Q, K and V");
   CUtensorMap tq{}, tk{}, tv{};  // K and V stay unencoded when Sk == 0: no tile is loaded
-  int err = make_map(&tq, q, D, p.Sq, p.Hq, B, st[1], st[2], st[0], T::CW, BK, T::SW);
-  if (err == 0 && p.Sk > 0) err = make_map(&tk, k, D, p.Sk, p.Hkv, B, st[4], st[5], st[3], T::CW, BK, T::SW);
-  if (err == 0 && p.Sk > 0) err = make_map(&tv, v, D, p.Sk, p.Hkv, B, st[7], st[8], st[6], T::CW, BK, T::SW);
+  int err = make_map(&tq, q, DQK, p.Sq, p.Hq, B, st[1], st[2], st[0], TQ::CW, BK, TQ::SW);
+  if (err == 0 && p.Sk > 0) err = make_map(&tk, k, DQK, p.Sk, p.Hkv, B, st[4], st[5], st[3], TQ::CW, BK, TQ::SW);
+  if (err == 0 && p.Sk > 0) err = make_map(&tv, v, DV, p.Sk, p.Hkv, B, st[7], st[8], st[6], T::CW, BK, T::SW);
   if (err != 0) return err;
-  constexpr size_t SMEM = smem_bytes<D>();
-  const cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             int(SMEM));
+  constexpr size_t SMEM = smem_bytes<DQK, DV>();
+  static_assert(SMEM <= 232448, "shared memory of one block");
+  const cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma<DQK, DV>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
   if (e != cudaSuccess) return int(e);
   const dim3 grid(p.Hq, p.n_qtiles, B);
-  flash_fwd_wgmma<D><<<grid, THREADS, SMEM, stream>>>(tq, tk, tv, p);
+  flash_fwd_wgmma<DQK, DV><<<grid, THREADS, SMEM, stream>>>(tq, tk, tv, p);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
-// bf16 only.  Strides in elements, (batch, seq, head) for q, k, v and out in
-// that order.  Returns 0, a cudaError_t (> 0), or a negated CUresult of the
-// tensor-map encoding (< 0); repro_flash_wgmma_error_string names it.
+// bf16 only.  D is q's and k's head dim, Dv v's and out's.  Strides in
+// elements, (batch, seq, head) for q, k, v and out in that order.  Returns
+// 0, a cudaError_t (> 0), or a negated CUresult of the tensor-map encoding
+// (< 0); repro_flash_wgmma_error_string names it.
 extern "C" int repro_flash_attention_fwd_wgmma(
     const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int D,
-    long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    int Dv, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb, long long o_ss, long long o_sh,
     float scale, int causal, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0) return int(cudaErrorInvalidValue);
@@ -308,13 +318,16 @@ extern "C" int repro_flash_attention_fwd_wgmma(
   const Params p{o, lse, Sq, Sk, Hq, Hkv, o_sb, o_ss, o_sh, scale * 1.4426950408889634f, causal, (Sq + BQ - 1) / BQ};
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return launch<32>(q, k, v, B, p, st, s);
-    case 64: return launch<64>(q, k, v, B, p, st, s);
-    case 128: return launch<128>(q, k, v, B, p, st, s);
-    case 256: return launch<256>(q, k, v, B, p, st, s);
-    default: return int(cudaErrorInvalidValue);
+  if (D == Dv) {
+    switch (D) {
+      case 32: return launch<32, 32>(q, k, v, B, p, st, s);
+      case 64: return launch<64, 64>(q, k, v, B, p, st, s);
+      case 128: return launch<128, 128>(q, k, v, B, p, st, s);
+      case 256: return launch<256, 256>(q, k, v, B, p, st, s);
+    }
   }
+  if (D == 192 && Dv == 128) return launch<192, 128>(q, k, v, B, p, st, s);
+  return int(cudaErrorInvalidValue);
 }
 
 extern "C" const char* repro_flash_wgmma_error_string(int err) { return hopper::error_string(err); }

@@ -55,11 +55,11 @@ inline bool rows_aligned(const void* ptr, long long sb, long long ss, long long 
 }
 
 // ---------------------------------------------------------------- flash tiles
-// The flash kernels' tiles: BR rows of one head (64, or 32 at D = 256 so that
+// The flash kernels' tiles: BR rows of one head (64, or 32 at D > 128 so that
 // the double-buffered tiles fit a block's 227 KB), staged as fp32 rows of D.
 template <int D>
 struct Rows {
-  static constexpr int BR = D >= 256 ? 32 : 64;  // rows of every q and kv tile
+  static constexpr int BR = D > 128 ? 32 : 64;  // rows of every q and kv tile
   static constexpr int SPAD = BR + 4;            // row of a P or dS tile (16-byte aligned)
   static constexpr int TILE = BR * D;            // floats of a staged tile
 };
@@ -74,10 +74,10 @@ __device__ __forceinline__ int sw(int r, int c) {
 
 // Rows [r0, r0 + BR) of one (batch, head) slice into a staged tile, zero
 // past row n: fp32 by cp.async (the caller commits the group) ...
-template <int D>
+template <int D, int BR = Rows<D>::BR>
 __device__ __forceinline__ void stage(float* dst, const float* src, long long row_stride, int r0, int n, int vec) {
   constexpr int C4 = D / 4;
-  for (int idx = threadIdx.x; idx < Rows<D>::BR * C4; idx += THREADS) {
+  for (int idx = threadIdx.x; idx < BR * C4; idx += THREADS) {
     const int r = idx / C4, c = (idx % C4) * 4;
     const bool ok = r0 + r < n;
     const float* s = ok ? src + (r0 + r) * row_stride + c : src;  // not read when !ok
@@ -91,11 +91,11 @@ __device__ __forceinline__ void stage(float* dst, const float* src, long long ro
   }
 }
 // ... bf16 converted by the threads
-template <int D>
+template <int D, int BR = Rows<D>::BR>
 __device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src, long long row_stride, int r0, int n,
                                       int) {
   constexpr int C4 = D / 4;
-  for (int idx = threadIdx.x; idx < Rows<D>::BR * C4; idx += THREADS) {
+  for (int idx = threadIdx.x; idx < BR * C4; idx += THREADS) {
     const int r = idx / C4, c = (idx % C4) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r0 + r < n) {
@@ -144,12 +144,13 @@ __device__ __forceinline__ void load_vec<2>(float (&x)[2], const float* src) {
 }
 
 // acc[.][.] += sum_k A[k][this thread's rows] B[k][its columns], over the
-// BR rows k of A (a P or dS tile, [k][row] at SPAD) and of B (a staged tile)
-template <int D, int NT, int RQ>
-__device__ __forceinline__ void accumulate(const float* A, const float* B, typename Acc<D, NT, RQ>::Tile& acc,
+// BR rows k of A (a P or dS tile, [k][row] at SPAD = BR + 4) and of B (a
+// staged tile)
+template <int D, int NT, int RQ, int BR_ = Rows<D>::BR>
+__device__ __forceinline__ void accumulate(const float* A, const float* B, typename Acc<D, NT, RQ, BR_>::Tile& acc,
                                            int ra, int ca) {
-  using G = Acc<D, NT, RQ>;
-  constexpr int SPAD = Rows<D>::SPAD;
+  using G = Acc<D, NT, RQ, BR_>;
+  constexpr int SPAD = BR_ + 4;
   // in runs of 8 rows k, where row k & 7 = u of the staged tile swizzles by u
   const float* ap = A + G::row(ra, 0, 0);
   int c4[G::NV];  // this thread's column vectors, as chunk and offset in it
@@ -182,10 +183,10 @@ __device__ __forceinline__ void accumulate(const float* A, const float* B, typen
 
 // this thread's rows of a (.., S, .., D) output whose row i starts at out +
 // i * row_stride, from row0, times mul; rows at or past n are not written
-template <typename T, int D, int NT, int RQ>
+template <typename T, int D, int NT, int RQ, int BR_ = Rows<D>::BR>
 __device__ __forceinline__ void store_acc(T* out, long long row_stride, int row0, int n,
-                                          const typename Acc<D, NT, RQ>::Tile& acc, float mul, int ra, int ca) {
-  using G = Acc<D, NT, RQ>;
+                                          const typename Acc<D, NT, RQ, BR_>::Tile& acc, float mul, int ra, int ca) {
+  using G = Acc<D, NT, RQ, BR_>;
 #pragma unroll
   for (int q = 0; q < RQ; ++q)
 #pragma unroll
@@ -200,12 +201,12 @@ __device__ __forceinline__ void store_acc(T* out, long long row_stride, int row0
     }
 }
 
-template <int D, int NT, int RQ>
-__device__ __forceinline__ void zero(typename Acc<D, NT, RQ>::Tile& acc) {
+template <int D, int NT, int RQ, int BR_ = Rows<D>::BR>
+__device__ __forceinline__ void zero(typename Acc<D, NT, RQ, BR_>::Tile& acc) {
 #pragma unroll
   for (int r = 0; r < 4 * RQ; ++r)
 #pragma unroll
-    for (int c = 0; c < Acc<D, NT, RQ>::NCOL; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < Acc<D, NT, RQ, BR_>::NCOL; ++c) acc[r][c] = 0.f;
 }
 
 }  // namespace simt

@@ -4,10 +4,13 @@ Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas`` (the
 Pallas TPU kernel ``_flash_kernel``) and the gradient the JAX package lets
 XLA take of its blocked form.  Four kernels, built for ``sm_90a`` by
 :mod:`.build` at their first launch and called through ``ctypes``; a CUDA
-call picks one by dtype and head dim (:func:`select_route` forward,
-:func:`select_bwd_route` backward):
+call picks one by dtype and head dims (:func:`select_route` forward,
+:func:`select_bwd_route` backward).  The forward takes the (q/k head dim,
+v head dim) pairs of :data:`FWD_PAIRS`: the equal widths 32, 64, 128 and
+256, and (192, 128), MLA's prefill (deepseek-v2: q and k carry 128
+columns plus 64 of rope, v 128); the backward takes the equal ones.
 
-* **forward, bf16 at D in 32/64/128/256 → ``csrc/flash_attention_wgmma.cu``**
+* **forward, bf16 at every pair → ``csrc/flash_attention_wgmma.cu``**
   (route ``"wgmma"``), the serving and training path's kernel: both
   products on the tensor cores (``wgmma``, bf16 in, fp32 accumulate), Q and
   a two-stage ring of K/V tiles brought into shared memory by TMA, the
@@ -16,15 +19,17 @@ call picks one by dtype and head dim (:func:`select_route` forward,
   cancel stay within the bf16 tolerance) as the second product's A
   operand.  At D = 256 (gemma-7b, paligemma-3b) Q and the ring take
   164,904 bytes of shared memory, within a block's 232,448; the 64 x 256
-  fp32 accumulator takes 128 registers a thread.
+  fp32 accumulator takes 128 registers a thread.  At (192, 128) the Q and
+  K tiles are 192 columns wide (S = Q Kᵀ in 12 k-steps) and V and O 128.
 * **forward, fp32 → ``csrc/flash_attention.cu``** (route ``"simt"``), both
   products as fp32 FMAs on the CUDA cores, tiled as the fp32 backward is:
   8 × 4 score micro-tiles read as float4s from swizzled shared tiles over
   parts of D, summed in one softmax pass, O in 8 × 4 register blocks, K/V
-  by ``cp.async`` in two stages (``csrc/simt_tile.cuh``).  fp32 stays off
-  the tensor cores on purpose: their fp32 input type is TF32, ~10 bits of
-  mantissa, which misses the fp32 tolerance (2e-5) that the fp32 checks
-  hold the kernel to.  It also takes bf16 at D = 256 when asked (``route="simt"``),
+  by ``cp.async`` in two stages (``csrc/simt_tile.cuh``); at (192, 128)
+  the 32-row tiles of D = 256, six parts of the 192 score columns, O over
+  128.  fp32 stays off the tensor cores on purpose: their fp32 input type
+  is TF32, ~10 bits of mantissa, which misses the fp32 tolerance (2e-5)
+  that the fp32 checks hold the kernel to.  It also takes bf16 at D = 256 when asked (``route="simt"``),
   so that the two can be timed side by side.
 * **backward, bf16 at every head dim → ``csrc/flash_attention_bwd_wgmma.cu``**
   (route ``"wgmma"``), dense training's: the FlashAttention-2 split in
@@ -48,10 +53,11 @@ the backward replaces.  The tensor-core kernels need the base address and
 the seq/head/batch strides of what they read by TMA 16-byte aligned
 (:func:`tma_strides`); the wrapper checks and raises.
 
-What bounds the function on an H100: the forward's two products of
-2·Sq·Sk·D per head (halved by causality) against q, k, v and out moved
-once; the backward's five products against q, k, v, o, dO read and dq,
-dk, dv written once (:func:`flash_flops`, :func:`flash_bytes`).  At the
+What bounds the function on an H100: the forward's two products,
+2·Sq·Sk·(Dqk + Dv) FLOPs per head (halved by causality), against q, k
+(Dqk wide), v and out (Dv wide) moved once; the backward's five products
+against q, k, v, o, dO read and dq, dk, dv written once
+(:func:`flash_flops`, :func:`flash_bytes`).  At the
 serving shapes the forward is bound by bytes, at training's S = 2048 by
 operations.  Every kernel reads GQA kv heads in place (``h // group``),
 reads batch-major tensors through their strides and masks the ragged edge
@@ -76,17 +82,17 @@ from .ref import attention_lse_ref, attention_ref, flash_backward_ref
 
 __all__ = [
     "flash_attention", "flash_attention_backward", "flash_flops", "flash_bytes", "select_route", "select_bwd_route",
-    "tma_strides", "ROUTES", "SUPPORTED_HEAD_DIMS", "WGMMA_HEAD_DIMS", "BWD_WGMMA_HEAD_DIMS", "BWD_LAUNCHES",
-    "BWD_P_TERMS", "BWD_DS_TERMS",
+    "tma_strides", "ROUTES", "SUPPORTED_HEAD_DIMS", "FWD_PAIRS", "BWD_LAUNCHES", "BWD_P_TERMS", "BWD_DS_TERMS",
     "SOURCE", "SIMT_SOURCE", "BWD_SOURCE", "BWD_SIMT_SOURCE", "REPLACES", "BWD_REPLACES",
 ]
 
+#: the equal q/k and v head dims both directions take
 SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
-#: the head dims the tensor-core forward kernel takes (every supported one)
-WGMMA_HEAD_DIMS = (32, 64, 128, 256)
-#: the head dims the tensor-core backward kernel takes (every supported one)
-BWD_WGMMA_HEAD_DIMS = (32, 64, 128, 256)
-#: dtype → the kernel a CUDA call of that dtype launches at a head dim the tensor-core kernel takes
+_EQUAL_PAIRS = tuple((d, d) for d in SUPPORTED_HEAD_DIMS)
+#: the (q/k head dim, v head dim) pairs the forward kernels take: the equal
+#: widths, and MLA's prefill at deepseek-v2's published widths
+FWD_PAIRS = _EQUAL_PAIRS + ((192, 128),)
+#: dtype → the kernel a CUDA call of that dtype launches, forward and backward, at every pair they take
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
 #: the SIMT kernels' element-type codes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -111,49 +117,60 @@ TMA_ALIGN = 16
 _BWD_ROWS = 64
 
 
-def _route(dtype: torch.dtype, head_dim: int, wgmma_dims) -> str:
+def _dims_text(dims: Tuple[int, int]) -> str:
+    return f"head dim {dims[0]}" if dims[0] == dims[1] else f"head dims (q/k {dims[0]}, v {dims[1]})"
+
+
+def _route(dtype: torch.dtype, dims: Tuple[int, int], pairs) -> str:
     route = ROUTES.get(dtype)
     if route is None:
         raise ValueError(f"kernel takes float32 or bfloat16 q/k/v, got {dtype}")
-    if head_dim not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"kernel takes head dim in {SUPPORTED_HEAD_DIMS}, got {head_dim}")
-    return route if head_dim in wgmma_dims else "simt"
+    if dims not in pairs:
+        raise ValueError(f"kernel takes (q/k head dim, v head dim) in {pairs}, got {_dims_text(dims)}")
+    return route
 
 
-def select_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The forward kernel that a CUDA call on ``dtype`` at ``head_dim``
-    launches: ``"wgmma"`` (the tensor-core kernel) for bf16 at every head
-    dim in :data:`SUPPORTED_HEAD_DIMS`, ``"simt"`` for fp32; any other dtype
-    or head dim raises."""
-    return _route(dtype, head_dim, WGMMA_HEAD_DIMS)
+def select_route(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = None) -> str:
+    """The forward kernel that a CUDA call on ``dtype`` at ``head_dim`` (q
+    and k) and ``v_head_dim`` (v; ``head_dim`` by default) launches:
+    ``"wgmma"`` (the tensor-core kernel) for bf16 at every pair of
+    :data:`FWD_PAIRS`, ``"simt"`` for fp32; any other dtype or pair raises."""
+    dims = (head_dim, head_dim if v_head_dim is None else v_head_dim)
+    return _route(dtype, dims, FWD_PAIRS)
 
 
 def select_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """The backward kernel that a CUDA call on ``dtype`` at ``head_dim``
     launches: ``"wgmma"`` (the tensor-core kernel) for bf16 at every head dim
-    in :data:`BWD_WGMMA_HEAD_DIMS`, ``"simt"`` for fp32; any other dtype or
+    in :data:`SUPPORTED_HEAD_DIMS`, ``"simt"`` for fp32; any other dtype or
     head dim raises."""
-    return _route(dtype, head_dim, BWD_WGMMA_HEAD_DIMS)
+    return _route(dtype, (head_dim, head_dim), _EQUAL_PAIRS)
 
 
-def flash_flops(B: int, Sq: int, Sk: int, Hq: int, D: int, *, causal: bool, backward: bool = False) -> int:
-    """The FLOPs attention needs: two products of 2·Sq·Sk·D per query head
-    forward, five backward (S, dP, dV, dQ, dK), halved when causal.  The
-    backward kernel computes S and dP in both its dK/dV and its dQ kernel
-    (seven products), which is not counted: this is the work of the
-    function, not of the kernel."""
-    per_product = 2 * B * Hq * Sq * Sk * D // (2 if causal else 1)
-    return (5 if backward else 2) * per_product
+def flash_flops(B: int, Sq: int, Sk: int, Hq: int, D: int, *, causal: bool, backward: bool = False,
+                v_head_dim: Optional[int] = None) -> int:
+    """The FLOPs attention needs: forward, S = Q Kᵀ of 2·Sq·Sk·D and O = P V
+    of 2·Sq·Sk·Dv per query head (``Dv = v_head_dim``, ``D`` by default);
+    backward five products of 2·Sq·Sk·D (S, dP, dV, dQ, dK); halved when
+    causal.  The backward kernel computes S and dP in both its dK/dV and its
+    dQ kernel (seven products), which is not counted: this is the work of
+    the function, not of the kernel."""
+    Dv = D if v_head_dim is None else v_head_dim
+    per_pair = 2 * B * Hq * Sq * Sk // (2 if causal else 1)
+    return per_pair * (5 * D if backward else D + Dv)
 
 
-def flash_bytes(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int, esize: int, *, backward: bool = False) -> int:
-    """The bytes attention must move: forward q, k, v read and out written
-    once; backward q, k, v, o, dO and the fp32 lse read and dq, dk, dv
-    written once (element size ``esize``)."""
-    q, kv = B * Sq * Hq * D, B * Sk * Hkv * D
+def flash_bytes(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int, esize: int, *, backward: bool = False,
+                v_head_dim: Optional[int] = None) -> int:
+    """The bytes attention must move: forward q and k (``D`` wide) and v
+    (``Dv = v_head_dim`` wide, ``D`` by default) read and out (``Dv``)
+    written once; backward q, k, v, o, dO and the fp32 lse read and dq, dk,
+    dv written once (element size ``esize``)."""
+    Dv = D if v_head_dim is None else v_head_dim
+    q, kv = B * Sq * Hq, B * Sk * Hkv
     if not backward:
-        return esize * (2 * q + 2 * kv)
-    return esize * (4 * q + 4 * kv) + 4 * B * Hq * Sq
+        return esize * (q * (D + Dv) + kv * (D + Dv))
+    return esize * (4 * q * D + 4 * kv * D) + 4 * B * Hq * Sq
 
 
 def tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
@@ -183,9 +200,9 @@ _LL, _I, _P, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_flo
 #: kernel → (library, C entry point, its error-string function, argtypes)
 _ENTRIES = {
     "wgmma": ("flash_attention_wgmma", "repro_flash_attention_fwd_wgmma", "repro_flash_wgmma_error_string",
-              [_P] * 5 + [_I] * 6 + [_LL] * 12 + [_F, _I, _P]),
+              [_P] * 5 + [_I] * 7 + [_LL] * 12 + [_F, _I, _P]),
     "simt": ("flash_attention", "repro_flash_attention_fwd", "repro_cuda_error_string",
-             [_P] * 5 + [_I] * 7 + [_LL] * 12 + [_F, _I, _P]),
+             [_P] * 5 + [_I] * 8 + [_LL] * 12 + [_F, _I, _P]),
     "bwd_wgmma": ("flash_attention_bwd_wgmma", "repro_flash_attention_bwd_wgmma", "repro_flash_bwd_wgmma_error_string",
                   [_P] * 10 + [_I] * 6 + [_LL] * 15 + [_F, _I, _P]),
     "bwd_simt": ("flash_attention_bwd", "repro_flash_attention_bwd", "repro_flash_bwd_error_string",
@@ -211,7 +228,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> N
         raise ValueError("flash_attention takes (B, S, H, D) tensors")
     B, Sq, Hq, D = q.shape
     Bk, Sk, Hkv, Dk = k.shape
-    if Bk != B or v.shape != k.shape or Dk != D:
+    if Bk != B or v.shape[:-1] != k.shape[:-1] or Dk != D:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if Hkv == 0 or Hq % Hkv != 0:
         raise ValueError(f"query heads {Hq} not a multiple of kv heads {Hkv}")
@@ -230,16 +247,15 @@ def _device(*ts: torch.Tensor) -> torch.device:
     return dev
 
 
-def _check_route(dtype: torch.dtype, D: int, route: str, select, wgmma_dims, simt_bf16_dims) -> None:
-    """Raise unless the kernel ``route`` names takes ``dtype`` at head dim
-    ``D`` (``"wgmma"`` bf16 at ``wgmma_dims``; ``"simt"`` fp32, and bf16 at
-    ``simt_bf16_dims``), checked on every device."""
-    select(dtype, D)  # a dtype or head dim no kernel takes
-    takes = {"wgmma": dtype == torch.bfloat16 and D in wgmma_dims,
-             "simt": dtype == torch.float32 or D in simt_bf16_dims}
+def _check_route(dtype: torch.dtype, dims: Tuple[int, int], route: str, pairs, simt_bf16_pairs) -> None:
+    """Raise unless the kernel ``route`` names takes ``dtype`` at the (q/k,
+    v) head dims ``dims`` (``"wgmma"`` bf16 at ``pairs``; ``"simt"`` fp32
+    at ``pairs``, and bf16 at ``simt_bf16_pairs``), checked on every device."""
+    _route(dtype, dims, pairs)  # a dtype or pair no kernel takes
+    takes = {"wgmma": dtype == torch.bfloat16, "simt": dtype == torch.float32 or dims in simt_bf16_pairs}
     if not takes.get(route, False):
-        raise ValueError(f"route {route!r} does not take {dtype} at head dim {D} (the tensor-core kernel takes "
-                         f"bfloat16 at head dims {wgmma_dims}, the SIMT one float32 and bfloat16 at {simt_bf16_dims})")
+        raise ValueError(f"route {route!r} does not take {dtype} at {_dims_text(dims)} (the tensor-core kernel "
+                         f"takes bfloat16 at {pairs}, the SIMT one float32 and bfloat16 at {simt_bf16_pairs})")
 
 
 def _check_cuda(ts) -> None:
@@ -254,41 +270,41 @@ def _check_cuda(ts) -> None:
 def flash_attention(
     q: torch.Tensor,  # (B, Sq, Hq, D)
     k: torch.Tensor,  # (B, Sk, Hkv, D)
-    v: torch.Tensor,  # (B, Sk, Hkv, D)
+    v: torch.Tensor,  # (B, Sk, Hkv, Dv)
     *,
     causal: bool = True,
     scale: Optional[float] = None,
     return_lse: bool = False,
     route: Optional[str] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Batch-major flash attention, out ``(B, Sq, Hq, D)`` in q's dtype, and
+    """Batch-major flash attention, out ``(B, Sq, Hq, Dv)`` in q's dtype, and
     with ``return_lse`` also the rows' logsumexp ``(B, Hq, Sq)`` fp32
     (``+inf`` for a row that sees no key), which :func:`flash_attention_backward` reads.
 
     On a CUDA tensor it launches the kernel that :func:`select_route` names
-    for q's dtype and head dim (``D`` in :data:`SUPPORTED_HEAD_DIMS`, last
+    for q's dtype and head dims (``(D, Dv)`` in :data:`FWD_PAIRS`, last
     dimension contiguous; for the tensor-core kernel also the alignment
     :func:`tma_strides` checks) and counts the launch in
     ``flash_attention.launches``; ``route="simt"`` asks for the SIMT kernel
     on bf16 at D = 256 too (for timing it beside the tensor-core one;
     nothing on the main path passes it).  On a CPU tensor it computes the
-    plain version.  Anything the kernels do not take raises."""
+    plain version, at any ``Dv``.  Anything the kernels do not take raises."""
     _check(q, k, v, causal)
-    D = q.shape[-1]
+    D, Dv = q.shape[-1], v.shape[-1]
     scale = float(scale if scale is not None else D ** -0.5)
     if route is not None:  # a CPU call with it runs the plain version
-        _check_route(q.dtype, D, route, select_route, WGMMA_HEAD_DIMS, (256,))
+        _check_route(q.dtype, (D, Dv), route, FWD_PAIRS, ((256, 256),))
     if _device(q, k, v).type == "cpu":
         out = attention_ref(q, k, v, causal=causal, scale=scale)
         return (out, attention_lse_ref(q, k, v, causal=causal, scale=scale)) if return_lse else out
-    route = route or select_route(q.dtype, D)
+    route = route or select_route(q.dtype, D, Dv)
     _check_cuda((q, k, v))
 
     B, Sq, Hq, _ = q.shape
     _, Sk, Hkv, _ = k.shape
-    out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) if return_lse else None
-    dims = [B, Sq, Sk, Hq, Hkv, D]
+    dims = [B, Sq, Sk, Hq, Hkv, D, Dv]
     if route == "wgmma":
         # a tensor with no rows is never read (Sk == 0 loads no tile)
         strides = [tma_strides(t) if t.shape[1] else t.stride()[:3] for t in (q, k, v)]
@@ -330,10 +346,9 @@ def flash_attention_backward(
     On a CUDA tensor it launches the backward that :func:`select_bwd_route`
     names (one dtype for q, k, v, o and dO; ``D`` in
     :data:`SUPPORTED_HEAD_DIMS`; last dimension contiguous; causal only
-    with Sq == Sk): ``csrc/flash_attention_bwd_wgmma.cu`` for bf16 at
-    :data:`BWD_WGMMA_HEAD_DIMS` (q, k, v and dO also aligned as
-    :func:`tma_strides` checks), ``csrc/flash_attention_bwd.cu`` for fp32
-    (any strides).  ``route="simt"`` asks for the SIMT
+    with Sq == Sk): ``csrc/flash_attention_bwd_wgmma.cu`` for bf16 (q, k,
+    v and dO also aligned as :func:`tma_strides` checks),
+    ``csrc/flash_attention_bwd.cu`` for fp32 (any strides).  ``route="simt"`` asks for the SIMT
     kernel on bf16 at every head dim (for timing it beside the tensor-core
     one; nothing on the main path passes it).  It counts the call in
     ``flash_attention_backward.launches`` (each call launches
@@ -343,13 +358,15 @@ def flash_attention_backward(
     _check(q, k, v, causal)
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
+    if v.shape != k.shape:
+        raise ValueError(f"the backward takes v of k's shape {tuple(k.shape)}, got {tuple(v.shape)}")
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and dO {tuple(do.shape)} must have q's shape {tuple(q.shape)}")
     if lse.shape != (B, Hq, Sq):
         raise ValueError(f"lse must be (B, Hq, Sq) = {(B, Hq, Sq)}, got {tuple(lse.shape)}")
     scale = float(scale if scale is not None else D ** -0.5)
     if route is not None:  # a CPU call with it runs the plain version
-        _check_route(q.dtype, D, route, select_bwd_route, BWD_WGMMA_HEAD_DIMS, SUPPORTED_HEAD_DIMS)
+        _check_route(q.dtype, (D, D), route, _EQUAL_PAIRS, _EQUAL_PAIRS)
     if _device(q, k, v, o, lse, do).type == "cpu":
         return flash_backward_ref(q, k, v, o, lse, do, causal=causal, scale=scale)
     route = route or select_bwd_route(q.dtype, D)

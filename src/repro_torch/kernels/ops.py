@@ -7,11 +7,14 @@
 * ``"plain"`` — the plain version on any device, so that tests and
   ``chip_smoke.py`` can hold the kernel against it.
 
-Prefix-LM masking (``prefix_len > 0``) and a value width other than the key
-width (MLA prefill) are not on the port's path yet: on a CUDA tensor they
-raise ``NotImplementedError`` and do not fall back.  A CUDA call that needs
-a gradient goes through :class:`FlashAttention`: the forward kernel with
-the rows' logsumexp, and the backward kernel.
+Prefix-LM masking (``prefix_len > 0``) is not on the port's path yet: on a
+CUDA tensor it raises ``NotImplementedError`` and does not fall back.  A
+value width other than the key width goes to the kernel wrapper as any
+other call does: MLA's prefill pair (192, 128) launches the forward kernel,
+and a pair the kernels do not take raises there, naming the pairs they
+take.  A CUDA call that needs a gradient goes through
+:class:`FlashAttention`: the forward kernel with the rows' logsumexp, and
+the backward kernel (equal widths only).
 """
 
 from __future__ import annotations
@@ -62,21 +65,15 @@ def flash_attention(
     impl: str = "auto",
 ) -> torch.Tensor:
     """Dispatch on ``impl`` and on what the kernel covers; the wrapper owns
-    the scale default, the shape checks and the CPU branch.  Off the CPU, a
-    call that needs a gradient goes through :class:`FlashAttention`."""
+    the scale default, the shape and width checks and the CPU branch.  Off
+    the CPU, a call that needs a gradient goes through :class:`FlashAttention`."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown impl {impl!r} (want 'auto' or 'plain')")
-    no_kernel = prefix_len > 0 or v.shape[-1] != q.shape[-1]
-    if impl == "auto" and no_kernel and q.device.type != "cpu":
-        if prefix_len > 0:
-            raise NotImplementedError(
-                "prefix-LM masking has no CUDA kernel yet; it comes with the enc-dec/prefix-LM slice"
-            )
+    if impl == "auto" and prefix_len > 0 and q.device.type != "cpu":
         raise NotImplementedError(
-            "a value width other than the key width (MLA prefill) has no CUDA kernel yet; "
-            "it comes with the MoE/MLA slice"
+            "prefix-LM masking has no CUDA kernel yet; it comes with the enc-dec/prefix-LM slice"
         )
-    if impl == "plain" or no_kernel:
+    if impl == "plain" or prefix_len > 0:
         return attention_ref(q, k, v, causal=causal, scale=scale, prefix_len=prefix_len)
     if q.device.type != "cpu" and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, scale)

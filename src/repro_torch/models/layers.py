@@ -107,7 +107,8 @@ def rope(
     if rd % 2:
         raise ValueError(f"rotary dim {rd} is odd")
     half = rd // 2
-    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32, device=x.device))
+    # made on the device by a fill: a tensor copied from the host would wait for it in every decode step
+    log_theta = torch.log(torch.full((), theta, dtype=torch.float32, device=x.device))
     freq = torch.exp(-log_theta * torch.arange(half, dtype=torch.float32, device=x.device) / half)
     ang = positions.float()[..., None] * freq  # (..., S, half)
     # broadcast over the head axis: x is (..., S, H, D)

@@ -181,7 +181,9 @@ class Engine:
         self.slots: List[Optional[Request]] = [None] * scfg.n_slots
         self.pos = np.zeros((scfg.n_slots,), np.int32)  # next write position
         self.last_token = np.zeros((scfg.n_slots,), np.int32)
-        #: stacked {"k", "v"} of (L, n_slots, max_len, Hkv, D): slots are axis 1
+        #: the model's stacked cache leaves, slots on axis 1: {"k", "v"} of (L, n_slots,
+        #: max_len, Hkv, D), MLA's {"ckv"} of (L, n_slots, max_len, kv_lora + qk_rope);
+        #: every step handles the leaves alike, whatever their keys
         self.cache = model.init_cache(scfg.n_slots, scfg.max_len, dtype=cfg.compute_tdtype())
         #: sorted decode buckets; n_slots always present so a full batch
         #: takes the unsliced fast path

@@ -196,6 +196,64 @@ def test_fp32_forward_masked_rows_give_zero_and_infinite_lse(cuda, D):
     q, k, v = _qkv((2, 40, 4, 2, D), torch.float32, cuda, Sk=0)
     out, lse = fa.flash_attention(q, k, v, causal=False, return_lse=True)
     assert torch.count_nonzero(out) == 0 and torch.isinf(lse).all() and (lse > 0).all()
+#: MLA's prefill pair (q/k head dim 192, v head dim 128), deepseek-v2's published widths: (B, S, Hq, Hkv),
+#: causal; B = 2 ragged, GQA 16 over 4, lengths off both routes' tiles (64 rows; 32 on the SIMT route)
+MLA_GRID = [(1, 404, 16, 16), (2, 77, 4, 4), (1, 132, 16, 4), (1, 1, 2, 2)]
+
+
+def _mla_qkv(B, S, Hq, Hkv, dtype, device, seed, Sk=None):
+    g = torch.Generator().manual_seed(seed)
+    Sk = S if Sk is None else Sk
+    mk = lambda *sh: torch.randn(*sh, generator=g).to(device=device, dtype=dtype)
+    return mk(B, S, Hq, 192), mk(B, Sk, Hkv, 192), mk(B, Sk, Hkv, 128)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", MLA_GRID)
+def test_mla_pair_matches_plain_on_both_routes(cuda, shape, dtype, causal):
+    """(192, 128) on the tensor-core kernel (bf16) and the SIMT one (fp32),
+    at MLA's scale (192^-0.5), against the plain version; the output has v's width."""
+    q, k, v = _mla_qkv(*shape, dtype, cuda, seed=sum(shape))
+    assert fa.select_route(dtype, 192, 128) == ("wgmma" if dtype == torch.bfloat16 else "simt")
+    before = fa.flash_attention.launches
+    out, lse = fa.flash_attention(q, k, v, causal=causal, scale=192 ** -0.5, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1 and out.shape == (*q.shape[:3], 128)
+    want = attention_ref(q, k, v, causal=causal, scale=192 ** -0.5)
+    tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+    torch.testing.assert_close(lse, attention_lse_ref(q, k, v, causal=causal, scale=192 ** -0.5), **LSE_TOL)
+
+
+def test_mla_pair_cross_length_and_empty_kv(cuda):
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _mla_qkv(1, 70, 4, 2, dtype, cuda, seed=3, Sk=150)
+        tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+        torch.testing.assert_close(ops.flash_attention(q, k, v, causal=False).float(),
+                                   attention_ref(q, k, v, causal=False).float(), **tol)
+        q, k, v = _mla_qkv(1, 5, 2, 2, dtype, cuda, seed=4, Sk=0)
+        assert torch.count_nonzero(ops.flash_attention(q, k, v, causal=False)) == 0
+
+
+def test_pairs_without_a_kernel_raise_on_the_card(cuda):
+    """A (q/k, v) pair outside FWD_PAIRS raises on a CUDA tensor, naming the
+    pairs, and launches nothing; nothing falls back to the plain version."""
+    before = fa.flash_attention.launches
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, _ = _qkv((1, 16, 2, 2, 64), dtype, cuda)
+        with pytest.raises(ValueError, match=r"\(192, 128\)\), got head dims \(q/k 64, v 32\)"):
+            ops.flash_attention(q, k, k[..., :32])
+        q, k, v = _mla_qkv(1, 16, 2, 2, dtype, cuda, seed=5)
+        with pytest.raises(ValueError, match="head dims"):
+            ops.flash_attention(q, k, v[..., :64])
+        with pytest.raises(NotImplementedError, match="prefix-LM"):
+            ops.flash_attention(q, k, v, prefix_len=4)
+    with pytest.raises(ValueError, match="route 'simt' does not take torch.bfloat16"):
+        fa.flash_attention(*_mla_qkv(1, 16, 2, 2, torch.bfloat16, cuda, seed=6), route="simt")
+    assert fa.flash_attention.launches == before
+
+
 #: backward in fp32: the kernel and the plain version differ by the order of
 #: their fp32 sums over up to 200 rows or columns
 BWD_FP32_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -720,6 +778,22 @@ def test_fold_kernel_matches_plain_bit_for_bit(cuda, shape):
     assert np.array_equal(got.numpy(), np.add.accumulate(vals, axis=0))
     ints = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, size=shape))
     assert torch.equal(ss.running_sum(ints.to(cuda)).cpu(), running_sum_ref(ints))
+
+
+@pytest.mark.parametrize("shape", [(3000, 40), (40, 300), (9000, 2), (5, 1000)])
+def test_fold_kernel_chunks_and_column_blocks(cuda, shape):
+    """Inputs taller than one staged chunk (the carry crosses chunks) and
+    wider than one block's columns fold bit for bit, and a leading -0.0
+    stays -0.0 (the fold starts from the first value, not from 0)."""
+    rng = np.random.default_rng(shape[0])
+    vals = rng.uniform(-1.0, 1.0, size=shape) * (10.0 ** rng.integers(-8, 8, size=shape))
+    vals[0, ::3] = -0.0
+    got = ss.running_sum(torch.from_numpy(vals).to(cuda)).cpu().numpy()
+    assert np.array_equal(got, np.add.accumulate(vals, axis=0))
+    assert np.signbit(got[0, ::3]).all()
+    ints = rng.integers(-(1 << 62), 1 << 62, size=shape)
+    got = ss.running_sum(torch.from_numpy(ints).to(cuda)).cpu().numpy()
+    assert np.array_equal(got, np.add.accumulate(ints, axis=0))
 
 
 def test_batched_sweep_on_the_card_equals_numpy(cuda):

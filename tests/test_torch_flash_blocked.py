@@ -132,8 +132,8 @@ def test_route_selection():
     """Forward and backward: bf16 at every head dim on the tensor-core kernels
     (head dim 256, gemma-7b's and paligemma-3b's, included), fp32 on the SIMT
     ones."""
-    assert fa.WGMMA_HEAD_DIMS == fa.SUPPORTED_HEAD_DIMS == (32, 64, 128, 256)
-    assert fa.BWD_WGMMA_HEAD_DIMS == (32, 64, 128, 256)
+    assert fa.SUPPORTED_HEAD_DIMS == (32, 64, 128, 256)
+    assert fa.FWD_PAIRS == ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
     for D in fa.SUPPORTED_HEAD_DIMS:
         assert fa.select_route(torch.bfloat16, D) == "wgmma"
         assert fa.select_route(torch.float32, D) == "simt"

@@ -143,8 +143,16 @@ def test_bad_inputs_raise():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 16, 4, 2, 32))
     with pytest.raises(ValueError, match="shape"):
         fa.flash_attention(q, k[..., :16], v, causal=False)
-    with pytest.raises(ValueError, match="shape"):  # Dv != D is ops' to route, not the kernel's
-        fa.flash_attention(q, k, v[..., :16], causal=False)
+    with pytest.raises(ValueError, match="shape"):
+        fa.flash_attention(q, k, v[:, :8], causal=False)
+    # a value width other than the key width: the CPU plain version takes any; on the card only the
+    # pairs of FWD_PAIRS have a kernel, and any other pair is refused, naming them
+    narrow = fa.flash_attention(q, k, v[..., :16], causal=False)
+    assert narrow.shape == (1, 16, 4, 16)
+    torch.testing.assert_close(narrow, attention_ref(q, k, v[..., :16], causal=False))
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match=r"\(192, 128\)\), got head dims \(q/k 32, v 16\)"):
+            fa.select_route(dtype, 32, 16)
     with pytest.raises(ValueError, match="unknown impl"):
         ops.flash_attention(q, k, v, impl="pallas")
 
@@ -159,7 +167,7 @@ def test_non_cpu_tensors_never_take_the_plain_version():
         ops.flash_attention(q, k, v)
     with pytest.raises(NotImplementedError, match="prefix-LM"):
         ops.flash_attention(q, k, v, prefix_len=4)
-    with pytest.raises(NotImplementedError, match="MLA"):
+    with pytest.raises(ValueError, match="cuda or cpu"):  # an unequal v width goes to the wrapper too
         ops.flash_attention(q, k, torch.empty((1, 16, 4, 16), device="meta"), causal=False)
     assert fa.flash_attention.launches == before
     assert fa.REPLACES.startswith("src/repro/kernels/flash_attention.py")
