@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from the checkout's sources (one ``nvcc`` per
-source, all started together) and drives the port's three paths:
+source, all started together) and drives the port's paths:
 
 * serving: the flash-attention kernels held against their plain version
   (bf16 on the tensor-core kernel, whose SASS must hold ``HGMMA`` and
@@ -29,6 +29,17 @@ source, all started together) and drives the port's three paths:
   kernel, the kernel and the sparse MoE layer held on real inputs, no host
   sync in a decode step, and the device's idle share of a prefill and a
   decode step;
+* hybrid serving: the bf16 SSD kernel at head dim 128 (two warpgroups a
+  block; SASS as above) held against the sequential plain scan at edge
+  shapes and at jamba's width and timed beside the plain chunked form at
+  jamba's prefills, and fp32 at head dim 128 on the SIMT kernel; jamba's
+  smoke config served on the card and on the CPU in fp32, experts compared
+  first, then tokens, statuses and lanes; jamba at its published widths
+  cut to 7 layers (35.07 B parameters, bf16) served through the engine
+  with every prefill's SSD on the tensor-core kernel at head dim 128 and
+  its attention on the flash kernel at D = 128, both kernels held on real
+  inputs by relative error, no host sync in a decode step, and the
+  device's idle share of a prefill and a decode step;
 * dense training: the bf16 flash backward kernel (tensor cores at every
   head dim, two warpgroups a block at 256; its dK/dV and dQ kernels' SASS
   must hold ``HGMMA`` and ``UTMALDG``) held against the plain FA-2 backward
@@ -298,6 +309,36 @@ MOE_FULL_PARAMS = 15_706_484_224
 #: to 206 measured)
 #: operations of one decode step listed from its device breakdown
 TOP_OPS = 12
+#: jamba's SSD width (H, P, N, G): 128 heads of 128, d_state 128, one group.  The bf16 kernel at head dim
+#: 128 (two warpgroups a block) is checked there at P128_SEQS with and without h0, at the edge shapes
+#: P128_EDGES (B, S, H, P, N, G: a ragged S over several chunks, d_state 64 with grouped B/C, one row), the
+#: fp32 SIMT kernel at P128_FP32, and the bf16 kernel is timed at P128_TIMED, the shortest and longest
+#: prompt of the served trace (jamba's prefills)
+JAMBA_SSD_WIDTH = (128, 128, 128, 1)
+P128_SEQS = (1, 132, 404)
+P128_EDGES = [(2, 300, 4, 128, 64, 2), (3, 700, 6, 128, 128, 3), (1, 1, 6, 128, 128, 3)]
+P128_FP32 = [(1, 404, 128, 128, 128, 1), (2, 150, 4, 128, 128, 2)]
+P128_TIMED = (132, 404)
+#: hybrid_full_width: jamba-1.5-large at its published widths cut to HYBRID_LAYERS layers, the first seven
+#: positions of its 8-layer superblock (SSM + FFN at 0, 2, 6; SSM + MoE at 1, 3, 5; attention + FFN at 4):
+#: every kind of layer it has.  Counted from model_defs, in bf16: 5 layers 23.99 B parameters (44.7 GiB),
+#: 6 34.06 B (63.4 GiB), 7 35.07 B (65.3 GiB), the whole superblock 45.14 B (84.1 GiB), more than the card
+#: holds.  At 7 layers the superblock period falls back to 7 (one repeat), in both packages.
+HYBRID_LAYERS, HYBRID_PARAMS = 7, 35_067_494_656
+#: the served trace is _full_width_load's at deepseek's vocabulary (10 requests, prompts of 132-404 tokens,
+#: 16-30 new tokens, as deepseek-7b and deepseek-v2-lite serve it); jamba's runs its token ids modulo its
+#: own vocabulary (65,536), so the arrivals and lengths are the same
+TRACE_VOCAB = 102_400
+#: hybrid_full_width holds the SSD kernel (against the sequential plain scan) and the flash kernel (against
+#: the plain version) on jamba's real inputs by relative L2 error, within REAL_INPUT_REL, about one bf16
+#: rounding (2^-9) of every output.  At one repeat the reference's init draws jamba's layer weights at std 1,
+#: so the SSD's x reaches ~800, dt ~400 and y ~4e10: 5 to 10 of a layer's 4.2 M entries are terms of ~1e6
+#: that cancel to ~1e2, past what the kernel's two-term bf16 operands (~16 bits) keep, so they fall outside
+#: SSD_BF16_TOL of an fp64 scan where the sequential fp32 scan does not; q and k reach ~1e2, so softmax is
+#: near one-hot and a near tie flips an output row.  Measured on the H100: SSD y 2.5e-4 to 2.7e-4 a layer
+#: against the sequential scan (both 1.65e-3 to 1.66e-3 against fp64: bf16 output rounding), the state
+#: 9e-6 to 5.1e-5 (held to SSD_H_REL), attention 3.3e-5 with 31 of 2.1 M entries outside BF16_TOL.
+REAL_INPUT_REL = 2e-3
 #: the simulator's batched sweep: the full scenario registry at SIM_DRAWS
 #: divergent draws a scenario (1,088 jobs), event engine, as a validation
 #: sweep of the per-kernel, per-stream counts runs it; the segment kernel is
@@ -1056,24 +1097,18 @@ def _ties(cpu_calls, gpu_calls):
     return first, ties
 
 
-def phase_moe_parity():
-    """MoE serving, card against CPU, fp32 with TF32 off, the same weights on
-    both devices: llama4-scout's smoke config (GQA, 4 experts top-1 and a
-    shared one; the fp32 flash kernel at head dim 32) and deepseek-v2-lite's
-    at deepseek-v2's published MLA head dims (q/k 192, v 128, on the fp32
-    (192, 128) kernel; 8 experts top-2 and a shared one after a dense first
-    layer), each serving a two-tenant trace through the engine.  Experts are
-    compared first, then greedy tokens up to each request's first tie;
-    statuses, TOKENS_OUT, KV_ACC_W and fault_summary() in full."""
-    from repro_torch.configs import MLAConfig, get_smoke_config
+def _serving_parity(configs):
+    """Each config served on the CPU and on the card, fp32 with TF32 off, the
+    same weights on both devices, through the engine on one two-tenant
+    trace.  Experts are compared first, then greedy tokens up to each
+    request's first tie; statuses, TOKENS_OUT, KV_ACC_W and fault_summary()
+    in full; every card prefill runs the flash kernel once per attention
+    layer and the SSD kernel once per SSM layer."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
     from repro_torch.models import Transformer
     from repro_torch.serve import Engine, LoadSpec, ServeConfig, TenantSpec, generate_load, replay_load
 
-    published = MLAConfig(kv_lora_rank=32, qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128)
-    configs = {"llama4-scout-17b-a16e SMOKE": get_smoke_config("llama4-scout-17b-a16e"),
-               "deepseek-v2-lite-16b SMOKE at the published MLA head dims":
-                   dataclasses.replace(get_smoke_config("deepseek-v2-lite-16b"), mla=published)}
     spec = LoadSpec(tenants=(TenantSpec("online", rate=0.6, prompt_len=(8, 48), max_new_tokens=(4, 12), priority=1),
                              TenantSpec("batch", rate=0.5, prompt_len=(8, 48), max_new_tokens=(4, 12))),
                     steps=12, seed=13)
@@ -1086,13 +1121,17 @@ def phase_moe_parity():
         for dev, model in (("cpu", cpu_model), ("cuda", gpu_model)):
             eng = Engine(model, scfg)
             load = generate_load(spec, cfg.vocab_size)
-            before = fa.flash_attention.launches
+            before = fa.flash_attention.launches, sk.ssd_scan.launches
             reqs = [r for _, r in load]
             with _RouterTrace(eng, reqs) as trace:
                 replay_load(eng, load)
-            runs[dev] = (eng, reqs, trace.calls, fa.flash_attention.launches - before)
-        (cpu_eng, cpu_reqs, cpu_calls, _), (gpu_eng, gpu_reqs, gpu_calls, launches) = runs["cpu"], runs["cuda"]
-        check(launches == cfg.n_layers * len(gpu_reqs), f"{name}: {launches} card flash launches")
+            runs[dev] = (eng, reqs, trace.calls,
+                         (fa.flash_attention.launches - before[0], sk.ssd_scan.launches - before[1]))
+        (cpu_eng, cpu_reqs, cpu_calls, _), (gpu_eng, gpu_reqs, gpu_calls, (launches, ssd_launches)) = \
+            runs["cpu"], runs["cuda"]
+        n_attn = sum(cfg.layer_is_attn(i) for i in range(cfg.n_layers))
+        check(launches == n_attn * len(gpu_reqs), f"{name}: {launches} card flash launches")
+        check(ssd_launches == (cfg.n_layers - n_attn) * len(gpu_reqs), f"{name}: {ssd_launches} card SSD launches")
         first, ties = _ties(cpu_calls, gpu_calls)
         check([r.status for r in gpu_reqs] == [r.status for r in cpu_reqs], f"{name}: request statuses differ")
         for c, g in zip(cpu_reqs, gpu_reqs):
@@ -1106,10 +1145,41 @@ def phase_moe_parity():
                      "router_calls": len(gpu_calls), "routed_tokens": sum(len(c[2]) for c in gpu_calls),
                      "ties": ties, "tokens_compared": sum(first.get(r.name, len(r.generated)) for r in cpu_reqs),
                      "card_kernel_launches": launches, "fault_summary": gpu_eng.fault_summary()}
+        if ssd_launches:
+            out[name]["card_ssd_launches"] = ssd_launches
         del cpu_model, gpu_model, runs
     fa.flash_attention.launches = 0
-    emit({"phase": "moe_parity", "dtype": "float32, TF32 off", "tie_eps": TIE_EPS, "configs": out,
-          "lanes_equal": True, "statuses_equal": True})
+    sk.ssd_scan.launches = 0
+    return out
+
+
+def phase_moe_parity():
+    """MoE serving, card against CPU (``_serving_parity``): llama4-scout's
+    smoke config (GQA, 4 experts top-1 and a shared one; the fp32 flash
+    kernel at head dim 32) and deepseek-v2-lite's at deepseek-v2's published
+    MLA head dims (q/k 192, v 128, on the fp32 (192, 128) kernel; 8 experts
+    top-2 and a shared one after a dense first layer)."""
+    from repro_torch.configs import MLAConfig, get_smoke_config
+
+    published = MLAConfig(kv_lora_rank=32, qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128)
+    configs = {"llama4-scout-17b-a16e SMOKE": get_smoke_config("llama4-scout-17b-a16e"),
+               "deepseek-v2-lite-16b SMOKE at the published MLA head dims":
+                   dataclasses.replace(get_smoke_config("deepseek-v2-lite-16b"), mla=published)}
+    emit({"phase": "moe_parity", "dtype": "float32, TF32 off", "tie_eps": TIE_EPS,
+          "configs": _serving_parity(configs), "lanes_equal": True, "statuses_equal": True})
+
+
+def phase_hybrid_parity():
+    """Hybrid serving, card against CPU (``_serving_parity``, the engine
+    settings and trace of moe_parity): jamba's smoke config, one 8-layer
+    superblock of Mamba-2 layers (head dim 32, on the fp32 SIMT SSD kernel)
+    and one attention layer (4 heads of 32 over 2, the fp32 flash kernel),
+    4 experts top-2 every second layer, its caches one stack per kind."""
+    from repro_torch.configs import get_smoke_config
+
+    configs = {"jamba-1.5-large-398b SMOKE": get_smoke_config("jamba-1.5-large-398b")}
+    emit({"phase": "hybrid_parity", "dtype": "float32, TF32 off", "tie_eps": TIE_EPS,
+          "configs": _serving_parity(configs), "lanes_equal": True, "statuses_equal": True})
 
 
 def _wall_and_busy(fn):
@@ -1128,6 +1198,27 @@ def _wall_and_busy(fn):
     busy = sum(by_op.values()) / 1e3
     return {"wall_ms": wall, "device_busy_ms": busy, "idle_share": max(0.0, 1.0 - busy / wall),
             "device_ops": len(by_op)}, by_op
+
+
+def _device_shares(model, probe):
+    """``_wall_and_busy`` of one prefill of ``probe`` and of one decode step
+    of a full batch of four (at positions 400, 300, 200 and 132 of a
+    1024-long cache), after checking that the decode step waits on the host
+    nowhere: no op in it synchronises.  Returns both and the syncs seen."""
+    prefill = _wall_and_busy(lambda: model.prefill(probe))
+    cache = model.init_cache(4, 1024)
+    tok = torch.randint(0, model.cfg.vocab_size, (4,), device="cuda")
+    pos = torch.tensor([400, 300, 200, 132], device="cuda")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            model.decode_step(cache, tok, pos)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message)[:160] for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    check(not syncs, f"a decode step synchronised with the host: {syncs}")
+    return prefill, _wall_and_busy(lambda: model.decode_step(cache, tok, pos)), syncs
 
 
 def phase_moe_full_width(smi: str):
@@ -1238,23 +1329,9 @@ def phase_moe_full_width(smi: str):
     del captured, moe_in, out, want, sparse, dense, err, params, h, ps, x
 
     # the device's share of one prefill (the probe) and of one decode step of the full batch
-    prefill_busy, prefill_ops = _wall_and_busy(lambda: model.prefill(probe))
-    cache = model.init_cache(4, 1024)
-    tok = torch.randint(0, cfg.vocab_size, (4,), device="cuda")
-    pos = torch.tensor([400, 300, 200, 132], device="cuda")
-    # a decode step waits on the host nowhere: no op in it (26 MoE layers among them) synchronises
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            model.decode_step(cache, tok, pos)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = [str(w.message)[:160] for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
-    check(not syncs, f"a decode step synchronised with the host: {syncs}")
-    decode_busy, decode_ops = _wall_and_busy(lambda: model.decode_step(cache, tok, pos))
+    (prefill_busy, _), (decode_busy, decode_ops), syncs = _device_shares(model, probe)
     top = dict(sorted(decode_ops.items(), key=lambda kv: -kv[1])[:TOP_OPS])
-    del cache, eng, model
+    del eng, model
     torch.cuda.empty_cache()
     line = {
         "phase": "moe_full_width", "config": "deepseek-v2-lite-16b", "n_layers": cfg.n_layers,
@@ -1278,6 +1355,186 @@ def phase_moe_full_width(smi: str):
     return line
 
 
+def phase_hybrid_full_width(smi: str):
+    """jamba-1.5-large at its published widths (d_model 8192; 64 heads of 128
+    over 8 kv heads, no rope; Mamba-2 layers of 128 heads of 128, d_state
+    128; 16 experts top-2 of 24,576 every second layer, dense FFN of 24,576
+    elsewhere; vocab 65,536; bf16, random weights from seed 0) cut to
+    HYBRID_LAYERS layers, served through the continuous-batching engine on
+    the full-width trace: the lanes, every prefill's SSD on the bf16
+    tensor-core kernel at P = 128 and its attention on the flash kernel at D
+    = 128, the SSD kernel held against the sequential plain scan on every
+    SSM layer's real inputs and the flash kernel against the plain version
+    on the attention layer's, no host sync in a decode step, and the
+    device's idle share of a prefill and a decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.kernels.ref import ssd_ref
+    from repro_torch.models import Transformer
+    from repro_torch.serve import Engine, ServeConfig, replay_load
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b"), n_layers=HYBRID_LAYERS)
+    s = cfg.ssm
+    H, P, N, G = s.n_heads(cfg.d_model), s.head_dim, s.d_state, s.n_groups
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, H, P, N, G, cfg.moe.n_experts,
+           cfg.moe.expert_d_ff, cfg.vocab_size) == (8192, 64, 8, 128, *JAMBA_SSD_WIDTH, 16, 24576, 65536),
+          "jamba's published widths")
+    kinds = ["attn" if cfg.layer_is_attn(i) else "ssm" for i in range(cfg.n_layers)]
+    n_attn, n_ssm = kinds.count("attn"), kinds.count("ssm")
+    check(cfg.superblock_period == HYBRID_LAYERS and (n_attn, n_ssm) == (1, 6)
+          and [cfg.layer_is_moe(i) for i in range(cfg.n_layers)] == [False, True] * 3 + [False],
+          f"the cut: {kinds}, period {cfg.superblock_period}")
+    check(sk.select_route(cfg.compute_tdtype()) == "wgmma" and fa.select_route(cfg.compute_tdtype(), 128, 128)
+          == "wgmma", "bf16 SSD and attention take the tensor-core kernels")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == HYBRID_PARAMS, f"{n_params} parameters, want {HYBRID_PARAMS}")
+    eng = Engine(model, ServeConfig(n_slots=4, max_len=1024, batch_buckets=(1, 2)))
+    load = _full_width_load(TRACE_VOCAB)
+    for _, r in load:
+        r.prompt = np.asarray(r.prompt) % cfg.vocab_size
+    check(len(load) == 10, f"trace has {len(load)} requests, want 10")
+
+    warm = torch.randint(0, cfg.vocab_size, (1, 64), device="cuda")
+    model.prefill(warm)
+    scratch = model.init_cache(1, 80)
+    model.decode_step(scratch, warm[:, 0], torch.zeros(1, dtype=torch.long, device="cuda"))
+    del scratch
+    torch.cuda.synchronize()
+
+    # every SSD and attention call the engine makes, by dtype and width
+    ssd_op, flash_op, calls = ops.ssd_scan, ops.flash_attention, {"ssd": [], "flash": []}
+
+    def rec_ssd(x, *args, **kw):
+        calls["ssd"].append((x.device.type, x.dtype, x.shape[-1], args[3].shape[-1]))
+        return ssd_op(x, *args, **kw)
+
+    def rec_flash(q, k, v, **kw):
+        calls["flash"].append((q.device.type, q.dtype, q.shape[-1], v.shape[-1], kw.get("impl", "auto")))
+        return flash_op(q, k, v, **kw)
+
+    fa.flash_attention.launches = 0
+    sk.ssd_scan.launches = 0
+    ops.ssd_scan, ops.flash_attention = rec_ssd, rec_flash
+    try:
+        rep = replay_load(eng, load)
+    finally:
+        ops.ssd_scan, ops.flash_attention = ssd_op, flash_op
+    torch.cuda.synchronize()
+    flash_launches, ssd_launches = fa.flash_attention.launches, sk.ssd_scan.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    reqs = [r for _, r in load]
+    check(all(r.status == "done" for r in reqs), f"statuses {[r.status for r in reqs]}")
+    kvb = eng._kv_bytes_per_token
+    check(kvb == 2 * cfg.n_kv_heads * cfg.resolved_head_dim * n_attn * 2, f"kv bytes per token {kvb}")
+    lanes = _lanes(eng, reqs)
+    for r in reqs:
+        tok_out, kv = lanes[r.name]
+        check(tok_out == len(r.generated) == r.max_new_tokens, f"{r.name}: TOKENS_OUT {tok_out}, {len(r.generated)}")
+        check(kv == (len(r.prompt) + len(r.generated) - 1) * kvb, f"{r.name}: KV_ACC_W {kv}")
+    check(ssd_launches == n_ssm * len(reqs) == len(calls["ssd"]),
+          f"SSD launches {ssd_launches}, calls {len(calls['ssd'])}, want {n_ssm} x {len(reqs)} prefills")
+    check(set(calls["ssd"]) == {("cuda", torch.bfloat16, P, N)} and "ssd_scan_wgmma" in build._LOADED,
+          f"SSD calls {set(calls['ssd'])}: every prefill's SSD on the bf16 tensor-core kernel at P = {P}")
+    check(flash_launches == n_attn * len(reqs) == len(calls["flash"])
+          and set(calls["flash"]) == {("cuda", torch.bfloat16, 128, 128, "auto")},
+          f"flash launches {flash_launches}, calls {set(calls['flash'])}")
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    prefill_s = sum(r.prefill_s for r in reqs)
+    decode_tokens = sum(len(r.generated) - 1 for r in reqs)
+    decode_s = sum(r.decode_s for r in reqs)
+    ttft_ms = sorted(r.ttft_s * 1e3 for r in reqs)
+
+    # one real prompt: every SSM layer's SSD inputs and the attention layer's q, k, v
+    probe = torch.as_tensor(reqs[0].prompt, dtype=torch.long, device="cuda")[None]
+    ssd_in, attn_in = [], []
+
+    def capture_ssd(*args, **kw):
+        ssd_in.append((args, kw))
+        return ssd_op(*args, **kw)
+
+    def capture_flash(q, k, v, **kw):
+        attn_in.append((q, k, v, kw))
+        return flash_op(q, k, v, **kw)
+
+    ops.ssd_scan, ops.flash_attention = capture_ssd, capture_flash
+    try:
+        logits = model.prefill(probe)[0][..., :cfg.vocab_size]
+    finally:
+        ops.ssd_scan, ops.flash_attention = ssd_op, flash_op
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    check(len(ssd_in) == n_ssm and len(attn_in) == n_attn, f"{len(ssd_in)} SSD, {len(attn_in)} attention calls")
+    ssd_rows = []
+    for args, kw in ssd_in:
+        with torch.no_grad():
+            y, h = ssd_op(*args, **kw)
+            sy, sh = ssd_ref(*args, h0=kw.get("h0"), return_state=True)
+            dy, _ = ssd_ref(*[a.double() if torch.is_tensor(a) else a for a in args], return_state=True)
+        outside = ~torch.isclose(y.float(), sy.float(), **SSD_BF16_TOL)
+        worst = int(((y.double() - sy.double()).abs() - SSD_BF16_TOL["rtol"] * sy.double().abs()).argmax())
+        ssd_rows.append({
+            "max_abs_err": (y.float() - sy.float()).abs().max().item(), "max_abs_out": sy.float().abs().max().item(),
+            "y_rel_l2": _rel(y, sy), "h_rel_l2": _rel(h, sh),
+            "y_rel_l2_vs_fp64": {"kernel": _rel(y.double(), dy), "seq": _rel(sy.double(), dy)},
+            "outside_bf16_tol": int(outside.sum()),
+            "outside_bf16_tol_vs_fp64": {n: int((~torch.isclose(v.double(), dy, **SSD_BF16_TOL)).sum())
+                                         for n, v in (("kernel", y), ("seq", sy))},
+            "worst": {"kernel": y.flatten()[worst].item(), "seq": sy.flatten()[worst].item(),
+                      "fp64": dy.flatten()[worst].item()},
+            "max_abs_x": args[0].float().abs().max().item(), "max_dt": args[1].max().item(),
+        })
+    q, k, v, kw = attn_in[0]
+    out = flash_op(q, k, v, **kw).float()
+    want = flash_op(q, k, v, **{**kw, "impl": "plain"}).float()
+    attn = {"shape": list(q.shape), "kv_heads": k.shape[2], "rel_l2": _rel(out, want),
+            "max_abs_err": (out - want).abs().max().item(), "max_abs_out": want.abs().max().item(),
+            "outside_bf16_tol": int((~torch.isclose(out, want, **BF16_TOL)).sum()), "tolerance_rel_l2": REAL_INPUT_REL}
+    del ssd_in, attn_in, out, want, y, h, sy, sh, dy
+    (prefill_busy, prefill_ops), (decode_busy, decode_ops), syncs = _device_shares(model, probe)
+    del eng, model
+    torch.cuda.empty_cache()
+    line = {
+        "phase": "hybrid_full_width", "config": f"jamba-1.5-large-398b cut to {HYBRID_LAYERS} layers",
+        "layers": kinds, "moe_layers": [i for i in range(cfg.n_layers) if cfg.layer_is_moe(i)],
+        "d_model": cfg.d_model, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+        "ssm": {"heads": H, "head_dim": P, "d_state": N, "groups": G, "conv_width": s.conv_width},
+        "moe": dataclasses.asdict(cfg.moe), "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.param_dtype,
+        "params": n_params, "init_s": init_s, "init_peak_gb": init_peak_gb, "max_memory_allocated_gb": peak_gb,
+        "requests": len(reqs), "engine_steps": rep.steps, "ssd_launches": ssd_launches,
+        "ssd_route": f"wgmma P={P} N={N}", "flash_launches": flash_launches, "flash_route": "wgmma (128, 128)",
+        "prompt_tokens": prompt_tokens, "prefill_tok_s": prompt_tokens / prefill_s,
+        "decode_tokens": decode_tokens, "decode_tok_s": decode_tokens / decode_s,
+        "ttft_p50_ms": statistics.median(ttft_ms), "ttft_max_ms": ttft_ms[-1], "wall_s": rep.wall_s,
+        "kv_bytes_per_token": kvb,
+        "ssd_op_bf16": {"prompt_len": probe.shape[1], "layers": ssd_rows, "y_rel_tolerance": REAL_INPUT_REL,
+                        "h_rel_tolerance": SSD_H_REL},
+        "attention_op_bf16": attn,
+        "prefill_device": {"prompt_len": probe.shape[1], **prefill_busy},
+        "prefill_top_ops_us": dict(sorted(prefill_ops.items(), key=lambda kv: -kv[1])[:TOP_OPS]),
+        "decode_step_device": {"batch": 4, "host_syncs": len(syncs), **decode_busy},
+        "decode_step_top_ops_us": dict(sorted(decode_ops.items(), key=lambda kv: -kv[1])[:TOP_OPS]),
+        "phase_wall_s": time.perf_counter() - t_phase,
+    }
+    emit(line)
+    for layer, r in zip([i for i, k_ in enumerate(kinds) if k_ == "ssm"], ssd_rows):
+        check(r["y_rel_l2"] <= REAL_INPUT_REL, f"bf16 SSD kernel disagrees with ssd_ref on layer {layer}'s inputs: {r}")
+        check(r["h_rel_l2"] <= SSD_H_REL, f"h_final kernel vs ssd_ref on layer {layer}: {r}")
+    check(attn["rel_l2"] <= REAL_INPUT_REL, f"flash kernel vs plain on the attention layer's inputs: {attn}")
+    fa.flash_attention.launches = 0
+    sk.ssd_scan.launches = 0
+    return line
+
+
 def _ssd_inputs(B, S, H, P, N, G, dtype, seed, h0=False):
     """Seeded SSD inputs on the card: x, B, C in ``dtype``; dt, A, D, h0 fp32."""
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1298,8 +1555,11 @@ def phase_ssd_kernel(smi: str):
     """The SSD kernels against the sequential plain scan: fp32 on the SIMT
     kernel at SSD_SHAPES, bf16 on the tensor-core kernel (whose SASS must
     hold HGMMA and UTMALDG) at mamba2-130m's width on every SSD_SEQS length
-    with and without h0; then both kernels timed in bf16 beside the plain
-    chunked form at the training shapes."""
+    with and without h0; at head dim 128 (``p128``) bf16 on the tensor-core
+    kernel at P128_EDGES and at jamba's width on every P128_SEQS length with
+    and without h0, fp32 on the SIMT kernel at P128_FP32; then both kernels
+    timed in bf16 beside the plain chunked form at the training shapes, and
+    the tensor-core kernel beside it at jamba's prefills."""
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import ssd_scan as sk
     from repro_torch.kernels.ref import ssd_ref
@@ -1330,11 +1590,41 @@ def phase_ssd_kernel(smi: str):
             check(torch.allclose(y.float(), want_y.float(), **SSD_BF16_TOL),
                   f"bf16 SSD kernel disagrees on y at S={S} h0={with_h0}")
             check(torch.allclose(h, want_h, **SSD_BF16_TOL), f"bf16 SSD kernel disagrees on h_final at S={S} h0={with_h0}")
+    # head dim 128: bf16 on the tensor-core kernel (two warpgroups a block), fp32 on the SIMT kernel
+    JH, JP, JN, JG = JAMBA_SSD_WIDTH
+    p128 = {"bf16_max_abs_err": 0.0, "bf16_max_rel_err": 0.0, "bf16_h_final_rel_l2": 0.0, "fp32_max_abs_err": 0.0}
+    for shape in [*P128_EDGES, *((1, S, JH, JP, JN, JG) for S in P128_SEQS)]:
+        for with_h0 in (False, True):
+            x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(*shape, torch.bfloat16, 600 + shape[1], with_h0)
+            y, h = sk.ssd_scan(x, dt, A, Bm, Cm, D, h0, chunk=256)
+            want_y, want_h = ssd_ref(x, dt, A, Bm, Cm, D, h0, return_state=True)
+            torch.cuda.synchronize()
+            err = (y.float() - want_y.float()).abs()
+            p128["bf16_max_abs_err"] = max(p128["bf16_max_abs_err"], err.max().item())
+            p128["bf16_max_rel_err"] = max(p128["bf16_max_rel_err"], _rel(y, want_y))
+            p128["bf16_h_final_rel_l2"] = max(p128["bf16_h_final_rel_l2"], _rel(h, want_h))
+            check(torch.allclose(y.float(), want_y.float(), **SSD_BF16_TOL),
+                  f"bf16 SSD kernel at P = 128 disagrees on y at {shape} h0={with_h0}")
+            check(_rel(h, want_h) <= SSD_H_REL, f"bf16 SSD kernel at P = 128 disagrees on h_final at {shape} "
+                                                f"h0={with_h0}: {_rel(h, want_h)}")
+    for i, shape in enumerate(P128_FP32):
+        x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(*shape, torch.float32, 650 + i, True)
+        y, h = sk.ssd_scan(x, dt, A, Bm, Cm, D, h0, chunk=shape[1])
+        want_y, want_h = ssd_ref(x, dt, A, Bm, Cm, D, h0, return_state=True)
+        torch.cuda.synchronize()
+        p128["fp32_max_abs_err"] = max(p128["fp32_max_abs_err"], (y - want_y).abs().max().item(),
+                                       (h - want_h).abs().max().item())
+        check(torch.allclose(y, want_y, **SSD_FP32_TOL) and torch.allclose(h, want_h, **SSD_FP32_TOL),
+              f"fp32 SSD kernel at P = 128 disagrees with ssd_ref at {shape}")
+    p128["checked"] = {"bf16": [list(s) for s in P128_EDGES] + [[1, S, JH, JP, JN, JG] for S in P128_SEQS],
+                       "fp32": [list(s) for s in P128_FP32], "h0": [False, True]}
+
     lib = build.build(["ssd_scan_wgmma"])["ssd_scan_wgmma"]["path"]
     sass = {fn: c for fn, c in sass_counts(lib, build.BUILD_DIR / "ssd_scan_wgmma.sass").items()
-            if re.search(r"ssd_(prep|out)ILi(64|128)E", fn)}
-    sass = {re.search(r"(ssd_(?:prep|out))ILi(\d+)E", fn).expand(r"\1<N=\2>"): c for fn, c in sass.items()}
-    check(len(sass) == 4 and all(c[op] > 0 for c in sass.values() for op in SASS_OPS),
+            if re.search(r"ssd_(prep|out)ILi(64|128)ELi(64|128)E", fn)}
+    sass = {re.search(r"(ssd_(?:prep|out))ILi(\d+)ELi(\d+)E", fn).expand(r"\1<P=\2,N=\3>"): c
+            for fn, c in sass.items()}
+    check(len(sass) == 8 and all(c[op] > 0 for c in sass.values() for op in SASS_OPS),
           f"bf16 SSD kernels lack {SASS_OPS} in their SASS: {sass}")
 
     timings = {}
@@ -1358,10 +1648,30 @@ def phase_ssd_kernel(smi: str):
         by_kernel = timings[f"B{B}_S{S}"]["device_us_by_kernel"]
         check(len(by_kernel) == sk.KERNELS_PER_CALL,
               f"a bf16 SSD call launched {sorted(by_kernel)}, not {sk.KERNELS_PER_CALL} kernels")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p128["timing"] = {}
+    for S in P128_TIMED:
+        x, dt, A, Bm, Cm, D, _ = _ssd_inputs(1, S, JH, JP, JN, JG, torch.bfloat16, 700 + S)
+        ms = time_interleaved({
+            "kernel": lambda: sk.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256),
+            "simt": lambda: sk.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256, route="simt"),
+            "plain": lambda: ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256, impl="plain"),
+        })
+        flops, nbytes = sk.ssd_flops(1, S, JH, JP, JN, JG), sk.ssd_bytes(1, S, JH, JP, JN, JG, 2)  # no h0
+        bound_ms, bound_by = _bound(flops, nbytes, smi)
+        by_kernel = device_breakdown(lambda: sk.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256))
+        check(len(by_kernel) == sk.KERNELS_PER_CALL,
+              f"a bf16 SSD call at P = 128 launched {sorted(by_kernel)}, not {sk.KERNELS_PER_CALL} kernels")
+        p128["timing"][f"B1_S{S}"] = {
+            "kernel_ms": ms["kernel"]["median"], "simt_ms": ms["simt"]["median"], "plain_ms": ms["plain"]["median"],
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+            "tiles_per_chunk": sk.tiles_per_chunk(1, JH, S, sms, JP),
+            "spread_ms": {name: [m["min"], m["max"]] for name, m in ms.items()}, "device_us_by_kernel": by_kernel,
+        }
     emit({"phase": "ssd_kernel", "name": "ssd_scan", "fp32_max_abs_err": fp32_err, "bf16_max_abs_err": bf16_err,
           "bf16_h_final_rel_l2": h_rel, "tolerances": {"fp32": SSD_FP32_TOL, "bf16": SSD_BF16_TOL},
           "routes": {"bfloat16": sk.select_route(torch.bfloat16), "float32": sk.select_route(torch.float32)},
-          "sass_ssd_scan_wgmma": sass,
+          "sass_ssd_scan_wgmma": sass, "p128": {"width": "H=128 P=128 N=128 G=1 (jamba)", **p128},
           "bound": "FLOPs of the least work (ssd_flops): C B^T once per (batch, group, 64-row tile) and M X, "
                    "each the causal half, C h^T and the state product per (batch, head, tile); bytes as listed; "
                    "at the bf16 dense peak and HBM rate",
@@ -1370,7 +1680,7 @@ def phase_ssd_kernel(smi: str):
                          "replayed from one CUDA graph between CUDA events; the tensor-core kernel (kernel), "
                          "the SIMT kernel on the same bf16 inputs (simt) and the plain chunked form "
                          "alternate; inputs warm in L2; no single PyTorch call computes the SSD scan (library: none)"})
-    return max(bf16_err, fp32_err), timings
+    return max(bf16_err, fp32_err), timings, p128
 
 
 def phase_ssm_parity():
@@ -2598,10 +2908,12 @@ def main() -> int:
                            sass["flash_attention_wgmma"][f"flash_fwd_wgmma {_dims_label(MLA_DQK, MLA_DV)}"])
     phase_parity()
     phase_moe_parity()
+    phase_hybrid_parity()
     launches, op_err = phase_full_width()
     torch.cuda.empty_cache()
     moe_full = phase_moe_full_width(smi)
-    ssd_err, ssd_timings = phase_ssd_kernel(smi)
+    ssd_err, ssd_timings, p128 = phase_ssd_kernel(smi)
+    hybrid_full = phase_hybrid_full_width(smi)
     phase_ssm_parity()
     model, ssd_launches, probe = phase_train_full_width()
     phase_decode_full_width(model)
@@ -2631,8 +2943,9 @@ def main() -> int:
                   "stages; S = Q K^T as 8 x 4 micro-tiles over two parts of D (eight at 256, one at D <= 64) summed "
                   "in one softmax pass (natural exp, as the plain version; P in shared memory), O += P V in 8 x 4 "
                   "register blocks), timed in fp32 as fp32",
-        "launches": launches + mla_launches + dense_fwd + gemma_fwd,
-        "launches_by_path": {"serving": launches, "moe_mla_serving": mla_launches, "dense_training": dense_fwd,
+        "launches": launches + mla_launches + hybrid_full["flash_launches"] + dense_fwd + gemma_fwd,
+        "launches_by_path": {"serving": launches, "moe_mla_serving": mla_launches,
+                             "hybrid_serving": hybrid_full["flash_launches"], "dense_training": dense_fwd,
                              "gemma_training": gemma_fwd},
         "max_abs_err": max(bf16_err, op_err, *mla["max_abs_err"].values(),
                            moe_full["attention_op_bf16"]["max_abs_err"]),
@@ -2688,7 +3001,9 @@ def main() -> int:
                   "tile a chunk, C B^T once per group and tile, tile states passed in fp32, y = [exp(cum) C | M] "
                   "[h^T ; X] in 8 x 4 register blocks over half the depth a half-block; fp32 FMAs on float4 reads), "
                   "timed beside it in bf16 as simt_ms and in fp32 as fp32",
-        "launches": ssd_launches, "max_abs_err": max(ssd_err, ssd_op_err),
+        "launches": ssd_launches + hybrid_full["ssd_launches"],
+        "launches_by_path": {"ssm_training": ssd_launches, "hybrid_serving": hybrid_full["ssd_launches"]},
+        "max_abs_err": max(ssd_err, ssd_op_err),
         "kernels_per_launch": {"bfloat16": len(st["device_us_by_kernel"]),
                                "float32": routes["ssd_scan_fp32"]["kernels_per_call"]},
         "ms": st["kernel_ms"], "kernel_ms": st["kernel_ms"], "plain_ms": st["plain_ms"], "simt_ms": st["simt_ms"],
@@ -2698,6 +3013,14 @@ def main() -> int:
         "fp32": {name: {k: routes[name][k] for k in ("shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
                                                      "bound_by")}
                  for name in ("ssd_scan_fp32", f"ssd_scan_fp32_B{SSD_TIMED[1][0]}_S{SSD_TIMED[1][1]}")},
+        "p128": {"route": "wgmma", "source": sk.SOURCE, "shape": "B=1 H=128 P=128 N=128 G=1 bf16 (jamba's prefills)",
+                 "launches": hybrid_full["ssd_launches"],
+                 "max_abs_err": p128["bf16_max_abs_err"], "max_rel_l2_err": p128["bf16_max_rel_err"],
+                 "h_final_rel_l2": p128["bf16_h_final_rel_l2"], "fp32_max_abs_err": p128["fp32_max_abs_err"],
+                 "real_inputs_max_y_rel_l2": max(r["y_rel_l2"] for r in hybrid_full["ssd_op_bf16"]["layers"]),
+                 "timing": {S: {k: r[k] for k in ("kernel_ms", "simt_ms", "plain_ms", "library_ms", "bound_ms",
+                                                  "bound_by", "tiles_per_chunk")}
+                            for S, r in p128["timing"].items()}},
     }, {
         "name": "segment_scatter", "route": "cuda", "source": ss.SOURCE, "replaces": ss.REPLACES,
         "design": "zero fill by cudaMemsetAsync; a warp takes 64 consecutive events (16-byte loads where "

@@ -24,8 +24,8 @@
 // strides 16-byte aligned, as TMA needs: the wrapper checks); head h reads
 // group h / (H/G) of B and C in place.  A, D (H,) and h0 (B, H, P, N) fp32
 // and contiguous; y (B, S, H, P) bf16 contiguous, h_final (B, H, P, N) fp32.
-// P = 64 and N in {64, 128}: an x row is one 128-byte swizzled row and a B or
-// C row one or two.
+// P in {64, 128} and N in {64, 128}: an x, B or C row is one or two 128-byte
+// swizzled rows (one TMA box of 64 columns each).
 //
 // Design: the chunked-parallel form, in three kernels on one stream.
 //   ssd_prep  one block per (batch, group, tile): C Bᵀ (m64n64, K = N), once
@@ -44,12 +44,21 @@
 //             diagonal), then, but for the chunk's last tile, the state
 //             update as in ssd_prep.
 // Q (tiles per chunk, 1 to 8) is the caller's (ssd_scan.tiles_per_chunk):
-// it weighs the output kernel's waves (two blocks per SM) against the chunk
-// states, 32 KB per (batch, head, chunk) written, passed on and read; 6 at
-// train_4k's B=1, S=4096 (264 blocks: one full wave), 2 at the training
-// microbatch B=4, S=256 (192 blocks).
+// it weighs the output kernel's waves (two blocks per SM at P = 64, one at
+// P = 128, whose block needs ~178 KB of shared memory at N = 128) against the
+// chunk states, 4·P·N bytes (32 KB at P = 64, N = 128) per (batch, head,
+// chunk) written, passed on and read; 6 at train_4k's B=1, S=4096 (264
+// blocks: one full wave), 2 at the training microbatch B=4, S=256 (192
+// blocks).
 //
-// Every block is one warpgroup (128 threads).  Thread 0 loads the tiles by
+// Every block holds P / 64 warpgroups (128 threads each): at P = 128 (jamba's
+// SSM heads) warpgroup w owns state rows and y columns 64w..64w+63, reading
+// the x tile's box w, while both read the same B and C tiles and build the
+// same M fragment from the same C Bᵀ.  So a warpgroup's registers hold what
+// they hold at P = 64 (the state fragment hs[N/64][32] beside the y
+// accumulator), where one warpgroup over all 128 rows would hold twice the
+// state and spill; this is how the flash backward splits D = 256.  The C Bᵀ
+// blocks of ssd_prep use the first warpgroup only.  Thread 0 loads the tiles by
 // TMA (64-column boxes, 128B swizzle, rows past S zero-filled, so the ragged
 // last tile needs only dt = 0 past S, which keeps cum flat and w zero): a
 // two-stage ring of x and B (prep) or x and C (out), and in the out kernel a
@@ -75,9 +84,10 @@
 //
 // What bounds it.  The function reads x, B, C, dt and writes y and h_final:
 // bytes, against ~2L²N + 2L²P + 4LNP FLOPs per (batch, head, tile) at the
-// tensor-core rate.  This design adds the chunk states' round trip (32 KB
-// per item written, read, written and read) and C Bᵀ's (16 KB per tile), and
-// runs each block's products in sequence with one warpgroup.
+// tensor-core rate.  This design adds the chunk states' round trip (4·P·N
+// bytes per item written, read, written and read) and C Bᵀ's (16 KB per
+// tile), and
+// runs each warpgroup's products in sequence.
 
 #include <math.h>
 
@@ -88,23 +98,30 @@ namespace {
 using namespace hopper;
 
 constexpr int L = 64;             // rows per tile: one wgmma M
-constexpr int P = 64;             // head dim: one 128-byte swizzled row of bf16
-constexpr int THREADS = 128;      // one warpgroup
+constexpr int WG = 128;           // threads of one warpgroup: 64 state rows (P) each
 constexpr int STAGES = 2;         // tile ring depth
 constexpr int BOX = 64 * 128;     // one TMA box: 64 rows of 64 bf16 columns, 128B-swizzled
 constexpr int CB_FLOATS = L * L;  // one tile's C Bᵀ
 constexpr int FLOATS = 5 * L;     // dt, cum, w and (cum, dt) by column pair of the tile in shared memory
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int N>
+template <int P, int N>
 struct Cfg {
   static constexpr int NCH = N / 64;    // 64-column chunks of B, C and the state
-  static constexpr int BC = NCH * BOX;  // bytes of a B or C tile, and of one bf16 term of the state
-  static constexpr int PREP_STAGE = BOX + BC;  // x, B
-  static constexpr int OUT_STAGE = BOX + BC;   // x, C; the out kernel's B tile and state terms sit after the ring
+  static constexpr int PW = P / 64;     // warpgroups of a block, and 64-column boxes of an x tile
+  static constexpr int THREADS = PW * WG;
+  static constexpr int BC = NCH * BOX;  // bytes of a B or C tile, and of one warpgroup's bf16 term of the state
+  static constexpr int XT = PW * BOX;   // bytes of an x tile
+  static constexpr int PREP_STAGE = XT + BC;  // x, B
+  static constexpr int OUT_STAGE = XT + BC;   // x, C; the out kernel's B tile and state terms sit after the ring
   static constexpr size_t PREP_SMEM = 1024 + size_t(STAGES) * PREP_STAGE + FLOATS * 4 + 8 * STAGES;
-  static constexpr size_t OUT_SMEM = 1024 + size_t(STAGES) * OUT_STAGE + 3 * BC + FLOATS * 4 + 8 * (STAGES + 1);
+  // the ring, the B tile, the hi and lo state terms of every warpgroup, dt / cum / w, the barriers
+  static constexpr size_t OUT_SMEM =
+      1024 + size_t(STAGES) * OUT_STAGE + BC + 2 * size_t(PW) * BC + FLOATS * 4 + 8 * (STAGES + 1);
+  static_assert(P == 64 || P == 128, "head dim 64 or 128");
+  static_assert(N == 64 || N == 128, "d_state 64 or 128");
   static_assert(2 * BC <= STAGES * PREP_STAGE, "a C Bᵀ item's C and B tiles fit the prep kernel's ring");
+  static_assert(PREP_SMEM <= 232448 && OUT_SMEM <= 232448, "a block's shared memory fits an H100 SM's 227 KB");
 };
 
 struct Params {
@@ -149,6 +166,10 @@ __device__ __forceinline__ void split(float v0, float v1, uint32_t& hi, uint32_t
   lo = bits(__floats2bfloat162_rn(v0 - hf.x, v1 - hf.y));
 }
 
+// warp of the thread within its warpgroup, and its warpgroup
+__device__ __forceinline__ int wg_warp() { return (threadIdx.x >> 5) & 3; }
+__device__ __forceinline__ int wg_index() { return threadIdx.x >> 7; }
+
 // dt of one of the tile's rows (0 past S): threads 0..63 load row tid
 __device__ __forceinline__ float load_dt(const float* dt, long long dt_ss, int rows) {
   const int tid = threadIdx.x;
@@ -188,12 +209,13 @@ __device__ __forceinline__ void tile_decay(float d, float A, float* sDt, float* 
 }
 
 // A fragments of (X ⊙ w)ᵀ for the state product, rows p and columns s, as hi
-// and lo terms: register r of k-step j holds rows p0 + 8 (r & 1), columns
+// and lo terms, from the warpgroup's 64-column box sx of the x tile:
+// register r of k-step j holds rows p0 + 8 (r & 1), columns
 // 16 j + (lane % 4)·2 + 8 (r >> 1) and the next
 __device__ __forceinline__ void xw_frags(const uint8_t* sx, const float* sW, uint32_t (&hi)[16],
                                          uint32_t (&lo)[16]) {
   const int lane = threadIdx.x & 31;
-  const int p0 = (threadIdx.x >> 5) * 16 + (lane >> 2);
+  const int p0 = wg_warp() * 16 + (lane >> 2);
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -231,13 +253,16 @@ __device__ __forceinline__ void state_update(float (&hs)[N / 64][32], const uint
 }
 
 // Accumulator fragment of a wgmma m64n64 (fp32), value i of a thread: row
-// warp*16 + lane/4 + 8*((i/2)%2), column (i/4)*8 + (lane%4)*2 + i%2.
-__device__ __forceinline__ int frag_row(int i) { return (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2) + 8 * ((i >> 1) & 1); }
+// warp*16 + lane/4 + 8*((i/2)%2), column (i/4)*8 + (lane%4)*2 + i%2, with
+// warp the thread's warp within its warpgroup.
+__device__ __forceinline__ int frag_row(int i) { return wg_warp() * 16 + ((threadIdx.x & 31) >> 2) + 8 * ((i >> 1) & 1); }
 __device__ __forceinline__ int frag_col(int i) { return (i >> 2) * 8 + (threadIdx.x & 3) * 2 + (i & 1); }
 
-// the state (P, N) of one item, fp32, natural layout, to / from its fragments
+// the state (P, N) of one item, fp32, natural layout, to / from its
+// fragments: warpgroup w's rows 64w..64w+63
 template <int N>
 __device__ __forceinline__ void state_io(float (&hs)[N / 64][32], float* g, bool store) {
+  g += wg_index() * 64 * N;
 #pragma unroll
   for (int c = 0; c < N / 64; ++c)
 #pragma unroll
@@ -270,11 +295,11 @@ struct Item {
 };
 
 // ---------------------------------------------------------------- kernels
-template <int N>
-__global__ void __launch_bounds__(THREADS) ssd_prep(const __grid_constant__ CUtensorMap tx,
-                                                     const __grid_constant__ CUtensorMap tb,
-                                                     const __grid_constant__ CUtensorMap tc, const Params p) {
-  using T = Cfg<N>;
+template <int P, int N>
+__global__ void __launch_bounds__(2 * P) ssd_prep(const __grid_constant__ CUtensorMap tx,
+                                                   const __grid_constant__ CUtensorMap tb,
+                                                   const __grid_constant__ CUtensorMap tc, const Params p) {
+  using T = Cfg<P, N>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms need 1024-byte alignment
   uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));
@@ -286,7 +311,8 @@ __global__ void __launch_bounds__(THREADS) ssd_prep(const __grid_constant__ CUte
   init_bars(bar);
 
   const int n_cb = p.Bsz * p.G * p.n_tiles;
-  if (int(blockIdx.x) < n_cb) {  // C Bᵀ of one (batch, group, tile)
+  if (int(blockIdx.x) < n_cb) {  // C Bᵀ of one (batch, group, tile), by the first warpgroup
+    if (tid >= WG) return;
     const int tile = blockIdx.x % p.n_tiles, g = (blockIdx.x / p.n_tiles) % p.G, b = blockIdx.x / (p.n_tiles * p.G);
     const uint32_t sC = base, sB = base + T::BC;
     if (tid == 0) {
@@ -309,7 +335,7 @@ __global__ void __launch_bounds__(THREADS) ssd_prep(const __grid_constant__ CUte
     pin(acc);
     float4* out = reinterpret_cast<float4*>(p.cb + (long long)blockIdx.x * CB_FLOATS);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) out[k * THREADS + tid] = make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
+    for (int k = 0; k < 8; ++k) out[k * WG + tid] = make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
     return;
   }
 
@@ -322,9 +348,9 @@ __global__ void __launch_bounds__(THREADS) ssd_prep(const __grid_constant__ CUte
   const float* dt = p.dt + it_.b * p.dt_sb + it_.h * p.dt_sh;
   auto load = [&](int s, int q) {
     const uint32_t st = base + s * T::PREP_STAGE;
-    mbar_expect_tx(bar + 8 * s, BOX + T::BC);
-    tma_load(st, &tx, bar + 8 * s, 0, q * L, it_.h, it_.b);
-    for (int c = 0; c < T::NCH; ++c) tma_load(st + BOX + c * BOX, &tb, bar + 8 * s, c * 64, q * L, g, it_.b);
+    mbar_expect_tx(bar + 8 * s, T::XT + T::BC);
+    for (int w = 0; w < T::PW; ++w) tma_load(st + w * BOX, &tx, bar + 8 * s, w * 64, q * L, it_.h, it_.b);
+    for (int c = 0; c < T::NCH; ++c) tma_load(st + T::XT + c * BOX, &tb, bar + 8 * s, c * 64, q * L, g, it_.b);
   };
   if (tid == 0)
     for (int s = 0; s < STAGES && s < nq; ++s) load(s, q0 + s);
@@ -346,7 +372,7 @@ __global__ void __launch_bounds__(THREADS) ssd_prep(const __grid_constant__ CUte
 #pragma unroll
       for (int i = 0; i < 32; ++i) hs[c][i] *= decay;
     mbar_wait(bar + 8 * s, (it / STAGES) & 1);
-    state_update<N>(hs, gbase + s * T::PREP_STAGE, sW, base + s * T::PREP_STAGE + BOX);
+    state_update<N>(hs, gbase + s * T::PREP_STAGE + wg_index() * BOX, sW, base + s * T::PREP_STAGE + T::XT);
     __syncthreads();  // every warp is done with stage s and with dt / cum / w
     if (tid == 0 && it + STAGES < nq) load(s, q0 + it + STAGES);
   }
@@ -355,7 +381,7 @@ __global__ void __launch_bounds__(THREADS) ssd_prep(const __grid_constant__ CUte
 }
 
 // one thread per 4 consecutive state values of one (batch, head)
-__global__ void ssd_pass(const Params p, int N) {
+__global__ void ssd_pass(const Params p, int P, int N) {
   const int per_head = P * N / 4;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)p.Bsz * p.H * per_head) return;
@@ -375,21 +401,24 @@ __global__ void ssd_pass(const Params p, int N) {
   reinterpret_cast<float4*>(p.h_out + hb)[e] = v;
 }
 
-template <int N>
-__global__ void __launch_bounds__(THREADS) ssd_out(const __grid_constant__ CUtensorMap tx,
-                                                    const __grid_constant__ CUtensorMap tb,
-                                                    const __grid_constant__ CUtensorMap tc, const Params p) {
-  using T = Cfg<N>;
+template <int P, int N>
+__global__ void __launch_bounds__(2 * P) ssd_out(const __grid_constant__ CUtensorMap tx,
+                                                  const __grid_constant__ CUtensorMap tb,
+                                                  const __grid_constant__ CUtensorMap tc, const Params p) {
+  using T = Cfg<P, N>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));
-  const uint32_t sB = base + STAGES * T::OUT_STAGE, sHhi = sB + T::BC, sHlo = sHhi + T::BC;
-  float* sDt = reinterpret_cast<float*>(gbase + (sHlo + T::BC - base));
+  // the B tile, then the state's hi terms of every warpgroup, then its lo terms
+  const uint32_t sB = base + STAGES * T::OUT_STAGE, sHhi = sB + T::BC, sHlo = sHhi + T::PW * T::BC;
+  float* sDt = reinterpret_cast<float*>(gbase + (sHlo + T::PW * T::BC - base));
   float* sCum = sDt + L;
   float* sW = sCum + L;
-  const uint32_t bar = sHlo + T::BC + FLOATS * 4;  // STAGES ring barriers
-  const uint32_t bar_b = bar + 8 * STAGES;         // the B tile's
+  const uint32_t bar = sHlo + T::PW * T::BC + FLOATS * 4;  // STAGES ring barriers
+  const uint32_t bar_b = bar + 8 * STAGES;                 // the B tile's
   const int tid = threadIdx.x;
+  const int wg = wg_index();
+  const uint32_t myHhi = sHhi + wg * T::BC, myHlo = sHlo + wg * T::BC;  // this warpgroup's state terms
   if (tid == 0) mbar_init(bar_b, 1);
   init_bars(bar);
 
@@ -405,9 +434,10 @@ __global__ void __launch_bounds__(THREADS) ssd_out(const __grid_constant__ CUten
   // B of tile it + 1 loads while tile it + 1 computes its y
   auto load = [&](int s, int it) {
     const uint32_t st = base + s * T::OUT_STAGE;
-    mbar_expect_tx(bar + 8 * s, BOX + T::BC);
-    tma_load(st, &tx, bar + 8 * s, 0, (q0 + it) * L, it_.h, it_.b);
-    for (int c = 0; c < T::NCH; ++c) tma_load(st + BOX + c * BOX, &tc, bar + 8 * s, c * 64, (q0 + it) * L, g, it_.b);
+    mbar_expect_tx(bar + 8 * s, T::XT + T::BC);
+    for (int w = 0; w < T::PW; ++w) tma_load(st + w * BOX, &tx, bar + 8 * s, w * 64, (q0 + it) * L, it_.h, it_.b);
+    for (int c = 0; c < T::NCH; ++c)
+      tma_load(st + T::XT + c * BOX, &tc, bar + 8 * s, c * 64, (q0 + it) * L, g, it_.b);
   };
   auto load_b = [&](int it) {
     mbar_expect_tx(bar_b, T::BC);
@@ -421,14 +451,15 @@ __global__ void __launch_bounds__(THREADS) ssd_out(const __grid_constant__ CUten
   float hs[T::NCH][32];
   state_io<N>(hs, p.enter + (long long)item * P * N, false);
   const int r0 = frag_row(0);
-  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(p.y) + (long long)it_.b * p.S * p.H * P + (long long)it_.h * P;
+  // this warpgroup's 64 columns of y
+  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(p.y) + (long long)it_.b * p.S * p.H * P + (long long)it_.h * P + wg * 64;
 
   // a tile's dt and C Bᵀ (in the accumulator's fragment order) are loaded
   // one tile ahead, so that their latency hides behind the tile before
   const float4* cb = reinterpret_cast<const float4*>(p.cb + (long long)(it_.b * p.G + g) * p.n_tiles * CB_FLOATS);
   auto load_cb = [&](int q, float4 (&v)[8]) {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = cb[(long long)q * (CB_FLOATS / 4) + k * THREADS + tid];
+    for (int k = 0; k < 8; ++k) v[k] = cb[(long long)q * (CB_FLOATS / 4) + k * WG + (tid & (WG - 1))];
   };
   float4 cb_next[8];
   load_cb(q0, cb_next);
@@ -437,7 +468,8 @@ __global__ void __launch_bounds__(THREADS) ssd_out(const __grid_constant__ CUten
   for (int it = 0; it < nq; ++it) {
     const int s = it % STAGES;
     const int q = q0 + it, t0 = q * L, rows = min(L, p.S - t0);
-    const uint32_t sX = base + s * T::OUT_STAGE, sC = sX + BOX;
+    const uint32_t sX = base + s * T::OUT_STAGE, sC = sX + T::XT;
+    const uint32_t myX = sX + wg * BOX;  // this warpgroup's 64 columns of the x tile
 
     float cbv[32];
 #pragma unroll
@@ -454,7 +486,8 @@ __global__ void __launch_bounds__(THREADS) ssd_out(const __grid_constant__ CUten
     }
     tile_decay(d, A, sDt, sCum, sW);
 
-    // the entering state as a K-major (p, n) bf16 tile, hi and lo terms
+    // the entering state as K-major (p, n) bf16 tiles, hi and lo terms, each
+    // warpgroup its own 64 rows
 #pragma unroll
     for (int c = 0; c < T::NCH; ++c)
 #pragma unroll
@@ -462,8 +495,8 @@ __global__ void __launch_bounds__(THREADS) ssd_out(const __grid_constant__ CUten
         const int off = c * BOX + swz(frag_row(i), frag_col(i));
         uint32_t hi, lo;
         split(hs[c][i], hs[c][i + 1], hi, lo);
-        *reinterpret_cast<uint32_t*>(gbase + (sHhi - base) + off) = hi;
-        *reinterpret_cast<uint32_t*>(gbase + (sHlo - base) + off) = lo;
+        *reinterpret_cast<uint32_t*>(gbase + (myHhi - base) + off) = hi;
+        *reinterpret_cast<uint32_t*>(gbase + (myHlo - base) + off) = lo;
       }
     fence_async_shared();
     __syncthreads();
@@ -477,8 +510,8 @@ __global__ void __launch_bounds__(THREADS) ssd_out(const __grid_constant__ CUten
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < N / 16; ++kk) {
-      wgmma_ss_n64(acc, desc_k(sC, kk), desc_k(sHhi, kk));
-      wgmma_ss_n64(acc, desc_k(sC, kk), desc_k(sHlo, kk));
+      wgmma_ss_n64(acc, desc_k(sC, kk), desc_k(myHhi, kk));
+      wgmma_ss_n64(acc, desc_k(sC, kk), desc_k(myHlo, kk));
     }
     wg_commit();
     wg_wait0();
@@ -514,7 +547,7 @@ __global__ void __launch_bounds__(THREADS) ssd_out(const __grid_constant__ CUten
     wg_fence();
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const uint64_t d = desc_mn(sX, 0, j);
+      const uint64_t d = desc_mn(myX, 0, j);
       wgmma_rs_n64(acc, ma + 4 * j, d);
       wgmma_rs_n64(acc, mb + 4 * j, d);
     }
@@ -540,7 +573,7 @@ __global__ void __launch_bounds__(THREADS) ssd_out(const __grid_constant__ CUten
 #pragma unroll
         for (int i = 0; i < 32; ++i) hs[c][i] *= decay;
       mbar_wait(bar_b, it & 1);
-      state_update<N>(hs, gbase + (sX - base), sW, sB);
+      state_update<N>(hs, gbase + (myX - base), sW, sB);
     }
     __syncthreads();  // every warp is done with stage s, the B tile, the state terms and dt / cum / w
     if (tid == 0) {
@@ -551,9 +584,9 @@ __global__ void __launch_bounds__(THREADS) ssd_out(const __grid_constant__ CUten
 }
 
 // ---------------------------------------------------------------- host side
-template <int N>
+template <int P, int N>
 int launch(const void* x, const void* Bm, const void* Cm, const Params& p, const long long* st, cudaStream_t stream) {
-  using T = Cfg<N>;
+  using T = Cfg<P, N>;
   const int n_items = p.Bsz * p.H * p.n_chunks;
   CUtensorMap tx{}, tb{}, tc{};
   if (n_items > 0) {
@@ -561,25 +594,26 @@ int launch(const void* x, const void* Bm, const void* Cm, const Params& p, const
     if (err == 0) err = make_map(&tb, Bm, N, p.S, p.G, p.Bsz, st[4], st[5], st[3], 64, L, 128);
     if (err == 0) err = make_map(&tc, Cm, N, p.S, p.G, p.Bsz, st[7], st[8], st[6], 64, L, 128);
     if (err != 0) return err;
-    cudaError_t e = cudaFuncSetAttribute(ssd_prep<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::PREP_SMEM));
+    cudaError_t e =
+        cudaFuncSetAttribute(ssd_prep<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::PREP_SMEM));
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(ssd_out<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::OUT_SMEM));
+      e = cudaFuncSetAttribute(ssd_out<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::OUT_SMEM));
     if (e != cudaSuccess) return int(e);
-    ssd_prep<N><<<p.Bsz * p.G * p.n_tiles + n_items, THREADS, T::PREP_SMEM, stream>>>(tx, tb, tc, p);
+    ssd_prep<P, N><<<p.Bsz * p.G * p.n_tiles + n_items, T::THREADS, T::PREP_SMEM, stream>>>(tx, tb, tc, p);
     e = cudaGetLastError();
     if (e != cudaSuccess) return int(e);
   }
   const long long pass_threads = (long long)p.Bsz * p.H * P * N / 4;
-  ssd_pass<<<int((pass_threads + 255) / 256), 256, 0, stream>>>(p, N);
+  ssd_pass<<<int((pass_threads + 255) / 256), 256, 0, stream>>>(p, P, N);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_items == 0) return int(e);
-  ssd_out<N><<<n_items, THREADS, T::OUT_SMEM, stream>>>(tx, tb, tc, p);
+  ssd_out<P, N><<<n_items, T::THREADS, T::OUT_SMEM, stream>>>(tx, tb, tc, p);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
-// bf16 x, B, C and y; P = 64, N 64 or 128.  Scratch (fp32, the caller's):
+// bf16 x, B, C and y; P 64 or 128, N 64 or 128.  Scratch (fp32, the caller's):
 // cb (B, G, n_tiles, 64, 64), local and enter (B, n_chunks, H, P, N),
 // logdecay (B, n_chunks, H), with n_tiles = ceil(S / 64) and n_chunks =
 // ceil(n_tiles / tiles_per_chunk).  h0 and h_out 16-byte aligned.  Strides in
@@ -588,13 +622,13 @@ int launch(const void* x, const void* Bm, const void* Cm, const Params& p, const
 extern "C" int repro_ssd_scan_fwd_wgmma(
     const void* x, const float* dt, const float* A, const void* Bm, const void* Cm, const float* D,
     const float* h0, void* y, float* h_out, float* cb, float* local, float* enter, float* logdecay,
-    int B, int S, int H, int G, int P_, int N, int tiles_per_chunk,
+    int B, int S, int H, int G, int P, int N, int tiles_per_chunk,
     long long x_sb, long long x_ss, long long x_sh,
     long long dt_sb, long long dt_ss, long long dt_sh,
     long long b_sb, long long b_ss, long long b_sg,
     long long c_sb, long long c_ss, long long c_sg,
     void* stream) {
-  if (G <= 0 || H % G != 0 || P_ != P || (N != 64 && N != 128) || tiles_per_chunk < 1 || S < 0)
+  if (G <= 0 || H % G != 0 || (P != 64 && P != 128) || (N != 64 && N != 128) || tiles_per_chunk < 1 || S < 0)
     return int(cudaErrorInvalidValue);
   if (B == 0 || H == 0) return 0;
   const int n_tiles = (S + L - 1) / L;
@@ -603,7 +637,8 @@ extern "C" int repro_ssd_scan_fwd_wgmma(
                  dt_sb, dt_ss, dt_sh};
   const long long st[9] = {x_sb, x_ss, x_sh, b_sb, b_ss, b_sg, c_sb, c_ss, c_sg};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return N == 64 ? launch<64>(x, Bm, Cm, p, st, s) : launch<128>(x, Bm, Cm, p, st, s);
+  if (P == 64) return N == 64 ? launch<64, 64>(x, Bm, Cm, p, st, s) : launch<64, 128>(x, Bm, Cm, p, st, s);
+  return N == 64 ? launch<128, 64>(x, Bm, Cm, p, st, s) : launch<128, 128>(x, Bm, Cm, p, st, s);
 }
 
 extern "C" const char* repro_ssd_wgmma_error_string(int err) { return hopper::error_string(err); }

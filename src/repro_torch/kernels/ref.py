@@ -368,7 +368,10 @@ def ssd_tiled_ref(
     ``m_terms``, ``h_terms`` and ``xw_terms`` round M, the state entering
     each tile's ``C hᵀ`` and ``Xw`` to bf16 before their products as the
     kernel does (:func:`_bf16_terms`: 0 none, 1 one term, 2 hi + lo); C, B
-    and x enter as given.  Returns y in x's dtype and the final state."""
+    and x enter as given.  Any head dim P: at P = 128 the kernel gives each
+    of a block's two warpgroups 64 of the state's rows and of y's columns,
+    which changes no sum and no rounding point, so this model covers both
+    head dims it takes.  Returns y in x's dtype and the final state."""
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     rep = H // G

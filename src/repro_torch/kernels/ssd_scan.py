@@ -15,8 +15,10 @@ by dtype (:func:`select_route`):
   ``x·w`` and the entering state are carried as two bf16 terms (hi + lo):
   one bf16 rounding of ``x·w`` alone puts the final state past the 1e-3
   relative error it is held to, and one of M or of the state puts outputs
-  past the bf16 tolerance where large terms cancel.  It takes P = 64 and d_state 64 or 128
-  and needs the base and the batch/seq/head strides of x, B and C 16-byte
+  past the bf16 tolerance where large terms cancel.  It takes P = 64 (one
+  warpgroup a block) and P = 128 (jamba's heads: two warpgroups a block,
+  each owning 64 state rows and 64 output columns), d_state 64 or 128, and
+  needs the base and the batch/seq/head strides of x, B and C 16-byte
   aligned (TMA); the wrapper checks and raises.  Chunks hold
   :func:`tiles_per_chunk` tiles, picked to fill the output kernel's waves.
 * **fp32 → ``csrc/ssd_scan.cu``** (route ``"simt"``): the same
@@ -73,7 +75,7 @@ from .ref import ssd_chunked_ref
 
 __all__ = [
     "ssd_scan", "SSDScan", "ssd_scan_autograd", "ssd_flops", "ssd_bytes", "select_route", "tiles_per_chunk", "ROUTES",
-    "MAX_STATE", "MAX_CHUNK_TILES", "TILE", "SIMT_SLICE", "KERNELS_PER_CALL", "WGMMA_HEAD_DIM", "WGMMA_STATES",
+    "MAX_STATE", "MAX_CHUNK_TILES", "TILE", "SIMT_SLICE", "KERNELS_PER_CALL", "WGMMA_HEAD_DIMS", "WGMMA_STATES",
     "SOURCE", "SIMT_SOURCE", "REPLACES", "simt_scratch",
 ]
 
@@ -86,11 +88,11 @@ TILE, MAX_STATE = 64, 256
 SIMT_SLICE, _SIMT_STATES = 64, (64, 128, 256)
 #: CUDA kernels one call launches, on either route: prep, the pass across chunks, the outputs
 KERNELS_PER_CALL = 3
-#: the head dim and the d_states the tensor-core kernel takes
-WGMMA_HEAD_DIM, WGMMA_STATES = 64, (64, 128)
+#: the head dims and the d_states the tensor-core kernel takes
+WGMMA_HEAD_DIMS, WGMMA_STATES = (64, 128), (64, 128)
 #: the longest state chunk the tensor-core kernel takes, in tiles, and the
-#: chunk states that cost one output tile's time (measured on an H100:
-#: ~6 µs a tile, ~0.05 µs a state)
+#: chunk states at P = 64 that cost one output tile's time (measured on an
+#: H100: ~6 µs a tile, ~0.05 µs a state)
 MAX_CHUNK_TILES, _STATES_PER_TILE = 8, 120
 
 #: where the kernels live, and which TPU kernel they replace (SOURCE is the
@@ -109,20 +111,25 @@ def select_route(dtype: torch.dtype) -> str:
     return route
 
 
-def tiles_per_chunk(B: int, H: int, S: int, sms: int) -> int:
+def tiles_per_chunk(B: int, H: int, S: int, sms: int, P: int = 64) -> int:
     """Tiles per state chunk of the tensor-core kernel (1 to
-    :data:`MAX_CHUNK_TILES`).  Its output kernel holds two blocks per SM,
-    each walking its chunk's tiles in turn, so that kernel's time goes as
-    waves × tiles per chunk, while every chunk adds a state that its
-    kernels write, pass on and read.  On an H100 one block's tile costs
-    about as much as :data:`_STATES_PER_TILE` chunk states
-    (``scripts/ssd_chunk_sweep.py``); the chunk length that minimises the
-    sum is taken, the longest among equals."""
+    :data:`MAX_CHUNK_TILES`).  Its output kernel holds two blocks per SM at
+    P = 64 and one at P = 128 (whose block of two warpgroups needs more than
+    half an SM's shared memory), each walking its chunk's tiles in turn, so
+    that kernel's time goes as waves × tiles per chunk, while every chunk
+    adds a state that its kernels write, pass on and read.  On an H100 one
+    block's tile at P = 64 costs about as much as :data:`_STATES_PER_TILE`
+    chunk states (``scripts/ssd_chunk_sweep.py``).  At P = 128 a block's two
+    warpgroups each do a P = 64 block's work on a tile, side by side, so its
+    tile is taken to cost the same, while a state holds twice the bytes and
+    costs twice as much.  The chunk length that minimises the sum is taken,
+    the longest among equals."""
     n_tiles = -(-S // TILE)
+    per_sm, states_per_tile = (2 if P == 64 else 1), _STATES_PER_TILE * 64 / P
 
     def cost(q: int):
         items = B * H * -(-n_tiles // q)
-        return -(-items // (2 * sms)) * q + items / _STATES_PER_TILE, -q
+        return -(-items // (per_sm * sms)) * q + items / states_per_tile, -q
 
     return min(range(1, MAX_CHUNK_TILES + 1), key=cost)
 
@@ -283,13 +290,13 @@ def _wgmma_args(x, Bm, Cm, h0):
     and entering state; each chunk's log decay)."""
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
-    if P != WGMMA_HEAD_DIM or N not in WGMMA_STATES:
-        raise ValueError(f"the bf16 kernel takes head dim {WGMMA_HEAD_DIM} and d_state in {WGMMA_STATES}, "
+    if P not in WGMMA_HEAD_DIMS or N not in WGMMA_STATES:
+        raise ValueError(f"the bf16 kernel takes head dim in {WGMMA_HEAD_DIMS} and d_state in {WGMMA_STATES}, "
                          f"got P={P}, N={N}")
     strides = {name: tma_strides(t) for name, t in (("x", x), ("b", Bm), ("c", Cm))}
     if h0 is not None and h0.data_ptr() % 16:
         h0 = h0.clone()  # the state pass reads h0 four floats at a time
-    q = tiles_per_chunk(Bsz, H, S, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    q = tiles_per_chunk(Bsz, H, S, torch.cuda.get_device_properties(x.device).multi_processor_count, P)
     n_tiles = -(-S // TILE)
     n_chunks = -(-n_tiles // q)
     f32 = dict(dtype=torch.float32, device=x.device)

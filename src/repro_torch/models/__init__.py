@@ -1,4 +1,4 @@
-"""Model substrate of the port: parameter trees, layers, the dense, MoE (GQA or MLA) and pure-SSM decoder."""
+"""Model substrate of the port: parameter trees, layers, the dense, MoE (GQA or MLA), pure-SSM and hybrid decoder."""
 
 from .convert import load_jax_params
 from .params import ParamDef, ParamTree, init_params

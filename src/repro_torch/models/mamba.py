@@ -95,7 +95,8 @@ def mamba_apply(params, x: torch.Tensor, cfg: ModelConfig, *, return_cache: bool
     Bm_c = _causal_conv(Bm, params["conv_B"])
     Cm_c = _causal_conv(Cm, params["conv_C"])
     A = -torch.exp(params["A_log"].float())
-    y, h = ops.ssd_scan(xs_c, dt, A, Bm_c, Cm_c, params["D"], chunk=s.chunk)
+    # D upcast exactly: the kernels take dt, A and D in fp32 (jamba keeps its parameters in bf16)
+    y, h = ops.ssd_scan(xs_c, dt, A, Bm_c, Cm_c, params["D"].float(), chunk=s.chunk)
     out = _gate_out(params, y, z, cfg)
     if not return_cache:
         return out

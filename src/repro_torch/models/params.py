@@ -10,7 +10,11 @@ The init recipes are the reference's: normal with std ``fan_in^-0.5``
 (``fan_in`` = the leading dimension), ``out_proj`` at ``0.02/√2``,
 ``embed`` at the def's scale, zeros and ones as named.  The draws come from
 one seeded ``torch.Generator`` in sorted-key order; their bits are not
-``jax.random``'s.
+``jax.random``'s.  A normal leaf is drawn in fp32 and scaled in place
+before its cast; a stacked experts leaf (leading axis ``"experts"``, up to
+16 × 8192 × 24576 values at jamba's width) is drawn one expert at a time
+straight into a tensor of the parameter dtype, so no fp32 copy of the whole
+leaf is ever held.
 """
 
 from __future__ import annotations
@@ -66,8 +70,12 @@ def _materialize(defn: ParamDef, generator: torch.Generator, default_dtype, devi
         std = defn.scale if defn.scale is not None else 0.02 / math.sqrt(2.0)
     else:
         std = defn.scale if defn.scale is not None else 1.0 / math.sqrt(max(1, fan_in))
-    x = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
-    return (x * std).to(dtype)
+    if defn.logical_axes[0] == "experts":
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for e in range(shape[0]):
+            out[e] = torch.randn(shape[1:], generator=generator, dtype=torch.float32, device=device).mul_(std)
+        return out
+    return torch.randn(shape, generator=generator, dtype=torch.float32, device=device).mul_(std).to(dtype)
 
 
 def init_params(defs, generator: torch.Generator, dtype=torch.float32, device="cuda"):

@@ -1,6 +1,7 @@
 """The decoder LM: the dense GQA family (deepseek-7b and the other dense
 configs), the MoE family with GQA (llama4-scout) or MLA attention
-(deepseek-v2-lite), and the pure-SSM family (mamba2-130m).
+(deepseek-v2-lite), the pure-SSM family (mamba2-130m) and the hybrid of
+attention and Mamba-2 layers with MoE (jamba).
 
 ``Transformer`` holds the embedding, an ``nn.ModuleList`` of decoder layers,
 the final norm and the LM head, with the reference's parameter shapes leaf
@@ -17,15 +18,21 @@ Entry points, batch-major as in the reference:
     model.prefill(tokens)                         → (last-position logits, prompt cache)
     model.decode_step(cache, tokens, pos)         → (logits, cache), cache written in place
 
-The cache is the reference's stacked leaves with the layer axis first:
-``{"k", "v"}`` of ``(L, B, S, Hkv, D)`` for GQA, ``{"ckv"}`` of ``(L, B,
-S, kv_lora_rank + qk_rope_dim)`` for MLA, ``{"conv_x", "conv_B",
-"conv_C"}`` of ``(L, B, W-1, ...)`` and ``"h"`` of ``(L, B, H, P, N)`` fp32
-for SSM.  ``forward`` applies ``cfg.remat`` as ``torch.utils.checkpoint``
-per layer (the reference's ``_remat_wrap``; ``"dots"`` recomputes
-everything too, the same math) and returns the MoE layers' summed
-load-balance loss.  Hybrid attention+SSM (jamba), encoder-decoder and VLM
-configs raise at construction: they come with later slices of the port.
+The cache is one stack per kind of layer, the layer axis first:
+``{"k", "v"}`` of ``(L_attn, B, S, Hkv, D)`` for GQA or ``{"ckv"}`` of
+``(L_attn, B, S, kv_lora_rank + qk_rope_dim)`` for MLA over the attention
+layers, and ``{"conv_x", "conv_B", "conv_C"}`` of ``(L_ssm, B, W-1, ...)``
+and ``"h"`` of ``(L_ssm, B, H, P, N)`` fp32 over the Mamba-2 layers.  Layer
+``i`` reads and writes row :func:`cache_rows` ``(cfg)[i]`` of its kind's
+stack: the count of earlier layers of its kind.  A model of one kind of
+layer (dense, MoE, MLA, pure SSM) thus has ``L_attn`` or ``L_ssm`` equal to
+``L`` and row ``i`` for layer ``i``, the reference's stacked leaves; jamba's
+attention layers share one stack and its SSM layers the other.
+``forward`` applies ``cfg.remat`` as ``torch.utils.checkpoint`` per layer
+(the reference's ``_remat_wrap``; ``"dots"`` recomputes everything too, the
+same math) and returns the MoE layers' summed load-balance loss.
+Encoder-decoder and VLM configs raise at construction: they come with a
+later slice of the port.
 """
 
 from __future__ import annotations
@@ -53,10 +60,10 @@ from .mamba import init_mamba_cache, mamba_apply, mamba_decode, mamba_defs
 from .moe import moe_apply, moe_defs
 from .params import ParamTree, init_params
 
-__all__ = ["Transformer", "model_defs", "check_supported"]
+__all__ = ["Transformer", "model_defs", "check_supported", "cache_rows"]
 
 Cache = Dict[str, torch.Tensor]
-#: the SSM cache leaves, each stacked on a leading layer axis
+#: the SSM cache leaves, each stacked on a leading axis over the SSM layers
 SSM_CACHE_KEYS = ("conv_x", "conv_B", "conv_C", "h")
 
 
@@ -64,13 +71,28 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config this slice cannot run,
     naming the slice of the port that brings it."""
     later = [
-        (cfg.ssm is not None and cfg.family != "ssm", "hybrid attention+SSM layers", "the hybrid slice"),
         (cfg.encdec, "an encoder-decoder stack", "the enc-dec/prefix-LM slice"),
         (cfg.vision_tokens > 0, "vision prefix tokens", "the enc-dec/prefix-LM slice"),
     ]
     for present, what, where in later:
         if present:
             raise NotImplementedError(f"{cfg.name} uses {what}, which the port brings in {where}")
+
+
+def cache_rows(cfg: ModelConfig) -> Tuple[int, ...]:
+    """Per layer, its row in its kind's cache stack (attention or SSM): the
+    number of earlier layers of the same kind."""
+    seen = {True: 0, False: 0}
+    rows = []
+    for i in range(cfg.n_layers):
+        kind = cfg.layer_is_attn(i)
+        rows.append(seen[kind])
+        seen[kind] += 1
+    return tuple(rows)
+
+
+def _attn_cache_keys(cfg: ModelConfig) -> Tuple[str, ...]:
+    return ("ckv",) if cfg.mla is not None else ("k", "v")
 
 
 def _n_prefix(cfg: ModelConfig) -> int:
@@ -120,7 +142,7 @@ def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 class Transformer(nn.Module):
-    """Dense or MoE (GQA or MLA) or pure-SSM decoder with seeded random weights on ``device``."""
+    """Dense, MoE (GQA or MLA), pure-SSM or hybrid decoder with seeded random weights on ``device``."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0) -> None:
         super().__init__()
@@ -132,31 +154,35 @@ class Transformer(nn.Module):
         self.final_norm = ParamTree(tree["final_norm"])
         self.lm_head = ParamTree(tree["lm_head"]) if "lm_head" in tree else None
         self.layers = nn.ModuleList(ParamTree(tree["layers"][str(i)]) for i in range(cfg.n_layers))
+        self.cache_rows = cache_rows(cfg)
 
     @property
     def device(self) -> torch.device:
         return self.embed["embedding"].device
 
     def init_cache(self, batch: int, max_len: int, dtype: Optional[torch.dtype] = None) -> Cache:
-        """Zeroed decode cache: ``{"k", "v"}`` of ``(L, batch, max_len, Hkv,
-        D)``, for MLA ``{"ckv"}`` of ``(L, batch, max_len, kv_lora_rank +
-        qk_rope_dim)``, or for SSM the conv windows and the fp32 state
-        (``max_len`` unused)."""
+        """Zeroed decode cache, one stack per kind of layer: over the
+        attention layers ``{"k", "v"}`` of ``(L_attn, batch, max_len, Hkv,
+        D)`` or MLA's ``{"ckv"}`` of ``(L_attn, batch, max_len, kv_lora_rank
+        + qk_rope_dim)``; over the SSM layers the conv windows and the fp32
+        state (``max_len`` unused)."""
         cfg = self.cfg
         if dtype is None:
             dtype = torch_dtype(cfg.kv_cache_dtype) if cfg.kv_cache_dtype else cfg.compute_tdtype()
-        if cfg.family == "ssm":
+        n_attn = sum(cfg.layer_is_attn(i) for i in range(cfg.n_layers))
+        n_ssm = cfg.n_layers - n_attn
+        cache: Cache = {}
+        if n_attn:
+            if cfg.mla is not None:
+                widths = (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim,)
+            else:
+                widths = (cfg.n_kv_heads, cfg.resolved_head_dim)
+            for key in _attn_cache_keys(cfg):
+                cache[key] = torch.zeros((n_attn, batch, max_len, *widths), dtype=dtype, device=self.device)
+        if n_ssm:
             one = init_mamba_cache(cfg, batch, dtype, self.device)
-            return {k: v.expand(cfg.n_layers, *v.shape).clone() for k, v in one.items()}
-        if cfg.mla is not None:
-            m = cfg.mla
-            shape = (cfg.n_layers, batch, max_len, m.kv_lora_rank + m.qk_rope_dim)
-            return {"ckv": torch.zeros(shape, dtype=dtype, device=self.device)}
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-        return {
-            "k": torch.zeros(shape, dtype=dtype, device=self.device),
-            "v": torch.zeros(shape, dtype=dtype, device=self.device),
-        }
+            cache.update({k: v.expand(n_ssm, *v.shape).clone() for k, v in one.items()})
+        return cache
 
     def _ffn(self, lp, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The post-mixer sublayer → ``(x, the MoE aux loss in fp32, or None)``."""
@@ -208,11 +234,11 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, *, attn_impl: str = "auto") -> Tuple[torch.Tensor, Cache]:
         """Full causal forward over ``tokens`` ``(B, S)``.  Returns the
-        last-position fp32 logits ``(B, V_padded)`` and the prompt cache,
-        stacked on the layer axis: ``{"k", "v"}`` of ``(L, B, S, Hkv, D)``,
-        MLA's ``{"ckv"}`` (the serving layer copies either into its slot
-        buffers), or the SSM leaves (pre-conv windows of the last ``W-1``
-        positions, final state)."""
+        last-position fp32 logits ``(B, V_padded)`` and the prompt cache in
+        :meth:`init_cache`'s layout at length S: ``{"k", "v"}`` of ``(L_attn,
+        B, S, Hkv, D)`` or MLA's ``{"ckv"}`` (the serving layer copies either
+        into its slot buffers), and the SSM leaves (pre-conv windows of the
+        last ``W-1`` positions, final state)."""
         cfg = self.cfg
         x = embed_apply(self.embed, tokens, cfg)
         B, S = tokens.shape
@@ -223,7 +249,8 @@ class Transformer(nn.Module):
             caches.append(c)
         x = rmsnorm(self.final_norm, x, cfg.rms_eps)
         logits = logits_apply(self.embed, self.lm_head, x[:, -1:], cfg)[:, 0]
-        return logits, {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+        keys = dict.fromkeys(k for c in caches for k in c)  # each kind's keys, as the layers first give them
+        return logits, {k: torch.stack([c[k] for c in caches if k in c]) for k in keys}
 
     @torch.no_grad()
     def decode_step(
@@ -235,24 +262,25 @@ class Transformer(nn.Module):
         """One decode step for every sequence in the batch → ``(logits, cache)``.
 
         The new K/V (MLA's latent, or the slid conv windows and the new SSM
-        state) are written **in place** into ``cache`` (which may be a view, such as a
-        bucket's slice of the engine's cache): the reference donates its
+        state) are written **in place** into ``cache`` (which may be a view,
+        such as a bucket's slice of the engine's cache), each layer at its
+        :func:`cache_rows` row of its kind's stack: the reference donates its
         cache buffer to the same step, so callers hold no other copy either
         way.  The returned cache is ``cache`` itself.  An MoE layer routes
         each sequence as its own group of one token, as the reference does,
         so a batch's other rows never move a row's experts."""
         cfg = self.cfg
         x = embed_apply(self.embed, tokens[:, None], cfg)[:, 0]
-        for i, lp in enumerate(self.layers):
+        attn_keys = _attn_cache_keys(cfg)
+        for lp, row in zip(self.layers, self.cache_rows):
             h = rmsnorm(lp["ln1"], x, cfg.rms_eps)
             if "attn" in lp:
-                layer_cache = {k: v[i] for k, v in cache.items()}
                 attend = mla_decode if cfg.mla is not None else gqa_decode
-                out = attend(lp["attn"], h, cfg, layer_cache, pos)
+                out = attend(lp["attn"], h, cfg, {k: cache[k][row] for k in attn_keys}, pos)
             else:
-                out, new = mamba_decode(lp["ssm"], h, cfg, {k: cache[k][i] for k in SSM_CACHE_KEYS})
+                out, new = mamba_decode(lp["ssm"], h, cfg, {k: cache[k][row] for k in SSM_CACHE_KEYS})
                 for k in SSM_CACHE_KEYS:
-                    cache[k][i].copy_(new[k])
+                    cache[k][row].copy_(new[k])
             if "moe" in lp:
                 x = self._ffn(lp, (x + out)[:, None])[0][:, 0]
             else:

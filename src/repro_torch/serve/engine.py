@@ -181,9 +181,12 @@ class Engine:
         self.slots: List[Optional[Request]] = [None] * scfg.n_slots
         self.pos = np.zeros((scfg.n_slots,), np.int32)  # next write position
         self.last_token = np.zeros((scfg.n_slots,), np.int32)
-        #: the model's stacked cache leaves, slots on axis 1: {"k", "v"} of (L, n_slots,
-        #: max_len, Hkv, D), MLA's {"ckv"} of (L, n_slots, max_len, kv_lora + qk_rope);
-        #: every step handles the leaves alike, whatever their keys
+        #: the model's stacked cache leaves, slots on axis 1: {"k", "v"} of (L_attn, n_slots,
+        #: max_len, Hkv, D) or MLA's {"ckv"} of (L_attn, n_slots, max_len, kv_lora + qk_rope)
+        #: over the attention layers, and the SSM leaves (conv windows, fp32 state "h") of
+        #: (L_ssm, n_slots, ...) over the Mamba-2 layers; every step handles the leaves
+        #: alike, whatever their keys (transplant writes the K/V leaves at offset 0 of the
+        #: sequence axis and copies the equal-shaped SSM leaves whole)
         self.cache = model.init_cache(scfg.n_slots, scfg.max_len, dtype=cfg.compute_tdtype())
         #: sorted decode buckets; n_slots always present so a full batch
         #: takes the unsliced fast path

@@ -626,6 +626,51 @@ def test_ssd_wgmma_kernel_refuses_what_it_does_not_take(cuda):
     assert sk.ssd_scan.launches == before
 
 
+#: head dim 128 on the tensor-core kernel (two warpgroups a block): jamba's SSD width (H 128, P 128, N 128, G 1)
+#: at its served prompt lengths, one row, d_state 64 with grouped B/C, and several chunks of a ragged length
+P128_SHAPES = [(1, 132, 128, 128, 128, 1), (1, 404, 128, 128, 128, 1), (1, 1, 6, 128, 128, 3),
+               (2, 300, 4, 128, 64, 2), (3, 700, 6, 128, 128, 3)]
+
+
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("shape", P128_SHAPES)
+def test_ssd_wgmma_kernel_at_head_dim_128(cuda, shape, h0):
+    """bf16 at P = 128 runs the tensor-core kernel, held to the P = 64
+    route's tolerances: y within the bf16 tolerance, h_final within 1e-3
+    relative L2 of the sequential scan."""
+    x, dt, A, Bm, Cm, D, h = _ssd(shape, torch.bfloat16, cuda, seed=sum(shape), h0=h0)
+    before = sk.ssd_scan.launches
+    y, hf = ops.ssd_scan(x, dt, A, Bm, Cm, D, h, chunk=256)
+    torch.cuda.synchronize()
+    assert sk.ssd_scan.launches == before + 1 and sk.select_route(x.dtype) == "wgmma"
+    want_y, want_h = ssd_ref(x, dt, A, Bm, Cm, D, h, return_state=True)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=2e-2, rtol=2e-2)
+    assert ((hf - want_h).norm() / want_h.norm()).item() <= 1e-3
+
+
+@pytest.mark.parametrize("B,S,H,G", [(1, 404, 128, 1), (2, 150, 4, 2)])
+def test_ssd_fp32_simt_at_head_dim_128(cuda, B, S, H, G):
+    """fp32 at P = 128 (two of the SIMT kernel's 64-row state slices) at
+    jamba's SSD width and with grouped B/C, with h0."""
+    x, dt, A, Bm, Cm, D, h = _ssd((B, S, H, 128, 128, G), torch.float32, cuda, seed=S, h0=True)
+    assert sk.select_route(x.dtype) == "simt"
+    y, hf = ops.ssd_scan(x, dt, A, Bm, Cm, D, h, chunk=S)
+    want_y, want_h = ssd_ref(x, dt, A, Bm, Cm, D, h, return_state=True)
+    torch.testing.assert_close(y, want_y, atol=5e-5, rtol=1e-3)
+    torch.testing.assert_close(hf, want_h, atol=5e-5, rtol=1e-3)
+
+
+@pytest.mark.parametrize("P", [16, 32, 96, 192, 256])
+def test_ssd_wgmma_kernel_refuses_other_head_dims(cuda, P):
+    """The bf16 route takes P = 64 and 128 only; any other P raises on a
+    CUDA tensor, naming what it takes, and launches nothing."""
+    x, dt, A, Bm, Cm, D, _ = _ssd((1, 64, 2, P, 128, 1), torch.bfloat16, cuda)
+    before = sk.ssd_scan.launches
+    with pytest.raises(ValueError, match=r"head dim in \(64, 128\)"):
+        ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=64)
+    assert sk.ssd_scan.launches == before
+
+
 def test_ssd_simt_route_still_takes_bf16(cuda):
     """The SIMT kernel on bf16 (the route the timing asks for beside the
     tensor-core kernel) agrees with the tensor-core kernel and the plain scan."""

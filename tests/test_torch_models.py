@@ -35,6 +35,7 @@ from repro.serve.engine import _write_slot as ref_write_slot
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import Transformer, load_jax_params
 from repro_torch.models.convert import flatten_jax_tree
+from repro_torch.models.params import ParamDef, init_params
 from repro_torch.serve.cache_utils import transplant
 
 LOGITS_ATOL = {"deepseek-7b": 5e-5, "qwen2-72b": 1e-4, "phi3-medium-14b": 1e-4, "gemma-7b": 1e-4}
@@ -162,24 +163,63 @@ def test_load_jax_params_raises_on_bad_trees(deepseek):
     assert torch.equal(model.final_norm["scale"], snapshot)  # nothing copied
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_init_draws_a_rank2_leaf_as_randn_times_std(dtype):
+    """A normal leaf other than stacked experts is drawn in fp32 from the
+    generator, scaled in place and cast: bit for bit ``(torch.randn(shape)
+    * std).to(dtype)`` from a generator of the same seed, leaf after leaf in
+    sorted-key order (``fan_in^-0.5``, then ``out_proj``'s 0.02/√2)."""
+    defs = {"a": ParamDef((64, 48), ("embed", "mlp")), "b": ParamDef((48, 64), ("mlp", "embed"), init="out_proj")}
+    got = init_params(defs, torch.Generator().manual_seed(5), dtype, "cpu")
+    g = torch.Generator().manual_seed(5)
+    want_a = (torch.randn((64, 48), generator=g) * 64 ** -0.5).to(dtype)
+    want_b = (torch.randn((48, 64), generator=g) * (0.02 / 2 ** 0.5)).to(dtype)
+    assert got["a"].dtype == got["b"].dtype == dtype
+    assert torch.equal(got["a"], want_a) and torch.equal(got["b"], want_b)
+
+
+def test_init_draws_stacked_experts_in_the_parameter_dtype():
+    """A stacked experts leaf (leading axis "experts") is drawn one expert
+    at a time into a bf16 tensor: the def's std (the reference's fan-in
+    quirk: the expert count, 16^-0.5) over the whole leaf and over each
+    expert within four standard errors of a sample std (std / sqrt(2n)),
+    zero mean, and no two experts alike."""
+    defn = ParamDef((16, 128, 256), ("experts", None, "expert_mlp"))
+    leaf = init_params({"w": defn}, torch.Generator().manual_seed(2), torch.bfloat16, "cpu")["w"]
+    assert leaf.dtype == torch.bfloat16 and leaf.shape == (16, 128, 256)
+    x = leaf.double()
+    std = 16 ** -0.5
+    np.testing.assert_allclose(x.std().item(), std, rtol=4 / np.sqrt(2 * x.numel()))
+    np.testing.assert_allclose(x.std(dim=(1, 2)).numpy(), std, rtol=4 / np.sqrt(2 * x[0].numel()))
+    assert abs(x.mean().item()) < 4 * std / np.sqrt(x.numel())
+    assert all(not torch.equal(leaf[i], leaf[j]) for i in range(16) for j in range(i))
+
+
 def _hybrid_mamba2():
     """mamba2 with attention every other layer: the hybrid attention+SSM
-    family, which comes after the pure-SSM slice."""
+    family without MoE."""
     return replace(get_smoke_config("mamba2-130m"), family="hybrid", n_heads=4, n_kv_heads=4, attn_every=2)
 
 
 @pytest.mark.parametrize(
     "make_cfg,slice_name",
     [
-        pytest.param(lambda: get_smoke_config("jamba-1.5-large-398b"), "hybrid", id="jamba-1.5-large-398b-hybrid"),
-        pytest.param(_hybrid_mamba2, "SSM", id="mamba2-130m-SSM"),
+        pytest.param(lambda: get_smoke_config("jamba-1.5-large-398b"), None, id="jamba-1.5-large-398b-hybrid"),
+        pytest.param(_hybrid_mamba2, None, id="mamba2-130m-SSM"),
         pytest.param(lambda: get_smoke_config("whisper-medium"), "enc-dec", id="whisper-medium-enc-dec"),
         pytest.param(lambda: get_smoke_config("paligemma-3b"), "enc-dec/prefix-LM", id="paligemma-3b-enc-dec/prefix-LM"),
     ],
 )
 def test_later_slice_configs_raise_at_construction(make_cfg, slice_name):
-    """Pure SSM (mamba2-130m itself) runs since the SSM slice, and MoE and
-    MLA (deepseek-v2-lite, llama4-scout) since the MoE/MLA slice; the hybrid
-    of attention and SSM layers still raises, naming its slice."""
+    """Pure SSM (mamba2-130m itself) runs since the SSM slice, MoE and MLA
+    (deepseek-v2-lite, llama4-scout) since the MoE/MLA slice, and the hybrid
+    of attention and SSM layers (jamba; mamba2 with attention every other
+    layer) since the hybrid slice: those build, with attention and SSM
+    layers both (``slice_name`` None).  Enc-dec and prefix-LM configs still
+    raise, naming their slice."""
+    if slice_name is None:
+        model = Transformer(make_cfg(), device="cpu")
+        assert any("attn" in lp for lp in model.layers) and any("ssm" in lp for lp in model.layers)
+        return
     with pytest.raises(NotImplementedError, match=slice_name):
         Transformer(make_cfg(), device="cpu")

@@ -95,6 +95,33 @@ def test_tiled_bf16_at_full_width_matches_pallas_and_ref(S):
     assert _rel(h, torch.from_numpy(np.array(ph))) <= H_REL and _rel(h, sh) <= H_REL
 
 
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("S", [37, 200])
+def test_tiled_at_head_dim_128_matches_pallas_and_ref(S, with_h0):
+    """jamba's SSD head dim and d_state (P = 128, N = 128, G = 1; 8 heads
+    here) at ragged lengths: without rounding, within FP32 of the
+    reference's Pallas kernel and its sequential scan; in bf16 with the
+    kernel's rounding and the chunk length it picks at P = 128, within the
+    bf16 tolerance of both and the final state within SSD_H_REL.  (At P =
+    128 the kernel gives each warpgroup 64 of the state's rows and y's
+    columns, which changes no sum, so the model is the P = 64 one.)"""
+    arrays = _inputs(1, S, 8, 128, 128, 1, seed=S + 128, h0=with_h0)
+    x, dt, A, Bm, Cm, D, h0 = arrays
+    j = [jnp.asarray(a) if a is not None else None for a in arrays]
+    py, ph = ref_ops.ssd_scan(*j[:6], h0=j[6], chunk=256, impl="pallas")
+    ry, rh = jax_ssd_ref(*j[:6], h0=j[6], return_state=True)
+    y, h = ssd_tiled_ref(*_torch(arrays), tiles_per_chunk=2)
+    for got, want in ((y, py), (y, ry), (h, ph), (h, rh)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32)
+    t = _torch(arrays, torch.bfloat16)
+    sy, sh = ssd_ref(*t, return_state=True)
+    y, h = ssd_tiled_ref(*t, tiles_per_chunk=sk.tiles_per_chunk(1, 8, S, 132, 128), **KERNEL)
+    assert y.dtype == torch.bfloat16 and y.shape == (1, S, 8, 128) and h.shape == (1, 8, 128, 128)
+    for want in (np.asarray(py, np.float32), sy.float().numpy()):
+        np.testing.assert_allclose(y.float().numpy(), want, **BF16)
+    assert _rel(h, torch.from_numpy(np.array(ph))) <= H_REL and _rel(h, sh) <= H_REL
+
+
 @pytest.mark.parametrize("point", ["xw", "m", "h"])
 def test_one_bf16_term_misses_where_two_do_not(point):
     """Large dt and |x| ~ 30 (outputs up to ~1300): one bf16 term of x·w
@@ -127,13 +154,18 @@ def test_tiled_chunks_and_ragged_tiles_agree():
 
 def test_routes_and_chunk_lengths():
     """bf16 runs the tensor-core kernel, fp32 the SIMT one.  The chunk
-    length fills the output kernel's waves (two blocks per SM on 132 SMs)
-    against the states it passes: the training microbatch B=4, S=256 takes
-    2 tiles per chunk (192 blocks), train_4k's B=1, S=4096 takes 6 (264
-    blocks: one full wave)."""
+    length fills the output kernel's waves (two blocks per SM on 132 SMs
+    at P = 64, one at P = 128) against the states it passes: the training
+    microbatch B=4, S=256 takes 2 tiles per chunk (192 blocks), train_4k's
+    B=1, S=4096 takes 6 (264 blocks: one full wave); jamba's 128 heads of
+    128 take the whole prompt as one chunk at S=132 (3 tiles) and S=404 (7
+    tiles), 128 blocks, one wave, where shorter chunks would add waves and
+    states of twice the bytes."""
     assert sk.select_route(torch.bfloat16) == "wgmma" and sk.select_route(torch.float32) == "simt"
     with pytest.raises(ValueError, match="bfloat16"):
         sk.select_route(torch.float16)
     assert sk.SOURCE.endswith("ssd_scan_wgmma.cu") and sk.SIMT_SOURCE.endswith("ssd_scan.cu")
     picks = {(B, S): sk.tiles_per_chunk(B, 24, S, 132) for B, S in ((4, 256), (1, 4096), (1, 1000), (1, 1), (4, 4096))}
     assert picks == {(4, 256): 2, (1, 4096): 6, (1, 1000): 2, (1, 1): 1, (4, 4096): 8}
+    assert {S: sk.tiles_per_chunk(1, 128, S, 132, 128) for S in (132, 404)} == {132: 3, 404: 7}
+    assert sk.WGMMA_HEAD_DIMS == (64, 128) and sk.WGMMA_STATES == (64, 128)

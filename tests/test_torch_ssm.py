@@ -300,9 +300,14 @@ def test_engine_refuses_a_pure_ssm_model(mamba):
 
 
 def test_hybrid_and_moe_ssm_configs_still_raise():
+    """Named for what it held before the hybrid slice.  Now the hybrid of
+    attention and SSM layers builds, with MoE (jamba) and without (mamba2
+    with attention every other layer): each gets a cache of both kinds, the
+    KV leaves over its attention layers and the SSM leaves over the rest."""
     hybrid = replace(get_smoke_config("mamba2-130m"), family="hybrid", n_heads=4, n_kv_heads=4, attn_every=2)
-    with pytest.raises(NotImplementedError, match="hybrid attention"):
-        Transformer(hybrid, device="cpu")
-    # jamba's MoE layers run since the MoE/MLA slice; its hybrid of attention and SSM layers does not
-    with pytest.raises(NotImplementedError, match="hybrid slice"):
-        Transformer(get_smoke_config("jamba-1.5-large-398b"), device="cpu")
+    for cfg in (hybrid, get_smoke_config("jamba-1.5-large-398b")):
+        cache = Transformer(cfg, device="cpu").init_cache(2, 16)
+        n_attn = sum(cfg.layer_is_attn(i) for i in range(cfg.n_layers))
+        assert 0 < n_attn < cfg.n_layers
+        assert {k: v.shape[0] for k, v in cache.items()} == {
+            "k": n_attn, "v": n_attn, **{k: cfg.n_layers - n_attn for k in ("conv_x", "conv_B", "conv_C", "h")}}
