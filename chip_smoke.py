@@ -100,6 +100,7 @@ import sys
 import time
 import warnings
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -223,6 +224,13 @@ BWD_EDGES = [(2, 1000, 1000, 8, 8, 128, True), (1, 517, 517, 16, 8, 64, True),
 #: the tensor cores, differ by up to 1.46e-3 (measured 9.8e-4 to 1.46e-3 a
 #: layer on the H100): atol LSE_TRAIN_ATOL there.
 BWD_RTOL, BWD_ATOL_OF_MAX = 1e-2, 1e-3
+#: A gradient that is 0 in exact arithmetic (a query that sees one key: dS = P (dP - D_i) = 0) holds only the
+#: fp32 noise of dP - D_i summed in two orders, which both the kernel and the plain version leave: held to
+#: BWD_ZERO_ATOL where BWD_ATOL_OF_MAX of its largest entry is below it.  The noise grows with the terms of
+#: the sums and the heads compared: measured on the H100 3.7e-7 at D = 64 and 5.5e-7 at D = 256 (4 to 16
+#: heads; tests/test_torch_cuda.py holds those at 1e-6), and 1.33e-6 at (192, 128) over 16 heads (plain:
+#: 4.9e-7), so mla_bwd_kernel's S = 1 edge takes 4e-6, about three times it
+BWD_ZERO_ATOL = 4e-6
 #: the fp32 backward kernel against the plain backward, both fp32 from the
 #: same inputs: they differ by the order of their fp32 sums over up to 2,048
 #: rows or columns (tests/test_torch_cuda.py's BWD_FP32_TOL)
@@ -275,15 +283,25 @@ DENSE_LAYERS, DENSE_STEPS, DENSE_BATCH, DENSE_SEQ, DENSE_MICRO, DENSE_EVAL_EVERY
 #: (arXiv:2403.08295) publishes no learning rate, so the peak lr is
 #: DENSE_LR, DeepSeek LLM 7B's, a dense decoder of the same size.
 GEMMA_LAYERS, GEMMA_STEPS, GEMMA_EVAL_EVERY = 7, 6, 3
-#: the attention-only check: from the trained weights, only every layer's wq,
-#: wk and wv (whose gradients reach them through the backward kernel's dq,
-#: dk and dv alone) take ATTN_ONLY_STEPS AdamW steps (warm-up 2, cosine over
-#: ATTN_ONLY_STEPS, the phase's peak lr) on one repeated microbatch (the
-#: probe's first), everything else frozen.  The loss on it must fall by
-#: ATTN_ONLY_DROP; the same run with the backward kernel's gradients zeroed,
-#: and with them negated, must not.  Measured on the H100 (deepseek-7b):
-#: 11.8976 -> 11.7191 (a drop of 0.178) with the kernel's gradients, no
-#: change zeroed, a rise of 0.170 negated.
+#: the attention-only check: from the trained weights, only the stacked
+#: layers' wq, wk and wv (MLA: wq, w_dkv, w_uk, w_uv; their gradients reach
+#: them through the backward kernel's dq, dk and dv alone) take
+#: ATTN_ONLY_STEPS AdamW steps (warm-up 2, cosine over ATTN_ONLY_STEPS, the
+#: phase's peak lr) on one repeated microbatch (the probe's first),
+#: everything else frozen.  The loss on it must fall by ATTN_ONLY_DROP; the
+#: same run with the backward kernel's gradients zeroed, and with them
+#: negated, must not.  Measured on the H100 (deepseek-7b): 11.8976 -> 11.7191
+#: (a drop of 0.178) with the kernel's gradients, no change zeroed, a rise of
+#: 0.170 negated.  The FFN-only check is the same run over the stacked
+#: layers' MLP weights (a MoE layer's router, routed and shared experts),
+#: its controls scaling those weights' own gradients: it holds the dense and
+#: MoE layers' bf16 backward at full width (measured on the H100: drops of
+#: 11.8 to 12.8, the repeated microbatch all but memorised; none zeroed; a
+#: rise of 25 to 42 negated).  A layer before the reference's
+#: stack (deepseek-v2's dense first layer, TrainCut.stack_from) is left out
+#: of both: its init reads its true fan-in (MLA weights at std ~0.02,
+#: against ~0.5 in the stack), and AdamW's lr-sized steps on it lower this
+#: loss whatever their sign (scripts/moe_train_cut.py's first_layer reading).
 ATTN_ONLY_DROP, ATTN_ONLY_STEPS = 0.05, 10
 #: decode after prefill against forward on the extended sequence, fp32,
 #: relative L2 of each step's logits: the same weights and math, the SSD
@@ -293,6 +311,16 @@ DECODE_FP32_REL = 1e-3
 MLA_HEADS, MLA_DQK, MLA_DV = 16, 192, 128
 #: the (192, 128) kernel timed at these lengths (the served trace's prompts are 132 to 404), bf16, causal
 MLA_TIMED = (132, 404, 1024)
+#: mla_bwd_kernel: the backward at MLA's (192, 128) on both routes against the plain version at these edge
+#: shapes (B, Sq, Sk, Hq, Hkv, causal): ragged causal lengths over 16 heads (one row, a tile less and more a
+#: row, 517), non-causal Sq != Sk both ways, no key at all (Sk = 0), GQA 16 over 4 (MLA runs 16 over 16); on
+#: strided views of one wider projection (MLA_BWD_VIEWS); then held and timed at MLA_BWD_TIMED, one
+#: training sequence and the longest served prompt, B = 1, 16 heads, causal
+MLA_BWD_EDGES = [(1, 1, 1, 16, 16, True), (1, 63, 63, 16, 16, True), (2, 65, 65, 16, 16, True),
+                 (1, 517, 517, 16, 16, True), (1, 300, 700, 16, 16, False), (2, 450, 130, 16, 16, False),
+                 (1, 5, 0, 16, 16, False), (1, 404, 404, 16, 4, True)]
+MLA_BWD_VIEWS = (2, 300, 16, 16)
+MLA_BWD_TIMED = (2048, 404)
 #: moe_parity: where the card and the CPU pick different experts for a token, the check passes only if that
 #: token's top-(k+1) router probabilities lie within TIE_EPS of each other (a tie, not an error): both run
 #: fp32 with TF32 off, so the router's inputs differ by summation order, ~1e-6 relative after three layers,
@@ -309,6 +337,59 @@ MOE_FULL_PARAMS = 15_706_484_224
 #: to 206 measured)
 #: operations of one decode step listed from its device breakdown
 TOP_OPS = 12
+#: moe_train_parity: deepseek-v2-lite's smoke config at the published MLA head dims, card against CPU in
+#: fp32, held at step 1 to dense_parity's tolerances (DENSE_STEP1_*) after its experts (a token routed to
+#: other experts must be a top-k tie, TIE_EPS), but for the grad norm: the MoE layers' fp32 sums (the
+#: experts' bmm, the router's softmax, the combine) move it past DENSE_STEP1_RTOL whatever the attention
+#: runs.  The phase measures it both ways, card against CPU at step 1: with the kernels, and with the plain
+#: attention on the card ("plain_attention_step1_gaps" in its line).  Read on the H100 (PERF.md §6 names the
+#: runs): 1.44e-4 with the kernels, 7.0e-5 with the plain attention; deepseek-7b's (dense) 4.2e-6 and 3.9e-6.
+#: MOE_STEP1_GNORM_RTOL is about three times the kernels' reading; each leaf's gradient stays within
+#: DENSE_GRAD_REL (measured 8.1e-4), and the zeroed and negated controls miss the grad norm by 0.94 and
+#: 0.099 and the gradients by 16.7 and 1.9.  After step 1 the two runs' weights differ by AdamW's amplified
+#: fp32 noise and the router sends the tokens whose top-k margin sits below that difference to other
+#: experts (12 of 512 at step 2, 315 at step 3, margins up to 4.7e-2), so the later steps are printed with
+#: those counts and not held.
+MOE_STEP1_GNORM_RTOL = 4.5e-4
+#: moe_train_full_width: deepseek-v2-lite at its published widths (d_model 2048, 16 MLA heads at q/k 128 + 64
+#: and v 128 over a 512-wide latent, 64 experts top-6 of 1408 and 2 shared after a dense first layer of
+#: 10944, vocab 102400, untied; bf16 params and compute, fp32 AdamW moments, remat full) cut to
+#: MOE_TRAIN_LAYERS layers (one dense and three MoE), the only cut.  Counted from model_defs: 4 layers
+#: 2,254,983,168 parameters, 5 2,839,831,040, 6 3.425 B; at ~16 bytes a parameter (bf16 weight and gradient,
+#: fp32 accumulator, m and v) 36.1, 45.4 and 54.8 GB of states.  scripts/moe_train_cut.py's depth reading
+#: trains 5 layers through this phase's run and reads its peak: past 72 GB of the card's 80, so 4 is the
+#: deepest cut under it (gemma-7b's rule).  gemma-7b's settings: 4 x 2048 in 2 microbatches, GEMMA_STEPS
+#: steps, an eval every GEMMA_EVAL_EVERY, peak lr DENSE_LR.
+MOE_TRAIN_LAYERS, MOE_TRAIN_PARAMS_5 = 4, 2_839_831_040
+
+
+class TrainCut(NamedTuple):
+    """A full-width training phase's per-config facts (_train_full_width)."""
+    phase: str
+    config: str
+    layers: int
+    steps: int
+    eval_every: int
+    params: int  # the cut's parameter count, from model_defs
+    stack_from: int  # the first layer of the reference's stack: the weights trained alone are the stack's
+    depth: str  # why this depth
+    held_out: str  # "falls": the held-out loss must fall over the run; else why it is printed and not held
+
+
+DENSE_CUT = TrainCut("dense_train_full_width", "deepseek-7b", DENSE_LAYERS, DENSE_STEPS, DENSE_EVAL_EVERY,
+                     2_457_931_776, 0, "8 of 30 layers, ~39 GB of states at ~16 bytes a parameter", "falls")
+GEMMA_CUT = TrainCut("gemma_train_full_width", "gemma-7b", GEMMA_LAYERS, GEMMA_STEPS, GEMMA_EVAL_EVERY,
+                     2_724_246_528, 0, "7 of 28 layers, the deepest cut whose peak stays under 72 GB", "falls")
+#: deepseek-v2-lite's held-out loss over its 6 steps moves less than two runs from one seed and one batch
+#: stream part (scripts/moe_train_cut.py's repeat reading: its MoE backward is not bitwise repeatable, the
+#: dispatch's gather taking its gradient by scatter_add's atomics), so it is printed; the FFN-only check holds
+#: the MoE weights' gradients instead
+MOE_CUT = TrainCut("moe_train_full_width", "deepseek-v2-lite-16b", MOE_TRAIN_LAYERS, GEMMA_STEPS,
+                   GEMMA_EVAL_EVERY, 2_254_983_168, 1,
+                   "4 of 27 layers (1 dense + 3 MoE), the deepest cut whose peak stays under 72 GB "
+                   "(scripts/moe_train_cut.py depth: 5 layers past it)",
+                   "printed: a 6-step change below the spread of two runs of one seed (scripts/moe_train_cut.py "
+                   "repeat); the FFN-only check holds the MoE weights' gradients")
 #: jamba's SSD width (H, P, N, G): 128 heads of 128, d_state 128, one group.  The bf16 kernel at head dim
 #: 128 (two warpgroups a block) is checked there at P128_SEQS with and without h0, at the edge shapes
 #: P128_EDGES (B, S, H, P, N, G: a ragged S over several chunks, d_state 64 with grouped B/C, one row), the
@@ -319,6 +400,8 @@ P128_SEQS = (1, 132, 404)
 P128_EDGES = [(2, 300, 4, 128, 64, 2), (3, 700, 6, 128, 128, 3), (1, 1, 6, 128, 128, 3)]
 P128_FP32 = [(1, 404, 128, 128, 128, 1), (2, 150, 4, 128, 128, 2)]
 P128_TIMED = (132, 404)
+#: the fp32 SIMT kernels timed at jamba's width at the longest served prompt
+P128_FP32_TIMED = 404
 #: hybrid_full_width: jamba-1.5-large at its published widths cut to HYBRID_LAYERS layers, the first seven
 #: positions of its 8-layer superblock (SSM + FFN at 0, 2, 6; SSM + MoE at 1, 3, 5; attention + FFN at 4):
 #: every kind of layer it has.  Counted from model_defs, in bf16: 5 layers 23.99 B parameters (44.7 GiB),
@@ -582,18 +665,16 @@ def phase_build():
     from repro_torch.kernels import flash_attention as fa
 
     sass = {}
-    # library → (pattern of its tensor-core kernels' mangled names, the instantiations each must have); the
-    # forward's template takes the q/k and the v head dim, named "D=<d>" when they are equal
-    for lib, pattern, dims in (
-        ("flash_attention_wgmma", r"(flash_fwd_wgmma)ILi(\d+)ELi(\d+)E", [_dims_label(*p) for p in fa.FWD_PAIRS]),
-        ("flash_attention_bwd_wgmma", r"(flash_bwd_dkdv_wgmma|flash_bwd_dq_wgmma)ILi(\d+)E()",
-         [_dims_label(d, d) for d in fa.SUPPORTED_HEAD_DIMS]),
-    ):
+    # library → (pattern of its tensor-core kernels' mangled names, the instantiations each must have); both
+    # directions' templates take the q/k and the v head dim, named "D=<d>" when they are equal
+    dims = [_dims_label(*p) for p in fa.FWD_PAIRS]
+    for lib, pattern in (("flash_attention_wgmma", r"(flash_fwd_wgmma)ILi(\d+)ELi(\d+)E"),
+                         ("flash_attention_bwd_wgmma", r"(flash_bwd_dkdv_wgmma|flash_bwd_dq_wgmma)ILi(\d+)ELi(\d+)E")):
         per_fn = {}
         for fn, c in sass_counts(info[lib]["path"], build.BUILD_DIR / f"{lib}.sass").items():
             m = re.search(pattern, fn)
             if m:
-                per_fn[f"{m.group(1)} {_dims_label(int(m.group(2)), int(m.group(3) or m.group(2)))}"] = c
+                per_fn[f"{m.group(1)} {_dims_label(int(m.group(2)), int(m.group(3)))}"] = c
         kernels = sorted({name.split()[0] for name in per_fn})
         check(sorted(per_fn) == sorted(f"{k} {d}" for k in kernels for d in dims) and per_fn,
               f"{lib}: tensor-core instantiations in the SASS: {sorted(per_fn)}")
@@ -700,15 +781,18 @@ def _bound(flops, nbytes, smi, fp32=False):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def _grads_close(got, want):
+def _grads_close(got, want, zero_atol=0.0, fp32=False):
     """Per gradient: max abs error, the largest entry, and whether it is
-    within rtol BWD_RTOL plus BWD_ATOL_OF_MAX of the largest entry."""
+    within rtol BWD_RTOL plus BWD_ATOL_OF_MAX of the largest entry (at
+    least ``zero_atol``), or with ``fp32`` within BWD_FP32_TOL; a gradient
+    with no entries (no query rows, or no keys) need only have its shape."""
     out = {}
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         g, w = g.float(), w.float()
-        scale = w.abs().max().item()
-        out[name] = {"max_abs_err": (g - w).abs().max().item(), "max_abs": scale,
-                     "ok": bool(torch.allclose(g, w, rtol=BWD_RTOL, atol=BWD_ATOL_OF_MAX * scale))}
+        scale = w.abs().max().item() if w.numel() else 0.0
+        tol = BWD_FP32_TOL if fp32 else dict(rtol=BWD_RTOL, atol=max(BWD_ATOL_OF_MAX * scale, zero_atol))
+        out[name] = {"max_abs_err": (g - w).abs().max().item() if w.numel() else 0.0, "max_abs": scale,
+                     "ok": g.shape == w.shape and bool(torch.allclose(g, w, **tol))}
     return out
 
 
@@ -1668,6 +1752,22 @@ def phase_ssd_kernel(smi: str):
             "tiles_per_chunk": sk.tiles_per_chunk(1, JH, S, sms, JP),
             "spread_ms": {name: [m["min"], m["max"]] for name, m in ms.items()}, "device_us_by_kernel": by_kernel,
         }
+    # fp32 at jamba's width on the SIMT kernels (the fp32 route: jamba's smoke parity runs it at P = 32)
+    x, dt, A, Bm, Cm, D, _ = _ssd_inputs(1, P128_FP32_TIMED, JH, JP, JN, JG, torch.float32, 760)
+    ms = time_interleaved({
+        "kernel": lambda: sk.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256),
+        "plain": lambda: ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256, impl="plain"),
+    })
+    flops = sk.ssd_flops(1, P128_FP32_TIMED, JH, JP, JN, JG)
+    nbytes = sk.ssd_bytes(1, P128_FP32_TIMED, JH, JP, JN, JG, 4)  # no h0
+    bound_ms, bound_by = _bound(flops, nbytes, smi, fp32=True)
+    by_kernel = device_breakdown(lambda: sk.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256))
+    check(len(by_kernel) == sk.KERNELS_PER_CALL,
+          f"an fp32 SSD call at P = 128 launched {sorted(by_kernel)}, not {sk.KERNELS_PER_CALL} kernels")
+    p128["fp32_timing"] = {f"B1_S{P128_FP32_TIMED}": {
+        "kernel_ms": ms["kernel"]["median"], "plain_ms": ms["plain"]["median"], "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+        "spread_ms": {name: [m["min"], m["max"]] for name, m in ms.items()}, "device_us_by_kernel": by_kernel}}
     emit({"phase": "ssd_kernel", "name": "ssd_scan", "fp32_max_abs_err": fp32_err, "bf16_max_abs_err": bf16_err,
           "bf16_h_final_rel_l2": h_rel, "tolerances": {"fp32": SSD_FP32_TOL, "bf16": SSD_BF16_TOL},
           "routes": {"bfloat16": sk.select_route(torch.bfloat16), "float32": sk.select_route(torch.float32)},
@@ -2052,6 +2152,118 @@ def phase_flash_bwd_kernel(smi: str):
     return timing, {name: x["timing"] for name, x in d256.items()}, max(errs)
 
 
+def phase_mla_bwd_kernel(smi: str, sass):
+    """The backward at MLA's (q/k 192, v 128): bf16 on the tensor-core kernel
+    (two warpgroups a dK/dV block, split by output) and fp32 on the SIMT one
+    (32-row tiles) against the plain FA-2 backward at MLA_BWD_EDGES and on
+    strided views of one wider projection, then at MLA_BWD_TIMED (B = 1, 16
+    heads, causal), timed there: the bf16 kernel beside SDPA's backward at
+    the same pair (graph-replayed and eager; its backend named by the
+    kernels it launches), the SIMT kernel on fp32 and the plain version,
+    each beside its bound."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_backward_ref
+
+    H, DQK, DV = MLA_HEADS, MLA_DQK, MLA_DV
+    routes = {str(dt): fa.select_bwd_route(dt, DQK, DV) for dt in (torch.bfloat16, torch.float32)}
+    check(routes == {"torch.bfloat16": "wgmma", "torch.float32": "simt"}, f"(192, 128) backward routes {routes}")
+
+    def inputs(B, Sq, Sk, Hq, Hkv, causal, dtype, seed, views=False):
+        if views:  # q, k and v heads side by side in one projection, 64 columns to spare
+            wide = randn((B, Sq, Hq * DQK + Hkv * (DQK + DV) + 64), dtype, seed)
+            q = wide[..., :Hq * DQK].unflatten(-1, (Hq, DQK))
+            k = wide[..., Hq * DQK:(Hq + Hkv) * DQK].unflatten(-1, (Hkv, DQK))
+            v = wide[..., (Hq + Hkv) * DQK:(Hq + Hkv) * DQK + Hkv * DV].unflatten(-1, (Hkv, DV))
+        else:
+            q, k, v = (randn((B, Sq, Hq, DQK), dtype, seed), randn((B, Sk, Hkv, DQK), dtype, seed + 1),
+                       randn((B, Sk, Hkv, DV), dtype, seed + 2))
+        o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+        return q, k, v, o, lse, randn(tuple(o.shape), dtype, seed + 3)
+
+    def held(args, causal, dtype, what):
+        got = fa.flash_attention_backward(*args, causal=causal)
+        want = flash_backward_ref(*args, causal=causal)
+        torch.cuda.synchronize()
+        check([tuple(g.shape) for g in got] == [tuple(w.shape) for w in want] and got[2].shape[-1] == DV,
+              f"(192, 128) gradient shapes {[tuple(g.shape) for g in got]} at {what}")
+        g = _grads_close(got, want, BWD_ZERO_ATOL, fp32=dtype == torch.float32)
+        check(all(r["ok"] for r in g.values()), f"(192, 128) {dtype} backward disagrees with plain at {what}: {g}")
+        return g
+
+    edges = {}
+    for i, shape in enumerate(MLA_BWD_EDGES):
+        for dtype in (torch.bfloat16, torch.float32):
+            what = "B={} Sq={} Sk={} Hq={} Hkv={} causal={}".format(*shape)
+            edges.setdefault(what, {})[str(dtype)] = held(inputs(*shape, dtype, 1400 + 10 * i), shape[-1], dtype, what)
+    B, S, Hq, Hkv = MLA_BWD_VIEWS
+    for dtype in (torch.bfloat16, torch.float32):
+        args = inputs(B, S, S, Hq, Hkv, True, dtype, 1490, views=True)
+        check(not args[0].is_contiguous() and args[0].stride(-1) == 1, "strided views")
+        edges.setdefault(f"B={B} S={S} Hq={Hq} Hkv={Hkv} causal, views of one projection", {})[str(dtype)] = held(
+            args, True, dtype, "views")
+
+    rows = {}
+    for i, S in enumerate(MLA_BWD_TIMED):
+        args = inputs(1, S, S, H, H, True, torch.bfloat16, 1500 + 10 * i)
+        fargs = inputs(1, S, S, H, H, True, torch.float32, 1500 + 10 * i)  # the same values before bf16 rounding
+        check_bf16, check_fp32 = held(args, True, torch.bfloat16, f"S={S}"), held(fargs, True, torch.float32, f"S={S}")
+        q, k, v, o, lse, do = args
+        sdpa = _sdpa_backward_fns(q, k, v, do)
+        sdpa_fp32 = _sdpa_backward_fns(*fargs[:3], fargs[5])
+        ms = time_interleaved({
+            "kernel": lambda: fa.flash_attention_backward(*args, causal=True),
+            "simt": lambda: fa.flash_attention_backward(*fargs, causal=True),
+            "plain": lambda: flash_backward_ref(*args, causal=True),
+            "plain_fp32": lambda: flash_backward_ref(*fargs, causal=True),
+            **sdpa, **{f"{name}_fp32": fn for name, fn in sdpa_fp32.items()},
+        }, eager=("library_eager", "library_eager_fp32"))
+        flops = fa.flash_flops(1, S, S, H, DQK, causal=True, backward=True, v_head_dim=DV)
+        bound_ms, bound_by = _bound(flops, fa.flash_bytes(1, S, S, H, H, DQK, 2, backward=True, v_head_dim=DV), smi)
+        simt_bound_ms, simt_bound_by = _bound(flops, fa.flash_bytes(1, S, S, H, H, DQK, 4, backward=True,
+                                                                    v_head_dim=DV), smi, fp32=True)
+        fp32_sdpa = _sdpa_backward_ms({name[:-5]: m for name, m in ms.items() if name.endswith("_fp32")})
+        row = {"kernel_ms": ms["kernel"]["median"], "simt_fp32_ms": ms["simt"]["median"],
+               "plain_ms": ms["plain"]["median"], "plain_fp32_ms": ms["plain_fp32"]["median"],
+               **_sdpa_backward_ms(ms), **{f"{name}_fp32": t for name, t in fp32_sdpa.items()}, "bound_ms": bound_ms,
+               "bound_by": bound_by, "simt_fp32_bound_ms": simt_bound_ms, "simt_fp32_bound_by": simt_bound_by,
+               "flops": flops, "kernel_tflops": flops / (ms["kernel"]["median"] * 1e-3) / 1e12,
+               "simt_fp32_tflops": flops / (ms["simt"]["median"] * 1e-3) / 1e12,
+               "check": check_bf16, "simt_fp32_check": check_fp32,
+               "spread_ms": {name: [m["min"], m["max"]] for name, m in ms.items()}}
+        if i == 0:
+            # which SDPA backend takes (192, 128) backward: the kernels its forward and backward launch
+            row["sdpa_kernels"] = sorted(device_breakdown(sdpa["library_fwd_bwd"]))
+            row["device_us_by_kernel_10_calls"] = {
+                route: device_breakdown(lambda a=a: [fa.flash_attention_backward(*a, causal=True) for _ in range(10)])
+                for route, a in (("wgmma", args), ("simt", fargs))}
+            for route, by_kernel in row["device_us_by_kernel_10_calls"].items():
+                check(len(by_kernel) == fa.BWD_LAUNCHES,
+                      f"a {route} (192, 128) backward call launched {sorted(by_kernel)}, not {fa.BWD_LAUNCHES} kernels")
+        rows[str(S)] = row
+        del args, fargs, sdpa, sdpa_fp32
+    bwd_sass = {name: c for name, c in sass.items() if name.endswith(_dims_label(DQK, DV))}
+    check(len(bwd_sass) == 2, f"the (192, 128) dK/dV and dQ kernels in the SASS: {sorted(bwd_sass)}")
+    line = {"phase": "mla_bwd_kernel", "name": "flash_attention_backward",
+            "shape": f"B=1 Hq=Hkv={H} Dqk={DQK} Dv={DV} causal, scale {DQK}^-0.5; bf16 route wgmma, fp32 route simt",
+            "routes": routes, "edge_checks": edges, "timing": rows, "sass": bwd_sass,
+            "max_abs_err": {dt: max([e[dt][n]["max_abs_err"] for e in edges.values() for n in e[dt]]
+                                    + [r[c][n]["max_abs_err"] for r in rows.values()
+                                       for c in (("check",) if dt == "torch.bfloat16" else ("simt_fp32_check",))
+                                       for n in r[c]])
+                            for dt in ("torch.bfloat16", "torch.float32")},
+            "tolerances": {"bfloat16": {"rtol": BWD_RTOL, "atol_of_max": BWD_ATOL_OF_MAX}, "float32": BWD_FP32_TOL},
+            "bf16_terms": {"p": fa.BWD_P_TERMS, "ds": fa.BWD_DS_TERMS},
+            "timing_note": f"median of {ROUNDS} readings of {LAUNCHES} calls; the bf16 kernel, the SIMT kernel on "
+                           "fp32 inputs and the plain version (bf16; plain_fp32_ms on the fp32 inputs) replayed "
+                           "from a CUDA graph; SDPA's backward (same pair; bf16, and fp32 as *_fp32) "
+                           "graph-replayed as its forward and backward less its forward (library_ms), and eagerly "
+                           "(library_eager_ms); bound_ms at the bf16 peak, simt_fp32_bound_ms at the fp32 one "
+                           "with 4-byte elements"}
+    emit(line)
+    fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
+    return line
+
+
 def _rel(a, b) -> float:
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
@@ -2205,26 +2417,28 @@ def _step1_gaps(metrics, model, opt, want):
     }
 
 
-def _step1_ok(g) -> bool:
-    return (g["loss"] <= DENSE_STEP1_RTOL and g["grad_norm"] <= DENSE_STEP1_RTOL
+def _step1_ok(g, gnorm_rtol=DENSE_STEP1_RTOL) -> bool:
+    return (g["loss"] <= DENSE_STEP1_RTOL and g["grad_norm"] <= gnorm_rtol
             and g["grad"] <= DENSE_GRAD_REL and g["change"] <= DENSE_STEP1_CHANGE_REL)
 
 
-def phase_dense_parity():
-    """The deepseek-7b smoke config (fp32, head dim 32: the SIMT kernels
-    forward and backward) trained 3 steps on the card and on the CPU from the
-    same weights; then the control: one card step with the backward
-    kernel's gradients zeroed, and one with them negated, must fail the
-    first step's checks."""
-    from repro_torch.configs import get_smoke_config
+def _train_parity(cfg, route_trace=False):
+    """``cfg`` (an fp32 smoke config) trained 3 steps on the CPU and on the
+    card from the same weights, then one card step with the plain attention
+    and one each with the backward kernel's gradients zeroed and negated.
+    Returns the per-step (card, CPU) loss and grad norm, the first step's
+    gaps (``_step1_gaps``), the plain attention's and the controls', the largest per-leaf gap of the changes over three steps,
+    the three card steps' flash launches (forward, backward), the train
+    config and, with ``route_trace``, each step's router calls on each
+    device: (expert indices, the smallest gap of the top-(k+1) probabilities)
+    per token."""
     from repro_torch.data import DataConfig, make_train_iter
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.models import moe as moe_mod
     from repro_torch.optim import ScheduleConfig, adamw_init
     from repro_torch.train import TrainConfig, init_train_state, make_train_step
 
-    cfg = get_smoke_config("deepseek-7b")
-    check(cfg.compute_dtype == "float32" and cfg.remat == "none", "deepseek-7b smoke is fp32 without remat")
     tcfg = TrainConfig(schedule=ScheduleConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=10), microbatches=2)
     cpu_model, cpu_opt = init_train_state(cfg, tcfg, device="cpu")
     start_model = copy.deepcopy(cpu_model)
@@ -2239,21 +2453,49 @@ def phase_dense_parity():
     batches = [next(it) for _ in range(3)]
     it.close()
     cpu_step = make_train_step(cpu_model, tcfg)
+    routes = {"cpu": [], "cuda": []}
+    real_router = moe_mod.router_topk
+
+    def traced(params, x, moe):  # records into routes[dev][-1]
+        w, idx, aux = real_router(params, x, moe)
+        more = dataclasses.replace(moe, top_k=min(moe.top_k + 1, moe.n_experts), router_scale=False)
+        top = real_router(params, x, more)[0].detach().float()
+        routes[x.device.type][-1].append((idx.cpu(), (top[..., :-1] - top[..., 1:]).min(-1).values.cpu()))
+        return w, idx, aux
+
     before = (fa.flash_attention.launches, fa.flash_attention_backward.launches)
     rows, step1 = [], None
-    for i, b in enumerate(batches):
-        cpu_opt, cm = cpu_step(cpu_opt, b)
-        gpu_opt, gm = gpu_step(gpu_opt, b)
-        rows.append({k: (float(gm[k]), float(cm[k])) for k in ("loss", "grad_norm")})
-        if i == 0:
-            want = {"loss": float(cm["loss"]), "grad_norm": float(cm["grad_norm"]), "start": start,
-                    "m": {n: m.clone() for n, m in cpu_opt["m"].items()},
-                    "params": {n: p.detach().clone() for n, p in cpu_model.named_parameters()}}
-            step1 = _step1_gaps(gm, gpu_model, gpu_opt, want)
+    if route_trace:
+        moe_mod.router_topk = traced
+    try:
+        for i, b in enumerate(batches):
+            routes["cpu"].append([])
+            routes["cuda"].append([])
+            cpu_opt, cm = cpu_step(cpu_opt, b)
+            gpu_opt, gm = gpu_step(gpu_opt, b)
+            rows.append({k: (float(gm[k]), float(cm[k])) for k in ("loss", "grad_norm", "aux")})
+            if i == 0:
+                want = {"loss": float(cm["loss"]), "grad_norm": float(cm["grad_norm"]), "start": start,
+                        "m": {n: m.clone() for n, m in cpu_opt["m"].items()},
+                        "params": {n: p.detach().clone() for n, p in cpu_model.named_parameters()}}
+                step1 = _step1_gaps(gm, gpu_model, gpu_opt, want)
+    finally:
+        moe_mod.router_topk = real_router
     launches = (fa.flash_attention.launches - before[0], fa.flash_attention_backward.launches - before[1])
     cpu_params = dict(cpu_model.named_parameters())
     change = max(_rel(p.detach().cpu() - start[n], cpu_params[n].detach() - start[n])
                  for n, p in gpu_model.named_parameters())
+
+    # the same first step with the plain attention on the card: the attention kernels' share of the gap
+    flash = ops.flash_attention
+    model, opt, step = card_run()
+    ops.flash_attention = lambda *a, **kw: flash(*a, **{**kw, "impl": "plain"})
+    try:
+        opt, m = step(opt, batches[0])
+    finally:
+        ops.flash_attention = flash
+    plain = _step1_gaps(m, model, opt, want)
+    del model, opt, step
 
     # the control: the same first step with the backward kernel's gradients scaled
     backward, controls = ops.flash_attention_backward, {}
@@ -2266,14 +2508,32 @@ def phase_dense_parity():
             ops.flash_attention_backward = backward
         controls[label] = _step1_gaps(m, model, opt, want)
         del model, opt, step
-    emit({"phase": "dense_parity", "config": "deepseek-7b SMOKE", "dtype": "float32, TF32 off",
-          "steps": [{k: {"card": v[0], "cpu": v[1]} for k, v in r.items()} for r in rows],
-          "step1_gaps": step1, "change_rel_over_3_steps": change,
-          "control_step1_gaps": controls,
-          "flash_launches": {"forward": launches[0], "backward": launches[1]},
-          "tolerances": {"step1_rtol": DENSE_STEP1_RTOL, "step1_grad_rel": DENSE_GRAD_REL,
-                         "step1_change_rel": DENSE_STEP1_CHANGE_REL, "loss_rtol": DENSE_LOSS_RTOL,
-                         "grad_norm_rtol": DENSE_GNORM_RTOL, "change_rel": DENSE_CHANGE_REL}})
+    return rows, step1, plain, controls, change, launches, tcfg, (routes if route_trace else None)
+
+
+def _parity_line(phase, config, rows, step1, plain, change, controls, launches, **extra):
+    return {"phase": phase, "config": config, "dtype": "float32, TF32 off",
+            "steps": [{k: {"card": v[0], "cpu": v[1]} for k, v in r.items()} for r in rows],
+            "step1_gaps": step1, "change_rel_over_3_steps": change,
+            "plain_attention_step1_gaps": plain, "control_step1_gaps": controls,
+            "flash_launches": {"forward": launches[0], "backward": launches[1]}, **extra}
+
+
+def phase_dense_parity():
+    """The deepseek-7b smoke config (fp32, head dim 32: the SIMT kernels
+    forward and backward) trained 3 steps on the card and on the CPU from the
+    same weights; then the control: one card step with the backward
+    kernel's gradients zeroed, and one with them negated, must fail the
+    first step's checks."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config("deepseek-7b")
+    check(cfg.compute_dtype == "float32" and cfg.remat == "none", "deepseek-7b smoke is fp32 without remat")
+    rows, step1, plain, controls, change, launches, tcfg, _ = _train_parity(cfg)
+    emit(_parity_line("dense_parity", "deepseek-7b SMOKE", rows, step1, plain, change, controls, launches,
+                      tolerances={"step1_rtol": DENSE_STEP1_RTOL, "step1_grad_rel": DENSE_GRAD_REL,
+                                  "step1_change_rel": DENSE_STEP1_CHANGE_REL, "loss_rtol": DENSE_LOSS_RTOL,
+                                  "grad_norm_rtol": DENSE_GNORM_RTOL, "change_rel": DENSE_CHANGE_REL}))
     check(_step1_ok(step1), f"step 1 card vs CPU: {step1}")
     for i, r in enumerate(rows[1:], start=1):
         (gl, cl), (gg, cg) = r["loss"], r["grad_norm"]
@@ -2283,15 +2543,64 @@ def phase_dense_parity():
     for label, g in controls.items():
         check(not _step1_ok(g), f"the {label} control passes the first step's checks: {g}")
     # no remat: one forward and one backward per layer and microbatch
-    want_launches = len(batches) * tcfg.microbatches * cfg.n_layers
+    want_launches = len(rows) * tcfg.microbatches * cfg.n_layers
     check(launches == (want_launches, want_launches),
           f"flash launches in 3 smoke steps: {launches}, want {want_launches} each")
 
 
-def _train_only(model, tcfg, batch, names, steps):
+def phase_moe_train_parity():
+    """deepseek-v2-lite's smoke config at deepseek-v2's published MLA head
+    dims (q/k 128 + 64, v 128; fp32: the SIMT flash kernels forward and
+    backward at (192, 128)) trained 3 steps on the card and on the CPU from
+    the same weights.  Step 1's experts first, call by call (a token routed
+    to other experts must be a top-k tie, TIE_EPS), then step 1 held to
+    dense_parity's tolerances (the grad norm to MOE_STEP1_GNORM_RTOL), its
+    gaps with the plain attention on the card printed beside; the later
+    steps are printed with the tokens each routed differently, not held (see
+    MOE_STEP1_GNORM_RTOL); then the control: one card step with the backward
+    kernel's gradients zeroed, and one with them negated, must fail the
+    first step's checks."""
+    from repro_torch.configs import MLAConfig, get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+
+    published = MLAConfig(kv_lora_rank=32, qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128)
+    cfg = dataclasses.replace(get_smoke_config("deepseek-v2-lite-16b"), mla=published)
+    check(cfg.compute_dtype == "float32" and cfg.remat == "none" and cfg.moe is not None,
+          "deepseek-v2-lite smoke is fp32 MoE without remat")
+    check(fa.select_bwd_route(torch.float32, MLA_DQK, MLA_DV) == "simt", "fp32 (192, 128) takes the SIMT backward")
+    rows, step1, plain, controls, change, launches, tcfg, routes = _train_parity(cfg, route_trace=True)
+    flipped = []  # per step: tokens the two devices routed to different experts, and their largest margin
+    for step, (cpu_calls, gpu_calls) in enumerate(zip(routes["cpu"], routes["cuda"])):
+        check(len(cpu_calls) == len(gpu_calls) > 0, f"step {step + 1}: {len(cpu_calls)} CPU router calls, "
+                                                    f"{len(gpu_calls)} on the card")
+        n, margin = 0, 0.0
+        for call, ((ci, cg), (gi, gg)) in enumerate(zip(cpu_calls, gpu_calls)):
+            for t in torch.nonzero((ci != gi).any(-1)).flatten().tolist():
+                m = max(cg[t].item(), gg[t].item())
+                n, margin = n + 1, max(margin, m)
+                if step == 0:
+                    check(m < TIE_EPS, f"step 1, router call {call}, token {t}: experts {ci[t].tolist()} on the "
+                                       f"CPU and {gi[t].tolist()} on the card with a top-k margin of {m}")
+        flipped.append({"tokens": n, "routed": sum(len(c[0]) for c in cpu_calls), "max_margin": margin})
+    emit(_parity_line("moe_train_parity", "deepseek-v2-lite-16b SMOKE at the published MLA head dims", rows, step1,
+                      plain, change, controls, launches, mla=dataclasses.asdict(published),
+                      moe=dataclasses.asdict(cfg.moe), routed_differently=flipped, tie_eps=TIE_EPS,
+                      tolerances={"step1_rtol": DENSE_STEP1_RTOL, "step1_grad_norm_rtol": MOE_STEP1_GNORM_RTOL,
+                                  "step1_grad_rel": DENSE_GRAD_REL, "step1_change_rel": DENSE_STEP1_CHANGE_REL}))
+    check(_step1_ok(step1, MOE_STEP1_GNORM_RTOL), f"step 1 card vs CPU: {step1}")
+    check(all(np.isfinite(v) for r in rows for pair in r.values() for v in pair), f"non-finite metrics {rows}")
+    for label, g in controls.items():
+        check(not _step1_ok(g, MOE_STEP1_GNORM_RTOL), f"the {label} control passes the first step's checks: {g}")
+    want_launches = len(rows) * tcfg.microbatches * cfg.n_layers  # every layer is MLA; no remat
+    check(launches == (want_launches, want_launches),
+          f"flash launches in 3 smoke steps: {launches}, want {want_launches} each")
+
+
+def _train_only(model, tcfg, batch, names, steps, grad_factor=1.0):
     """``steps`` AdamW steps (``tcfg``'s schedule and settings) on the
-    parameters ``names`` alone, the rest frozen, on one repeated batch:
-    the loss before each step and after the last."""
+    parameters ``names`` alone, the rest frozen, on one repeated batch, their
+    gradients scaled by ``grad_factor``: the loss before each step and after
+    the last."""
     from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm, learning_rate
     from repro_torch.train import make_loss_fn
 
@@ -2302,7 +2611,8 @@ def _train_only(model, tcfg, batch, names, steps):
         total, metrics = loss_fn(batch)
         grads = torch.autograd.grad(total, list(leaves.values()))
         losses.append(float(metrics["loss"].detach()))
-        grads, _ = clip_by_global_norm({n: g.float() for n, g in zip(leaves, grads)}, tcfg.adamw.grad_clip)
+        grads, _ = clip_by_global_norm({n: grad_factor * g.float() for n, g in zip(leaves, grads)},
+                                       tcfg.adamw.grad_clip)
         opt = adamw_update(grads, opt, leaves, learning_rate(int(opt["step"]), tcfg.schedule), tcfg.adamw)
     with torch.no_grad():
         losses.append(float(loss_fn(batch)[1]["loss"]))
@@ -2341,27 +2651,31 @@ def attention_inputs(model, loss_fn, batch):
     return layers
 
 
-def _train_full_width(phase: str, cfg, steps: int, eval_every: int):
-    """Train ``cfg`` (a dense config at its published width, cut in depth
-    only) on the card through ``Trainer``'s entry point for ``steps`` steps
-    with an eval every ``eval_every``, and check it: the exact forward and
-    backward flash launches (every backward on the tensor-core route), the
-    train and eval lanes, the held-out loss; one step traced for the device's
-    idle share and time by kernel; every layer's real q, k, v and dO through
-    both flash kernels against the plain versions; the attention-only check
-    beside its zeroed and negated controls.  Prints the phase's line and
-    returns the launches and the largest gradient error."""
+def cut_config(cut: TrainCut):
+    """``cut``'s config at its published widths, cut to its depth."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(cut.config), n_layers=cut.layers)
+
+
+def full_width_run(cfg, steps: int, eval_every: int):
+    """Train ``cfg`` on the card through ``Trainer``'s entry point for
+    ``steps`` steps with an eval every ``eval_every``, at the full-width
+    phases' settings (DENSE_BATCH x DENSE_SEQ in DENSE_MICRO microbatches,
+    AdamW, peak lr DENSE_LR after 2 warm-up steps), counting the flash
+    launches and each backward call's route.  Returns the run's state and
+    readings: the trainer, model and optimizer state, the history, the
+    held-out loss on one fixed batch (``probe``) before and after, the
+    launches, the routes, the peak device memory over the steps and the
+    parameter count."""
+    from types import SimpleNamespace
+
     from repro_torch.data import DataConfig, make_train_iter
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import attention_lse_ref, flash_backward_ref
     from repro_torch.optim import AdamWConfig, ScheduleConfig
-    from repro_torch.train import TrainConfig, Trainer, make_loss_fn, make_train_step
+    from repro_torch.train import TrainConfig, Trainer, make_loss_fn
 
-    L, D = cfg.n_layers, cfg.resolved_head_dim
-    check((cfg.param_dtype, cfg.compute_dtype, cfg.opt_state_dtype, cfg.remat)
-          == ("bfloat16", "bfloat16", "float32", "full"), f"{cfg.name}'s own dtypes and remat")
-    check(fa.select_bwd_route(torch.bfloat16, D) == "wgmma", f"bf16 at head dim {D} takes the tensor-core backward")
     tcfg = TrainConfig(adamw=AdamWConfig(weight_decay=0.1, grad_clip=1.0),
                        schedule=ScheduleConfig(peak_lr=DENSE_LR, warmup_steps=2, decay_steps=steps),
                        microbatches=DENSE_MICRO)
@@ -2376,19 +2690,18 @@ def _train_full_width(phase: str, cfg, steps: int, eval_every: int):
     model, opt = trainer.restore_or_init()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
     held_out = make_loss_fn(model, tcfg)
     with torch.no_grad():
-        probe_before = float(held_out(probe)[1]["loss"])
+        before = float(held_out(probe)[1]["loss"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     # the route of every backward call, as the wrapper picks it (no caller passes one)
-    backward, bwd_routes = ops.flash_attention_backward, {}
+    backward, routes = ops.flash_attention_backward, {}
 
     def routed(*a, **kw):
-        route = kw.get("route") or fa.select_bwd_route(a[0].dtype, a[0].shape[-1])
-        bwd_routes[route] = bwd_routes.get(route, 0) + 1
+        route = kw.get("route") or fa.select_bwd_route(a[0].dtype, a[0].shape[-1], a[2].shape[-1])
+        routes[route] = routes.get(route, 0) + 1
         return backward(*a, **kw)
 
     ops.flash_attention_backward = routed
@@ -2403,10 +2716,45 @@ def _train_full_width(phase: str, cfg, steps: int, eval_every: int):
     train_it.close()
     eval_it.close()
     with torch.no_grad():
-        probe_after = float(held_out(probe)[1]["loss"])
+        after = float(held_out(probe)[1]["loss"])
+    return SimpleNamespace(trainer=trainer, tcfg=tcfg, model=model, opt=opt, hist=hist, probe=probe,
+                           held_out=held_out, held_out_before=before, held_out_after=after, fwd=fwd, bwd=bwd,
+                           routes=routes, peak_gb=peak_gb, init_s=init_s,
+                           n_params=sum(p.numel() for p in model.parameters()))
+
+
+def _train_full_width(cut: TrainCut, cfg):
+    """Train ``cfg`` (``cut``'s config at its published widths, cut in depth
+    only; dense, or MoE with MLA) on the card (``full_width_run``) for
+    ``cut.steps`` steps with an eval every ``cut.eval_every``, and check it:
+    the parameter count, the exact forward and backward flash launches
+    (every backward on the tensor-core route, at the widths
+    ``flash_widths`` gives), the flash FLOPs of the step cost at those
+    widths, the train and eval lanes, the held-out loss (``cut.held_out``),
+    a peak under the card's 80 GB; one step traced for the device's idle
+    share and time by kernel and by op; every layer's real q, k, v and dO
+    through both flash kernels against the plain versions; the
+    attention-only and FFN-only checks beside their zeroed and negated
+    controls (ATTN_ONLY_DROP).  Prints the phase's line and returns the
+    launches and the largest gradient error."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_lse_ref, flash_backward_ref
+    from repro_torch.train import flash_widths, make_train_step
+
+    L, steps = cfg.n_layers, cut.steps
+    _, D, Dv = flash_widths(cfg)
+    check(L == cut.layers, f"{cfg.name} at {L} layers, not {cut.layers}")
+    check((cfg.param_dtype, cfg.compute_dtype, cfg.opt_state_dtype, cfg.remat)
+          == ("bfloat16", "bfloat16", "float32", "full"), f"{cfg.name}'s own dtypes and remat")
+    check(fa.select_bwd_route(torch.bfloat16, D, Dv) == "wgmma",
+          f"bf16 at {_dims_label(D, Dv)} takes the tensor-core backward")
+    run = full_width_run(cfg, steps, cut.eval_every)
+    trainer, tcfg, model, opt, hist, probe = run.trainer, run.tcfg, run.model, run.opt, run.hist, run.probe
+    fwd, bwd = run.fwd, run.bwd
 
     losses = [h["loss"] for h in hist]
-    n_evals = steps // eval_every
+    n_evals = steps // cut.eval_every
     train, evals = trainer.stats.summary(trainer.train_stream), trainer.stats.summary(trainer.eval_stream)
     # a step: each layer and microbatch runs the forward kernel twice (forward, remat recompute) and
     # the backward once; an eval runs the forward once per layer
@@ -2416,20 +2764,25 @@ def _train_full_width(phase: str, cfg, steps: int, eval_every: int):
     parts, cost = trainer.cost_parts, trainer.step_cost
     later = [  # judged after the phase's line is printed
         (all(np.isfinite(losses)) and all(np.isfinite(e["loss"]) for e in trainer.eval_history), "non-finite loss"),
-        (probe_after < probe_before, f"held-out loss does not fall: {probe_before} -> {probe_after}"),
+        (run.n_params == cut.params, f"{run.n_params} parameters, want {cut.params}"),
+        (run.peak_gb < 80, f"peak device memory {run.peak_gb} GB, not under the card's 80"),
         (train["steps"] == steps == len(hist), f"train lane steps {train['steps']}"),
         (evals["steps"] == n_evals == len(trainer.eval_history), f"eval lane steps {evals['steps']}"),
         (train["tokens"] == steps * DENSE_BATCH * DENSE_SEQ, f"train lane tokens {train['tokens']}"),
         ((fwd, bwd) == (want_fwd, want_bwd), f"flash launches {fwd}, {bwd}; want {want_fwd}, {want_bwd}"),
-        (bwd_routes == {"wgmma": want_bwd}, f"backward calls by route {bwd_routes}; want {want_bwd} on wgmma"),
-        (parts["flash_forward"] == DENSE_MICRO * 2 * L * fa.flash_flops(*mb, causal=True)
-         and parts["flash_backward"] == DENSE_MICRO * L * fa.flash_flops(*mb, causal=True, backward=True),
+        (run.routes == {"wgmma": want_bwd}, f"backward calls by route {run.routes}; want {want_bwd} on wgmma"),
+        (parts["flash_forward"] == DENSE_MICRO * 2 * L * fa.flash_flops(*mb, causal=True, v_head_dim=Dv)
+         and parts["flash_backward"] == DENSE_MICRO * L * fa.flash_flops(*mb, causal=True, backward=True,
+                                                                          v_head_dim=Dv),
          f"flash FLOPs in the step cost {parts}"),
         (abs(train["flops"] - steps * cost.flops) <= 1e-9 * train["flops"], "train lane FLOPs"),
         (cost.hbm_bytes > 0 and abs(train["hbm_bytes"] - steps * cost.hbm_bytes) <= 1e-9 * train["hbm_bytes"],
          f"train lane bytes {train['hbm_bytes']}"),
         (evals["flops"] == 0 and evals["hbm_bytes"] == 0, "the eval lane carries no cost"),
     ]
+    if cut.held_out == "falls":
+        later.append((run.held_out_after < run.held_out_before,
+                      f"held-out loss does not fall: {run.held_out_before} -> {run.held_out_after}"))
     step_ms = [r.seconds * 1e3 for r in trainer.stats.records if r.stream_id == trainer.train_stream]
     steady_ms = statistics.median(step_ms[2:])
 
@@ -2443,6 +2796,9 @@ def _train_full_width(phase: str, cfg, steps: int, eval_every: int):
         opt, _ = step(opt, probe)
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t1
+    del opt, step  # the checks below keep their own optimizer states
+    run.opt = None
+    torch.cuda.empty_cache()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_s = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
     by_name = {}
@@ -2450,21 +2806,30 @@ def _train_full_width(phase: str, cfg, steps: int, eval_every: int):
         name = re.sub(r"\(.*", "", e.name.replace("(anonymous namespace)::", ""))[:48]
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])
+    # device time by the op that launched it (self time: an op's own kernels, not its children's)
+    by_op = {a.key: getattr(a, "self_device_time_total", 0.0) / 1e3 for a in prof.key_averages()}
+    top_ops = dict(sorted(((k, v) for k, v in by_op.items() if v > 0), key=lambda kv: -kv[1])[:12])
+    kernel_ms = lambda *keys: sum(ms for n, ms in by_name.items() if any(key in n for key in keys))
+    named = {"fp32 GEMMs (the unembedding; the MoE router)": kernel_ms("f32f32", "sgemm"),
+             "multi-tensor kernels (AdamW, gradient accumulation)": kernel_ms("multi_tensor_apply"),
+             "aten::bmm (the experts)": by_op.get("aten::bmm", 0.0), "flash kernels": kernel_ms("flash")}
     idle = {"device_busy_ms": busy_s * 1e3, "kernel_launches": len(kernels), "step_ms_median": steady_ms,
             "idle_share": max(0.0, 1.0 - busy_s * 1e3 / steady_ms) if kernels else "not measured",
-            "traced_step_ms": traced_s * 1e3, "profiler_s": time.perf_counter() - t0, "device_ms_by_kernel": top,
+            "traced_step_ms": traced_s * 1e3, "profiler_s": time.perf_counter() - t0, "device_ms_named": named,
+            "device_ms_by_kernel": top, "device_ms_by_op": top_ops,
             "flash_device_ms": {n: ms for n, ms in by_name.items() if "flash" in n}}
     del prof
 
     micro = {k: v[: DENSE_BATCH // DENSE_MICRO] for k, v in probe.items()}
-    layers = attention_inputs(model, held_out, micro)
+    layers = attention_inputs(model, run.held_out, micro)
     rows = []
     for c in layers:
-        q, k, v, do = c["q"], c["k"], c["v"], c["do"]
-        o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
-        lse_ref = attention_lse_ref(q, k, v, causal=True)
-        g = _grads_close(fa.flash_attention_backward(q, k, v, o, lse, do, causal=True),
-                         flash_backward_ref(q, k, v, o, lse, do, causal=True))
+        q, k, v, do, scale = c["q"], c["k"], c["v"], c["do"], c["kw"].get("scale")
+        check((q.shape[-1], v.shape[-1]) == (D, Dv), f"attention at {_dims_label(q.shape[-1], v.shape[-1])}")
+        o, lse = fa.flash_attention(q, k, v, causal=True, scale=scale, return_lse=True)
+        lse_ref = attention_lse_ref(q, k, v, causal=True, scale=scale)
+        g = _grads_close(fa.flash_attention_backward(q, k, v, o, lse, do, causal=True, scale=scale),
+                         flash_backward_ref(q, k, v, o, lse, do, causal=True, scale=scale))
         lse_max = lse_ref.abs().max().item()
         g["lse"] = {"max_abs_err": (lse - lse_ref).abs().max().item(), "max_abs": lse_max,
                     "ok": bool(torch.allclose(lse, lse_ref, rtol=0, atol=LSE_TRAIN_ATOL))}
@@ -2472,50 +2837,71 @@ def _train_full_width(phase: str, cfg, steps: int, eval_every: int):
         del o, lse, lse_ref
     del layers
 
-    # the attention-only check and its controls, each from the same weights
-    attn = [f"layers.{i}.attn.{w}" for i in range(L) for w in ("wq", "wk", "wv")]
+    # the attention-only and FFN-only checks and their controls, each from the same weights, over the
+    # reference's stack (see ATTN_ONLY_DROP): the projections into q, k and v (MLA: q, the latent and rope
+    # key, and the latent's expansions into K and V), the controls scaling the backward kernel's dq, dk, dv;
+    # the MLP weights (a MoE layer's router, routed and shared experts), the controls scaling their gradients
+    qkv = ("wq", "w_dkv", "w_uk", "w_uv") if cfg.mla is not None else ("wq", "wk", "wv")
+    stack = range(cut.stack_from, L)
     params = dict(model.named_parameters())
-    check(all(n in params for n in attn), "every layer has attn.wq, attn.wk and attn.wv")
-    saved = {n: params[n].detach().clone() for n in attn}
-    attn_cfg = dataclasses.replace(tcfg, schedule=dataclasses.replace(tcfg.schedule, decay_steps=ATTN_ONLY_STEPS))
-    attn_only = {}
-    for label, factor in (("kernel", None), ("zeroed", 0.0), ("negated", -1.0)):
-        if factor is not None:
-            ops.flash_attention_backward = lambda *a, f=factor, **kw: tuple(f * t for t in backward(*a, **kw))
-        try:
-            attn_only[label] = _train_only(model, attn_cfg, micro, attn, ATTN_ONLY_STEPS)
-        finally:
-            ops.flash_attention_backward = backward
-            with torch.no_grad():
-                for n in attn:
-                    params[n].copy_(saved[n])
-    del saved, params
-    drops = {label: losses[0] - losses[-1] for label, losses in attn_only.items()}
-    later += [
-        (drops["kernel"] >= ATTN_ONLY_DROP, f"attention-only: the loss fell by {drops['kernel']}, want {ATTN_ONLY_DROP}"),
-        (drops["zeroed"] < ATTN_ONLY_DROP and drops["negated"] < ATTN_ONLY_DROP,
-         f"attention-only: a control passes the check: {drops}"),
-    ]
+    groups = {"attention_only": [f"layers.{i}.attn.{w}" for i in stack for w in qkv],
+              "ffn_only": [n for n in params if any(n.startswith(f"layers.{i}.{m}.") for i in stack
+                                                     for m in ("ffn", "moe"))]}
+    check(all(n in params for n in groups["attention_only"]), f"every layer has attn.{', attn.'.join(qkv)}")
+    check(len(groups["ffn_only"]) >= 3 * len(stack), f"the stack's MLP weights: {groups['ffn_only']}")
+    alone_cfg = dataclasses.replace(tcfg, schedule=dataclasses.replace(tcfg.schedule, decay_steps=ATTN_ONLY_STEPS))
+    backward, alone = ops.flash_attention_backward, {}
+    for group, names in groups.items():
+        saved, losses_by = {n: params[n].detach().clone() for n in names}, {}
+        for label, factor in (("gradient", 1.0), ("zeroed", 0.0), ("negated", -1.0)):
+            if group == "attention_only" and factor != 1.0:
+                ops.flash_attention_backward = lambda *a, f=factor, **kw: tuple(
+                    f * t for t in backward(*a, **kw))
+            try:
+                losses_by[label] = _train_only(model, alone_cfg, micro, names, ATTN_ONLY_STEPS,
+                                               grad_factor=factor if group == "ffn_only" else 1.0)
+            finally:
+                ops.flash_attention_backward = backward
+                with torch.no_grad():
+                    for n in names:
+                        params[n].copy_(saved[n])
+        del saved
+        drops = {label: ls[0] - ls[-1] for label, ls in losses_by.items()}
+        alone[group] = {"losses": losses_by, "drops": drops, "min_drop": ATTN_ONLY_DROP, "steps": ATTN_ONLY_STEPS,
+                        "batch": f"the probe's first microbatch ({DENSE_BATCH // DENSE_MICRO} x {DENSE_SEQ}), "
+                                 "repeated",
+                        "trained": f"layers {cut.stack_from}-{L - 1}: "
+                                   f"{sorted({n.split('.', 2)[2] for n in names})}",
+                        "controls": "the backward kernel's dq, dk, dv scaled" if group == "attention_only"
+                                    else "the trained weights' gradients scaled"}
+        later += [
+            (drops["gradient"] >= ATTN_ONLY_DROP, f"{group}: the loss fell by {drops['gradient']}, "
+                                                  f"want {ATTN_ONLY_DROP}"),
+            (drops["zeroed"] < ATTN_ONLY_DROP and drops["negated"] < ATTN_ONLY_DROP,
+             f"{group}: a control passes the check: {drops}"),
+        ]
+    del params
     emit({
-        "phase": phase, "config": cfg.name, "n_layers": L, "d_model": cfg.d_model,
-        "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "head_dim": D, "d_ff": cfg.d_ff,
+        "phase": cut.phase, "config": cfg.name, "n_layers": L, "depth": cut.depth, "d_model": cfg.d_model,
+        "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "head_dim": D, "v_head_dim": Dv, "d_ff": cfg.d_ff,
         "vocab": cfg.vocab_size, "hidden_act": cfg.hidden_act, "tie_embeddings": cfg.tie_embeddings,
         "scale_embedding": cfg.scale_embedding,
+        "mla": dataclasses.asdict(cfg.mla) if cfg.mla is not None else None,
+        "moe": dataclasses.asdict(cfg.moe) if cfg.moe is not None else None,
         "dtype": {"params": cfg.param_dtype, "compute": cfg.compute_dtype, "moments": cfg.opt_state_dtype},
-        "remat": cfg.remat, "params": n_params, "init_s": init_s,
+        "remat": cfg.remat, "params": run.n_params, "init_s": run.init_s,
         "batch": DENSE_BATCH, "seq": DENSE_SEQ, "microbatches": DENSE_MICRO, "steps": steps,
         "peak_lr": DENSE_LR, "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
-        "held_out_loss": {"before": probe_before, "after": probe_after},
-        "attention_only": {"losses": attn_only, "drops": drops, "min_drop": ATTN_ONLY_DROP, "steps": ATTN_ONLY_STEPS,
-                           "batch": f"the probe's first microbatch ({DENSE_BATCH // DENSE_MICRO} x {DENSE_SEQ}), "
-                                    "repeated", "trained": "every layer's attn.wq, attn.wk, attn.wv"},
+        "aux_losses": [h["aux"] for h in hist],
+        "held_out_loss": {"before": run.held_out_before, "after": run.held_out_after, "held": cut.held_out},
+        **alone,
         "eval_losses": [e["loss"] for e in trainer.eval_history],
         "lanes": {"train": train, "eval": evals}, "step_cost": parts,
         "flash_launches": {"forward": fwd, "backward": bwd, "forward_expected": want_fwd,
-                           "backward_expected": want_bwd, "backward_by_route": bwd_routes,
+                           "backward_expected": want_bwd, "backward_by_route": run.routes,
                            "kernels_per_backward": fa.BWD_LAUNCHES},
         "tokens_per_s": train["tokens_per_s"], "step_ms_median": steady_ms, "step_ms_first": step_ms[0],
-        "max_memory_allocated_gb": peak_gb, "device_idle": idle,
+        "max_memory_allocated_gb": run.peak_gb, "device_idle": idle,
         "attention_op_bf16": {"layers": rows, "inputs": f"one probe microbatch ({DENSE_BATCH // DENSE_MICRO} x "
                                                         f"{DENSE_SEQ}), every layer's q, k, v and dO",
                               "tolerance": {"rtol": BWD_RTOL, "atol_of_max": BWD_ATOL_OF_MAX,
@@ -2532,12 +2918,10 @@ def _train_full_width(phase: str, cfg, steps: int, eval_every: int):
 def phase_dense_train_full_width():
     """deepseek-7b at its published width, cut to DENSE_LAYERS layers, trained
     on the card (head dim 128)."""
-    from repro_torch.configs import get_config
-
-    cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=DENSE_LAYERS)
+    cfg = cut_config(DENSE_CUT)
     check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size)
           == (4096, 32, 32, 128, 11008, 102400), "deepseek-7b's published width")
-    return _train_full_width("dense_train_full_width", cfg, DENSE_STEPS, DENSE_EVAL_EVERY)
+    return _train_full_width(DENSE_CUT, cfg)
 
 
 def phase_gemma_train_full_width():
@@ -2546,14 +2930,29 @@ def phase_gemma_train_full_width():
     tensor-core flash backward at D = 256, forward and backward, and its
     GeGLU, tied and scaled embedding go through the trainer's own entry
     point."""
-    from repro_torch.configs import get_config
-
-    cfg = dataclasses.replace(get_config("gemma-7b"), n_layers=GEMMA_LAYERS)
+    cfg = cut_config(GEMMA_CUT)
     check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size)
           == (3072, GEMMA_HEADS, GEMMA_HEADS, GEMMA_HEAD_DIM, 24576, 256000), "gemma-7b's published width")
     check((cfg.hidden_act, cfg.tie_embeddings, cfg.scale_embedding) == ("gelu", True, True),
           "gemma-7b's GeGLU, tied and scaled embedding")
-    return _train_full_width("gemma_train_full_width", cfg, GEMMA_STEPS, GEMMA_EVAL_EVERY)
+    return _train_full_width(GEMMA_CUT, cfg)
+
+
+def phase_moe_train_full_width():
+    """deepseek-v2-lite at its published widths, cut to MOE_TRAIN_LAYERS
+    layers (the only cut; see there), trained on the card: every layer's MLA
+    attention runs the tensor-core flash kernels at (192, 128) forward and
+    backward, and its MoE layers (the router, the sort-based dispatch, the
+    experts' ``bmm``s, the combine) go through autograd in the trainer's own
+    entry point."""
+    cfg = cut_config(MOE_CUT)
+    m, moe = cfg.mla, cfg.moe
+    check((cfg.d_model, cfg.n_heads, m.kv_lora_rank, m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim, cfg.d_ff,
+           cfg.vocab_size, cfg.tie_embeddings)
+          == (2048, MLA_HEADS, 512, MLA_DQK, MLA_DV, 10944, 102400, False), "deepseek-v2-lite's published widths")
+    check((moe.n_experts, moe.top_k, moe.expert_d_ff, moe.n_shared, moe.first_k_dense) == (64, 6, 1408, 2, 1),
+          "deepseek-v2-lite's published experts")
+    return _train_full_width(MOE_CUT, cfg)
 
 
 def _u64_on_card(a: np.ndarray) -> torch.Tensor:
@@ -2920,12 +3319,16 @@ def main() -> int:
     ssd_op_err = phase_ssd_op(model, probe)
     del model, probe
     bwd_timing, d256_bwd, bwd_err = phase_flash_bwd_kernel(smi)
+    mla_bwd = phase_mla_bwd_kernel(smi, sass["flash_attention_bwd_wgmma"])
     routes = phase_routes(smi, served_prompt_lens())
     phase_dense_parity()
+    phase_moe_train_parity()
     torch.cuda.empty_cache()
     dense_fwd, dense_bwd, dense_err = phase_dense_train_full_width()
     torch.cuda.empty_cache()
     gemma_fwd, gemma_bwd, gemma_err = phase_gemma_train_full_width()
+    torch.cuda.empty_cache()
+    moe_fwd, moe_bwd, moe_err = phase_moe_train_full_width()
     torch.cuda.empty_cache()
     seg_err, seg_timings, acc_timing, numpy_sweep = phase_segment_kernel(smi)
     seg_launches = phase_sim_sweep(numpy_sweep)
@@ -2943,10 +3346,10 @@ def main() -> int:
                   "stages; S = Q K^T as 8 x 4 micro-tiles over two parts of D (eight at 256, one at D <= 64) summed "
                   "in one softmax pass (natural exp, as the plain version; P in shared memory), O += P V in 8 x 4 "
                   "register blocks), timed in fp32 as fp32",
-        "launches": launches + mla_launches + hybrid_full["flash_launches"] + dense_fwd + gemma_fwd,
+        "launches": launches + mla_launches + hybrid_full["flash_launches"] + dense_fwd + gemma_fwd + moe_fwd,
         "launches_by_path": {"serving": launches, "moe_mla_serving": mla_launches,
                              "hybrid_serving": hybrid_full["flash_launches"], "dense_training": dense_fwd,
-                             "gemma_training": gemma_fwd},
+                             "gemma_training": gemma_fwd, "moe_mla_training": moe_fwd},
         "max_abs_err": max(bf16_err, op_err, *mla["max_abs_err"].values(),
                            moe_full["attention_op_bf16"]["max_abs_err"]),
         "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
@@ -2977,10 +3380,10 @@ def main() -> int:
                   "outputs and computing S and dP itself; fp32 runs the SIMT backward "
                   f"({fa.BWD_SIMT_SOURCE}: 8 x 4 score micro-tiles of S and dP, float4 reads of swizzled tiles, "
                   "cp.async double buffering), timed beside it as simt_ms",
-        "launches": dense_bwd + gemma_bwd,
-        "launches_by_path": {"dense_training": dense_bwd, "gemma_training": gemma_bwd},
+        "launches": dense_bwd + gemma_bwd + moe_bwd,
+        "launches_by_path": {"dense_training": dense_bwd, "gemma_training": gemma_bwd, "moe_mla_training": moe_bwd},
         "kernels_per_launch": len(bwd_timing["device_us_by_kernel_10_calls"]["wgmma"]),
-        "max_abs_err": max(bwd_err, dense_err, gemma_err),
+        "max_abs_err": max(bwd_err, dense_err, gemma_err, moe_err, *mla_bwd["max_abs_err"].values()),
         "ms": bwd_timing["kernel_ms"], "kernel_ms": bwd_timing["kernel_ms"], "plain_ms": bwd_timing["plain_ms"],
         "simt_ms": bwd_timing["simt_ms"],
         "bound_ms": bwd_timing["bound_ms"], "bound_by": bwd_timing["bound_by"],
@@ -2991,6 +3394,18 @@ def main() -> int:
                                            "bound_ms", "bound_by")}
                  for shape, r in d256_bwd.items()},
         "shape": "B=1 S=2048 Hq=Hkv=32 D=128 bf16 causal",
+        "mla_192_128": {
+            "route": "wgmma", "source": fa.BWD_SOURCE, "shape": mla_bwd["shape"], "launches": moe_bwd,
+            "max_abs_err": mla_bwd["max_abs_err"], "sdpa_kernels": mla_bwd["timing"]["2048"]["sdpa_kernels"],
+            "kernels_per_launch": len(mla_bwd["timing"]["2048"]["device_us_by_kernel_10_calls"]["wgmma"]),
+            "timing": {S: {k: r[k] for k in ("kernel_ms", "plain_ms", "library_ms", "library_eager_ms", "bound_ms",
+                                             "bound_by")}
+                       for S, r in mla_bwd["timing"].items()},
+            "fp32": {"route": "simt", "source": fa.BWD_SIMT_SOURCE,
+                     "timing": {S: {"kernel_ms": r["simt_fp32_ms"], "plain_ms": r["plain_fp32_ms"],
+                                    "library_ms": r["library_ms_fp32"], "bound_ms": r["simt_fp32_bound_ms"],
+                                    "bound_by": r["simt_fp32_bound_by"]} for S, r in mla_bwd["timing"].items()}},
+        },
     }, {
         "name": "ssd_scan", "route": "cuda", "source": sk.SOURCE, "replaces": sk.REPLACES,
         "design": "bf16: the chunked-parallel form in three kernels; C B^T once per (batch, group, 64-row tile) "
@@ -3020,7 +3435,11 @@ def main() -> int:
                  "real_inputs_max_y_rel_l2": max(r["y_rel_l2"] for r in hybrid_full["ssd_op_bf16"]["layers"]),
                  "timing": {S: {k: r[k] for k in ("kernel_ms", "simt_ms", "plain_ms", "library_ms", "bound_ms",
                                                   "bound_by", "tiles_per_chunk")}
-                            for S, r in p128["timing"].items()}},
+                            for S, r in p128["timing"].items()},
+                 "fp32": {"route": "simt", "source": sk.SIMT_SOURCE,
+                          "timing": {S: {k: r[k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                                                           "bound_by")}
+                                     for S, r in p128["fp32_timing"].items()}}},
     }, {
         "name": "segment_scatter", "route": "cuda", "source": ss.SOURCE, "replaces": ss.REPLACES,
         "design": "zero fill by cudaMemsetAsync; a warp takes 64 consecutive events (16-byte loads where "

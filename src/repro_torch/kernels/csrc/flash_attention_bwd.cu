@@ -12,14 +12,15 @@
 // query head, kv head h / group (GQA: dK and dV summed over the group),
 // causal (Sq == Sk) or not.
 //
-// Layout: q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D), o and dO (B, Sq, Hq, D),
-// all read through their strides (the last dimension contiguous; dO arrives
-// from the output projection's gradient and may be any view); lse
-// (B, Hq, Sq) fp32 as the forward kernels write it (natural log, +inf for a
-// row that sees no key); dq (B, Sq, Hq, D), dk and dv (B, Sk, Hkv, D) written
-// contiguous; delta (B, Hq, Sq) fp32 scratch.  fp32 or bf16 in and out (one
-// type for q, k, v, o, dO and the gradients), fp32 inside.  D in 32, 64,
-// 128, 256.
+// Layout: q (B, Sq, Hq, DQK), k (B, Sk, Hkv, DQK), v (B, Sk, Hkv, DV), o
+// and dO (B, Sq, Hq, DV), all read through their strides (the last dimension
+// contiguous; dO arrives from the output projection's gradient and may be
+// any view); lse (B, Hq, Sq) fp32 as the forward kernels write it (natural
+// log, +inf for a row that sees no key); dq (B, Sq, Hq, DQK), dk (B, Sk,
+// Hkv, DQK) and dv (B, Sk, Hkv, DV) written contiguous; delta (B, Hq, Sq)
+// fp32 scratch.  fp32 or bf16 in and out (one type for q, k, v, o, dO and
+// the gradients), fp32 inside, at (DQK, DV) in (32, 32), (64, 64), (128,
+// 128) and (256, 256); fp32 alone at MLA's (192, 128).
 //
 // Design: the FlashAttention-2 backward, split in three launches so that no
 // block adds into another's output (no atomics, the result is the same on
@@ -67,9 +68,19 @@
 // of Q and dO, P, dS, two stages of lse and D_i), all a block may take;
 // 231,936 a dQ block.  The staging, the swizzle and the accumulator
 // products are simt_tile.cuh's, shared with the fp32 forward.
+//
+// MLA's (192, 128) separates the two widths, as the fp32 forward does: Q, K,
+// S and dP's Q side, dQ and dK run over 192 columns, V, O, dO, dP and dV
+// over 128.  Six 64-row tiles of 192- and 128-wide fp32 rows would take 245
+// KB, so it takes the 32-row tiles of D = 256: 132,608 bytes a dK/dV block.
+// The half of the threads that computes S^T sums over 192 columns while the
+// other sums dP^T over 128; dK is held in 8 x 6 register blocks (two-float
+// reads) and dV in 8 x 4, and the dQ kernel's 256 threads hold dQ in 4 x 6.
 // scripts/flash_simt_parts.py times the kernel with each part taken out.
 
 #include <math.h>
+
+#include <type_traits>
 
 #include "simt_tile.cuh"
 
@@ -77,17 +88,20 @@ namespace {
 
 using namespace simt;
 
-template <int D>
-struct Cfg : Rows<D> {  // BR, SPAD, TILE
-  using Rows<D>::BR;
-  using Rows<D>::SPAD;
-  using Rows<D>::TILE;
-  static constexpr int TI = BR / 8, TJ = BR / 16;  // score micro-tile: TI x TJ of S or of dP a thread
+// DQK: the head dim of q and k (S, dQ, dK), DV: that of v, o and dO (dP, dV)
+template <int DQK, int DV>
+struct Cfg : Rows<DQK> {  // BR, SPAD: the q/k width sets every tile's rows
+  using Rows<DQK>::BR;
+  using Rows<DQK>::SPAD;
+  static constexpr int TQK = BR * DQK, TV = BR * DV;  // floats of a staged Q or K tile, of a V or dO tile
   // dK/dV: K, V, two stages of Q and dO, P, dS, two stages of lse and D_i
-  static constexpr size_t SMEM_KV = (size_t(6) * TILE + 2 * BR * SPAD + 4 * BR) * sizeof(float);
+  static constexpr size_t SMEM_KV = (size_t(3) * (TQK + TV) + 2 * BR * SPAD + 4 * BR) * sizeof(float);
   // dQ: Q, dO, two stages of K and V, P, dS, lse and D_i
-  static constexpr size_t SMEM_Q = (size_t(6) * TILE + 2 * BR * SPAD + 2 * BR) * sizeof(float);
-  static_assert(D / 4 >= 8 && SMEM_KV <= 232448, "tiling");
+  static constexpr size_t SMEM_Q = (size_t(3) * (TQK + TV) + 2 * BR * SPAD + 2 * BR) * sizeof(float);
+  // dQ's row quads a thread: 8 x 4 blocks (4 x 8 at D = 32; 4 x 6 at 192, where two quads would leave a
+  // thread 3 columns)
+  static constexpr int RQ_DQ = DQK >= 64 && DQK != 192 ? 2 : 1;
+  static_assert(DV / 4 >= 8 && SMEM_KV <= 232448, "tiling");
 };
 
 struct Params {
@@ -98,9 +112,9 @@ struct Params {
   const void* dout;
   const float* lse;  // (B, Hq, Sq)
   float* delta;      // (B, Hq, Sq) scratch
-  void* dq;          // (B, Sq, Hq, D) contiguous
-  void* dk;          // (B, Sk, Hkv, D) contiguous
-  void* dv;          // (B, Sk, Hkv, D) contiguous
+  void* dq;          // (B, Sq, Hq, DQK) contiguous
+  void* dk;          // (B, Sk, Hkv, DQK) contiguous
+  void* dv;          // (B, Sk, Hkv, DV) contiguous
   int B, Sq, Sk, Hq, Hkv;
   long long q_sb, q_ss, q_sh;  // strides in elements
   long long k_sb, k_ss, k_sh;
@@ -112,8 +126,9 @@ struct Params {
   int vec;  // fp32 q, k, v and dO can be copied 16 bytes at a time
 };
 
-// D_i = rowsum(dO_i * O_i) for every (batch, head, row), one warp a row.
-template <typename T, int D>
+// D_i = rowsum(dO_i * O_i) over the DV columns, for every (batch, head,
+// row), one warp a row.
+template <typename T, int DV>
 __global__ void __launch_bounds__(THREADS) flash_bwd_delta(const Params p) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * (THREADS / 32) + warp;  // (b * Hq + h) * Sq + i
@@ -124,7 +139,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_delta(const Params p) {
   const T* o = static_cast<const T*>(p.o) + b * p.o_sb + i * p.o_ss + h * p.o_sh;
   const T* g = static_cast<const T*>(p.dout) + b * p.d_sb + i * p.d_ss + h * p.d_sh;
   float acc = 0.f;
-  for (int d = lane; d < D; d += 32) acc = fmaf(ld(o + d), ld(g + d), acc);
+  for (int d = lane; d < DV; d += 32) acc = fmaf(ld(o + d), ld(g + d), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) p.delta[row] = acc;
@@ -149,15 +164,18 @@ __device__ __forceinline__ void stage_rows(float* sLse, float* sDelta, const Par
 // row group and 8 column groups: a float4 that one address serves for the
 // whole quarter takes 2 of the shared memory's cycles, one of 8 addresses
 // 4, so the 8 rows are the broadcast operand.  s[i][j] = sum_d
-// X[rg + 8 i][d] Y[cg + 16 j][d], four columns of D at a time.
-template <int D>
-__device__ __forceinline__ void scores(const float* X, const float* Y, float (&s)[Cfg<D>::TI][Cfg<D>::TJ], int rg,
-                                       int cg) {
-  constexpr int TI = Cfg<D>::TI, TJ = Cfg<D>::TJ;
+// X[rg + 8 i][d] Y[cg + 16 j][d] over the D columns of two BR-row tiles,
+// four columns at a time.
+template <int BR>
+constexpr int TI = BR / 8;  // score micro-tile: TI x TJ of S or of dP a thread
+template <int BR>
+constexpr int TJ = BR / 16;
+template <int D, int BR>
+__device__ __forceinline__ void scores(const float* X, const float* Y, float (&s)[TI<BR>][TJ<BR>], int rg, int cg) {
 #pragma unroll
-  for (int i = 0; i < TI; ++i)
+  for (int i = 0; i < TI<BR>; ++i)
 #pragma unroll
-    for (int j = 0; j < TJ; ++j) s[i][j] = 0.f;
+    for (int j = 0; j < TJ<BR>; ++j) s[i][j] = 0.f;
   // rows rg + 8 i all swizzle by rg & 7, rows cg + 16 j by cg & 7: walk D in
   // runs of 8 chunks, where chunk u of a run sits at u ^ (row & 7), so that
   // every load is a run pointer plus a constant
@@ -170,15 +188,15 @@ __device__ __forceinline__ void scores(const float* X, const float* Y, float (&s
     for (int u = 0; u < 8; ++u) {
       const float* xp = xr + ((u ^ mx) << 2);
       const float* yp = yr + ((u ^ my) << 2);
-      float4 x[TI], y[TJ];
+      float4 x[TI<BR>], y[TJ<BR>];
 #pragma unroll
-      for (int i = 0; i < TI; ++i) x[i] = *reinterpret_cast<const float4*>(xp + 8 * i * D);
+      for (int i = 0; i < TI<BR>; ++i) x[i] = *reinterpret_cast<const float4*>(xp + 8 * i * D);
 #pragma unroll
-      for (int j = 0; j < TJ; ++j) y[j] = *reinterpret_cast<const float4*>(yp + 16 * j * D);
+      for (int j = 0; j < TJ<BR>; ++j) y[j] = *reinterpret_cast<const float4*>(yp + 16 * j * D);
 #pragma unroll
-      for (int i = 0; i < TI; ++i)
+      for (int i = 0; i < TI<BR>; ++i)
 #pragma unroll
-        for (int j = 0; j < TJ; ++j)
+        for (int j = 0; j < TJ<BR>; ++j)
           s[i][j] = fmaf(x[i].x, y[j].x, fmaf(x[i].y, y[j].y, fmaf(x[i].z, y[j].z, fmaf(x[i].w, y[j].w, s[i][j]))));
     }
   }
@@ -190,10 +208,10 @@ __device__ __forceinline__ void scores(const float* X, const float* Y, float (&s
 // D_i).  Both tiles are [column][row] at SPAD, four rows at a time; q is the
 // column and kv the row (the dK/dV kernel, KV_ROWS) or the other way round
 // (the dQ kernel).  lse and dl are the q tile's lse and D_i.
-template <int D, bool KV_ROWS>
+template <int BR, bool KV_ROWS>
 __device__ __forceinline__ void form_p_ds(float* sP, float* sdS, const float* lse, const float* dl, int q0, int k0,
                                           const Params& p) {
-  constexpr int BR = Cfg<D>::BR, SPAD = Cfg<D>::SPAD, R4 = BR / 4;
+  constexpr int SPAD = BR + 4, R4 = BR / 4;
   for (int idx = threadIdx.x; idx < BR * R4; idx += THREADS) {
     const int c = idx / R4, r = (idx % R4) * 4;
     float4 sv = *reinterpret_cast<const float4*>(sP + c * SPAD + r);
@@ -217,23 +235,25 @@ __device__ __forceinline__ void form_p_ds(float* sP, float* sdS, const float* ls
 // dK and dV of one kv tile: a block per (kv tile, kv head, batch).  The
 // first half of the threads computes S^T, P^T and then dV; the second dP^T
 // and then dK.
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv(const Params p) {
-  using C = Cfg<D>;
-  using G = Acc<D, THREADS / 2, 2>;
-  constexpr int BR = C::BR, TI = C::TI, TJ = C::TJ, TILE = C::TILE, SPAD = C::SPAD;
+  using C = Cfg<DQK, DV>;
+  constexpr int BR = C::BR, TQK = C::TQK, TV = C::TV, SPAD = C::SPAD;
+  using GK = Acc<DQK, THREADS / 2, 2, BR>;  // dK: the second half
+  using GV = Acc<DV, THREADS / 2, 2, BR>;   // dV: the first half
   extern __shared__ __align__(16) float smem[];
   float* sK = smem;
-  float* sV = sK + TILE;
-  float* sQ = sV + TILE;          // two stages
-  float* sdO = sQ + 2 * TILE;     // two stages
-  float* sP = sdO + 2 * TILE;     // [q row][kv row]
+  float* sV = sK + TQK;
+  float* sQ = sV + TV;            // two stages
+  float* sdO = sQ + 2 * TQK;      // two stages
+  float* sP = sdO + 2 * TV;       // [q row][kv row]
   float* sdS = sP + BR * SPAD;    // [q row][kv row]: dP^T, then dS^T
   float* sRow = sdS + BR * SPAD;  // per stage: lse, then D_i
 
   const int half = threadIdx.x / (THREADS / 2), w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int rg = (lane >> 3) + 4 * (w & 1), cg = (lane & 7) + 8 * (w >> 1);  // score micro-tile
-  const int ra = G::ra(w, lane), ca = G::ca(w, lane);  // accumulator
+  const int ra = GK::ra(w, lane), ca = GK::ca(w, lane);  // accumulator (GV's are the same)
+  static_assert(GK::RW == GV::RW, "one accumulator thread layout for dK and dV");
   const int k0 = blockIdx.x * BR;  // causal: the first kv tiles see the most q tiles and start first
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
@@ -245,63 +265,88 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv(const Params p) {
   // bring q tile `it` of the walk into stage it & 1, as one cp.async group
   auto issue = [&](int it) {
     const int s = it & 1, h = hk * G_ + it / nq, q0 = q_begin + (it % nq) * BR;
-    stage<D>(sQ + s * TILE, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq, p.vec);
-    stage<D>(sdO + s * TILE, static_cast<const T*>(p.dout) + b * p.d_sb + h * p.d_sh, p.d_ss, q0, p.Sq, p.vec);
+    stage<DQK, BR>(sQ + s * TQK, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq, p.vec);
+    stage<DV, BR>(sdO + s * TV, static_cast<const T*>(p.dout) + b * p.d_sb + h * p.d_sh, p.d_ss, q0, p.Sq, p.vec);
     stage_rows(sRow + s * 2 * BR, sRow + s * 2 * BR + BR, p, size_t(b) * p.Hq + h, q0, BR);
     cp_commit();
   };
-  stage<D>(sK, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Sk, p.vec);
-  stage<D>(sV, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Sk, p.vec);
+  stage<DQK, BR>(sK, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Sk, p.vec);
+  stage<DV, BR>(sV, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Sk, p.vec);
   cp_commit();
   if (n_it > 0) issue(0);
 
-  typename G::Tile acc;  // dV (first half) or dK (second half)
-  zero<D, THREADS / 2, 2>(acc);
+  // dV (first half) or dK (second half): at equal widths one accumulator
+  // serves both halves; at (192, 128) each half has its own, and holds the
+  // other's registers idle
+  typename GK::Tile dk;
+  [[maybe_unused]] typename GV::Tile dv_own;
+  typename GV::Tile& dv = [&]() -> typename GV::Tile& {
+    if constexpr (DQK == DV) return dk; else return dv_own;
+  }();
+  zero<DQK, THREADS / 2, 2, BR>(dk);
+  if constexpr (DQK != DV) zero<DV, THREADS / 2, 2, BR>(dv);
 
   for (int it = 0; it < n_it; ++it) {
     const int s = it & 1, q0 = q_begin + (it % nq) * BR;
     cp_wait<0>();
     __syncthreads();  // stage s has landed for every thread, and every read of stage s ^ 1 is done
     if (it + 1 < n_it) issue(it + 1);
-    const float* tQ = sQ + s * TILE;
-    const float* tdO = sdO + s * TILE;
+    const float* tQ = sQ + s * TQK;
+    const float* tdO = sdO + s * TV;
     const float* lse = sRow + s * 2 * BR;
 
     // S^T = K Q^T or dP^T = V dO^T, rows kv and columns q, stored transposed
-    float sc[TI][TJ];
-    scores<D>(half ? sV : sK, half ? tdO : tQ, sc, rg, cg);
+    float sc[TI<BR>][TJ<BR>];
+    if constexpr (DQK == DV)
+      scores<DQK, BR>(half ? sV : sK, half ? tdO : tQ, sc, rg, cg);
+    else if (half)
+      scores<DV, BR>(sV, tdO, sc, rg, cg);
+    else
+      scores<DQK, BR>(sK, tQ, sc, rg, cg);
     float* dst = half ? sdS : sP;
 #pragma unroll
-    for (int i = 0; i < TI; ++i)
+    for (int i = 0; i < TI<BR>; ++i)
 #pragma unroll
-      for (int j = 0; j < TJ; ++j) dst[(cg + 16 * j) * SPAD + rg + 8 * i] = sc[i][j];
+      for (int j = 0; j < TJ<BR>; ++j) dst[(cg + 16 * j) * SPAD + rg + 8 * i] = sc[i][j];
     __syncthreads();
-    form_p_ds<D, true>(sP, sdS, lse, lse + BR, q0, k0, p);
+    form_p_ds<BR, true>(sP, sdS, lse, lse + BR, q0, k0, p);
     __syncthreads();
     // dV += P^T dO or dK += dS^T Q, reduced over the tile's q rows
-    accumulate<D, THREADS / 2, 2>(half ? sdS : sP, half ? tQ : tdO, acc, ra, ca);
+    if constexpr (DQK == DV)
+      accumulate<DQK, THREADS / 2, 2, BR>(half ? sdS : sP, half ? tQ : tdO, dk, ra, ca);
+    else if (half)
+      accumulate<DQK, THREADS / 2, 2, BR>(sdS, tQ, dk, ra, ca);
+    else
+      accumulate<DV, THREADS / 2, 2, BR>(sP, tdO, dv, ra, ca);
   }
   cp_wait<0>();  // with no q tile, nothing waited for K and V
 
-  const size_t out = (size_t(b) * p.Sk * p.Hkv + hk) * D;  // row r at + r Hkv D
-  store_acc<T, D, THREADS / 2, 2>(static_cast<T*>(half ? p.dk : p.dv) + out, (long long)p.Hkv * D, k0, p.Sk, acc,
-                                  half ? p.scale : 1.f, ra, ca);
+  const size_t row = size_t(b) * p.Sk * p.Hkv + hk;  // kv row r of the outputs at + r Hkv
+  if constexpr (DQK == DV) {
+    store_acc<T, DQK, THREADS / 2, 2, BR>(static_cast<T*>(half ? p.dk : p.dv) + row * DQK, (long long)p.Hkv * DQK,
+                                          k0, p.Sk, dk, half ? p.scale : 1.f, ra, ca);
+  } else if (half) {
+    store_acc<T, DQK, THREADS / 2, 2, BR>(static_cast<T*>(p.dk) + row * DQK, (long long)p.Hkv * DQK, k0, p.Sk, dk,
+                                          p.scale, ra, ca);
+  } else {
+    store_acc<T, DV, THREADS / 2, 2, BR>(static_cast<T*>(p.dv) + row * DV, (long long)p.Hkv * DV, k0, p.Sk, dv, 1.f,
+                                         ra, ca);
+  }
 }
 
 // dQ of one q tile: a block per (q tile, q head, batch).  The first half of
 // the threads computes S and P, the second dP; all of them dQ.
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq(const Params p) {
-  using C = Cfg<D>;
-  constexpr int RQ = D >= 64 ? 2 : 1;  // dQ's row quads a thread: 8 x 4 blocks (4 x 8 at D = 32)
-  using G = Acc<D, THREADS, RQ>;
-  constexpr int BR = C::BR, TI = C::TI, TJ = C::TJ, TILE = C::TILE, SPAD = C::SPAD;
+  using C = Cfg<DQK, DV>;
+  constexpr int BR = C::BR, TQK = C::TQK, TV = C::TV, SPAD = C::SPAD, RQ = C::RQ_DQ;
+  using G = Acc<DQK, THREADS, RQ, BR>;
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;
-  float* sdO = sQ + TILE;
-  float* sK = sdO + TILE;        // two stages
-  float* sV = sK + 2 * TILE;     // two stages
-  float* sP = sV + 2 * TILE;     // [kv row][q row]
+  float* sdO = sQ + TQK;
+  float* sK = sdO + TV;          // two stages
+  float* sV = sK + 2 * TQK;      // two stages
+  float* sP = sV + 2 * TV;       // [kv row][q row]
   float* sdS = sP + BR * SPAD;   // [kv row][q row]: dP, then dS
   float* sLse = sdS + BR * SPAD;
   float* sDelta = sLse + BR;
@@ -321,90 +366,103 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq(const Params p) {
 
   auto issue = [&](int it) {
     const int s = it & 1;
-    stage<D>(sK + s * TILE, k, p.k_ss, it * BR, p.Sk, p.vec);
-    stage<D>(sV + s * TILE, v, p.v_ss, it * BR, p.Sk, p.vec);
+    stage<DQK, BR>(sK + s * TQK, k, p.k_ss, it * BR, p.Sk, p.vec);
+    stage<DV, BR>(sV + s * TV, v, p.v_ss, it * BR, p.Sk, p.vec);
     cp_commit();
   };
-  stage<D>(sQ, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq, p.vec);
-  stage<D>(sdO, static_cast<const T*>(p.dout) + b * p.d_sb + h * p.d_sh, p.d_ss, q0, p.Sq, p.vec);
+  stage<DQK, BR>(sQ, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq, p.vec);
+  stage<DV, BR>(sdO, static_cast<const T*>(p.dout) + b * p.d_sb + h * p.d_sh, p.d_ss, q0, p.Sq, p.vec);
   stage_rows(sLse, sDelta, p, size_t(b) * p.Hq + h, q0, BR);
   cp_commit();
   if (nkv > 0) issue(0);
 
   typename G::Tile dq;
-  zero<D, THREADS, RQ>(dq);
+  zero<DQK, THREADS, RQ, BR>(dq);
 
   for (int it = 0; it < nkv; ++it) {
     const int s = it & 1, k0 = it * BR;
     cp_wait<0>();
     __syncthreads();  // stage s has landed for every thread, and every read of stage s ^ 1 is done
     if (it + 1 < nkv) issue(it + 1);
-    const float* tK = sK + s * TILE;
+    const float* tK = sK + s * TQK;
 
     // S = Q K^T or dP = dO V^T, rows q and columns kv, stored transposed
-    float sc[TI][TJ];
-    scores<D>(half ? sdO : sQ, half ? sV + s * TILE : tK, sc, rg, cg);
+    float sc[TI<BR>][TJ<BR>];
+    if constexpr (DQK == DV)
+      scores<DQK, BR>(half ? sdO : sQ, half ? sV + s * TV : tK, sc, rg, cg);
+    else if (half)
+      scores<DV, BR>(sdO, sV + s * TV, sc, rg, cg);
+    else
+      scores<DQK, BR>(sQ, tK, sc, rg, cg);
     float* dst = half ? sdS : sP;
 #pragma unroll
-    for (int i = 0; i < TI; ++i)
+    for (int i = 0; i < TI<BR>; ++i)
 #pragma unroll
-      for (int j = 0; j < TJ; ++j) dst[(cg + 16 * j) * SPAD + rg + 8 * i] = sc[i][j];
+      for (int j = 0; j < TJ<BR>; ++j) dst[(cg + 16 * j) * SPAD + rg + 8 * i] = sc[i][j];
     __syncthreads();
-    form_p_ds<D, false>(sP, sdS, sLse, sDelta, q0, k0, p);
+    form_p_ds<BR, false>(sP, sdS, sLse, sDelta, q0, k0, p);
     __syncthreads();
     // dQ += dS K, reduced over the tile's kv rows
-    accumulate<D, THREADS, RQ>(sdS, tK, dq, ra, ca);
+    accumulate<DQK, THREADS, RQ, BR>(sdS, tK, dq, ra, ca);
   }
   cp_wait<0>();
 
-  const size_t out = (size_t(b) * p.Sq * p.Hq + h) * D;  // row r at + r Hq D
-  store_acc<T, D, THREADS, RQ>(static_cast<T*>(p.dq) + out, (long long)p.Hq * D, q0, p.Sq, dq, p.scale, ra, ca);
+  const size_t out = (size_t(b) * p.Sq * p.Hq + h) * DQK;  // row r at + r Hq DQK
+  store_acc<T, DQK, THREADS, RQ, BR>(static_cast<T*>(p.dq) + out, (long long)p.Hq * DQK, q0, p.Sq, dq, p.scale, ra,
+                                     ca);
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 int launch(const Params& p, cudaStream_t stream) {
-  using C = Cfg<D>;
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  using C = Cfg<DQK, DV>;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv<T, DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(C::SMEM_KV));
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(flash_bwd_dq<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::SMEM_Q));
+    e = cudaFuncSetAttribute(flash_bwd_dq<T, DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(C::SMEM_Q));
   if (e != cudaSuccess) return int(e);
   const long long rows = (long long)p.B * p.Hq * p.Sq;
   if (rows > 0) {
-    flash_bwd_delta<T, D><<<unsigned((rows + THREADS / 32 - 1) / (THREADS / 32)), THREADS, 0, stream>>>(p);
+    flash_bwd_delta<T, DV><<<unsigned((rows + THREADS / 32 - 1) / (THREADS / 32)), THREADS, 0, stream>>>(p);
     if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
   }
   if (p.Sk > 0) {  // with Sq == 0 the kernel writes dK = dV = 0
-    flash_bwd_dkdv<T, D><<<dim3((p.Sk + C::BR - 1) / C::BR, p.Hkv, p.B), THREADS, C::SMEM_KV, stream>>>(p);
+    flash_bwd_dkdv<T, DQK, DV><<<dim3((p.Sk + C::BR - 1) / C::BR, p.Hkv, p.B), THREADS, C::SMEM_KV, stream>>>(p);
     if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
   }
   if (p.Sq > 0) {  // with Sk == 0 the kernel writes dQ = 0
-    flash_bwd_dq<T, D><<<dim3((p.Sq + C::BR - 1) / C::BR, p.Hq, p.B), THREADS, C::SMEM_Q, stream>>>(p);
+    flash_bwd_dq<T, DQK, DV><<<dim3((p.Sq + C::BR - 1) / C::BR, p.Hq, p.B), THREADS, C::SMEM_Q, stream>>>(p);
     if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
   }
   return 0;
 }
 
 template <typename T>
-int dispatch_dim(const Params& p, int D, cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
-    case 256: return launch<T, 256>(p, stream);
-    default: return int(cudaErrorInvalidValue);
+int dispatch_dims(const Params& p, int D, int Dv, cudaStream_t stream) {
+  if (D == Dv) {
+    switch (D) {
+      case 32: return launch<T, 32, 32>(p, stream);
+      case 64: return launch<T, 64, 64>(p, stream);
+      case 128: return launch<T, 128, 128>(p, stream);
+      case 256: return launch<T, 256, 256>(p, stream);
+    }
   }
+  if constexpr (std::is_same_v<T, float>) {  // fp32 alone: bf16 at (192, 128) runs the tensor-core kernel
+    if (D == 192 && Dv == 128) return launch<T, 192, 128>(p, stream);
+  }
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16.  Strides in elements, (batch, seq, head) for q,
-// k, v, o and dO in that order.  Launches three kernels on the stream.
-// Returns a cudaError_t (0 on success).
+// dtype: 0 = fp32, 1 = bf16.  D is q's and k's head dim, Dv v's, o's and
+// dO's.  Strides in elements, (batch, seq, head) for q, k, v, o and dO in
+// that order.  Launches three kernels on the stream.  Returns a cudaError_t
+// (0 on success).
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse,
     void* dq, void* dk, void* dv, void* delta,
-    int B, int Sq, int Sk, int Hq, int Hkv, int D, int dtype,
+    int B, int Sq, int Sk, int Hq, int Hkv, int D, int Dv, int dtype,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb, long long o_ss, long long o_sh,
     long long d_sb, long long d_ss, long long d_sh,
@@ -419,8 +477,8 @@ extern "C" int repro_flash_attention_bwd(
                  scale, scale * LOG2E, causal, vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch_dim<float>(p, D, s);
-    case 1: return dispatch_dim<__nv_bfloat16>(p, D, s);
+    case 0: return dispatch_dims<float>(p, D, Dv, s);
+    case 1: return dispatch_dims<__nv_bfloat16>(p, D, Dv, s);
     default: return int(cudaErrorInvalidValue);
   }
 }

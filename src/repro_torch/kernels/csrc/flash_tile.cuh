@@ -92,16 +92,17 @@ __device__ __forceinline__ void to_bf16_a(const float (&x)[32], uint32_t (&hi)[1
   }
 }
 
-// Write NBLK blocks of NB columns of a 64-row fp32 accumulator (a whole 64 x
-// D tile by default; a warpgroup's share of D when warpgroups split it),
-// times `mul`, as bf16 rows [row0, row0 + 64) of a (.., S, .., D) tensor
-// whose row r starts at out + r * row_stride (out already at the first
-// column); rows at or past n are not written.  The fragment rows are those
-// of the calling warp within its warpgroup.
-template <int D, int NBLK = Tile<D>::NOB>
+// Write the first NBLK blocks of NB columns of a 64-row fp32 accumulator of
+// NACC blocks (a whole 64 x D tile by default; a warpgroup's share of D when
+// warpgroups split it), times `mul`, as bf16 rows [row0, row0 + 64) of a
+// (.., S, .., D) tensor whose row r starts at out + r * row_stride (out
+// already at the first column); rows at or past n are not written.  The
+// fragment rows are those of the calling warp within its warpgroup.
+template <int D, int NBLK = Tile<D>::NOB, int NACC = NBLK>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long row_stride, int row0, int n,
-                                           const float (&acc)[NBLK][Tile<D>::NB / 2], const float (&mul)[2]) {
+                                           const float (&acc)[NACC][Tile<D>::NB / 2], const float (&mul)[2]) {
   using T = Tile<D>;
+  static_assert(NBLK <= NACC, "accumulator blocks");
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int r0 = row0 + warp * 16 + (lane >> 2), cq = (lane & 3) * 2;
 #pragma unroll

@@ -117,7 +117,7 @@ struct Acc {
   static constexpr int NRG = BR / (4 * RQ);  // row groups
   static constexpr int NCG = NT / NRG;       // column groups
   static constexpr int NCOL = D / NCG;       // head-dim columns a thread holds
-  static constexpr int VW = NCOL < 4 ? NCOL : 4;
+  static constexpr int VW = NCOL % 4 == 0 ? 4 : NCOL % 2 == 0 ? 2 : 1;  // floats a read (2 at NCOL 2 or 6)
   static constexpr int NV = NCOL / VW;
   static constexpr int RW = NRG / 4;  // warps across the row groups
   static_assert(NRG % 4 == 0 && NCG * NCOL == D && NV * VW == NCOL && NT / 32 / RW * 8 == NCG, "accumulator tiling");

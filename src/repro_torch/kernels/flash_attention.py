@@ -5,10 +5,10 @@ Pallas TPU kernel ``_flash_kernel``) and the gradient the JAX package lets
 XLA take of its blocked form.  Four kernels, built for ``sm_90a`` by
 :mod:`.build` at their first launch and called through ``ctypes``; a CUDA
 call picks one by dtype and head dims (:func:`select_route` forward,
-:func:`select_bwd_route` backward).  The forward takes the (q/k head dim,
-v head dim) pairs of :data:`FWD_PAIRS`: the equal widths 32, 64, 128 and
-256, and (192, 128), MLA's prefill (deepseek-v2: q and k carry 128
-columns plus 64 of rope, v 128); the backward takes the equal ones.
+:func:`select_bwd_route` backward).  Both directions take the (q/k head
+dim, v head dim) pairs of :data:`FWD_PAIRS`: the equal widths 32, 64, 128
+and 256, and (192, 128), MLA's (deepseek-v2: q and k carry 128 columns
+plus 64 of rope, v 128), served by the forward and trained through both.
 
 * **forward, bf16 at every pair → ``csrc/flash_attention_wgmma.cu``**
   (route ``"wgmma"``), the serving and training path's kernel: both
@@ -31,19 +31,23 @@ columns plus 64 of rope, v 128); the backward takes the equal ones.
   is TF32, ~10 bits of mantissa, which misses the fp32 tolerance (2e-5)
   that the fp32 checks hold the kernel to.  It also takes bf16 at D = 256 when asked (``route="simt"``),
   so that the two can be timed side by side.
-* **backward, bf16 at every head dim → ``csrc/flash_attention_bwd_wgmma.cu``**
-  (route ``"wgmma"``), dense training's: the FlashAttention-2 split in
+* **backward, bf16 at every pair → ``csrc/flash_attention_bwd_wgmma.cu``**
+  (route ``"wgmma"``), the training path's: the FlashAttention-2 split in
   three launches (``Dᵢ = rowsum(dO ∘ O)``; dK and dV per kv tile; dQ per q
   tile), all seven products on ``wgmma``, q/k/v/dO tiles by TMA, P and dS
   as the A operands from registers, each as two bf16 terms
   (:data:`BWD_P_TERMS`, :data:`BWD_DS_TERMS`).  At D = 256 (gemma-7b,
   paligemma-3b) a block runs two consumer warpgroups, each owning half of
-  D's output columns, so that the dK and dV accumulators fit the registers.
+  D's output columns, so that the dK and dV accumulators fit the registers;
+  at (192, 128) (deepseek-v2-lite's MLA) two warpgroups split by output,
+  one owning the 192-wide dK and the other the 128-wide dV.
 * **backward, fp32 → ``csrc/flash_attention_bwd.cu``** (route ``"simt"``),
   the same split with every product as fp32 FMAs on register-blocked
   micro-tiles, float4 reads of swizzled tiles and ``cp.async`` double
-  buffering.  It also takes bf16 when asked (``route="simt"``), for timing
-  beside the tensor-core kernel.
+  buffering; at (192, 128) the 32-row tiles of D = 256, the scores and dQ,
+  dK over 192 columns and dP's V side and dV over 128.  It also takes bf16
+  at the equal widths when asked (``route="simt"``), for timing beside the
+  tensor-core kernel.
 
 Every forward kernel can write the rows' logsumexp (``return_lse=True``),
 which the backward reads.  The JAX package has no backward kernel: off the
@@ -55,9 +59,9 @@ the seq/head/batch strides of what they read by TMA 16-byte aligned
 
 What bounds the function on an H100: the forward's two products,
 2·Sq·Sk·(Dqk + Dv) FLOPs per head (halved by causality), against q, k
-(Dqk wide), v and out (Dv wide) moved once; the backward's five products
-against q, k, v, o, dO read and dq, dk, dv written once
-(:func:`flash_flops`, :func:`flash_bytes`).  At the
+(Dqk wide), v and out (Dv wide) moved once; the backward's five products,
+2·Sq·Sk·(3·Dqk + 2·Dv), against q, k, v, o, dO read and dq, dk, dv written
+once (:func:`flash_flops`, :func:`flash_bytes`).  At the
 serving shapes the forward is bound by bytes, at training's S = 2048 by
 operations.  Every kernel reads GQA kv heads in place (``h // group``),
 reads batch-major tensors through their strides and masks the ragged edge
@@ -89,8 +93,8 @@ __all__ = [
 #: the equal q/k and v head dims both directions take
 SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
 _EQUAL_PAIRS = tuple((d, d) for d in SUPPORTED_HEAD_DIMS)
-#: the (q/k head dim, v head dim) pairs the forward kernels take: the equal
-#: widths, and MLA's prefill at deepseek-v2's published widths
+#: the (q/k head dim, v head dim) pairs the forward and the backward kernels
+#: take: the equal widths, and MLA's at deepseek-v2's published widths
 FWD_PAIRS = _EQUAL_PAIRS + ((192, 128),)
 #: dtype → the kernel a CUDA call of that dtype launches, forward and backward, at every pair they take
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
@@ -139,38 +143,41 @@ def select_route(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = 
     return _route(dtype, dims, FWD_PAIRS)
 
 
-def select_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The backward kernel that a CUDA call on ``dtype`` at ``head_dim``
-    launches: ``"wgmma"`` (the tensor-core kernel) for bf16 at every head dim
-    in :data:`SUPPORTED_HEAD_DIMS`, ``"simt"`` for fp32; any other dtype or
-    head dim raises."""
-    return _route(dtype, (head_dim, head_dim), _EQUAL_PAIRS)
+def select_bwd_route(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = None) -> str:
+    """The backward kernel that a CUDA call on ``dtype`` at ``head_dim`` (q
+    and k) and ``v_head_dim`` (v, o and dO; ``head_dim`` by default)
+    launches: ``"wgmma"`` (the tensor-core kernel) for bf16 at every pair of
+    :data:`FWD_PAIRS`, ``"simt"`` for fp32; any other dtype or pair raises."""
+    dims = (head_dim, head_dim if v_head_dim is None else v_head_dim)
+    return _route(dtype, dims, FWD_PAIRS)
 
 
 def flash_flops(B: int, Sq: int, Sk: int, Hq: int, D: int, *, causal: bool, backward: bool = False,
                 v_head_dim: Optional[int] = None) -> int:
     """The FLOPs attention needs: forward, S = Q Kᵀ of 2·Sq·Sk·D and O = P V
     of 2·Sq·Sk·Dv per query head (``Dv = v_head_dim``, ``D`` by default);
-    backward five products of 2·Sq·Sk·D (S, dP, dV, dQ, dK); halved when
-    causal.  The backward kernel computes S and dP in both its dK/dV and its
-    dQ kernel (seven products), which is not counted: this is the work of
-    the function, not of the kernel."""
+    backward five products, S = Q Kᵀ, dQ = dS K and dK = dSᵀ Q of 2·Sq·Sk·D
+    and dP = dO Vᵀ and dV = Pᵀ dO of 2·Sq·Sk·Dv; halved when causal.  The
+    backward kernel computes S and dP in both its dK/dV and its dQ kernel
+    (seven products), which is not counted: this is the work of the
+    function, not of the kernel."""
     Dv = D if v_head_dim is None else v_head_dim
     per_pair = 2 * B * Hq * Sq * Sk // (2 if causal else 1)
-    return per_pair * (5 * D if backward else D + Dv)
+    return per_pair * (3 * D + 2 * Dv if backward else D + Dv)
 
 
 def flash_bytes(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int, esize: int, *, backward: bool = False,
                 v_head_dim: Optional[int] = None) -> int:
     """The bytes attention must move: forward q and k (``D`` wide) and v
     (``Dv = v_head_dim`` wide, ``D`` by default) read and out (``Dv``)
-    written once; backward q, k, v, o, dO and the fp32 lse read and dq, dk,
-    dv written once (element size ``esize``)."""
+    written once; backward q and k (``D``), v, o and dO (``Dv``) and the
+    fp32 lse read, and dq, dk (``D``) and dv (``Dv``) written once (element
+    size ``esize``)."""
     Dv = D if v_head_dim is None else v_head_dim
     q, kv = B * Sq * Hq, B * Sk * Hkv
     if not backward:
         return esize * (q * (D + Dv) + kv * (D + Dv))
-    return esize * (4 * q * D + 4 * kv * D) + 4 * B * Hq * Sq
+    return esize * (q * (2 * D + 2 * Dv) + kv * (2 * D + 2 * Dv)) + 4 * B * Hq * Sq
 
 
 def tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
@@ -204,9 +211,9 @@ _ENTRIES = {
     "simt": ("flash_attention", "repro_flash_attention_fwd", "repro_cuda_error_string",
              [_P] * 5 + [_I] * 8 + [_LL] * 12 + [_F, _I, _P]),
     "bwd_wgmma": ("flash_attention_bwd_wgmma", "repro_flash_attention_bwd_wgmma", "repro_flash_bwd_wgmma_error_string",
-                  [_P] * 10 + [_I] * 6 + [_LL] * 15 + [_F, _I, _P]),
+                  [_P] * 10 + [_I] * 7 + [_LL] * 15 + [_F, _I, _P]),
     "bwd_simt": ("flash_attention_bwd", "repro_flash_attention_bwd", "repro_flash_bwd_error_string",
-                 [_P] * 10 + [_I] * 7 + [_LL] * 15 + [_F, _I, _P]),
+                 [_P] * 10 + [_I] * 8 + [_LL] * 15 + [_F, _I, _P]),
 }
 
 
@@ -332,52 +339,52 @@ flash_attention.launches = 0
 def flash_attention_backward(
     q: torch.Tensor,  # (B, Sq, Hq, D)
     k: torch.Tensor,  # (B, Sk, Hkv, D)
-    v: torch.Tensor,  # (B, Sk, Hkv, D)
-    o: torch.Tensor,  # (B, Sq, Hq, D)  the forward's output
-    lse: torch.Tensor,  # (B, Hq, Sq)   the forward's logsumexp, fp32
-    do: torch.Tensor,  # (B, Sq, Hq, D) the output's gradient
+    v: torch.Tensor,  # (B, Sk, Hkv, Dv)
+    o: torch.Tensor,  # (B, Sq, Hq, Dv)  the forward's output
+    lse: torch.Tensor,  # (B, Hq, Sq)    the forward's logsumexp, fp32
+    do: torch.Tensor,  # (B, Sq, Hq, Dv) the output's gradient
     *,
     causal: bool = True,
     scale: Optional[float] = None,
     route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dq, dk, dv)`` of :func:`flash_attention`, contiguous, in q's dtype.
+    """``(dq, dk, dv)`` of :func:`flash_attention`, contiguous, in q's dtype
+    (dq and dk ``D`` wide, dv ``Dv``).
 
     On a CUDA tensor it launches the backward that :func:`select_bwd_route`
-    names (one dtype for q, k, v, o and dO; ``D`` in
-    :data:`SUPPORTED_HEAD_DIMS`; last dimension contiguous; causal only
-    with Sq == Sk): ``csrc/flash_attention_bwd_wgmma.cu`` for bf16 (q, k,
-    v and dO also aligned as :func:`tma_strides` checks),
+    names (one dtype for q, k, v, o and dO; ``(D, Dv)`` in
+    :data:`FWD_PAIRS`; last dimension contiguous; causal only with Sq ==
+    Sk): ``csrc/flash_attention_bwd_wgmma.cu`` for bf16 (q, k, v and dO
+    also aligned as :func:`tma_strides` checks),
     ``csrc/flash_attention_bwd.cu`` for fp32 (any strides).  ``route="simt"`` asks for the SIMT
-    kernel on bf16 at every head dim (for timing it beside the tensor-core
-    one; nothing on the main path passes it).  It counts the call in
+    kernel on bf16 at every equal head dim (for timing it beside the
+    tensor-core one; nothing on the main path passes it).  It counts the call in
     ``flash_attention_backward.launches`` (each call launches
     :data:`BWD_LAUNCHES` CUDA kernels).  On a CPU tensor it computes the
     plain version (:func:`~repro_torch.kernels.ref.flash_backward_ref`).
     Anything the kernels do not take raises."""
     _check(q, k, v, causal)
     B, Sq, Hq, D = q.shape
-    _, Sk, Hkv, _ = k.shape
-    if v.shape != k.shape:
-        raise ValueError(f"the backward takes v of k's shape {tuple(k.shape)}, got {tuple(v.shape)}")
-    if o.shape != q.shape or do.shape != q.shape:
-        raise ValueError(f"o {tuple(o.shape)} and dO {tuple(do.shape)} must have q's shape {tuple(q.shape)}")
+    _, Sk, Hkv, Dv = v.shape
+    if o.shape != (B, Sq, Hq, Dv) or do.shape != (B, Sq, Hq, Dv):
+        raise ValueError(f"o {tuple(o.shape)} and dO {tuple(do.shape)} must be q's shape at v's width, "
+                         f"{(B, Sq, Hq, Dv)}")
     if lse.shape != (B, Hq, Sq):
         raise ValueError(f"lse must be (B, Hq, Sq) = {(B, Hq, Sq)}, got {tuple(lse.shape)}")
     scale = float(scale if scale is not None else D ** -0.5)
     if route is not None:  # a CPU call with it runs the plain version
-        _check_route(q.dtype, (D, D), route, _EQUAL_PAIRS, _EQUAL_PAIRS)
+        _check_route(q.dtype, (D, Dv), route, FWD_PAIRS, _EQUAL_PAIRS)
     if _device(q, k, v, o, lse, do).type == "cpu":
         return flash_backward_ref(q, k, v, o, lse, do, causal=causal, scale=scale)
-    route = route or select_bwd_route(q.dtype, D)
+    route = route or select_bwd_route(q.dtype, D, Dv)
     _check_cuda((q, k, v, o, do))
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"kernel takes a contiguous float32 lse, got {lse.dtype}")
 
     dq = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Sk, Hkv, D), dtype=q.dtype, device=q.device)
-    dv = torch.empty((B, Sk, Hkv, D), dtype=q.dtype, device=q.device)
-    dims = [B, Sq, Sk, Hq, Hkv, D]
+    dv = torch.empty((B, Sk, Hkv, Dv), dtype=q.dtype, device=q.device)
+    dims = [B, Sq, Sk, Hq, Hkv, D, Dv]
     if route == "wgmma":
         # lse·log2(e) and Dᵢ, each (B, Hq, Sq padded to the kernel's 64-row tile)
         scratch = torch.empty(2 * B * Hq * -(-Sq // _BWD_ROWS) * _BWD_ROWS, dtype=torch.float32, device=q.device)

@@ -14,7 +14,8 @@ other call does: MLA's prefill pair (192, 128) launches the forward kernel,
 and a pair the kernels do not take raises there, naming the pairs they
 take.  A CUDA call that needs a gradient goes through
 :class:`FlashAttention`: the forward kernel with the rows' logsumexp, and
-the backward kernel (equal widths only).
+the backward kernel, at every pair the forward takes (MLA's (192, 128)
+trains through both).
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ class FlashAttention(torch.autograd.Function):
     """Flash attention with a gradient: forward by the forward kernel, which
     also writes the rows' logsumexp; backward by the backward kernel, which
     recomputes P from it (:func:`~.flash_attention.flash_attention_backward`).
-    Saves q, k, v, the output and the logsumexp.  On CPU tensors both
+    Saves q, k, v, the output and the logsumexp.  v may be narrower than q
+    and k (MLA's (192, 128)); dv then has v's width.  On CPU tensors both
     wrappers compute their plain versions."""
 
     @staticmethod

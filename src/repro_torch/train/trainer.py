@@ -34,6 +34,7 @@ __all__ = [
     "make_loss_fn",
     "make_train_step",
     "init_train_state",
+    "flash_widths",
     "Trainer",
 ]
 
@@ -145,6 +146,18 @@ class _ByteCounter(TorchDispatchMode):
         return out
 
 
+def flash_widths(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """``(kv heads, q/k head dim, v head dim)`` at which ``cfg``'s attention
+    layers call the flash kernels: MLA expands K and V per query head, at
+    q/k width ``qk_nope_dim + qk_rope_dim`` and v width ``v_head_dim``
+    (deepseek-v2's (192, 128)); any other attention runs ``n_kv_heads`` at
+    ``resolved_head_dim`` for both."""
+    if cfg.mla is not None:
+        m = cfg.mla
+        return cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim
+    return cfg.n_kv_heads, cfg.resolved_head_dim, cfg.resolved_head_dim
+
+
 def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, *, device="cuda") -> Tuple[Transformer, Dict]:
     """(model, opt_state): seeded random weights from ``tcfg.seed`` and
     zeroed moments in ``cfg.opt_state_dtype``."""
@@ -240,10 +253,10 @@ class Trainer:
                                  ssd_kernel.ssd_bytes(B, S, H, s.head_dim, s.d_state, s.n_groups, esize))
         for name, backward in (("flash_forward", False), ("flash_backward", True)):
             if launched[name]:
+                Hkv, D, Dv = flash_widths(cfg)
                 shape = (B, S, S, cfg.n_heads)
-                per[name] = (flash_kernel.flash_flops(*shape, cfg.resolved_head_dim, causal=True, backward=backward),
-                             flash_kernel.flash_bytes(*shape, cfg.n_kv_heads, cfg.resolved_head_dim, esize,
-                                                      backward=backward))
+                per[name] = (flash_kernel.flash_flops(*shape, D, causal=True, backward=backward, v_head_dim=Dv),
+                             flash_kernel.flash_bytes(*shape, Hkv, D, esize, backward=backward, v_head_dim=Dv))
         out = {}
         for name, n in launched.items():
             flops, nbytes = per.get(name, (0, 0))

@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: flash attention
 forward (bf16 on wgmma at every head dim, fp32 on the CUDA cores at every
 head dim) and backward (bf16 on wgmma at every head dim; fp32 on the CUDA
-cores), the SSD scan (bf16 on wgmma, fp32 on the CUDA cores) and the
+cores; both at MLA's (192, 128)), the SSD scan (bf16 on wgmma, fp32 on the CUDA cores) and the
 simulator's landing.
 
 Imports torch and the port only (the card's machine has no JAX).  Every
@@ -423,6 +423,124 @@ def test_wgmma_backward_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="route 'wgmma'"):
         fa.flash_attention_backward(*(t.float() for t in (q, k, v, o)), lse, o.float(), route="wgmma")
     assert fa.flash_attention_backward.launches == before
+
+
+#: MLA's backward at (q/k 192, v 128), as chip_smoke.py's mla_bwd_kernel holds it: (B, Sq, Sk, Hq, Hkv,
+#: causal): ragged causal lengths (one row, one tile less and more a row, 517), non-causal Sq != Sk both
+#: ways, and GQA 16 over 4 (MLA itself runs 16 over 16)
+MLA_BWD_GRID = [(1, 1, 1, 4, 4, True), (2, 63, 63, 4, 4, True), (1, 65, 65, 16, 16, True),
+                (1, 517, 517, 4, 4, True), (1, 70, 150, 4, 2, False), (2, 150, 45, 4, 4, False),
+                (1, 200, 200, 16, 4, True)]
+
+
+def _mla_backward_inputs(B, Sq, Sk, Hq, Hkv, causal, dtype, device, seed, scale=192 ** -0.5):
+    q, k, v = _mla_qkv(B, Sq, Hq, Hkv, dtype, device, seed=seed, Sk=Sk)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, scale=scale, return_lse=True)
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(seed + 1)).to(device=device, dtype=dtype)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", MLA_BWD_GRID)
+def test_mla_backward_matches_plain_on_both_routes(cuda, shape, dtype):
+    """The backward at (192, 128): bf16 on the tensor-core kernel (two
+    warpgroups split by output), fp32 on the SIMT one (32-row tiles), one
+    call each, against the plain FA-2 backward on the kernel's own o and lse;
+    dv has v's width."""
+    B, Sq, Sk, Hq, Hkv, causal = shape
+    assert fa.select_bwd_route(dtype, 192, 128) == ("wgmma" if dtype == torch.bfloat16 else "simt")
+    q, k, v, o, lse, do = _mla_backward_inputs(*shape, dtype, cuda, seed=Sq + 3 * Sk + Hkv)
+    before = fa.flash_attention_backward.launches
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=causal, scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_backward.launches == before + 1
+    want = flash_backward_ref(q, k, v, o, lse, do, causal=causal, scale=192 ** -0.5)
+    assert [tuple(g.shape) for g in got] == [(B, Sq, Hq, 192), (B, Sk, Hkv, 192), (B, Sk, Hkv, 128)]
+    assert all(g.dtype == dtype and g.is_contiguous() for g in got)
+    if dtype == torch.bfloat16:
+        _assert_grads_close(got, want)
+    else:
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            torch.testing.assert_close(g, w, **BWD_FP32_TOL, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mla_backward_reads_strided_inputs_and_masked_rows(cuda, dtype):
+    """q, k and v at (192, 128) as views of one wider projection (q, k and v
+    heads side by side, the last dim contiguous), dO transposed, a scale
+    other than 192^-0.5; rows that see no key (Sk = 0) give zero dQ, and no
+    query rows (Sq = 0) give zero dK and dV."""
+    Hq, Hkv, S = 4, 2, 96
+    g = torch.Generator().manual_seed(11)
+    wide = torch.randn(2, S, Hq * 192 + Hkv * 192 + Hkv * 128 + 64, generator=g).to(device=cuda, dtype=dtype)
+    q = wide[..., :Hq * 192].unflatten(-1, (Hq, 192))
+    k = wide[..., Hq * 192:(Hq + Hkv) * 192].unflatten(-1, (Hkv, 192))
+    v = wide[..., (Hq + Hkv) * 192:(Hq + Hkv) * 192 + Hkv * 128].unflatten(-1, (Hkv, 128))
+    assert not q.is_contiguous() and v.stride(1) == wide.stride(1)
+    o, lse = fa.flash_attention(q, k, v, causal=True, scale=0.3, return_lse=True)
+    do = torch.randn(2, Hq, S, 128, generator=g).to(device=cuda, dtype=dtype).transpose(1, 2)
+    assert not do.is_contiguous() and do.stride(-1) == 1
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=True, scale=0.3)
+    want = flash_backward_ref(q, k, v, o, lse, do, causal=True, scale=0.3)
+    if dtype == torch.bfloat16:
+        _assert_grads_close(got, want)
+    else:
+        for g_, w in zip(got, want):
+            torch.testing.assert_close(g_, w, **BWD_FP32_TOL)
+    q0, k0, v0 = _mla_qkv(1, 5, 2, 2, dtype, cuda, seed=12, Sk=0)
+    o0, lse0 = fa.flash_attention(q0, k0, v0, causal=False, return_lse=True)
+    dq, dk, dv = fa.flash_attention_backward(q0, k0, v0, o0, lse0, torch.ones_like(o0), causal=False)
+    assert torch.count_nonzero(dq) == 0 and dk.shape == (1, 0, 2, 192) and dv.shape == (1, 0, 2, 128)
+    q1, k1, v1 = _mla_qkv(1, 0, 2, 2, dtype, cuda, seed=13, Sk=70)
+    o1, lse1 = fa.flash_attention(q1, k1, v1, causal=False, return_lse=True)
+    dq, dk, dv = fa.flash_attention_backward(q1, k1, v1, o1, lse1, o1, causal=False)
+    assert dq.shape == (1, 0, 2, 192) and torch.count_nonzero(dk) == 0 and torch.count_nonzero(dv) == 0
+    assert dv.shape == (1, 70, 2, 128)
+
+
+def test_backward_refuses_pairs_without_a_kernel(cuda):
+    """Any unequal pair but (192, 128) raises on a CUDA tensor, naming the
+    pairs the kernels take; so does the SIMT route on bf16 at (192, 128)
+    (that kernel takes fp32 alone there); nothing launches and nothing falls
+    back to the plain version."""
+    before = fa.flash_attention_backward.launches
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _qkv((1, 16, 2, 2, 64), dtype, cuda)
+        v = v[..., :32]
+        o = torch.zeros(1, 16, 2, 32, device=cuda, dtype=dtype)
+        lse = torch.zeros(1, 2, 16, device=cuda)
+        with pytest.raises(ValueError, match=r"\(192, 128\)\), got head dims \(q/k 64, v 32\)"):
+            fa.flash_attention_backward(q, k, v, o, lse, o, causal=True)
+        with pytest.raises(ValueError, match=r"got head dims \(q/k 128, v 192\)"):
+            fa.select_bwd_route(dtype, 128, 192)
+    args = _mla_backward_inputs(1, 16, 16, 2, 2, True, torch.bfloat16, cuda, seed=14)
+    with pytest.raises(ValueError, match="route 'simt' does not take torch.bfloat16 at head dims"):
+        fa.flash_attention_backward(*args, causal=True, route="simt")
+    with pytest.raises(ValueError, match="route 'wgmma' does not take torch.float32"):
+        fa.flash_attention_backward(*(t.float() for t in args), causal=True, route="wgmma")
+    assert fa.flash_attention_backward.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mla_flash_attention_function_matches_autograd_through_the_plain_version(cuda, dtype):
+    """``ops.flash_attention`` at (192, 128) on CUDA tensors that need a
+    gradient goes through ``FlashAttention``: the forward kernel once, the
+    backward kernel once, and the gradients of autograd through the plain
+    version (an expanded dO from ``sum()`` included)."""
+    q, k, v = (t.requires_grad_() for t in _mla_qkv(2, 90, 4, 4, dtype, cuda, seed=15))
+    before = (fa.flash_attention.launches, fa.flash_attention_backward.launches)
+    out = ops.flash_attention(q, k, v, causal=True, scale=192 ** -0.5)
+    got = torch.autograd.grad(out.float().square().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_backward.launches) == (before[0] + 1, before[1] + 1)
+    want = torch.autograd.grad(attention_ref(q, k, v, causal=True, scale=192 ** -0.5).float().square().sum(),
+                               (q, k, v))
+    assert [g.shape[-1] for g in got] == [192, 192, 128]
+    if dtype == torch.bfloat16:
+        _assert_grads_close(got, want)
+    else:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **BWD_FP32_TOL)
 
 
 @pytest.mark.parametrize("causal", [True, False])

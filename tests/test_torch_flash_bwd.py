@@ -13,6 +13,10 @@ are held against these plain versions on the card
 Tolerance: fp32 throughout, atol 2e-5 and rtol 1e-4 (the forward's fp32
 tolerance): the two differ by the order of their fp32 sums (blocked online
 softmax and XLA's gradient against one full softmax and the FA-2 form).
+The same holds at unequal widths, v narrower than q and k, as MLA runs
+them: deepseek-v2-lite's smoke (q/k 24, v 16) and published (q/k 192, v
+128) widths, whose backward counts three products over the q/k width and
+two over v's (``flash_flops``, ``flash_bytes``, and the trainer's cost).
 
 The bf16 tensor-core backward carries P and dS into its products as bf16
 terms; ``flash_backward_ref(p_bf16_terms=, ds_bf16_terms=)`` models that
@@ -233,3 +237,140 @@ def test_kernel_source_states_the_terms_the_model_is_given():
     src = (Path(fa.__file__).parent / "csrc" / "flash_attention_bwd_wgmma.cu").read_text()
     found = {name: int(n) for name, n in re.findall(r"constexpr int (P_TERMS|DS_TERMS) = (\d+);", src)}
     assert found == {"P_TERMS": fa.BWD_P_TERMS, "DS_TERMS": fa.BWD_DS_TERMS}
+
+
+# --------------------------------------------------------------------------- unequal widths (MLA)
+#: (B, Sq, Sk, Hq, Hkv, causal) at S <= 64: causal and not, GQA groups 1 and 2, Sq != Sk both ways
+MLA_CASES = [(2, 37, 37, 4, 4, True), (1, 64, 64, 4, 2, True), (1, 23, 50, 4, 2, False), (2, 45, 19, 2, 2, False)]
+#: every case at deepseek-v2-lite's smoke widths (q/k 16 + 8, v 16), and a causal and a non-causal GQA one at
+#: its published widths (q/k 128 + 64, v 128)
+MLA_WIDTH_CASES = ([(*c, 24, 16) for c in MLA_CASES] + [(*MLA_CASES[0], 192, 128), (*MLA_CASES[2], 192, 128)])
+
+
+def _mla_inputs(B, Sq, Sk, Hq, Hkv, D, Dv, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, Hq, D)).astype(np.float32),
+            rng.standard_normal((B, Sk, Hkv, D)).astype(np.float32),
+            rng.standard_normal((B, Sk, Hkv, Dv)).astype(np.float32),
+            rng.standard_normal((B, Sq, Hq, Dv)).astype(np.float32))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,causal,D,Dv", MLA_WIDTH_CASES)
+def test_backward_at_unequal_widths_matches_jax_vjp(B, Sq, Sk, Hq, Hkv, causal, D, Dv):
+    """The plain backward and ``FlashAttention`` (on CPU tensors: autograd
+    through both wrappers' plain versions) with v narrower than q and k,
+    against ``jax.vjp`` of the reference's blocked form, which takes Dv != D,
+    at the default scale D^-0.5, in fp32 (FP32)."""
+    q, k, v, do = _mla_inputs(B, Sq, Sk, Hq, Hkv, D, Dv, seed=Sq + Sk + D + Dv)
+    f = lambda q, k, v: ref_ops.flash_attention(q, k, v, causal=causal, impl="xla", q_block=64, kv_block=64)
+    jo, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = fa.flash_attention(tq, tk, tv, causal=causal, return_lse=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), **FP32)
+    got = fa.flash_attention_backward(tq, tk, tv, o, lse, tdo, causal=causal)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    through = torch.autograd.grad(ops.FlashAttention.apply(*leaves, causal, D ** -0.5), leaves, tdo)
+    for name, g, t, w in zip(("dq", "dk", "dv"), got, through, want):
+        assert g.shape == w.shape == t.shape and g.shape[-1] == (Dv if name == "dv" else D), name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **FP32, err_msg=name)
+        np.testing.assert_allclose(t.numpy(), np.asarray(w), **FP32, err_msg=f"FlashAttention {name}")
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,causal", [MLA_CASES[1], MLA_CASES[2]])
+def test_kernel_rounding_model_at_mla_widths_matches_jax_vjp_in_bf16(B, Sq, Sk, Hq, Hkv, causal):
+    """The tensor-core kernel's bf16 terms of P and dS (two each) at (192,
+    128), on bf16 q, k, v and dO, against ``jax.vjp`` of the reference's
+    blocked form on the same values, to BWD_TOL."""
+    q, k, v, do = (_bf16(a) for a in _mla_inputs(B, Sq, Sk, Hq, Hkv, 192, 128, seed=Sq + Sk + 1))
+    f = lambda q, k, v: ref_ops.flash_attention(q, k, v, causal=causal, impl="xla", q_block=64, kv_block=64)
+    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, do))
+    o, lse = fa.flash_attention(*(t.float() for t in (tq, tk, tv)), causal=causal, return_lse=True)
+    got = flash_backward_ref(tq, tk, tv, o, lse, tdo, causal=causal,
+                             p_bf16_terms=fa.BWD_P_TERMS, ds_bf16_terms=fa.BWD_DS_TERMS)
+    assert [g.shape[-1] for g in got] == [192, 192, 128]
+    for name, (n_out, worst) in zip(("dq", "dk", "dv"), _outside_bwd_tol(got, want)):
+        assert n_out == 0, f"{name}: {n_out} entries outside BWD_TOL (worst at {worst:.2f} of it)"
+
+
+def test_backward_wrapper_checks_widths_and_pairs():
+    """o and dO must have v's width; a route names a kernel, and a pair no
+    kernel takes is refused before any device branch, naming the pairs; on
+    the CPU without a route any pair runs the plain version."""
+    q, k, v, do = (torch.from_numpy(a) for a in _mla_inputs(1, 16, 16, 2, 2, 64, 32, seed=4))
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    assert o.shape[-1] == 32
+    with pytest.raises(ValueError, match="v's width"):
+        fa.flash_attention_backward(q, k, v, torch.zeros_like(q), lse, do)
+    with pytest.raises(ValueError, match="v's width"):
+        fa.flash_attention_backward(q, k, v, o, lse, do[..., :16])
+    with pytest.raises(ValueError, match="shape mismatch"):
+        fa.flash_attention_backward(q, k[..., :32], v, o, lse, do)
+    dq, dk, dv = fa.flash_attention_backward(q, k, v, o, lse, do)  # the plain version takes (64, 32)
+    assert (dq.shape[-1], dk.shape[-1], dv.shape[-1]) == (64, 64, 32)
+    for route in ("wgmma", "simt"):
+        with pytest.raises(ValueError, match=r"\(192, 128\)\), got head dims \(q/k 64, v 32\)"):
+            fa.flash_attention_backward(q, k, v, o, lse, do, route=route)
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match=r"got head dims \(q/k 64, v 32\)"):
+            fa.select_bwd_route(dtype, 64, 32)
+    assert fa.select_bwd_route(torch.bfloat16, 192, 128) == "wgmma"
+    assert fa.select_bwd_route(torch.float32, 192, 128) == "simt"
+    mla = [torch.from_numpy(a) for a in _mla_inputs(1, 16, 16, 2, 2, 192, 128, seed=5)]
+    o, lse = fa.flash_attention(*(t.bfloat16() for t in mla[:3]), causal=True, return_lse=True)
+    with pytest.raises(ValueError, match="route 'simt' does not take torch.bfloat16 at head dims"):
+        fa.flash_attention_backward(*(t.bfloat16() for t in mla[:3]), o, lse, mla[3].bfloat16(), route="simt")
+
+
+def test_flops_and_bytes_count_each_product_at_its_width():
+    """The backward's five products at their own widths, counted by hand:
+    S, dQ and dK over the q/k width, dP and dV over v's; q, k, dq, dk at the
+    q/k width and v, o, dO, dv at v's, plus the fp32 lse.  At equal widths
+    the counts are what they were (five products of D; eight tensors of D)."""
+    B, S, H, Hkv = 2, 64, 16, 4
+    pairs = B * H * S * S // 2  # causal (Sq, Sk) pairs of all heads
+    got = fa.flash_flops(B, S, S, H, 192, causal=True, backward=True, v_head_dim=128)
+    assert got == 2 * pairs * 192 * 3 + 2 * pairs * 128 * 2
+    assert fa.flash_flops(1, 2048, 2048, 16, 192, causal=True, backward=True, v_head_dim=128) == 55_834_574_848
+    assert fa.flash_flops(B, S, S, H, 192, causal=False, backward=True, v_head_dim=128) == 2 * got
+    nbytes = fa.flash_bytes(B, S, S, H, Hkv, 192, 2, backward=True, v_head_dim=128)
+    q_rows, kv_rows = B * S * H, B * S * Hkv
+    assert nbytes == 2 * (q_rows * (192 + 192 + 128 + 128) + kv_rows * (192 + 192 + 128 + 128)) + 4 * B * H * S
+    for D in fa.SUPPORTED_HEAD_DIMS:
+        assert fa.flash_flops(B, S, S, H, D, causal=True, backward=True) == 5 * 2 * pairs * D
+        assert fa.flash_flops(B, S, S, H, D, causal=True, backward=True, v_head_dim=D) == 5 * 2 * pairs * D
+        assert fa.flash_bytes(B, S, S, H, Hkv, D, 2, backward=True) == (
+            2 * (4 * q_rows * D + 4 * kv_rows * D) + 4 * B * H * S)
+        assert fa.flash_flops(B, S, S, H, D, causal=True) == 2 * 2 * pairs * D
+    # the forward at (192, 128) keeps its two products
+    assert fa.flash_flops(B, S, S, H, 192, causal=True, v_head_dim=128) == 2 * pairs * (192 + 128)
+
+
+def test_trainer_prices_mla_attention_at_its_widths():
+    """``Trainer._kernel_costs`` prices deepseek-v2's flash launches at (q/k
+    192, v 128) with K and V expanded to every query head, as
+    ``flash_widths`` says and ``mla_apply`` calls them; a GQA config stays
+    at its head dim and kv heads."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.train import TrainConfig, Trainer, flash_widths
+
+    cfg = get_config("deepseek-v2-lite-16b")
+    assert cfg.resolved_head_dim == 128 and flash_widths(cfg) == (16, 192, 128)
+    tr = Trainer(cfg, TrainConfig(microbatches=2), iter(()), device="cpu")
+    got = tr._kernel_costs({"tokens": np.zeros((4, 2048), np.int32)},
+                           {"ssd_kernel": 0, "flash_forward": 4, "flash_backward": 2})
+    shape = (2, 2048, 2048, 16)
+    assert got["flash_forward"] == 4 * fa.flash_flops(*shape, 192, causal=True, v_head_dim=128)
+    assert got["flash_backward"] == 2 * 2 * 55_834_574_848  # two launches at B = 2
+    assert got["bytes_flash_backward"] == 2 * fa.flash_bytes(*shape, 16, 192, 2, backward=True, v_head_dim=128)
+    assert got["bytes_flash_forward"] == 4 * 2 * (2 * 2048 * 16 * (192 + 128) * 2)
+    smoke = get_smoke_config("deepseek-v2-lite-16b")
+    assert flash_widths(smoke) == (smoke.n_heads, 24, 16)
+    gqa = get_smoke_config("llama4-scout-17b-a16e")
+    assert flash_widths(gqa) == (gqa.n_kv_heads, gqa.resolved_head_dim, gqa.resolved_head_dim)
+    dense = dataclasses.replace(get_config("deepseek-7b"), n_layers=2)
+    assert flash_widths(dense) == (32, 128, 128)

@@ -41,6 +41,24 @@ pipeline, which must agree bit for bit.  Tolerances:
   norms 1.1e-2, changes 5.0e-2 over three steps; at its published head dim
   of 256, 1.5e-7, 2.4e-5, 3.9e-4 and 1.2e-2 at step 1, then 9.3e-5, 5.3e-2
   and 0.23, where attention is as near one-hot as deepseek-7b's.
+* The MoE smoke configs are held to the same step-1 tolerances, and each
+  microbatch of step 1 first routes every token to the same experts in
+  both packages, or to experts whose top-(k+1) router probabilities tie
+  within TIE_EPS (1e-5; none did).  llama4-scout (GQA, 4 experts top-1 and
+  a shared one) takes deepseek-7b's later tolerances: measured step 1 loss
+  0, grad norm 4.8e-6, gradients 9.1e-5, changes 1.9e-2, then losses
+  1.9e-5, grad norms 7.8e-3, changes 5.1e-2 over three steps.
+  deepseek-v2-lite (MLA at q/k 24, v 16; a dense first layer, then 8
+  experts top-2 and a shared one): step 1 loss 7.0e-8, grad norm 2.0e-4,
+  gradients 4.8e-4, changes 2.5e-2.  After step 1 the two packages' weights
+  differ by AdamW's amplified fp32 noise, and the router sends the tokens
+  whose top-k margin sits below that difference to other experts: 1 token
+  at step 2 (margins 9.7e-4 and 2.7e-5), 46 at step 3 (margins up to
+  2.3e-2).  So its later losses take rtol 1e-2 (measured 5.9e-5 at step 2,
+  5.6e-3 at step 3), its grad norms deepseek-7b's 1e-1 (measured 5.9e-2 and
+  7.2e-2) and its changes 0.5 (measured 0.40).  A zeroed, negated or 1 %
+  too large attention gradient still fails step 1
+  (``test_three_train_steps_catch_a_wrong_attention_gradient_in_mla_and_moe``).
 * Microbatch 1 against 2 on the port: losses rtol 1e-5, parameters atol
   1e-5 (the reference's own test, ``test_train_serve.py:54``).
 * Checkpoint round trip and resume: bitwise.
@@ -165,71 +183,177 @@ def _batches(cfg, n, batch=4, seq=32, seed=1234):
 #: gradient and of the parameter change; see the module docstring
 STEP1_TOL = dict(loss=1e-6, grad_norm=1e-3, grad=2e-3, change=1e-1)
 #: steps 2 and 3: (loss rtol, grad norm rtol, parameter atol or None, per-leaf
-#: relative L2 of the parameter change over the three steps)
+#: relative L2 of the parameter change over the three steps); see the module
+#: docstring for deepseek-v2-lite's loss rtol
 LATER_TOL = {"mamba2-130m": (1e-5, 5e-3, 5e-4, 1e-2), "deepseek-7b": (1e-3, 1e-1, None, 0.5),
-             "gemma-7b": (1e-3, 1e-1, None, 0.5)}
+             "gemma-7b": (1e-3, 1e-1, None, 0.5), "deepseek-v2-lite-16b": (1e-2, 1e-1, None, 0.5),
+             "llama4-scout-17b-a16e": (1e-3, 1e-1, None, 0.5)}
 
 
 def _rel(a, b):
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
+#: step 1 of a MoE config: where the two packages route a token to different experts from the same
+#: weights, its top-(k+1) router probabilities must lie within TIE_EPS of each other on both sides (a tie
+#: that fp32 summation order decides, not an error); chip_smoke.py's TIE_EPS
+TIE_EPS = 1e-5
+
+
+def _router_trace(module, record):
+    """``module.router_topk`` wrapped to hand each call's expert indices and
+    its top-(k+1) probabilities to ``record``."""
+    real = module.router_topk
+
+    def traced(params, x, moe):
+        w, idx, aux = real(params, x, moe)
+        more = dataclasses.replace(moe, top_k=min(moe.top_k + 1, moe.n_experts), router_scale=False)
+        record(idx, real(params, x, more)[0])
+        return w, idx, aux
+
+    return real, traced
+
+
+def _reference_routes(cfg, params, batch, n_micro):
+    """Each microbatch's router calls in the reference's forward: (expert
+    indices, smallest gap between the top-(k+1) probabilities) per token."""
+    from repro.models import forward as ref_forward
+    from repro.models import moe as ref_moe
+
+    calls = []
+
+    def record(idx, top):
+        top = top.astype(jnp.float32)
+        jax.debug.callback(lambda i, g: calls.append((np.asarray(i), np.asarray(g))), idx,
+                           (top[..., :-1] - top[..., 1:]).min(-1))
+
+    real, ref_moe.router_topk = _router_trace(ref_moe, record)
+    try:
+        size = len(batch["tokens"]) // n_micro
+        for i in range(n_micro):
+            logits, _ = ref_forward(cfg, params, {"tokens": jnp.asarray(batch["tokens"][i * size:(i + 1) * size])})
+            logits.block_until_ready()
+    finally:
+        ref_moe.router_topk = real
+    return calls
+
+
+def _port_routes(model, batch, n_micro):
+    """The same of the port's forward."""
+    from repro_torch.models import moe as port_moe
+
+    calls = []
+
+    def record(idx, top):
+        top = top.detach().float()
+        calls.append((idx.numpy(), (top[..., :-1] - top[..., 1:]).min(-1).values.numpy()))
+
+    real, port_moe.router_topk = _router_trace(port_moe, record)
+    try:
+        size = len(batch["tokens"]) // n_micro
+        with torch.no_grad():
+            for i in range(n_micro):
+                model(torch.as_tensor(np.asarray(batch["tokens"][i * size:(i + 1) * size]), dtype=torch.long))
+    finally:
+        port_moe.router_topk = real
+    return calls
+
+
+def _assert_routes_tie(ref_calls, port_calls):
+    """Router call by call, every token whose experts differ between the two
+    packages is a tie (TIE_EPS); returns how many differed."""
+    assert len(ref_calls) == len(port_calls) > 0, (len(ref_calls), len(port_calls))
+    differ = 0
+    for n, ((ri, rg), (pi, pg)) in enumerate(zip(ref_calls, port_calls)):
+        for t in np.nonzero((ri != pi).any(-1))[0]:
+            margin = max(float(rg[t]), float(pg[t]))
+            assert margin < TIE_EPS, (f"step 1, router call {n}, token {t}: experts {ri[t].tolist()} in the "
+                                      f"reference, {pi[t].tolist()} in the port, top-k margin {margin}")
+            differ += 1
+    return differ
+
+
+#: the reference's three train steps of each smoke config, run once and
+#: shared by the comparison and its controls
+_REFERENCE_RUNS = {}
+
+
+def _reference_run(arch, overrides):
+    """The reference's side of ``_three_steps_against_reference``: the config,
+    the starting weights, the batches, step 1's routes (MoE) and each step's
+    metrics, first moments and parameters."""
+    key = (arch, tuple(sorted(overrides.items())))
+    if key not in _REFERENCE_RUNS:
+        cfg = dataclasses.replace(ref_smoke(arch), **overrides)
+        rkw = dict(schedule=RefScheduleConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=10), microbatches=2)
+        params = ref_init_params(ref_model_defs(cfg), jax.random.PRNGKey(3), cfg.param_jdtype())
+        start = jax.tree_util.tree_map(np.asarray, params)
+        batches = _batches(cfg, 3)
+        routes = _reference_routes(cfg, params, batches[0], 2) if cfg.moe is not None else None
+        jst = ref_adamw_init(params)
+        ref_step = jax.jit(ref_make_train_step(cfg, RefTrainConfig(**rkw)))
+        steps = []
+        for batch in batches:
+            params, jst, jm = ref_step(params, jst, batch)
+            steps.append({"metrics": {k: float(jm[k]) for k in ("loss", "grad_norm", "lr", "tokens")},
+                          "m": flatten_jax_tree(jax.tree_util.tree_map(np.asarray, jst["m"]), cfg),
+                          "params": flatten_jax_tree(jax.tree_util.tree_map(np.asarray, params), cfg)})
+        _REFERENCE_RUNS[key] = (cfg, start, batches, routes, steps)
+    return _REFERENCE_RUNS[key]
+
+
 def _three_steps_against_reference(arch, **overrides):
     """Train three steps of the smoke config (with ``overrides`` of its
     fields) on the port and on the reference from the same weights and hold
-    them together; raises AssertionError naming the step that fails."""
+    them together; raises AssertionError naming the step that fails.  A MoE
+    config's experts are compared first, on each microbatch of step 1."""
     loss_rtol, gnorm_rtol, param_atol, change_rel = LATER_TOL[arch]
-    cfg = dataclasses.replace(ref_smoke(arch), **overrides)
+    cfg, params, batches, routes, ref_steps = _reference_run(arch, overrides)
     assert cfg.compute_dtype == "float32" and cfg.remat == ("full" if arch == "mamba2-130m" else "none")
-    rkw = dict(schedule=RefScheduleConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=10), microbatches=2)
-    params = ref_init_params(ref_model_defs(cfg), jax.random.PRNGKey(3), cfg.param_jdtype())
     model = load_jax_params(Transformer(dataclasses.replace(get_smoke_config(arch), **overrides), device="cpu"),
-                            jax.tree_util.tree_map(np.asarray, params))
+                            params)
     start = {name: p.detach().numpy().copy() for name, p in model.named_parameters()}
-    jst = ref_adamw_init(params)
-    ref_step = jax.jit(ref_make_train_step(cfg, RefTrainConfig(**rkw)))
+    if routes is not None:
+        _assert_routes_tie(routes, _port_routes(model, batches[0], 2))
     tcfg = TrainConfig(schedule=ScheduleConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=10), microbatches=2)
     step = make_train_step(model, tcfg)
     tst = adamw_init(dict(model.named_parameters()))
 
-    def flat(tree):
-        return flatten_jax_tree(jax.tree_util.tree_map(np.asarray, tree), cfg)
-
-    def change_gaps():  # each leaf's change since the start, port against reference
-        ref = flat(params)
+    def change_gaps(ref):  # each leaf's change since the start, port against reference
         return {name: _rel(p.detach().numpy() - start[name], ref[name] - start[name])
                 for name, p in model.named_parameters()}
 
-    for i, batch in enumerate(_batches(cfg, 3)):
-        params, jst, jm = ref_step(params, jst, batch)
+    for i, (batch, ref) in enumerate(zip(batches, ref_steps)):
+        jm = ref["metrics"]
         tst, tm = step(tst, batch)
         first = i == 0
         what = f"step {i + 1}"
-        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), err_msg=f"{what} loss",
+        np.testing.assert_allclose(float(tm["loss"]), jm["loss"], err_msg=f"{what} loss",
                                    rtol=STEP1_TOL["loss"] if first else loss_rtol)
-        np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]), err_msg=f"{what} grad norm",
+        np.testing.assert_allclose(float(tm["grad_norm"]), jm["grad_norm"], err_msg=f"{what} grad norm",
                                    rtol=STEP1_TOL["grad_norm"] if first else gnorm_rtol)
-        np.testing.assert_allclose(float(tm["lr"]), float(jm["lr"]), rtol=1e-6)
+        np.testing.assert_allclose(float(tm["lr"]), jm["lr"], rtol=1e-6)
         assert int(tm["tokens"]) == int(jm["tokens"]) == 4 * 32
         if first:
-            ref_m = flat(jst["m"])
-            grad = {name: _rel(tst["m"][name].numpy(), ref_m[name]) for name in start}
+            grad = {name: _rel(tst["m"][name].numpy(), ref["m"][name]) for name in start}
             assert max(grad.values()) <= STEP1_TOL["grad"], f"{what} gradients: {grad}"
-            change = change_gaps()
+            change = change_gaps(ref["params"])
             assert max(change.values()) <= STEP1_TOL["change"], f"{what} parameter changes: {change}"
-    change = change_gaps()
+    change = change_gaps(ref_steps[-1]["params"])
     assert max(change.values()) <= change_rel, f"parameter changes over three steps: {change}"
     if param_atol is not None:
-        ref = flat(params)
         for name, p in model.named_parameters():
-            np.testing.assert_allclose(p.detach().numpy(), ref[name], rtol=0, atol=param_atol, err_msg=name)
+            np.testing.assert_allclose(p.detach().numpy(), ref_steps[-1]["params"][name], rtol=0, atol=param_atol,
+                                       err_msg=name)
 
 
 #: the smoke configs trained against the reference, and gemma-7b's at its
 #: published head dim of 256 (16 x 256 on the card runs the tensor-core
 #: flash kernels at D = 256 forward and backward)
-TRAINED = [("mamba2-130m", {}), ("deepseek-7b", {}), ("gemma-7b", {}), ("gemma-7b", {"head_dim": 256})]
-TRAINED_IDS = ["mamba2-130m", "deepseek-7b", "gemma-7b", "gemma-7b-head_dim256"]
+TRAINED = [("mamba2-130m", {}), ("deepseek-7b", {}), ("gemma-7b", {}), ("gemma-7b", {"head_dim": 256}),
+           ("deepseek-v2-lite-16b", {}), ("llama4-scout-17b-a16e", {})]
+TRAINED_IDS = ["mamba2-130m", "deepseek-7b", "gemma-7b", "gemma-7b-head_dim256", "deepseek-v2-lite-16b",
+               "llama4-scout-17b-a16e"]
 
 
 @pytest.mark.parametrize("arch,overrides", TRAINED, ids=TRAINED_IDS)
@@ -346,6 +470,18 @@ def test_train_and_eval_lanes_stay_separate(tmp_path):
     assert tr.ckpt.committed_steps() == [2, 4]
     frame = tr.frame()
     assert frame.filter(stream="train").sum() == frame.filter(stream=tr.train_stream).sum()
+
+
+@pytest.mark.parametrize("scale", [0.0, -1.0, 1.01], ids=["zeroed", "negated", "one_percent_large"])
+def test_three_train_steps_catch_a_wrong_attention_gradient_in_mla_and_moe(monkeypatch, scale):
+    """The same control on deepseek-v2-lite's smoke config: MLA's attention
+    (q/k 24, v 16) between a dense first layer and MoE layers."""
+    from repro_torch.kernels import ops
+
+    flash = ops.flash_attention
+    monkeypatch.setattr(ops, "flash_attention", lambda *a, **kw: _ScaleGrad.apply(flash(*a, **kw), scale))
+    with pytest.raises(AssertionError, match="step 1"):
+        _three_steps_against_reference("deepseek-v2-lite-16b")
 
 
 @pytest.mark.parametrize("scale", [0.0, -1.0, 1.01], ids=["zeroed", "negated", "one_percent_large"])
