@@ -56,6 +56,22 @@ source, all started together) and drives the port's paths:
   backward on the tensor-core route) checked, every layer's real q, k, v
   and dO held through both kernels against the plain versions, and
   attention's weights alone trained beside zeroed and negated gradients;
+* enc-dec and prefix-LM: the four flash kernels with a prefix-LM prefix
+  (bf16 and fp32, forward and backward) held against their plain versions
+  at edge prefixes and shapes (MQA at head dim 256 among them), a prefix
+  of 0 and of S bit for bit the causal and the non-causal call, and timed
+  beside SDPA with a boolean mask at paligemma's training shape, with
+  whisper's encoder (non-causal 1,500 x 1,500) and cross-attention (448 x
+  1,500) shapes timed beside SDPA; whisper's smoke config (at head dim 32)
+  and paligemma's on the card and on the CPU in fp32: forward, prefill with
+  every cache leaf, greedy decode, three train steps, each gap held against
+  the same gap with the plain attention on the card; whisper-medium and
+  paligemma-3b at their published sizes, uncut, trained through
+  ``Trainer`` on stub frame or patch embeddings (every encoder, decoder,
+  cross and prefix call on the tensor-core kernels, priced at its own
+  shape and mask), then prefilled and decoded greedily from the trained
+  weights through the model's entry points, fp32 decode held against a
+  teacher-forced forward;
 * training: the SSD-scan kernels held against the sequential plain scan
   (bf16 on the tensor-core kernel, whose SASS must hold ``HGMMA`` and
   ``UTMALDG``; fp32 on the SIMT kernel) and both timed in bf16; the mamba2
@@ -374,6 +390,10 @@ class TrainCut(NamedTuple):
     stack_from: int  # the first layer of the reference's stack: the weights trained alone are the stack's
     depth: str  # why this depth
     held_out: str  # "falls": the held-out loss must fall over the run; else why it is printed and not held
+    batch: int = DENSE_BATCH  # rows a step
+    seq: int = DENSE_SEQ  # text tokens a row
+    micro: int = DENSE_MICRO  # microbatches a step
+    enc_len: int = 0  # an encoder-decoder config's stub frame embeddings a row
 
 
 DENSE_CUT = TrainCut("dense_train_full_width", "deepseek-7b", DENSE_LAYERS, DENSE_STEPS, DENSE_EVAL_EVERY,
@@ -390,6 +410,48 @@ MOE_CUT = TrainCut("moe_train_full_width", "deepseek-v2-lite-16b", MOE_TRAIN_LAY
                    "(scripts/moe_train_cut.py depth: 5 layers past it)",
                    "printed: a 6-step change below the spread of two runs of one seed (scripts/moe_train_cut.py "
                    "repeat); the FFN-only check holds the MoE weights' gradients")
+#: encdec_full_width: whisper-medium at its published size, uncut: 24 encoder and 24 decoder layers, d_model
+#: 1024, 16 heads of 64, d_ff 4096, vocab 51,865 padded to 51,968, untied, no positional rotation (sinusoidal
+#: positions on the encoder, none on the decoder, as the reference), bf16 params and compute, fp32 AdamW
+#: moments, remat "dots" (the port recomputes the whole layer: the same math).  1,012,525,056 parameters from
+#: model_defs (the encoder 402,703,360): ~16 GB of states at ~16 bytes a parameter.  A row: 1,500 stub frame
+#: embeddings (30 s of audio after the stubbed conv front end) and 448 tokens (whisper's text context); 8 rows
+#: in 2 microbatches, gemma-7b's steps, evals and peak lr.
+ENCDEC_CUT = TrainCut("encdec_full_width", "whisper-medium", 24, GEMMA_STEPS, GEMMA_EVAL_EVERY, 1_012_525_056, 0,
+                      "uncut: 24 encoder and 24 decoder layers", "falls", batch=8, seq=448, micro=2, enc_len=1500)
+#: prefix_lm_full_width: paligemma-3b at its published size, uncut: 18 layers, d_model 2048, 8 heads of 256 on
+#: one kv head, d_ff 16,384 GeGLU, a tied and scaled embedding of 257,216 (padded 257,280), bf16, remat full.
+#: 2,508,793,856 parameters (the embedding 526,909,440): ~40 GB of states.  A row: 256 stub patch embeddings
+#: (the 224-px SigLIP output) and 256 tokens, so attention runs at S = 512 with a prefix of 256; 8 rows in 2
+#: microbatches.
+#: Its held-out loss over the 6 steps is printed, not held: two runs from one seed are bit for bit the same
+#: (scripts/encdec_prefix_train_checks.py repeat), and this run's held-out loss rises a little (PERF.md), while
+#: its attention-only and FFN-only checks fall with their controls failing
+PREFIX_CUT = TrainCut("prefix_lm_full_width", "paligemma-3b", 18, GEMMA_STEPS, GEMMA_EVAL_EVERY, 2_508_793_856, 0,
+                      "uncut: 18 layers",
+                      "printed: 6 steps of 2,048 text tokens leave it where two bit-identical runs of one seed leave "
+                      "it, a little above its start (scripts/encdec_prefix_train_checks.py repeat); the "
+                      "attention-only and FFN-only checks hold the gradients", batch=8, seq=256, micro=2)
+#: serving from the trained weights through the model's entry points: (rows, prompt tokens, greedy decode
+#: steps); whisper's prompt is a few forced tokens after 1,500 frames, paligemma's follows its 256 patches
+ENCDEC_DECODE, PREFIX_DECODE = (4, 4, 30), (4, 32, 16)
+#: encdec_parity's stub frames a row (the smoke config's encoder)
+ENCDEC_PARITY_FRAMES = 80
+#: the smoke parity phases' cache leaves, card against CPU, relative to each leaf's largest entry
+SMOKE_CACHE_REL = 1e-4
+#: the smoke parity phases hold each card-against-CPU gap with the kernels within the larger of its
+#: dense_parity tolerance and this many times the same gap with the plain attention on the card: the card's
+#: own fp32 noise (cuBLAS against the CPU's GEMMs), which whisper's smoke weights amplify past those
+#: tolerances whatever the attention runs (PERF.md)
+SMOKE_NOISE_FACTOR = 2.0
+#: prefix_kernel's edge shapes (B, S, Hq, Hkv, D): S off the 64-row tile at head dims 64 and 128, MQA at
+#: paligemma's D = 256, and paligemma's own training shape; each at the prefixes PREFIX_LENS and one past S
+PREFIX_EDGES = [(1, 200, 4, 2, 64), (2, 130, 4, 4, 128), (1, 300, 8, 1, 256), (2, 517, 8, 1, 256)]
+PREFIX_LENS = (0, 1, 63, 64, 65)
+#: prefix_kernel's timed shapes: paligemma's training microbatch (B, S, Hq, Hkv, D, prefix), and whisper's two
+#: new ones at its microbatch, (B, Sq, Sk, H, D) non-causal: the encoder's and the cross-attention's
+PREFIX_TIMED = (4, 512, 8, 1, 256, 256)
+ENCDEC_TIMED = {"encoder": (4, 1500, 1500, 16, 64), "cross": (4, 448, 1500, 16, 64)}
 #: jamba's SSD width (H, P, N, G): 128 heads of 128, d_state 128, one group.  The bf16 kernel at head dim
 #: 128 (two warpgroups a block) is checked there at P128_SEQS with and without h0, at the edge shapes
 #: P128_EDGES (B, S, H, P, N, G: a ragged S over several chunks, d_state 64 with grouped B/C, one row), the
@@ -2032,18 +2094,31 @@ def phase_decode_full_width(model):
           "prefill_len": 100, "decode_steps": 8, "logits_rel_l2": rels, "tolerance": DECODE_FP32_REL})
 
 
-def _sdpa_backward_fns(q, k, v, do):
-    """SDPA's backward (which the port never calls) on the (B, S, H, D) causal
-    inputs, as three functions for ``time_interleaved``: its forward and
-    backward together (``library_fwd_bwd``) and its forward alone
-    (``library_fwd``), both replayed from a CUDA graph, so that their
-    difference is the backward's device time; and the backward alone on a
-    forward kept from outside (``library_eager``), which a graph cannot
-    capture and which runs eagerly, host time and all.  The captured ones
-    make their leaves inside the call, so that autograd runs on the
-    capturing stream."""
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+def _sdpa_heads(q, k, v):
+    """q, k, v as SDPA takes them, (B, H, S, D) contiguous, K and V expanded
+    to q's heads outside any timed call where the kernel reads them in place
+    (GQA, MQA)."""
+    G = q.shape[2] // k.shape[2]
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if G > 1:
+        kh, vh = (t.repeat_interleave(G, dim=1) for t in (kh, vh))
+    return qh, kh, vh
+
+
+def _sdpa_backward_fns(q, k, v, do, **mask):
+    """SDPA's backward (which the port never calls) on the (B, S, H, D)
+    inputs, causal unless ``mask`` gives SDPA's own mask arguments
+    (``is_causal``, a boolean ``attn_mask``), as three functions for
+    ``time_interleaved``: its forward and backward together
+    (``library_fwd_bwd``) and its forward alone (``library_fwd``), both
+    replayed from a CUDA graph, so that their difference is the backward's
+    device time; and the backward alone on a forward kept from outside
+    (``library_eager``), which a graph cannot capture and which runs
+    eagerly, host time and all.  The captured ones make their leaves inside
+    the call, so that autograd runs on the capturing stream."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = mask or {"is_causal": True}
+    qh, kh, vh = _sdpa_heads(q, k, v)
     doh = do.transpose(1, 2).contiguous()
 
     def leaves():
@@ -2051,11 +2126,11 @@ def _sdpa_backward_fns(q, k, v, do):
 
     def fwd_bwd():
         x = leaves()
-        return torch.autograd.grad(sdpa(*x, is_causal=True), x, doh)
+        return torch.autograd.grad(sdpa(*x, **mask), x, doh)
 
     kept = leaves()
-    oh = sdpa(*kept, is_causal=True)
-    return {"library_fwd_bwd": fwd_bwd, "library_fwd": lambda: sdpa(*leaves(), is_causal=True),
+    oh = sdpa(*kept, **mask)
+    return {"library_fwd_bwd": fwd_bwd, "library_fwd": lambda: sdpa(*leaves(), **mask),
             "library_eager": lambda: torch.autograd.grad(oh, kept, doh, retain_graph=True)}
 
 
@@ -2422,7 +2497,7 @@ def _step1_ok(g, gnorm_rtol=DENSE_STEP1_RTOL) -> bool:
             and g["grad"] <= DENSE_GRAD_REL and g["change"] <= DENSE_STEP1_CHANGE_REL)
 
 
-def _train_parity(cfg, route_trace=False):
+def _train_parity(cfg, route_trace=False, data=None):
     """``cfg`` (an fp32 smoke config) trained 3 steps on the CPU and on the
     card from the same weights, then one card step with the plain attention
     and one each with the backward kernel's gradients zeroed and negated.
@@ -2431,7 +2506,8 @@ def _train_parity(cfg, route_trace=False):
     the three card steps' flash launches (forward, backward), the train
     config and, with ``route_trace``, each step's router calls on each
     device: (expert indices, the smallest gap of the top-(k+1) probabilities)
-    per token."""
+    per token.  ``data`` adds ``DataConfig`` fields (an enc-dec config's
+    ``enc_len``, a VLM's ``vision_tokens``, with ``d_model``)."""
     from repro_torch.data import DataConfig, make_train_iter
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -2449,7 +2525,7 @@ def _train_parity(cfg, route_trace=False):
         return model, adamw_init(dict(model.named_parameters())), make_train_step(model, tcfg)
 
     gpu_model, gpu_opt, gpu_step = card_run()
-    it = make_train_iter(DataConfig(global_batch=4, seq_len=64, vocab_size=cfg.vocab_size, seed=5))
+    it = make_train_iter(DataConfig(global_batch=4, seq_len=64, vocab_size=cfg.vocab_size, seed=5, **(data or {})))
     batches = [next(it) for _ in range(3)]
     it.close()
     cpu_step = make_train_step(cpu_model, tcfg)
@@ -2619,11 +2695,33 @@ def _train_only(model, tcfg, batch, names, steps, grad_factor=1.0):
     return losses
 
 
+def attention_shapes(cfg, seq: int, enc_len: int = 0):
+    """Each flash call of one forward pass of ``cfg`` over rows of ``seq``
+    text tokens (and ``enc_len`` frame embeddings), in call order, as
+    ``(Sq, Sk, causal, prefix_len)``: an enc-dec model's encoder layers
+    (non-causal over the frames), then each decoder layer's causal
+    self-attention and its cross-attention over the frames; a VLM's layers
+    over its vision tokens and the text, with them as the prefix under
+    ``prefix_lm``; any other model's attention layers, causal."""
+    n_attn = sum(cfg.layer_is_attn(i) for i in range(cfg.n_layers))
+    if cfg.encdec:
+        return [(enc_len, enc_len, False, 0)] * cfg.n_enc_layers + [(seq, seq, True, 0),
+                                                                    (seq, enc_len, False, 0)] * n_attn
+    S = seq + cfg.vision_tokens
+    return [(S, S, True, cfg.vision_tokens if cfg.prefix_lm else 0)] * n_attn
+
+
+def _mask_label(Sq, Sk, causal, prefix_len) -> str:
+    mask = "causal" if causal else "non-causal"
+    return f"{Sq}x{Sk} {mask}" + (f" prefix {prefix_len}" if prefix_len else "")
+
+
 def attention_inputs(model, loss_fn, batch):
-    """Every layer's real q, k, v and upstream dO on ``batch``, captured from
-    ``ops.flash_attention`` during one forward and backward of ``loss_fn``
-    (remat recomputes the forward and calls the op again, but only the first
-    forward's outputs receive a gradient)."""
+    """Every attention call's real q, k, v, its mask and its upstream dO on
+    ``batch``, captured from ``ops.flash_attention`` during one forward and
+    backward of ``loss_fn`` (remat recomputes the forward and calls the op
+    again, but only the first forward's outputs receive a gradient); the
+    calls and their masks must be those ``attention_shapes`` gives."""
     from repro_torch.kernels import ops
 
     flash, calls = ops.flash_attention, []
@@ -2643,11 +2741,15 @@ def attention_inputs(model, loss_fn, batch):
     finally:
         ops.flash_attention = flash
     del total
-    L = model.cfg.n_layers
+    enc = batch.get("enc_embeds")
+    want = attention_shapes(model.cfg, np.asarray(batch["tokens"]).shape[1], 0 if enc is None else enc.shape[1])
     layers = [c for c in calls if "do" in c]
-    check(len(layers) == L and len(calls) == 2 * L, f"{len(layers)} of {len(calls)} attention calls got a gradient")
-    for c in layers:
-        check(c["kw"].get("causal", True) and c["do"].dtype == torch.bfloat16, "a causal bf16 attention")
+    check(len(layers) == len(want) and len(calls) == 2 * len(want),
+          f"{len(layers)} of {len(calls)} attention calls got a gradient, want {len(want)} of {2 * len(want)}")
+    for c, (Sq, Sk, causal, prefix_len) in zip(layers, want):
+        got = (c["q"].shape[1], c["k"].shape[1], c["kw"].get("causal", True), c["kw"].get("prefix_len", 0))
+        check(got == (Sq, Sk, causal, prefix_len) and c["do"].dtype == torch.bfloat16,
+              f"an attention call at {got} in {c['do'].dtype}, want {(Sq, Sk, causal, prefix_len)} in bf16")
     return layers
 
 
@@ -2658,16 +2760,18 @@ def cut_config(cut: TrainCut):
     return dataclasses.replace(get_config(cut.config), n_layers=cut.layers)
 
 
-def full_width_run(cfg, steps: int, eval_every: int):
+def full_width_run(cfg, steps: int, eval_every: int, *, batch: int = DENSE_BATCH, seq: int = DENSE_SEQ,
+                   micro: int = DENSE_MICRO, enc_len: int = 0):
     """Train ``cfg`` on the card through ``Trainer``'s entry point for
     ``steps`` steps with an eval every ``eval_every``, at the full-width
-    phases' settings (DENSE_BATCH x DENSE_SEQ in DENSE_MICRO microbatches,
-    AdamW, peak lr DENSE_LR after 2 warm-up steps), counting the flash
-    launches and each backward call's route.  Returns the run's state and
-    readings: the trainer, model and optimizer state, the history, the
-    held-out loss on one fixed batch (``probe``) before and after, the
-    launches, the routes, the peak device memory over the steps and the
-    parameter count."""
+    phases' settings (``batch`` x ``seq`` in ``micro`` microbatches, with
+    the data pipeline's seeded stub frame embeddings (``enc_len`` a row) or
+    patch embeddings (``cfg.vision_tokens``), AdamW, peak lr DENSE_LR after
+    2 warm-up steps), counting the flash launches and each backward call's
+    route.  Returns the run's state and readings: the trainer, model and
+    optimizer state, the history, the held-out loss on one fixed batch
+    (``probe``) before and after, the launches, the routes, the peak device
+    memory over the steps and the parameter count."""
     from types import SimpleNamespace
 
     from repro_torch.data import DataConfig, make_train_iter
@@ -2678,8 +2782,9 @@ def full_width_run(cfg, steps: int, eval_every: int):
 
     tcfg = TrainConfig(adamw=AdamWConfig(weight_decay=0.1, grad_clip=1.0),
                        schedule=ScheduleConfig(peak_lr=DENSE_LR, warmup_steps=2, decay_steps=steps),
-                       microbatches=DENSE_MICRO)
-    dcfg = DataConfig(global_batch=DENSE_BATCH, seq_len=DENSE_SEQ, vocab_size=cfg.vocab_size)
+                       microbatches=micro)
+    dcfg = DataConfig(global_batch=batch, seq_len=seq, vocab_size=cfg.vocab_size, d_model=cfg.d_model,
+                      enc_len=enc_len, vision_tokens=cfg.vision_tokens)
     train_it = make_train_iter(dcfg)
     eval_it = make_train_iter(dataclasses.replace(dcfg, seed=99))
     probe_it = make_train_iter(dataclasses.replace(dcfg, seed=7))
@@ -2723,19 +2828,23 @@ def full_width_run(cfg, steps: int, eval_every: int):
                            n_params=sum(p.numel() for p in model.parameters()))
 
 
-def _train_full_width(cut: TrainCut, cfg):
+def _train_full_width(cut: TrainCut, cfg, after=None):
     """Train ``cfg`` (``cut``'s config at its published widths, cut in depth
-    only; dense, or MoE with MLA) on the card (``full_width_run``) for
-    ``cut.steps`` steps with an eval every ``cut.eval_every``, and check it:
-    the parameter count, the exact forward and backward flash launches
-    (every backward on the tensor-core route, at the widths
-    ``flash_widths`` gives), the flash FLOPs of the step cost at those
-    widths, the train and eval lanes, the held-out loss (``cut.held_out``),
-    a peak under the card's 80 GB; one step traced for the device's idle
-    share and time by kernel and by op; every layer's real q, k, v and dO
-    through both flash kernels against the plain versions; the
+    only; dense, MoE with MLA, enc-dec or prefix-LM) on the card
+    (``full_width_run`` at ``cut``'s batch) for ``cut.steps`` steps with an
+    eval every ``cut.eval_every``, and check it: the parameter count, the
+    exact forward and backward flash launches (every backward on the
+    tensor-core route, at the widths ``flash_widths`` gives), the flash FLOPs
+    of the step cost at each launch's own shape and mask
+    (``attention_shapes``), the train and eval lanes, the held-out loss
+    (``cut.held_out``), a peak under the card's 80 GB; one step traced for
+    the device's idle share, time by kernel and by op, and its flash
+    launches by shape; every attention call's real q, k, v and dO through
+    both flash kernels, at its own mask, against the plain versions; the
     attention-only and FFN-only checks beside their zeroed and negated
-    controls (ATTN_ONLY_DROP).  Prints the phase's line and returns the
+    controls (ATTN_ONLY_DROP).  ``after(model)``, where given, runs on the
+    trained model before the line is printed and its dict joins the line
+    under ``"after_training"``.  Prints the phase's line and returns the
     launches and the largest gradient error."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -2745,22 +2854,29 @@ def _train_full_width(cut: TrainCut, cfg):
     L, steps = cfg.n_layers, cut.steps
     _, D, Dv = flash_widths(cfg)
     check(L == cut.layers, f"{cfg.name} at {L} layers, not {cut.layers}")
-    check((cfg.param_dtype, cfg.compute_dtype, cfg.opt_state_dtype, cfg.remat)
-          == ("bfloat16", "bfloat16", "float32", "full"), f"{cfg.name}'s own dtypes and remat")
+    check((cfg.param_dtype, cfg.compute_dtype, cfg.opt_state_dtype) == ("bfloat16", "bfloat16", "float32")
+          and cfg.remat in ("full", "dots"), f"{cfg.name}'s own dtypes and remat")
     check(fa.select_bwd_route(torch.bfloat16, D, Dv) == "wgmma",
           f"bf16 at {_dims_label(D, Dv)} takes the tensor-core backward")
-    run = full_width_run(cfg, steps, cut.eval_every)
+    run = full_width_run(cfg, steps, cut.eval_every, batch=cut.batch, seq=cut.seq, micro=cut.micro,
+                         enc_len=cut.enc_len)
     trainer, tcfg, model, opt, hist, probe = run.trainer, run.tcfg, run.model, run.opt, run.hist, run.probe
     fwd, bwd = run.fwd, run.bwd
 
     losses = [h["loss"] for h in hist]
     n_evals = steps // cut.eval_every
     train, evals = trainer.stats.summary(trainer.train_stream), trainer.stats.summary(trainer.eval_stream)
-    # a step: each layer and microbatch runs the forward kernel twice (forward, remat recompute) and
-    # the backward once; an eval runs the forward once per layer
-    want_fwd = steps * DENSE_MICRO * 2 * L + n_evals * L
-    want_bwd = steps * DENSE_MICRO * L
-    mb = (DENSE_BATCH // DENSE_MICRO, DENSE_SEQ, DENSE_SEQ, cfg.n_heads, D)
+    # a step: each attention call of each microbatch runs the forward kernel twice (forward, remat
+    # recompute) and the backward once; an eval runs the forward once per call
+    shapes = attention_shapes(cfg, cut.seq, cut.enc_len)
+    A = len(shapes)
+    want_fwd = steps * cut.micro * 2 * A + n_evals * A
+    want_bwd = steps * cut.micro * A
+    B = cut.batch // cut.micro
+    want_flops = {name: cut.micro * n * sum(fa.flash_flops(B, Sq, Sk, cfg.n_heads, D, causal=causal,
+                                                            backward=backward, v_head_dim=Dv, prefix_len=prefix)
+                                            for Sq, Sk, causal, prefix in shapes)
+                  for name, n, backward in (("flash_forward", 2, False), ("flash_backward", 1, True))}
     parts, cost = trainer.cost_parts, trainer.step_cost
     later = [  # judged after the phase's line is printed
         (all(np.isfinite(losses)) and all(np.isfinite(e["loss"]) for e in trainer.eval_history), "non-finite loss"),
@@ -2768,13 +2884,11 @@ def _train_full_width(cut: TrainCut, cfg):
         (run.peak_gb < 80, f"peak device memory {run.peak_gb} GB, not under the card's 80"),
         (train["steps"] == steps == len(hist), f"train lane steps {train['steps']}"),
         (evals["steps"] == n_evals == len(trainer.eval_history), f"eval lane steps {evals['steps']}"),
-        (train["tokens"] == steps * DENSE_BATCH * DENSE_SEQ, f"train lane tokens {train['tokens']}"),
+        (train["tokens"] == steps * cut.batch * cut.seq, f"train lane tokens {train['tokens']}"),
         ((fwd, bwd) == (want_fwd, want_bwd), f"flash launches {fwd}, {bwd}; want {want_fwd}, {want_bwd}"),
         (run.routes == {"wgmma": want_bwd}, f"backward calls by route {run.routes}; want {want_bwd} on wgmma"),
-        (parts["flash_forward"] == DENSE_MICRO * 2 * L * fa.flash_flops(*mb, causal=True, v_head_dim=Dv)
-         and parts["flash_backward"] == DENSE_MICRO * L * fa.flash_flops(*mb, causal=True, backward=True,
-                                                                          v_head_dim=Dv),
-         f"flash FLOPs in the step cost {parts}"),
+        (all(parts[name] == float(want) for name, want in want_flops.items()),
+         f"flash FLOPs in the step cost {parts}, want {want_flops}"),
         (abs(train["flops"] - steps * cost.flops) <= 1e-9 * train["flops"], "train lane FLOPs"),
         (cost.hbm_bytes > 0 and abs(train["hbm_bytes"] - steps * cost.hbm_bytes) <= 1e-9 * train["hbm_bytes"],
          f"train lane bytes {train['hbm_bytes']}"),
@@ -2786,16 +2900,22 @@ def _train_full_width(cut: TrainCut, cfg):
     step_ms = [r.seconds * 1e3 for r in trainer.stats.records if r.stream_id == trainer.train_stream]
     steady_ms = statistics.median(step_ms[2:])
 
-    # one step traced for the device's busy time (idle share against the unprofiled median step)
+    # one step traced for the device's busy time (idle share against the unprofiled median step), and its
+    # flash launches by shape and mask as the wrappers record them
     from torch.profiler import ProfilerActivity, profile
 
     step = make_train_step(model, tcfg)
+    shapes_before = (fa.flash_attention.shapes.copy(), fa.flash_attention_backward.shapes.copy())
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         opt, _ = step(opt, probe)
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t1
+    by_shape = {direction: {f"{_mask_label(r.Sq, r.Sk, r.causal, r.prefix_len)}, B={r.B} Hq={r.Hq} Hkv={r.Hkv} "
+                            f"{_dims_label(r.D, r.Dv)}": n for r, n in (now - was).items()}
+                for direction, now, was in (("forward", fa.flash_attention.shapes, shapes_before[0]),
+                                            ("backward", fa.flash_attention_backward.shapes, shapes_before[1]))}
     del opt, step  # the checks below keep their own optimizer states
     run.opt = None
     torch.cuda.empty_cache()
@@ -2819,34 +2939,47 @@ def _train_full_width(cut: TrainCut, cfg):
             "device_ms_by_kernel": top, "device_ms_by_op": top_ops,
             "flash_device_ms": {n: ms for n, ms in by_name.items() if "flash" in n}}
     del prof
+    later.append((by_shape["backward"] == {k: cut.micro * n for k, n in _shape_counts(shapes, B, cfg).items()}
+                  and by_shape["forward"] == {k: 2 * cut.micro * n for k, n in _shape_counts(shapes, B, cfg).items()},
+                  f"one step's flash launches by shape {by_shape}"))
 
-    micro = {k: v[: DENSE_BATCH // DENSE_MICRO] for k, v in probe.items()}
+    micro = {k: v[: cut.batch // cut.micro] for k, v in probe.items()}
     layers = attention_inputs(model, run.held_out, micro)
     rows = []
     for c in layers:
-        q, k, v, do, scale = c["q"], c["k"], c["v"], c["do"], c["kw"].get("scale")
+        q, k, v, do = c["q"], c["k"], c["v"], c["do"]
         check((q.shape[-1], v.shape[-1]) == (D, Dv), f"attention at {_dims_label(q.shape[-1], v.shape[-1])}")
-        o, lse = fa.flash_attention(q, k, v, causal=True, scale=scale, return_lse=True)
-        lse_ref = attention_lse_ref(q, k, v, causal=True, scale=scale)
-        g = _grads_close(fa.flash_attention_backward(q, k, v, o, lse, do, causal=True, scale=scale),
-                         flash_backward_ref(q, k, v, o, lse, do, causal=True, scale=scale))
+        mask = dict(causal=c["kw"].get("causal", True), scale=c["kw"].get("scale"),
+                    prefix_len=c["kw"].get("prefix_len", 0))
+        o, lse = fa.flash_attention(q, k, v, **mask, return_lse=True)
+        lse_ref = attention_lse_ref(q, k, v, **mask)
+        g = _grads_close(fa.flash_attention_backward(q, k, v, o, lse, do, **mask),
+                         flash_backward_ref(q, k, v, o, lse, do, **mask))
         lse_max = lse_ref.abs().max().item()
         g["lse"] = {"max_abs_err": (lse - lse_ref).abs().max().item(), "max_abs": lse_max,
                     "ok": bool(torch.allclose(lse, lse_ref, rtol=0, atol=LSE_TRAIN_ATOL))}
+        g["mask"] = _mask_label(q.shape[1], k.shape[1], mask["causal"], mask["prefix_len"])
         rows.append(g)
         del o, lse, lse_ref
     del layers
 
     # the attention-only and FFN-only checks and their controls, each from the same weights, over the
     # reference's stack (see ATTN_ONLY_DROP): the projections into q, k and v (MLA: q, the latent and rope
-    # key, and the latent's expansions into K and V), the controls scaling the backward kernel's dq, dk, dv;
-    # the MLP weights (a MoE layer's router, routed and shared experts), the controls scaling their gradients
+    # key, and the latent's expansions into K and V; enc-dec: the decoder's self- and cross-attention's,
+    # not the encoder's: those move whisper's loss by +-0.05 a step with the gradient and negated alike at
+    # every learning rate tried, scripts/encdec_prefix_train_checks.py attention, and its calls are held on
+    # their real inputs below), the controls scaling the backward kernel's dq, dk, dv; the MLP weights (a
+    # MoE layer's router, routed and shared experts; enc-dec: the encoder's too), the controls scaling their
+    # gradients
     qkv = ("wq", "w_dkv", "w_uk", "w_uv") if cfg.mla is not None else ("wq", "wk", "wv")
     stack = range(cut.stack_from, L)
     params = dict(model.named_parameters())
-    groups = {"attention_only": [f"layers.{i}.attn.{w}" for i in stack for w in qkv],
+    mixers = ("attn", "cross") if cfg.encdec else ("attn",)
+    enc_layers = range(cfg.n_enc_layers if cfg.encdec else 0)
+    groups = {"attention_only": [f"layers.{i}.{m}.{w}" for i in stack for m in mixers for w in qkv],
               "ffn_only": [n for n in params if any(n.startswith(f"layers.{i}.{m}.") for i in stack
-                                                     for m in ("ffn", "moe"))]}
+                                                     for m in ("ffn", "moe"))
+                           or any(n.startswith(f"encoder.layers.{j}.ffn.") for j in enc_layers)]}
     check(all(n in params for n in groups["attention_only"]), f"every layer has attn.{', attn.'.join(qkv)}")
     check(len(groups["ffn_only"]) >= 3 * len(stack), f"the stack's MLP weights: {groups['ffn_only']}")
     alone_cfg = dataclasses.replace(tcfg, schedule=dataclasses.replace(tcfg.schedule, decay_steps=ATTN_ONLY_STEPS))
@@ -2868,10 +3001,11 @@ def _train_full_width(cut: TrainCut, cfg):
         del saved
         drops = {label: ls[0] - ls[-1] for label, ls in losses_by.items()}
         alone[group] = {"losses": losses_by, "drops": drops, "min_drop": ATTN_ONLY_DROP, "steps": ATTN_ONLY_STEPS,
-                        "batch": f"the probe's first microbatch ({DENSE_BATCH // DENSE_MICRO} x {DENSE_SEQ}), "
-                                 "repeated",
-                        "trained": f"layers {cut.stack_from}-{L - 1}: "
-                                   f"{sorted({n.split('.', 2)[2] for n in names})}",
+                        "batch": f"the probe's first microbatch ({B} x {cut.seq}), repeated",
+                        "trained": f"layers {cut.stack_from}-{L - 1}"
+                                   + (f" (and encoder layers 0-{len(enc_layers) - 1})" if enc_layers and
+                                      group == "ffn_only" else "")
+                                   + f": {sorted({n.split('.', 2)[2] for n in names if n.startswith('layers.')})}",
                         "controls": "the backward kernel's dq, dk, dv scaled" if group == "attention_only"
                                     else "the trained weights' gradients scaled"}
         later += [
@@ -2881,6 +3015,9 @@ def _train_full_width(cut: TrainCut, cfg):
              f"{group}: a control passes the check: {drops}"),
         ]
     del params
+    after_training = after(model) if after is not None else None
+    if after_training is not None:
+        later += after_training.pop("checks")
     emit({
         "phase": cut.phase, "config": cfg.name, "n_layers": L, "depth": cut.depth, "d_model": cfg.d_model,
         "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "head_dim": D, "v_head_dim": Dv, "d_ff": cfg.d_ff,
@@ -2888,9 +3025,11 @@ def _train_full_width(cut: TrainCut, cfg):
         "scale_embedding": cfg.scale_embedding,
         "mla": dataclasses.asdict(cfg.mla) if cfg.mla is not None else None,
         "moe": dataclasses.asdict(cfg.moe) if cfg.moe is not None else None,
+        "n_enc_layers": cfg.n_enc_layers if cfg.encdec else 0, "enc_len": cut.enc_len,
+        "vision_tokens": cfg.vision_tokens, "prefix_lm": cfg.prefix_lm,
         "dtype": {"params": cfg.param_dtype, "compute": cfg.compute_dtype, "moments": cfg.opt_state_dtype},
         "remat": cfg.remat, "params": run.n_params, "init_s": run.init_s,
-        "batch": DENSE_BATCH, "seq": DENSE_SEQ, "microbatches": DENSE_MICRO, "steps": steps,
+        "batch": cut.batch, "seq": cut.seq, "microbatches": cut.micro, "steps": steps,
         "peak_lr": DENSE_LR, "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
         "aux_losses": [h["aux"] for h in hist],
         "held_out_loss": {"before": run.held_out_before, "after": run.held_out_after, "held": cut.held_out},
@@ -2899,20 +3038,35 @@ def _train_full_width(cut: TrainCut, cfg):
         "lanes": {"train": train, "eval": evals}, "step_cost": parts,
         "flash_launches": {"forward": fwd, "backward": bwd, "forward_expected": want_fwd,
                            "backward_expected": want_bwd, "backward_by_route": run.routes,
-                           "kernels_per_backward": fa.BWD_LAUNCHES},
-        "tokens_per_s": train["tokens_per_s"], "step_ms_median": steady_ms, "step_ms_first": step_ms[0],
+                           "kernels_per_backward": fa.BWD_LAUNCHES, "one_step_by_shape": by_shape},
+        "tokens_per_s": train["tokens_per_s"], "tokens_per_s_steady": cut.batch * cut.seq / steady_ms * 1e3,
+        "step_ms_median": steady_ms, "step_ms_first": step_ms[0],
         "max_memory_allocated_gb": run.peak_gb, "device_idle": idle,
-        "attention_op_bf16": {"layers": rows, "inputs": f"one probe microbatch ({DENSE_BATCH // DENSE_MICRO} x "
-                                                        f"{DENSE_SEQ}), every layer's q, k, v and dO",
+        "attention_op_bf16": {"layers": rows, "inputs": f"one probe microbatch ({B} x {cut.seq}), every attention "
+                                                        "call's q, k, v and dO at its own mask",
                               "tolerance": {"rtol": BWD_RTOL, "atol_of_max": BWD_ATOL_OF_MAX,
                                             "lse": {"atol": LSE_TRAIN_ATOL}}},
+        "after_training": after_training,
     })
     for cond, what in later:
         check(cond, what)
     for layer, r in enumerate(rows):
         check(all(r[n]["ok"] for n in ("dq", "dk", "dv", "lse")),
-              f"layer {layer}: the kernels disagree with the plain versions on the training inputs: {r}")
+              f"attention call {layer} ({r['mask']}): the kernels disagree with the plain versions on the training "
+              f"inputs: {r}")
     return fwd, bwd, max(r[n]["max_abs_err"] for r in rows for n in ("dq", "dk", "dv"))
+
+
+def _shape_counts(shapes, B, cfg):
+    """One forward pass's flash launches by ``_train_full_width``'s shape label."""
+    from repro_torch.train import flash_widths
+
+    Hkv, D, Dv = flash_widths(cfg)
+    out = {}
+    for Sq, Sk, causal, prefix in shapes:
+        key = f"{_mask_label(Sq, Sk, causal, prefix)}, B={B} Hq={cfg.n_heads} Hkv={Hkv} {_dims_label(D, Dv)}"
+        out[key] = out.get(key, 0) + 1
+    return out
 
 
 def phase_dense_train_full_width():
@@ -2953,6 +3107,400 @@ def phase_moe_train_full_width():
     check((moe.n_experts, moe.top_k, moe.expert_d_ff, moe.n_shared, moe.first_k_dense) == (64, 6, 1408, 2, 1),
           "deepseek-v2-lite's published experts")
     return _train_full_width(MOE_CUT, cfg)
+
+
+def _greedy(model, toks, kw, steps: int, enc_len: int):
+    """``prefill`` of ``toks`` (with ``kw``'s stub embeddings), then ``steps``
+    greedy ``decode_step``s from a cache of the prompt's length plus
+    ``steps``, each timed to the device: the prefill's ms and flash launches,
+    the decode's ms and launches, every step's logits and token, the cache's
+    GB."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serve.cache_utils import transplant
+
+    rows, n0 = toks.shape[0], model.cfg.vision_tokens + toks.shape[1]
+    torch.cuda.synchronize()
+    before, t0 = fa.flash_attention.launches, time.perf_counter()
+    logits, small = model.prefill(toks, **kw)
+    torch.cuda.synchronize()
+    prefill_s, prefill_launches = time.perf_counter() - t0, fa.flash_attention.launches - before
+    cache = transplant(model.init_cache(rows, n0 + steps, enc_len=enc_len), small)
+    cache_gb = sum(t.numel() * t.element_size() for t in cache.values()) / 1e9
+    del small
+    step_logits, tokens = [logits], [logits.argmax(-1)]
+    pos = torch.full((rows,), n0, dtype=torch.long, device="cuda")
+    torch.cuda.synchronize()
+    before, t0 = fa.flash_attention.launches, time.perf_counter()
+    for _ in range(steps):
+        logits, cache = model.decode_step(cache, tokens[-1], pos)
+        step_logits.append(logits)
+        tokens.append(logits.argmax(-1))
+        pos = pos + 1
+    torch.cuda.synchronize()
+    return (prefill_s, prefill_launches, time.perf_counter() - t0, fa.flash_attention.launches - before,
+            step_logits, tokens, cache_gb)
+
+
+def _against_forward(model, toks, kw, step_logits, tokens):
+    """Each step's logits (prefill, then decode) against one teacher-forced
+    forward over the prompt and the generated tokens: relative L2 over the
+    real vocabulary (the padded entries are -1e9 on every path), and the
+    share of steps whose greedy token the forward's argmax repeats."""
+    P, V = toks.shape[1], model.cfg.vocab_size
+    with torch.no_grad():
+        full = model(torch.cat([toks, torch.stack(tokens[:-1], 1)], 1), **kw)[0]
+    rels = [_rel(x[:, :V].float(), full[:, P - 1 + t, :V].float()) for t, x in enumerate(step_logits)]
+    agree = statistics.mean(float((full[:, P - 1 + t].argmax(-1) == tok).float().mean())
+                            for t, tok in enumerate(tokens))
+    return rels, agree
+
+
+def _generation(rows: int, prompt_len: int, steps: int, enc_len: int, seed: int):
+    """``after`` for ``_train_full_width``: from the trained weights, ``prefill``
+    of ``rows`` seeded prompts of ``prompt_len`` tokens (with ``enc_len``
+    stub frame embeddings, or the config's stub vision embeddings, a row),
+    timed after one warm-up, then ``steps`` greedy ``decode_step``s (a VLM's
+    positions after its vision tokens; an enc-dec model's over its cross
+    cache), timed; all in bf16, then once more in fp32 compute.  Checked:
+    the bf16 prefill's flash launches (every attention call,
+    ``attention_shapes``) and none in decode, finite logits, tokens in the
+    vocabulary, and, in fp32, each step's logits against one teacher-forced
+    forward over the prompt and the generated tokens (relative L2 within
+    DECODE_FP32_REL).  The bf16 run's gap to its forward is printed: the two
+    round at other places (decode attends in fp32 over the bf16 cache, the
+    forward runs the bf16 flash kernel), and the reference's init amplifies
+    that rounding through the stack."""
+
+    def run(model):
+        cfg = model.cfg
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        toks = torch.randint(0, cfg.vocab_size, (rows, prompt_len), generator=g, device="cuda")
+        kw = {}
+        if enc_len:
+            kw["enc_embeds"] = torch.randn((rows, enc_len, cfg.d_model), generator=g, device="cuda")
+        if cfg.vision_tokens:
+            kw["vision_embeds"] = torch.randn((rows, cfg.vision_tokens, cfg.d_model), generator=g, device="cuda")
+        model.prefill(toks, **kw)  # warm-up
+        prefill_s, prefill_launches, decode_s, decode_launches, step_logits, tokens, cache_gb = _greedy(
+            model, toks, kw, steps, enc_len)
+        finite = all(bool(torch.isfinite(x).all()) for x in step_logits)
+        rels, agree = _against_forward(model, toks, kw, step_logits, tokens)
+        gen = torch.stack(tokens, 1)
+        model.cfg = dataclasses.replace(cfg, compute_dtype="float32")
+        try:
+            step32, tokens32 = _greedy(model, toks, kw, steps, enc_len)[4:6]
+            rels32, agree32 = _against_forward(model, toks, kw, step32, tokens32)
+        finally:
+            model.cfg = cfg
+        del step_logits, step32
+        A = len(attention_shapes(cfg, prompt_len, enc_len))
+        run.result = {
+            "rows": rows, "prompt_tokens": prompt_len, "vision_tokens": cfg.vision_tokens, "enc_len": enc_len,
+            "decode_steps": steps, "cache_gb": cache_gb, "prefill_ms": prefill_s * 1e3,
+            "prefill_tokens_per_s": rows * (cfg.vision_tokens + prompt_len) / prefill_s,
+            "prefill_frames_per_s": rows * enc_len / prefill_s if enc_len else None,
+            "decode_ms_per_step": decode_s * 1e3 / steps, "decode_tokens_per_s": rows * steps / decode_s,
+            "prefill_flash_launches": prefill_launches, "decode_flash_launches": decode_launches,
+            "bf16_logits_rel_l2_vs_teacher_forced": {"max": max(rels), "mean": statistics.mean(rels),
+                                                     "greedy_agreement": agree},
+            "fp32_logits_rel_l2_vs_teacher_forced": {"max": max(rels32), "mean": statistics.mean(rels32),
+                                                     "greedy_agreement": agree32, "tolerance": DECODE_FP32_REL},
+            "tokens_row0": gen[0].tolist(),
+            "checks": [
+                (prefill_launches == A, f"the prefill launched {prefill_launches} flash kernels, want {A}"),
+                (decode_launches == 0, f"decode launched {decode_launches} flash kernels"),
+                (finite, "non-finite prefill or decode logits"),
+                (bool(((gen >= 0) & (gen < cfg.vocab_size)).all()), "a generated token outside the vocabulary"),
+                (max(rels32) <= DECODE_FP32_REL,
+                 f"fp32 decode logits against the teacher-forced forward, rel L2 {rels32}"),
+            ],
+        }
+        return dict(run.result)
+
+    return run
+
+
+def phase_encdec_full_width():
+    """whisper-medium at its published size, uncut, trained on the card
+    (``_train_full_width`` at ENCDEC_CUT: 1,500 stub frames and 448 tokens
+    a row; every encoder, decoder and cross-attention call on the
+    tensor-core kernels, forward and backward), then served from the trained
+    weights through the model's entry points: a prefill of ENCDEC_DECODE's
+    rows and greedy decode steps over the cross cache.  Returns the
+    training's launches and largest gradient error, and the serving
+    readings."""
+    cfg = cut_config(ENCDEC_CUT)
+    gen = _generation(*ENCDEC_DECODE, ENCDEC_CUT.enc_len, seed=41)
+    check((cfg.n_layers, cfg.n_enc_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_ff,
+           cfg.vocab_size, cfg.padded_vocab, cfg.use_rope, cfg.remat)
+          == (24, 24, 1024, 16, 16, 64, 4096, 51865, 51968, False, "dots"), "whisper-medium's published size")
+    return (*_train_full_width(ENCDEC_CUT, cfg, after=gen), gen.result)
+
+
+def phase_prefix_lm_full_width():
+    """paligemma-3b at its published size, uncut, trained on the card
+    (``_train_full_width`` at PREFIX_CUT: 256 stub patch embeddings and 256
+    tokens a row, attention at S = 512 with a prefix of 256 on the
+    tensor-core kernels at D = 256, MQA, forward and backward), then served
+    from the trained weights: a prefill of PREFIX_DECODE's rows and greedy
+    decode steps at positions after the prefix.  Returns as
+    ``phase_encdec_full_width`` does."""
+    cfg = cut_config(PREFIX_CUT)
+    gen = _generation(*PREFIX_DECODE, 0, seed=43)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size,
+           cfg.padded_vocab, cfg.hidden_act, cfg.tie_embeddings, cfg.scale_embedding, cfg.vision_tokens, cfg.prefix_lm,
+           cfg.remat)
+          == (18, 2048, 8, 1, 256, 16384, 257216, 257280, "gelu", True, True, 256, True, "full"),
+          "paligemma-3b's published size")
+    return (*_train_full_width(PREFIX_CUT, cfg, after=gen), gen.result)
+
+
+def _model_errors(cpu, gpu, cfg, toks, kw, enc_len):
+    """``gpu`` (the card) against ``cpu`` from the same weights: the largest
+    logits gap of the forward, the prefill and 8 greedy decode steps (the
+    CPU's tokens fed to both), each cache leaf's gap relative to its largest
+    entry, and whether the card's greedy tokens were the CPU's."""
+    from repro_torch.serve.cache_utils import transplant
+
+    gkw = {n: t.cuda() for n, t in kw.items()}
+    with torch.no_grad():
+        err = {"forward_logits": (gpu(toks.cuda(), **gkw)[0].cpu() - cpu(toks, **kw)[0]).abs().max().item()}
+    c_logits, c_small = cpu.prefill(toks, **kw)
+    g_logits, g_small = gpu.prefill(toks.cuda(), **gkw)
+    err["prefill_logits"] = (g_logits.cpu() - c_logits).abs().max().item()
+    check(sorted(g_small) == sorted(c_small), f"cache leaves {sorted(g_small)} vs {sorted(c_small)}")
+    err["cache_rel"] = {k: (g_small[k].cpu() - v).abs().max().item() / v.abs().max().item() for k, v in c_small.items()}
+    n0, steps = toks.shape[1] + cfg.vision_tokens, 8
+    c_cache = transplant(cpu.init_cache(2, n0 + steps, enc_len=enc_len), c_small)
+    g_cache = transplant(gpu.init_cache(2, n0 + steps, enc_len=enc_len), g_small)
+    pos, tokens, same, decode_err = torch.full((2,), n0, dtype=torch.long), [], True, 0.0
+    for _ in range(steps):
+        tok = c_logits.argmax(-1)
+        same = same and torch.equal(g_logits.argmax(-1).cpu(), tok)
+        tokens.append(tok.tolist())
+        c_logits, _ = cpu.decode_step(c_cache, tok, pos)
+        g_logits, _ = gpu.decode_step(g_cache, tok.cuda(), pos.cuda())
+        decode_err = max(decode_err, (g_logits.cpu() - c_logits).abs().max().item())
+        pos = pos + 1
+    err["decode_logits"] = decode_err
+    return err, tokens, same
+
+
+def _within_noise(got, plain, floor):
+    """Each of ``got``'s gaps (card against CPU, with the kernels) within the
+    larger of ``floor`` and SMOKE_NOISE_FACTOR times the same gap with the
+    plain attention on the card (``plain``): the kernels may add at most that
+    much to the card's own fp32 noise."""
+    if isinstance(got, dict):
+        return all(_within_noise(got[k], plain[k], floor[k] if isinstance(floor, dict) else floor) for k in got)
+    return got <= max(floor, SMOKE_NOISE_FACTOR * plain)
+
+
+def _smoke_parity(phase: str, cfg, enc_len: int, note: str, later_held: bool, later_note: str = ""):
+    """``cfg`` (an fp32 smoke config with an encoder or a vision prefix) on the
+    card and on the CPU from the same weights: forward logits, prefill logits
+    and every cache leaf, 8 greedy decode steps (tokens equal); then three
+    train steps (``_train_parity``), the zeroed and negated backward controls
+    beside them.  Every flash call runs on the kernels, and each reading is
+    also taken with the plain attention on the card: the kernels' gaps must
+    stay within the larger of dense_parity's tolerances (SMOKE_LOGITS_ATOL,
+    SMOKE_CACHE_REL, DENSE_STEP1_*) and SMOKE_NOISE_FACTOR times that card's
+    own fp32 gap to the CPU, which the controls must fail.  The later steps
+    are held to DENSE_LOSS_RTOL and DENSE_GNORM_RTOL where ``later_held``,
+    else printed (``later_note`` says why)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import Transformer
+
+    check(cfg.compute_dtype == "float32" and cfg.remat == "none", f"{cfg.name} smoke is fp32 without remat")
+    cpu = Transformer(cfg, device="cpu", seed=17)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    rng = np.random.default_rng(17)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 24)), dtype=torch.long)
+    kw = {}
+    if enc_len:
+        kw["enc_embeds"] = torch.as_tensor(rng.standard_normal((2, enc_len, cfg.d_model)), dtype=torch.float32)
+    if cfg.vision_tokens:
+        kw["vision_embeds"] = torch.as_tensor(rng.standard_normal((2, cfg.vision_tokens, cfg.d_model)),
+                                              dtype=torch.float32)
+    before = fa.flash_attention.launches
+    err, tokens, same = _model_errors(cpu, gpu, cfg, toks, kw, enc_len)
+    model_launches = fa.flash_attention.launches - before
+    flash = ops.flash_attention
+    ops.flash_attention = lambda *a, **k: flash(*a, **{**k, "impl": "plain"})
+    try:
+        plain_err, _, plain_same = _model_errors(cpu, gpu, cfg, toks, kw, enc_len)
+    finally:
+        ops.flash_attention = flash
+    del cpu, gpu
+
+    data = {"d_model": cfg.d_model, "enc_len": enc_len, "vision_tokens": cfg.vision_tokens}
+    rows, step1, plain, controls, change, launches, tcfg, _ = _train_parity(cfg, data=data)
+    step1_floor = {"loss": DENSE_STEP1_RTOL, "grad_norm": DENSE_STEP1_RTOL, "grad": DENSE_GRAD_REL,
+                   "change": DENSE_STEP1_CHANGE_REL}
+    A, A_train = len(attention_shapes(cfg, toks.shape[1], enc_len)), len(attention_shapes(cfg, 64, enc_len))
+    want_launches = len(rows) * tcfg.microbatches * A_train  # no remat: one forward and one backward per call
+    emit(_parity_line(phase, f"{cfg.name} SMOKE, {note}", rows, step1, plain, change, controls, launches,
+                      model_errors=err, plain_attention_model_errors=plain_err, decode_tokens=tokens,
+                      greedy_tokens_equal=same, model_flash_launches=model_launches, n_heads=cfg.n_heads,
+                      head_dim=cfg.resolved_head_dim, enc_len=enc_len, vision_tokens=cfg.vision_tokens,
+                      later_steps="held" if later_held else f"printed: {later_note}",
+                      tolerances={"logits_atol": SMOKE_LOGITS_ATOL, "cache_rel": SMOKE_CACHE_REL,
+                                  "noise_factor": SMOKE_NOISE_FACTOR, "step1": step1_floor,
+                                  "loss_rtol": DENSE_LOSS_RTOL, "grad_norm_rtol": DENSE_GNORM_RTOL}))
+    check(same and plain_same, "greedy tokens differ between card and CPU")
+    floor = {"forward_logits": SMOKE_LOGITS_ATOL, "prefill_logits": SMOKE_LOGITS_ATOL,
+             "decode_logits": SMOKE_LOGITS_ATOL, "cache_rel": SMOKE_CACHE_REL}
+    check(_within_noise(err, plain_err, floor), f"card vs CPU with the kernels {err}, with plain attention {plain_err}")
+    check(model_launches == 2 * A, f"forward and prefill launched {model_launches} flash kernels, want {2 * A}")
+    check(_within_noise(step1, plain, step1_floor), f"step 1 card vs CPU: {step1}, with plain attention {plain}")
+    check(all(np.isfinite(v) for r in rows for pair in r.values() for v in pair), f"non-finite metrics {rows}")
+    if later_held:
+        for i, r in enumerate(rows[1:], start=1):
+            (gl, cl), (gg, cg) = r["loss"], r["grad_norm"]
+            check(abs(gl - cl) <= DENSE_LOSS_RTOL * abs(cl), f"step {i}: loss card {gl} vs CPU {cl}")
+            check(abs(gg - cg) <= DENSE_GNORM_RTOL * abs(cg), f"step {i}: grad norm card {gg} vs CPU {cg}")
+    for label, g in controls.items():
+        check(not _within_noise(g, plain, step1_floor), f"the {label} control passes the first step's checks: {g}")
+    check(launches == (want_launches, want_launches),
+          f"flash launches in 3 smoke steps: {launches}, want {want_launches} each")
+
+
+def phase_encdec_parity():
+    """whisper's smoke config on the card and on the CPU (``_smoke_parity``),
+    at head dim 32: its own 64-wide model over 4 heads has head dim 16,
+    which no kernel takes (``SUPPORTED_HEAD_DIMS``), so the card runs it
+    over 2 heads (the CPU tests keep the smoke config as it is)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+
+    smoke = get_smoke_config("whisper-medium")
+    check(smoke.resolved_head_dim == 16 and 16 not in fa.SUPPORTED_HEAD_DIMS, "whisper's smoke head dim is 16")
+    cfg = dataclasses.replace(smoke, n_heads=2, n_kv_heads=2)
+    _smoke_parity("encdec_parity", cfg, ENCDEC_PARITY_FRAMES,
+                  "2 heads of 32 (the smoke config's 4 heads of 16 take no kernel); the SIMT kernels forward and "
+                  "backward: encoder non-causal, decoder causal, cross non-causal at (Sq, S_enc)", later_held=False,
+                  later_note="step 1's gradients differ card vs CPU by ~2e-3 of each leaf with the kernels and with "
+                             "the plain attention alike (the reference's init draws this 64-wide model's layers at "
+                             "std 2^-0.5), and AdamW turns that into whole steps after it (PERF.md)")
+
+
+def phase_prefix_lm_parity():
+    """paligemma's smoke config (MQA, head dim 32, 16 vision tokens as the
+    prefix) on the card and on the CPU (``_smoke_parity``)."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config("paligemma-3b")
+    _smoke_parity("prefix_lm_parity", cfg, 0, f"the SIMT kernels forward and backward with a prefix of "
+                                              f"{cfg.vision_tokens}", later_held=True)
+
+
+def _prefix_timing(smi, name, B, Sq, Sk, Hq, Hkv, D, dtype, causal, prefix_len, seed):
+    """One shape of ``prefix_kernel``'s timing: the forward and the backward
+    kernel beside their plain versions and SDPA (a boolean mask where a
+    prefix needs one; K and V expanded to q's heads outside the call),
+    graph-replayed, and their bounds; each checked against the plain
+    version first."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_ref, flash_backward_ref
+
+    fp32 = dtype == torch.float32
+    q, do = randn((B, Sq, Hq, D), dtype, seed), randn((B, Sq, Hq, D), dtype, seed + 1)
+    k, v = randn((B, Sk, Hkv, D), dtype, seed + 2), randn((B, Sk, Hkv, D), dtype, seed + 3)
+    kw = dict(causal=causal, prefix_len=prefix_len)
+    o, lse = fa.flash_attention(q, k, v, **kw, return_lse=True)
+    want = attention_ref(q, k, v, **kw)
+    check(torch.allclose(o.float(), want.float(), **(FP32_TOL if fp32 else BF16_TOL)),
+          f"{name}: forward disagrees with plain")
+    del want
+    g = _grads_close(fa.flash_attention_backward(q, k, v, o, lse, do, **kw),
+                     flash_backward_ref(q, k, v, o, lse, do, **kw), fp32=fp32)
+    check(all(r["ok"] for r in g.values()), f"{name}: backward disagrees with plain: {g}")
+    if prefix_len:
+        cols = torch.arange(Sk, device="cuda")
+        mask = {"attn_mask": (cols[None, :] <= torch.arange(Sq, device="cuda")[:, None]) | (cols[None, :] < prefix_len)}
+    else:
+        mask = {"is_causal": causal}
+    qh, kh, vh = _sdpa_heads(q, k, v)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, **mask)
+    fwd = time_interleaved({"kernel": lambda: fa.flash_attention(q, k, v, **kw),
+                            "plain": lambda: attention_ref(q, k, v, **kw), "library": sdpa})
+    bwd = time_interleaved({"kernel": lambda: fa.flash_attention_backward(q, k, v, o, lse, do, **kw),
+                            "plain": lambda: flash_backward_ref(q, k, v, o, lse, do, **kw),
+                            **_sdpa_backward_fns(q, k, v, do, **mask)}, eager=("library_eager",))
+    esize = q.element_size()
+    out = {"shape": f"B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} {str(dtype)[6:]} {_mask_label(Sq, Sk, causal, prefix_len)}",
+           "route": fa.select_route(dtype, D), "backward_max_abs_err": {n: r["max_abs_err"] for n, r in g.items()},
+           "sdpa_kernels": sorted(device_breakdown(sdpa))}
+    for direction, ms, backward in (("forward", fwd, False), ("backward", bwd, True)):
+        flops = fa.flash_flops(B, Sq, Sk, Hq, D, causal=causal, backward=backward, prefix_len=prefix_len)
+        nbytes = fa.flash_bytes(B, Sq, Sk, Hq, Hkv, D, esize, backward=backward)
+        bound_ms, bound_by = _bound(flops, nbytes, smi, fp32=fp32)
+        row = {"kernel_ms": ms["kernel"]["median"], "plain_ms": ms["plain"]["median"], "bound_ms": bound_ms,
+               "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+               "kernel_tflops": flops / (ms["kernel"]["median"] * 1e-3) / 1e12,
+               "spread_ms": {n: [m["min"], m["max"]] for n, m in ms.items()}}
+        row.update(_sdpa_backward_ms(ms) if backward else {"library_ms": ms["library"]["median"]})
+        out[direction] = row
+    return out
+
+
+def phase_prefix_kernel(smi: str):
+    """The four flash kernels with a prefix-LM prefix, against their plain
+    versions at both dtypes (bf16: the tensor-core forward and backward;
+    fp32: the SIMT ones) at PREFIX_EDGES (S off the 64-row tile, MQA at D =
+    256) and the prefixes PREFIX_LENS and one past S; a prefix of 0 bit for
+    bit the causal call and one of S or more the non-causal one, in both
+    directions.  Then timed beside the plain versions, their bounds and
+    SDPA: at paligemma's training shape (PREFIX_TIMED, both dtypes), and at
+    whisper's two new shapes, its encoder's non-causal 1,500 x 1,500 and its
+    cross-attention's 448 x 1,500 (ENCDEC_TIMED, bf16)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_lse_ref, attention_ref, flash_backward_ref
+
+    err, n = {}, 0
+    for i, (B, S, Hq, Hkv, D) in enumerate(PREFIX_EDGES):
+        for P in (*PREFIX_LENS, S + 7):
+            for dtype in (torch.bfloat16, torch.float32):
+                fp32 = dtype == torch.float32
+                q, do = randn((B, S, Hq, D), dtype, 1000 + 10 * i), randn((B, S, Hq, D), dtype, 1001 + 10 * i)
+                k, v = randn((B, S, Hkv, D), dtype, 1002 + 10 * i), randn((B, S, Hkv, D), dtype, 1003 + 10 * i)
+                o, lse = fa.flash_attention(q, k, v, causal=True, prefix_len=P, return_lse=True)
+                want = attention_ref(q, k, v, causal=True, prefix_len=P)
+                e = (o.float() - want.float()).abs().max().item()
+                check(torch.allclose(o.float(), want.float(), **(FP32_TOL if fp32 else BF16_TOL)),
+                      f"prefix forward {dtype} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} prefix {P}: {e}")
+                check(torch.allclose(lse, attention_lse_ref(q, k, v, causal=True, prefix_len=P), **LSE_TOL),
+                      f"prefix lse {dtype} S={S} D={D} prefix {P}")
+                got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=True, prefix_len=P)
+                g = _grads_close(got, flash_backward_ref(q, k, v, o, lse, do, causal=True, prefix_len=P), fp32=fp32)
+                check(all(r["ok"] for r in g.values()), f"prefix backward {dtype} S={S} D={D} prefix {P}: {g}")
+                key = str(dtype)[6:]
+                err[key] = max(err.get(key, 0.0), e, *(r["max_abs_err"] for r in g.values()))
+                if P == 0 or P >= S:  # bit for bit the causal call, or the non-causal one
+                    causal = P == 0
+                    o2, lse2 = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+                    same = torch.equal(o, o2) and torch.equal(lse, lse2) and all(
+                        torch.equal(a, b) for a, b in zip(got, fa.flash_attention_backward(q, k, v, o, lse, do,
+                                                                                           causal=causal)))
+                    check(same, f"prefix {P} at S={S} {dtype} is not bit for bit the causal={causal} call")
+                n += 1
+    B, S, Hq, Hkv, D, P = PREFIX_TIMED
+    timing = {f"prefix_{str(dt)[6:]}": _prefix_timing(smi, "paligemma", B, S, S, Hq, Hkv, D, dt, True, P, 1100)
+              for dt in (torch.bfloat16, torch.float32)}
+    for name, (B, Sq, Sk, H, D) in ENCDEC_TIMED.items():
+        timing[name] = _prefix_timing(smi, name, B, Sq, Sk, H, H, D, torch.bfloat16, False, 0, 1200)
+    line = {"phase": "prefix_kernel", "checked": n, "edges": [list(e) for e in PREFIX_EDGES],
+            "prefix_lens": [*PREFIX_LENS, "S + 7"], "max_abs_err": err,
+            "tolerances": {"bfloat16": BF16_TOL, "float32": FP32_TOL,
+                           "backward": {"rtol": BWD_RTOL, "atol_of_max": BWD_ATOL_OF_MAX, "float32": BWD_FP32_TOL}},
+            "timing": timing,
+            "timing_note": f"median of {ROUNDS} readings, each the mean of {LAUNCHES} back-to-back calls replayed "
+                           "from one CUDA graph; kernel, plain and SDPA alternate; inputs warm in L2; SDPA's "
+                           "backward is its forward and backward less its forward"}
+    emit(line)
+    fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
+    return line
 
 
 def _u64_on_card(a: np.ndarray) -> torch.Tensor:
@@ -3320,9 +3868,12 @@ def main() -> int:
     del model, probe
     bwd_timing, d256_bwd, bwd_err = phase_flash_bwd_kernel(smi)
     mla_bwd = phase_mla_bwd_kernel(smi, sass["flash_attention_bwd_wgmma"])
+    prefix = phase_prefix_kernel(smi)
     routes = phase_routes(smi, served_prompt_lens())
     phase_dense_parity()
     phase_moe_train_parity()
+    phase_encdec_parity()
+    phase_prefix_lm_parity()
     torch.cuda.empty_cache()
     dense_fwd, dense_bwd, dense_err = phase_dense_train_full_width()
     torch.cuda.empty_cache()
@@ -3330,11 +3881,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_fwd, moe_bwd, moe_err = phase_moe_train_full_width()
     torch.cuda.empty_cache()
+    encdec_fwd, encdec_bwd, encdec_err, encdec_serve = phase_encdec_full_width()
+    torch.cuda.empty_cache()
+    prefix_fwd, prefix_bwd, prefix_err, prefix_serve = phase_prefix_lm_full_width()
+    torch.cuda.empty_cache()
     seg_err, seg_timings, acc_timing, numpy_sweep = phase_segment_kernel(smi)
     seg_launches = phase_sim_sweep(numpy_sweep)
     t = timings[512]
     mt = mla["timing"][str(max(served_prompt_lens()))]
     mla_launches = moe_full["flash_launches"]
+    encdec_prefill, prefix_prefill = encdec_serve["prefill_flash_launches"], prefix_serve["prefill_flash_launches"]
+    pt = prefix["timing"]
+
+    def new_shapes(direction):  # the enc-dec and prefix-LM slice's rows, both dtypes at paligemma's shape
+        keys = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+        return {name: {"shape": pt[name]["shape"], "route": pt[name]["route"],
+                       **{k: pt[name][direction][k] for k in keys}} for name in pt}
+
     st = ssd_timings["B4_S256"]
     gt = seg_timings[f"draws{SIM_DRAWS}"]
     emit({"kernels": [{
@@ -3346,12 +3909,17 @@ def main() -> int:
                   "stages; S = Q K^T as 8 x 4 micro-tiles over two parts of D (eight at 256, one at D <= 64) summed "
                   "in one softmax pass (natural exp, as the plain version; P in shared memory), O += P V in 8 x 4 "
                   "register blocks), timed in fp32 as fp32",
-        "launches": launches + mla_launches + hybrid_full["flash_launches"] + dense_fwd + gemma_fwd + moe_fwd,
+        "launches": (launches + mla_launches + hybrid_full["flash_launches"] + dense_fwd + gemma_fwd + moe_fwd
+                     + encdec_fwd + encdec_prefill + prefix_fwd + prefix_prefill),
         "launches_by_path": {"serving": launches, "moe_mla_serving": mla_launches,
                              "hybrid_serving": hybrid_full["flash_launches"], "dense_training": dense_fwd,
-                             "gemma_training": gemma_fwd, "moe_mla_training": moe_fwd},
+                             "gemma_training": gemma_fwd, "moe_mla_training": moe_fwd,
+                             "encdec_training": encdec_fwd, "encdec_prefill": encdec_prefill,
+                             "prefix_lm_training": prefix_fwd, "prefix_lm_prefill": prefix_prefill},
         "max_abs_err": max(bf16_err, op_err, *mla["max_abs_err"].values(),
                            moe_full["attention_op_bf16"]["max_abs_err"]),
+        "prefix_lm_and_encdec": {"source": fa.SOURCE, "simt_source": fa.SIMT_SOURCE,
+                                 "max_abs_err": prefix["max_abs_err"], "timing": new_shapes("forward")},
         "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": "B=1 S=512 Hq=Hkv=32 D=128 bf16 causal",
@@ -3380,10 +3948,14 @@ def main() -> int:
                   "outputs and computing S and dP itself; fp32 runs the SIMT backward "
                   f"({fa.BWD_SIMT_SOURCE}: 8 x 4 score micro-tiles of S and dP, float4 reads of swizzled tiles, "
                   "cp.async double buffering), timed beside it as simt_ms",
-        "launches": dense_bwd + gemma_bwd + moe_bwd,
-        "launches_by_path": {"dense_training": dense_bwd, "gemma_training": gemma_bwd, "moe_mla_training": moe_bwd},
+        "launches": dense_bwd + gemma_bwd + moe_bwd + encdec_bwd + prefix_bwd,
+        "launches_by_path": {"dense_training": dense_bwd, "gemma_training": gemma_bwd, "moe_mla_training": moe_bwd,
+                             "encdec_training": encdec_bwd, "prefix_lm_training": prefix_bwd},
         "kernels_per_launch": len(bwd_timing["device_us_by_kernel_10_calls"]["wgmma"]),
-        "max_abs_err": max(bwd_err, dense_err, gemma_err, moe_err, *mla_bwd["max_abs_err"].values()),
+        "max_abs_err": max(bwd_err, dense_err, gemma_err, moe_err, encdec_err, prefix_err,
+                           *mla_bwd["max_abs_err"].values()),
+        "prefix_lm_and_encdec": {"source": fa.BWD_SOURCE, "simt_source": fa.BWD_SIMT_SOURCE,
+                                 "timing": new_shapes("backward")},
         "ms": bwd_timing["kernel_ms"], "kernel_ms": bwd_timing["kernel_ms"], "plain_ms": bwd_timing["plain_ms"],
         "simt_ms": bwd_timing["simt_ms"],
         "bound_ms": bwd_timing["bound_ms"], "bound_by": bwd_timing["bound_by"],

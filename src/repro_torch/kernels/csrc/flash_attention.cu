@@ -9,7 +9,8 @@
 // Replaces repro/kernels/flash_attention.py::flash_attention_pallas (the
 // Pallas TPU kernel _flash_kernel).  Same function: softmax(q k^T * scale) v
 // per query head, kv head h / group (GQA without expanding K/V), causal or
-// not, the online softmax's running max, denominator and accumulator in
+// not, with or without a prefix-LM prefix (causal only: every row also sees
+// the first prefix_len keys), the online softmax's running max, denominator and accumulator in
 // fp32, a row that sees no key gives 0.
 //
 // Layout: q (B, Sq, Hq, D), k (B, Sk, Hkv, D), v (B, Sk, Hkv, Dv), out (B,
@@ -26,7 +27,8 @@
 // grid dimension and carries m, l and acc in VMEM scratch between grid
 // steps.  CUDA blocks run in no order, so here one block of 256 threads
 // owns one (query head, query tile, batch) and loops over the kv tiles
-// itself, stopping at the causal diagonal; the heads vary fastest across
+// itself, stopping at the causal diagonal (or at the end of the prefix, if
+// that lies further); the heads vary fastest across
 // the grid, so every head's last query tiles, which see the most kv tiles,
 // start in the first wave.  Both products run as fp32 FMAs, and an
 // SM reads 128 bytes a clock from shared memory against 128 FMAs, so the
@@ -109,7 +111,8 @@ struct Params {
   long long o_sb, o_ss, o_sh;
   float scale;
   int causal;
-  int vec;  // fp32 q, k and v can be copied 16 bytes at a time
+  int prefix;  // causal: keys [0, prefix) are visible to every row
+  int vec;     // fp32 q, k and v can be copied 16 bytes at a time
 };
 
 // This thread's 8 x 4 scores of a BR x BR tile over head-dim columns [c0, c0
@@ -178,7 +181,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(const Params p) {
   const int q0 = (int(gridDim.y) - 1 - int(blockIdx.y)) * BR;
   const int b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
-  const int k_end = p.causal ? min(p.Sk, q0 + BR) : p.Sk;
+  // causal: to the diagonal, or to the end of the prefix where that lies further
+  const int k_end = p.causal ? max(min(p.Sk, q0 + BR), min(p.prefix, p.Sk)) : p.Sk;
   const int nkv = (k_end + BR - 1) / BR;  // 0 when Sk == 0: the rows give 0
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
@@ -238,7 +242,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(const Params p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int row = q0 + 4 * rq + e;
-          const bool ok = col < p.Sk && (!p.causal || col <= row);
+          const bool ok = col < p.Sk && (!p.causal || col <= row || col < p.prefix);
           s4[e] = ok ? s4[e] * p.scale : -INFINITY;
           mx[e] = fmaxf(mx[e], s4[e]);
         }
@@ -339,7 +343,8 @@ int dispatch_fp32(const Params& p, int B, int D, int Dv, cudaStream_t stream) {
 }  // namespace
 
 // D: the head dim of q and k, Dv: that of v and o.  dtype: 0 = fp32, 1 =
-// bf16 (q, k, v and o alike).  lse may be null.  Returns a cudaError_t (0 on
+// bf16 (q, k, v and o alike).  lse may be null.  prefix_len > 0 (causal
+// only, else invalid) keeps keys [0, prefix_len) visible to every row.  Returns a cudaError_t (0 on
 // success).
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse,
@@ -348,14 +353,14 @@ extern "C" int repro_flash_attention_fwd(
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
-    float scale, int causal, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0) return int(cudaErrorInvalidValue);
+    float scale, int causal, int prefix_len, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || prefix_len < 0 || (prefix_len > 0 && !causal)) return int(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
   const int vec = rows_aligned(q, q_sb, q_ss, q_sh, B, Sq, Hq) && rows_aligned(k, k_sb, k_ss, k_sh, B, Sk, Hkv) &&
                   rows_aligned(v, v_sb, v_ss, v_sh, B, Sk, Hkv);
   const Params p{q, k, v, o, lse, Sq, Sk, Hq, Hkv,
                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
-                 scale, causal, vec};
+                 scale, causal, prefix_len, vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return dispatch_fp32(p, B, D, Dv, s);

@@ -10,7 +10,8 @@
 // TPU (the Pallas kernel _flash_kernel has no backward).  Same function:
 // the gradients of softmax(q k^T * scale) v with respect to q, k and v, per
 // query head, kv head h / group (GQA: dK and dV summed over the group),
-// causal (Sq == Sk) or not.
+// causal (Sq == Sk) or not, with or without a prefix-LM prefix (causal only:
+// every row also sees the first prefix_len keys).
 //
 // Layout: q (B, Sq, Hq, DQK), k (B, Sk, Hkv, DQK), v (B, Sk, Hkv, DV), o
 // and dO (B, Sq, Hq, DV), all read through their strides (the last dimension
@@ -29,14 +30,15 @@
 //   2. flash_bwd_dkdv: one block per (kv tile, kv head, batch) keeps its K
 //      and V tile and the dK, dV accumulators resident and walks the q
 //      heads of its group and, for each, the q tiles from the causal
-//      diagonal on: P = exp(S * scale - lse) from the recomputed scores,
-//      dV += P^T dO, dP = dO V^T, dS = P (dP - D_i), dK += dS^T Q;
+//      diagonal on (from the first, for a kv tile that holds prefix keys):
+//      P = exp(S * scale - lse) from the recomputed scores, dV += P^T dO,
+//      dP = dO V^T, dS = P (dP - D_i), dK += dS^T Q;
 //   3. flash_bwd_dq: one block per (q tile, q head, batch) keeps its Q and
-//      dO tile resident and walks the kv tiles up to the diagonal: the same
-//      P and dS, dQ += dS K.
+//      dO tile resident and walks the kv tiles up to the diagonal (or the
+//      prefix's end, if further): the same P and dS, dQ += dS K.
 // dQ and dK take the scale once at the end.  A score is masked by the
-// causal diagonal and the ragged edges of both tiles; masked and padded
-// entries give P = 0 and dS = 0, and a row whose lse is +inf has
+// causal diagonal (past the prefix) and the ragged edges of both tiles;
+// masked and padded entries give P = 0 and dS = 0, and a row whose lse is +inf has
 // exp(s - inf) = 0, so fully masked rows give zero gradients, not nan.
 //
 // What bounds it: five products of 2 Sq Sk D per head (halved when causal)
@@ -123,7 +125,8 @@ struct Params {
   long long d_sb, d_ss, d_sh;
   float scale, scale_log2;
   int causal;
-  int vec;  // fp32 q, k, v and dO can be copied 16 bytes at a time
+  int prefix;  // causal: keys [0, prefix) are visible to every row
+  int vec;     // fp32 q, k, v and dO can be copied 16 bytes at a time
 };
 
 // D_i = rowsum(dO_i * O_i) over the DV columns, for every (batch, head,
@@ -204,8 +207,8 @@ __device__ __forceinline__ void scores(const float* X, const float* Y, float (&s
 
 // P and dS of a BR x BR tile, from the raw S in sP and dP in sdS, in their
 // places: P = exp2(S scale log2(e) - lse log2(e)) on entries the causal
-// diagonal and both ragged edges leave visible (0 elsewhere), dS = P (dP -
-// D_i).  Both tiles are [column][row] at SPAD, four rows at a time; q is the
+// diagonal (past the prefix) and both ragged edges leave visible (0
+// elsewhere), dS = P (dP - D_i).  Both tiles are [column][row] at SPAD, four rows at a time; q is the
 // column and kv the row (the dK/dV kernel, KV_ROWS) or the other way round
 // (the dQ kernel).  lse and dl are the q tile's lse and D_i.
 template <int BR, bool KV_ROWS>
@@ -222,7 +225,7 @@ __device__ __forceinline__ void form_p_ds(float* sP, float* sdS, const float* ls
     for (int e = 0; e < 4; ++e) {
       const int qi = KV_ROWS ? c : r + e;  // q within the tile
       const int qr = q0 + qi, kv = KV_ROWS ? k0 + r + e : k0 + c;
-      const bool ok = qr < p.Sq && kv < p.Sk && (!p.causal || kv <= qr);
+      const bool ok = qr < p.Sq && kv < p.Sk && (!p.causal || kv <= qr || kv < p.prefix);
       const float pv = ok ? exp2f(fmaf(s4[e], p.scale_log2, -lse[qi] * LOG2E)) : 0.f;
       s4[e] = pv;
       d4[e] = pv * (d4[e] - dl[qi]);
@@ -258,7 +261,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv(const Params p) {
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int G_ = p.Hq / p.Hkv;
-  const int q_begin = p.causal ? k0 : 0;  // causal (Sq == Sk): q rows below k0 see nothing of this tile
+  // causal (Sq == Sk): q rows below k0 see nothing of this tile, unless it holds prefix keys
+  const int q_begin = p.causal && k0 >= p.prefix ? k0 : 0;
   const int nq = q_begin < p.Sq ? (p.Sq - q_begin + BR - 1) / BR : 0;
   const int n_it = G_ * nq;  // (q head of the group, q tile) pairs, head-major
 
@@ -359,7 +363,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq(const Params p) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
-  const int k_end = p.causal ? min(p.Sk, q0 + BR) : p.Sk;
+  // causal: to the diagonal, or to the end of the prefix where that lies further
+  const int k_end = p.causal ? max(min(p.Sk, q0 + BR), min(p.prefix, p.Sk)) : p.Sk;
   const int nkv = (k_end + BR - 1) / BR;  // 0 when Sk == 0: dQ = 0
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
@@ -457,8 +462,9 @@ int dispatch_dims(const Params& p, int D, int Dv, cudaStream_t stream) {
 
 // dtype: 0 = fp32, 1 = bf16.  D is q's and k's head dim, Dv v's, o's and
 // dO's.  Strides in elements, (batch, seq, head) for q, k, v, o and dO in
-// that order.  Launches three kernels on the stream.  Returns a cudaError_t
-// (0 on success).
+// that order.  prefix_len > 0 (causal only, else invalid) keeps keys [0,
+// prefix_len) visible to every row.  Launches three kernels on the stream.
+// Returns a cudaError_t (0 on success).
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse,
     void* dq, void* dk, void* dv, void* delta,
@@ -466,15 +472,16 @@ extern "C" int repro_flash_attention_bwd(
     long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb, long long o_ss, long long o_sh,
     long long d_sb, long long d_ss, long long d_sh,
-    float scale, int causal, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || (causal && Sq != Sk)) return int(cudaErrorInvalidValue);
+    float scale, int causal, int prefix_len, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || (causal && Sq != Sk) || prefix_len < 0 || (prefix_len > 0 && !causal))
+    return int(cudaErrorInvalidValue);
   if (B == 0 || Hq == 0) return 0;
   const int vec = rows_aligned(q, q_sb, q_ss, q_sh, B, Sq, Hq) && rows_aligned(dout, d_sb, d_ss, d_sh, B, Sq, Hq) &&
                   rows_aligned(k, k_sb, k_ss, k_sh, B, Sk, Hkv) && rows_aligned(v, v_sb, v_ss, v_sh, B, Sk, Hkv);
   const Params p{q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(delta), dq, dk, dv,
                  B, Sq, Sk, Hq, Hkv,
                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, d_sb, d_ss, d_sh,
-                 scale, scale * LOG2E, causal, vec};
+                 scale, scale * LOG2E, causal, prefix_len, vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return dispatch_dims<float>(p, D, Dv, s);

@@ -12,7 +12,8 @@
 // which keeps fp32 (TF32 would miss the fp32 tolerance): the gradients of
 // softmax(q k^T * scale) v with respect to q, k and v, per query head, kv
 // head h / group (GQA and MQA: dK and dV summed over the group), causal
-// (Sq == Sk) or not.
+// (Sq == Sk) or not, with or without a prefix-LM prefix (causal only: every
+// row also sees the first prefix_len keys).
 //
 // Layout: q (B, Sq, Hq, DQK), k (B, Sk, Hkv, DQK), v (B, Sk, Hkv, DV), o and
 // dO (B, Sq, Hq, DV) read through their strides (the head dim contiguous; q,
@@ -32,7 +33,9 @@
 //   2. flash_bwd_dkdv_wgmma: one block per (kv head, 64-row kv tile,
 //      batch) loads its K and V tile once by TMA, then streams (Q, lse) and
 //      (dO, D_i) tiles through a two-stage TMA ring on mbarriers, over the
-//      GQA group's q heads and the q tiles from the causal diagonal on.  Per
+//      GQA group's q heads and the q tiles from the causal diagonal on (from
+//      the first, for a kv tile that holds prefix keys: every q row sees
+//      those).  Per
 //      q tile, on the fp32 accumulator fragments in registers:
 //        S^T = K Q^T          ss, K and Q both K-major over D;
 //        P^T = exp2(S^T scale log2e - lse log2e), lse by column; the causal
@@ -48,7 +51,8 @@
 //      dK takes the scale once at the end;
 //   3. flash_bwd_dq_wgmma: one block per (q head, 64-row q tile, batch)
 //      loads Q and dO once and streams K and V through a two-stage ring up
-//      to the diagonal: S = Q K^T and dP = dO V^T (ss, issued together), P
+//      to the diagonal (or the prefix's end, if further): S = Q K^T and dP =
+//      dO V^T (ss, issued together), P
 //      and dS on the fragment with lse and D_i per row, the ragged kv edge
 //      and the diagonal masked (TMA zero-fills K rows past Sk, and a zero
 //      score would give P > 0), dQ += dS K (rs, K read transposed).
@@ -161,6 +165,7 @@ struct Params {
   long long d_sb, d_ss, d_sh;
   float scale, scale_log2;
   int causal;
+  int prefix;  // causal: keys [0, prefix) are visible to every row
 };
 
 // D_i = rowsum(dO_i * O_i) over the DV columns of o and dO, and lse_i
@@ -291,7 +296,8 @@ __global__ void __launch_bounds__(Split<DQK, DV>::THREADS, 1) flash_bwd_dkdv_wgm
   const int k0 = blockIdx.y * BR;  // causal: the first kv tiles see the most q tiles and start first
   const int b = blockIdx.z;
   const int G = p.Hq / p.Hkv;
-  const int q_begin = p.causal ? k0 : 0;  // causal (Sq == Sk): q rows below k0 see nothing of this tile
+  // causal (Sq == Sk): q rows below k0 see nothing of this tile, unless it holds prefix keys
+  const int q_begin = p.causal && k0 >= p.prefix ? k0 : 0;
   const int nq = q_begin < p.Sq ? (p.Sq - q_begin + BR - 1) / BR : 0;
   const int n_it = G * nq;  // (q head of the group, q tile) pairs, head-major
 
@@ -351,13 +357,15 @@ __global__ void __launch_bounds__(Split<DQK, DV>::THREADS, 1) flash_bwd_dkdv_wgm
     wg_wait0();
     pin(st);
 
-    // P^T on the fragment; only the diagonal tile needs the causal mask
+    // P^T on the fragment; only q tiles that reach above the diagonal need the
+    // causal mask, and only where the kv tile reaches past the prefix
     p_from_scores_by_column(st, lse2, p.scale_log2, cq);
-    if (p.causal && q0 < k0 + BR) {
+    if (p.causal && q0 < k0 + BR && k0 + BR > p.prefix) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int c = (i >> 2) * 8 + cq + (i & 1);
-        if (q0 + c < r0 + ((i >> 1) & 1) * 8) st[i] = 0.f;
+        const int kv = r0 + ((i >> 1) & 1) * 8;
+        if (q0 + c < kv && kv >= p.prefix) st[i] = 0.f;
       }
     }
 
@@ -454,7 +462,8 @@ __global__ void __launch_bounds__(Split<DQK, DV, true>::THREADS, 1) flash_bwd_dq
   const int q0 = (p.Sq_pad / BR - 1 - int(blockIdx.y)) * BR;  // causal: the last q tiles see the most kv tiles
   const int b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
-  const int k_end = p.causal ? min(p.Sk, q0 + BR) : p.Sk;
+  // causal: to the diagonal, or to the end of the prefix where that lies further
+  const int k_end = p.causal ? max(min(p.Sk, q0 + BR), min(p.prefix, p.Sk)) : p.Sk;
   const int nkv = (k_end + BR - 1) / BR;  // 0 when Sk == 0: dQ = 0
 
   const int r0 = q0 + warp * 16 + (lane >> 2);  // this thread's q rows: r0 and r0 + 8
@@ -511,14 +520,14 @@ __global__ void __launch_bounds__(Split<DQK, DV, true>::THREADS, 1) flash_bwd_dq
     pin(dp);
 
     // P, then dS = P (dP - D_i), on the fragment; the ragged kv edge and the
-    // causal diagonal only in the last tiles
-    const bool edge = k0 + BR > p.Sk || (p.causal && k0 + BR - 1 > q0);
+    // causal diagonal (past the prefix) only in the last tiles
+    const bool edge = k0 + BR > p.Sk || (p.causal && k0 + BR - 1 > q0 && k0 + BR > p.prefix);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int r = (i >> 1) & 1;
       const int col = k0 + (i >> 2) * 8 + cq + (i & 1);
       float pv = exp2f(sc[i] * p.scale_log2 - lse2[r]);
-      if (edge && (col >= p.Sk || (p.causal && col > r0 + 8 * r))) pv = 0.f;
+      if (edge && (col >= p.Sk || (p.causal && col > r0 + 8 * r && col >= p.prefix))) pv = 0.f;
       dp[i] = pv * (dp[i] - dl[r]);
     }
     uint32_t sa[16], sb[16];
@@ -587,9 +596,10 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 // bf16 only.  D is q's and k's head dim, Dv v's, o's and dO's.  Strides in
 // elements, (batch, seq, head) for q, k, v, o and dO in that order.  scratch
 // holds 2 B Hq Sq_pad floats (Sq_pad = Sq rounded up to 64) and is 256-byte
-// aligned.  Launches three kernels on the stream.  Returns 0, a cudaError_t
-// (> 0), or a negated CUresult of the tensor-map encoding (< 0);
-// repro_flash_bwd_wgmma_error_string names it.
+// aligned.  prefix_len > 0 (causal only, else invalid) keeps keys [0,
+// prefix_len) visible to every row.  Launches three kernels on the stream.
+// Returns 0, a cudaError_t (> 0), or a negated CUresult of the tensor-map
+// encoding (< 0); repro_flash_bwd_wgmma_error_string names it.
 extern "C" int repro_flash_attention_bwd_wgmma(
     const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse,
     void* dq, void* dk, void* dv, void* scratch,
@@ -597,14 +607,15 @@ extern "C" int repro_flash_attention_bwd_wgmma(
     long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb, long long o_ss, long long o_sh,
     long long d_sb, long long d_ss, long long d_sh,
-    float scale, int causal, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || (causal && Sq != Sk)) return int(cudaErrorInvalidValue);
+    float scale, int causal, int prefix_len, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || (causal && Sq != Sk) || prefix_len < 0 || (prefix_len > 0 && !causal))
+    return int(cudaErrorInvalidValue);
   if (B == 0 || Hq == 0) return 0;
   const int Sq_pad = (Sq + BR - 1) / BR * BR;
   float* lse2 = static_cast<float*>(scratch);
   const Params p{o, dout, static_cast<const float*>(lse), lse2, lse2 + size_t(B) * Hq * Sq_pad, dq, dk, dv,
                  B, Sq, Sk, Hq, Hkv, Sq_pad, o_sb, o_ss, o_sh, d_sb, d_ss, d_sh,
-                 scale, scale * LOG2E, causal};
+                 scale, scale * LOG2E, causal, prefix_len};
   const long long st[15] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                             o_sb, o_ss, o_sh, d_sb, d_ss, d_sh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

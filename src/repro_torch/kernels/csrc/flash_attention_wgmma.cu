@@ -5,8 +5,9 @@
 // Replaces repro/kernels/flash_attention.py::flash_attention_pallas (the
 // Pallas TPU kernel _flash_kernel) for bf16, the serving path's type.  Same
 // function: softmax(q k^T * scale) v per query head, kv head h / group (GQA
-// read in place, no expanded K/V), causal or not, the ragged Sk edge
-// masked, the online softmax's running max, denominator and accumulator in
+// read in place, no expanded K/V), causal or not, with or without a prefix-LM
+// prefix (causal only: every row also sees the first prefix_len keys, as
+// paligemma's vision tokens are seen), the ragged Sk edge masked, the online softmax's running max, denominator and accumulator in
 // fp32, a row that sees no key gives 0.  fp32 inputs stay on the SIMT kernel
 // (flash_attention.cu): a TF32 product keeps ~10 bits of mantissa and would
 // miss the fp32 tolerance (2e-5) the fp32 checks hold the kernel to.
@@ -26,15 +27,17 @@
 //
 // Design.  One block of one warpgroup (128 threads) owns one (query head,
 // 64-row query tile, batch) and walks 64-column kv tiles to the causal
-// diagonal; blockIdx.x is the head, so the first wave holds every head's
-// longest causal tiles.  Thread 0 loads the Q tile and a ring of STAGES K/V
+// diagonal (or to the end of the prefix, if that lies further); blockIdx.x
+// is the head, so the first wave holds every head's longest causal tiles
+// (a prefix lengthens only the tiles above it, and only up to its end, so
+// the last tiles still walk furthest).  Thread 0 loads the Q tile and a ring of STAGES K/V
 // tiles by TMA (cp.async.bulk.tensor, 4-d tensor maps over the strided
 // inputs, one full mbarrier per tile), so the next tile's copy overlaps
 // this tile's products.  Per kv tile:
 //   S = Q K^T   wgmma m64n64k16, Q and K both K-major in shared memory;
 //   mask + online softmax on the fp32 accumulator fragment in registers
-//               (the causal diagonal and the ragged edge from each value's
-//               row and column; TMA zero-fills rows past Sk, so they must
+//               (the causal diagonal, past the prefix, and the ragged edge
+//               from each value's row and column; TMA zero-fills rows past Sk, so they must
 //               be masked or a zero could win a row's max);
 //   P -> bf16   in registers, as two terms hi + lo (below): the accumulator
 //               fragment of S is, pair for pair, the A fragment of the next
@@ -99,6 +102,7 @@ struct Params {
   long long o_sb, o_ss, o_sh;  // strides in elements
   float scale_log2;            // scale * log2(e): the softmax runs in base 2
   int causal;
+  int prefix;  // causal: keys [0, prefix) are visible to every row
   int n_qtiles;
 };
 
@@ -139,7 +143,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma(const __grid_constant
   const int q0 = (p.n_qtiles - 1 - int(blockIdx.y)) * BQ;  // longest causal tiles first
   const int b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
-  const int k_end = p.causal ? min(p.Sk, q0 + BQ) : p.Sk;
+  // causal: to the diagonal, or to the end of the prefix where that lies further
+  const int k_end = p.causal ? max(min(p.Sk, q0 + BQ), min(p.prefix, p.Sk)) : p.Sk;
   const int nkv = (k_end + BK - 1) / BK;  // 0 when Sk == 0: no tile is loaded
 
   if (tid == 0) {
@@ -192,13 +197,14 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma(const __grid_constant
 
 #pragma unroll
     for (int i = 0; i < 32; ++i) sc[i] *= p.scale_log2;
-    // the ragged edge and the causal diagonal: only the last tiles need it
-    if (k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > q0)) {
+    // the ragged edge and the causal diagonal: only the tiles with a column
+    // past Sk, or past both the diagonal and the prefix, need it
+    if (k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > q0 && k0 + BK > p.prefix)) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int col = k0 + (i >> 2) * 8 + cq + (i & 1);
         const int row = r0 + ((i >> 1) & 1) * 8;
-        if (col >= p.Sk || (p.causal && col > row)) sc[i] = -INFINITY;
+        if (col >= p.Sk || (p.causal && col > row && col >= p.prefix)) sc[i] = -INFINITY;
       }
     }
 
@@ -305,17 +311,20 @@ int launch(const void* q, const void* k, const void* v, int B, const Params& p, 
 }  // namespace
 
 // bf16 only.  D is q's and k's head dim, Dv v's and out's.  Strides in
-// elements, (batch, seq, head) for q, k, v and out in that order.  Returns
+// elements, (batch, seq, head) for q, k, v and out in that order.
+// prefix_len > 0 (causal only, else invalid) keeps keys [0, prefix_len)
+// visible to every row.  Returns
 // 0, a cudaError_t (> 0), or a negated CUresult of the tensor-map encoding
 // (< 0); repro_flash_wgmma_error_string names it.
 extern "C" int repro_flash_attention_fwd_wgmma(
     const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int D,
     int Dv, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb, long long o_ss, long long o_sh,
-    float scale, int causal, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0) return int(cudaErrorInvalidValue);
+    float scale, int causal, int prefix_len, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || prefix_len < 0 || (prefix_len > 0 && !causal)) return int(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
-  const Params p{o, lse, Sq, Sk, Hq, Hkv, o_sb, o_ss, o_sh, scale * 1.4426950408889634f, causal, (Sq + BQ - 1) / BQ};
+  const Params p{o, lse, Sq, Sk, Hq, Hkv, o_sb, o_ss, o_sh, scale * 1.4426950408889634f, causal, prefix_len,
+                 (Sq + BQ - 1) / BQ};
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == Dv) {

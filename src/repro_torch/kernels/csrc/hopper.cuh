@@ -167,11 +167,20 @@ constexpr int ERR_NO_ENCODE = -1000;  // libcuda offers no cuTensorMapEncodeTile
 
 // A 4-d map over a (B, S, H, D) bf16 tensor: dims innermost first, strides in
 // bytes of dims 1..3, box = one chunk of cw columns x `rows` rows of one
-// head.  Rows past S read as zeros.  Returns 0 or the negated CUresult.
+// head.  Rows past S read as zeros.  Returns 0, a cudaError_t (> 0) or the
+// negated CUresult.  The encoding is a driver call and needs the device's
+// context current on this thread; a host thread on which the runtime has not
+// run yet (autograd's device thread, when a flash backward is the first node
+// it runs) has none, so set the current device, which makes its primary
+// context current.
 static int make_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B, long long ss, long long sh,
                     long long sb, int cw, int rows, int swizzle_bytes) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return ERR_NO_ENCODE;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaSetDevice(device);
+  if (e != cudaSuccess) return int(e);
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(S), cuuint64_t(H), cuuint64_t(B)};
   const cuuint64_t strides[3] = {cuuint64_t(ss) * 2, cuuint64_t(sh) * 2, cuuint64_t(sb) * 2};
   const cuuint32_t box[4] = {cuuint32_t(cw), cuuint32_t(rows), 1, 1};

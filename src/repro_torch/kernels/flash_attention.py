@@ -9,6 +9,11 @@ call picks one by dtype and head dims (:func:`select_route` forward,
 dim, v head dim) pairs of :data:`FWD_PAIRS`: the equal widths 32, 64, 128
 and 256, and (192, 128), MLA's (deepseek-v2: q and k carry 128 columns
 plus 64 of rope, v 128), served by the forward and trained through both.
+Every kernel takes a causal mask with a prefix-LM prefix (``prefix_len``:
+every row also sees the first ``prefix_len`` keys, paligemma's vision
+tokens; self-attention only), and the non-causal mask of an encoder or of
+cross-attention at ``Sq != Sk`` (whisper's 448 decoder rows over 1,500
+frames).
 
 * **forward, bf16 at every pair → ``csrc/flash_attention_wgmma.cu``**
   (route ``"wgmma"``), the serving and training path's kernel: both
@@ -58,10 +63,12 @@ the seq/head/batch strides of what they read by TMA 16-byte aligned
 (:func:`tma_strides`); the wrapper checks and raises.
 
 What bounds the function on an H100: the forward's two products,
-2·Sq·Sk·(Dqk + Dv) FLOPs per head (halved by causality), against q, k
-(Dqk wide), v and out (Dv wide) moved once; the backward's five products,
-2·Sq·Sk·(3·Dqk + 2·Dv), against q, k, v, o, dO read and dq, dk, dv written
-once (:func:`flash_flops`, :func:`flash_bytes`).  At the
+2·Sq·Sk·(Dqk + Dv) FLOPs per head (halved by causality; a prefix adds back
+its own square's upper half), against q, k (Dqk wide), v and out (Dv wide)
+moved once; the backward's five products, 2·Sq·Sk·(3·Dqk + 2·Dv), against
+q, k, v, o, dO read and dq, dk, dv written once (:func:`flash_flops`,
+:func:`flash_bytes`; :class:`FlashLaunch` prices one launch as the wrapper
+records it).  At the
 serving shapes the forward is bound by bytes, at training's S = 2048 by
 operations.  Every kernel reads GQA kv heads in place (``h // group``),
 reads batch-major tensors through their strides and masks the ragged edge
@@ -77,7 +84,8 @@ kernel or to the plain version.  Only a CPU tensor takes the plain versions
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple, Union
+from collections import Counter
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -85,8 +93,8 @@ from . import build
 from .ref import attention_lse_ref, attention_ref, flash_backward_ref
 
 __all__ = [
-    "flash_attention", "flash_attention_backward", "flash_flops", "flash_bytes", "select_route", "select_bwd_route",
-    "tma_strides", "ROUTES", "SUPPORTED_HEAD_DIMS", "FWD_PAIRS", "BWD_LAUNCHES", "BWD_P_TERMS", "BWD_DS_TERMS",
+    "flash_attention", "flash_attention_backward", "flash_flops", "flash_bytes", "FlashLaunch", "select_route",
+    "select_bwd_route", "tma_strides", "ROUTES", "SUPPORTED_HEAD_DIMS", "FWD_PAIRS", "BWD_LAUNCHES", "BWD_P_TERMS", "BWD_DS_TERMS",
     "SOURCE", "SIMT_SOURCE", "BWD_SOURCE", "BWD_SIMT_SOURCE", "REPLACES", "BWD_REPLACES",
 ]
 
@@ -153,16 +161,24 @@ def select_bwd_route(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int
 
 
 def flash_flops(B: int, Sq: int, Sk: int, Hq: int, D: int, *, causal: bool, backward: bool = False,
-                v_head_dim: Optional[int] = None) -> int:
+                v_head_dim: Optional[int] = None, prefix_len: int = 0) -> int:
     """The FLOPs attention needs: forward, S = Q Kᵀ of 2·Sq·Sk·D and O = P V
     of 2·Sq·Sk·Dv per query head (``Dv = v_head_dim``, ``D`` by default);
     backward five products, S = Q Kᵀ, dQ = dS K and dK = dSᵀ Q of 2·Sq·Sk·D
-    and dP = dO Vᵀ and dV = Pᵀ dO of 2·Sq·Sk·Dv; halved when causal.  The
-    backward kernel computes S and dP in both its dK/dV and its dQ kernel
-    (seven products), which is not counted: this is the work of the
-    function, not of the kernel."""
+    and dP = dO Vᵀ and dV = Pᵀ dO of 2·Sq·Sk·Dv; over the visible (query,
+    key) pairs: all of them, or when causal half the square (the diagonal
+    counted half) plus, with a prefix of ``P = min(prefix_len, Sk)`` keys,
+    the upper half of the prefix's own square, which its rows also see:
+    ``(Sq·Sk + P²) / 2``.  A prefix of 0 gives the causal half, one of Sk
+    the whole square.  The backward kernel computes S and dP in both its
+    dK/dV and its dQ kernel (seven products), which is not counted: this is
+    the work of the function, not of the kernel."""
     Dv = D if v_head_dim is None else v_head_dim
-    per_pair = 2 * B * Hq * Sq * Sk // (2 if causal else 1)
+    if not causal:
+        per_pair = 2 * B * Hq * Sq * Sk
+    else:
+        P = min(prefix_len, Sk)
+        per_pair = 2 * B * Hq * (Sq * Sk + P * P) // 2
     return per_pair * (3 * D + 2 * Dv if backward else D + Dv)
 
 
@@ -178,6 +194,40 @@ def flash_bytes(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int, esize: int,
     if not backward:
         return esize * (q * (D + Dv) + kv * (D + Dv))
     return esize * (q * (2 * D + 2 * Dv) + kv * (2 * D + 2 * Dv)) + 4 * B * Hq * Sq
+
+
+class FlashLaunch(NamedTuple):
+    """One launch of a flash kernel as its wrapper records it (shape, mask,
+    element size), in ``flash_attention.shapes`` and
+    ``flash_attention_backward.shapes`` beside their launch counts, so that a
+    caller prices each launch at its own shape and mask: whisper's encoder
+    (non-causal 1,500 x 1,500), its cross-attention (448 x 1,500) and its
+    causal decoder differ, and paligemma's rows see its prefix."""
+
+    B: int
+    Sq: int
+    Sk: int
+    Hq: int
+    Hkv: int
+    D: int
+    Dv: int
+    causal: bool
+    prefix_len: int
+    esize: int
+
+    def flops(self, backward: bool = False) -> int:
+        return flash_flops(self.B, self.Sq, self.Sk, self.Hq, self.D, causal=self.causal, backward=backward,
+                           v_head_dim=self.Dv, prefix_len=self.prefix_len)
+
+    def bytes(self, backward: bool = False) -> int:
+        return flash_bytes(self.B, self.Sq, self.Sk, self.Hq, self.Hkv, self.D, self.esize, backward=backward,
+                           v_head_dim=self.Dv)
+
+
+def _launch_record(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, prefix_len: int) -> FlashLaunch:
+    B, Sq, Hq, D = q.shape
+    return FlashLaunch(B, Sq, k.shape[1], Hq, k.shape[2], D, v.shape[-1], bool(causal), int(prefix_len),
+                       q.element_size())
 
 
 def tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
@@ -207,13 +257,13 @@ _LL, _I, _P, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_flo
 #: kernel → (library, C entry point, its error-string function, argtypes)
 _ENTRIES = {
     "wgmma": ("flash_attention_wgmma", "repro_flash_attention_fwd_wgmma", "repro_flash_wgmma_error_string",
-              [_P] * 5 + [_I] * 7 + [_LL] * 12 + [_F, _I, _P]),
+              [_P] * 5 + [_I] * 7 + [_LL] * 12 + [_F, _I, _I, _P]),
     "simt": ("flash_attention", "repro_flash_attention_fwd", "repro_cuda_error_string",
-             [_P] * 5 + [_I] * 8 + [_LL] * 12 + [_F, _I, _P]),
+             [_P] * 5 + [_I] * 8 + [_LL] * 12 + [_F, _I, _I, _P]),
     "bwd_wgmma": ("flash_attention_bwd_wgmma", "repro_flash_attention_bwd_wgmma", "repro_flash_bwd_wgmma_error_string",
-                  [_P] * 10 + [_I] * 7 + [_LL] * 15 + [_F, _I, _P]),
+                  [_P] * 10 + [_I] * 7 + [_LL] * 15 + [_F, _I, _I, _P]),
     "bwd_simt": ("flash_attention_bwd", "repro_flash_attention_bwd", "repro_flash_bwd_error_string",
-                 [_P] * 10 + [_I] * 8 + [_LL] * 15 + [_F, _I, _P]),
+                 [_P] * 10 + [_I] * 8 + [_LL] * 15 + [_F, _I, _I, _P]),
 }
 
 
@@ -230,7 +280,7 @@ def _kernel_fn(kernel: str):
     return fn, err_str
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, prefix_len: int) -> None:
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention takes (B, S, H, D) tensors")
     B, Sq, Hq, D = q.shape
@@ -241,6 +291,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> N
         raise ValueError(f"query heads {Hq} not a multiple of kv heads {Hkv}")
     if causal and Sq != Sk:
         raise ValueError("causal flash attention expects Sq == Sk self-attention")
+    if prefix_len < 0 or (prefix_len > 0 and not causal):
+        raise ValueError(f"a prefix-LM prefix is causal self-attention's, of length >= 0; got prefix_len "
+                         f"{prefix_len} with causal={causal}")
 
 
 def _device(*ts: torch.Tensor) -> torch.device:
@@ -281,29 +334,35 @@ def flash_attention(
     *,
     causal: bool = True,
     scale: Optional[float] = None,
+    prefix_len: int = 0,
     return_lse: bool = False,
     route: Optional[str] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Batch-major flash attention, out ``(B, Sq, Hq, Dv)`` in q's dtype, and
     with ``return_lse`` also the rows' logsumexp ``(B, Hq, Sq)`` fp32
     (``+inf`` for a row that sees no key), which :func:`flash_attention_backward` reads.
+    ``prefix_len`` (causal only) lets every row also see the first
+    ``prefix_len`` keys (prefix-LM); a prefix of Sk or more gives the
+    non-causal result.
 
     On a CUDA tensor it launches the kernel that :func:`select_route` names
     for q's dtype and head dims (``(D, Dv)`` in :data:`FWD_PAIRS`, last
     dimension contiguous; for the tensor-core kernel also the alignment
     :func:`tma_strides` checks) and counts the launch in
-    ``flash_attention.launches``; ``route="simt"`` asks for the SIMT kernel
+    ``flash_attention.launches``, its :class:`FlashLaunch` in
+    ``flash_attention.shapes``; ``route="simt"`` asks for the SIMT kernel
     on bf16 at D = 256 too (for timing it beside the tensor-core one;
     nothing on the main path passes it).  On a CPU tensor it computes the
     plain version, at any ``Dv``.  Anything the kernels do not take raises."""
-    _check(q, k, v, causal)
+    _check(q, k, v, causal, prefix_len)
     D, Dv = q.shape[-1], v.shape[-1]
     scale = float(scale if scale is not None else D ** -0.5)
     if route is not None:  # a CPU call with it runs the plain version
         _check_route(q.dtype, (D, Dv), route, FWD_PAIRS, ((256, 256),))
     if _device(q, k, v).type == "cpu":
-        out = attention_ref(q, k, v, causal=causal, scale=scale)
-        return (out, attention_lse_ref(q, k, v, causal=causal, scale=scale)) if return_lse else out
+        mask = dict(causal=causal, scale=scale, prefix_len=prefix_len)
+        out = attention_ref(q, k, v, **mask)
+        return (out, attention_lse_ref(q, k, v, **mask)) if return_lse else out
     route = route or select_route(q.dtype, D, Dv)
     _check_cuda((q, k, v))
 
@@ -324,16 +383,19 @@ def flash_attention(
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr() if lse is not None else None,
             *dims, *strides[0], *strides[1], *strides[2], *out.stride()[:3],
-            scale, int(causal), stream,
+            scale, int(causal), int(prefix_len), stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention {route} kernel launch failed: {err_str(err).decode()}")
     flash_attention.launches += 1
+    flash_attention.shapes[_launch_record(q, k, v, causal, prefix_len)] += 1
     return (out, lse) if return_lse else out
 
 
 #: launches of either forward kernel since the count was last set to 0
 flash_attention.launches = 0
+#: those launches by :class:`FlashLaunch` (shape, mask, element size)
+flash_attention.shapes = Counter()
 
 
 def flash_attention_backward(
@@ -346,6 +408,7 @@ def flash_attention_backward(
     *,
     causal: bool = True,
     scale: Optional[float] = None,
+    prefix_len: int = 0,
     route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of :func:`flash_attention`, contiguous, in q's dtype
@@ -354,16 +417,18 @@ def flash_attention_backward(
     On a CUDA tensor it launches the backward that :func:`select_bwd_route`
     names (one dtype for q, k, v, o and dO; ``(D, Dv)`` in
     :data:`FWD_PAIRS`; last dimension contiguous; causal only with Sq ==
-    Sk): ``csrc/flash_attention_bwd_wgmma.cu`` for bf16 (q, k, v and dO
+    Sk; a prefix as :func:`flash_attention` takes it):
+    ``csrc/flash_attention_bwd_wgmma.cu`` for bf16 (q, k, v and dO
     also aligned as :func:`tma_strides` checks),
     ``csrc/flash_attention_bwd.cu`` for fp32 (any strides).  ``route="simt"`` asks for the SIMT
     kernel on bf16 at every equal head dim (for timing it beside the
     tensor-core one; nothing on the main path passes it).  It counts the call in
     ``flash_attention_backward.launches`` (each call launches
-    :data:`BWD_LAUNCHES` CUDA kernels).  On a CPU tensor it computes the
+    :data:`BWD_LAUNCHES` CUDA kernels), its :class:`FlashLaunch` in
+    ``flash_attention_backward.shapes``.  On a CPU tensor it computes the
     plain version (:func:`~repro_torch.kernels.ref.flash_backward_ref`).
     Anything the kernels do not take raises."""
-    _check(q, k, v, causal)
+    _check(q, k, v, causal, prefix_len)
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, Dv = v.shape
     if o.shape != (B, Sq, Hq, Dv) or do.shape != (B, Sq, Hq, Dv):
@@ -375,7 +440,7 @@ def flash_attention_backward(
     if route is not None:  # a CPU call with it runs the plain version
         _check_route(q.dtype, (D, Dv), route, FWD_PAIRS, _EQUAL_PAIRS)
     if _device(q, k, v, o, lse, do).type == "cpu":
-        return flash_backward_ref(q, k, v, o, lse, do, causal=causal, scale=scale)
+        return flash_backward_ref(q, k, v, o, lse, do, causal=causal, scale=scale, prefix_len=prefix_len)
     route = route or select_bwd_route(q.dtype, D, Dv)
     _check_cuda((q, k, v, o, do))
     if lse.dtype != torch.float32 or not lse.is_contiguous():
@@ -399,13 +464,16 @@ def flash_attention_backward(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv, scratch)),
-            *dims, *strides, scale, int(causal), stream,
+            *dims, *strides, scale, int(causal), int(prefix_len), stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_backward {route} kernel launch failed: {err_str(err).decode()}")
     flash_attention_backward.launches += 1
+    flash_attention_backward.shapes[_launch_record(q, k, v, causal, prefix_len)] += 1
     return dq, dk, dv
 
 
 #: calls of the backward that launched its kernels since the count was last set to 0
 flash_attention_backward.launches = 0
+#: those calls by :class:`FlashLaunch` (shape, mask, element size)
+flash_attention_backward.shapes = Counter()

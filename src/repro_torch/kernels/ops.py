@@ -7,15 +7,18 @@
 * ``"plain"`` — the plain version on any device, so that tests and
   ``chip_smoke.py`` can hold the kernel against it.
 
-Prefix-LM masking (``prefix_len > 0``) is not on the port's path yet: on a
-CUDA tensor it raises ``NotImplementedError`` and does not fall back.  A
-value width other than the key width goes to the kernel wrapper as any
-other call does: MLA's prefill pair (192, 128) launches the forward kernel,
-and a pair the kernels do not take raises there, naming the pairs they
-take.  A CUDA call that needs a gradient goes through
+Every mask goes to the kernel wrapper: causal or not, ``Sq != Sk``
+(non-causal cross-attention, whisper's decoder over its encoder), and a
+prefix-LM prefix (``prefix_len > 0``, causal self-attention: paligemma's
+vision tokens), which the reference sends to its blocked jnp form
+(``repro/kernels/ops.py:145``) and the port's kernels take in both
+directions.  A value width other than the key width goes to the wrapper as
+any other call does: MLA's prefill pair (192, 128) launches the forward
+kernel, and a pair the kernels do not take raises there, naming the pairs
+they take.  A CUDA call that needs a gradient goes through
 :class:`FlashAttention`: the forward kernel with the rows' logsumexp, and
-the backward kernel, at every pair the forward takes (MLA's (192, 128)
-trains through both).
+the backward kernel, at every pair and mask the forward takes (MLA's (192,
+128) trains through both).
 """
 
 from __future__ import annotations
@@ -36,15 +39,16 @@ class FlashAttention(torch.autograd.Function):
     """Flash attention with a gradient: forward by the forward kernel, which
     also writes the rows' logsumexp; backward by the backward kernel, which
     recomputes P from it (:func:`~.flash_attention.flash_attention_backward`).
-    Saves q, k, v, the output and the logsumexp.  v may be narrower than q
-    and k (MLA's (192, 128)); dv then has v's width.  On CPU tensors both
-    wrappers compute their plain versions."""
+    Saves q, k, v, the output and the logsumexp, and hands the mask (causal,
+    prefix) to the backward.  v may be narrower than q and k (MLA's (192,
+    128)); dv then has v's width.  On CPU tensors both wrappers compute their
+    plain versions."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        o, lse = flash_attention_cuda(q, k, v, causal=causal, scale=scale, return_lse=True)
+    def forward(ctx, q, k, v, causal, scale, prefix_len=0):
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, scale=scale, prefix_len=prefix_len, return_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.prefix_len = causal, scale, prefix_len
         return o
 
     @staticmethod
@@ -52,8 +56,9 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if do.stride(-1) != 1:  # autograd may hand over an expanded or transposed gradient
             do = do.contiguous()
-        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do, causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None
+        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do, causal=ctx.causal, scale=ctx.scale,
+                                              prefix_len=ctx.prefix_len)
+        return (dq, dk, dv) + (None,) * (len(ctx.needs_input_grad) - 3)  # none for the mask's arguments
 
 
 def flash_attention(
@@ -71,15 +76,11 @@ def flash_attention(
     the CPU, a call that needs a gradient goes through :class:`FlashAttention`."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown impl {impl!r} (want 'auto' or 'plain')")
-    if impl == "auto" and prefix_len > 0 and q.device.type != "cpu":
-        raise NotImplementedError(
-            "prefix-LM masking has no CUDA kernel yet; it comes with the enc-dec/prefix-LM slice"
-        )
-    if impl == "plain" or prefix_len > 0:
+    if impl == "plain":
         return attention_ref(q, k, v, causal=causal, scale=scale, prefix_len=prefix_len)
     if q.device.type != "cpu" and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v, causal, scale)
-    return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+        return FlashAttention.apply(q, k, v, causal, scale, prefix_len)
+    return flash_attention_cuda(q, k, v, causal=causal, scale=scale, prefix_len=prefix_len)
 
 
 def decode_attention(
@@ -91,18 +92,21 @@ def decode_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Single-token attention over a KV cache (bandwidth-bound; plain torch,
-    as the reference computes it outside any kernel)."""
+    as the reference computes it outside any kernel).  An int ``cache_len``
+    of the whole cache (cross-attention over an encoder's output) masks
+    nothing and copies nothing to the device."""
     B, Hq, D = q.shape
     _, S, Hkv, _ = k_cache.shape
     G = Hq // Hkv
     scale = float(scale if scale is not None else D ** -0.5)
     qf = q.float().reshape(B, Hkv, G, D)
     s = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float()) * scale
-    cache_len = torch.as_tensor(cache_len, device=q.device)
-    if cache_len.ndim == 0:
-        cache_len = cache_len.expand(B)
-    valid = torch.arange(S, device=q.device)[None, :] < cache_len[:, None]
-    s = s.masked_fill(~valid[:, None, None, :], torch.finfo(torch.float32).min)
+    if not (isinstance(cache_len, int) and cache_len >= S):
+        cache_len = torch.as_tensor(cache_len, device=q.device)
+        if cache_len.ndim == 0:
+            cache_len = cache_len.expand(B)
+        valid = torch.arange(S, device=q.device)[None, :] < cache_len[:, None]
+        s = s.masked_fill(~valid[:, None, None, :], torch.finfo(torch.float32).min)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
     return o.reshape(B, Hq, D).to(q.dtype)

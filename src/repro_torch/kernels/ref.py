@@ -155,9 +155,11 @@ def flash_blocked_ref(
     return o.reshape(B, Sq, Hq, Dv).to(q.dtype)
 
 
-def _scores(q, k, causal, scale):
+def _scores(q, k, causal, scale, prefix_len=0):
     """fp32 scores ``(B, Hkv, G, Sq, Sk)`` (already scaled) and the visible
-    mask ``(Sq, Sk)``; with ``causal`` the last query aligns with the last key."""
+    mask ``(Sq, Sk)``; with ``causal`` the last query aligns with the last
+    key, and every query also sees the first ``prefix_len`` keys (prefix-LM,
+    as :func:`attention_ref`)."""
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     if Hq % Hkv != 0:
@@ -166,7 +168,10 @@ def _scores(q, k, causal, scale):
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
-        mask = (torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)) >= torch.arange(Sk, device=q.device)[None, :]
+        ki = torch.arange(Sk, device=q.device)[None, :]
+        mask = (torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)) >= ki
+        if prefix_len > 0:
+            mask = mask | (ki < prefix_len)
     return s, mask
 
 
@@ -177,6 +182,7 @@ def attention_lse_ref(
     *,
     causal: bool = True,
     scale: Optional[float] = None,
+    prefix_len: int = 0,
 ) -> torch.Tensor:
     """Per-row logsumexp of the scaled, masked scores, ``(B, Hq, Sq)`` fp32:
     what the flash kernels write beside their output for the backward.  A
@@ -185,7 +191,7 @@ def attention_lse_ref(
     taken so that the call matches :func:`attention_ref`'s."""
     B, Sq, Hq, D = q.shape
     scale = scale if scale is not None else D ** -0.5
-    s, mask = _scores(q, k, causal, scale)
+    s, mask = _scores(q, k, causal, scale, prefix_len)
     lse = torch.logsumexp(s.masked_fill(~mask, -torch.inf), dim=-1)  # -inf where no key
     lse = torch.where(mask.any(-1), lse, torch.inf)
     return lse.reshape(B, Hq, Sq)
@@ -201,6 +207,7 @@ def flash_backward_ref(
     *,
     causal: bool = True,
     scale: Optional[float] = None,
+    prefix_len: int = 0,
     p_bf16_terms: int = 0,
     ds_bf16_terms: int = 0,
 ):
@@ -211,8 +218,10 @@ def flash_backward_ref(
     ``P = exp(S·scale − lse)`` on visible entries and 0 elsewhere;
     ``dV = Pᵀ dO``, ``dP = dO Vᵀ``, ``dS = P ∘ (dP − Dᵢ)``,
     ``dQ = dS K · scale``, ``dK = dSᵀ Q · scale``; dK and dV summed over
-    each GQA group.  A row whose lse is ``+inf`` (no visible key) has
-    ``P = 0`` and gives no gradient.  This is what the backward kernels
+    each GQA group; the visible entries are :func:`attention_ref`'s (with
+    ``causal``, the diagonal and the first ``prefix_len`` keys).  A row
+    whose lse is ``+inf`` (no visible key) has ``P = 0`` and gives no
+    gradient.  This is what the backward kernels
     compute; the JAX package differentiates its blocked form instead.
 
     ``p_bf16_terms`` and ``ds_bf16_terms`` model the bf16 tensor-core
@@ -228,7 +237,7 @@ def flash_backward_ref(
     _, Sk, Hkv, Dv = v.shape
     G = Hq // Hkv
     scale = scale if scale is not None else D ** -0.5
-    s, mask = _scores(q, k, causal, scale)
+    s, mask = _scores(q, k, causal, scale, prefix_len)
     p = torch.where(mask, torch.exp(s - lse.float().reshape(B, Hkv, G, Sq, 1)), 0.0)
     dof = do.float().reshape(B, Sq, Hkv, G, Dv)
     delta = (dof * o.float().reshape(B, Sq, Hkv, G, Dv)).sum(-1).permute(0, 2, 3, 1)  # (B, Hkv, G, Sq)

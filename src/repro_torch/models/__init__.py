@@ -1,15 +1,16 @@
-"""Model substrate of the port: parameter trees, layers, the dense, MoE (GQA or MLA), pure-SSM and hybrid decoder."""
+"""Model substrate of the port: parameter trees, layers, and the dense, MoE (GQA or MLA), pure-SSM, hybrid,
+encoder-decoder and prefix-LM models."""
 
 from .convert import load_jax_params
 from .params import ParamDef, ParamTree, init_params
-from .transformer import Transformer, check_supported, model_defs
+from .transformer import Encoder, Transformer, model_defs
 
 __all__ = [
     "ParamDef",
     "ParamTree",
     "init_params",
     "Transformer",
-    "check_supported",
+    "Encoder",
     "model_defs",
     "load_jax_params",
 ]

@@ -8,7 +8,10 @@ GQA and ``{"ckv"}`` of ``(B, S_max, kv_lora_rank + qk_rope_dim)`` for MLA
 (the compressed latent and the shared rope key: 576 values a token at
 deepseek-v2's widths instead of 2·H·D).  Decode positions are per
 sequence, ``(B,)``, so the serving engine can batch requests at different
-depths.  Cross-attention comes with the enc-dec slice of the port.
+depths.  Cross-attention (whisper's decoder over its encoder's output) has
+GQA's weights and no positional rotation: prefill and training run the
+flash kernel non-causally at ``(Sq, Sk)``, decode attends over the whole
+cross cache ``{"k", "v"}`` of ``(B, S_enc, Hkv, D)``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from .params import ParamDef
 __all__ = [
     "gqa_defs", "gqa_apply", "gqa_decode", "init_gqa_cache",
     "mla_defs", "mla_apply", "mla_decode", "init_mla_cache",
+    "cross_attn_defs", "cross_attn_kv", "cross_attn_apply",
 ]
 
 
@@ -229,4 +233,43 @@ def mla_decode(
     p = torch.softmax(s, dim=-1).to(dtype)
     o_c = torch.einsum("bhs,bsr->bhr", p, c_cache)
     o = torch.einsum("bhr,rhv->bhv", o_c, params["w_uv"].to(dtype))
+    return _merge(o, params["wo"])
+
+
+# =================================================================== cross-attn
+def cross_attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    return gqa_defs(cfg)
+
+
+def cross_attn_kv(params, enc_out: torch.Tensor, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The encoder output's K and V ``(B, S_enc, Hkv, D)``, once per layer:
+    what prefill stores in the cross cache."""
+    dtype = enc_out.dtype
+    k = _heads(enc_out, params["wk"])
+    v = _heads(enc_out, params["wv"])
+    if cfg.qkv_bias:
+        k = k + params["bk"].to(dtype)
+        v = v + params["bv"].to(dtype)
+    return {"k": k, "v": v}
+
+
+def cross_attn_apply(
+    params,
+    x: torch.Tensor,  # (B, S, d_model), or (B, d_model) for decode
+    cfg: ModelConfig,
+    kv: Dict[str, torch.Tensor],  # cross_attn_kv's, (B, S_enc, Hkv, D)
+    *,
+    attn_impl: str = "auto",
+) -> torch.Tensor:
+    """Decoder→encoder attention (no positional rotation, never causal): the
+    flash kernel at ``(S, S_enc)`` for a sequence, ``ops.decode_attention``
+    over the whole of ``kv`` for one token."""
+    dtype = x.dtype
+    q = _heads(x, params["wq"])
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(dtype)
+    if x.ndim == 2:
+        o = ops.decode_attention(q, kv["k"], kv["v"], kv["k"].shape[1])
+    else:
+        o = ops.flash_attention(q, kv["k"], kv["v"], causal=False, impl=attn_impl)
     return _merge(o, params["wo"])

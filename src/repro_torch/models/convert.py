@@ -2,7 +2,9 @@
 
 The reference keeps its decoder layers stacked on a leading axis
 (``blocks/pos_<p>/...`` of shape ``(repeats, ...)``, after ``prefix_<j>``
-layers); the port keeps one module per layer.  :func:`load_jax_params`
+layers; an enc-dec decoder layer's ``ln_x`` and ``cross`` among them), and
+an enc-dec config's encoder layers likewise (``encoder/blocks/...`` of
+shape ``(n_enc_layers, ...)``); the port keeps one module per layer.  :func:`load_jax_params`
 takes the reference's parameter tree with numpy leaves and unstacks it.
 This module imports numpy and torch only.
 """
@@ -22,7 +24,8 @@ __all__ = ["load_jax_params", "flatten_jax_tree"]
 
 def flatten_jax_tree(tree, cfg) -> Dict[str, np.ndarray]:
     """The reference's tree as ``{port parameter name: array}``, with
-    ``blocks/pos_<p>`` leaves split into ``layers.<i>`` ones."""
+    ``blocks/pos_<p>`` leaves split into ``layers.<i>`` ones and
+    ``encoder/blocks`` leaves into ``encoder.layers.<i>`` ones."""
     n_prefix = cfg.moe.first_k_dense if cfg.moe else 0
     period = cfg.superblock_period
     out: Dict[str, np.ndarray] = {}
@@ -33,6 +36,10 @@ def flatten_jax_tree(tree, cfg) -> Dict[str, np.ndarray]:
             rest = ".".join(parts[2:])
             for r in range(arr.shape[0]):
                 out[f"layers.{n_prefix + r * period + p}.{rest}"] = arr[r]
+        elif parts[:2] == ["encoder", "blocks"]:
+            rest = ".".join(parts[2:])
+            for r in range(arr.shape[0]):
+                out[f"encoder.layers.{r}.{rest}"] = arr[r]
         elif parts[0].startswith("prefix_"):
             out[f"layers.{int(parts[0][len('prefix_'):])}." + ".".join(parts[1:])] = arr
         else:

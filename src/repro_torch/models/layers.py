@@ -1,8 +1,10 @@
-"""Shared layer primitives: norms, GLU FFN, embeddings, RoPE.
+"""Shared layer primitives: norms, GLU FFN, embeddings, RoPE, and the
+encoder's fixed sinusoidal positions.
 
 The fp32 islands are the reference's: ``rmsnorm`` computes in fp32, logits
-are fp32 with the padded vocabulary masked to ``-1e9``, and ``rope`` builds
-its frequencies as ``exp(-log θ · i / half)`` in fp32.
+are fp32 with the padded vocabulary masked to ``-1e9``, ``rope`` builds its
+frequencies as ``exp(-log θ · i / half)`` in fp32, and
+``sinusoidal_positions`` computes in fp32 and casts.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ __all__ = [
     "embed_apply",
     "logits_apply",
     "rope",
+    "sinusoidal_positions",
 ]
 
 
@@ -118,3 +121,14 @@ def rope(
     x1, x2 = xr[..., :half], xr[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
     return torch.cat([out, xp], dim=-1) if rd < D else out
+
+
+def sinusoidal_positions(seq: int, d_model: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Whisper-style fixed positional embeddings ``(seq, d_model)`` for the
+    (stubbed) encoder: ``[sin(p·f), cos(p·f)]`` with ``f_i = exp(-log(10⁴)
+    · i / max(half - 1, 1))``, computed in fp32 and cast to ``dtype``."""
+    half = d_model // 2
+    log_base = torch.log(torch.full((), 10_000.0, dtype=torch.float32, device=device))
+    freq = torch.exp(-log_base * torch.arange(half, dtype=torch.float32, device=device) / max(half - 1, 1))
+    ang = torch.arange(seq, dtype=torch.float32, device=device)[:, None] * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)

@@ -168,6 +168,13 @@ class Engine:
                 "the reference engine fails on it too (src/repro/serve/engine.py:228, where "
                 "resolved_head_dim divides by n_heads = 0)"
             )
+        if cfg.encdec:
+            raise NotImplementedError(
+                f"{cfg.name} is an encoder-decoder model, and serving one is not supported: the reference engine "
+                "prefills with the tokens alone (src/repro/serve/engine.py:383) and fails on the missing frame "
+                "embeddings (src/repro/models/transformer.py:335-336, KeyError 'enc_embeds'); the model's own "
+                "prefill and decode_step take them"
+            )
         self.model = model
         self.cfg = cfg
         self.device = model.device

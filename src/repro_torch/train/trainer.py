@@ -11,8 +11,9 @@ fp32, clipped by global norm, AdamW with the schedule's rate.
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,17 +66,26 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 0.
     return loss, denom
 
 
-def _device_batch(batch, device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(np.asarray(v)).to(device=device, dtype=torch.long) for k, v in batch.items()
-            if k in ("tokens", "labels")}
+#: batch keys the model reads: token ids (long), and the stub front ends' embeddings (compute dtype)
+_ID_KEYS, _EMBED_KEYS = ("tokens", "labels"), ("enc_embeds", "vision_embeds")
+
+
+def _device_batch(batch, device, compute_dtype) -> Dict[str, torch.Tensor]:
+    """The keys the model reads on ``device``: token ids and labels as
+    ``long``; whisper's frame embeddings (``enc_embeds``) and a VLM's patch
+    embeddings (``vision_embeds``) as floats in ``compute_dtype`` (the model
+    casts them so too)."""
+    dtypes = {**dict.fromkeys(_ID_KEYS, torch.long), **dict.fromkeys(_EMBED_KEYS, compute_dtype)}
+    return {k: torch.as_tensor(np.asarray(v)).to(device=device, dtype=dtypes[k]) for k, v in batch.items()
+            if k in dtypes}
 
 
 def make_loss_fn(model: Transformer, tcfg: TrainConfig) -> Callable:
     """``loss_fn(batch) -> (total, {"loss", "aux", "tokens"})`` on the model's device."""
 
     def loss_fn(batch):
-        b = _device_batch(batch, model.device)
-        logits, aux = model(b["tokens"])
+        b = _device_batch(batch, model.device, model.cfg.compute_tdtype())
+        logits, aux = model(b["tokens"], enc_embeds=b.get("enc_embeds"), vision_embeds=b.get("vision_embeds"))
         loss, n_tok = cross_entropy(logits, b["labels"], tcfg.z_loss)
         return loss + tcfg.aux_weight * aux, {"loss": loss, "aux": aux, "tokens": n_tok}
 
@@ -233,34 +243,38 @@ class Trainer:
         return model, opt_state
 
     @staticmethod
-    def _launches() -> Dict[str, int]:
-        return {"ssd_kernel": ssd_kernel.ssd_scan.launches, "flash_forward": flash_kernel.flash_attention.launches,
-                "flash_backward": flash_kernel.flash_attention_backward.launches}
+    def _launches() -> Dict[str, Any]:
+        """The kernels' launch counts: the SSD scan's as a number, each flash
+        direction's by :class:`~repro_torch.kernels.flash_attention.FlashLaunch`
+        (a copy of the wrapper's record)."""
+        return {"ssd_kernel": ssd_kernel.ssd_scan.launches,
+                "flash_forward": Counter(flash_kernel.flash_attention.shapes),
+                "flash_backward": Counter(flash_kernel.flash_attention_backward.shapes)}
 
-    def _kernel_costs(self, batch, launched: Dict[str, int]) -> Dict[str, float]:
+    def _kernel_costs(self, batch, launched: Dict[str, Any]) -> Dict[str, float]:
         """FLOPs and bytes that the kernels launched through ctypes add, by
-        formula at this batch's microbatch shape; a kernel that did not
-        launch adds nothing."""
+        formula: the SSD scan's ``launched["ssd_kernel"]`` launches at this
+        batch's microbatch shape, and each flash launch at its own shape and
+        mask, as the wrapper recorded it (``launched["flash_forward"]`` and
+        ``["flash_backward"]``: counts by ``FlashLaunch``; whisper's encoder,
+        cross and decoder launches and paligemma's prefix differ).  A kernel
+        that did not launch adds nothing."""
         cfg = self.cfg
-        rows, S = np.asarray(batch["tokens"]).shape
-        B = rows // self.tcfg.microbatches
-        esize = cfg.compute_tdtype().itemsize
-        per = {}
+        out = {"ssd_kernel": 0.0, "bytes_ssd_kernel": 0.0}
         if launched["ssd_kernel"]:
+            rows, S = np.asarray(batch["tokens"]).shape
+            B = rows // self.tcfg.microbatches
+            esize = cfg.compute_tdtype().itemsize
             s = cfg.ssm
             H = s.n_heads(cfg.d_model)
-            per["ssd_kernel"] = (ssd_kernel.ssd_flops(B, S, H, s.head_dim, s.d_state, s.n_groups),
-                                 ssd_kernel.ssd_bytes(B, S, H, s.head_dim, s.d_state, s.n_groups, esize))
+            n = launched["ssd_kernel"]
+            out["ssd_kernel"] = float(n * ssd_kernel.ssd_flops(B, S, H, s.head_dim, s.d_state, s.n_groups))
+            out["bytes_ssd_kernel"] = float(n * ssd_kernel.ssd_bytes(B, S, H, s.head_dim, s.d_state, s.n_groups,
+                                                                     esize))
         for name, backward in (("flash_forward", False), ("flash_backward", True)):
-            if launched[name]:
-                Hkv, D, Dv = flash_widths(cfg)
-                shape = (B, S, S, cfg.n_heads)
-                per[name] = (flash_kernel.flash_flops(*shape, D, causal=True, backward=backward, v_head_dim=Dv),
-                             flash_kernel.flash_bytes(*shape, Hkv, D, esize, backward=backward, v_head_dim=Dv))
-        out = {}
-        for name, n in launched.items():
-            flops, nbytes = per.get(name, (0, 0))
-            out[name], out[f"bytes_{name}"] = float(n * flops), float(n * nbytes)
+            shapes = launched[name]
+            out[name] = float(sum(n * rec.flops(backward) for rec, n in shapes.items()))
+            out[f"bytes_{name}"] = float(sum(n * rec.bytes(backward) for rec, n in shapes.items()))
         return out
 
     def run(self, model: Transformer, opt_state, num_steps: int):
@@ -274,7 +288,7 @@ class Trainer:
                 before = self._launches()
                 with FlopCounterMode(display=False) as counter, _ByteCounter() as moved:
                     opt_state, metrics = step_fn(opt_state, batch)
-                launched = {name: n - before[name] for name, n in self._launches().items()}
+                launched = {name: n - before[name] for name, n in self._launches().items()}  # Counters subtract
                 self.cost_parts = {"counted": float(counter.get_total_flops()), "bytes_counted": float(moved.bytes),
                                    **self._kernel_costs(batch, launched)}
                 parts = self.cost_parts.items()

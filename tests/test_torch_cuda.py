@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: flash attention
 forward (bf16 on wgmma at every head dim, fp32 on the CUDA cores at every
 head dim) and backward (bf16 on wgmma at every head dim; fp32 on the CUDA
-cores; both at MLA's (192, 128)), the SSD scan (bf16 on wgmma, fp32 on the CUDA cores) and the
+cores; both at MLA's (192, 128)), both directions with a prefix-LM prefix, the SSD scan (bf16 on wgmma, fp32 on the CUDA cores) and the
 simulator's landing.
 
 Imports torch and the port only (the card's machine has no JAX).  Every
@@ -144,8 +144,9 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="bfloat16"):
         ops.flash_attention(q, k, v)
     q, k, v = _qkv((1, 16, 2, 2, 32), torch.float32, cuda)
-    with pytest.raises(NotImplementedError):
-        ops.flash_attention(q, k, v, prefix_len=4)
+    for bad in (dict(prefix_len=4, causal=False), dict(prefix_len=-1)):  # a prefix the kernels do not take
+        with pytest.raises(ValueError, match="prefix-LM"):
+            ops.flash_attention(q, k, v, **bad)
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
 
@@ -247,8 +248,8 @@ def test_pairs_without_a_kernel_raise_on_the_card(cuda):
         q, k, v = _mla_qkv(1, 16, 2, 2, dtype, cuda, seed=5)
         with pytest.raises(ValueError, match="head dims"):
             ops.flash_attention(q, k, v[..., :64])
-        with pytest.raises(NotImplementedError, match="prefix-LM"):
-            ops.flash_attention(q, k, v, prefix_len=4)
+        with pytest.raises(ValueError, match="prefix-LM"):  # a prefix is causal self-attention's
+            ops.flash_attention(q, k, v, prefix_len=4, causal=False)
     with pytest.raises(ValueError, match="route 'simt' does not take torch.bfloat16"):
         fa.flash_attention(*_mla_qkv(1, 16, 2, 2, torch.bfloat16, cuda, seed=6), route="simt")
     assert fa.flash_attention.launches == before
@@ -595,6 +596,124 @@ def test_gemma_head_dim_256_serves_on_the_card_as_on_the_cpu(cuda):
     tokens = torch.as_tensor(reqs["cpu"][0].prompt, dtype=torch.long)[None]
     torch.testing.assert_close(gpu_model.prefill(tokens.to(cuda))[0].cpu(), cpu_model.prefill(tokens)[0],
                                atol=1e-4, rtol=0)
+
+
+# --------------------------------------------------------------------------- prefix-LM
+#: (B, S, Hq, Hkv, D): S off the 64-row tile at head dims 64 and 128, and MQA at D = 256 (paligemma's
+#: heads); every prefix at each: none, one key, one short of a tile, a tile, one past it, past S
+PREFIX_SHAPES = [(1, 200, 4, 2, 64), (2, 130, 4, 4, 128), (1, 300, 8, 1, 256)]
+PREFIX_LENS = (0, 1, 63, 64, 65, 100_000)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("prefix_len", PREFIX_LENS)
+@pytest.mark.parametrize("shape", PREFIX_SHAPES)
+def test_prefix_forward_and_backward_match_plain(cuda, shape, prefix_len, dtype):
+    """A causal call whose rows also see the first ``prefix_len`` keys: the
+    forward kernel (bf16 on wgmma, fp32 on the CUDA cores), its logsumexp,
+    and the backward kernel on its own o and lse, against the plain
+    versions with the same prefix.  A kv tile that holds prefix keys is seen
+    by every q tile in the dK/dV kernel, the likeliest place for a
+    plausible wrong gradient, so the prefixes stop off the tile."""
+    B, S, Hq, Hkv, D = shape
+    q, k, v = _qkv(shape, dtype, cuda, seed=S + D + prefix_len % 97)
+    before = (fa.flash_attention.launches, fa.flash_attention_backward.launches)
+    o, lse = fa.flash_attention(q, k, v, causal=True, prefix_len=prefix_len, return_lse=True)
+    want = attention_ref(q, k, v, causal=True, prefix_len=prefix_len)
+    torch.testing.assert_close(o.float(), want.float(), **(FP32_TOL if dtype == torch.float32 else BF16_TOL))
+    torch.testing.assert_close(lse, attention_lse_ref(q, k, v, causal=True, prefix_len=prefix_len), **LSE_TOL)
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(D + prefix_len % 89)).to(cuda, dtype)
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=True, prefix_len=prefix_len)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_backward.launches) == (before[0] + 1, before[1] + 1)
+    want = flash_backward_ref(q, k, v, o, lse, do, causal=True, prefix_len=prefix_len)
+    if dtype == torch.bfloat16:
+        _assert_grads_close(got, want)
+    else:
+        for name, g, w in zip("qkv", got, want):
+            torch.testing.assert_close(g, w, **BWD_FP32_TOL, msg=lambda m: f"d{name}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", PREFIX_SHAPES)
+def test_prefix_of_zero_and_of_all_keys_are_bit_equal_to_causal_and_not(cuda, shape, dtype):
+    """``prefix_len = 0`` computes exactly the causal call (bit for bit, in
+    both directions), and a prefix of S or more exactly the non-causal one."""
+    q, k, v = _qkv(shape, dtype, cuda, seed=shape[1])
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)).to(cuda, dtype)
+    for prefix_len, causal in ((0, True), (shape[1], False), (100_000, False)):
+        o, lse = fa.flash_attention(q, k, v, causal=True, prefix_len=prefix_len, return_lse=True)
+        o2, lse2 = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2), prefix_len
+        for a, b in zip(fa.flash_attention_backward(q, k, v, o, lse, do, causal=True, prefix_len=prefix_len),
+                        fa.flash_attention_backward(q, k, v, o, lse, do, causal=causal)):
+            assert torch.equal(a, b), prefix_len
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_prefix_gradient_goes_through_both_kernels(cuda, dtype):
+    """``ops.flash_attention`` with a prefix and a gradient: the forward and
+    the backward kernel each launch once, and the gradient agrees with
+    autograd through the plain version; a prefix the kernels cannot take
+    raises on the card."""
+    q, k, v = (t.requires_grad_() for t in _qkv((1, 300, 8, 1, 256), dtype, cuda, seed=11))
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
+    before = (fa.flash_attention.launches, fa.flash_attention_backward.launches)
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, prefix_len=100), (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_backward.launches) == (before[0] + 1, before[1] + 1)
+    want = torch.autograd.grad(attention_ref(q, k, v, causal=True, prefix_len=100), (q, k, v), do)
+    if dtype == torch.bfloat16:
+        _assert_grads_close(got, want)
+    else:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **BWD_FP32_TOL)
+    with torch.no_grad():
+        for bad in (dict(prefix_len=-1), dict(prefix_len=8, causal=False)):
+            with pytest.raises(ValueError, match="prefix-LM"):
+                ops.flash_attention(q, k, v, **bad)
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "paligemma-3b"])
+def test_encdec_and_prefix_lm_smokes_on_the_card_as_on_the_cpu(cuda, arch):
+    """whisper's smoke config at head dim 32 (its own is 16, which no
+    kernel takes) and paligemma's, fp32: forward logits and the prefill's
+    logits and cache on the card against the CPU, every attention call on
+    the kernels (whisper: the encoder's, the decoder's and the
+    cross-attention's; paligemma: with its prefix)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Transformer
+
+    cfg = get_smoke_config(arch)
+    if cfg.encdec:
+        cfg = dataclasses.replace(cfg, n_heads=2, n_kv_heads=2)
+    cpu_model = Transformer(cfg, device="cpu", seed=4)
+    gpu_model = Transformer(cfg, device="cpu", seed=4).to(cuda)
+    rng = np.random.default_rng(6)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 20)), dtype=torch.long)
+    kw = {}
+    if cfg.encdec:
+        kw["enc_embeds"] = torch.as_tensor(rng.standard_normal((2, 70, cfg.d_model)), dtype=torch.float32)
+    else:
+        kw["vision_embeds"] = torch.as_tensor(rng.standard_normal((2, cfg.vision_tokens, cfg.d_model)),
+                                              dtype=torch.float32)
+    before = fa.flash_attention.launches
+    with torch.no_grad():
+        got = gpu_model(toks.to(cuda), **{n: t.to(cuda) for n, t in kw.items()})[0]
+        want = cpu_model(toks, **kw)[0]
+    torch.cuda.synchronize()
+    per_pass = cfg.n_layers * 2 + cfg.n_enc_layers if cfg.encdec else cfg.n_layers
+    assert fa.flash_attention.launches - before == per_pass
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+    g_logits, g_cache = gpu_model.prefill(toks.to(cuda), **{n: t.to(cuda) for n, t in kw.items()})
+    c_logits, c_cache = cpu_model.prefill(toks, **kw)
+    torch.testing.assert_close(g_logits.cpu(), c_logits, atol=1e-4, rtol=0)
+    assert sorted(g_cache) == sorted(c_cache)
+    for key in c_cache:
+        torch.testing.assert_close(g_cache[key].cpu(), c_cache[key], atol=1e-4 * c_cache[key].abs().max().item(),
+                                   rtol=0)
 
 
 # --------------------------------------------------------------------------- SSD scan

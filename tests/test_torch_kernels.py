@@ -159,14 +159,21 @@ def test_bad_inputs_raise():
 
 def test_non_cpu_tensors_never_take_the_plain_version():
     """Off the CPU the wrapper launches the kernel or raises: a tensor on
-    another device (here ``meta``) and the cases without a kernel yet raise
-    instead of falling back."""
+    another device (here ``meta``) raises instead of falling back, a
+    prefix-LM prefix goes to the wrapper as any other mask does, and a
+    prefix the kernels cannot take (negative, or without ``causal``) raises
+    on every device."""
     q, k, v = (torch.empty((1, 16, 4, 32), device="meta") for _ in range(3))
     before = fa.flash_attention.launches
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="prefix-LM"):
+    with pytest.raises(ValueError, match="cuda or cpu"):
         ops.flash_attention(q, k, v, prefix_len=4)
+    for bad in (dict(prefix_len=-1), dict(prefix_len=4, causal=False)):
+        with pytest.raises(ValueError, match="prefix-LM"):
+            ops.flash_attention(q, k, v, **bad)
+        with pytest.raises(ValueError, match="prefix-LM"):
+            ops.flash_attention(*(torch.zeros(q.shape) for _ in range(3)), **bad)
     with pytest.raises(ValueError, match="cuda or cpu"):  # an unequal v width goes to the wrapper too
         ops.flash_attention(q, k, torch.empty((1, 16, 4, 16), device="meta"), causal=False)
     assert fa.flash_attention.launches == before

@@ -201,25 +201,37 @@ def _hybrid_mamba2():
     return replace(get_smoke_config("mamba2-130m"), family="hybrid", n_heads=4, n_kv_heads=4, attn_every=2)
 
 
+def _has_ssm_and_attention(model):
+    return any("attn" in lp for lp in model.layers) and any("ssm" in lp for lp in model.layers)
+
+
+def _has_encoder_and_cross(model):
+    cfg = model.cfg
+    return (len(model.encoder.layers) == cfg.n_enc_layers and all("cross" in lp and "ln_x" in lp for lp in model.layers)
+            and all("attn" in lp and "ffn" in lp for lp in model.encoder.layers))
+
+
+def _has_vision_prefix(model):
+    return model.cfg.vision_tokens > 0 and model.cfg.prefix_lm and model.encoder is None
+
+
 @pytest.mark.parametrize(
-    "make_cfg,slice_name",
+    "make_cfg,built",
     [
-        pytest.param(lambda: get_smoke_config("jamba-1.5-large-398b"), None, id="jamba-1.5-large-398b-hybrid"),
-        pytest.param(_hybrid_mamba2, None, id="mamba2-130m-SSM"),
-        pytest.param(lambda: get_smoke_config("whisper-medium"), "enc-dec", id="whisper-medium-enc-dec"),
-        pytest.param(lambda: get_smoke_config("paligemma-3b"), "enc-dec/prefix-LM", id="paligemma-3b-enc-dec/prefix-LM"),
+        pytest.param(lambda: get_smoke_config("jamba-1.5-large-398b"), _has_ssm_and_attention,
+                     id="jamba-1.5-large-398b-hybrid"),
+        pytest.param(_hybrid_mamba2, _has_ssm_and_attention, id="mamba2-130m-SSM"),
+        pytest.param(lambda: get_smoke_config("whisper-medium"), _has_encoder_and_cross, id="whisper-medium-enc-dec"),
+        pytest.param(lambda: get_smoke_config("paligemma-3b"), _has_vision_prefix,
+                     id="paligemma-3b-enc-dec/prefix-LM"),
     ],
 )
-def test_later_slice_configs_raise_at_construction(make_cfg, slice_name):
-    """Pure SSM (mamba2-130m itself) runs since the SSM slice, MoE and MLA
-    (deepseek-v2-lite, llama4-scout) since the MoE/MLA slice, and the hybrid
-    of attention and SSM layers (jamba; mamba2 with attention every other
-    layer) since the hybrid slice: those build, with attention and SSM
-    layers both (``slice_name`` None).  Enc-dec and prefix-LM configs still
-    raise, naming their slice."""
-    if slice_name is None:
-        model = Transformer(make_cfg(), device="cpu")
-        assert any("attn" in lp for lp in model.layers) and any("ssm" in lp for lp in model.layers)
-        return
-    with pytest.raises(NotImplementedError, match=slice_name):
-        Transformer(make_cfg(), device="cpu")
+def test_later_slice_configs_raise_at_construction(make_cfg, built):
+    """Every family builds now, none raises: pure SSM (mamba2-130m itself)
+    since the SSM slice, MoE and MLA (deepseek-v2-lite, llama4-scout) since
+    the MoE/MLA slice, the hybrid of attention and SSM layers (jamba; mamba2
+    with attention every other layer) since the hybrid slice, with attention
+    and SSM layers both, and since the enc-dec/prefix-LM slice whisper (an
+    encoder, and cross-attention in every decoder layer) and paligemma (the
+    vision prefix, no encoder)."""
+    assert built(Transformer(make_cfg(), device="cpu"))

@@ -525,14 +525,19 @@ def test_kernel_launches_add_their_cost_by_formula():
     """Kernels launched through ctypes are invisible to both counters: each
     launch adds the FLOPs and bytes of its bound (here the launches of one
     card step of deepseek-7b smoke with 2 microbatches: 4 layers × 2 forward
-    and backward; the SSD kernel did not launch)."""
+    and backward, as the wrapper records them; the SSD kernel did not
+    launch)."""
+    from collections import Counter
+
     from repro_torch.kernels import flash_attention as fa
 
     cfg = get_smoke_config("deepseek-7b")
     tr = Trainer(cfg, TrainConfig(microbatches=2), iter(()), device="cpu")
     batch = {"tokens": np.zeros((4, 64), np.int32)}
-    got = tr._kernel_costs(batch, {"ssd_kernel": 0, "flash_forward": 8, "flash_backward": 8})
     shape, D = (2, 64, 64, cfg.n_heads), cfg.resolved_head_dim
+    rec = fa.FlashLaunch(*shape, cfg.n_kv_heads, D, D, causal=True, prefix_len=0, esize=4)
+    got = tr._kernel_costs(batch, {"ssd_kernel": 0, "flash_forward": Counter({rec: 8}),
+                                   "flash_backward": Counter({rec: 8})})
     # two products of 2·B·H·S²·D, halved by causality
     assert got["flash_forward"] == 8 * fa.flash_flops(*shape, D, causal=True) == 8 * 2 * 2 * cfg.n_heads * 64 * 64 * D
     assert got["flash_backward"] == 8 * fa.flash_flops(*shape, D, causal=True, backward=True)
