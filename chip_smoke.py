@@ -83,6 +83,16 @@ source, all started together) and drives the port's paths:
   version on every layer's real inputs, one step at seq 4096, and decode
   against forward in fp32; the fp32 SSD kernels checked at the same shapes
   and timed at the training microbatch and at seq 4096, kernel by kernel;
+* distribution: a one-rank NCCL process group (an in-process store), the
+  port's tiny mesh at (data 1, model 1) on the card, deepseek-7b's
+  sharding plan at train_4k on it, a full-width cut's parameters
+  distributed by the plan's placements and gathered back bit for bit, the
+  one-stage GPipe pipeline over the cut's stacked layers (4 microbatches of
+  2,048 tokens, the flash forward on ``wgmma``) bit for bit the sequential
+  stack, and deepseek-7b's published width trained through ``Trainer``
+  with int8 gradient compression and a bf16 accumulator (the other
+  full-width training phases' checks and controls), beside the same cut's
+  reading without compression;
 * the simulator: the segment-scatter kernel (the batched sweep's stat
   landing), its accumulate entry and the sequential-fold kernel held bit for
   bit against their plain versions, on test shapes and on the sweep's real
@@ -394,6 +404,8 @@ class TrainCut(NamedTuple):
     seq: int = DENSE_SEQ  # text tokens a row
     micro: int = DENSE_MICRO  # microbatches a step
     enc_len: int = 0  # an encoder-decoder config's stub frame embeddings a row
+    compress_grads: bool = False  # TrainConfig's: int8 compression with error feedback
+    accum_dtype: str = "float32"  # TrainConfig's gradient accumulator
 
 
 DENSE_CUT = TrainCut("dense_train_full_width", "deepseek-7b", DENSE_LAYERS, DENSE_STEPS, DENSE_EVAL_EVERY,
@@ -432,6 +444,17 @@ PREFIX_CUT = TrainCut("prefix_lm_full_width", "paligemma-3b", 18, GEMMA_STEPS, G
                       "printed: 6 steps of 2,048 text tokens leave it where two bit-identical runs of one seed leave "
                       "it, a little above its start (scripts/encdec_prefix_train_checks.py repeat); the "
                       "attention-only and FFN-only checks hold the gradients", batch=8, seq=256, micro=2)
+#: dist_full_width: deepseek-7b's published width (DENSE_CUT's config, settings and controls: 4 x 2048 in 2
+#: microbatches, DENSE_STEPS steps, peak lr DENSE_LR) trained with int8 gradient compression (error feedback
+#: in fp32, one scale per reference leaf: the stacked layers share one) and a bf16 accumulator, cut to
+#: DIST_LAYERS layers, the deepest cut whose peak stays under 72 GB of the card's 80 (gemma-7b's rule; the
+#: reading is PERF.md's, scripts/compressed_train_cut.py depth).  That is DENSE_CUT's depth, so the reading
+#: beside it without compression is dense_train_full_width's, earlier in the run.  The mesh and the pipeline take a cut of
+#: DIST_PIPE_LAYERS layers: DIST_PIPE_MICRO microbatches of one 2,048-token row through one stage.
+DIST_LAYERS, DIST_PARAMS, DIST_PIPE_LAYERS, DIST_PIPE_MICRO = 8, 2_457_931_776, 4, 4
+DIST_CUT = TrainCut("dist_full_width", "deepseek-7b", DIST_LAYERS, DENSE_STEPS, DENSE_EVAL_EVERY, DIST_PARAMS, 0,
+                    "8 of 30 layers, the deepest cut whose peak stays under 72 GB with compression "
+                    "(scripts/compressed_train_cut.py depth)", "falls", compress_grads=True, accum_dtype="bfloat16")
 #: serving from the trained weights through the model's entry points: (rows, prompt tokens, greedy decode
 #: steps); whisper's prompt is a few forced tokens after 1,500 frames, paligemma's follows its 256 patches
 ENCDEC_DECODE, PREFIX_DECODE = (4, 4, 30), (4, 32, 16)
@@ -2761,14 +2784,16 @@ def cut_config(cut: TrainCut):
 
 
 def full_width_run(cfg, steps: int, eval_every: int, *, batch: int = DENSE_BATCH, seq: int = DENSE_SEQ,
-                   micro: int = DENSE_MICRO, enc_len: int = 0):
+                   micro: int = DENSE_MICRO, enc_len: int = 0, compress_grads: bool = False,
+                   accum_dtype: str = "float32"):
     """Train ``cfg`` on the card through ``Trainer``'s entry point for
     ``steps`` steps with an eval every ``eval_every``, at the full-width
     phases' settings (``batch`` x ``seq`` in ``micro`` microbatches, with
     the data pipeline's seeded stub frame embeddings (``enc_len`` a row) or
     patch embeddings (``cfg.vision_tokens``), AdamW, peak lr DENSE_LR after
-    2 warm-up steps), counting the flash launches and each backward call's
-    route.  Returns the run's state and readings: the trainer, model and
+    2 warm-up steps; ``compress_grads`` and ``accum_dtype`` as
+    ``TrainConfig`` takes them), counting the flash launches and each
+    backward call's route.  Returns the run's state and readings: the trainer, model and
     optimizer state, the history, the held-out loss on one fixed batch
     (``probe``) before and after, the launches, the routes, the peak device
     memory over the steps and the parameter count."""
@@ -2782,7 +2807,7 @@ def full_width_run(cfg, steps: int, eval_every: int, *, batch: int = DENSE_BATCH
 
     tcfg = TrainConfig(adamw=AdamWConfig(weight_decay=0.1, grad_clip=1.0),
                        schedule=ScheduleConfig(peak_lr=DENSE_LR, warmup_steps=2, decay_steps=steps),
-                       microbatches=micro)
+                       microbatches=micro, compress_grads=compress_grads, accum_dtype=accum_dtype)
     dcfg = DataConfig(global_batch=batch, seq_len=seq, vocab_size=cfg.vocab_size, d_model=cfg.d_model,
                       enc_len=enc_len, vision_tokens=cfg.vision_tokens)
     train_it = make_train_iter(dcfg)
@@ -2845,7 +2870,7 @@ def _train_full_width(cut: TrainCut, cfg, after=None):
     controls (ATTN_ONLY_DROP).  ``after(model)``, where given, runs on the
     trained model before the line is printed and its dict joins the line
     under ``"after_training"``.  Prints the phase's line and returns the
-    launches and the largest gradient error."""
+    launches, the largest gradient error and the line."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import attention_lse_ref, flash_backward_ref
@@ -2859,7 +2884,7 @@ def _train_full_width(cut: TrainCut, cfg, after=None):
     check(fa.select_bwd_route(torch.bfloat16, D, Dv) == "wgmma",
           f"bf16 at {_dims_label(D, Dv)} takes the tensor-core backward")
     run = full_width_run(cfg, steps, cut.eval_every, batch=cut.batch, seq=cut.seq, micro=cut.micro,
-                         enc_len=cut.enc_len)
+                         enc_len=cut.enc_len, compress_grads=cut.compress_grads, accum_dtype=cut.accum_dtype)
     trainer, tcfg, model, opt, hist, probe = run.trainer, run.tcfg, run.model, run.opt, run.hist, run.probe
     fwd, bwd = run.fwd, run.bwd
 
@@ -3018,7 +3043,7 @@ def _train_full_width(cut: TrainCut, cfg, after=None):
     after_training = after(model) if after is not None else None
     if after_training is not None:
         later += after_training.pop("checks")
-    emit({
+    line = {
         "phase": cut.phase, "config": cfg.name, "n_layers": L, "depth": cut.depth, "d_model": cfg.d_model,
         "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "head_dim": D, "v_head_dim": Dv, "d_ff": cfg.d_ff,
         "vocab": cfg.vocab_size, "hidden_act": cfg.hidden_act, "tie_embeddings": cfg.tie_embeddings,
@@ -3029,6 +3054,7 @@ def _train_full_width(cut: TrainCut, cfg, after=None):
         "vision_tokens": cfg.vision_tokens, "prefix_lm": cfg.prefix_lm,
         "dtype": {"params": cfg.param_dtype, "compute": cfg.compute_dtype, "moments": cfg.opt_state_dtype},
         "remat": cfg.remat, "params": run.n_params, "init_s": run.init_s,
+        "compress_grads": cut.compress_grads, "accum_dtype": cut.accum_dtype,
         "batch": cut.batch, "seq": cut.seq, "microbatches": cut.micro, "steps": steps,
         "peak_lr": DENSE_LR, "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
         "aux_losses": [h["aux"] for h in hist],
@@ -3047,14 +3073,162 @@ def _train_full_width(cut: TrainCut, cfg, after=None):
                               "tolerance": {"rtol": BWD_RTOL, "atol_of_max": BWD_ATOL_OF_MAX,
                                             "lse": {"atol": LSE_TRAIN_ATOL}}},
         "after_training": after_training,
-    })
+    }
+    emit(line)
     for cond, what in later:
         check(cond, what)
     for layer, r in enumerate(rows):
         check(all(r[n]["ok"] for n in ("dq", "dk", "dv", "lse")),
               f"attention call {layer} ({r['mask']}): the kernels disagree with the plain versions on the training "
               f"inputs: {r}")
-    return fwd, bwd, max(r[n]["max_abs_err"] for r in rows for n in ("dq", "dk", "dv"))
+    return fwd, bwd, max(r[n]["max_abs_err"] for r in rows for n in ("dq", "dk", "dv")), line
+
+
+def _stack_layers(model):
+    """The model's layers as one tree of stacked tensors, ``(L, ...)`` a
+    leaf, keyed as a layer's parameters are (``{"attn": {"wq": ...}, ...}``)."""
+    per = [dict(layer.named_parameters()) for layer in model.layers]
+    out = {}
+    for name in per[0]:
+        *parents, last = name.split(".")
+        cur = out
+        for key in parents:
+            cur = cur.setdefault(key, {})
+        cur[last] = torch.stack([layer[name].detach() for layer in per])
+    return out
+
+
+def _dist_mesh_and_pipeline(cfg):
+    """On the one-rank NCCL group: deepseek-7b's plan at train_4k on the tiny
+    mesh at (data 1, model 1), a DIST_PIPE_LAYERS-layer full-width cut's
+    parameters distributed by its placements and gathered back (bit for
+    bit), and the one-stage pipeline over the cut's stacked layers against
+    the sequential stack (bit for bit), its flash launches counted."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_tiny_mesh, mesh_axis_sizes
+    from repro_torch.launch.shardings import make_plan
+    from repro_torch.models import Transformer
+    from repro_torch.models.layers import embed_apply
+    from repro_torch.models.params import iter_leaves
+    from repro_torch.train.pipeline import pipeline_forward, split_stages
+    from torch.utils._pytree import tree_map
+
+    pcfg = dataclasses.replace(cfg, n_layers=DIST_PIPE_LAYERS)
+    t0 = time.perf_counter()
+    mesh = make_tiny_mesh(data=1, model=1)
+    check(mesh.device_type == "cuda" and mesh_axis_sizes(mesh) == {"data": 1, "model": 1}, f"the mesh {mesh}")
+    plan = make_plan(pcfg, SHAPES["train_4k"], mesh)
+    specs = {path.replace("/", "."): spec for path, spec in iter_leaves(plan.param_specs)}
+    placements = {path.replace("/", "."): pl for path, pl in iter_leaves(plan.placements(plan.param_specs))}
+    model = Transformer(pcfg, device="cuda", seed=DIST_PIPE_LAYERS)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    check(sorted(placements) == sorted(n for n, _ in model.named_parameters()), "a placement for every parameter")
+    t0 = time.perf_counter()
+    sharded, unequal = 0, []
+    for name, p in model.named_parameters():
+        d = distribute_tensor(p.detach(), mesh, placements[name])
+        sharded += any(isinstance(pl, Shard) for pl in d.placements)
+        if not (d.to_local().shape == p.shape and torch.equal(d.full_tensor(), p.detach())):
+            unequal.append(name)
+        del d
+    torch.cuda.synchronize()
+    round_trip_s = time.perf_counter() - t0
+    check(not unequal, f"distribute_tensor then full_tensor() changed {unequal}")
+    check(sharded > 0, "no parameter's placements shard it")
+
+    # the one-stage pipeline: DIST_PIPE_MICRO microbatches of one DENSE_SEQ-token row, the cut's layers stacked
+    stacked = _stack_layers(model)
+    stage_mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+    g = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, pcfg.vocab_size, (DIST_PIPE_MICRO, DENSE_SEQ), generator=g, device="cuda")
+    positions = torch.arange(DENSE_SEQ, device="cuda")[None]
+    layer_fn = lambda lp, x: model._layer(lp, x, positions)[0]  # noqa: E731
+    check(fa.select_route(torch.bfloat16, pcfg.resolved_head_dim) == "wgmma", "bf16 at D = 128 on wgmma")
+    with torch.no_grad():
+        xs = embed_apply(model.embed, tokens, pcfg)[:, None]  # (M, 1, S, d_model)
+        torch.cuda.synchronize()
+        before = fa.flash_attention.launches
+        t0 = time.perf_counter()
+        out = pipeline_forward(split_stages(stacked, 1), xs, layer_fn, stage_mesh, "stage")
+        torch.cuda.synchronize()
+        pipe_ms = (time.perf_counter() - t0) * 1e3
+        launches = fa.flash_attention.launches - before
+        t0 = time.perf_counter()
+        want = []
+        for x in xs:
+            for i in range(DIST_PIPE_LAYERS):
+                x = layer_fn(tree_map(lambda t: t[i], stacked), x)
+            want.append(x)
+        want = torch.stack(want)
+        torch.cuda.synchronize()
+        seq_ms = (time.perf_counter() - t0) * 1e3
+    equal = torch.equal(out, want)
+    gap = (out.float() - want.float()).abs().max().item()
+    finite = bool(torch.isfinite(out).all())
+    del model, stacked, xs, out, want
+    torch.cuda.empty_cache()
+    check(launches == DIST_PIPE_MICRO * DIST_PIPE_LAYERS,
+          f"{launches} flash launches in the pipeline, want {DIST_PIPE_MICRO * DIST_PIPE_LAYERS}")
+    check(equal and finite, f"the one-stage pipeline differs from the sequential stack by {gap}")
+    return {"mesh": {"shape": [1, 1], "axes": list(mesh.mesh_dim_names), "backend": "nccl", "device": "cuda",
+                     "plan": "deepseek-7b train_4k", "layers": DIST_PIPE_LAYERS,
+                     "params": sum(1 for _ in specs), "sharded_specs": sharded,
+                     "specs_by_placement": {str(s): sum(1 for v in specs.values() if v == s)
+                                            for s in sorted(set(specs.values()), key=str)},
+                     "round_trip_bit_equal": True, "mesh_and_init_s": mesh_s, "round_trip_s": round_trip_s},
+            "pipeline": {"stages": 1, "microbatches": DIST_PIPE_MICRO, "tokens_a_microbatch": DENSE_SEQ,
+                         "layers": DIST_PIPE_LAYERS, "flash_launches": launches, "bit_equal_to_sequential": equal,
+                         "max_abs_gap": gap, "pipeline_ms": pipe_ms, "sequential_ms": seq_ms}}
+
+
+def phase_dist_full_width(plain):
+    """Distribution on the card: a one-rank NCCL group (an in-process
+    HashStore), the tiny mesh, the plan's placements and the one-stage
+    pipeline (``_dist_mesh_and_pipeline``), then DIST_CUT trained with int8
+    compression and a bf16 accumulator through ``_train_full_width`` (its
+    checks and controls), beside ``plain``, dense_train_full_width's line:
+    the same cut without compression, trained earlier in the run.  The
+    group is destroyed when it ends.  Returns the compressed run's flash
+    launches and largest gradient error, and the pipeline's flash
+    launches."""
+    import torch.distributed as dist
+
+    from repro_torch.optim import wire_bytes
+    from repro_torch.train import compress_groups
+
+    cfg = cut_config(DIST_CUT)
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size)
+          == (4096, 32, 32, 128, 11008, 102400), "deepseek-7b's published width")
+    same = {k: plain[k] for k in ("config", "n_layers", "batch", "seq", "microbatches", "steps", "peak_lr")}
+    check(same == {"config": cfg.name, "n_layers": DIST_CUT.layers, "batch": DIST_CUT.batch, "seq": DIST_CUT.seq,
+                   "microbatches": DIST_CUT.micro, "steps": DIST_CUT.steps, "peak_lr": DENSE_LR}
+          and not plain["compress_grads"], f"dense_train_full_width is not this cut uncompressed: {same}")
+    uncompressed = {"phase": plain["phase"], **same, "accum_dtype": plain["accum_dtype"],
+                    **{k: plain[k] for k in ("tokens_per_s_steady", "step_ms_median", "max_memory_allocated_gb",
+                                             "held_out_loss", "losses")},
+                    **{k: plain["device_idle"][k] for k in ("idle_share", "device_busy_ms", "device_ms_by_op")}}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "a one-rank NCCL group")
+        parts = _dist_mesh_and_pipeline(cfg)
+
+        def after(model):
+            params = dict(model.named_parameters())
+            groups = compress_groups(cfg, params)
+            n = sum(p.numel() for p in params.values())
+            return {"checks": [], **parts, "uncompressed_same_cut": uncompressed,
+                    "wire_bytes": wire_bytes(params, groups), "bf16_gradient_bytes": 2 * n,
+                    "int8_scales": len(set(groups.values())), "error_feedback_bytes": 4 * n}
+
+        fwd, bwd, err, _ = _train_full_width(DIST_CUT, cfg, after=after)
+    finally:
+        dist.destroy_process_group()
+    return fwd, bwd, err, parts["pipeline"]["flash_launches"]
 
 
 def _shape_counts(shapes, B, cfg):
@@ -3089,7 +3263,7 @@ def phase_gemma_train_full_width():
           == (3072, GEMMA_HEADS, GEMMA_HEADS, GEMMA_HEAD_DIM, 24576, 256000), "gemma-7b's published width")
     check((cfg.hidden_act, cfg.tie_embeddings, cfg.scale_embedding) == ("gelu", True, True),
           "gemma-7b's GeGLU, tied and scaled embedding")
-    return _train_full_width(GEMMA_CUT, cfg)
+    return _train_full_width(GEMMA_CUT, cfg)[:3]
 
 
 def phase_moe_train_full_width():
@@ -3106,7 +3280,7 @@ def phase_moe_train_full_width():
           == (2048, MLA_HEADS, 512, MLA_DQK, MLA_DV, 10944, 102400, False), "deepseek-v2-lite's published widths")
     check((moe.n_experts, moe.top_k, moe.expert_d_ff, moe.n_shared, moe.first_k_dense) == (64, 6, 1408, 2, 1),
           "deepseek-v2-lite's published experts")
-    return _train_full_width(MOE_CUT, cfg)
+    return _train_full_width(MOE_CUT, cfg)[:3]
 
 
 def _greedy(model, toks, kw, steps: int, enc_len: int):
@@ -3234,7 +3408,7 @@ def phase_encdec_full_width():
     check((cfg.n_layers, cfg.n_enc_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_ff,
            cfg.vocab_size, cfg.padded_vocab, cfg.use_rope, cfg.remat)
           == (24, 24, 1024, 16, 16, 64, 4096, 51865, 51968, False, "dots"), "whisper-medium's published size")
-    return (*_train_full_width(ENCDEC_CUT, cfg, after=gen), gen.result)
+    return (*_train_full_width(ENCDEC_CUT, cfg, after=gen)[:3], gen.result)
 
 
 def phase_prefix_lm_full_width():
@@ -3252,7 +3426,7 @@ def phase_prefix_lm_full_width():
            cfg.remat)
           == (18, 2048, 8, 1, 256, 16384, 257216, 257280, "gelu", True, True, 256, True, "full"),
           "paligemma-3b's published size")
-    return (*_train_full_width(PREFIX_CUT, cfg, after=gen), gen.result)
+    return (*_train_full_width(PREFIX_CUT, cfg, after=gen)[:3], gen.result)
 
 
 def _model_errors(cpu, gpu, cfg, toks, kw, enc_len):
@@ -3875,7 +4049,7 @@ def main() -> int:
     phase_encdec_parity()
     phase_prefix_lm_parity()
     torch.cuda.empty_cache()
-    dense_fwd, dense_bwd, dense_err = phase_dense_train_full_width()
+    dense_fwd, dense_bwd, dense_err, dense_line = phase_dense_train_full_width()
     torch.cuda.empty_cache()
     gemma_fwd, gemma_bwd, gemma_err = phase_gemma_train_full_width()
     torch.cuda.empty_cache()
@@ -3884,6 +4058,8 @@ def main() -> int:
     encdec_fwd, encdec_bwd, encdec_err, encdec_serve = phase_encdec_full_width()
     torch.cuda.empty_cache()
     prefix_fwd, prefix_bwd, prefix_err, prefix_serve = phase_prefix_lm_full_width()
+    torch.cuda.empty_cache()
+    dist_fwd, dist_bwd, dist_err, pipe_fwd = phase_dist_full_width(dense_line)
     torch.cuda.empty_cache()
     seg_err, seg_timings, acc_timing, numpy_sweep = phase_segment_kernel(smi)
     seg_launches = phase_sim_sweep(numpy_sweep)
@@ -3910,12 +4086,13 @@ def main() -> int:
                   "in one softmax pass (natural exp, as the plain version; P in shared memory), O += P V in 8 x 4 "
                   "register blocks), timed in fp32 as fp32",
         "launches": (launches + mla_launches + hybrid_full["flash_launches"] + dense_fwd + gemma_fwd + moe_fwd
-                     + encdec_fwd + encdec_prefill + prefix_fwd + prefix_prefill),
+                     + encdec_fwd + encdec_prefill + prefix_fwd + prefix_prefill + dist_fwd + pipe_fwd),
         "launches_by_path": {"serving": launches, "moe_mla_serving": mla_launches,
                              "hybrid_serving": hybrid_full["flash_launches"], "dense_training": dense_fwd,
                              "gemma_training": gemma_fwd, "moe_mla_training": moe_fwd,
                              "encdec_training": encdec_fwd, "encdec_prefill": encdec_prefill,
-                             "prefix_lm_training": prefix_fwd, "prefix_lm_prefill": prefix_prefill},
+                             "prefix_lm_training": prefix_fwd, "prefix_lm_prefill": prefix_prefill,
+                             "compressed_training": dist_fwd, "pipeline": pipe_fwd},
         "max_abs_err": max(bf16_err, op_err, *mla["max_abs_err"].values(),
                            moe_full["attention_op_bf16"]["max_abs_err"]),
         "prefix_lm_and_encdec": {"source": fa.SOURCE, "simt_source": fa.SIMT_SOURCE,
@@ -3948,11 +4125,12 @@ def main() -> int:
                   "outputs and computing S and dP itself; fp32 runs the SIMT backward "
                   f"({fa.BWD_SIMT_SOURCE}: 8 x 4 score micro-tiles of S and dP, float4 reads of swizzled tiles, "
                   "cp.async double buffering), timed beside it as simt_ms",
-        "launches": dense_bwd + gemma_bwd + moe_bwd + encdec_bwd + prefix_bwd,
+        "launches": dense_bwd + gemma_bwd + moe_bwd + encdec_bwd + prefix_bwd + dist_bwd,
         "launches_by_path": {"dense_training": dense_bwd, "gemma_training": gemma_bwd, "moe_mla_training": moe_bwd,
-                             "encdec_training": encdec_bwd, "prefix_lm_training": prefix_bwd},
+                             "encdec_training": encdec_bwd, "prefix_lm_training": prefix_bwd,
+                             "compressed_training": dist_bwd, "pipeline": 0},
         "kernels_per_launch": len(bwd_timing["device_us_by_kernel_10_calls"]["wgmma"]),
-        "max_abs_err": max(bwd_err, dense_err, gemma_err, moe_err, encdec_err, prefix_err,
+        "max_abs_err": max(bwd_err, dense_err, gemma_err, moe_err, encdec_err, prefix_err, dist_err,
                            *mla_bwd["max_abs_err"].values()),
         "prefix_lm_and_encdec": {"source": fa.BWD_SOURCE, "simt_source": fa.BWD_SIMT_SOURCE,
                                  "timing": new_shapes("backward")},

@@ -1,18 +1,21 @@
-"""Async, atomic checkpointing of the parameter and optimizer trees.
+"""Sharded, async, elastic checkpointing of the parameter and optimizer trees.
 
 Layout per step, as in the reference (``ckpt/checkpoint.py``)::
 
     <dir>/step_<N>/
-        manifest.json        # leaf paths, shapes, dtypes, meta
-        leaves.npz           # every leaf, whole (one process, one card)
-        COMMIT               # written last → restore ignores partial saves
+        manifest.json        # leaf paths, shapes, dtypes, meta (host 0)
+        host_<H>.npz         # the leaves host H was given, whole
+        COMMIT               # written last by host 0 → restore ignores partial saves
 
-* **atomicity** — COMMIT is written only after the leaf file is
-  fsync'd; a preempted save is invisible to :meth:`restore_latest`.
+* **atomicity** — host 0 writes COMMIT only after its manifest and leaf
+  file are fsync'd; a preempted save is invisible to :meth:`restore_latest`.
 * **async** — :meth:`save` copies every leaf to host memory on the caller's
   thread (the consistency point) and writes on a background thread.
-* **placement** — the reference's sharding callback becomes a ``device``
-  argument of :meth:`restore_latest`: every leaf lands on that device.
+* **elastic restore** — the manifest records global shapes, and a restore
+  merges every host's file, so a job restarted on another topology or host
+  count places each leaf anew: on ``device``, or through ``sharding_fn``
+  (the reference's callback) onto a ``DeviceMesh`` with
+  ``distribute_tensor``.
 * **retention** — the ``keep`` most recent commits are retained.
 
 Trees are nested dicts of tensors, keyed by ``/``-joined paths on disk.
@@ -27,7 +30,7 @@ import os
 import shutil
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -35,6 +38,9 @@ import torch
 from ..models.params import iter_leaves
 
 __all__ = ["CheckpointManager"]
+
+#: the entry of a host's file that names each of its leaves' dtypes (bf16 is stored as its 16 bits)
+_DTYPES = "__dtypes__"
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()  # the caller's own storage when t lies on the CPU: copy it
@@ -51,8 +57,10 @@ def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, *, keep: int = 3):
+    def __init__(self, directory: str, *, host_id: int = 0, n_hosts: int = 1, keep: int = 3):
         self.dir = directory
+        self.host_id = host_id
+        self.n_hosts = n_hosts
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
@@ -68,24 +76,28 @@ class CheckpointManager:
             "step": int(step),
             "meta": meta,
             "leaves": {k: {"shape": list(a.shape), "dtype": d} for k, a, d in host_items},
+            "n_hosts": self.n_hosts,
             "time": time.time(),
         }
 
         def _write():
             d = os.path.join(self.dir, f"step_{step:08d}")
             os.makedirs(d, exist_ok=True)
-            with open(os.path.join(d, "manifest.json"), "w") as f:
-                json.dump(manifest, f)
+            if self.host_id == 0:
+                with open(os.path.join(d, "manifest.json"), "w") as f:
+                    json.dump(manifest, f)
+                    f.flush()
+                    os.fsync(f.fileno())
+            with open(os.path.join(d, f"host_{self.host_id}.npz"), "wb") as f:
+                dtypes = json.dumps({k: dt for k, _, dt in host_items})  # its own leaves' dtypes
+                np.savez(f, **{_DTYPES: np.array(dtypes)}, **{k.replace("/", "|"): a for k, a, _ in host_items})
                 f.flush()
                 os.fsync(f.fileno())
-            with open(os.path.join(d, "leaves.npz"), "wb") as f:
-                np.savez(f, **{k.replace("/", "|"): a for k, a, _ in host_items})
-                f.flush()
-                os.fsync(f.fileno())
-            with open(os.path.join(d, "COMMIT"), "w") as f:
-                f.write(str(step))
-                f.flush()
-                os.fsync(f.fileno())
+            if self.host_id == 0:
+                with open(os.path.join(d, "COMMIT"), "w") as f:
+                    f.write(str(step))
+                    f.flush()
+                    os.fsync(f.fileno())
             self._gc()
 
         if blocking:
@@ -123,10 +135,15 @@ class CheckpointManager:
                 out.append(int(name.split("_")[1]))
         return sorted(out)
 
-    def restore_latest(self, device=None):
-        """Returns ``(params, opt_state, meta)`` of the latest commit, every
-        leaf on ``device`` (the CPU when None), or None when nothing is
-        committed."""
+    def restore_latest(self, device=None, sharding_fn: Optional[Callable[[str, tuple], Any]] = None):
+        """Returns ``(params, opt_state, meta)`` of the latest commit, merged
+        from every host's file, or None when nothing is committed.
+
+        ``sharding_fn(key, shape) -> (DeviceMesh, placements) | None`` lets
+        an elastic restart place each leaf onto the *new* mesh
+        (``distribute_tensor``); a leaf it gives None for, or every leaf
+        without it, lands on ``device`` (the CPU when None).
+        """
         steps = self.committed_steps()
         if not steps:
             return None
@@ -134,13 +151,30 @@ class CheckpointManager:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         tree: Dict[str, Any] = {}
-        with np.load(os.path.join(d, "leaves.npz")) as z:
-            for name in z.files:
-                key = name.replace("|", "/")
-                leaf = _from_host(z[name], manifest["leaves"][key]["dtype"])
-                *parents, last = key.split("/")
-                cur = tree
-                for p in parents:
-                    cur = cur.setdefault(p, {})
-                cur[last] = leaf.to(device) if device is not None else leaf
+        for h in range(manifest.get("n_hosts", 1)):
+            path = os.path.join(d, f"host_{h}.npz")
+            if not os.path.exists(path):
+                continue
+            with np.load(path) as z:
+                dtypes = json.loads(str(z[_DTYPES]))
+                for name in z.files:
+                    if name == _DTYPES:
+                        continue
+                    key = name.replace("|", "/")
+                    leaf = _from_host(z[name], dtypes[key])
+                    *parents, last = key.split("/")
+                    cur = tree
+                    for p in parents:
+                        cur = cur.setdefault(p, {})
+                    cur[last] = self._place(key, leaf, device, sharding_fn)
         return tree["params"], tree["opt_state"], manifest["meta"] | {"step": manifest["step"]}
+
+    @staticmethod
+    def _place(key: str, leaf: torch.Tensor, device, sharding_fn) -> torch.Tensor:
+        placed = sharding_fn(key, tuple(leaf.shape)) if sharding_fn is not None else None
+        if placed is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            mesh, placements = placed
+            return distribute_tensor(leaf, mesh, placements)
+        return leaf.to(device) if device is not None else leaf

@@ -22,6 +22,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from .act_sharding import constrain
 from .layers import rmsnorm, rmsnorm_defs, rope
 from .params import ParamDef
 
@@ -87,6 +88,9 @@ def gqa_apply(
     """Full-sequence attention (prefill).  Returns ``(out, {"k", "v"})``,
     the K/V of the whole sequence for the decode cache."""
     q, k, v = _project_qkv(params, x, cfg, positions)
+    q = constrain(q, "batch", "seq", "act_heads", None)
+    k = constrain(k, "batch", "seq", "act_kv_heads", None)
+    v = constrain(v, "batch", "seq", "act_kv_heads", None)
     o = ops.flash_attention(q, k, v, causal=causal, prefix_len=prefix_len, impl=attn_impl)
     return _merge(o, params["wo"]), {"k": k, "v": v}
 

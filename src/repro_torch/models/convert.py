@@ -19,7 +19,7 @@ import torch
 from .params import iter_leaves
 from .transformer import Transformer
 
-__all__ = ["load_jax_params", "flatten_jax_tree"]
+__all__ = ["load_jax_params", "flatten_jax_tree", "reference_leaf"]
 
 
 def flatten_jax_tree(tree, cfg) -> Dict[str, np.ndarray]:
@@ -45,6 +45,25 @@ def flatten_jax_tree(tree, cfg) -> Dict[str, np.ndarray]:
         else:
             out[".".join(parts)] = arr
     return out
+
+
+def reference_leaf(cfg, name: str) -> str:
+    """The reference's leaf path that holds the port's parameter ``name``
+    (the inverse of :func:`flatten_jax_tree`): ``layers.<i>.<rest>`` lies in
+    ``blocks/pos_<p>/<rest>`` (or ``prefix_<i>/<rest>`` before the stack),
+    ``encoder.layers.<r>.<rest>`` in ``encoder/blocks/<rest>``; any other
+    name is its own leaf.  Parameters of one reference leaf share what the
+    reference computes per leaf, such as int8 compression's scale."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        i, rest = int(parts[1]), "/".join(parts[2:])
+        n_prefix = cfg.moe.first_k_dense if cfg.moe else 0
+        if i < n_prefix:
+            return f"prefix_{i}/{rest}"
+        return f"blocks/pos_{(i - n_prefix) % cfg.superblock_period}/{rest}"
+    if parts[:2] == ["encoder", "layers"]:
+        return "encoder/blocks/" + "/".join(parts[3:])
+    return "/".join(parts)
 
 
 def _to_tensor(arr: np.ndarray) -> torch.Tensor:

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from .act_sharding import constrain
 from .params import ParamDef
 
 __all__ = [
@@ -59,7 +60,8 @@ def ffn_apply(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     g = x @ params["wi_gate"].to(dtype)
     u = x @ params["wi_up"].to(dtype)
     g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
-    return (g * u) @ params["wo"].to(dtype)
+    h = constrain(g * u, "batch", "seq", "act_mlp")
+    return h @ params["wo"].to(dtype)
 
 
 # ----------------------------------------------------------------------- embeddings
@@ -94,7 +96,7 @@ def logits_apply(params, head_params, x: torch.Tensor, cfg: ModelConfig) -> torc
         logits = torch.tanh(logits / c) * c
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e9
-    return logits
+    return constrain(logits, "batch", "seq", "vocab_logits")
 
 
 # ----------------------------------------------------------------------- RoPE

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from .act_sharding import constrain
 from .layers import rmsnorm_defs
 from .params import ParamDef
 
@@ -94,6 +95,7 @@ def mamba_apply(params, x: torch.Tensor, cfg: ModelConfig, *, return_cache: bool
     xs_c = _causal_conv(xs, params["conv_x"])
     Bm_c = _causal_conv(Bm, params["conv_B"])
     Cm_c = _causal_conv(Cm, params["conv_C"])
+    xs_c = constrain(xs_c, "batch", "seq", "act_heads", None)
     A = -torch.exp(params["A_log"].float())
     # D upcast exactly: the kernels take dt, A and D in fp32 (jamba keeps its parameters in bf16)
     y, h = ops.ssd_scan(xs_c, dt, A, Bm_c, Cm_c, params["D"].float(), chunk=s.chunk)

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, MoEConfig
+from .act_sharding import constrain
 from .layers import ffn_apply, ffn_defs
 from .params import ParamDef
 
@@ -140,6 +141,7 @@ def moe_apply(
     C = capacity(S, moe)
     w, idx, aux = router_topk(params, x.reshape(-1, d), moe)
     out = _dispatch_combine(params, x, w.view(B, S, -1), idx.view(B, S, -1), cfg, moe, C)
+    out = constrain(out, "batch", "seq", "act_embed")
     if moe.n_shared > 0:
         out = out + ffn_apply(params["shared"], x, cfg.hidden_act)
     return out.to(x.dtype), aux

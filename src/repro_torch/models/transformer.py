@@ -56,6 +56,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig, torch_dtype
+from .act_sharding import constrain
 from .attention import (
     cross_attn_apply,
     cross_attn_defs,
@@ -82,7 +83,7 @@ from .mamba import init_mamba_cache, mamba_apply, mamba_decode, mamba_defs
 from .moe import moe_apply, moe_defs
 from .params import ParamTree, init_params
 
-__all__ = ["Transformer", "Encoder", "model_defs", "cache_rows"]
+__all__ = ["Transformer", "Encoder", "model_defs", "init_cache", "cache_rows"]
 
 Cache = Dict[str, torch.Tensor]
 #: the SSM cache leaves, each stacked on a leading axis over the SSM layers
@@ -174,6 +175,37 @@ def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
     return d
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: Optional[torch.dtype] = None, *,
+               enc_len: int = 0, device="cuda") -> Cache:
+    """Zeroed decode cache on ``device``, one stack per kind of layer: over
+    the attention layers ``{"k", "v"}`` of ``(L_attn, batch, max_len, Hkv,
+    D)`` or MLA's ``{"ckv"}`` of ``(L_attn, batch, max_len, kv_lora_rank +
+    qk_rope_dim)``; over the SSM layers the conv windows and the fp32 state
+    (``max_len`` unused); for an enc-dec model the cross stack
+    ``{"cross_k", "cross_v"}`` of ``(L, batch, enc_len, Hkv, D)``.  On the
+    ``meta`` device it allocates nothing (a production shape's cache for
+    ``make_plan``'s ``cache_specs_fn``)."""
+    if dtype is None:
+        dtype = torch_dtype(cfg.kv_cache_dtype) if cfg.kv_cache_dtype else cfg.compute_tdtype()
+    n_attn = sum(cfg.layer_is_attn(i) for i in range(cfg.n_layers))
+    n_ssm = cfg.n_layers - n_attn
+    cache: Cache = {}
+    if n_attn:
+        if cfg.mla is not None:
+            widths = (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim,)
+        else:
+            widths = (cfg.n_kv_heads, cfg.resolved_head_dim)
+        for key in _attn_cache_keys(cfg):
+            cache[key] = torch.zeros((n_attn, batch, max_len, *widths), dtype=dtype, device=device)
+    if n_ssm:
+        one = init_mamba_cache(cfg, batch, dtype, device)
+        cache.update({k: v.expand(n_ssm, *v.shape).clone() for k, v in one.items()})
+    if cfg.encdec:
+        shape = (cfg.n_layers, batch, enc_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        cache.update({k: torch.zeros(shape, dtype=dtype, device=device) for k in CROSS_CACHE_KEYS})
+    return cache
+
+
 class Encoder(nn.Module):
     """An enc-dec config's encoder weights: ``layers`` (non-causal
     self-attention and FFN) and ``final_norm``; :meth:`Transformer._encode`
@@ -208,32 +240,8 @@ class Transformer(nn.Module):
 
     def init_cache(self, batch: int, max_len: int, dtype: Optional[torch.dtype] = None, *,
                    enc_len: int = 0) -> Cache:
-        """Zeroed decode cache, one stack per kind of layer: over the
-        attention layers ``{"k", "v"}`` of ``(L_attn, batch, max_len, Hkv,
-        D)`` or MLA's ``{"ckv"}`` of ``(L_attn, batch, max_len, kv_lora_rank
-        + qk_rope_dim)``; over the SSM layers the conv windows and the fp32
-        state (``max_len`` unused); for an enc-dec model the cross stack
-        ``{"cross_k", "cross_v"}`` of ``(L, batch, enc_len, Hkv, D)``."""
-        cfg = self.cfg
-        if dtype is None:
-            dtype = torch_dtype(cfg.kv_cache_dtype) if cfg.kv_cache_dtype else cfg.compute_tdtype()
-        n_attn = sum(cfg.layer_is_attn(i) for i in range(cfg.n_layers))
-        n_ssm = cfg.n_layers - n_attn
-        cache: Cache = {}
-        if n_attn:
-            if cfg.mla is not None:
-                widths = (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim,)
-            else:
-                widths = (cfg.n_kv_heads, cfg.resolved_head_dim)
-            for key in _attn_cache_keys(cfg):
-                cache[key] = torch.zeros((n_attn, batch, max_len, *widths), dtype=dtype, device=self.device)
-        if n_ssm:
-            one = init_mamba_cache(cfg, batch, dtype, self.device)
-            cache.update({k: v.expand(n_ssm, *v.shape).clone() for k, v in one.items()})
-        if cfg.encdec:
-            shape = (cfg.n_layers, batch, enc_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-            cache.update({k: torch.zeros(shape, dtype=dtype, device=self.device) for k in CROSS_CACHE_KEYS})
-        return cache
+        """:func:`init_cache` of this model's config on its device."""
+        return init_cache(self.cfg, batch, max_len, dtype, enc_len=enc_len, device=self.device)
 
     def _ffn(self, lp, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The post-mixer sublayer → ``(x, the MoE aux loss in fp32, or None)``."""
@@ -271,6 +279,7 @@ class Transformer(nn.Module):
             if return_cache:
                 cache = {**cache, "cross_k": kv["k"], "cross_v": kv["v"]}
         x, aux = self._ffn(lp, x)
+        x = constrain(x, "batch", "seq", "act_embed")
         return x, cache, aux
 
     def _run_layer(self, lp, x, positions, **kw):

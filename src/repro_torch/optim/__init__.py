@@ -1,6 +1,7 @@
-"""AdamW and the learning-rate schedule, as functions on tensors."""
+"""AdamW, the learning-rate schedule and int8 gradient compression, as functions on tensors."""
 
 from .adamw import AdamWConfig, adamw_init, adamw_update, clip_by_global_norm, global_norm
+from .grad_compress import dequantize_int8, ef_compress, ef_state_init, quantize_int8, wire_bytes
 from .schedule import ScheduleConfig, learning_rate
 
 __all__ = [
@@ -11,4 +12,9 @@ __all__ = [
     "clip_by_global_norm",
     "ScheduleConfig",
     "learning_rate",
+    "dequantize_int8",
+    "ef_compress",
+    "ef_state_init",
+    "quantize_int8",
+    "wire_bytes",
 ]

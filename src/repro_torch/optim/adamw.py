@@ -3,7 +3,9 @@
 The math is the reference's (``optim/adamw.py:48-78``), not
 ``torch.optim.AdamW``'s: weight decay on **every** leaf, bias correction
 from the incremented step, the update computed in fp32 and stored back in
-each leaf's dtype, moments in ``ModelConfig.opt_state_dtype``.  Trees are
+each leaf's dtype, moments in ``ModelConfig.opt_state_dtype``; gradients
+in another dtype than fp32 (a bf16 accumulator's) are read in fp32 op by op,
+never copied to fp32 whole.  Trees are
 flat ``{name: tensor}`` dicts (``dict(model.named_parameters())``).  Unlike
 the reference's pure update, :func:`adamw_update` writes the parameters and
 moments **in place**, so a step holds no second copy of either; the
@@ -43,16 +45,29 @@ def adamw_init(params: Tree, moment_dtype: torch.dtype = torch.float32) -> Dict[
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32."""
-    norms = torch._foreach_norm([t.float() for t in tree.values()])
+    """sqrt of the sum of squares of every leaf, in fp32 (a leaf in another
+    dtype is read in fp32 without an fp32 copy of it)."""
+    leaves = list(tree.values())
+    if all(t.dtype == torch.float32 for t in leaves):
+        norms = torch._foreach_norm(leaves)
+    else:
+        norms = [torch.linalg.vector_norm(t, dtype=torch.float32) for t in leaves]
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
 def clip_by_global_norm(tree: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor]:
-    """Scale ``tree`` (fp32 gradients) **in place** by ``min(1, max_norm /
-    norm)``; returns it and its norm before clipping."""
+    """Scale ``tree`` (gradients) **in place** by ``min(1, max_norm /
+    norm)``; returns it and its norm before clipping.  A leaf kept in
+    another dtype than fp32 (a bf16 accumulator) is scaled in fp32 and
+    stored back in its dtype, as the reference does."""
     norm = global_norm(tree)
-    torch._foreach_mul_(list(tree.values()), torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0))
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    fp32 = [t for t in tree.values() if t.dtype == torch.float32]
+    if fp32:
+        torch._foreach_mul_(fp32, scale)
+    for t in tree.values():
+        if t.dtype != torch.float32:
+            t.copy_(t.float() * scale)
     return tree, norm
 
 
@@ -70,7 +85,7 @@ def adamw_update(
     p_store = [params[n] for n in names]
     m_store = [opt_state["m"][n] for n in names]
     v_store = [opt_state["v"][n] for n in names]
-    g = [grads[n].float() for n in names]
+    g = [grads[n] for n in names]  # a bf16 leaf (a bf16 accumulator's) promotes to fp32 op by op: no fp32 copy
     p32 = [t.float() for t in p_store]  # the tensor itself when it is fp32
     m32 = [t.float() for t in m_store]
     v32 = [t.float() for t in v_store]

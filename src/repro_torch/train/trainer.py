@@ -6,7 +6,9 @@ telemetry, checkpoint/resume.
 (data, checkpoints, per-stream instrumentation via :mod:`repro_torch.core`).
 The math is the reference's (``train/trainer.py``): token-mean cross-entropy
 with z-loss in fp32, gradients accumulated over microbatches in
-fp32, clipped by global norm, AdamW with the schedule's rate.
+``accum_dtype`` (fp32 by default), optionally int8-compressed with error
+feedback on their way into the accumulator (``compress_grads``), clipped by
+global norm, AdamW with the schedule's rate.
 """
 
 from __future__ import annotations
@@ -27,7 +29,17 @@ from ..core.query import StatsFrame
 from ..kernels import flash_attention as flash_kernel
 from ..kernels import ssd_scan as ssd_kernel
 from ..models import Transformer
-from ..optim import AdamWConfig, ScheduleConfig, adamw_init, adamw_update, clip_by_global_norm, learning_rate
+from ..models.convert import reference_leaf
+from ..optim import (
+    AdamWConfig,
+    ScheduleConfig,
+    adamw_init,
+    adamw_update,
+    clip_by_global_norm,
+    ef_compress,
+    ef_state_init,
+    learning_rate,
+)
 
 __all__ = [
     "TrainConfig",
@@ -36,6 +48,7 @@ __all__ = [
     "make_train_step",
     "init_train_state",
     "flash_widths",
+    "compress_groups",
     "Trainer",
 ]
 
@@ -45,6 +58,8 @@ class TrainConfig:
     adamw: AdamWConfig = AdamWConfig()
     schedule: ScheduleConfig = ScheduleConfig()
     microbatches: int = 1  # gradient-accumulation chunks per step
+    compress_grads: bool = False  # int8 + error feedback on the accum path
+    accum_dtype: str = "float32"  # grad accumulator (bf16 halves it)
     aux_weight: float = 0.01  # MoE load-balance loss weight
     z_loss: float = 1e-4  # logit-norm regulariser
     seed: int = 0
@@ -96,9 +111,49 @@ def make_train_step(model: Transformer, tcfg: TrainConfig) -> Callable:
     """``train_step(opt_state, batch) -> (opt_state, metrics)``, updating the
     model's parameters in place.  ``batch`` arrays are (global_batch, ...)
     and are split into ``tcfg.microbatches`` accumulation chunks along axis
-    0 (activation memory ∝ one microbatch)."""
+    0 (activation memory ∝ one microbatch).
+
+    With ``compress_grads`` each microbatch's fp32 gradient goes through
+    ``ef_compress`` (``opt_state["ef"]``, updated in place; one int8 scale a
+    reference leaf, ``compress_groups``) before it is added; with several
+    microbatches the accumulator is kept in
+    ``accum_dtype``, each addition ``(acc.float() + g).to(accum_dtype)`` and
+    the mean taken in ``accum_dtype`` before the clip, as the reference
+    does.  One microbatch has no accumulator: its fp32 gradient is clipped
+    as it is."""
     loss_fn = make_loss_fn(model, tcfg)
     n_micro = tcfg.microbatches
+    acc_dtype = torch_dtype(tcfg.accum_dtype)
+    per_leaf = tcfg.compress_grads or (n_micro > 1 and acc_dtype != torch.float32)
+    names = [n for n, _ in model.named_parameters()]
+    groups = compress_groups(model.cfg, names)
+    # the leaves of one reference leaf, together (ef_compress takes a group whole)
+    order: Dict[str, List[int]] = {}
+    for j, n in enumerate(names):
+        order.setdefault(groups[n] if tcfg.compress_grads else n, []).append(j)
+
+    def accumulate(acc: List[torch.Tensor], grads: List, ef) -> List[torch.Tensor]:
+        """Add one microbatch's gradients into ``acc`` a group at a time,
+        each group compressed first where ``ef`` is given, dropping each
+        gradient from ``grads`` (a list) as it is used."""
+        out: List[Optional[torch.Tensor]] = [None] * len(names)
+        for idx in order.values():
+            part = {names[j]: grads[j] for j in idx}
+            for j in idx:
+                grads[j] = None
+            part = ef_compress(part, ef, groups)[0] if ef is not None else {n: g.float() for n, g in part.items()}
+            for j in idx:
+                g = part.pop(names[j])
+                if n_micro == 1:
+                    out[j] = g
+                elif not acc:
+                    out[j] = g.to(acc_dtype)
+                elif acc_dtype == torch.float32:
+                    out[j] = acc[j].add_(g)
+                else:
+                    out[j] = (acc[j].float() + g).to(acc_dtype)
+                del g
+        return out
 
     def train_step(opt_state, batch):
         params = dict(model.named_parameters())
@@ -108,15 +163,19 @@ def make_train_step(model: Transformer, tcfg: TrainConfig) -> Callable:
             raise ValueError(f"batch of {rows} does not split into {n_micro} microbatches")
         size = rows // n_micro
         acc: List[torch.Tensor] = []
+        ef = opt_state["ef"] if tcfg.compress_grads else None
         loss = aux = tokens = 0.0
         for i in range(n_micro):
             mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
             total, metrics = loss_fn(mb)
-            grads = [g.float() for g in torch.autograd.grad(total, leaves)]
-            if acc:
-                torch._foreach_add_(acc, grads)
+            if per_leaf:
+                acc = accumulate(acc, list(torch.autograd.grad(total, leaves)), ef)
             else:
-                acc = grads
+                grads = [g.float() for g in torch.autograd.grad(total, leaves)]
+                if acc:
+                    torch._foreach_add_(acc, grads)
+                else:
+                    acc = grads
             loss = loss + metrics["loss"].detach()
             aux = aux + metrics["aux"].detach()
             tokens = tokens + metrics["tokens"]
@@ -156,6 +215,13 @@ class _ByteCounter(TorchDispatchMode):
         return out
 
 
+def compress_groups(cfg: ModelConfig, names) -> Dict[str, str]:
+    """Each parameter name's int8-compression group: the reference leaf that
+    holds it (``models.convert.reference_leaf``), so the layers of one
+    reference stack share a scale as the reference's stacked leaf does."""
+    return {n: reference_leaf(cfg, n) for n in names}
+
+
 def flash_widths(cfg: ModelConfig) -> Tuple[int, int, int]:
     """``(kv heads, q/k head dim, v head dim)`` at which ``cfg``'s attention
     layers call the flash kernels: MLA expands K and V per query head, at
@@ -170,9 +236,13 @@ def flash_widths(cfg: ModelConfig) -> Tuple[int, int, int]:
 
 def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, *, device="cuda") -> Tuple[Transformer, Dict]:
     """(model, opt_state): seeded random weights from ``tcfg.seed`` and
-    zeroed moments in ``cfg.opt_state_dtype``."""
+    zeroed moments in ``cfg.opt_state_dtype``; with ``compress_grads`` also
+    the zeroed fp32 error-feedback buffers, ``opt_state["ef"]``."""
     model = Transformer(cfg, device=device, seed=tcfg.seed)
-    opt_state = adamw_init(dict(model.named_parameters()), torch_dtype(cfg.opt_state_dtype))
+    params = dict(model.named_parameters())
+    opt_state = adamw_init(params, torch_dtype(cfg.opt_state_dtype))
+    if tcfg.compress_grads:
+        opt_state["ef"] = ef_state_init(params)
     return model, opt_state
 
 

@@ -1113,3 +1113,97 @@ def test_batched_sweep_on_the_card_equals_numpy(cuda):
             assert launched == (0, 0)
     assert runs["torch"].failures() == [] and runs["torch"].oracle_failures() == []
     assert runs["torch"].signature() == runs["numpy"].signature()
+
+
+# --------------------------------------------------------------------------- distribution
+@pytest.fixture
+def nccl_world(cuda):
+    """A one-rank NCCL process group over an in-process store, destroyed after the test."""
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield cuda
+    finally:
+        dist.destroy_process_group()
+
+
+def test_ef_compress_on_the_card_equals_its_cpu_result(cuda):
+    from repro_torch.optim import ef_compress, ef_state_init
+
+    g = torch.Generator().manual_seed(0)
+    names = [f"layers.{i}.attn.wq" for i in range(3)] + ["embed.embedding"]
+    groups = {n: "blocks/pos_0/attn/wq" if n.startswith("layers") else n for n in names}
+    cpu_ef = ef_state_init({n: torch.zeros(64, 48) for n in names})
+    card_ef = {n: e.to(cuda) for n, e in cpu_ef.items()}
+    for step in range(4):
+        grads = {n: (torch.randn(64, 48, generator=g) * 10.0 ** -i).to(torch.bfloat16) for i, n in enumerate(names)}
+        want, cpu_ef = ef_compress(grads, cpu_ef, groups)
+        got, card_ef = ef_compress({n: t.to(cuda) for n, t in grads.items()}, card_ef, groups)
+        for n in names:
+            assert torch.equal(got[n].cpu(), want[n]), (step, n)
+            assert torch.equal(card_ef[n].cpu(), cpu_ef[n]), (step, n)
+
+
+def test_nccl_mesh_round_trip_is_bit_equal(nccl_world):
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import SHAPES, get_smoke_config
+    from repro_torch.launch.mesh import make_tiny_mesh
+    from repro_torch.launch.shardings import make_plan
+    from repro_torch.models import Transformer
+    from repro_torch.models.params import iter_leaves
+
+    mesh = make_tiny_mesh(data=1, model=1)
+    assert mesh.device_type == "cuda"
+    cfg = get_smoke_config("deepseek-7b")
+    plan = make_plan(cfg, SHAPES["train_4k"], mesh)
+    placements = {p.replace("/", "."): pl for p, pl in iter_leaves(plan.placements(plan.param_specs))}
+    model = Transformer(cfg, device=nccl_world, seed=0)
+    for name, p in model.named_parameters():
+        d = distribute_tensor(p.detach(), mesh, placements[name])
+        assert torch.equal(d.full_tensor(), p.detach()), name
+
+
+def test_one_stage_pipeline_equals_the_sequential_stack(nccl_world):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.train.pipeline import pipeline_forward, split_stages
+
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+    g = torch.Generator().manual_seed(1)
+    w = (torch.randn(4, 64, 64, generator=g) / 8).to(nccl_world)
+    b = torch.randn(4, 64, generator=g).to(nccl_world)
+    xs = torch.randn(3, 2, 16, 64, generator=g).to(nccl_world)
+    fn = lambda lp, x: torch.tanh(x @ lp["w"] + lp["b"])
+    out = pipeline_forward(split_stages({"w": w, "b": b}, 1), xs, fn, mesh, "stage")
+    want = []
+    for x in xs:
+        for i in range(4):
+            x = fn({"w": w[i], "b": b[i]}, x)
+        want.append(x)
+    assert torch.equal(out, torch.stack(want))
+
+
+def test_adamw_on_bf16_gradients_equals_its_cpu_result(cuda):
+    """The compressed path's bf16 accumulator reaches AdamW as bf16 (type
+    promotion op by op, the foreach ops' per-tensor route): the card's update
+    is the CPU's, and the CPU's is its fp32 copies' (test_torch_grad_compress)."""
+    from repro_torch.optim import adamw_init, adamw_update
+
+    g = torch.Generator().manual_seed(0)
+    params = {f"p{i}": torch.randn(64, 33, generator=g).to(torch.bfloat16) for i in range(3)}
+    grads = {n: (torch.randn(p.shape, generator=g) * 3).to(torch.bfloat16) for n, p in params.items()}
+    out = {}
+    for dev in ("cpu", cuda):
+        p = {n: t.clone().to(dev) for n, t in params.items()}
+        st = adamw_init(p)
+        for _ in range(3):
+            st = adamw_update({n: t.to(dev) for n, t in grads.items()}, st, p, 1e-2)
+        out[str(dev)] = (p, st)
+    (a, sa), (b, sb) = out["cpu"], out["cuda"]
+    for n in params:  # fp32 elementwise noise (the card may fuse a multiply-add); bf16 weights within one rounding
+        torch.testing.assert_close(b[n].cpu().float(), a[n].float(), rtol=2 ** -8, atol=1e-7)
+        torch.testing.assert_close(sb["m"][n].cpu(), sa["m"][n], rtol=1e-5, atol=1e-7)
+        torch.testing.assert_close(sb["v"][n].cpu(), sa["v"][n], rtol=1e-5, atol=1e-7)
