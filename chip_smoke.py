@@ -93,6 +93,22 @@ source, all started together) and drives the port's paths:
   with int8 gradient compression and a bf16 accumulator (the other
   full-width training phases' checks and controls), beside the same cut's
   reading without compression;
+* the step factory and the cost tooling: deepseek-7b at its published size,
+  uncut (30 layers, bf16), a prefill cell (4 x 2,048 tokens) and a decode
+  cell (4 rows against a 2,048-token cache) from ``launch.steps.build_cell``
+  on a one-rank NCCL mesh, each counted by ``perf.cost`` on fake card
+  tensors and on fake CPU tensors (the counts equal), run once with every
+  prefill attention on the bf16 tensor-core flash kernel, profiled warm for
+  the step's ms, busy ms, idle share and top kernels, and put on the
+  roofline of the card nvidia-smi names; the flash kernel held against its
+  plain version and timed beside SDPA at the prefill's shape; the counted
+  prefill replayed as simulator kernels on two concurrent streams with the
+  landings on the CUDA segment scatter and on NumPy (per-stream counts
+  summing to the aggregate, tip at least clean, both streams tracked and
+  overlapping, the same counts on both, launches equal to calls), and the
+  accumulate entry timed at the replay's largest flush beside
+  ``index_add_``; and deepseek-v2-lite's training cut run twice from one
+  seed, bit for bit;
 * the simulator: the segment-scatter kernel (the batched sweep's stat
   landing), its accumulate entry and the sequential-fold kernel held bit for
   bit against their plain versions, on test shapes and on the sweep's real
@@ -165,19 +181,16 @@ SMOKE_LOGITS_ATOL = 1e-4
 FULL_FP32_REL = 1e-2
 #: timing: each reading is the mean of LAUNCHES back-to-back calls, replayed
 #: from one CUDA graph between a pair of CUDA events; ROUNDS readings per
-#: function, the functions alternating within each round
-LAUNCHES, ROUNDS = 50, 9
-#: device_breakdown's witnesses.  torch.profiler keeps only the device events
-#: whose timestamps fall inside the trace's window, and late in a long run the
-#: device clock's conversion to the host's drifts, so the events near an edge
-#: of the window are dropped.  The traced call is bracketed on each side by
-#: BREAKDOWN_SPINS spin kernels and BREAKDOWN_MARGIN_S of host sleep between
-#: them and the window's edge; a trace that lost every spin of one side is
-#: taken again with twice the margin, BREAKDOWN_TRIES traces in all
-BREAKDOWN_SPINS, BREAKDOWN_MARGIN_S, BREAKDOWN_TRIES = 16, 0.05, 4
-#: the margins of the traces that device_breakdown took again, and each kept
-#: trace's first device event's start less its margin (ms after the window
-#: opens; far below 0, the clock drift), printed at the end
+#: function, the functions alternating within each round.  A plain PyTorch
+#: version (a function named "plain..."), 10 to 100 times its kernel's time,
+#: and any function whose last warm-up call took over SLOW_MS, takes
+#: PLAIN_LAUNCHES calls a reading: a reading of some milliseconds either way
+LAUNCHES, ROUNDS, PLAIN_LAUNCHES, SLOW_MS = 50, 9, 5, 1.0
+#: the margins of the profiler traces that ``perf.cost.device_profile`` took
+#: again (it brackets each traced call with spin kernels and retakes a trace
+#: that lost one side's), and each kept trace's first device event's start
+#: less its margin (ms after the window opens; far below 0, the clock drift),
+#: printed at the end
 BREAKDOWN_RETAKEN: list[float] = []
 BREAKDOWN_LEAD_MS: list[float] = []
 
@@ -412,16 +425,17 @@ DENSE_CUT = TrainCut("dense_train_full_width", "deepseek-7b", DENSE_LAYERS, DENS
                      2_457_931_776, 0, "8 of 30 layers, ~39 GB of states at ~16 bytes a parameter", "falls")
 GEMMA_CUT = TrainCut("gemma_train_full_width", "gemma-7b", GEMMA_LAYERS, GEMMA_STEPS, GEMMA_EVAL_EVERY,
                      2_724_246_528, 0, "7 of 28 layers, the deepest cut whose peak stays under 72 GB", "falls")
-#: deepseek-v2-lite's held-out loss over its 6 steps moves less than two runs from one seed and one batch
-#: stream part (scripts/moe_train_cut.py's repeat reading: its MoE backward is not bitwise repeatable, the
-#: dispatch's gather taking its gradient by scatter_add's atomics), so it is printed; the FFN-only check holds
-#: the MoE weights' gradients instead
+#: deepseek-v2-lite's held-out loss over its 6 steps moved by thousandths either way in the runs that took
+#: it (-0.0007 and +0.0111 in two runs of one seed before the MoE dispatch's gradient lost its atomics), so it
+#: is printed; the FFN-only check holds the MoE weights' gradients instead, and the phase holds a second run
+#: from the same seed on the same batches bit for bit the first (the dispatch's gather now sums each token's
+#: k gradient rows in order, models/moe.py ``gather_tokens``)
 MOE_CUT = TrainCut("moe_train_full_width", "deepseek-v2-lite-16b", MOE_TRAIN_LAYERS, GEMMA_STEPS,
                    GEMMA_EVAL_EVERY, 2_254_983_168, 1,
                    "4 of 27 layers (1 dense + 3 MoE), the deepest cut whose peak stays under 72 GB "
                    "(scripts/moe_train_cut.py depth: 5 layers past it)",
-                   "printed: a 6-step change below the spread of two runs of one seed (scripts/moe_train_cut.py "
-                   "repeat); the FFN-only check holds the MoE weights' gradients")
+                   "printed: a 6-step change of thousandths either way at this init; the FFN-only check holds "
+                   "the MoE weights' gradients, and the repeat (moe_train_repeat) holds a second run bit for bit")
 #: encdec_full_width: whisper-medium at its published size, uncut: 24 encoder and 24 decoder layers, d_model
 #: 1024, 16 heads of 64, d_ff 4096, vocab 51,865 padded to 51,968, untied, no positional rotation (sinusoidal
 #: positions on the encoder, none on the decoder, as the reference), bf16 params and compute, fp32 AdamW
@@ -450,11 +464,23 @@ PREFIX_CUT = TrainCut("prefix_lm_full_width", "paligemma-3b", 18, GEMMA_STEPS, G
 #: DIST_LAYERS layers, the deepest cut whose peak stays under 72 GB of the card's 80 (gemma-7b's rule; the
 #: reading is PERF.md's, scripts/compressed_train_cut.py depth).  That is DENSE_CUT's depth, so the reading
 #: beside it without compression is dense_train_full_width's, earlier in the run.  The mesh and the pipeline take a cut of
-#: DIST_PIPE_LAYERS layers: DIST_PIPE_MICRO microbatches of one 2,048-token row through one stage.
+#: DIST_PIPE_LAYERS layers: DIST_PIPE_MICRO microbatches of one 2,048-token row through one stage.  Its held-out
+#: loss is held to the same cut's without compression: from the same weights on the same batches, its change
+#: over the run must lie within DIST_HELD_OUT_GAP of dense_train_full_width's.  Alone, the change is no test
+#: at this init: over four seeds of both (scripts/compressed_train_cut.py seeds, PERF.md) the uncompressed
+#: 10-step change ran from -0.230 to +0.0024 and the compressed from -0.225 to +0.0080, each rising at some
+#: seed, while the compressed less the uncompressed stayed within 0.0178 (0.0285 over 30 steps).  Its
+#: attention-only and FFN-only checks run each step's gradients through the same int8 error-feedback
+#: compression (``_train_only`` with ``compress_grads``), beside zeroed and negated controls.
 DIST_LAYERS, DIST_PARAMS, DIST_PIPE_LAYERS, DIST_PIPE_MICRO = 8, 2_457_931_776, 4, 4
+DIST_HELD_OUT_GAP = 0.03
 DIST_CUT = TrainCut("dist_full_width", "deepseek-7b", DIST_LAYERS, DENSE_STEPS, DENSE_EVAL_EVERY, DIST_PARAMS, 0,
                     "8 of 30 layers, the deepest cut whose peak stays under 72 GB with compression "
-                    "(scripts/compressed_train_cut.py depth)", "falls", compress_grads=True, accum_dtype="bfloat16")
+                    "(scripts/compressed_train_cut.py depth)",
+                    f"within {DIST_HELD_OUT_GAP} of the uncompressed cut's change (dense_train_full_width's: the "
+                    "same weights, batches and probe); the change alone rises at some seeds with and without "
+                    "compression (scripts/compressed_train_cut.py seeds)",
+                    compress_grads=True, accum_dtype="bfloat16")
 #: serving from the trained weights through the model's entry points: (rows, prompt tokens, greedy decode
 #: steps); whisper's prompt is a few forced tokens after 1,500 frames, paligemma's follows its 256 patches
 ENCDEC_DECODE, PREFIX_DECODE = (4, 4, 30), (4, 32, 16)
@@ -531,113 +557,90 @@ def check(cond: bool, what: str) -> None:
         raise CheckFailed(what)
 
 
+#: seconds from the previous phase line (or the script's start) to each phase's line, printed at the end
+PHASE_S: dict[str, float] = {}
+_LAST_LINE_AT = [time.perf_counter()]
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def peaks(smi_name: str):
-    """Datasheet peaks (bf16 dense FLOP/s, HBM bytes/s) of the card nvidia-smi names."""
-    if "PCIe" in smi_name:
-        return 756e12, 2.0e12, "H100 PCIe datasheet"
-    return 989e12, 3.35e12, "H100 SXM datasheet"
-
-
-def fp32_peak(smi_name: str) -> float:
-    """Datasheet fp32 FLOP/s outside the tensor cores (the SIMT kernels' type)."""
-    return 51e12 if "PCIe" in smi_name else 67e12
+    if "phase" in obj:
+        now = time.perf_counter()
+        PHASE_S[obj["phase"]] = PHASE_S.get(obj["phase"], 0.0) + now - _LAST_LINE_AT[0]
+        _LAST_LINE_AT[0] = now
 
 
 def time_interleaved(fns, warmup: int = 3, eager=()):
     """Device ms per call of each function in ``fns`` (name → callable).
 
-    Each function's ``LAUNCHES`` back-to-back calls are captured once into
-    a CUDA graph; a reading is one replay between a pair of CUDA events,
-    divided by ``LAUNCHES``, so it holds device time without the host's
-    per-call cost (an SDPA call costs the host about as long as the card).
-    A function named in ``eager`` cannot be captured (its output shape
-    depends on the data, which needs a sync): a reading of it is its
-    ``LAUNCHES`` calls run back to back between the two events, so it also
-    holds whatever host time the card waits for.  Each round takes one
-    reading of every function in turn; returns per name the median, min and
-    max of ``ROUNDS`` readings."""
+    Each function's ``LAUNCHES`` back-to-back calls (``PLAIN_LAUNCHES`` for
+    a plain version, named "plain...", and for a call over ``SLOW_MS``) are
+    captured once into a CUDA graph; a reading is one replay between a pair
+    of CUDA events, divided by the calls, so it holds device time without
+    the host's per-call cost (an SDPA call costs the host about as long as
+    the card).  A function named in ``eager`` cannot be captured (its
+    output shape depends on the data, which needs a sync): a reading of it
+    is its calls run back to back between the two events, so it also holds
+    whatever host time the card waits for.  Each round takes one reading of
+    every function in turn; returns per name the median, min and max of
+    ``ROUNDS`` readings."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
+    last = {name: (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for name in fns}
     with torch.cuda.stream(side):  # warm-up off the default stream, as graph capture wants
-        for fn in fns.values():
-            for _ in range(warmup):
+        for name, fn in fns.items():
+            for i in range(warmup):
+                if i == warmup - 1:
+                    last[name][0].record()
                 fn()
+            last[name][1].record()
     torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    calls = {name: PLAIN_LAUNCHES if name.startswith("plain") or start.elapsed_time(end) > SLOW_MS else LAUNCHES
+             for name, (start, end) in last.items()}
     graphs = {}
     for name, fn in fns.items():
         if name in eager:
             continue
         graphs[name] = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graphs[name]):
-            for _ in range(LAUNCHES):
+            for _ in range(calls[name]):
                 fn()
     torch.cuda.synchronize()
 
-    def run_eager(fn):
-        for _ in range(LAUNCHES):
-            fn()
+    def run_eager(name):
+        for _ in range(calls[name]):
+            fns[name]()
 
     readings = {name: [] for name in fns}
     for _ in range(ROUNDS):
         for name, fn in fns.items():
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            graphs[name].replay() if name in graphs else run_eager(fn)
+            graphs[name].replay() if name in graphs else run_eager(name)
             end.record()
             end.synchronize()
-            readings[name].append(start.elapsed_time(end) / LAUNCHES)
+            readings[name].append(start.elapsed_time(end) / calls[name])
     return {name: {"median": statistics.median(r), "min": min(r), "max": max(r)}
             for name, r in readings.items()}
 
 
 def device_breakdown(fn):
     """Device microseconds of one call of ``fn`` (after one warm-up call), by
-    kernel, memset or memcpy, from a ``torch.profiler`` trace: where the time
-    of a call that launches more than one kernel goes.  The call sits between
-    two runs of BREAKDOWN_SPINS spin kernels, left out of the result, each
-    BREAKDOWN_MARGIN_S of host sleep inside the trace's window (see there);
-    a spin that came through on each side shows that every event of ``fn``
-    did, and the check fails if no trace of BREAKDOWN_TRIES shows that."""
-    from torch.profiler import ProfilerActivity, profile
+    kernel, memset or memcpy: ``repro_torch.perf.cost.device_profile``'s
+    ``us_by_kernel``, its traced call between two runs of PROFILE_SPINS
+    spin kernels, each PROFILE_MARGIN_S of host sleep inside the trace's
+    window, taken again at twice the margin where a side's spins were lost
+    (see there); the check fails if no trace of PROFILE_TRIES kept them."""
+    from repro_torch.perf.cost import device_profile
 
-    def spins():
-        for _ in range(BREAKDOWN_SPINS):
-            torch.cuda._sleep(100)
-
-    fn()
-    torch.cuda.synchronize()
-    margin = BREAKDOWN_MARGIN_S
-    for _ in range(BREAKDOWN_TRIES):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(margin)
-            spins()
-            fn()
-            spins()
-            torch.cuda.synchronize()
-            time.sleep(margin)
-        events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                        key=lambda e: e.time_range.start)
-        own = [e for e in events if "spin_kernel" not in e.name]
-        if own:
-            first, last = own[0].time_range.start, own[-1].time_range.start
-            spin_starts = [e.time_range.start for e in events if "spin_kernel" in e.name]
-            if any(t < first for t in spin_starts) and any(t > last for t in spin_starts):
-                BREAKDOWN_LEAD_MS.append(events[0].time_range.start / 1e3 - margin * 1e3)
-                out = {}
-                for e in own:
-                    name = re.sub(r"\(.*", "", e.name.replace("(anonymous namespace)::", ""))[:48]
-                    out[name] = out.get(name, 0.0) + e.time_range.elapsed_us()
-                return out
-        BREAKDOWN_RETAKEN.append(margin)
-        print(f"chip_smoke: a profiler trace lost every spin kernel of one side at a margin of {margin} s; "
-              "taking it again", file=sys.stderr, flush=True)
-        margin *= 2
-    check(False, f"{BREAKDOWN_TRIES} profiler traces each lost every spin kernel on one side of the call, "
-                 "so some of the call's events too")
+    try:
+        prof = device_profile(fn, wall_rounds=0)
+    except RuntimeError as err:
+        raise CheckFailed(str(err)) from err
+    BREAKDOWN_LEAD_MS.append(prof["lead_ms"])
+    BREAKDOWN_RETAKEN.extend(prof["retaken_margins_s"])
+    return prof["us_by_kernel"]
 
 
 def randn(shape, dtype, seed):
@@ -822,7 +825,9 @@ def phase_kernel(smi: str, served_lens):
         check(torch.allclose(out.float(), want.float(), **BF16_TOL),
               f"bf16 kernel disagrees with plain at S={S}")
 
-    peak_flops, peak_bw, peak_src = peaks(smi)
+    from repro_torch.perf.hw import chip_for
+
+    chip = chip_for(smi)
     timings = {}
     for S in sorted({*TIMED_SEQS, *served_lens}):
         B, H, D = 1, 32, 128
@@ -845,13 +850,15 @@ def phase_kernel(smi: str, served_lens):
     d256 = phase_kernel_d256(smi, served_lens)
     emit({"phase": "kernel", "name": "flash_attention", "fp32_max_abs_err": fp32_err,
           "bf16_max_abs_err": bf16_err, "tolerances": {"fp32": FP32_TOL, "bf16": BF16_TOL},
-          "peaks": {"bf16_flops": peak_flops, "hbm_bytes_s": peak_bw, "source": peak_src},
+          "peaks": {"bf16_flops": chip.peak_bf16_flops, "hbm_bytes_s": chip.hbm_bw,
+                    "source": f"{chip.name} datasheet (repro_torch.perf.hw)"},
           "routes": {f"{dt}, D={D}": fa.select_route(dt, D) for dt in fa.ROUTES for D in fa.SUPPORTED_HEAD_DIMS},
           "d256": d256,
           "timing": {str(S): t for S, t in timings.items()}, "served_prompt_lens": list(served_lens),
           "timing_note": f"B=1 H=32 D=128 bf16 causal (the wgmma kernel); median of {ROUNDS} readings, "
-                         f"each the mean of {LAUNCHES} back-to-back calls replayed from one CUDA graph "
-                         "between CUDA events; kernel, plain and SDPA alternate; inputs warm in L2"})
+                         f"each the mean of {LAUNCHES} ({PLAIN_LAUNCHES} plain or slow) back-to-back calls replayed "
+                         "from one CUDA graph between CUDA events; kernel, plain and SDPA alternate; inputs warm in "
+                         "L2"})
     fa.flash_attention.launches = 0  # comparisons and timings are not the main path's launches
     return bf16_err, timings, d256
 
@@ -859,10 +866,11 @@ def phase_kernel(smi: str, served_lens):
 def _bound(flops, nbytes, smi, fp32=False):
     """The least ms the card could take: bytes over the HBM rate or FLOPs
     over the peak of their type (bf16 tensor cores, or fp32 with ``fp32``)."""
-    peak_flops, peak_bw, _ = peaks(smi)
-    if fp32:
-        peak_flops = fp32_peak(smi)
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+    from repro_torch.perf.hw import chip_for
+
+    chip = chip_for(smi)
+    peak_flops = chip.peak_fp32_flops if fp32 else chip.peak_bf16_flops
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / chip.hbm_bw * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -1193,8 +1201,9 @@ def phase_mla_kernel(smi: str, served_lens, sass):
                                             "route wgmma", "routes": routes, "max_abs_err": err,
             "tolerances": {"bfloat16": BF16_TOL, "float32": FP32_TOL}, "checked": len(cases),
             "sass": sass, "timing": rows, "sdpa_kernels": sdpa_kernels, "fp32": fp32_row,
-            "timing_note": f"median of {ROUNDS} readings, each the mean of {LAUNCHES} back-to-back calls replayed "
-                           "from one CUDA graph; kernel, plain and SDPA alternate; inputs warm in L2"}
+            "timing_note": f"median of {ROUNDS} readings, each the mean of {LAUNCHES} ({PLAIN_LAUNCHES} plain or slow) "
+                           "back-to-back calls replayed from one CUDA graph; kernel, plain and SDPA alternate; "
+                           "inputs warm in L2"}
     emit(line)
     fa.flash_attention.launches = 0
     return line
@@ -1861,8 +1870,9 @@ def phase_ssd_kernel(smi: str):
                    "each the causal half, C h^T and the state product per (batch, head, tile); bytes as listed; "
                    "at the bf16 dense peak and HBM rate",
           "timing": timings,
-          "timing_note": f"median of {ROUNDS} readings, each the mean of {LAUNCHES} back-to-back calls "
-                         "replayed from one CUDA graph between CUDA events; the tensor-core kernel (kernel), "
+          "timing_note": f"median of {ROUNDS} readings, each the mean of {LAUNCHES} ({PLAIN_LAUNCHES} plain or slow) "
+                         "back-to-back calls replayed from one CUDA graph between CUDA events; the tensor-core "
+                         "kernel (kernel), "
                          "the SIMT kernel on the same bf16 inputs (simt) and the plain chunked form "
                          "alternate; inputs warm in L2; no single PyTorch call computes the SSD scan (library: none)"})
     return max(bf16_err, fp32_err), timings, p128
@@ -1994,12 +2004,13 @@ def phase_train_full_width():
 
     # the device's busy time over one more step, traced (the counts were read above); the
     # idle share is taken against the unprofiled median step, since the profiler's own host
-    # cost would otherwise count as device idle
+    # cost would otherwise count as device idle.  Device events only: recording the host's
+    # ops too took 8.3 s against 0.8 for a trace of 24,000 small kernels on the H100
     from torch.profiler import ProfilerActivity, profile
 
     step = make_train_step(model, tcfg)
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         opt, _ = step(opt, probe)
         torch.cuda.synchronize()
@@ -2030,7 +2041,7 @@ def phase_train_full_width():
         "schedule_steps": SCHEDULE_STEPS, "loss_first10": first, "loss_last10": last, "losses": losses,
         "held_out_loss": {"before": probe_before, "after": probe_after, "min_drop": EVAL_DROP},
         "eval_losses": [e["loss"] for e in trainer.eval_history],
-        "lanes": {"train": train, "eval": evals}, "step_cost": trainer.cost_parts,
+        "lanes": {"train": train, "eval": evals}, "step_cost": trainer.cost_parts, "count_s": trainer.count_s,
         "ssd_launches": launches, "ssd_launches_expected": want,
         "tokens_per_s": train["tokens_per_s"], "step_ms_median": steady_ms,
         "step_ms_first": step_ms[0], "max_memory_allocated_gb": peak_gb, "device_idle": idle,
@@ -2241,9 +2252,10 @@ def phase_flash_bwd_kernel(smi: str):
           "shape": f"B={B} S={S} Hq=Hkv={H} D={D} bf16 causal", "route": fa.select_bwd_route(torch.bfloat16, D),
           "check": g, "simt_check": simt, "edge_checks": checks, "timing": timing, "d256": d256,
           "launches_per_call": fa.BWD_LAUNCHES, "bf16_terms": {"p": fa.BWD_P_TERMS, "ds": fa.BWD_DS_TERMS},
-          "timing_note": f"median of {ROUNDS} readings of {LAUNCHES} calls; kernel, SIMT kernel and plain replayed "
-                         "from a CUDA graph; SDPA's backward graph-replayed as its forward and backward less its "
-                         "forward (library_ms), and eagerly (library_eager_ms: autograd.grad, retain_graph)"})
+          "timing_note": f"median of {ROUNDS} readings of {LAUNCHES} ({PLAIN_LAUNCHES} plain or slow) calls; kernel, "
+                         "SIMT kernel and plain replayed from a CUDA graph; SDPA's backward graph-replayed as its "
+                         "forward and backward less its forward (library_ms), and eagerly (library_eager_ms: "
+                         "autograd.grad, retain_graph)"})
     fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
     errs = [r["max_abs_err"] for c in (g, *checks.values(), *(x["check"] for x in d256.values()))
             for r in c.values()]
@@ -2351,12 +2363,12 @@ def phase_mla_bwd_kernel(smi: str, sass):
                             for dt in ("torch.bfloat16", "torch.float32")},
             "tolerances": {"bfloat16": {"rtol": BWD_RTOL, "atol_of_max": BWD_ATOL_OF_MAX}, "float32": BWD_FP32_TOL},
             "bf16_terms": {"p": fa.BWD_P_TERMS, "ds": fa.BWD_DS_TERMS},
-            "timing_note": f"median of {ROUNDS} readings of {LAUNCHES} calls; the bf16 kernel, the SIMT kernel on "
-                           "fp32 inputs and the plain version (bf16; plain_fp32_ms on the fp32 inputs) replayed "
-                           "from a CUDA graph; SDPA's backward (same pair; bf16, and fp32 as *_fp32) "
-                           "graph-replayed as its forward and backward less its forward (library_ms), and eagerly "
-                           "(library_eager_ms); bound_ms at the bf16 peak, simt_fp32_bound_ms at the fp32 one "
-                           "with 4-byte elements"}
+            "timing_note": f"median of {ROUNDS} readings of {LAUNCHES} ({PLAIN_LAUNCHES} plain or slow) calls; the "
+                           "bf16 kernel, the SIMT kernel on fp32 inputs and the plain version (bf16; plain_fp32_ms "
+                           "on the fp32 inputs) replayed from a CUDA graph; SDPA's backward (same pair; bf16, and "
+                           "fp32 as *_fp32) graph-replayed as its forward and backward less its forward "
+                           "(library_ms), and eagerly (library_eager_ms); bound_ms at the bf16 peak, "
+                           "simt_fp32_bound_ms at the fp32 one with 4-byte elements"}
     emit(line)
     fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
     return line
@@ -2494,8 +2506,9 @@ def phase_routes(smi: str, served_lens):
     emit({"phase": "routes", "rows": rows,
           "bound_note": "fp32 FLOPs over the fp32 rate outside the tensor cores (67 TFLOP/s SXM), bf16 over 989; "
                         "bytes over 3.35 TB/s; the fold counts one add a value",
-          "timing_note": f"median of {ROUNDS} readings of {LAUNCHES} calls; SDPA's backward graph-replayed as its "
-                         "forward and backward less its forward (library_ms) and eagerly (library_eager_ms)"})
+          "timing_note": f"median of {ROUNDS} readings of {LAUNCHES} ({PLAIN_LAUNCHES} plain or slow) calls; SDPA's "
+                         "backward graph-replayed as its forward and backward less its forward (library_ms) and "
+                         "eagerly (library_eager_ms)"})
     fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
     sk.ssd_scan.launches = ss.running_sum.launches = 0
     return rows
@@ -2698,20 +2711,27 @@ def phase_moe_train_parity():
 def _train_only(model, tcfg, batch, names, steps, grad_factor=1.0):
     """``steps`` AdamW steps (``tcfg``'s schedule and settings) on the
     parameters ``names`` alone, the rest frozen, on one repeated batch, their
-    gradients scaled by ``grad_factor``: the loss before each step and after
-    the last."""
-    from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm, learning_rate
-    from repro_torch.train import make_loss_fn
+    gradients scaled by ``grad_factor`` and, with ``tcfg.compress_grads``,
+    then int8-compressed with error feedback as the train step compresses
+    them (``ef_compress``, one scale a reference leaf): the loss before each
+    step and after the last."""
+    from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm, ef_compress, ef_state_init
+    from repro_torch.optim import learning_rate
+    from repro_torch.train import compress_groups, make_loss_fn
 
     params = dict(model.named_parameters())
     leaves = {n: params[n] for n in names}
     opt, loss_fn, losses = adamw_init(leaves), make_loss_fn(model, tcfg), []
+    ef = ef_state_init(leaves) if tcfg.compress_grads else None
+    groups = compress_groups(model.cfg, leaves) if ef is not None else None
     for _ in range(steps):
         total, metrics = loss_fn(batch)
         grads = torch.autograd.grad(total, list(leaves.values()))
         losses.append(float(metrics["loss"].detach()))
-        grads, _ = clip_by_global_norm({n: grad_factor * g.float() for n, g in zip(leaves, grads)},
-                                       tcfg.adamw.grad_clip)
+        grads = {n: grad_factor * g.float() for n, g in zip(leaves, grads)}
+        if ef is not None:
+            grads = ef_compress(grads, ef, groups)[0]
+        grads, _ = clip_by_global_norm(grads, tcfg.adamw.grad_clip)
         opt = adamw_update(grads, opt, leaves, learning_rate(int(opt["step"]), tcfg.schedule), tcfg.adamw)
     with torch.no_grad():
         losses.append(float(loss_fn(batch)[1]["loss"]))
@@ -2785,14 +2805,15 @@ def cut_config(cut: TrainCut):
 
 def full_width_run(cfg, steps: int, eval_every: int, *, batch: int = DENSE_BATCH, seq: int = DENSE_SEQ,
                    micro: int = DENSE_MICRO, enc_len: int = 0, compress_grads: bool = False,
-                   accum_dtype: str = "float32"):
+                   accum_dtype: str = "float32", seed: int = 0):
     """Train ``cfg`` on the card through ``Trainer``'s entry point for
     ``steps`` steps with an eval every ``eval_every``, at the full-width
     phases' settings (``batch`` x ``seq`` in ``micro`` microbatches, with
     the data pipeline's seeded stub frame embeddings (``enc_len`` a row) or
     patch embeddings (``cfg.vision_tokens``), AdamW, peak lr DENSE_LR after
     2 warm-up steps; ``compress_grads`` and ``accum_dtype`` as
-    ``TrainConfig`` takes them), counting the flash launches and each
+    ``TrainConfig`` takes them; ``seed`` added to the weights' seed and the
+    training batches'), counting the flash launches and each
     backward call's route.  Returns the run's state and readings: the trainer, model and
     optimizer state, the history, the held-out loss on one fixed batch
     (``probe``) before and after, the launches, the routes, the peak device
@@ -2808,9 +2829,10 @@ def full_width_run(cfg, steps: int, eval_every: int, *, batch: int = DENSE_BATCH
     tcfg = TrainConfig(adamw=AdamWConfig(weight_decay=0.1, grad_clip=1.0),
                        schedule=ScheduleConfig(peak_lr=DENSE_LR, warmup_steps=2, decay_steps=steps),
                        microbatches=micro, compress_grads=compress_grads, accum_dtype=accum_dtype)
+    tcfg = dataclasses.replace(tcfg, seed=tcfg.seed + seed)
     dcfg = DataConfig(global_batch=batch, seq_len=seq, vocab_size=cfg.vocab_size, d_model=cfg.d_model,
                       enc_len=enc_len, vision_tokens=cfg.vision_tokens)
-    train_it = make_train_iter(dcfg)
+    train_it = make_train_iter(dataclasses.replace(dcfg, seed=dcfg.seed + seed))
     eval_it = make_train_iter(dataclasses.replace(dcfg, seed=99))
     probe_it = make_train_iter(dataclasses.replace(dcfg, seed=7))
     probe = next(probe_it)  # one fixed held-out batch
@@ -2826,12 +2848,14 @@ def full_width_run(cfg, steps: int, eval_every: int, *, batch: int = DENSE_BATCH
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    # the route of every backward call, as the wrapper picks it (no caller passes one)
+    # the route of every backward call, as the wrapper picks it (no caller passes one); the trainer's cost
+    # count runs one step on fake tensors, which launches nothing and takes no route
     backward, routes = ops.flash_attention_backward, {}
 
     def routed(*a, **kw):
-        route = kw.get("route") or fa.select_bwd_route(a[0].dtype, a[0].shape[-1], a[2].shape[-1])
-        routes[route] = routes.get(route, 0) + 1
+        if not fa.is_fake(a[0]):
+            route = kw.get("route") or fa.select_bwd_route(a[0].dtype, a[0].shape[-1], a[2].shape[-1])
+            routes[route] = routes.get(route, 0) + 1
         return backward(*a, **kw)
 
     ops.flash_attention_backward = routed
@@ -2853,7 +2877,7 @@ def full_width_run(cfg, steps: int, eval_every: int, *, batch: int = DENSE_BATCH
                            n_params=sum(p.numel() for p in model.parameters()))
 
 
-def _train_full_width(cut: TrainCut, cfg, after=None):
+def _train_full_width(cut: TrainCut, cfg, after=None, trained=None):
     """Train ``cfg`` (``cut``'s config at its published widths, cut in depth
     only; dense, MoE with MLA, enc-dec or prefix-LM) on the card
     (``full_width_run`` at ``cut``'s batch) for ``cut.steps`` steps with an
@@ -2863,14 +2887,16 @@ def _train_full_width(cut: TrainCut, cfg, after=None):
     of the step cost at each launch's own shape and mask
     (``attention_shapes``), the train and eval lanes, the held-out loss
     (``cut.held_out``), a peak under the card's 80 GB; one step traced for
-    the device's idle share, time by kernel and by op, and its flash
+    the device's idle share and time by kernel, and its flash
     launches by shape; every attention call's real q, k, v and dO through
     both flash kernels, at its own mask, against the plain versions; the
     attention-only and FFN-only checks beside their zeroed and negated
     controls (ATTN_ONLY_DROP).  ``after(model)``, where given, runs on the
     trained model before the line is printed and its dict joins the line
-    under ``"after_training"``.  Prints the phase's line and returns the
-    launches, the largest gradient error and the line."""
+    under ``"after_training"``; ``trained(run)``, where given, runs right
+    after the training run, before anything else touches its weights.
+    Prints the phase's line and returns the launches, the largest gradient
+    error and the line."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import attention_lse_ref, flash_backward_ref
@@ -2885,6 +2911,8 @@ def _train_full_width(cut: TrainCut, cfg, after=None):
           f"bf16 at {_dims_label(D, Dv)} takes the tensor-core backward")
     run = full_width_run(cfg, steps, cut.eval_every, batch=cut.batch, seq=cut.seq, micro=cut.micro,
                          enc_len=cut.enc_len, compress_grads=cut.compress_grads, accum_dtype=cut.accum_dtype)
+    if trained is not None:
+        trained(run)
     trainer, tcfg, model, opt, hist, probe = run.trainer, run.tcfg, run.model, run.opt, run.hist, run.probe
     fwd, bwd = run.fwd, run.bwd
 
@@ -2925,14 +2953,15 @@ def _train_full_width(cut: TrainCut, cfg, after=None):
     step_ms = [r.seconds * 1e3 for r in trainer.stats.records if r.stream_id == trainer.train_stream]
     steady_ms = statistics.median(step_ms[2:])
 
-    # one step traced for the device's busy time (idle share against the unprofiled median step), and its
-    # flash launches by shape and mask as the wrappers record them
+    # one step traced for the device's busy time (idle share against the unprofiled median step) and its
+    # kernels, device events only (recording the host's ops too took a trace of 24,000 kernels 13.7 s, against
+    # 4.5, on the H100's host), and its flash launches by shape and mask as the wrappers record them
     from torch.profiler import ProfilerActivity, profile
 
     step = make_train_step(model, tcfg)
     shapes_before = (fa.flash_attention.shapes.copy(), fa.flash_attention_backward.shapes.copy())
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         opt, _ = step(opt, probe)
         torch.cuda.synchronize()
@@ -2951,17 +2980,14 @@ def _train_full_width(cut: TrainCut, cfg, after=None):
         name = re.sub(r"\(.*", "", e.name.replace("(anonymous namespace)::", ""))[:48]
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])
-    # device time by the op that launched it (self time: an op's own kernels, not its children's)
-    by_op = {a.key: getattr(a, "self_device_time_total", 0.0) / 1e3 for a in prof.key_averages()}
-    top_ops = dict(sorted(((k, v) for k, v in by_op.items() if v > 0), key=lambda kv: -kv[1])[:12])
     kernel_ms = lambda *keys: sum(ms for n, ms in by_name.items() if any(key in n for key in keys))
     named = {"fp32 GEMMs (the unembedding; the MoE router)": kernel_ms("f32f32", "sgemm"),
              "multi-tensor kernels (AdamW, gradient accumulation)": kernel_ms("multi_tensor_apply"),
-             "aten::bmm (the experts)": by_op.get("aten::bmm", 0.0), "flash kernels": kernel_ms("flash")}
+             "flash kernels": kernel_ms("flash")}
     idle = {"device_busy_ms": busy_s * 1e3, "kernel_launches": len(kernels), "step_ms_median": steady_ms,
             "idle_share": max(0.0, 1.0 - busy_s * 1e3 / steady_ms) if kernels else "not measured",
             "traced_step_ms": traced_s * 1e3, "profiler_s": time.perf_counter() - t0, "device_ms_named": named,
-            "device_ms_by_kernel": top, "device_ms_by_op": top_ops,
+            "device_ms_by_kernel": top,
             "flash_device_ms": {n: ms for n, ms in by_name.items() if "flash" in n}}
     del prof
     later.append((by_shape["backward"] == {k: cut.micro * n for k, n in _shape_counts(shapes, B, cfg).items()}
@@ -3061,7 +3087,7 @@ def _train_full_width(cut: TrainCut, cfg, after=None):
         "held_out_loss": {"before": run.held_out_before, "after": run.held_out_after, "held": cut.held_out},
         **alone,
         "eval_losses": [e["loss"] for e in trainer.eval_history],
-        "lanes": {"train": train, "eval": evals}, "step_cost": parts,
+        "lanes": {"train": train, "eval": evals}, "step_cost": parts, "count_s": trainer.count_s,
         "flash_launches": {"forward": fwd, "backward": bwd, "forward_expected": want_fwd,
                            "backward_expected": want_bwd, "backward_by_route": run.routes,
                            "kernels_per_backward": fa.BWD_LAUNCHES, "one_step_by_shape": by_shape},
@@ -3192,7 +3218,9 @@ def phase_dist_full_width(plain):
     pipeline (``_dist_mesh_and_pipeline``), then DIST_CUT trained with int8
     compression and a bf16 accumulator through ``_train_full_width`` (its
     checks and controls), beside ``plain``, dense_train_full_width's line:
-    the same cut without compression, trained earlier in the run.  The
+    the same cut without compression, trained earlier in the run, whose
+    held-out change the compressed run's must match within
+    DIST_HELD_OUT_GAP.  The
     group is destroyed when it ends.  Returns the compressed run's flash
     launches and largest gradient error, and the pipeline's flash
     launches."""
@@ -3211,21 +3239,36 @@ def phase_dist_full_width(plain):
     uncompressed = {"phase": plain["phase"], **same, "accum_dtype": plain["accum_dtype"],
                     **{k: plain[k] for k in ("tokens_per_s_steady", "step_ms_median", "max_memory_allocated_gb",
                                              "held_out_loss", "losses")},
-                    **{k: plain["device_idle"][k] for k in ("idle_share", "device_busy_ms", "device_ms_by_op")}}
+                    **{k: plain["device_idle"][k] for k in ("idle_share", "device_busy_ms", "device_ms_by_kernel")}}
+    plain_held = plain["held_out_loss"]
+    held = {}
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:
         check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "a one-rank NCCL group")
         parts = _dist_mesh_and_pipeline(cfg)
 
+        def trained(run):
+            held.update(before=run.held_out_before, change=run.held_out_after - run.held_out_before)
+
         def after(model):
             params = dict(model.named_parameters())
             groups = compress_groups(cfg, params)
             n = sum(p.numel() for p in params.values())
-            return {"checks": [], **parts, "uncompressed_same_cut": uncompressed,
+            plain_change = plain_held["after"] - plain_held["before"]
+            gap = held["change"] - plain_change
+            checks = [(held["before"] == plain_held["before"],
+                       f"the held-out loss starts at {held['before']}, the uncompressed cut's at "
+                       f"{plain_held['before']}: not the same weights and probe"),
+                      (abs(gap) <= DIST_HELD_OUT_GAP,
+                       f"held-out change {held['change']} against the uncompressed cut's {plain_change}: "
+                       f"{gap} apart, more than {DIST_HELD_OUT_GAP}")]
+            return {"checks": checks, **parts, "uncompressed_same_cut": uncompressed,
+                    "held_out_change": held["change"], "uncompressed_held_out_change": plain_change,
+                    "held_out_gap": gap, "held_out_gap_bound": DIST_HELD_OUT_GAP,
                     "wire_bytes": wire_bytes(params, groups), "bf16_gradient_bytes": 2 * n,
                     "int8_scales": len(set(groups.values())), "error_feedback_bytes": 4 * n}
 
-        fwd, bwd, err, _ = _train_full_width(DIST_CUT, cfg, after=after)
+        fwd, bwd, err, _ = _train_full_width(DIST_CUT, cfg, after=after, trained=trained)
     finally:
         dist.destroy_process_group()
     return fwd, bwd, err, parts["pipeline"]["flash_launches"]
@@ -3280,7 +3323,33 @@ def phase_moe_train_full_width():
           == (2048, MLA_HEADS, 512, MLA_DQK, MLA_DV, 10944, 102400, False), "deepseek-v2-lite's published widths")
     check((moe.n_experts, moe.top_k, moe.expert_d_ff, moe.n_shared, moe.first_k_dense) == (64, 6, 1408, 2, 1),
           "deepseek-v2-lite's published experts")
-    return _train_full_width(MOE_CUT, cfg)[:3]
+    # the repeat: the same cut trained once more from the same seed on the same batches, its weights, losses
+    # and held-out losses bit for bit the phase's run's, each run's weights taken right after its last step
+    # (the phase's model takes a traced step and the weight-alone checks after that)
+    runs = []
+
+    def keep(run):
+        runs.append(({n: p.detach().cpu() for n, p in run.model.named_parameters()}, [h["loss"] for h in run.hist],
+                     (run.held_out_before, run.held_out_after)))
+
+    fwd, bwd, err, line = _train_full_width(MOE_CUT, cfg, trained=keep)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run = full_width_run(cfg, MOE_CUT.steps, MOE_CUT.eval_every)
+    keep(run)
+    del run
+    wall = time.perf_counter() - t0
+    (first, losses, held), (second, losses2, held2) = runs
+    differ = [n for n in first if not torch.equal(first[n], second[n])]
+    same = not differ and losses == losses2 and held == held2
+    emit({"phase": "moe_train_repeat", "config": cfg.name, "n_layers": cfg.n_layers, "steps": MOE_CUT.steps,
+          "losses": [losses, losses2], "held_out_loss": [held, held2], "leaves": len(first),
+          "leaves_differing": len(differ), "bit_identical": same, "wall_s": wall})
+    check(same, f"two runs of one seed differ: {len(differ)} leaves (first {differ[:3]}), losses {losses} and "
+                f"{losses2}, held-out {held} and {held2}")
+    del runs, first, second
+    torch.cuda.empty_cache()
+    return fwd, bwd, err
 
 
 def _greedy(model, toks, kw, steps: int, enc_len: int):
@@ -3669,8 +3738,9 @@ def phase_prefix_kernel(smi: str):
             "tolerances": {"bfloat16": BF16_TOL, "float32": FP32_TOL,
                            "backward": {"rtol": BWD_RTOL, "atol_of_max": BWD_ATOL_OF_MAX, "float32": BWD_FP32_TOL}},
             "timing": timing,
-            "timing_note": f"median of {ROUNDS} readings, each the mean of {LAUNCHES} back-to-back calls replayed "
-                           "from one CUDA graph; kernel, plain and SDPA alternate; inputs warm in L2; SDPA's "
+            "timing_note": f"median of {ROUNDS} readings, each the mean of {LAUNCHES} ({PLAIN_LAUNCHES} plain or slow) "
+                           "back-to-back calls replayed from one CUDA graph; kernel, plain and SDPA alternate; "
+                           "inputs warm in L2; SDPA's "
                            "backward is its forward and backward less its forward"}
     emit(line)
     fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
@@ -3713,6 +3783,7 @@ class _OpCalls:
         self.wall_s = {n: 0.0 for n in self.NON_EMPTY}
         self.landings = []  # (seg, lin, cnt, n_segs, row_size, table) of each segment_scatter call
         self.largest_flush = None  # (dense before, lin, cnt, dense after) of the largest scatter_add_u64 call
+        self.flush_events = 0  # events the scatter_add_u64 calls made from outside landed
         self._depth = 0  # wrapped calls in progress
 
     def __enter__(self):
@@ -3733,6 +3804,8 @@ class _OpCalls:
                 self.wall_s[_name] += time.perf_counter() - t0
                 if before is not None:
                     self.largest_flush = (before, args[1].copy(), args[2].copy(), args[0].copy())
+                if _name == "scatter_add_u64" and self._depth == 0:
+                    self.flush_events += len(args[1])
                 self.calls[_name] += 1
                 self.kernel_calls[_name] += int(_non_empty(*args))
                 if _name == "segment_scatter" and self.keep_inputs:
@@ -3755,6 +3828,7 @@ def phase_segment_kernel(smi: str):
     from repro_torch.core.array_ops import get_backend
     from repro_torch.kernels import segment_scatter as ss
     from repro_torch.kernels.ref import running_sum_ref, scatter_add_ref, segment_scatter_ref
+    from repro_torch.perf.hw import chip_for
     from repro_torch.sim.batch import BatchRunner
     from repro_torch.sim.scenarios import divergent_draws
 
@@ -3818,7 +3892,7 @@ def phase_segment_kernel(smi: str):
             check(equal, f"fold kernel differs from running_sum_ref / np.add.accumulate at {shape} {a.dtype}")
 
     # timing at the landing shapes of the 64- and 2-draw sweeps (their largest call: the cumulative table)
-    peak_flops, peak_bw, peak_src = peaks(smi)
+    chip = chip_for(smi)
     torch_ops, numpy_ops = get_backend("torch"), get_backend("numpy")
     timings = {}
     for k, sw in sweeps.items():
@@ -3847,7 +3921,7 @@ def phase_segment_kernel(smi: str):
                 host[name].append((time.perf_counter() - t0) * 1e3)
                 check(np.array_equal(out, np_table), f"{name} op differs from numpy's landing at {k} draws")
         nbytes = 24 * len(seg) + 8 * size
-        t_bytes = nbytes / peak_bw * 1e3
+        t_bytes = nbytes / chip.hbm_bw * 1e3
         flat = seg[keep] * row_size + lin[keep]
         per_cell = np.bincount(np.unique(flat, return_inverse=True)[1])
         timings[f"draws{k}"] = {
@@ -3883,26 +3957,266 @@ def phase_segment_kernel(smi: str):
     accumulate = {
         "events": len(lin), "buffer_cells": int(before.size), "touched_cells": touched,
         "kernel_ms": ms["kernel"]["median"], "plain_ms": ms["plain"]["median"], "library_ms": ms["library"]["median"],
-        "bound_ms": nbytes / peak_bw * 1e3, "bound_by": "bytes", "bytes": nbytes,
+        "bound_ms": nbytes / chip.hbm_bw * 1e3, "bound_by": "bytes", "bytes": nbytes,
         "spread_ms": {name: [m["min"], m["max"]] for name, m in ms.items()},
     }
     del lin_d, cnt_d, base, got, lib_out, dense_k, dense_p, dense_l
     emit({"phase": "segment_kernel", "name": "segment_scatter", "cases": rows, "max_abs_err": max_err,
           "accumulate_entry_equal": True, "fold": fold, "tolerance": "exact equality (uint64 mod 2^64)",
-          "peaks": {"hbm_bytes_s": peak_bw, "source": peak_src},
+          "peaks": {"hbm_bytes_s": chip.hbm_bw, "source": f"{chip.name} datasheet (repro_torch.perf.hw)"},
           "bound": "(24 bytes per event + 8 per table cell, the zero fill included) / HBM rate",
           "timing": timings, "accumulate_entry": accumulate,
-          "timing_note": f"median of {ROUNDS} readings of {LAUNCHES} calls each between CUDA events; kernel "
-                         "and index_add_ (zero fill + one index_add_ of the kept events' precomputed flat "
-                         "index) replayed from a CUDA graph, the plain version (its boolean mask syncs) run "
-                         "eagerly; inputs warm in L2; op walls are host-clock medians of "
-                         f"{HOST_ROUNDS} calls of TorchOps / NumpyOps.segment_scatter, numpy in and out; "
-                         f"the accumulate entry and index_add_ add the {SIM_DRAWS}-draw sweep's largest flush "
-                         "into their own copy of its buffer, in place, call after call (bound: 16 bytes an "
-                         "event + 16 a touched cell)",
+          "timing_note": f"median of {ROUNDS} readings of {LAUNCHES} ({PLAIN_LAUNCHES} plain or slow) calls each "
+                         "between CUDA events; kernel and index_add_ (zero fill + one index_add_ of the kept events' "
+                         "precomputed flat index) replayed from a CUDA graph, the plain version (its boolean mask "
+                         f"syncs) run eagerly; inputs warm in L2; op walls are host-clock medians of {HOST_ROUNDS} "
+                         "calls of TorchOps / NumpyOps.segment_scatter, numpy in and out; the accumulate entry and "
+                         f"index_add_ add the {SIM_DRAWS}-draw sweep's largest flush into their own copy of its "
+                         "buffer, in place, call after call (bound: 16 bytes an event + 16 a touched cell)",
           "numpy_sweep_wall_s": {str(k): sw["wall_s"] for k, sw in sweeps.items()}})
     ss.segment_scatter.launches = ss.scatter_add.launches = ss.running_sum.launches = 0
     return max_err, timings, accumulate, sweeps[SIM_DRAWS]
+
+
+#: step_cost: deepseek-7b at its published size, uncut (30 layers, d_model 4096, 32 heads of 128, bf16,
+#: 6.91 B parameters, ~13.8 GB of weights), a prefill and a decode cell from ``launch.steps.build_cell`` on
+#: the one-rank (data 1, model 1) mesh.  The production SHAPES are sized for 256 chips (prefill_32k: 32 rows
+#: of 32,768 tokens; decode_32k: 128 rows against a 32,768-token cache), which one card holds neither of, so
+#: the cells keep their kinds at 4 rows of 2,048 tokens (prefill) and 4 rows against a 2,048-token cache
+#: (decode).  Weights, tokens and the cache from STEP_COST_SEED (``launch.steps.materialize``).
+STEP_COST_ARCH, STEP_COST_SEED = "deepseek-7b", 7
+STEP_COST_SHAPES = (("prefill_2k", 2048, 4, "prefill"), ("decode_2k", 2048, 4, "decode"))
+#: the counted prefill replayed as simulator kernels (``sim.hlo_costs.kernels_from_summary``) on concurrent
+#: streams, as benchmarks/fig5_deepbench.py replays the reference's compiled step
+STEP_COST_KERNELS, STEP_COST_STREAMS, STEP_COST_REPEATS = 8, 2, 8
+#: the replay's cycle cap: the counted prefill is ~1.0e14 FLOPs, ~4.9e8 cycles of the simulated chip's
+#: compute per stream, past SimConfig's default cap of 5e7; the event engine jumps from event to event, so
+#: the cap costs nothing, and each kernel still lands at most SimConfig.max_synth_beats beats
+STEP_COST_MAX_CYCLES = 10**11
+#: top kernels of a step's device profile printed
+STEP_COST_TOP = 8
+
+
+def _sim_replay(kernels, backend):
+    """``deepbench_like_workload`` of ``kernels`` on STEP_COST_STREAMS streams
+    with ``array_backend=backend``: the result, its host wall, and the
+    array-ops calls that handed a kernel work (``_OpCalls``)."""
+    from repro_torch.core.array_ops import get_backend
+    from repro_torch.sim import SimConfig, deepbench_like_workload
+
+    with _OpCalls(get_backend(backend), keep_inputs=backend == "numpy") as rec:
+        t0 = time.perf_counter()
+        res = deepbench_like_workload(kernels, n_streams=STEP_COST_STREAMS, repeats=STEP_COST_REPEATS,
+                                      config=SimConfig(array_backend=backend, max_cycles=STEP_COST_MAX_CYCLES))
+        wall = time.perf_counter() - t0
+    return res, wall, rec
+
+
+def _fig5_checks(res):
+    """What benchmarks/fig5_deepbench.py checks of a multi-stream replay."""
+    agg = res.stats.aggregate()
+    per_stream = {s: int(res.stats.stream_matrix(s).sum()) for s in res.stats.streams()}
+    return per_stream, {
+        "sum_tip>=clean": bool(np.all(agg.astype(np.int64) >= res.clean.matrix().astype(np.int64))),
+        "per_stream_sums_to_agg": sum(per_stream.values()) == int(agg.sum()),
+        "all_streams_tracked": len(per_stream) == STEP_COST_STREAMS,
+        "overlap_tracked": res.timeline.overlap_cycles(*list(per_stream)[:2]) > 0,
+    }
+
+
+def phase_step_cost(smi: str):
+    """deepseek-7b's full-width prefill and decode cells from ``build_cell``
+    on a one-rank NCCL mesh: each counted by ``perf.cost`` on fake card
+    tensors and on fake CPU tensors (equal), run once as the main path
+    (every prefill attention on the bf16 ``wgmma`` flash kernel), profiled
+    warm (``perf.cost.device_profile``) and put on the roofline of the card
+    nvidia-smi names; the flash kernel held against its plain version and
+    timed beside SDPA at the prefill's shape; then the counted prefill
+    replayed as simulator kernels on two streams, the landings on the CUDA
+    segment scatter and on NumPy (fig5's checks, the same counts, launches
+    equal to calls), and the accumulate entry timed at the replay's largest
+    flush beside ``index_add_``.  Returns the prefill's flash launches, the
+    phase's kernel rows and the replay's scatter launches."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_scatter as ss
+    from repro_torch.kernels.ref import scatter_add_ref
+    from repro_torch.launch.mesh import make_tiny_mesh
+    from repro_torch.launch.steps import build_cell, materialize
+    from repro_torch.perf import chip_for, count_cell, device_profile, roofline_from_summary
+    from repro_torch.sim import SimConfig, kernels_from_summary
+
+    cfg = get_config(STEP_COST_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size)
+          == (30, 4096, 32, 32, 128, 11008, 102400), "deepseek-7b's published size")
+    chip = chip_for(smi)
+    cells, summaries = {}, {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_tiny_mesh(data=1, model=1)
+        for name, seq, batch, kind in STEP_COST_SHAPES:
+            shape = ShapeConfig(name, seq, batch, kind)
+            cell = build_cell(STEP_COST_ARCH, cfg, shape, mesh)
+            check(cell.step_name == {"prefill": "prefill_step", "decode": "serve_step"}[kind] and cell.chips == 1,
+                  f"{name}: {cell.step_name} on {cell.chips} chips")
+            args = materialize(cell, "cuda", STEP_COST_SEED)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = count_cell(cell, args=args)
+            count_s = time.perf_counter() - t0
+            host = count_cell(cell, device="cpu")
+            same = (card.to_dict() == host.to_dict() and card.parts == host.parts
+                    and card.launches == host.launches)
+            check(same, f"{name}: the fake card count {card.to_dict()} {card.parts} differs from the fake CPU "
+                        f"count {host.to_dict()} {host.parts}")
+
+            # the main path: one call of the cell's step, its launches counted from 0
+            fa.flash_attention.launches = 0
+            fa.flash_attention.shapes.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = cell.fn(*args)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            launches, shapes = fa.flash_attention.launches, dict(fa.flash_attention.shapes)
+            logits = out[0]
+            V = cfg.padded_vocab
+            check(logits.shape == (batch, V) and bool(torch.isfinite(logits).all()),
+                  f"{name}: logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+            if kind == "prefill":
+                cache = out[1]
+                check({k: tuple(v.shape) for k, v in cache.items()}
+                      == {k: (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.resolved_head_dim) for k in ("k", "v")}
+                      and all(bool(torch.isfinite(v).all()) for v in cache.values()), f"{name}: prefill cache")
+                want = fa.FlashLaunch(batch, seq, seq, cfg.n_heads, cfg.n_kv_heads, 128, 128, True, 0, 2)
+                check(launches == cfg.n_layers and shapes == {want: cfg.n_layers}
+                      and fa.select_route(torch.bfloat16, 128) == "wgmma",
+                      f"{name}: flash launches {launches} by shape {shapes}; want {cfg.n_layers} bf16 at {want}")
+                check(card.launches["flash_forward"] == {want: cfg.n_layers},
+                      f"{name}: the count's flash launches {card.launches['flash_forward']}")
+            else:
+                check(launches == 0, f"{name}: a decode step launched the flash kernel {launches} times")
+            del out, logits
+
+            try:
+                prof = device_profile(lambda: cell.fn(*args), wall_rounds=HOST_ROUNDS)
+            except RuntimeError as err:
+                raise CheckFailed(f"{name}: {err}") from err
+            BREAKDOWN_LEAD_MS.append(prof["lead_ms"])
+            BREAKDOWN_RETAKEN.extend(prof["retaken_margins_s"])
+            fa.flash_attention.launches = 0  # the profile's calls are not the main path's
+            fa.flash_attention.shapes.clear()
+            wall_s = prof["wall_ms"] / 1e3
+            roof = roofline_from_summary(card, arch=STEP_COST_ARCH, shape=name, mesh="1x1", chips=1,
+                                         model_flops_total=cell.model_flops, chip=chip)
+            top = sorted(prof["us_by_kernel"].items(), key=lambda kv: -kv[1])[:STEP_COST_TOP]
+            cells[name] = {
+                "step": cell.step_name, "rows": batch, "seq": seq, "tokens": shape.tokens,
+                "count_s": count_s, "counted": {**card.to_dict(), "parts": card.parts},
+                "fake_card_count_equals_fake_cpu_count": True,
+                "flash_forward_launches": launches,
+                "flash_routes": {"wgmma": launches} if launches else {},
+                "first_call_ms": first_ms, "step_ms": prof["wall_ms"], "device_busy_ms": prof["busy_ms"],
+                "idle_share": prof["idle_share"], "device_events": prof["device_events"],
+                "top_kernels_ms": {k: v / 1e3 for k, v in top},
+                "roofline": {**roof.to_dict(), "chip": chip.name,
+                             "model_flops_over_peak_times_step": cell.model_flops
+                             / (chip.peak_bf16_flops * wall_s)},
+                "model_flops": cell.model_flops,
+                "counted_over_2N_tokens": card.flops_per_device / cell.model_flops,
+            }
+            summaries[name] = card
+            del args
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # the flash forward at the prefill's shape: held against its plain version, timed beside SDPA
+    _, seq, batch, _ = STEP_COST_SHAPES[0]
+    H, D = cfg.n_heads, cfg.resolved_head_dim
+    q, k, v = (randn((batch, seq, H, D), torch.bfloat16, 700 + j) for j in range(3))
+    got, want = ops.flash_attention(q, k, v, causal=True), ops.flash_attention(q, k, v, causal=True, impl="plain")
+    torch.cuda.synchronize()
+    flash_err = (got.float() - want.float()).abs().max().item()
+    check(torch.allclose(got.float(), want.float(), **BF16_TOL), f"flash kernel disagrees with plain at {q.shape}")
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    ms = time_interleaved({
+        "kernel": lambda: ops.flash_attention(q, k, v, causal=True),
+        "plain": lambda: ops.flash_attention(q, k, v, causal=True, impl="plain"),
+        "library": lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
+    }, eager=("plain",))  # the plain version's 2 GB of fp32 scores a call, eager: not 50 of them in one graph
+    flops, nbytes = fa.flash_flops(batch, seq, seq, H, D, causal=True), fa.flash_bytes(batch, seq, seq, H, H, D, 2)
+    bound_ms, bound_by = _bound(flops, nbytes, smi)
+    flash_row = {"shape": f"B={batch} S={seq} Hq=Hkv={H} D={D} bf16 causal (the prefill cell's)", "route": "wgmma",
+                 "max_abs_err": flash_err, "kernel_ms": ms["kernel"]["median"], "plain_ms": ms["plain"]["median"],
+                 "library_ms": ms["library"]["median"], "bound_ms": bound_ms, "bound_by": bound_by,
+                 "kernel_tflops": flops / (ms["kernel"]["median"] * 1e-3) / 1e12,
+                 "spread_ms": {n: [m["min"], m["max"]] for n, m in ms.items()}}
+    fa.flash_attention.launches = 0
+    fa.flash_attention.shapes.clear()
+    del q, k, v, qh, kh, vh, got, want
+
+    # the counted prefill replayed on two simulated streams: CUDA landings, then NumPy's
+    kernels = kernels_from_summary(summaries["prefill_2k"], "deepseek7b_prefill", n_kernels=STEP_COST_KERNELS)
+    ss.segment_scatter.launches = ss.scatter_add.launches = 0
+    res, wall, rec = _sim_replay(kernels, "torch")
+    scatter = {"segment_scatter": ss.segment_scatter.launches, "scatter_add_u64": ss.scatter_add.launches}
+    calls = {n: rec.kernel_calls[n] for n in scatter}
+    check(scatter == calls and scatter["scatter_add_u64"] >= 1, f"replay: launches {scatter}, calls {calls}")
+    np_res, np_wall, np_rec = _sim_replay(kernels, "numpy")
+    # each synthesized kernel lands at most max_synth_beats (+ one partial beat of each kind) beats, each
+    # an event on the tip and on the clean view, however many bytes it stands for
+    beat_bound = 2 * STEP_COST_KERNELS * (SimConfig().max_synth_beats + 3)
+    check(rec.flush_events == np_rec.flush_events <= beat_bound,
+          f"replay landed {rec.flush_events} / {np_rec.flush_events} events, bound {beat_bound}")
+    per_stream, checks = _fig5_checks(res)
+    np_per_stream, _ = _fig5_checks(np_res)
+    check(all(checks.values()), f"replay on the card fails fig5's checks: {checks}")
+    check(res.signature() == np_res.signature() and per_stream == np_per_stream
+          and np.array_equal(res.stats.aggregate(), np_res.stats.aggregate()),
+          f"replay: the card's counts {per_stream} differ from NumPy's {np_per_stream}")
+    replay = {"kernels": STEP_COST_KERNELS, "streams": STEP_COST_STREAMS, "repeats": STEP_COST_REPEATS,
+              "cycles": res.cycles, "per_stream_accesses": {str(s): n for s, n in per_stream.items()},
+              "checks": checks, "numpy_counts_equal": True, "launches": scatter, "calls": calls,
+              "wall_s": wall, "numpy_wall_s": np_wall, "landed_events": rec.flush_events,
+              "landed_events_bound": beat_bound,
+              "kernel_hbm_rd_bytes": kernels[0].hbm_rd_bytes, "kernel_flops": kernels[0].flops}
+    ss.segment_scatter.launches = ss.scatter_add.launches = 0
+
+    # the accumulate entry (the replay's landing) at the replay's largest flush, beside index_add_
+    before, lin, cnt, after = np_rec.largest_flush
+    lin_d, cnt_d, base = _u64_on_card(lin), _u64_on_card(cnt), _u64_on_card(before)
+    got = base.clone()
+    bad = ss.scatter_add(got, lin_d, cnt_d)
+    check(np.array_equal(got.cpu().numpy().view(np.uint64), after) and bad.item() == 0,
+          "accumulate entry differs from NumPy's largest replay flush")
+    dense_k, dense_p, dense_l = base.clone(), base.clone(), base.clone()
+    ms = time_interleaved({
+        "kernel": lambda: ss.scatter_add(dense_k, lin_d, cnt_d),
+        "plain": lambda: scatter_add_ref(dense_p, lin_d, cnt_d),
+        "library": lambda: dense_l.index_add_(0, lin_d, cnt_d),
+    }, eager=("plain",))
+    touched = int(np.unique(lin).size)
+    nbytes = 16 * len(lin) + 16 * touched
+    scatter_row = {"shape": f"{len(lin)} events into {before.size} cells (the replay's largest flush)",
+                   "events": len(lin), "buffer_cells": int(before.size), "touched_cells": touched,
+                   "max_abs_err": 0, "kernel_ms": ms["kernel"]["median"], "plain_ms": ms["plain"]["median"],
+                   "library_ms": ms["library"]["median"], "bound_ms": nbytes / chip.hbm_bw * 1e3,
+                   "bound_by": "bytes", "spread_ms": {n: [m["min"], m["max"]] for n, m in ms.items()}}
+    ss.scatter_add.launches = 0
+    del lin_d, cnt_d, base, got, dense_k, dense_p, dense_l
+    emit({"phase": "step_cost", "config": STEP_COST_ARCH, "n_layers": cfg.n_layers, "mesh": "(data 1, model 1), "
+          "one-rank NCCL", "seed": STEP_COST_SEED, "chip": chip.name, "cells": cells, "flash_at_prefill": flash_row,
+          "replay": replay, "accumulate_at_replay_flush": scatter_row,
+          "counted_by": summaries["prefill_2k"].counted_by,
+          "timing_note": f"step_ms: host-clock median of {HOST_ROUNDS} warm calls, each synchronised; busy and "
+                         "top kernels from one torch.profiler trace of a further call; kernel rows: median of "
+                         f"{ROUNDS} readings of {LAUNCHES} ({PLAIN_LAUNCHES} plain or slow) calls replayed from a "
+                         "CUDA graph (the plain versions eager), inputs warm in L2"})
+    return cells["prefill_2k"]["flash_forward_launches"], flash_row, scatter_row, scatter
 
 
 def phase_sim_sweep(numpy_sweep):
@@ -4024,6 +4338,9 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     sass = phase_build()
+    # first, in a fresh process: late in a long one the profiler loses whole sides of this phase's prefill trace
+    step_fwd, step_flash, step_scatter, replay_launches = phase_step_cost(smi)
+    torch.cuda.empty_cache()
     bf16_err, timings, d256 = phase_kernel(smi, served_prompt_lens())
     mla = phase_mla_kernel(smi, served_prompt_lens(),
                            sass["flash_attention_wgmma"][f"flash_fwd_wgmma {_dims_label(MLA_DQK, MLA_DV)}"])
@@ -4086,15 +4403,17 @@ def main() -> int:
                   "in one softmax pass (natural exp, as the plain version; P in shared memory), O += P V in 8 x 4 "
                   "register blocks), timed in fp32 as fp32",
         "launches": (launches + mla_launches + hybrid_full["flash_launches"] + dense_fwd + gemma_fwd + moe_fwd
-                     + encdec_fwd + encdec_prefill + prefix_fwd + prefix_prefill + dist_fwd + pipe_fwd),
+                     + encdec_fwd + encdec_prefill + prefix_fwd + prefix_prefill + dist_fwd + pipe_fwd + step_fwd),
         "launches_by_path": {"serving": launches, "moe_mla_serving": mla_launches,
                              "hybrid_serving": hybrid_full["flash_launches"], "dense_training": dense_fwd,
                              "gemma_training": gemma_fwd, "moe_mla_training": moe_fwd,
                              "encdec_training": encdec_fwd, "encdec_prefill": encdec_prefill,
                              "prefix_lm_training": prefix_fwd, "prefix_lm_prefill": prefix_prefill,
-                             "compressed_training": dist_fwd, "pipeline": pipe_fwd},
+                             "compressed_training": dist_fwd, "pipeline": pipe_fwd, "step_cost_prefill": step_fwd},
         "max_abs_err": max(bf16_err, op_err, *mla["max_abs_err"].values(),
-                           moe_full["attention_op_bf16"]["max_abs_err"]),
+                           moe_full["attention_op_bf16"]["max_abs_err"], step_flash["max_abs_err"]),
+        "step_cost_prefill": {k: step_flash[k] for k in ("shape", "route", "kernel_ms", "plain_ms", "library_ms",
+                                                         "bound_ms", "bound_by", "kernel_tflops")},
         "prefix_lm_and_encdec": {"source": fa.SOURCE, "simt_source": fa.SIMT_SOURCE,
                                  "max_abs_err": prefix["max_abs_err"], "timing": new_shapes("forward")},
         "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
@@ -4204,10 +4523,14 @@ def main() -> int:
         "accumulate_entry": {"launches": seg_launches["scatter_add_u64"],
                              **{k: acc_timing[k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
                                                            "events", "buffer_cells")}},
+        "step_cost_replay": {"launches": replay_launches,
+                             **{k: step_scatter[k] for k in ("shape", "kernel_ms", "plain_ms", "library_ms",
+                                                              "bound_ms", "bound_by")}},
     }]})
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s; profiler traces taken again at margins "
           f"{BREAKDOWN_RETAKEN} s; kept traces' first device event {min(BREAKDOWN_LEAD_MS):.3f} to "
-          f"{max(BREAKDOWN_LEAD_MS):.3f} ms after their margin", flush=True)
+          f"{max(BREAKDOWN_LEAD_MS):.3f} ms after their margin; seconds to each phase's line "
+          f"{json.dumps({k: round(v, 1) for k, v in PHASE_S.items()})}", flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

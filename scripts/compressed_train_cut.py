@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with an NVIDIA GPU:
 
-    python3 scripts/compressed_train_cut.py                  # both readings
+    python3 scripts/compressed_train_cut.py                  # every reading
     python3 scripts/compressed_train_cut.py depth            # one of them
     python3 scripts/compressed_train_cut.py depth --depths 6 7
 
@@ -21,6 +21,15 @@ Run from the root of a checkout on a machine with an NVIDIA GPU:
   seed: each run's losses, its held-out loss before and after (the phase's
   fixed probe batch), and the largest difference between the two repeated
   runs' weights after the run.
+* ``seeds``: ``DIST_CUT`` trained from each seed of ``--seeds`` (added to
+  the weights' seed and the training batches'; the probe batch is the
+  phase's) for each step count of ``--steps``, without compression (an fp32
+  accumulator, as ``dense_train_full_width``) and with it (the phase's):
+  each run's held-out loss before and after and its change less the
+  uncompressed run's of the same seed and steps; the first compressed run
+  once more from the same seed (the same-code repeat); and, after each
+  compressed run, the share of nonzero int8 codes in each compression group
+  of a fresh gradient of the probe's first microbatch.
 
 One JSON line a run, beside the card's name and power limit.  Exits non-zero
 without a GPU.
@@ -41,7 +50,7 @@ sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
-READINGS = ("depth", "held_out")
+READINGS = ("depth", "held_out", "seeds")
 STEPS, LIMIT_GB = 3, 72
 
 
@@ -99,10 +108,70 @@ def held_out(cs, smi):
         print(json.dumps(line), flush=True)
 
 
+def int8_shares(run, cut):
+    """Share of nonzero int8 codes in each compression group of one fresh
+    gradient (the probe's first microbatch, no error feedback carried)."""
+    from repro_torch.optim import ef_compress, ef_state_init
+    from repro_torch.train import compress_groups
+
+    run.opt = run.trainer = None  # the moments and the trainer's buffers, room for three fp32 copies
+    torch.cuda.empty_cache()
+    params = dict(run.model.named_parameters())
+    micro = {k: v[: cut.batch // cut.micro] for k, v in run.probe.items()}
+    total, _ = run.held_out(micro)
+    grads = {n: g.float() for n, g in zip(params, torch.autograd.grad(total, list(params.values())))}
+    groups = compress_groups(run.model.cfg, params)
+    deq = ef_compress(grads, ef_state_init(params), groups)[0]
+    nonzero, size = {}, {}
+    for n, d in deq.items():
+        key = groups.get(n, n)
+        nonzero[key] = nonzero.get(key, 0) + int((d != 0).sum())
+        size[key] = size.get(key, 0) + d.numel()
+    return {key: nonzero[key] / size[key] for key in nonzero}
+
+
+def seeds(cs, smi, seed_list, step_counts):
+    cut = cs.DIST_CUT
+    cfg = cs.cut_config(cut)
+    kept = None
+    plan = [(steps, seed, compress, 0) for steps in step_counts for seed in seed_list for compress in (False, True)]
+    plan.insert(2, (step_counts[0], seed_list[0], True, 1))
+    uncompressed = {}
+    for steps, seed, compress, repeat in plan:
+        kw = dict(compress_grads=True, accum_dtype=cut.accum_dtype) if compress else {}
+        run = cs.full_width_run(cfg, steps, cut.eval_every, seed=seed, **kw)
+        change = run.held_out_after - run.held_out_before
+        line = {"reading": "seeds", "config": cfg.name, "n_layers": cfg.n_layers, "seed": seed, "steps": steps,
+                "compress_grads": compress, "accum_dtype": kw.get("accum_dtype", "float32"), "repeat": repeat,
+                "peak_lr": cs.DENSE_LR, "losses": [h["loss"] for h in run.hist],
+                "held_out_before": run.held_out_before, "held_out_after": run.held_out_after,
+                "held_out_change": change, "device": smi}
+        if not compress:
+            uncompressed[steps, seed] = change
+        else:
+            line["change_less_uncompressed"] = change - uncompressed[steps, seed]
+            weights = {n: p.detach() for n, p in run.model.named_parameters()}
+            if (steps, seed) == (step_counts[0], seed_list[0]):
+                if kept is None:
+                    kept = {n: w.clone() for n, w in weights.items()}
+                else:
+                    line["max_weight_difference_from_first_run"] = max(
+                        (w.float() - kept[n].float()).abs().max().item() for n, w in weights.items())
+                    kept = None
+            del weights
+            if not repeat:
+                line["int8_nonzero_share"] = int8_shares(run, cut)
+        del run
+        torch.cuda.empty_cache()
+        print(json.dumps(line), flush=True)
+
+
 def main(argv=None) -> int:
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    args.add_argument("readings", nargs="*", choices=READINGS, help="default: both")
+    args.add_argument("readings", nargs="*", choices=READINGS, help="default: all")
     args.add_argument("--depths", nargs="*", type=int, default=[7, 8, 9])
+    args.add_argument("--seeds", nargs="*", type=int, default=[0, 1, 2, 3])
+    args.add_argument("--steps", nargs="*", type=int, default=[10, 30])
     ns = args.parse_args(argv)
     readings = ns.readings or list(READINGS)
     if not torch.cuda.is_available():
@@ -118,6 +187,8 @@ def main(argv=None) -> int:
         depth(cs, smi, ns.depths)
     if "held_out" in readings:
         held_out(cs, smi)
+    if "seeds" in readings:
+        seeds(cs, smi, ns.seeds, ns.steps)
     return 0
 
 

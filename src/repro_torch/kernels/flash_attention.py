@@ -78,7 +78,12 @@ A CUDA tensor launches a kernel or raises; nothing falls back to another
 kernel or to the plain version.  Only a CPU tensor takes the plain versions
 (:func:`repro_torch.kernels.ref.attention_ref`,
 :func:`~repro_torch.kernels.ref.attention_lse_ref`,
-:func:`~repro_torch.kernels.ref.flash_backward_ref`).
+:func:`~repro_torch.kernels.ref.flash_backward_ref`).  A ``FakeTensor``
+(``torch._subclasses.fake_tensor``, on any device: the cost count of
+:func:`repro_torch.perf.cost.count_step`) builds and launches nothing: the
+wrapper records the launch it stands for in ``.fake_shapes`` (not in
+``.launches`` or ``.shapes``, which count real launches only) and returns
+empty outputs of the kernel's shapes.
 """
 
 from __future__ import annotations
@@ -93,7 +98,8 @@ from . import build
 from .ref import attention_lse_ref, attention_ref, flash_backward_ref
 
 __all__ = [
-    "flash_attention", "flash_attention_backward", "flash_flops", "flash_bytes", "FlashLaunch", "select_route",
+    "is_fake", "flash_attention", "flash_attention_backward", "flash_flops", "flash_bytes", "FlashLaunch",
+    "select_route",
     "select_bwd_route", "tma_strides", "ROUTES", "SUPPORTED_HEAD_DIMS", "FWD_PAIRS", "BWD_LAUNCHES", "BWD_P_TERMS", "BWD_DS_TERMS",
     "SOURCE", "SIMT_SOURCE", "BWD_SOURCE", "BWD_SIMT_SOURCE", "REPLACES", "BWD_REPLACES",
 ]
@@ -127,6 +133,15 @@ BWD_REPLACES = "src/repro/kernels/ops.py:38 (the gradient XLA takes of _xla_flas
 TMA_ALIGN = 16
 #: rows of the tensor-core backward's q tiles: its lse/Dᵢ scratch pads Sq to a multiple
 _BWD_ROWS = 64
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a ``FakeTensor``: shapes and dtypes without data,
+    which a wrapper answers by recording its launch and returning empty
+    outputs (a cost count), never by building or launching a kernel."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)
 
 
 def _dims_text(dims: Tuple[int, int]) -> str:
@@ -359,6 +374,11 @@ def flash_attention(
     scale = float(scale if scale is not None else D ** -0.5)
     if route is not None:  # a CPU call with it runs the plain version
         _check_route(q.dtype, (D, Dv), route, FWD_PAIRS, ((256, 256),))
+    if is_fake(q):
+        flash_attention.fake_shapes[_launch_record(q, k, v, causal, prefix_len)] += 1
+        B, Sq, Hq, _ = q.shape
+        out = q.new_empty((B, Sq, Hq, Dv))
+        return (out, q.new_empty((B, Hq, Sq), dtype=torch.float32)) if return_lse else out
     if _device(q, k, v).type == "cpu":
         mask = dict(causal=causal, scale=scale, prefix_len=prefix_len)
         out = attention_ref(q, k, v, **mask)
@@ -396,6 +416,8 @@ def flash_attention(
 flash_attention.launches = 0
 #: those launches by :class:`FlashLaunch` (shape, mask, element size)
 flash_attention.shapes = Counter()
+#: the launches that calls on fake tensors stood for, by :class:`FlashLaunch` (nothing launched)
+flash_attention.fake_shapes = Counter()
 
 
 def flash_attention_backward(
@@ -439,6 +461,9 @@ def flash_attention_backward(
     scale = float(scale if scale is not None else D ** -0.5)
     if route is not None:  # a CPU call with it runs the plain version
         _check_route(q.dtype, (D, Dv), route, FWD_PAIRS, _EQUAL_PAIRS)
+    if is_fake(q):
+        flash_attention_backward.fake_shapes[_launch_record(q, k, v, causal, prefix_len)] += 1
+        return q.new_empty((B, Sq, Hq, D)), k.new_empty((B, Sk, Hkv, D)), v.new_empty((B, Sk, Hkv, Dv))
     if _device(q, k, v, o, lse, do).type == "cpu":
         return flash_backward_ref(q, k, v, o, lse, do, causal=causal, scale=scale, prefix_len=prefix_len)
     route = route or select_bwd_route(q.dtype, D, Dv)
@@ -477,3 +502,5 @@ def flash_attention_backward(
 flash_attention_backward.launches = 0
 #: those calls by :class:`FlashLaunch` (shape, mask, element size)
 flash_attention_backward.shapes = Counter()
+#: the calls that fake tensors stood for, by :class:`FlashLaunch` (nothing launched)
+flash_attention_backward.fake_shapes = Counter()

@@ -3,7 +3,9 @@
 ``impl`` of :func:`flash_attention` and :func:`ssd_scan`:
 
 * ``"auto"``  — the CUDA kernel for a CUDA tensor, the plain version for a
-  CPU tensor (the only reason the plain version runs on the main path);
+  CPU tensor (the only reason the plain version runs on the main path); a
+  fake tensor on either device takes the kernel's path, whose wrapper
+  records the launch by its shape (a cost count, ``perf.cost``);
 * ``"plain"`` — the plain version on any device, so that tests and
   ``chip_smoke.py`` can hold the kernel against it.
 
@@ -28,7 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from .flash_attention import flash_attention as flash_attention_cuda
-from .flash_attention import flash_attention_backward
+from .flash_attention import flash_attention_backward, is_fake
 from .ref import attention_ref, ssd_chunked_ref
 from .ssd_scan import ssd_scan_autograd
 
@@ -78,7 +80,7 @@ def flash_attention(
         raise ValueError(f"unknown impl {impl!r} (want 'auto' or 'plain')")
     if impl == "plain":
         return attention_ref(q, k, v, causal=causal, scale=scale, prefix_len=prefix_len)
-    if q.device.type != "cpu" and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if (q.device.type != "cpu" or is_fake(q)) and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, scale, prefix_len)
     return flash_attention_cuda(q, k, v, causal=causal, scale=scale, prefix_len=prefix_len)
 
@@ -144,6 +146,6 @@ def ssd_scan(
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown impl {impl!r} (want 'auto' or 'plain')")
     chunk = ref_chunk(x.shape[1], chunk)
-    if impl == "plain" or x.device.type == "cpu":
+    if impl == "plain" or (x.device.type == "cpu" and not is_fake(x)):
         return ssd_chunked_ref(x, dt, A, Bm, Cm, D, h0, chunk=chunk, return_state=True)
     return ssd_scan_autograd(x, dt, A, Bm, Cm, D, h0, chunk=chunk)

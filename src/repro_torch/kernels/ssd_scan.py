@@ -60,21 +60,28 @@ later work (``ROADMAP.md``).
 
 A CUDA tensor launches a kernel or raises; nothing falls back to the other
 kernel or to the plain version.  Only a CPU tensor takes the plain version.
+A ``FakeTensor`` (on any device: the cost count of
+:func:`repro_torch.perf.cost.count_step`) builds and launches nothing: the
+wrapper records the launch it stands for as an :class:`SSDLaunch` in
+``ssd_scan.fake_shapes`` (not in ``ssd_scan.launches``) and returns empty
+outputs of the kernel's shapes.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from collections import Counter
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import build
-from .flash_attention import tma_strides
+from .flash_attention import is_fake, tma_strides
 from .ref import ssd_chunked_ref
 
 __all__ = [
-    "ssd_scan", "SSDScan", "ssd_scan_autograd", "ssd_flops", "ssd_bytes", "select_route", "tiles_per_chunk", "ROUTES",
+    "ssd_scan", "SSDScan", "SSDLaunch", "ssd_scan_autograd", "ssd_flops", "ssd_bytes", "select_route", "tiles_per_chunk",
+    "ROUTES",
     "MAX_STATE", "MAX_CHUNK_TILES", "TILE", "SIMT_SLICE", "KERNELS_PER_CALL", "WGMMA_HEAD_DIMS", "WGMMA_STATES",
     "SOURCE", "SIMT_SOURCE", "REPLACES", "simt_scratch",
 ]
@@ -155,6 +162,26 @@ def ssd_bytes(B: int, S: int, H: int, P: int, N: int, G: int, esize: int) -> int
     return esize * (2 * B * S * H * P + 2 * B * S * G * N) + 4 * B * S * H + 2 * 4 * H + 4 * B * H * P * N
 
 
+class SSDLaunch(NamedTuple):
+    """One call of the SSD kernel as a fake-tensor call records it (shape,
+    element size of x, B and C), priced by :func:`ssd_flops` and
+    :func:`ssd_bytes`."""
+
+    B: int
+    S: int
+    H: int
+    P: int
+    N: int
+    G: int
+    esize: int
+
+    def flops(self) -> int:
+        return ssd_flops(self.B, self.S, self.H, self.P, self.N, self.G)
+
+    def bytes(self) -> int:
+        return ssd_bytes(self.B, self.S, self.H, self.P, self.N, self.G, self.esize)
+
+
 def _kernel_fn(route: str):
     """The route's C entry point and its error-string function."""
     ll, i, p = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
@@ -216,6 +243,11 @@ def ssd_scan(
     raises.  No gradient flows through this function: :class:`SSDScan` is
     its differentiable form."""
     _check(x, dt, A, Bm, Cm, D, h0)
+    if is_fake(x):
+        Bsz, S, H, P = x.shape
+        G, N = Bm.shape[2], Bm.shape[3]
+        ssd_scan.fake_shapes[SSDLaunch(Bsz, S, H, P, N, G, x.element_size())] += 1
+        return x.new_empty((Bsz, S, H, P)), x.new_empty((Bsz, H, P, N), dtype=torch.float32)
     tensors = [t for t in (x, dt, A, Bm, Cm, D, h0) if t is not None]
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -312,6 +344,8 @@ def _wgmma_args(x, Bm, Cm, h0):
 
 #: launches of the CUDA kernel since the count was last set to 0
 ssd_scan.launches = 0
+#: the calls that fake tensors stood for, by :class:`SSDLaunch` (nothing launched)
+ssd_scan.fake_shapes = Counter()
 
 
 class SSDScan(torch.autograd.Function):

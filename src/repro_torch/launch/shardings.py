@@ -35,15 +35,22 @@ __all__ = ["ShardingPlan", "PlanOverrides", "make_plan"]
 
 @dataclass(frozen=True)
 class PlanOverrides:
-    """Hillclimbing levers (all optional): the reference's that
-    :func:`make_plan` reads (its others — remat, microbatches, kv-cache
-    dtype, decode loop, SSD chunk, accumulator dtype — are read by the
-    step factory, ``launch/steps.py``, not yet ported)."""
+    """Hillclimbing levers (all optional), the reference's: the first four
+    :func:`make_plan` reads; the step factory (:func:`~.steps.build_cell`)
+    reads the rest, and raises on a value the port does not honour (the
+    decode loop: the port's decode step writes its cache in place, so only
+    ``"inplace"``)."""
 
     param_rules: Dict[str, Any] = field(default_factory=dict)  # logical→axis overrides
     act_rules: Dict[str, Any] = field(default_factory=dict)
     fsdp: bool = True  # shard params over "data" (ZeRO-3) or replicate
     seq_shard_long: bool = True  # long-context: cache seq on "data"
+    remat: Optional[str] = None  # none | dots | full
+    microbatches: Optional[int] = None
+    kv_cache_dtype: Optional[str] = None
+    decode_loop: Optional[str] = None  # inplace | scan
+    ssd_chunk: Optional[int] = None
+    accum_dtype: Optional[str] = None  # grad accumulator dtype
 
 
 @dataclass

@@ -17,7 +17,10 @@ Three properties the port keeps on purpose:
 * the combine adds each token's ``k`` contributions one after another in
   the order the reference's ``segment_sum`` meets them (ascending expert),
   in the activations' dtype, with no atomics: a token's output does not
-  depend on the run;
+  depend on the run; the dispatch's gradient does the same
+  (:class:`_GatherTokens`: autograd's own backward of that gather is a
+  ``scatter_add`` whose ``k`` colliding rows a token are atomic adds on
+  the card, in an order that changes from run to run);
 * every shape is fixed by ``(B, S, E, C)``, and counts are taken with
   ``scatter_add_`` rather than ``bincount``, so a decode step on the card
   makes no host sync in an MoE layer.
@@ -41,7 +44,7 @@ from .act_sharding import constrain
 from .layers import ffn_apply, ffn_defs
 from .params import ParamDef
 
-__all__ = ["moe_defs", "moe_apply", "moe_apply_dense", "router_topk", "capacity"]
+__all__ = ["moe_defs", "moe_apply", "moe_apply_dense", "router_topk", "capacity", "gather_tokens"]
 
 
 def moe_defs(cfg: ModelConfig, moe: MoEConfig) -> Dict[str, ParamDef]:
@@ -85,6 +88,45 @@ def _act(g: torch.Tensor, act: str) -> torch.Tensor:
     return F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
 
 
+def _sum_in_order(rows: torch.Tensor) -> torch.Tensor:
+    """``rows`` (B, T, k, d) summed over k one term after another, in order."""
+    out = rows[:, :, 0]
+    for j in range(1, rows.shape[2]):
+        out = out + rows[:, :, j]
+    return out
+
+
+class _GatherTokens(torch.autograd.Function):
+    """``x.gather(1, token_of[..., None].expand(B, T·k, d))``: each token's
+    row once for each of its ``k`` expert entries, in sorted-expert order.
+    Its gradient adds each token's ``k`` rows in a fixed order (the entries'
+    ascending expert, through the permutation ``by_token`` that groups them
+    by token, as the forward combine does) rather than by autograd's
+    ``scatter_add``, whose colliding rows are atomic adds on the card."""
+
+    @staticmethod
+    def forward(ctx, x, token_of, by_token, k):
+        B, T, d = x.shape
+        ctx.save_for_backward(by_token)
+        ctx.k = k
+        return x.gather(1, token_of[..., None].expand(B, token_of.shape[1], d))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (by_token,) = ctx.saved_tensors
+        B, Tk, d = grad.shape
+        rows = grad.gather(1, by_token[..., None].expand(B, Tk, d))
+        return _sum_in_order(rows.view(B, Tk // ctx.k, ctx.k, d)), None, None, None
+
+
+def gather_tokens(x: torch.Tensor, token_of: torch.Tensor, by_token: torch.Tensor, k: int) -> torch.Tensor:
+    """Each token's row of ``x`` (B, T, d) at every entry of ``token_of``
+    (B, T·k: the token of each sorted entry, each token ``k`` times), with a
+    gradient that sums a token's ``k`` rows in order (:class:`_GatherTokens`;
+    ``by_token`` is ``argsort(token_of, stable=True)``)."""
+    return _GatherTokens.apply(x, token_of, by_token, k)
+
+
 def _dispatch_combine(params, x, w, idx, cfg: ModelConfig, moe: MoEConfig, C: int) -> torch.Tensor:
     """Sort-based dispatch and combine, each batch row one group with its own
     capacity ``C``.  ``x`` (B, T, d), ``w``/``idx`` (B, T, k) → (B, T, d)."""
@@ -103,7 +145,8 @@ def _dispatch_combine(params, x, w, idx, cfg: ModelConfig, moe: MoEConfig, C: in
     # a dropped entry lands on one extra row, which nothing reads
     rows = torch.arange(B, device=dev)[:, None]
     slot = torch.where(keep, (sorted_e * B + rows) * C + rank, E * B * C)
-    src = x.gather(1, token_of[..., None].expand(B, T * k, d))
+    by_token = torch.argsort(token_of, dim=1, stable=True)  # each token's k entries together, in sorted order
+    src = gather_tokens(x, token_of, by_token, k)
     buf = torch.zeros((E * B * C + 1, d), dtype=x.dtype, device=dev)
     buf = buf.index_copy(0, slot.reshape(-1), src.reshape(-1, d))[:-1].view(E, B * C, d)
 
@@ -115,12 +158,8 @@ def _dispatch_combine(params, x, w, idx, cfg: ModelConfig, moe: MoEConfig, C: in
     back = torch.where(keep[..., None], y[torch.where(keep, slot, 0)], 0.0)
     contrib = back * w.reshape(B, T * k).gather(1, order)[..., None]
     # each token's k contributions in the sorted (ascending expert) order, added one after another
-    by_token = torch.argsort(token_of, dim=1, stable=True)
     contrib = contrib.gather(1, by_token[..., None].expand(B, T * k, d)).view(B, T, k, d)
-    out = contrib[:, :, 0]
-    for j in range(1, k):
-        out = out + contrib[:, :, j]
-    return out
+    return _sum_in_order(contrib)
 
 
 def moe_apply(

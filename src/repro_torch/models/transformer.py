@@ -83,7 +83,7 @@ from .mamba import init_mamba_cache, mamba_apply, mamba_decode, mamba_defs
 from .moe import moe_apply, moe_defs
 from .params import ParamTree, init_params
 
-__all__ = ["Transformer", "Encoder", "model_defs", "init_cache", "cache_rows"]
+__all__ = ["Transformer", "Encoder", "model_defs", "init_cache", "cache_rows", "param_tree"]
 
 Cache = Dict[str, torch.Tensor]
 #: the SSM cache leaves, each stacked on a leading axis over the SSM layers
@@ -206,6 +206,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: Optional[torch
     return cache
 
 
+def param_tree(model: nn.Module) -> Dict[str, Any]:
+    """``model``'s parameters as the nested dict :meth:`Transformer.from_params`
+    takes (keyed as :func:`model_defs`), the tensors themselves."""
+    tree: Dict[str, Any] = {}
+    for name, p in model.named_parameters():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = p
+    return tree
+
+
 class Encoder(nn.Module):
     """An enc-dec config's encoder weights: ``layers`` (non-causal
     self-attention and FFN) and ``final_norm``; :meth:`Transformer._encode`
@@ -223,10 +236,23 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0) -> None:
         super().__init__()
-        self.cfg = cfg
         device = torch.device(device)
         generator = torch.Generator(device=device).manual_seed(seed)
-        tree = init_params(model_defs(cfg), generator, cfg.param_tdtype(), device)
+        self._build(cfg, init_params(model_defs(cfg), generator, cfg.param_tdtype(), device))
+
+    @classmethod
+    def from_params(cls, cfg: ModelConfig, tree: Dict[str, Any]) -> "Transformer":
+        """A model over the parameter tree ``tree`` (nested dicts keyed as
+        :func:`model_defs`), sharing its tensors: a step built on it updates
+        them in place (a cell's step over its inputs, a count on fake
+        copies)."""
+        model = cls.__new__(cls)
+        nn.Module.__init__(model)
+        model._build(cfg, tree)
+        return model
+
+    def _build(self, cfg: ModelConfig, tree: Dict[str, Any]) -> None:
+        self.cfg = cfg
         self.embed = ParamTree(tree["embed"])
         self.final_norm = ParamTree(tree["final_norm"])
         self.lm_head = ParamTree(tree["lm_head"]) if "lm_head" in tree else None

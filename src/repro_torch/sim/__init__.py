@@ -12,8 +12,9 @@ imports changed, except that ``SimConfig.array_backend`` defaults to
 its workers once CUDA is initialised, its pooled sweep maps one job per
 chunk (the reference's larger chunks make ``imap`` return a generator with
 no ``next(timeout=...)``, so its pooled sweep fails its first job), and
-``hlo_costs`` (KernelDescs from compiled HLO) is left out until the perf
-tooling is ported.
+``hlo_costs`` makes KernelDescs from a real step counted by
+:mod:`repro_torch.perf.cost` (``kernels_from_step``, in place of the
+reference's ``kernels_from_compiled``).
 """
 
 from .kernel_desc import Access, KernelDesc, LINE_SIZE, pointer_chase_trace, streaming_trace
@@ -47,6 +48,7 @@ from .microbench import (
     l2_lat_multistream,
     mixed_stream_workload,
 )
+from .hlo_costs import kernels_from_step, kernels_from_summary
 
 __all__ = [
     "Access",
@@ -88,4 +90,6 @@ __all__ = [
     "l2_lat_expected_counts",
     "l2_lat_multistream",
     "mixed_stream_workload",
+    "kernels_from_step",
+    "kernels_from_summary",
 ]

@@ -13,22 +13,17 @@ global norm, AdamW with the schedule's rate.
 
 from __future__ import annotations
 
-from collections import Counter
+import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
-from torch.utils.flop_counter import FlopCounterMode
 
 from ..configs.base import ModelConfig, torch_dtype
 from ..core import ReportSink, StepCost, StreamManager, StreamStats
 from ..core.query import StatsFrame
-from ..kernels import flash_attention as flash_kernel
-from ..kernels import ssd_scan as ssd_kernel
-from ..models import Transformer
+from ..models import Transformer, param_tree
 from ..models.convert import reference_leaf
 from ..optim import (
     AdamWConfig,
@@ -40,12 +35,14 @@ from ..optim import (
     ef_state_init,
     learning_rate,
 )
+from ..perf.cost import count_step
 
 __all__ = [
     "TrainConfig",
     "cross_entropy",
     "make_loss_fn",
     "make_train_step",
+    "functional_train_step",
     "init_train_state",
     "flash_widths",
     "compress_groups",
@@ -91,8 +88,8 @@ def _device_batch(batch, device, compute_dtype) -> Dict[str, torch.Tensor]:
     embeddings (``vision_embeds``) as floats in ``compute_dtype`` (the model
     casts them so too)."""
     dtypes = {**dict.fromkeys(_ID_KEYS, torch.long), **dict.fromkeys(_EMBED_KEYS, compute_dtype)}
-    return {k: torch.as_tensor(np.asarray(v)).to(device=device, dtype=dtypes[k]) for k, v in batch.items()
-            if k in dtypes}
+    return {k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))).to(device=device, dtype=dtypes[k])
+            for k, v in batch.items() if k in dtypes}
 
 
 def make_loss_fn(model: Transformer, tcfg: TrainConfig) -> Callable:
@@ -190,29 +187,20 @@ def make_train_step(model: Transformer, tcfg: TrainConfig) -> Callable:
     return train_step
 
 
-class _ByteCounter(TorchDispatchMode):
-    """Sums the bytes of every dispatched op's tensor inputs and outputs.
+def functional_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``, the reference's signature: :func:`make_train_step` over a
+    model built on the parameter tree ``params``
+    (``Transformer.from_params``, keyed as ``model_defs``), whose tensors
+    it updates in place and returns.  The step factory
+    (``launch/steps.py``) and the trainer's cost count call it."""
 
-    An unfused count: each eager op is taken to read its inputs and write its
-    outputs in full, once.  Views and allocations move nothing and are
-    skipped.  It is not XLA's ``bytes accessed`` (the reference's count,
-    taken after fusion), and it cannot see a kernel launched through ctypes,
-    whose bytes the trainer adds by formula."""
+    def train_step(params, opt_state, batch):
+        model = Transformer.from_params(cfg, params)
+        opt_state, metrics = make_train_step(model, tcfg)(opt_state, batch)
+        return params, opt_state, metrics
 
-    _NO_DATA = {
-        torch.ops.aten.empty.memory_format, torch.ops.aten.empty_strided.default, torch.ops.aten.empty_like.default,
-        torch.ops.aten._unsafe_view.default, torch.ops.aten.detach.default, torch.ops.aten.lift_fresh.default,
-    }
-
-    def __init__(self):
-        super().__init__()
-        self.bytes = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        if not func.is_view and func not in self._NO_DATA:
-            self.bytes += sum(t.nbytes for t in tree_flatten((args, kwargs, out))[0] if isinstance(t, torch.Tensor))
-        return out
+    return train_step
 
 
 def compress_groups(cfg: ModelConfig, names) -> Dict[str, str]:
@@ -252,12 +240,15 @@ class Trainer:
     The train lane and the (optional) eval lane are distinct *streams*: their
     step records and byte/FLOP attribution never mix
     (``stats.summary(train_stream)`` vs ``stats.summary(eval_stream)``).
-    The train lane's cost per step is counted once, over the first step:
-    FLOPs by ``torch.utils.flop_counter.FlopCounterMode`` and ``hbm_bytes``
-    by an unfused count of every dispatched op's inputs and outputs
-    (:class:`_ByteCounter`; not XLA's ``bytes accessed``), each plus what the
-    kernels launched through ctypes (the SSD scan, flash attention forward
-    and backward) add by formula, since neither counter can see them.
+    The train lane's cost per step is counted once, before the first step,
+    by :func:`repro_torch.perf.cost.count_step` on fake copies of the model,
+    the optimizer state and the batch (no data, no device work; the real
+    first step runs uncounted, like every other step): FLOPs by
+    ``torch.utils.flop_counter.FlopCounterMode`` and ``hbm_bytes`` by an
+    unfused count of every dispatched op's inputs and outputs (not XLA's
+    ``bytes accessed``), each plus what the hand-written kernels (the SSD
+    scan, flash attention forward and backward) add by formula, one count
+    per launch their wrappers record on the fake tensors, on either device.
     :attr:`cost_parts` names each part.  ``hbm_bytes`` lands on the train
     lane's ``GLOBAL_ACC_R`` MISS counter, as the reference's compiled cost
     does.
@@ -293,9 +284,11 @@ class Trainer:
         #: the train lane's per-step cost, and its parts: FLOPs ("counted",
         #: "ssd_kernel", "flash_forward", "flash_backward") and bytes (the same
         #: names after "bytes_"): what the counters saw and what each kernel's
-        #: launches add by formula
+        #: launches add by formula (``perf.cost.count_step``'s ``parts``)
         self.step_cost: Optional[StepCost] = None
         self.cost_parts: Dict[str, float] = {}
+        #: host seconds the count took (on fake tensors, before the first step)
+        self.count_s: Optional[float] = None
         self.eval_history: List[Dict[str, float]] = []
 
     def restore_or_init(self) -> Tuple[Transformer, Dict]:
@@ -312,60 +305,20 @@ class Trainer:
             self.step = int(meta.get("step", 0))
         return model, opt_state
 
-    @staticmethod
-    def _launches() -> Dict[str, Any]:
-        """The kernels' launch counts: the SSD scan's as a number, each flash
-        direction's by :class:`~repro_torch.kernels.flash_attention.FlashLaunch`
-        (a copy of the wrapper's record)."""
-        return {"ssd_kernel": ssd_kernel.ssd_scan.launches,
-                "flash_forward": Counter(flash_kernel.flash_attention.shapes),
-                "flash_backward": Counter(flash_kernel.flash_attention_backward.shapes)}
-
-    def _kernel_costs(self, batch, launched: Dict[str, Any]) -> Dict[str, float]:
-        """FLOPs and bytes that the kernels launched through ctypes add, by
-        formula: the SSD scan's ``launched["ssd_kernel"]`` launches at this
-        batch's microbatch shape, and each flash launch at its own shape and
-        mask, as the wrapper recorded it (``launched["flash_forward"]`` and
-        ``["flash_backward"]``: counts by ``FlashLaunch``; whisper's encoder,
-        cross and decoder launches and paligemma's prefix differ).  A kernel
-        that did not launch adds nothing."""
-        cfg = self.cfg
-        out = {"ssd_kernel": 0.0, "bytes_ssd_kernel": 0.0}
-        if launched["ssd_kernel"]:
-            rows, S = np.asarray(batch["tokens"]).shape
-            B = rows // self.tcfg.microbatches
-            esize = cfg.compute_tdtype().itemsize
-            s = cfg.ssm
-            H = s.n_heads(cfg.d_model)
-            n = launched["ssd_kernel"]
-            out["ssd_kernel"] = float(n * ssd_kernel.ssd_flops(B, S, H, s.head_dim, s.d_state, s.n_groups))
-            out["bytes_ssd_kernel"] = float(n * ssd_kernel.ssd_bytes(B, S, H, s.head_dim, s.d_state, s.n_groups,
-                                                                     esize))
-        for name, backward in (("flash_forward", False), ("flash_backward", True)):
-            shapes = launched[name]
-            out[name] = float(sum(n * rec.flops(backward) for rec, n in shapes.items()))
-            out[f"bytes_{name}"] = float(sum(n * rec.bytes(backward) for rec, n in shapes.items()))
-        return out
-
     def run(self, model: Transformer, opt_state, num_steps: int):
         step_fn = make_train_step(model, self.tcfg)
         loss_fn = make_loss_fn(model, self.tcfg)
         history = []
         for _ in range(num_steps):
             batch = next(self.data_iter)
+            if self.step_cost is None:  # on fake copies: the real step below runs uncounted
+                t0 = time.perf_counter()
+                summary = count_step(functional_train_step(self.cfg, self.tcfg), param_tree(model), opt_state, batch)
+                self.count_s = time.perf_counter() - t0
+                self.cost_parts = summary.parts
+                self.step_cost = StepCost(flops=summary.flops_per_device, hbm_bytes=summary.hbm_bytes_per_device)
             uid = self.stats.step_begin("train_step", self.train_stream)
-            if self.step_cost is None:
-                before = self._launches()
-                with FlopCounterMode(display=False) as counter, _ByteCounter() as moved:
-                    opt_state, metrics = step_fn(opt_state, batch)
-                launched = {name: n - before[name] for name, n in self._launches().items()}  # Counters subtract
-                self.cost_parts = {"counted": float(counter.get_total_flops()), "bytes_counted": float(moved.bytes),
-                                   **self._kernel_costs(batch, launched)}
-                parts = self.cost_parts.items()
-                self.step_cost = StepCost(flops=sum(v for k, v in parts if not k.startswith("bytes_")),
-                                          hbm_bytes=sum(v for k, v in parts if k.startswith("bytes_")))
-            else:
-                opt_state, metrics = step_fn(opt_state, batch)
+            opt_state, metrics = step_fn(opt_state, batch)
             metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device
             self.stats.step_end(uid, tokens=int(metrics["tokens"]), cost=self.step_cost, loss=metrics["loss"])
             self.step += 1

@@ -10,6 +10,8 @@ test needs an NVIDIA GPU and skips without one.  Run on the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -1207,3 +1209,93 @@ def test_adamw_on_bf16_gradients_equals_its_cpu_result(cuda):
         torch.testing.assert_close(b[n].cpu().float(), a[n].float(), rtol=2 ** -8, atol=1e-7)
         torch.testing.assert_close(sb["m"][n].cpu(), sa["m"][n], rtol=1e-5, atol=1e-7)
         torch.testing.assert_close(sb["v"][n].cpu(), sa["v"][n], rtol=1e-5, atol=1e-7)
+
+
+# --------------------------------------------------------------------------- the cost count (perf.cost)
+def _one_rank_cell(arch, kind, cfg=None):
+    """A smoke cell of ``arch`` from ``launch.steps.build_cell`` on a one-rank
+    (data 1, model 1) mesh over torch's ``fake`` process group (placements
+    only; nothing is communicated)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import ShapeConfig, get_smoke_config
+    from repro_torch.launch.mesh import make_tiny_mesh
+    from repro_torch.launch.steps import build_cell
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        mesh = make_tiny_mesh(data=1, model=1, device_type="cpu")
+        return build_cell(arch, cfg or get_smoke_config(arch), ShapeConfig("smoke", 64, 2, kind), mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch,kind", [("deepseek-7b", "prefill"), ("deepseek-7b", "train"),
+                                       ("mamba2-130m", "prefill"), ("mamba2-130m", "train")])
+def test_fake_count_equals_the_card_run(cuda, arch, kind):
+    """A smoke cell counted on fake copies of its card inputs equals its count
+    on fake CPU tensors, and the launches the count prices are the ones a real
+    run of the cell makes on the card: the fp32 flash kernels (deepseek-7b at
+    head dim 32) and the SSD kernel (mamba2)."""
+    from repro_torch.launch.steps import materialize
+    from repro_torch.perf.cost import count_cell
+
+    cell = _one_rank_cell(arch, kind)
+    args = materialize(cell, "cuda", seed=3)
+    card, host = count_cell(cell, args=args), count_cell(cell, device="cpu")
+    assert card.to_dict() == host.to_dict() and card.parts == host.parts and card.launches == host.launches
+    before = (Counter(fa.flash_attention.shapes), Counter(fa.flash_attention_backward.shapes), sk.ssd_scan.launches)
+    cell.fn(*args)
+    torch.cuda.synchronize()
+    assert Counter(fa.flash_attention.shapes) - before[0] == card.launches["flash_forward"]
+    assert Counter(fa.flash_attention_backward.shapes) - before[1] == card.launches["flash_backward"]
+    assert sk.ssd_scan.launches - before[2] == sum(card.launches["ssd_kernel"].values())
+    assert sum(card.launches["flash_forward"].values()) + sum(card.launches["ssd_kernel"].values()) > 0
+
+
+def test_a_real_cuda_tensor_never_takes_the_fake_branch(cuda):
+    q, k, v = _qkv((1, 64, 2, 2, 64), torch.bfloat16, cuda)
+    fake_before = (Counter(fa.flash_attention.fake_shapes), Counter(sk.ssd_scan.fake_shapes))
+    launches = (fa.flash_attention.launches, sk.ssd_scan.launches)
+    out = fa.flash_attention(q, k, v, causal=True)
+    x = torch.randn(1, 64, 2, 64, device=cuda)
+    dt = torch.rand(1, 64, 2, device=cuda)
+    A = -torch.rand(2, device=cuda)
+    Bm, Cm = (torch.randn(1, 64, 1, 16, device=cuda) for _ in range(2))
+    y, _ = sk.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
+    torch.cuda.synchronize()
+    assert not fa.is_fake(out) and not fa.is_fake(y)
+    assert (fa.flash_attention.launches, sk.ssd_scan.launches) == (launches[0] + 1, launches[1] + 1)
+    assert (Counter(fa.flash_attention.fake_shapes), Counter(sk.ssd_scan.fake_shapes)) == fake_before
+    torch.testing.assert_close(out.float(), attention_ref(q, k, v, causal=True).float(), atol=2e-2, rtol=1e-2)
+
+
+def test_two_seeded_moe_training_runs_are_bit_identical(cuda):
+    """The smallest MoE training cut (deepseek-v2-lite's smoke config at
+    deepseek-v2's published MLA head dims, fp32) trained twice from one seed
+    on one batch stream: every parameter and moment bit for bit the same after
+    three steps.  The MoE dispatch's gather sums each token's k gradient rows
+    in order (``models.moe.gather_tokens``), where autograd's scatter_add
+    added them by atomics in a run-dependent order."""
+    import dataclasses
+
+    from repro_torch.configs import MLAConfig, get_smoke_config
+    from repro_torch.data import DataConfig, make_train_iter
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = dataclasses.replace(get_smoke_config("deepseek-v2-lite-16b"),
+                              mla=MLAConfig(kv_lora_rank=32, qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128))
+    runs = []
+    for _ in range(2):
+        it = make_train_iter(DataConfig(global_batch=4, seq_len=64, vocab_size=cfg.vocab_size))
+        tr = Trainer(cfg, TrainConfig(microbatches=2), it, device="cuda")
+        model, opt = tr.restore_or_init()
+        model, opt, hist = tr.run(model, opt, 3)
+        it.close()
+        runs.append(({n: p.detach().cpu() for n, p in model.named_parameters()},
+                     {n: t.cpu() for n, t in opt["m"].items()}, [h["loss"] for h in hist]))
+    (p1, m1, l1), (p2, m2, l2) = runs
+    assert l1 == l2
+    assert [n for n in p1 if not torch.equal(p1[n], p2[n])] == []
+    assert [n for n in m1 if not torch.equal(m1[n], m2[n])] == []

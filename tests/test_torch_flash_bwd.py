@@ -349,7 +349,8 @@ def test_flops_and_bytes_count_each_product_at_its_width():
 
 
 def test_trainer_prices_mla_attention_at_its_widths():
-    """``Trainer._kernel_costs`` prices deepseek-v2's flash launches at (q/k
+    """The trainer's cost count (``perf.cost.kernel_costs``, which prices each
+    launch the wrappers record) prices deepseek-v2's flash launches at (q/k
     192, v 128) with K and V expanded to every query head, as
     ``flash_widths`` says, ``mla_apply`` calls them and the wrapper records
     them; a GQA config stays at its head dim and kv heads."""
@@ -357,14 +358,13 @@ def test_trainer_prices_mla_attention_at_its_widths():
     from collections import Counter
 
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.train import TrainConfig, Trainer, flash_widths
+    from repro_torch.perf.cost import kernel_costs
+    from repro_torch.train import flash_widths
 
     cfg = get_config("deepseek-v2-lite-16b")
     assert cfg.resolved_head_dim == 128 and flash_widths(cfg) == (16, 192, 128)
-    tr = Trainer(cfg, TrainConfig(microbatches=2), iter(()), device="cpu")
     rec = fa.FlashLaunch(2, 2048, 2048, 16, *flash_widths(cfg), causal=True, prefix_len=0, esize=2)
-    got = tr._kernel_costs({"tokens": np.zeros((4, 2048), np.int32)},
-                           {"ssd_kernel": 0, "flash_forward": Counter({rec: 4}), "flash_backward": Counter({rec: 2})})
+    got = kernel_costs({"flash_forward": Counter({rec: 4}), "flash_backward": Counter({rec: 2})})
     shape = (2, 2048, 2048, 16)
     assert got["flash_forward"] == 4 * fa.flash_flops(*shape, 192, causal=True, v_head_dim=128)
     assert got["flash_backward"] == 2 * 2 * 55_834_574_848  # two launches at B = 2

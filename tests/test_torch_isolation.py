@@ -12,6 +12,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py",
     ROOT / "scripts" / "profile_serve_port.py",
+    ROOT / "examples" / "torch_quickstart.py",
+    ROOT / "examples" / "torch_multistream_serve.py",
+    ROOT / "examples" / "torch_sim_paper_repro.py",
 ]
 FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b|from\s+repro\b(?!_torch))", re.M)
 
@@ -28,6 +31,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch.launch, repro_torch.launch.mesh_shapes, repro_torch.kernels.segment_scatter\n"
         "import repro_torch.launch.mesh, repro_torch.launch.shardings, repro_torch.models.act_sharding\n"
         "import repro_torch.optim.grad_compress, repro_torch.train.pipeline\n"
+        "import repro_torch.api, repro_torch.perf, repro_torch.perf.hw, repro_torch.perf.cost\n"
+        "import repro_torch.perf.roofline, repro_torch.launch.steps, repro_torch.launch.dryrun\n"
+        "import repro_torch.sim.hlo_costs\n"
+        "from repro_torch.api import Trainer, ServeEngine, LoadSpec\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n"
     )

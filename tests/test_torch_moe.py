@@ -302,3 +302,27 @@ def test_load_jax_params_maps_the_dense_prefix_and_the_stack(arch):
                                                           not in port)
         for path, arr in iter_leaves(src):
             assert np.array_equal(port[f"layers.{i}." + path.replace("/", ".")].detach().numpy(), arr), (i, path)
+
+
+@pytest.mark.parametrize("k", [1, 2, 6])
+def test_dispatch_gather_gradient_sums_in_order(k):
+    """The MoE dispatch's gather (``moe.gather_tokens``) takes its gradient
+    by summing each token's k rows in a fixed order, not by autograd's
+    ``scatter_add`` (atomic adds on the card): on the CPU it equals
+    autograd's ``scatter_add`` result within fp32 tolerance (2e-5), and its
+    forward is the gather itself, bit for bit."""
+    from repro_torch.models.moe import gather_tokens
+
+    g = torch.Generator().manual_seed(k)
+    B, T, d, E = 3, 11, 16, 8
+    x = torch.randn(B, T, d, generator=g)
+    flat_e = torch.randint(0, E, (B, T * k), generator=g)
+    token_of = torch.argsort(flat_e, dim=1, stable=True) // k
+    by_token = torch.argsort(token_of, dim=1, stable=True)
+    grad = torch.randn(B, T * k, d, generator=g)
+    x1, x2 = x.clone().requires_grad_(), x.clone().requires_grad_()
+    got = gather_tokens(x1, token_of, by_token, k)
+    want = x2.gather(1, token_of[..., None].expand(B, T * k, d))
+    assert torch.equal(got, want)
+    (g1,), (g2,) = torch.autograd.grad(got, x1, grad), torch.autograd.grad(want, x2, grad)
+    torch.testing.assert_close(g1, g2, atol=2e-5, rtol=0)

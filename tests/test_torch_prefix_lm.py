@@ -65,7 +65,7 @@ from repro_torch.models.convert import flatten_jax_tree
 from repro_torch.optim import ScheduleConfig, adamw_init
 from repro_torch.serve import Engine, LoadSpec, ServeConfig, TenantSpec, generate_load, replay_load
 from repro_torch.serve.cache_utils import transplant
-from repro_torch.train import TrainConfig, Trainer, make_train_step
+from repro_torch.train import TrainConfig, make_train_step
 
 ARCH = "paligemma-3b"
 ATOL = 2e-5
@@ -330,16 +330,16 @@ def test_trainer_prices_each_flash_launch_at_its_own_shape():
     one microbatch of 4 rows: the encoder's non-causal 1,500 x 1,500, the
     cross-attention's 448 x 1,500 and the decoder's causal 448, each priced
     at its own shape; and paligemma's prefix launches at (S^2 + P^2) / 2."""
+    from repro_torch.perf.cost import kernel_costs
+
     cfg = get_config("whisper-medium")
-    tr = Trainer(cfg, TrainConfig(microbatches=2), iter(()), device="cpu")
     H, D = cfg.n_heads, cfg.resolved_head_dim
     enc = fa.FlashLaunch(4, 1500, 1500, H, H, D, D, False, 0, 2)
     cross = fa.FlashLaunch(4, 448, 1500, H, H, D, D, False, 0, 2)
     dec = fa.FlashLaunch(4, 448, 448, H, H, D, D, True, 0, 2)
     fwd = Counter({enc: 48, cross: 48, dec: 48})  # 24 layers each, forward and remat recompute
     bwd = Counter({enc: 24, cross: 24, dec: 24})
-    got = tr._kernel_costs({"tokens": np.zeros((8, 448), np.int32)},
-                           {"ssd_kernel": 0, "flash_forward": fwd, "flash_backward": bwd})
+    got = kernel_costs({"flash_forward": fwd, "flash_backward": bwd})
     pairs = {enc: 1500 * 1500, cross: 448 * 1500, dec: 448 * 448 // 2}
     assert got["flash_forward"] == sum(n * 2 * 4 * H * pairs[r] * 2 * D for r, n in fwd.items())
     assert got["flash_backward"] == sum(n * 2 * 4 * H * pairs[r] * 5 * D for r, n in bwd.items())
@@ -349,9 +349,7 @@ def test_trainer_prices_each_flash_launch_at_its_own_shape():
     assert got["flash_forward"] != 144 * fa.flash_flops(4, 448, 448, H, D, causal=True)
     pali = get_config(ARCH)
     rec = fa.FlashLaunch(4, 512, 512, pali.n_heads, 1, 256, 256, True, 256, 2)
-    got = Trainer(pali, TrainConfig(microbatches=2), iter(()), device="cpu")._kernel_costs(
-        {"tokens": np.zeros((8, 256), np.int32)}, {"ssd_kernel": 0, "flash_forward": Counter({rec: 36}),
-                                                   "flash_backward": Counter({rec: 18})})
+    got = kernel_costs({"flash_forward": Counter({rec: 36}), "flash_backward": Counter({rec: 18})})
     assert got["flash_forward"] == 36 * 2 * 4 * 8 * (512 * 512 + 256 * 256) // 2 * 512
     assert got["flash_backward"] == 18 * 2 * 4 * 8 * (512 * 512 + 256 * 256) // 2 * 5 * 256
 
