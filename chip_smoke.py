@@ -39,14 +39,30 @@ source, all started together) and drives the port's paths:
   with every prefill's SSD on the tensor-core kernel at head dim 128 and
   its attention on the flash kernel at D = 128, both kernels held on real
   inputs by relative error, no host sync in a decode step, and the
-  device's idle share of a prefill and a decode step;
+  device's idle share of a prefill and a decode step; jamba's smoke config
+  trained three steps on the card and on the CPU (step 1's experts first,
+  the zeroed and negated backward controls), and jamba at its published
+  widths cut to its first layer (SSM + dense FFN, bf16 AdamW moments)
+  trained through ``Trainer``: the SSD kernel at head dim 128 held on the
+  real inputs, the SSM's and the FFN's weights trained alone beside zeroed
+  and negated gradients, and the SSD backward's (autograd through the
+  chunked form) share of the step's device time;
+* qwen2-72b (QKV bias, 64 heads over 8 kv heads): its published widths cut
+  to 36 layers served through the engine (every prefill's attention on the
+  tensor-core kernel at group 8, held on real inputs; the trace replayed
+  to the same tokens and lanes; the idle share of a prefill and a decode
+  step) and cut to 3 layers trained with its published bf16 AdamW moments
+  (the dense training checks below); its smoke config, at head dim 16, on
+  the card and on the CPU;
 * dense training: the bf16 flash backward kernel (tensor cores at every
   head dim, two warpgroups a block at 256; its dK/dV and dQ kernels' SASS
   must hold ``HGMMA`` and ``UTMALDG``) held against the plain FA-2 backward
   at edge shapes (head dim 256 and MQA among them), at B=1, S=2048, 32
   heads of 128 and at gemma-7b's 16 heads of 256 (S = 2048 and 404), and
   timed there beside SDPA's backward (replayed from a CUDA graph, and
-  eagerly) and the SIMT backward; the fp32 SIMT forward and backward timed
+  eagerly) and the SIMT backward; the four flash kernels at head dim 16
+  (each run at 32 on zero-padded copies) held against their plain versions
+  and timed, copies included, beside SDPA; the fp32 SIMT forward and backward timed
   beside SDPA in fp32; the deepseek-7b smoke config trained in fp32 (the SIMT
   kernels) on the card and on the CPU and compared; deepseek-7b at its
   published width cut to 8 layers and gemma-7b at its published width cut
@@ -62,8 +78,8 @@ source, all started together) and drives the port's paths:
   of 0 and of S bit for bit the causal and the non-causal call, and timed
   beside SDPA with a boolean mask at paligemma's training shape, with
   whisper's encoder (non-causal 1,500 x 1,500) and cross-attention (448 x
-  1,500) shapes timed beside SDPA; whisper's smoke config (at head dim 32)
-  and paligemma's on the card and on the CPU in fp32: forward, prefill with
+  1,500) shapes timed beside SDPA; whisper's smoke config (at its head dim
+  of 16) and paligemma's on the card and on the CPU in fp32: forward, prefill with
   every cache leaf, greedy decode, three train steps, each gap held against
   the same gap with the plain attention on the card; whisper-medium and
   paligemma-3b at their published sizes, uncut, trained through
@@ -76,11 +92,13 @@ source, all started together) and drives the port's paths:
   (bf16 on the tensor-core kernel, whose SASS must hold ``HGMMA`` and
   ``UTMALDG``; fp32 on the SIMT kernel) and both timed in bf16; the mamba2
   smoke config trained, prefilled and decoded on the card
-  and on the CPU and compared; mamba2-130m at its published shape (24
-  layers, d_model 768, bf16 compute, fp32 parameters) trained for a few tens
+  and on the CPU and compared; mamba2-130m at its published widths cut to
+  12 of its 24 layers (d_model 768, bf16 compute, fp32 parameters) trained for a few tens
   of steps with an eval lane, with the loss, the per-stream lanes and the
   exact number of SSD launches checked, the kernel held against the plain
-  version on every layer's real inputs, one step at seq 4096, and decode
+  version on every layer's real inputs (where a form falls outside the
+  tolerance, its worst element split into its intra-tile, inter-tile and
+  skip terms as each form computes them, beside fp64), one step at seq 4096, and decode
   against forward in fp32; the fp32 SSD kernels checked at the same shapes
   and timed at the training microbatch and at seq 4096, kernel by kernel;
 * distribution: a one-rank NCCL process group (an in-process store), the
@@ -224,6 +242,10 @@ SSM_LOSS_RTOL, SSM_GNORM_RTOL, SSM_LOGITS_ATOL = 1e-4, 1e-2, 1e-4
 #: the first TRAIN_STEPS steps of that run.  At the reference's init the loss
 #: sits at ~ln(vocab) for ~40 steps before it falls, so fewer steps show no fall.
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, EVAL_EVERY, SCHEDULE_STEPS = 60, 8, 256, 2, 10, 300
+#: mamba2-130m's published widths cut to MAMBA_LAYERS of its 24 layers: trained so, its SSD layers take inputs
+#: 3-10x larger than the 24-layer run's (|y| to ~7e6), where large terms cancel, the case ssd_op holds the bf16
+#: kernel on
+MAMBA_LAYERS = 12
 #: the loss on one fixed held-out batch must fall by at least this much over the run
 EVAL_DROP = 0.05
 #: gemma-7b's attention: 16 heads of 256, bf16 (the tensor-core kernels
@@ -261,7 +283,14 @@ BWD_EDGES = [(2, 1000, 1000, 8, 8, 128, True), (1, 517, 517, 16, 8, 64, True),
 #: training inputs the scores reach the hundreds and the lse ~3,000 (fp32's
 #: spacing there is 2.4e-4), and their fp32 sums, taken in another order on
 #: the tensor cores, differ by up to 1.46e-3 (measured 9.8e-4 to 1.46e-3 a
-#: layer on the H100): atol LSE_TRAIN_ATOL there.
+#: layer on the H100, 4 to 6 of fp32's spacings): atol LSE_TRAIN_ATOL there.
+#: A wider model's larger scores give a larger lse and error in the same
+#: unit (qwen2-72b's 3-layer cut: lse to ~17,100, spacing 1.95e-3; 6.8e-3
+#: measured, 3.5 spacings), so an lse is held to the larger of
+#: LSE_TRAIN_ATOL and LSE_TRAIN_SPACINGS of fp32's spacing at its own
+#: magnitude: 10 spacings, set from those readings (3.5 to 6), so an lse
+#: off by more than 10 spacings (0.0195 at 17,100) fails.
+
 BWD_RTOL, BWD_ATOL_OF_MAX = 1e-2, 1e-3
 #: A gradient that is 0 in exact arithmetic (a query that sees one key: dS = P (dP - D_i) = 0) holds only the
 #: fp32 noise of dP - D_i summed in two orders, which both the kernel and the plain version leave: held to
@@ -275,7 +304,7 @@ BWD_ZERO_ATOL = 4e-6
 #: rows or columns (tests/test_torch_cuda.py's BWD_FP32_TOL)
 BWD_FP32_TOL = dict(atol=1e-4, rtol=1e-4)
 LSE_TOL = dict(atol=1e-4, rtol=1e-5)
-LSE_TRAIN_ATOL = 5e-3
+LSE_TRAIN_ATOL, LSE_TRAIN_SPACINGS = 5e-3, 10
 #: dense smoke parity, card against CPU, fp32 with TF32 off, three steps from
 #: the same weights.  The first step differs only by summation order and is
 #: held tightly: loss and grad norm to rtol DENSE_STEP1_RTOL (measured 7e-8
@@ -481,6 +510,27 @@ DIST_CUT = TrainCut("dist_full_width", "deepseek-7b", DIST_LAYERS, DENSE_STEPS, 
                     "same weights, batches and probe); the change alone rises at some seeds with and without "
                     "compression (scripts/compressed_train_cut.py seeds)",
                     compress_grads=True, accum_dtype="bfloat16")
+#: qwen2_train_full_width: qwen2-72b at its published widths (QWEN2_SERVE_LAYERS' note) with its published bf16
+#: AdamW moments, cut to 3 layers (5,124,478,976 parameters).  At ~12 stored bytes a parameter (bf16 weight,
+#: gradient, m and v, the fp32 accumulator) 3 layers hold 61.5 GB beside the fp32 logits of a 2 x 2,048-token
+#: microbatch over 152,064 entries (2.5 GB each for the logits, their softmax and their gradient); 4 layers
+#: (6.0 B) hold 72.0 GB of states alone.  AdamW runs slice by slice (optim.adamw.CHUNK_ELEMS): its fp32
+#: temporaries over all leaves at once (~20 bytes a bf16 parameter) would not fit at any depth.  The held-out
+#: loss is printed; the attention-only and FFN-only checks hold the gradients.
+QWEN2_CUT = TrainCut("qwen2_train_full_width", "qwen2-72b", 3, GEMMA_STEPS, GEMMA_EVAL_EVERY, 5_124_478_976, 0,
+                     "3 of 80 layers: ~61.5 GB of states at ~12 bytes a parameter; 4 layers hold 72 GB of states",
+                     "printed: 6 steps at the reference's init move it by thousandths either way (the other "
+                     "full-width cuts); the attention-only and FFN-only checks hold the gradients")
+#: jamba_train_full_width: jamba-1.5-large at its published widths (hybrid_full_width's note) with its published
+#: bf16 moments, cut to its first layer: an SSM layer (128 heads of 128, d_state 128, the bf16 SSD kernel at P =
+#: 128 forward, autograd through the chunked form backward) and a dense FFN of 24,576, 2,083,628,416 parameters
+#: with the untied embedding and head.  No deeper cut fits one card: the second layer is a MoE layer of 16
+#: experts of 24,576 (9.66 B parameters of experts; 12,153,334,528 at 2 layers, ~146 GB of states at ~12 bytes a
+#: parameter).  The held-out loss is printed; the SSM-only and FFN-only checks hold the gradients.
+JAMBA_CUT = TrainCut("jamba_train_full_width", "jamba-1.5-large-398b", 1, GEMMA_STEPS, GEMMA_EVAL_EVERY,
+                     2_083_628_416, 0,
+                     "1 of 72 layers (SSM + dense FFN): the second layer is MoE, 12.15 B parameters at 2 layers",
+                     "printed: 6 steps at the reference's init; the SSM-only and FFN-only checks hold the gradients")
 #: serving from the trained weights through the model's entry points: (rows, prompt tokens, greedy decode
 #: steps); whisper's prompt is a few forced tokens after 1,500 frames, paligemma's follows its 256 patches
 ENCDEC_DECODE, PREFIX_DECODE = (4, 4, 30), (4, 32, 16)
@@ -501,6 +551,15 @@ PREFIX_LENS = (0, 1, 63, 64, 65)
 #: new ones at its microbatch, (B, Sq, Sk, H, D) non-causal: the encoder's and the cross-attention's
 PREFIX_TIMED = (4, 512, 8, 1, 256, 256)
 ENCDEC_TIMED = {"encoder": (4, 1500, 1500, 16, 64), "cross": (4, 448, 1500, 16, 64)}
+#: head dim 16 (qwen2-72b's and whisper-medium's smoke configs), which the kernels take at 32 on zero-padded
+#: copies (flash_attention.PAD_D16): checked in both directions and both dtypes at D16_EDGES (B, Sq,
+#: Sk, Hq, Hkv, causal: one row, ragged causal lengths, GQA 4 and MQA, non-causal Sq != Sk both ways), then
+#: timed with the copies beside the plain versions and SDPA at D16_TIMED: the qwen2 smoke's training
+#: microbatch (2 x 64, 8 heads on 2, fp32: the SIMT kernels, as qwen2_parity runs them) and a long bf16
+#: sequence (1 x 2,048, 32 heads: the tensor-core kernels)
+D16_EDGES = [(1, 1, 1, 2, 1, True), (2, 100, 100, 8, 2, True), (1, 517, 517, 8, 1, True), (1, 77, 150, 4, 4, False),
+             (2, 130, 45, 4, 2, False)]
+D16_TIMED = {"qwen2_smoke_fp32": (2, 64, 8, 2, torch.float32), "long_bf16": (1, 2048, 32, 32, torch.bfloat16)}
 #: jamba's SSD width (H, P, N, G): 128 heads of 128, d_state 128, one group.  The bf16 kernel at head dim
 #: 128 (two warpgroups a block) is checked there at P128_SEQS with and without h0, at the edge shapes
 #: P128_EDGES (B, S, H, P, N, G: a ragged S over several chunks, d_state 64 with grouped B/C, one row), the
@@ -533,6 +592,19 @@ TRACE_VOCAB = 102_400
 #: against the sequential scan (both 1.65e-3 to 1.66e-3 against fp64: bf16 output rounding), the state
 #: 9e-6 to 5.1e-5 (held to SSD_H_REL), attention 3.3e-5 with 31 of 2.1 M entries outside BF16_TOL.
 REAL_INPUT_REL = 2e-3
+#: qwen2_full_width: qwen2-72b at its published widths (d_model 8192, 64 heads of 128 over 8 kv heads: GQA
+#: group 8, QKV bias, SwiGLU d_ff 29,568, rope theta 1e6, an untied vocabulary of 152,064; bf16, random weights
+#: from seed 0) cut to QWEN2_SERVE_LAYERS of its 80 layers.  Counted from model_defs: 877,684,736 parameters a
+#: layer and 2,491,416,576 of embedding and head, so 36 layers hold 34,088,075,264 (68.2 GB in bf16), 37
+#: 34.97 B (69.9 GB): at 36 the init peaks at ~74.7 GB (the weights and one leaf's fp32 draw, the 5 GB
+#: embedding's the largest) and serving (the engine's cache, 4 slots of 1,024 tokens, 0.6 GB, and a prefill's
+#: activations) below it, leaving ~10 GB of the card's 85 free; 37 would leave ~8 GB.  It serves the
+#: full-width trace (10 requests, prompts of 132-404 tokens, TRACE_VOCAB's ids, all below qwen2's vocabulary),
+#: then the same trace again through a fresh engine: greedy tokens and lanes equal.
+QWEN2_SERVE_LAYERS, QWEN2_SERVE_PARAMS = 36, 34_088_075_264
+#: the reference draws the QKV biases as zeros; the served cut draws them from this seed at this std, so that
+#: the bias path moves the outputs (the phase checks that zeroing them moves the probe's logits)
+QWEN2_BIAS_SEED, QWEN2_BIAS_STD = 5, 1.0
 #: the simulator's batched sweep: the full scenario registry at SIM_DRAWS
 #: divergent draws a scenario (1,088 jobs), event engine, as a validation
 #: sweep of the per-kernel, per-stream counts runs it; the segment kernel is
@@ -755,7 +827,7 @@ def phase_build():
     sass = {}
     # library → (pattern of its tensor-core kernels' mangled names, the instantiations each must have); both
     # directions' templates take the q/k and the v head dim, named "D=<d>" when they are equal
-    dims = [_dims_label(*p) for p in fa.FWD_PAIRS]
+    dims = [_dims_label(*p) for p in fa.FWD_PAIRS if p[0] != 16]  # 16 runs at fa.PAD_D16
     for lib, pattern in (("flash_attention_wgmma", r"(flash_fwd_wgmma)ILi(\d+)ELi(\d+)E"),
                          ("flash_attention_bwd_wgmma", r"(flash_bwd_dkdv_wgmma|flash_bwd_dq_wgmma)ILi(\d+)ELi(\d+)E")):
         per_fn = {}
@@ -872,6 +944,13 @@ def _bound(flops, nbytes, smi, fp32=False):
     peak_flops = chip.peak_fp32_flops if fp32 else chip.peak_bf16_flops
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / chip.hbm_bw * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _lse_train_tol(lse_ref):
+    """Each lse's tolerance on training inputs: the larger of LSE_TRAIN_ATOL
+    and LSE_TRAIN_SPACINGS of fp32's spacing at its magnitude."""
+    _, exp = torch.frexp(lse_ref.abs().nan_to_num(posinf=0.0))
+    return torch.clamp(LSE_TRAIN_SPACINGS * torch.ldexp(torch.ones_like(lse_ref), exp - 24), min=LSE_TRAIN_ATOL)
 
 
 def _grads_close(got, want, zero_atol=0.0, fp32=False):
@@ -1713,6 +1792,166 @@ def phase_hybrid_full_width(smi: str):
     return line
 
 
+def phase_qwen2_full_width(smi: str):
+    """qwen2-72b at its published widths cut to QWEN2_SERVE_LAYERS layers,
+    served through the continuous-batching engine on the full-width trace:
+    the lanes, every prefill's attention on the bf16 tensor-core flash
+    kernel at (128, 128) over 64 q heads on 8 kv heads (group 8), the kernel
+    held against the plain version on every layer's real inputs (QKV bias
+    and rope theta 1e6 in them), the same trace replayed through a fresh
+    engine to the same greedy tokens and lanes, no host sync in a decode
+    step, and the device's idle share of a prefill and a decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import Transformer
+    from repro_torch.serve import Engine, ServeConfig, replay_load
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen2-72b"), n_layers=QWEN2_SERVE_LAYERS)
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size, cfg.qkv_bias,
+           cfg.rope_theta, cfg.param_dtype, cfg.tie_embeddings)
+          == (8192, 64, 8, 128, 29568, 152064, True, 1_000_000.0, "bfloat16", False), "qwen2-72b's published widths")
+    check(fa.select_route(cfg.compute_tdtype(), 128, 128) == "wgmma", "bf16 attention takes the tensor-core kernel")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == QWEN2_SERVE_PARAMS, f"{n_params} parameters, want {QWEN2_SERVE_PARAMS}")
+    biases = {n: p for n, p in model.named_parameters() if n.rsplit(".", 1)[-1] in ("bq", "bk", "bv")}
+    check(len(biases) == 3 * cfg.n_layers, f"QKV bias in every layer: {len(biases)} bias leaves")
+    # the reference initialises the biases to zero, which would leave their path idle: draw them from a seed
+    g = torch.Generator(device="cuda").manual_seed(QWEN2_BIAS_SEED)
+    with torch.no_grad():
+        for p in biases.values():
+            p.copy_(torch.randn(p.shape, generator=g, device="cuda") * QWEN2_BIAS_STD)
+    scfg = ServeConfig(n_slots=4, max_len=1024, batch_buckets=(1, 2))
+
+    warm = torch.randint(0, cfg.vocab_size, (1, 64), device="cuda")
+    model.prefill(warm)
+    scratch = model.init_cache(1, 80)
+    model.decode_step(scratch, warm[:, 0], torch.zeros(1, dtype=torch.long, device="cuda"))
+    del scratch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    flash_op, calls = ops.flash_attention, []
+
+    def rec_flash(q, k, v, **kw):
+        calls.append((q.device.type, q.dtype, q.shape[2], k.shape[2], q.shape[-1], v.shape[-1], kw.get("impl", "auto")))
+        return flash_op(q, k, v, **kw)
+
+    runs = []
+    for attempt in range(2):  # the trace, then the same trace through a fresh engine
+        eng = Engine(model, scfg)
+        load = _full_width_load(TRACE_VOCAB)
+        fa.flash_attention.launches = 0
+        shapes_before = fa.flash_attention.shapes.copy()
+        ops.flash_attention = rec_flash
+        try:
+            rep = replay_load(eng, load)
+        finally:
+            ops.flash_attention = flash_op
+        torch.cuda.synchronize()
+        reqs = [r for _, r in load]
+        runs.append({"eng": eng, "reqs": reqs, "rep": rep, "launches": fa.flash_attention.launches,
+                     "by_shape": fa.flash_attention.shapes - shapes_before, "lanes": _lanes(eng, reqs),
+                     "tokens": [list(r.generated) for r in reqs]})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    first = runs[0]
+    eng, reqs, rep, launches = first["eng"], first["reqs"], first["rep"], first["launches"]
+    check(len(reqs) == 10 and all(r.status == "done" for r in reqs), f"statuses {[r.status for r in reqs]}")
+    kvb = eng._kv_bytes_per_token
+    check(kvb == 2 * cfg.n_kv_heads * cfg.resolved_head_dim * cfg.n_layers * 2, f"kv bytes per token {kvb}")
+    for r in reqs:
+        tok_out, kv = first["lanes"][r.name]
+        check(tok_out == len(r.generated) == r.max_new_tokens, f"{r.name}: TOKENS_OUT {tok_out}, {len(r.generated)}")
+        check(kv == (len(r.prompt) + len(r.generated) - 1) * kvb, f"{r.name}: KV_ACC_W {kv}")
+    check(launches == cfg.n_layers * len(reqs) == len(calls) // 2
+          and set(calls) == {("cuda", torch.bfloat16, 64, 8, 128, 128, "auto")},
+          f"flash launches {launches}, calls {set(calls)}: every prefill layer on the bf16 kernel, 64 over 8 heads")
+    check(all((r.Hq, r.Hkv, r.D, r.Dv, r.esize) == (64, 8, 128, 128, 2) for r in first["by_shape"]),
+          f"launches by shape {first['by_shape']}")
+    replay_same = {"tokens": first["tokens"] == runs[1]["tokens"], "lanes": first["lanes"] == runs[1]["lanes"],
+                   "launches": launches == runs[1]["launches"]}
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    prefill_s = sum(r.prefill_s for r in reqs)
+    decode_tokens = sum(len(r.generated) - 1 for r in reqs)
+    decode_s = sum(r.decode_s for r in reqs)
+    ttft_ms = sorted(r.ttft_s * 1e3 for r in reqs)
+    del runs
+
+    # one real prompt: every layer's q, k, v through the kernel against the plain version
+    probe = torch.as_tensor(reqs[0].prompt, dtype=torch.long, device="cuda")[None]
+    attn_in = []
+
+    def capture_flash(q, k, v, **kw):
+        attn_in.append((q, k, v, kw))
+        return flash_op(q, k, v, **kw)
+
+    ops.flash_attention = capture_flash
+    try:
+        logits = model.prefill(probe)[0][..., :cfg.vocab_size]
+    finally:
+        ops.flash_attention = flash_op
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    check(len(attn_in) == cfg.n_layers, f"{len(attn_in)} attention calls in one prefill")
+    saved = {n: p.detach().clone() for n, p in biases.items()}
+    with torch.no_grad():
+        for p in biases.values():
+            p.zero_()
+        bias_effect = _rel(model.prefill(probe)[0][..., :cfg.vocab_size].float(), logits.float())
+        for n, p in biases.items():
+            p.copy_(saved[n])
+    del saved
+    attn_rows = []
+    for q, k, v, kw in attn_in:
+        out = flash_op(q, k, v, **kw).float()
+        want = flash_op(q, k, v, **{**kw, "impl": "plain"}).float()
+        attn_rows.append({"rel_l2": _rel(out, want), "max_abs_err": (out - want).abs().max().item(),
+                          "max_abs_out": want.abs().max().item(),
+                          "outside_bf16_tol": int((~torch.isclose(out, want, **BF16_TOL)).sum())})
+    del attn_in, out, want
+    (prefill_busy, prefill_ops), (decode_busy, decode_ops), syncs = _device_shares(model, probe)
+    del eng, model
+    torch.cuda.empty_cache()
+    line = {
+        "phase": "qwen2_full_width", "config": f"qwen2-72b cut to {QWEN2_SERVE_LAYERS} of 80 layers",
+        "d_model": cfg.d_model, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+        "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "qkv_bias": cfg.qkv_bias,
+        "rope_theta": cfg.rope_theta, "dtype": cfg.param_dtype, "params": n_params, "init_s": init_s,
+        "init_peak_gb": init_peak_gb, "max_memory_allocated_gb": peak_gb,
+        "card_memory_gb": torch.cuda.get_device_properties(0).total_memory / 1e9,
+        "requests": len(reqs), "engine_steps": rep.steps,
+        "flash_launches": launches, "flash_route": "wgmma (128, 128), 64 q heads on 8 kv heads (group 8)",
+        "flash_launches_by_shape": {f"S={r.Sq} B={r.B} Hq={r.Hq} Hkv={r.Hkv}": n
+                                    for r, n in sorted(first["by_shape"].items())},
+        "prompt_tokens": prompt_tokens, "prefill_tok_s": prompt_tokens / prefill_s,
+        "decode_tokens": decode_tokens, "decode_tok_s": decode_tokens / decode_s,
+        "ttft_p50_ms": statistics.median(ttft_ms), "ttft_max_ms": ttft_ms[-1], "wall_s": rep.wall_s,
+        "goodput_tok_s": rep.total_goodput_tok_s, "kv_bytes_per_token": kvb,
+        "replay_equal": replay_same, "qkv_bias_std": QWEN2_BIAS_STD,
+        "logits_rel_l2_with_zero_bias": bias_effect,
+        "attention_op_bf16": {"prompt_len": probe.shape[1], "layers": attn_rows, "tolerance_rel_l2": REAL_INPUT_REL},
+        "prefill_device": {"prompt_len": probe.shape[1], **prefill_busy},
+        "prefill_top_ops_us": dict(sorted(prefill_ops.items(), key=lambda kv: -kv[1])[:TOP_OPS]),
+        "decode_step_device": {"batch": 4, "host_syncs": len(syncs), **decode_busy},
+        "decode_step_top_ops_us": dict(sorted(decode_ops.items(), key=lambda kv: -kv[1])[:TOP_OPS]),
+        "phase_wall_s": time.perf_counter() - t_phase,
+    }
+    emit(line)
+    check(all(replay_same.values()), f"a replay of the trace differs: {replay_same}")
+    check(bias_effect > REAL_INPUT_REL, f"zeroing the QKV bias moves the logits by {bias_effect} only")
+    for layer, r in enumerate(attn_rows):
+        check(r["rel_l2"] <= REAL_INPUT_REL, f"flash kernel vs plain on layer {layer}'s prefill inputs: {r}")
+    fa.flash_attention.launches = 0
+    return line
+
+
 def _ssd_inputs(B, S, H, P, N, G, dtype, seed, h0=False):
     """Seeded SSD inputs on the card: x, B, C in ``dtype``; dt, A, D, h0 fp32."""
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1949,6 +2188,7 @@ def phase_train_full_width():
     H = s.n_heads(cfg.d_model)
     check((cfg.n_layers, cfg.d_model, H, s.head_dim, s.d_state, s.n_groups, s.chunk, cfg.vocab_size)
           == (24, 768, 24, 64, 128, 1, 256, 50280), "mamba2-130m's published shape")
+    cfg = dataclasses.replace(cfg, n_layers=MAMBA_LAYERS)
     tcfg = TrainConfig(adamw=AdamWConfig(weight_decay=0.1, grad_clip=1.0),
                        schedule=ScheduleConfig(peak_lr=6e-4, warmup_steps=20, decay_steps=SCHEDULE_STEPS),
                        microbatches=TRAIN_MICRO)
@@ -2033,7 +2273,8 @@ def phase_train_full_width():
     check(np.isfinite(loss_4k), "non-finite loss at seq 4096")
 
     emit({
-        "phase": "train_full_width", "config": "mamba2-130m", "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "phase": "train_full_width", "config": "mamba2-130m", "n_layers": cfg.n_layers, "published_layers": 24,
+        "d_model": cfg.d_model,
         "ssd": {"H": H, "P": s.head_dim, "N": s.d_state, "G": s.n_groups, "chunk": s.chunk},
         "vocab": cfg.vocab_size, "dtype": {"compute": cfg.compute_dtype, "params": cfg.param_dtype},
         "remat": cfg.remat, "params": n_params, "init_s": init_s,
@@ -2051,11 +2292,97 @@ def phase_train_full_width():
     return model, launches, probe
 
 
+def _ssd_worst_terms(args, kw, ys, idx):
+    """The SSD output element ``idx`` = (b, t, h, p) split into its terms as
+    each form computes it, beside fp64: the intra-tile term (the tile's own
+    rows, sum over s <= t of (C_t·B_s) exp(cum_t - cum_s) dt_s x_s), the
+    inter-tile term (exp(cum_t) C_t·h_in, h_in the state entering the tile)
+    and the skip term D x_t.  Tiles: the kernel's 64 rows for the kernel,
+    the sequential fp32 scan and fp64; the plain chunked form's own chunk
+    (``ops.ref_chunk``) for it, with fp64 at that split too.  Each form's
+    h_in is its own: the kernel's and the plain form's final state over the
+    rows before the tile, the sequential scan's state there.  The kernel's
+    terms are read at its rounding points (``ref.ssd_tiled_ref``'s: the
+    prefix of A·dt and the decays' arguments in fp64, M and h_in as two
+    bf16 terms, the skip riding on M's diagonal, fp32 products); ``ys`` holds each form's y at the element as it returned it."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import _bf16_terms, ssd_chunked_ref, ssd_ref
+    from repro_torch.kernels.ssd_scan import TILE
+
+    x, dt, A, Bm, Cm, D = (a.detach() for a in args[:6])
+    b, t, h, p = idx
+    g = h // (x.shape[2] // Bm.shape[2])
+    chunk = ops.ref_chunk(x.shape[1], kw["chunk"])
+    xs, dts = x[b, :, h, p], dt[b, :, h]  # (S,), (S,)
+    Bs, Cs = Bm[b, :, g], Cm[b, :, g]  # (S, N)
+    Dh = D[h]
+
+    def prefix_state(form, t0):  # the form's state at row t0 (entering the tile), (N,) of row p
+        if t0 == 0:
+            return torch.zeros(Bm.shape[-1], dtype=torch.float64 if form == "fp64" else torch.float32,
+                               device=x.device)
+        sl = [a[b:b + 1, :t0] for a in (x, dt, Bm, Cm)]
+        one = (sl[0], sl[1], A, sl[2], sl[3], D)
+        with torch.no_grad():
+            if form == "kernel":
+                _, hf = ops.ssd_scan(*one, chunk=kw["chunk"])
+            elif form == "plain":
+                _, hf = ssd_chunked_ref(*one, chunk=chunk, return_state=True)
+            else:
+                _, hf = ssd_ref(*[a.double() if form == "fp64" else a for a in one], return_state=True)
+        return hf[0, h, p]
+
+    def seq_terms(t0, f):  # sequential in dtype f: from zero over the tile's rows, h_in decayed alongside
+        h_in = prefix_state("fp64" if f == torch.float64 else "seq", t0).to(f)
+        hi = torch.zeros_like(h_in)
+        for r in range(t0, t + 1):
+            decay = torch.exp(A[h].to(f) * dts[r].to(f))
+            hi = hi * decay + dts[r].to(f) * (xs[r].to(f) * Bs[r].to(f))
+            h_in = h_in * decay
+        c = Cs[t].to(f)
+        return {"intra": float((hi * c).sum()), "inter": float((h_in * c).sum()),
+                "skip": float(Dh.to(f) * xs[t].to(f))}
+
+    def tiled_terms(t0, form, cum64=False):  # the chunked forms: M over the tile, exp(cum_t) C_t·h_in
+        f = torch.float32
+        rows = slice(t0, t + 1)
+        a = A[h].double() * dts[t0:t + 1].double() if cum64 else A[h] * dts[t0:t + 1].to(f)
+        cum = torch.cumsum(a, 0)
+        cb = (Cs[t].to(f)[None] * Bs[rows].to(f)).sum(-1)  # C_t·B_s, s in the tile up to t
+        m = cb * torch.exp((cum[-1] - cum).to(f)) * dts[rows].to(f)
+        h_in = prefix_state(form, t0)
+        if form == "kernel":
+            m_skip = m.clone()
+            m_skip[-1] += Dh
+            m_skip = _bf16_terms(m_skip, 2)
+            intra_skip = float((m_skip * xs[rows].to(f)).sum())
+            h_in = _bf16_terms(h_in, 2)
+        inter = float(torch.exp(cum[-1].to(f)) * (Cs[t].to(f) * h_in).sum())
+        out = {"intra": float((m * xs[rows].to(f)).sum()), "inter": inter, "skip": float(Dh * xs[t].to(f))}
+        if form == "kernel":
+            out["intra_with_skip_as_one_product"] = intra_skip
+            out["y_fp32"] = intra_skip + inter
+        return out
+
+    t_tile, t_chunk = (t // TILE) * TILE, (t // chunk) * chunk
+    with torch.no_grad():
+        terms = {"kernel": tiled_terms(t_tile, "kernel", cum64=True),
+                 "seq_fp32": seq_terms(t_tile, torch.float32),
+                 "fp64": seq_terms(t_tile, torch.float64), "plain": tiled_terms(t_chunk, "plain"),
+                 "fp64_at_plain_chunk": seq_terms(t_chunk, torch.float64)}
+    for v in terms.values():
+        v.setdefault("y_fp32", v["intra"] + v["inter"] + v["skip"])
+    return {"element": {"b": b, "t": t, "h": h, "p": p}, "tile_start": t_tile, "chunk_start": t_chunk,
+            "y": ys, "terms": terms, "x_t": float(xs[t]), "dt_t": float(dts[t]), "D": float(Dh)}
+
+
 def phase_ssd_op(model, probe):
     """The SSD inputs every layer hands to ``ops.ssd_scan`` in one forward of
     a real training microbatch: the kernel against the sequential plain scan
     (the oracle), with the plain chunked form and an fp64 sequential scan
-    beside them.  All pairings are emitted before any check fails."""
+    beside them.  Where a form falls outside SSD_BF16_TOL of another or of
+    fp64, its worst element is split into its terms (``_ssd_worst_terms``).
+    All pairings are emitted before any check fails."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import ssd_ref
 
@@ -2101,6 +2428,22 @@ def phase_ssd_op(model, probe):
             "h_rel": {"kernel_vs_seq": _rel(h, sh), "kernel_vs_plain": _rel(h, ph), "kernel_vs_fp64": _rel(h, dh)},
             "ok": {"y_vs_seq": close(y, sy), "y_vs_plain": close(y, py), "h": _rel(h, sh) <= SSD_H_REL},
         })
+        # where a form falls outside the tolerance of another or of fp64: the worst element of each such
+        # pairing, by its excess over the tolerance, split into its terms
+        excess = {}
+        for n, (a, ref) in {"kernel_vs_seq": (y, sy), "kernel_vs_fp64": (y, dy), "seq_vs_fp64": (sy, dy),
+                            "plain_vs_fp64": (py, dy)}.items():
+            ref = ref.double()
+            excess[n] = (a.double() - ref).abs() / (SSD_BF16_TOL["atol"] + SSD_BF16_TOL["rtol"] * ref.abs())
+        worst = {}
+        for n, e in excess.items():
+            if bool((e > 1).any()):
+                idx = tuple(int(i) for i in np.unravel_index(int(e.argmax()), tuple(y.shape)))
+                ys = {k: float(v[idx]) for k, v in (("kernel", y), ("plain", py), ("seq_fp32", sy), ("fp64", dy))}
+                worst[n] = {**_ssd_worst_terms(args, kw, ys, idx),
+                            "excess_over_tol": {k: float(x_[idx]) for k, x_ in excess.items()}}
+        if worst:
+            rows[-1]["worst_terms"] = worst
     emit({"phase": "ssd_op", "config": "mamba2-130m", "inputs": "one training microbatch (4 x 256), every layer",
           "layers": rows, "tolerance": SSD_BF16_TOL, "h_rel_tolerance": SSD_H_REL})
     for layer, r in enumerate(rows):
@@ -2681,19 +3024,7 @@ def phase_moe_train_parity():
           "deepseek-v2-lite smoke is fp32 MoE without remat")
     check(fa.select_bwd_route(torch.float32, MLA_DQK, MLA_DV) == "simt", "fp32 (192, 128) takes the SIMT backward")
     rows, step1, plain, controls, change, launches, tcfg, routes = _train_parity(cfg, route_trace=True)
-    flipped = []  # per step: tokens the two devices routed to different experts, and their largest margin
-    for step, (cpu_calls, gpu_calls) in enumerate(zip(routes["cpu"], routes["cuda"])):
-        check(len(cpu_calls) == len(gpu_calls) > 0, f"step {step + 1}: {len(cpu_calls)} CPU router calls, "
-                                                    f"{len(gpu_calls)} on the card")
-        n, margin = 0, 0.0
-        for call, ((ci, cg), (gi, gg)) in enumerate(zip(cpu_calls, gpu_calls)):
-            for t in torch.nonzero((ci != gi).any(-1)).flatten().tolist():
-                m = max(cg[t].item(), gg[t].item())
-                n, margin = n + 1, max(margin, m)
-                if step == 0:
-                    check(m < TIE_EPS, f"step 1, router call {call}, token {t}: experts {ci[t].tolist()} on the "
-                                       f"CPU and {gi[t].tolist()} on the card with a top-k margin of {m}")
-        flipped.append({"tokens": n, "routed": sum(len(c[0]) for c in cpu_calls), "max_margin": margin})
+    flipped = _routed_differently(routes)
     emit(_parity_line("moe_train_parity", "deepseek-v2-lite-16b SMOKE at the published MLA head dims", rows, step1,
                       plain, change, controls, launches, mla=dataclasses.asdict(published),
                       moe=dataclasses.asdict(cfg.moe), routed_differently=flipped, tie_eps=TIE_EPS,
@@ -2708,6 +3039,27 @@ def phase_moe_train_parity():
           f"flash launches in 3 smoke steps: {launches}, want {want_launches} each")
 
 
+def _routed_differently(routes):
+    """Per step of ``_train_parity``'s route trace: the tokens the card and
+    the CPU routed to different experts, of those routed, and their largest
+    top-k margin; at step 1 (the same weights) each must be a tie (a margin
+    under TIE_EPS)."""
+    flipped = []
+    for step, (cpu_calls, gpu_calls) in enumerate(zip(routes["cpu"], routes["cuda"])):
+        check(len(cpu_calls) == len(gpu_calls) > 0, f"step {step + 1}: {len(cpu_calls)} CPU router calls, "
+                                                    f"{len(gpu_calls)} on the card")
+        n, margin = 0, 0.0
+        for call, ((ci, cg), (gi, gg)) in enumerate(zip(cpu_calls, gpu_calls)):
+            for t in torch.nonzero((ci != gi).any(-1)).flatten().tolist():
+                m = max(cg[t].item(), gg[t].item())
+                n, margin = n + 1, max(margin, m)
+                if step == 0:
+                    check(m < TIE_EPS, f"step 1, router call {call}, token {t}: experts {ci[t].tolist()} on the "
+                                       f"CPU and {gi[t].tolist()} on the card with a top-k margin of {m}")
+        flipped.append({"tokens": n, "routed": sum(len(c[0]) for c in cpu_calls), "max_margin": margin})
+    return flipped
+
+
 def _train_only(model, tcfg, batch, names, steps, grad_factor=1.0):
     """``steps`` AdamW steps (``tcfg``'s schedule and settings) on the
     parameters ``names`` alone, the rest frozen, on one repeated batch, their
@@ -2715,13 +3067,15 @@ def _train_only(model, tcfg, batch, names, steps, grad_factor=1.0):
     then int8-compressed with error feedback as the train step compresses
     them (``ef_compress``, one scale a reference leaf): the loss before each
     step and after the last."""
+    from repro_torch.configs import torch_dtype
     from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm, ef_compress, ef_state_init
     from repro_torch.optim import learning_rate
     from repro_torch.train import compress_groups, make_loss_fn
 
     params = dict(model.named_parameters())
     leaves = {n: params[n] for n in names}
-    opt, loss_fn, losses = adamw_init(leaves), make_loss_fn(model, tcfg), []
+    opt = adamw_init(leaves, torch_dtype(model.cfg.opt_state_dtype))
+    loss_fn, losses = make_loss_fn(model, tcfg), []
     ef = ef_state_init(leaves) if tcfg.compress_grads else None
     groups = compress_groups(model.cfg, leaves) if ef is not None else None
     for _ in range(steps):
@@ -2816,13 +3170,14 @@ def full_width_run(cfg, steps: int, eval_every: int, *, batch: int = DENSE_BATCH
     training batches'), counting the flash launches and each
     backward call's route.  Returns the run's state and readings: the trainer, model and
     optimizer state, the history, the held-out loss on one fixed batch
-    (``probe``) before and after, the launches, the routes, the peak device
-    memory over the steps and the parameter count."""
+    (``probe``) before and after, the flash and SSD launches, the routes,
+    the peak device memory over the steps and the parameter count."""
     from types import SimpleNamespace
 
     from repro_torch.data import DataConfig, make_train_iter
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as sk
     from repro_torch.optim import AdamWConfig, ScheduleConfig
     from repro_torch.train import TrainConfig, Trainer, make_loss_fn
 
@@ -2859,11 +3214,11 @@ def full_width_run(cfg, steps: int, eval_every: int, *, batch: int = DENSE_BATCH
         return backward(*a, **kw)
 
     ops.flash_attention_backward = routed
-    fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
+    fa.flash_attention.launches = fa.flash_attention_backward.launches = sk.ssd_scan.launches = 0
     try:
         model, opt, hist = trainer.run(model, opt, steps)
         torch.cuda.synchronize()
-        fwd, bwd = fa.flash_attention.launches, fa.flash_attention_backward.launches
+        fwd, bwd, ssd = fa.flash_attention.launches, fa.flash_attention_backward.launches, sk.ssd_scan.launches
     finally:
         ops.flash_attention_backward = backward
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2873,7 +3228,7 @@ def full_width_run(cfg, steps: int, eval_every: int, *, batch: int = DENSE_BATCH
         after = float(held_out(probe)[1]["loss"])
     return SimpleNamespace(trainer=trainer, tcfg=tcfg, model=model, opt=opt, hist=hist, probe=probe,
                            held_out=held_out, held_out_before=before, held_out_after=after, fwd=fwd, bwd=bwd,
-                           routes=routes, peak_gb=peak_gb, init_s=init_s,
+                           ssd=ssd, routes=routes, peak_gb=peak_gb, init_s=init_s,
                            n_params=sum(p.numel() for p in model.parameters()))
 
 
@@ -2902,11 +3257,14 @@ def _train_full_width(cut: TrainCut, cfg, after=None, trained=None):
     from repro_torch.kernels.ref import attention_lse_ref, flash_backward_ref
     from repro_torch.train import flash_widths, make_train_step
 
+    from repro_torch.configs import get_config
+
     L, steps = cfg.n_layers, cut.steps
     _, D, Dv = flash_widths(cfg)
     check(L == cut.layers, f"{cfg.name} at {L} layers, not {cut.layers}")
-    check((cfg.param_dtype, cfg.compute_dtype, cfg.opt_state_dtype) == ("bfloat16", "bfloat16", "float32")
-          and cfg.remat in ("full", "dots"), f"{cfg.name}'s own dtypes and remat")
+    check((cfg.param_dtype, cfg.compute_dtype, cfg.opt_state_dtype)
+          == ("bfloat16", "bfloat16", get_config(cut.config).opt_state_dtype) and cfg.remat in ("full", "dots"),
+          f"{cfg.name}'s own dtypes (its published moment dtype) and remat")
     check(fa.select_bwd_route(torch.bfloat16, D, Dv) == "wgmma",
           f"bf16 at {_dims_label(D, Dv)} takes the tensor-core backward")
     run = full_width_run(cfg, steps, cut.eval_every, batch=cut.batch, seq=cut.seq, micro=cut.micro,
@@ -2919,6 +3277,9 @@ def _train_full_width(cut: TrainCut, cfg, after=None, trained=None):
     losses = [h["loss"] for h in hist]
     n_evals = steps // cut.eval_every
     train, evals = trainer.stats.summary(trainer.train_stream), trainer.stats.summary(trainer.eval_stream)
+    # an SSM layer runs the SSD kernel in each microbatch's forward and remat recompute, and once an eval
+    n_ssm = sum(not cfg.layer_is_attn(i) for i in range(L)) if cfg.ssm is not None else 0
+    want_ssd = steps * cut.micro * 2 * n_ssm + n_evals * n_ssm
     # a step: each attention call of each microbatch runs the forward kernel twice (forward, remat
     # recompute) and the backward once; an eval runs the forward once per call
     shapes = attention_shapes(cfg, cut.seq, cut.enc_len)
@@ -2939,8 +3300,10 @@ def _train_full_width(cut: TrainCut, cfg, after=None, trained=None):
         (evals["steps"] == n_evals == len(trainer.eval_history), f"eval lane steps {evals['steps']}"),
         (train["tokens"] == steps * cut.batch * cut.seq, f"train lane tokens {train['tokens']}"),
         ((fwd, bwd) == (want_fwd, want_bwd), f"flash launches {fwd}, {bwd}; want {want_fwd}, {want_bwd}"),
-        (run.routes == {"wgmma": want_bwd}, f"backward calls by route {run.routes}; want {want_bwd} on wgmma"),
-        (all(parts[name] == float(want) for name, want in want_flops.items()),
+        (run.routes == ({"wgmma": want_bwd} if want_bwd else {}),
+         f"backward calls by route {run.routes}; want {want_bwd} on wgmma"),
+        (run.ssd == want_ssd, f"SSD launches {run.ssd}, want {want_ssd}"),
+        (all(parts.get(name, 0.0) == float(want) for name, want in want_flops.items()),
          f"flash FLOPs in the step cost {parts}, want {want_flops}"),
         (abs(train["flops"] - steps * cost.flops) <= 1e-9 * train["flops"], "train lane FLOPs"),
         (cost.hbm_bytes > 0 and abs(train["hbm_bytes"] - steps * cost.hbm_bytes) <= 1e-9 * train["hbm_bytes"],
@@ -2995,6 +3358,9 @@ def _train_full_width(cut: TrainCut, cfg, after=None, trained=None):
                   f"one step's flash launches by shape {by_shape}"))
 
     micro = {k: v[: cut.batch // cut.micro] for k, v in probe.items()}
+    ssm = _ssm_train_checks(model, run.held_out, micro, cut, busy_s * 1e3) if n_ssm else None
+    if ssm is not None:
+        later += ssm.pop("checks")
     layers = attention_inputs(model, run.held_out, micro)
     rows = []
     for c in layers:
@@ -3007,8 +3373,8 @@ def _train_full_width(cut: TrainCut, cfg, after=None, trained=None):
         g = _grads_close(fa.flash_attention_backward(q, k, v, o, lse, do, **mask),
                          flash_backward_ref(q, k, v, o, lse, do, **mask))
         lse_max = lse_ref.abs().max().item()
-        g["lse"] = {"max_abs_err": (lse - lse_ref).abs().max().item(), "max_abs": lse_max,
-                    "ok": bool(torch.allclose(lse, lse_ref, rtol=0, atol=LSE_TRAIN_ATOL))}
+        lse_ok = ((lse - lse_ref).abs() <= _lse_train_tol(lse_ref)) | (lse == lse_ref)
+        g["lse"] = {"max_abs_err": (lse - lse_ref).abs().max().item(), "max_abs": lse_max, "ok": bool(lse_ok.all())}
         g["mask"] = _mask_label(q.shape[1], k.shape[1], mask["causal"], mask["prefix_len"])
         rows.append(g)
         del o, lse, lse_ref
@@ -3027,12 +3393,19 @@ def _train_full_width(cut: TrainCut, cfg, after=None, trained=None):
     params = dict(model.named_parameters())
     mixers = ("attn", "cross") if cfg.encdec else ("attn",)
     enc_layers = range(cfg.n_enc_layers if cfg.encdec else 0)
-    groups = {"attention_only": [f"layers.{i}.{m}.{w}" for i in stack for m in mixers for w in qkv],
+    attn_layers = [i for i in stack if cfg.layer_is_attn(i)]
+    groups = {"attention_only": [f"layers.{i}.{m}.{w}" for i in attn_layers for m in mixers for w in qkv],
               "ffn_only": [n for n in params if any(n.startswith(f"layers.{i}.{m}.") for i in stack
                                                      for m in ("ffn", "moe"))
-                           or any(n.startswith(f"encoder.layers.{j}.ffn.") for j in enc_layers)]}
-    check(all(n in params for n in groups["attention_only"]), f"every layer has attn.{', attn.'.join(qkv)}")
+                           or any(n.startswith(f"encoder.layers.{j}.ffn.") for j in enc_layers)],
+              # an SSM layer's weights (projections, conv taps, A, D, dt bias, gate norm, out): their gradients
+              # come through the SSD scan's backward (autograd through the chunked form), the controls scaling them
+              "ssm_only": [n for n in params if any(n.startswith(f"layers.{i}.ssm.") for i in stack)]}
+    groups = {g: names for g, names in groups.items() if names}
+    check(all(n in params for n in groups.get("attention_only", [])), f"every layer has attn.{', attn.'.join(qkv)}")
     check(len(groups["ffn_only"]) >= 3 * len(stack), f"the stack's MLP weights: {groups['ffn_only']}")
+    check(("attention_only" in groups) == bool(attn_layers) and ("ssm_only" in groups) == bool(n_ssm),
+          f"the checks {sorted(groups)} for {len(attn_layers)} attention and {n_ssm} SSM layers")
     alone_cfg = dataclasses.replace(tcfg, schedule=dataclasses.replace(tcfg.schedule, decay_steps=ATTN_ONLY_STEPS))
     backward, alone = ops.flash_attention_backward, {}
     for group, names in groups.items():
@@ -3043,7 +3416,7 @@ def _train_full_width(cut: TrainCut, cfg, after=None, trained=None):
                     f * t for t in backward(*a, **kw))
             try:
                 losses_by[label] = _train_only(model, alone_cfg, micro, names, ATTN_ONLY_STEPS,
-                                               grad_factor=factor if group == "ffn_only" else 1.0)
+                                               grad_factor=1.0 if group == "attention_only" else factor)
             finally:
                 ops.flash_attention_backward = backward
                 with torch.no_grad():
@@ -3059,6 +3432,8 @@ def _train_full_width(cut: TrainCut, cfg, after=None, trained=None):
                                    + f": {sorted({n.split('.', 2)[2] for n in names if n.startswith('layers.')})}",
                         "controls": "the backward kernel's dq, dk, dv scaled" if group == "attention_only"
                                     else "the trained weights' gradients scaled"}
+        if group == "ssm_only":
+            alone[group]["trained"] = f"layers {cut.stack_from}-{L - 1}: the SSM layers' weights"
         later += [
             (drops["gradient"] >= ATTN_ONLY_DROP, f"{group}: the loss fell by {drops['gradient']}, "
                                                   f"want {ATTN_ONLY_DROP}"),
@@ -3091,13 +3466,15 @@ def _train_full_width(cut: TrainCut, cfg, after=None, trained=None):
         "flash_launches": {"forward": fwd, "backward": bwd, "forward_expected": want_fwd,
                            "backward_expected": want_bwd, "backward_by_route": run.routes,
                            "kernels_per_backward": fa.BWD_LAUNCHES, "one_step_by_shape": by_shape},
+        "ssd_launches": {"calls": run.ssd, "expected": want_ssd}, "ssm": ssm,
         "tokens_per_s": train["tokens_per_s"], "tokens_per_s_steady": cut.batch * cut.seq / steady_ms * 1e3,
         "step_ms_median": steady_ms, "step_ms_first": step_ms[0],
         "max_memory_allocated_gb": run.peak_gb, "device_idle": idle,
         "attention_op_bf16": {"layers": rows, "inputs": f"one probe microbatch ({B} x {cut.seq}), every attention "
                                                         "call's q, k, v and dO at its own mask",
                               "tolerance": {"rtol": BWD_RTOL, "atol_of_max": BWD_ATOL_OF_MAX,
-                                            "lse": {"atol": LSE_TRAIN_ATOL}}},
+                                            "lse": {"atol": LSE_TRAIN_ATOL,
+                                                    "fp32_spacings": LSE_TRAIN_SPACINGS}}},
         "after_training": after_training,
     }
     emit(line)
@@ -3107,7 +3484,77 @@ def _train_full_width(cut: TrainCut, cfg, after=None, trained=None):
         check(all(r[n]["ok"] for n in ("dq", "dk", "dv", "lse")),
               f"attention call {layer} ({r['mask']}): the kernels disagree with the plain versions on the training "
               f"inputs: {r}")
-    return fwd, bwd, max(r[n]["max_abs_err"] for r in rows for n in ("dq", "dk", "dv")), line
+    return fwd, bwd, max((r[n]["max_abs_err"] for r in rows for n in ("dq", "dk", "dv")), default=0.0), line
+
+
+def _ssm_train_checks(model, held_out, micro, cut: TrainCut, step_busy_ms: float):
+    """A full-width training cut's SSM layers on one probe microbatch: every
+    SSD call's real inputs through the kernel against the sequential plain
+    scan (y by relative L2 within REAL_INPUT_REL, the final state within
+    SSD_H_REL), and the device time of one call's forward (the kernel) and
+    of its backward (``SSDScan.backward``: autograd through the chunked
+    form, ``ssd_chunked_ref``, recomputed from the saved inputs), each by
+    ``device_breakdown``, with their shares of the traced step's busy time at
+    a step's calls (forward and remat recompute, backward once, per layer and
+    microbatch).  Returns the line's dict with its checks under "checks"."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.kernels.ref import ssd_chunked_ref, ssd_ref
+
+    ssd_op, captured = ops.ssd_scan, []
+
+    def capture(*args, **kw):
+        captured.append((args, kw))
+        return ssd_op(*args, **kw)
+
+    ops.ssd_scan = capture
+    try:
+        with torch.no_grad():
+            held_out(micro)
+    finally:
+        ops.ssd_scan = ssd_op
+    rows = []
+    for args, kw in captured:
+        with torch.no_grad():
+            y, h = ssd_op(*args, **kw)
+            sy, sh = ssd_ref(*args, h0=kw.get("h0"), return_state=True)
+        rows.append({"y_rel_l2": _rel(y, sy), "h_rel_l2": _rel(h, sh), "max_abs_out": sy.float().abs().max().item(),
+                     "outside_bf16_tol": int((~torch.isclose(y.float(), sy.float(), **SSD_BF16_TOL)).sum())})
+        del y, h, sy, sh
+    args, kw = captured[0]
+    x, dt, A, Bm, Cm, D = args[:6]
+    chunk = ops.ref_chunk(x.shape[1], kw["chunk"])
+    leaves = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm, D)]
+    with torch.no_grad():
+        y, h = ssd_op(*args, **kw)
+    g = torch.Generator(device="cuda").manual_seed(41)
+    gy = torch.randn(y.shape, generator=g, device="cuda").to(y.dtype)
+    gh = torch.zeros_like(h)
+
+    def backward():  # what SSDScan.backward computes
+        with torch.enable_grad():
+            out = ssd_chunked_ref(*leaves, chunk=chunk, return_state=True)
+            return torch.autograd.grad(out, leaves, (gy, gh))
+
+    fwd_us = device_breakdown(lambda: ssd_op(*args, **kw))
+    bwd_us = device_breakdown(backward)
+    n_calls = len(captured)
+    fwd_ms, bwd_ms = sum(fwd_us.values()) / 1e3, sum(bwd_us.values()) / 1e3
+    per_step = {"forward_ms": 2 * cut.micro * n_calls * fwd_ms, "backward_ms": cut.micro * n_calls * bwd_ms}
+    del captured, leaves, y, h, gy, gh
+    out = {
+        "ssd_calls_a_forward": n_calls, "shape": f"B={x.shape[0]} S={x.shape[1]} H={x.shape[2]} P={x.shape[3]} "
+                                                 f"N={Bm.shape[3]} G={Bm.shape[2]} {str(x.dtype)[6:]}",
+        "route": sk.select_route(x.dtype), "chunk_of_the_backward": chunk,
+        "ssd_op_bf16": {"layers": rows, "y_rel_tolerance": REAL_INPUT_REL, "h_rel_tolerance": SSD_H_REL},
+        "one_call_device_ms": {"forward_kernel": fwd_ms, "backward_autograd_chunked": bwd_ms},
+        "backward_top_kernels_us": dict(sorted(bwd_us.items(), key=lambda kv: -kv[1])[:TOP_OPS]),
+        "per_step_device_ms": per_step, "step_device_busy_ms": step_busy_ms,
+        "share_of_step_busy": {k.replace("_ms", ""): v / step_busy_ms for k, v in per_step.items()},
+        "checks": [(r["y_rel_l2"] <= REAL_INPUT_REL and r["h_rel_l2"] <= SSD_H_REL,
+                    f"bf16 SSD kernel vs ssd_ref on SSM call {i}'s training inputs: {r}") for i, r in enumerate(rows)],
+    }
+    return out
 
 
 def _stack_layers(model):
@@ -3292,7 +3739,34 @@ def phase_dense_train_full_width():
     cfg = cut_config(DENSE_CUT)
     check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size)
           == (4096, 32, 32, 128, 11008, 102400), "deepseek-7b's published width")
-    return _train_full_width(DENSE_CUT, cfg)
+    return _train_full_width(DENSE_CUT, cfg, after=_adamw_peak)
+
+
+def _adamw_peak(model):
+    """The device memory one AdamW update takes above what it starts from, on
+    the trained cut's weights with fresh moments (its config's dtype) and
+    fp32 gradients of zeros (after every check of the phase: it moves the
+    weights), slice by slice as the trainer runs it
+    (``optim.adamw.CHUNK_ELEMS``): held under one slice's fp32 temporaries,
+    20 bytes an element (p, m and v in fp32, ``denom``, ``delta``)."""
+    from repro_torch.configs import torch_dtype
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim.adamw import CHUNK_ELEMS
+
+    params = dict(model.named_parameters())
+    opt = adamw_init(params, torch_dtype(model.cfg.opt_state_dtype))
+    grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for n, p in params.items()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw_update(grads, opt, params, 1e-6, AdamWConfig())
+    torch.cuda.synchronize()
+    above, bound = (torch.cuda.max_memory_allocated() - base) / 1e9, 20 * CHUNK_ELEMS / 1e9
+    del opt, grads, params
+    torch.cuda.empty_cache()
+    return {"adamw_update_peak_above_start_gb": above, "start_gb": base / 1e9, "chunk_elems": CHUNK_ELEMS,
+            "checks": [(above <= bound, f"AdamW's update peaks {above} GB above its start, over one slice's "
+                                        f"fp32 temporaries ({bound} GB)")]}
 
 
 def phase_gemma_train_full_width():
@@ -3350,6 +3824,36 @@ def phase_moe_train_full_width():
     del runs, first, second
     torch.cuda.empty_cache()
     return fwd, bwd, err
+
+
+def phase_qwen2_train_full_width():
+    """qwen2-72b's published widths cut to 3 layers (QWEN2_CUT), trained
+    with bf16 AdamW moments through ``_train_full_width``."""
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = cut_config(QWEN2_CUT)
+    check(cfg.qkv_bias and cfg.opt_state_dtype == "bfloat16" and (cfg.n_heads, cfg.n_kv_heads) == (64, 8),
+          "qwen2-72b: QKV bias, bf16 moments, 64 heads on 8")
+    fwd, bwd, err, line = _train_full_width(QWEN2_CUT, cfg)
+    fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
+    return fwd, bwd, err, line
+
+
+def phase_jamba_train_full_width():
+    """jamba-1.5-large's published widths cut to its first layer (JAMBA_CUT:
+    SSM + dense FFN), trained with bf16 AdamW moments through
+    ``_train_full_width``: the SSD kernel's launches, its real inputs, and
+    the SSD backward's share of the step's device time."""
+    from repro_torch.kernels import ssd_scan as sk
+
+    cfg = cut_config(JAMBA_CUT)
+    s = cfg.ssm
+    check((s.n_heads(cfg.d_model), s.head_dim, s.d_state, s.n_groups) == JAMBA_SSD_WIDTH
+          and not cfg.layer_is_attn(0) and not cfg.layer_is_moe(0) and cfg.opt_state_dtype == "bfloat16",
+          "jamba's first layer: SSM at its published width and a dense FFN, bf16 moments")
+    fwd, bwd, err, line = _train_full_width(JAMBA_CUT, cfg)
+    sk.ssd_scan.launches = 0
+    return line
 
 
 def _greedy(model, toks, kw, steps: int, enc_len: int):
@@ -3540,12 +4044,13 @@ def _within_noise(got, plain, floor):
 
 
 def _smoke_parity(phase: str, cfg, enc_len: int, note: str, later_held: bool, later_note: str = ""):
-    """``cfg`` (an fp32 smoke config with an encoder or a vision prefix) on the
-    card and on the CPU from the same weights: forward logits, prefill logits
-    and every cache leaf, 8 greedy decode steps (tokens equal); then three
-    train steps (``_train_parity``), the zeroed and negated backward controls
-    beside them.  Every flash call runs on the kernels, and each reading is
-    also taken with the plain attention on the card: the kernels' gaps must
+    """``cfg`` (an fp32 smoke config) on the card and on the CPU from the same
+    weights: forward logits, prefill logits and every cache leaf, 8 greedy
+    decode steps (tokens equal); then three train steps (``_train_parity``;
+    a MoE config's step-1 experts first, a token routed differently a tie
+    within TIE_EPS), the zeroed and negated backward controls beside them.
+    Every flash call runs on the kernels, and each reading is also taken
+    with the plain attention on the card: the kernels' gaps must
     stay within the larger of dense_parity's tolerances (SMOKE_LOGITS_ATOL,
     SMOKE_CACHE_REL, DENSE_STEP1_*) and SMOKE_NOISE_FACTOR times that card's
     own fp32 gap to the CPU, which the controls must fail.  The later steps
@@ -3578,7 +4083,9 @@ def _smoke_parity(phase: str, cfg, enc_len: int, note: str, later_held: bool, la
     del cpu, gpu
 
     data = {"d_model": cfg.d_model, "enc_len": enc_len, "vision_tokens": cfg.vision_tokens}
-    rows, step1, plain, controls, change, launches, tcfg, _ = _train_parity(cfg, data=data)
+    rows, step1, plain, controls, change, launches, tcfg, routes = _train_parity(
+        cfg, route_trace=cfg.moe is not None, data=data)
+    flipped = _routed_differently(routes) if routes is not None else None
     step1_floor = {"loss": DENSE_STEP1_RTOL, "grad_norm": DENSE_STEP1_RTOL, "grad": DENSE_GRAD_REL,
                    "change": DENSE_STEP1_CHANGE_REL}
     A, A_train = len(attention_shapes(cfg, toks.shape[1], enc_len)), len(attention_shapes(cfg, 64, enc_len))
@@ -3587,7 +4094,7 @@ def _smoke_parity(phase: str, cfg, enc_len: int, note: str, later_held: bool, la
                       model_errors=err, plain_attention_model_errors=plain_err, decode_tokens=tokens,
                       greedy_tokens_equal=same, model_flash_launches=model_launches, n_heads=cfg.n_heads,
                       head_dim=cfg.resolved_head_dim, enc_len=enc_len, vision_tokens=cfg.vision_tokens,
-                      later_steps="held" if later_held else f"printed: {later_note}",
+                      later_steps="held" if later_held else f"printed: {later_note}", routed_differently=flipped,
                       tolerances={"logits_atol": SMOKE_LOGITS_ATOL, "cache_rel": SMOKE_CACHE_REL,
                                   "noise_factor": SMOKE_NOISE_FACTOR, "step1": step1_floor,
                                   "loss_rtol": DENSE_LOSS_RTOL, "grad_norm_rtol": DENSE_GNORM_RTOL}))
@@ -3610,22 +4117,48 @@ def _smoke_parity(phase: str, cfg, enc_len: int, note: str, later_held: bool, la
 
 
 def phase_encdec_parity():
-    """whisper's smoke config on the card and on the CPU (``_smoke_parity``),
-    at head dim 32: its own 64-wide model over 4 heads has head dim 16,
-    which no kernel takes (``SUPPORTED_HEAD_DIMS``), so the card runs it
-    over 2 heads (the CPU tests keep the smoke config as it is)."""
+    """whisper's smoke config on the card and on the CPU (``_smoke_parity``)
+    at its own 4 heads of 16: the kernels run at 32 on zero-padded copies
+    (``flash_attention.PAD_D16``)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import flash_attention as fa
 
-    smoke = get_smoke_config("whisper-medium")
-    check(smoke.resolved_head_dim == 16 and 16 not in fa.SUPPORTED_HEAD_DIMS, "whisper's smoke head dim is 16")
-    cfg = dataclasses.replace(smoke, n_heads=2, n_kv_heads=2)
+    cfg = get_smoke_config("whisper-medium")
+    check(cfg.resolved_head_dim == 16 and fa.PAD_D16 == 32, "whisper's smoke head dim is 16")
     _smoke_parity("encdec_parity", cfg, ENCDEC_PARITY_FRAMES,
-                  "2 heads of 32 (the smoke config's 4 heads of 16 take no kernel); the SIMT kernels forward and "
-                  "backward: encoder non-causal, decoder causal, cross non-causal at (Sq, S_enc)", later_held=False,
+                  "4 heads of 16, the SIMT kernels at 32 on zero-padded copies forward and backward: encoder "
+                  "non-causal, decoder causal, cross non-causal at (Sq, S_enc)", later_held=False,
                   later_note="step 1's gradients differ card vs CPU by ~2e-3 of each leaf with the kernels and with "
                              "the plain attention alike (the reference's init draws this 64-wide model's layers at "
                              "std 2^-0.5), and AdamW turns that into whole steps after it (PERF.md)")
+
+
+def phase_qwen2_parity():
+    """qwen2-72b's smoke config (QKV bias, 8 heads of 16 on 2 kv heads, rope
+    theta 1e6) on the card and on the CPU (``_smoke_parity``): the SIMT
+    kernels at 32 on zero-padded copies forward and backward."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config("qwen2-72b")
+    check(cfg.qkv_bias and cfg.resolved_head_dim == 16 and cfg.n_kv_heads == 2, "qwen2's smoke: QKV bias, D = 16")
+    _smoke_parity("qwen2_parity", cfg, 0, "QKV bias, 8 heads of 16 on 2 kv heads; the SIMT kernels at 32 on "
+                                          "zero-padded copies forward and backward", later_held=True)
+
+
+def phase_hybrid_train_parity():
+    """jamba's smoke config (8 layers: attention at position 4, MoE at the odd
+    positions, SSD layers at P = 32 on the fp32 SIMT kernel) on the card and
+    on the CPU (``_smoke_parity``): serving, then three train steps, step 1's
+    experts first, with the zeroed and negated backward controls."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config("jamba-1.5-large-398b")
+    check(cfg.n_layers == 8 and cfg.moe is not None and cfg.ssm is not None, "jamba's smoke: the hybrid")
+    _smoke_parity("hybrid_train_parity", cfg, 0, "attention at 4, MoE at odd positions, SSD at P = 32: the SIMT "
+                                                  "flash and SSD kernels", later_held=False,
+                  later_note="after step 1 the two runs' weights differ by AdamW's amplified fp32 noise and the "
+                             "router sends the tokens whose top-k margin sits below it to other experts "
+                             "(routed_differently), as in moe_train_parity")
 
 
 def phase_prefix_lm_parity():
@@ -3742,6 +4275,55 @@ def phase_prefix_kernel(smi: str):
                            "back-to-back calls replayed from one CUDA graph; kernel, plain and SDPA alternate; "
                            "inputs warm in L2; SDPA's "
                            "backward is its forward and backward less its forward"}
+    emit(line)
+    fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
+    return line
+
+
+def phase_d16_kernel(smi: str):
+    """The four flash kernels at head dim 16, each run at 32 on zero-padded
+    copies by its wrapper: held against the plain versions in both
+    directions and both dtypes at D16_EDGES, one launch a call recorded at
+    the true width; then timed, copies included, at D16_TIMED beside the
+    plain versions and SDPA (``_prefix_timing``, which holds them against
+    the plain versions first)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_lse_ref, attention_ref, flash_backward_ref
+
+    check(fa.PAD_D16 == 32, "head dim 16 runs at 32")
+    err, n = {}, 0
+    for i, (B, Sq, Sk, Hq, Hkv, causal) in enumerate(D16_EDGES):
+        for dtype in (torch.bfloat16, torch.float32):
+            fp32 = dtype == torch.float32
+            q, do = randn((B, Sq, Hq, 16), dtype, 1300 + 10 * i), randn((B, Sq, Hq, 16), dtype, 1301 + 10 * i)
+            k, v = randn((B, Sk, Hkv, 16), dtype, 1302 + 10 * i), randn((B, Sk, Hkv, 16), dtype, 1303 + 10 * i)
+            launches = (fa.flash_attention.launches, fa.flash_attention_backward.launches)
+            o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+            got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=causal)
+            torch.cuda.synchronize()
+            check((fa.flash_attention.launches, fa.flash_attention_backward.launches)
+                  == (launches[0] + 1, launches[1] + 1), "one launch a call in each direction")
+            want = attention_ref(q, k, v, causal=causal)
+            e = (o.float() - want.float()).abs().max().item()
+            label = f"D=16 {str(dtype)[6:]} B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} causal={causal}"
+            check(o.shape == want.shape and torch.allclose(o.float(), want.float(), **(FP32_TOL if fp32 else BF16_TOL)),
+                  f"{label}: forward {e}")
+            check(torch.allclose(lse, attention_lse_ref(q, k, v, causal=causal), **LSE_TOL), f"{label}: lse")
+            g = _grads_close(got, flash_backward_ref(q, k, v, o, lse, do, causal=causal), fp32=fp32)
+            check(all(r["ok"] for r in g.values()) and all(t.is_contiguous() for t in got), f"{label}: backward {g}")
+            key = str(dtype)[6:]
+            err[key] = max(err.get(key, 0.0), e, *(r["max_abs_err"] for r in g.values()))
+            n += 1
+    timing = {name: _prefix_timing(smi, name, B, S, S, Hq, Hkv, 16, dtype, True, 0, 1400)
+              for name, (B, S, Hq, Hkv, dtype) in D16_TIMED.items()}
+    line = {"phase": "d16_kernel", "checked": n, "edges": [list(e) for e in D16_EDGES], "max_abs_err": err,
+            "padded_to": fa.PAD_D16,
+            "tolerances": {"bfloat16": BF16_TOL, "float32": FP32_TOL,
+                           "backward": {"rtol": BWD_RTOL, "atol_of_max": BWD_ATOL_OF_MAX, "float32": BWD_FP32_TOL}},
+            "timing": timing,
+            "timing_note": f"median of {ROUNDS} readings, each the mean of {LAUNCHES} ({PLAIN_LAUNCHES} plain or slow) "
+                           "back-to-back calls replayed from one CUDA graph, the wrapper's zero-padded copies and "
+                           "its slice of the outputs included; bound at the true width (16); SDPA at 16"}
     emit(line)
     fa.flash_attention.launches = fa.flash_attention_backward.launches = 0
     return line
@@ -4338,8 +4920,11 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     sass = phase_build()
-    # first, in a fresh process: late in a long one the profiler loses whole sides of this phase's prefill trace
+    # first, in a fresh process: late in a long one the profiler loses whole sides of these phases' traces
+    # (step_cost's prefill; jamba's SSD forward and backward, which lost them 4 times at 360 s in)
     step_fwd, step_flash, step_scatter, replay_launches = phase_step_cost(smi)
+    torch.cuda.empty_cache()
+    jamba_train = phase_jamba_train_full_width()
     torch.cuda.empty_cache()
     bf16_err, timings, d256 = phase_kernel(smi, served_prompt_lens())
     mla = phase_mla_kernel(smi, served_prompt_lens(),
@@ -4352,6 +4937,7 @@ def main() -> int:
     moe_full = phase_moe_full_width(smi)
     ssd_err, ssd_timings, p128 = phase_ssd_kernel(smi)
     hybrid_full = phase_hybrid_full_width(smi)
+    qwen2_full = phase_qwen2_full_width(smi)
     phase_ssm_parity()
     model, ssd_launches, probe = phase_train_full_width()
     phase_decode_full_width(model)
@@ -4360,17 +4946,22 @@ def main() -> int:
     bwd_timing, d256_bwd, bwd_err = phase_flash_bwd_kernel(smi)
     mla_bwd = phase_mla_bwd_kernel(smi, sass["flash_attention_bwd_wgmma"])
     prefix = phase_prefix_kernel(smi)
+    d16 = phase_d16_kernel(smi)
     routes = phase_routes(smi, served_prompt_lens())
     phase_dense_parity()
     phase_moe_train_parity()
     phase_encdec_parity()
     phase_prefix_lm_parity()
+    phase_qwen2_parity()
+    phase_hybrid_train_parity()
     torch.cuda.empty_cache()
     dense_fwd, dense_bwd, dense_err, dense_line = phase_dense_train_full_width()
     torch.cuda.empty_cache()
     gemma_fwd, gemma_bwd, gemma_err = phase_gemma_train_full_width()
     torch.cuda.empty_cache()
     moe_fwd, moe_bwd, moe_err = phase_moe_train_full_width()
+    torch.cuda.empty_cache()
+    qwen2_fwd, qwen2_bwd, qwen2_err, _ = phase_qwen2_train_full_width()
     torch.cuda.empty_cache()
     encdec_fwd, encdec_bwd, encdec_err, encdec_serve = phase_encdec_full_width()
     torch.cuda.empty_cache()
@@ -4391,6 +4982,12 @@ def main() -> int:
         return {name: {"shape": pt[name]["shape"], "route": pt[name]["route"],
                        **{k: pt[name][direction][k] for k in keys}} for name in pt}
 
+    def d16_rows(direction):  # head dim 16's rows: the kernels at 32 on zero-padded copies, copies included
+        keys = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+        return {"padded_to": d16["padded_to"],
+                **{name: {"shape": r["shape"], "route": r["route"], **{k: r[direction][k] for k in keys}}
+                   for name, r in d16["timing"].items()}}
+
     st = ssd_timings["B4_S256"]
     gt = seg_timings[f"draws{SIM_DRAWS}"]
     emit({"kernels": [{
@@ -4402,16 +4999,21 @@ def main() -> int:
                   "stages; S = Q K^T as 8 x 4 micro-tiles over two parts of D (eight at 256, one at D <= 64) summed "
                   "in one softmax pass (natural exp, as the plain version; P in shared memory), O += P V in 8 x 4 "
                   "register blocks), timed in fp32 as fp32",
-        "launches": (launches + mla_launches + hybrid_full["flash_launches"] + dense_fwd + gemma_fwd + moe_fwd
-                     + encdec_fwd + encdec_prefill + prefix_fwd + prefix_prefill + dist_fwd + pipe_fwd + step_fwd),
+        "launches": (launches + mla_launches + hybrid_full["flash_launches"] + qwen2_full["flash_launches"]
+                     + dense_fwd + gemma_fwd + moe_fwd + qwen2_fwd + encdec_fwd + encdec_prefill + prefix_fwd
+                     + prefix_prefill + dist_fwd + pipe_fwd + step_fwd),
         "launches_by_path": {"serving": launches, "moe_mla_serving": mla_launches,
-                             "hybrid_serving": hybrid_full["flash_launches"], "dense_training": dense_fwd,
+                             "hybrid_serving": hybrid_full["flash_launches"],
+                             "qwen2_serving": qwen2_full["flash_launches"], "qwen2_training": qwen2_fwd,
+                             "dense_training": dense_fwd,
                              "gemma_training": gemma_fwd, "moe_mla_training": moe_fwd,
                              "encdec_training": encdec_fwd, "encdec_prefill": encdec_prefill,
                              "prefix_lm_training": prefix_fwd, "prefix_lm_prefill": prefix_prefill,
                              "compressed_training": dist_fwd, "pipeline": pipe_fwd, "step_cost_prefill": step_fwd},
-        "max_abs_err": max(bf16_err, op_err, *mla["max_abs_err"].values(),
-                           moe_full["attention_op_bf16"]["max_abs_err"], step_flash["max_abs_err"]),
+        "max_abs_err": max(bf16_err, op_err, *mla["max_abs_err"].values(), *d16["max_abs_err"].values(),
+                           moe_full["attention_op_bf16"]["max_abs_err"], step_flash["max_abs_err"],
+                           *(r["max_abs_err"] for r in qwen2_full["attention_op_bf16"]["layers"])),
+        "d16": d16_rows("forward"),
         "step_cost_prefill": {k: step_flash[k] for k in ("shape", "route", "kernel_ms", "plain_ms", "library_ms",
                                                          "bound_ms", "bound_by", "kernel_tflops")},
         "prefix_lm_and_encdec": {"source": fa.SOURCE, "simt_source": fa.SIMT_SOURCE,
@@ -4444,13 +5046,15 @@ def main() -> int:
                   "outputs and computing S and dP itself; fp32 runs the SIMT backward "
                   f"({fa.BWD_SIMT_SOURCE}: 8 x 4 score micro-tiles of S and dP, float4 reads of swizzled tiles, "
                   "cp.async double buffering), timed beside it as simt_ms",
-        "launches": dense_bwd + gemma_bwd + moe_bwd + encdec_bwd + prefix_bwd + dist_bwd,
+        "launches": dense_bwd + gemma_bwd + moe_bwd + qwen2_bwd + encdec_bwd + prefix_bwd + dist_bwd,
         "launches_by_path": {"dense_training": dense_bwd, "gemma_training": gemma_bwd, "moe_mla_training": moe_bwd,
+                             "qwen2_training": qwen2_bwd,
                              "encdec_training": encdec_bwd, "prefix_lm_training": prefix_bwd,
                              "compressed_training": dist_bwd, "pipeline": 0},
         "kernels_per_launch": len(bwd_timing["device_us_by_kernel_10_calls"]["wgmma"]),
-        "max_abs_err": max(bwd_err, dense_err, gemma_err, moe_err, encdec_err, prefix_err, dist_err,
+        "max_abs_err": max(bwd_err, dense_err, gemma_err, moe_err, qwen2_err, encdec_err, prefix_err, dist_err,
                            *mla_bwd["max_abs_err"].values()),
+        "d16": d16_rows("backward"),
         "prefix_lm_and_encdec": {"source": fa.BWD_SOURCE, "simt_source": fa.BWD_SIMT_SOURCE,
                                  "timing": new_shapes("backward")},
         "ms": bwd_timing["kernel_ms"], "kernel_ms": bwd_timing["kernel_ms"], "plain_ms": bwd_timing["plain_ms"],
@@ -4485,8 +5089,9 @@ def main() -> int:
                   "tile a chunk, C B^T once per group and tile, tile states passed in fp32, y = [exp(cum) C | M] "
                   "[h^T ; X] in 8 x 4 register blocks over half the depth a half-block; fp32 FMAs on float4 reads), "
                   "timed beside it in bf16 as simt_ms and in fp32 as fp32",
-        "launches": ssd_launches + hybrid_full["ssd_launches"],
-        "launches_by_path": {"ssm_training": ssd_launches, "hybrid_serving": hybrid_full["ssd_launches"]},
+        "launches": ssd_launches + hybrid_full["ssd_launches"] + jamba_train["ssd_launches"]["calls"],
+        "launches_by_path": {"ssm_training": ssd_launches, "hybrid_serving": hybrid_full["ssd_launches"],
+                             "hybrid_training": jamba_train["ssd_launches"]["calls"]},
         "max_abs_err": max(ssd_err, ssd_op_err),
         "kernels_per_launch": {"bfloat16": len(st["device_us_by_kernel"]),
                                "float32": routes["ssd_scan_fp32"]["kernels_per_call"]},
@@ -4497,6 +5102,8 @@ def main() -> int:
         "fp32": {name: {k: routes[name][k] for k in ("shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
                                                      "bound_by")}
                  for name in ("ssd_scan_fp32", f"ssd_scan_fp32_B{SSD_TIMED[1][0]}_S{SSD_TIMED[1][1]}")},
+        "hybrid_training": {k: jamba_train["ssm"][k] for k in ("shape", "route", "one_call_device_ms",
+                                                                 "share_of_step_busy")},
         "p128": {"route": "wgmma", "source": sk.SOURCE, "shape": "B=1 H=128 P=128 N=128 G=1 bf16 (jamba's prefills)",
                  "launches": hybrid_full["ssd_launches"],
                  "max_abs_err": p128["bf16_max_abs_err"], "max_rel_l2_err": p128["bf16_max_rel_err"],

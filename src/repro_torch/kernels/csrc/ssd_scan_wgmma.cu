@@ -79,8 +79,12 @@
 // the bf16 tolerance where large terms cancel for M and h.  So each is
 // carried as hi = bf16(v) plus lo = bf16(v − hi), ~16 bits, and its product
 // runs twice (hi, then lo); ref.ssd_tiled_ref rounds at the same points and
-// the CPU tests show that each needs it.  The state passes between tiles and
-// chunks in fp32; exponentials are exp2 of the log2(e)-scaled argument.
+// the CPU tests show that each needs it.  The prefix cum of A·dt is summed
+// in fp64 and the decays' arguments (cum_t − cum_s, cum_L − cum_s) taken
+// from it before one rounding to fp32 (struct Decay): with fp32 prefixes,
+// mamba2-130m's trained inputs put single outputs past the bf16 tolerance
+// (ROADMAP queue 3, item 12).  The state passes between tiles and chunks in
+// fp32; exponentials are exp2 of the log2(e)-scaled argument.
 //
 // What bounds it.  The function reads x, B, C, dt and writes y and h_final:
 // bytes, against ~2L²N + 2L²P + 4LNP FLOPs per (batch, head, tile) at the
@@ -102,8 +106,22 @@ constexpr int WG = 128;           // threads of one warpgroup: 64 state rows (P)
 constexpr int STAGES = 2;         // tile ring depth
 constexpr int BOX = 64 * 128;     // one TMA box: 64 rows of 64 bf16 columns, 128B-swizzled
 constexpr int CB_FLOATS = L * L;  // one tile's C Bᵀ
-constexpr int FLOATS = 5 * L;     // dt, cum, w and (cum, dt) by column pair of the tile in shared memory
 constexpr float LOG2E = 1.4426950408889634f;
+
+// One tile's decay terms in shared memory.  cum, the inclusive prefix of
+// A·dt, is summed and kept in fp64: M and w take differences of two of its
+// entries, which over a tile reach hundreds to thousands while their
+// difference is a few units, and an fp32 prefix would carry its spacing
+// there (1e-5 to 1e-3) as a relative error of exp(cum_t − cum_s), past what
+// outputs where large terms cancel survive (ROADMAP queue 3, item 12).
+struct Decay {
+  double cum[L];
+  double2 cum_pair[L / 2];  // (cum_s, cum_s+1) by column pair, for the M build
+  float dt[L];
+  float w[L];               // exp(cum_L − cum_s)·dt_s
+  float2 dt_pair[L / 2];    // (dt_s, dt_s+1) by column pair
+};
+constexpr int DECAY_BYTES = int(sizeof(Decay));
 
 template <int P, int N>
 struct Cfg {
@@ -114,10 +132,10 @@ struct Cfg {
   static constexpr int XT = PW * BOX;   // bytes of an x tile
   static constexpr int PREP_STAGE = XT + BC;  // x, B
   static constexpr int OUT_STAGE = XT + BC;   // x, C; the out kernel's B tile and state terms sit after the ring
-  static constexpr size_t PREP_SMEM = 1024 + size_t(STAGES) * PREP_STAGE + FLOATS * 4 + 8 * STAGES;
+  static constexpr size_t PREP_SMEM = 1024 + size_t(STAGES) * PREP_STAGE + DECAY_BYTES + 8 * STAGES;
   // the ring, the B tile, the hi and lo state terms of every warpgroup, dt / cum / w, the barriers
   static constexpr size_t OUT_SMEM =
-      1024 + size_t(STAGES) * OUT_STAGE + BC + 2 * size_t(PW) * BC + FLOATS * 4 + 8 * (STAGES + 1);
+      1024 + size_t(STAGES) * OUT_STAGE + BC + 2 * size_t(PW) * BC + DECAY_BYTES + 8 * (STAGES + 1);
   static_assert(P == 64 || P == 128, "head dim 64 or 128");
   static_assert(N == 64 || N == 128, "d_state 64 or 128");
   static_assert(2 * BC <= STAGES * PREP_STAGE, "a C Bᵀ item's C and B tiles fit the prep kernel's ring");
@@ -180,30 +198,29 @@ __device__ __forceinline__ float load_dt(const float* dt, long long dt_ss, int r
 // two-term bf16 operands it feeds
 __device__ __forceinline__ float fexp(float x) { return exp2f(x * LOG2E); }
 
-// from each thread's dt (load_dt): cum = inclusive prefix of A·dt (two warp
-// scans joined), w = exp(cum_L − cum)·dt and, for the M build, each column
-// pair's (cum_s, cum_s+1, dt_s, dt_s+1) as one float4, in shared memory
-// (sW, then sPair = sW + L); all wait
-__device__ __forceinline__ void tile_decay(float d, float A, float* sDt, float* sCum, float* sW) {
+// from each thread's dt (load_dt): cum = inclusive prefix of A·dt in fp64
+// (two warp scans joined), w = exp(cum_L − cum)·dt and, for the M build,
+// each column pair's cum and dt, in shared memory; all wait
+__device__ __forceinline__ void tile_decay(float d, float A, Decay* sd) {
   const int tid = threadIdx.x;
   if (tid < L) {
-    float run = A * d;
+    double run = double(A) * double(d);  // exact: two fp32 factors
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const float v = __shfl_up_sync(0xffffffffu, run, off);
+      const double v = __shfl_up_sync(0xffffffffu, run, off);
       if ((tid & 31) >= off) run += v;
     }
-    sDt[tid] = d;
-    sCum[tid] = run;
+    sd->dt[tid] = d;
+    sd->cum[tid] = run;
   }
   __syncthreads();
-  if (tid >= 32 && tid < L) sCum[tid] += sCum[31];
+  if (tid >= 32 && tid < L) sd->cum[tid] += sd->cum[31];
   __syncthreads();
   if (tid < L) {
-    sW[tid] = fexp(sCum[L - 1] - sCum[tid]) * sDt[tid];
-    float* pair = sW + L + (tid >> 1) * 4 + (tid & 1);
-    pair[0] = sCum[tid];
-    pair[2] = sDt[tid];
+    const double c = sd->cum[tid];
+    sd->w[tid] = fexp(float(sd->cum[L - 1] - c)) * d;
+    reinterpret_cast<double*>(sd->cum_pair)[tid] = c;
+    reinterpret_cast<float*>(sd->dt_pair)[tid] = d;
   }
   __syncthreads();
 }
@@ -303,10 +320,8 @@ __global__ void __launch_bounds__(2 * P) ssd_prep(const __grid_constant__ CUtens
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms need 1024-byte alignment
   uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));
-  float* sDt = reinterpret_cast<float*>(gbase + STAGES * T::PREP_STAGE);
-  float* sCum = sDt + L;
-  float* sW = sCum + L;
-  const uint32_t bar = base + STAGES * T::PREP_STAGE + FLOATS * 4;
+  Decay* sd = reinterpret_cast<Decay*>(gbase + STAGES * T::PREP_STAGE);
+  const uint32_t bar = base + STAGES * T::PREP_STAGE + DECAY_BYTES;
   const int tid = threadIdx.x;
   init_bars(bar);
 
@@ -360,24 +375,24 @@ __global__ void __launch_bounds__(2 * P) ssd_prep(const __grid_constant__ CUtens
   for (int c = 0; c < T::NCH; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) hs[c][i] = 0.f;
-  float logd = 0.f;
+  double logd = 0.0;
   for (int it = 0; it < nq; ++it) {
     const int s = it % STAGES;
     const int t0 = (q0 + it) * L;
-    tile_decay(load_dt(dt + (long long)t0 * p.dt_ss, p.dt_ss, p.S - t0), A, sDt, sCum, sW);
-    const float decay = fexp(sCum[L - 1]);
-    logd += sCum[L - 1];
+    tile_decay(load_dt(dt + (long long)t0 * p.dt_ss, p.dt_ss, p.S - t0), A, sd);
+    const float decay = fexp(float(sd->cum[L - 1]));
+    logd += sd->cum[L - 1];
 #pragma unroll
     for (int c = 0; c < T::NCH; ++c)
 #pragma unroll
       for (int i = 0; i < 32; ++i) hs[c][i] *= decay;
     mbar_wait(bar + 8 * s, (it / STAGES) & 1);
-    state_update<N>(hs, gbase + s * T::PREP_STAGE + wg_index() * BOX, sW, base + s * T::PREP_STAGE + T::XT);
+    state_update<N>(hs, gbase + s * T::PREP_STAGE + wg_index() * BOX, sd->w, base + s * T::PREP_STAGE + T::XT);
     __syncthreads();  // every warp is done with stage s and with dt / cum / w
     if (tid == 0 && it + STAGES < nq) load(s, q0 + it + STAGES);
   }
   state_io<N>(hs, p.local + (long long)item * P * N, true);
-  if (tid == 0) p.logdecay[item] = logd;
+  if (tid == 0) p.logdecay[item] = float(logd);
 }
 
 // one thread per 4 consecutive state values of one (batch, head)
@@ -411,10 +426,8 @@ __global__ void __launch_bounds__(2 * P) ssd_out(const __grid_constant__ CUtenso
   uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));
   // the B tile, then the state's hi terms of every warpgroup, then its lo terms
   const uint32_t sB = base + STAGES * T::OUT_STAGE, sHhi = sB + T::BC, sHlo = sHhi + T::PW * T::BC;
-  float* sDt = reinterpret_cast<float*>(gbase + (sHlo + T::PW * T::BC - base));
-  float* sCum = sDt + L;
-  float* sW = sCum + L;
-  const uint32_t bar = sHlo + T::PW * T::BC + FLOATS * 4;  // STAGES ring barriers
+  Decay* sd = reinterpret_cast<Decay*>(gbase + (sHlo + T::PW * T::BC - base));
+  const uint32_t bar = sHlo + T::PW * T::BC + DECAY_BYTES;  // STAGES ring barriers
   const uint32_t bar_b = bar + 8 * STAGES;                 // the B tile's
   const int tid = threadIdx.x;
   const int wg = wg_index();
@@ -484,7 +497,7 @@ __global__ void __launch_bounds__(2 * P) ssd_out(const __grid_constant__ CUtenso
       load_cb(q + 1, cb_next);
       dt_next = load_dt(dt + (long long)(t0 + L) * p.dt_ss, p.dt_ss, p.S - t0 - L);
     }
-    tile_decay(d, A, sDt, sCum, sW);
+    tile_decay(d, A, sd);
 
     // the entering state as K-major (p, n) bf16 tiles, hi and lo terms, each
     // warpgroup its own 64 rows
@@ -516,26 +529,27 @@ __global__ void __launch_bounds__(2 * P) ssd_out(const __grid_constant__ CUtenso
     wg_commit();
     wg_wait0();
     pin(acc);
-    const float c0 = sCum[r0], c1 = sCum[r0 + 8];
-    const float e0 = fexp(c0), e1 = fexp(c1);
+    const double c0 = sd->cum[r0], c1 = sd->cum[r0 + 8];
+    const float e0 = fexp(float(c0)), e1 = fexp(float(c1));
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] *= (i >> 1) & 1 ? e1 : e0;
 
     // y += M X, M = tril(C Bᵀ) ⊙ exp(cum_t − cum_s) ⊙ dt_s + diag(D), masked
     // before exp; value i of the fragment is row r0 + 8 ((i / 2) % 2) and
-    // column pair 4 (i / 4) + lane % 4, whose cum and dt come in one float4
+    // column pair 4 (i / 4) + lane % 4, whose cum and dt come in one double2
+    // and one float2; cum_t − cum_s is taken in fp64 and rounded once
     uint32_t ma[16], mb[16];
-    const float4* pairs = reinterpret_cast<const float4*>(sW + L);
 #pragma unroll
     for (int g = 0; g < 8; ++g) {
-      const float4 cd = pairs[g * 4 + (tid & 3)];  // (cum_s, cum_s+1, dt_s, dt_s+1)
+      const double2 cs = sd->cum_pair[g * 4 + (tid & 3)];  // (cum_s, cum_s+1)
+      const float2 ds = sd->dt_pair[g * 4 + (tid & 3)];    // (dt_s, dt_s+1)
       const int s0 = frag_col(4 * g);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int i = 4 * g + 2 * r, t = r0 + 8 * r;
-        const float ct = r ? c1 : c0;
-        float m0 = s0 <= t ? cbv[i] * fexp(ct - cd.x) * cd.z : 0.f;
-        float m1 = s0 + 1 <= t ? cbv[i + 1] * fexp(ct - cd.y) * cd.w : 0.f;
+        const double ct = r ? c1 : c0;
+        float m0 = s0 <= t ? cbv[i] * fexp(float(ct - cs.x)) * ds.x : 0.f;
+        float m1 = s0 + 1 <= t ? cbv[i + 1] * fexp(float(ct - cs.y)) * ds.y : 0.f;
         if (s0 == t) m0 += Dh;
         if (s0 + 1 == t) m1 += Dh;
         split(m0, m1, ma[i >> 1], mb[i >> 1]);
@@ -567,13 +581,13 @@ __global__ void __launch_bounds__(2 * P) ssd_out(const __grid_constant__ CUtenso
     }
 
     if (it + 1 < nq) {  // the state entering the next tile of this chunk
-      const float decay = fexp(sCum[L - 1]);
+      const float decay = fexp(float(sd->cum[L - 1]));
 #pragma unroll
       for (int c = 0; c < T::NCH; ++c)
 #pragma unroll
         for (int i = 0; i < 32; ++i) hs[c][i] *= decay;
       mbar_wait(bar_b, it & 1);
-      state_update<N>(hs, gbase + (myX - base), sW, sB);
+      state_update<N>(hs, gbase + (myX - base), sd->w, sB);
     }
     __syncthreads();  // every warp is done with stage s, the B tile, the state terms and dt / cum / w
     if (tid == 0) {

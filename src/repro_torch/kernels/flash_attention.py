@@ -6,8 +6,9 @@ XLA take of its blocked form.  Four kernels, built for ``sm_90a`` by
 :mod:`.build` at their first launch and called through ``ctypes``; a CUDA
 call picks one by dtype and head dims (:func:`select_route` forward,
 :func:`select_bwd_route` backward).  Both directions take the (q/k head
-dim, v head dim) pairs of :data:`FWD_PAIRS`: the equal widths 32, 64, 128
-and 256, and (192, 128), MLA's (deepseek-v2: q and k carry 128 columns
+dim, v head dim) pairs of :data:`FWD_PAIRS`: the equal widths 16, 32, 64,
+128 and 256 (16 by zero-padding to 32: :data:`PAD_D16`), and (192,
+128), MLA's (deepseek-v2: q and k carry 128 columns
 plus 64 of rope, v 128), served by the forward and trained through both.
 Every kernel takes a causal mask with a prefix-LM prefix (``prefix_len``:
 every row also sees the first ``prefix_len`` keys, paligemma's vision
@@ -100,12 +101,22 @@ from .ref import attention_lse_ref, attention_ref, flash_backward_ref
 __all__ = [
     "is_fake", "flash_attention", "flash_attention_backward", "flash_flops", "flash_bytes", "FlashLaunch",
     "select_route",
-    "select_bwd_route", "tma_strides", "ROUTES", "SUPPORTED_HEAD_DIMS", "FWD_PAIRS", "BWD_LAUNCHES", "BWD_P_TERMS", "BWD_DS_TERMS",
+    "select_bwd_route", "tma_strides", "ROUTES", "SUPPORTED_HEAD_DIMS", "PAD_D16", "FWD_PAIRS",
+    "BWD_LAUNCHES", "BWD_P_TERMS", "BWD_DS_TERMS",
     "SOURCE", "SIMT_SOURCE", "BWD_SOURCE", "BWD_SIMT_SOURCE", "REPLACES", "BWD_REPLACES",
 ]
 
 #: the equal q/k and v head dims both directions take
-SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
+#: the kernel width a CUDA call at head dim 16 runs at: the wrapper copies q,
+#: k and v (and o and dO backward) into zero-padded tensors of this width,
+#: launches the kernel there with the true width's scale, records the launch
+#: at the true width, and copies the true width's columns out.  Zero columns
+#: add nothing to Q Kᵀ, give zero columns of O and dV, and leave Dᵢ =
+#: rowsum(dO ∘ O) as it is, so the result is the true width's.  A 16-wide bf16 row is 32 bytes, under the
+#: 64-byte swizzle the tensor-core kernels' tiles take; the copies are timed
+#: with the kernel (chip_smoke.py, ``d16``).
+PAD_D16 = 32
 _EQUAL_PAIRS = tuple((d, d) for d in SUPPORTED_HEAD_DIMS)
 #: the (q/k head dim, v head dim) pairs the forward and the backward kernels
 #: take: the equal widths, and MLA's at deepseek-v2's published widths
@@ -342,6 +353,12 @@ def _check_cuda(ts) -> None:
         raise ValueError("kernel needs the last (head) dimension contiguous")
 
 
+def _pad_heads(ts):
+    """Each tensor copied into a contiguous zero-padded one :data:`PAD_D16`
+    wide in its last dimension."""
+    return tuple(torch.nn.functional.pad(t, (0, PAD_D16 - t.shape[-1])) for t in ts)
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, Sq, Hq, D)
     k: torch.Tensor,  # (B, Sk, Hkv, D)
@@ -385,12 +402,15 @@ def flash_attention(
         return (out, attention_lse_ref(q, k, v, **mask)) if return_lse else out
     route = route or select_route(q.dtype, D, Dv)
     _check_cuda((q, k, v))
+    record = _launch_record(q, k, v, causal, prefix_len)
+    if D == 16:
+        q, k, v = _pad_heads((q, k, v))
 
-    B, Sq, Hq, _ = q.shape
-    _, Sk, Hkv, _ = k.shape
-    out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device)
+    B, Sq, Hq, Dk = q.shape
+    _, Sk, Hkv, Dvk = v.shape
+    out = torch.empty((B, Sq, Hq, Dvk), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) if return_lse else None
-    dims = [B, Sq, Sk, Hq, Hkv, D, Dv]
+    dims = [B, Sq, Sk, Hq, Hkv, Dk, Dvk]
     if route == "wgmma":
         # a tensor with no rows is never read (Sk == 0 loads no tile)
         strides = [tma_strides(t) if t.shape[1] else t.stride()[:3] for t in (q, k, v)]
@@ -408,7 +428,9 @@ def flash_attention(
     if err != 0:
         raise RuntimeError(f"flash_attention {route} kernel launch failed: {err_str(err).decode()}")
     flash_attention.launches += 1
-    flash_attention.shapes[_launch_record(q, k, v, causal, prefix_len)] += 1
+    flash_attention.shapes[record] += 1
+    if D == 16:
+        out = out[..., :D]
     return (out, lse) if return_lse else out
 
 
@@ -470,11 +492,15 @@ def flash_attention_backward(
     _check_cuda((q, k, v, o, do))
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"kernel takes a contiguous float32 lse, got {lse.dtype}")
+    record = _launch_record(q, k, v, causal, prefix_len)
+    if D == 16:
+        q, k, v, o, do = _pad_heads((q, k, v, o, do))
 
-    dq = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
-    dk = torch.empty((B, Sk, Hkv, D), dtype=q.dtype, device=q.device)
-    dv = torch.empty((B, Sk, Hkv, Dv), dtype=q.dtype, device=q.device)
-    dims = [B, Sq, Sk, Hq, Hkv, D, Dv]
+    Dk, Dvk = q.shape[-1], v.shape[-1]
+    dq = torch.empty((B, Sq, Hq, Dk), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, Hkv, Dk), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, Sk, Hkv, Dvk), dtype=q.dtype, device=q.device)
+    dims = [B, Sq, Sk, Hq, Hkv, Dk, Dvk]
     if route == "wgmma":
         # lse·log2(e) and Dᵢ, each (B, Hq, Sq padded to the kernel's 64-row tile)
         scratch = torch.empty(2 * B * Hq * -(-Sq // _BWD_ROWS) * _BWD_ROWS, dtype=torch.float32, device=q.device)
@@ -494,7 +520,9 @@ def flash_attention_backward(
     if err != 0:
         raise RuntimeError(f"flash_attention_backward {route} kernel launch failed: {err_str(err).decode()}")
     flash_attention_backward.launches += 1
-    flash_attention_backward.shapes[_launch_record(q, k, v, causal, prefix_len)] += 1
+    flash_attention_backward.shapes[record] += 1
+    if D == 16:
+        return tuple(g[..., :D].contiguous() for g in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -359,7 +359,7 @@ def _bf16_terms(v: torch.Tensor, terms: int) -> torch.Tensor:
 
 def ssd_tiled_ref(
     x, dt, A, Bm, Cm, D=None, h0=None, *, tile: int = 64, tiles_per_chunk: int = 1,
-    m_terms: int = 0, h_terms: int = 0, xw_terms: int = 0,
+    m_terms: int = 0, h_terms: int = 0, xw_terms: int = 0, cum64: bool = False,
 ):
     """The bf16 tensor-core SSD kernel's three phases in plain torch, fp32.
 
@@ -377,7 +377,14 @@ def ssd_tiled_ref(
     ``m_terms``, ``h_terms`` and ``xw_terms`` round M, the state entering
     each tile's ``C hᵀ`` and ``Xw`` to bf16 before their products as the
     kernel does (:func:`_bf16_terms`: 0 none, 1 one term, 2 hi + lo); C, B
-    and x enter as given.  Any head dim P: at P = 128 the kernel gives each
+    and x enter as given.  With ``cum64`` the prefix ``cum``
+    is summed in fp64 and the decays' arguments (``cum_t − cum_s``,
+    ``cum_L − cum_s``, ``cum_t``, ``cum_L``) are taken from it in fp64, then
+    rounded to fp32 for the exponent, as the bf16 kernel does: two fp32
+    prefixes, which reach thousands inside a tile as trained gates make
+    them, differ with an error of their spacing (up to ~1e-3), which
+    outputs where large terms cancel do not survive.  Any head dim P: at P
+    = 128 the kernel gives each
     of a block's two warpgroups 64 of the state's rows and of y's columns,
     which changes no sum and no rounding point, so this model covers both
     head dims it takes.  Returns y in x's dtype and the final state."""
@@ -394,9 +401,15 @@ def ssd_tiled_ref(
     Cf = torch.nn.functional.pad(Cm.to(f), (0, 0, 0, 0, 0, pad)).reshape(Bsz, nT, L, G, N)
     Bh, Ch = Bf.repeat_interleave(rep, dim=3), Cf.repeat_interleave(rep, dim=3)  # (B, nT, L, H, N)
 
-    cum = torch.cumsum(A.to(f) * dtf, dim=2)  # (B, nT, L, H)
+    if cum64:
+        cum64_ = torch.cumsum(A.double() * dtf.double(), dim=2)
+        cum = cum64_.to(f)
+        seg = lambda a, b: (a - b).to(f)  # noqa: E731  the fp64 difference, rounded once
+    else:
+        cum64_ = cum = torch.cumsum(A.to(f) * dtf, dim=2)  # (B, nT, L, H)
+        seg = lambda a, b: a - b  # noqa: E731
     cum_L = cum[:, :, -1]  # (B, nT, H)
-    w = torch.exp(cum_L[:, :, None] - cum) * dtf
+    w = torch.exp(seg(cum64_[:, :, -1:], cum64_)) * dtf
     xw = _bf16_terms(xf * w[..., None], xw_terms)
     local = torch.einsum("btlhp,btlhn->bthpn", xw, Bh)  # each tile's own state
 
@@ -417,7 +430,7 @@ def ssd_tiled_ref(
     h_in = _bf16_terms(torch.stack(h_tile, dim=1), h_terms) if nT else xf.new_zeros((Bsz, 0, H, P, N))
 
     CB = torch.einsum("btlgn,btsgn->btgls", Cf, Bf).repeat_interleave(rep, dim=2)  # (B, nT, H, L, L)
-    diff = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).movedim(-1, 2)  # (B, nT, H, L, L): cum_t − cum_s
+    diff = seg(cum64_[:, :, :, None, :], cum64_[:, :, None, :, :]).movedim(-1, 2)  # (B, nT, H, L, L): cum_t − cum_s
     tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
     M = CB.masked_fill(~tri, 0.0) * torch.exp(diff.masked_fill(~tri, float("-inf")))
     M = M * dtf.movedim(-1, 2)[:, :, :, None, :]

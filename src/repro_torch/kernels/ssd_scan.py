@@ -15,8 +15,14 @@ by dtype (:func:`select_route`):
   ``x·w`` and the entering state are carried as two bf16 terms (hi + lo):
   one bf16 rounding of ``x·w`` alone puts the final state past the 1e-3
   relative error it is held to, and one of M or of the state puts outputs
-  past the bf16 tolerance where large terms cancel.  It takes P = 64 (one
-  warpgroup a block) and P = 128 (jamba's heads: two warpgroups a block,
+  past the bf16 tolerance where large terms cancel.  The prefix ``cum`` of
+  A·dt is summed in fp64 and each decay's argument (``cum_t − cum_s``)
+  taken from it before one rounding to fp32: two fp32 prefixes, hundreds to
+  thousands inside a tile, differ with an error of their spacing, which
+  mamba2-130m's trained inputs carried past the bf16 tolerance where large
+  terms cancel (:func:`~repro_torch.kernels.ref.ssd_tiled_ref` with
+  ``cum64``; ROADMAP queue 3, item 12).  It takes P = 64 (one warpgroup a
+  block) and P = 128 (jamba's heads: two warpgroups a block,
   each owning 64 state rows and 64 output columns), d_state 64 or 128, and
   needs the base and the batch/seq/head strides of x, B and C 16-byte
   aligned (TMA); the wrapper checks and raises.  Chunks hold

@@ -84,21 +84,34 @@ def _gate_out(params, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig) -> tor
     return g @ params["out"].to(y.dtype).reshape(H * P, -1)
 
 
-def mamba_apply(params, x: torch.Tensor, cfg: ModelConfig, *, return_cache: bool = False):
+def mamba_apply(
+    params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    return_cache: bool = False,
+    ssd_impl: str = "auto",
+    conv_window: Optional[Dict[str, torch.Tensor]] = None,
+    h0: Optional[torch.Tensor] = None,
+):
     """Full-sequence Mamba-2 mixing (training / prefill) of x (B, S, d_model).
     With ``return_cache`` also returns the decode cache: the last ``W-1``
     **pre-conv** features of x, B and C, and the final SSD state ``h``
-    (B, H, P, N) fp32.  (The reference's chunked-prefill arguments, a left
-    conv window and ``h0``, have no caller yet.)"""
+    (B, H, P, N) fp32.  A chunked prefill continues an earlier one:
+    ``conv_window`` holds its left context (``{"x", "B", "C"}``, each
+    (B, W-1, ...) pre-conv features, as the cache's ``conv_*`` leaves) and
+    ``h0`` its final state; ``ssd_impl`` is :func:`ops.ssd_scan`'s ``impl``."""
     s = cfg.ssm
     z, xs, Bm, Cm, dt = _project(params, x, cfg)
-    xs_c = _causal_conv(xs, params["conv_x"])
-    Bm_c = _causal_conv(Bm, params["conv_B"])
-    Cm_c = _causal_conv(Cm, params["conv_C"])
+    win = conv_window or {}
+    xs_c = _causal_conv(xs, params["conv_x"], win.get("x"))
+    Bm_c = _causal_conv(Bm, params["conv_B"], win.get("B"))
+    Cm_c = _causal_conv(Cm, params["conv_C"], win.get("C"))
     xs_c = constrain(xs_c, "batch", "seq", "act_heads", None)
     A = -torch.exp(params["A_log"].float())
     # D upcast exactly: the kernels take dt, A and D in fp32 (jamba keeps its parameters in bf16)
-    y, h = ops.ssd_scan(xs_c, dt, A, Bm_c, Cm_c, params["D"].float(), chunk=s.chunk)
+    y, h = ops.ssd_scan(xs_c, dt, A, Bm_c, Cm_c, params["D"].float(), h0=h0, chunk=s.chunk,
+                        impl=ssd_impl)
     out = _gate_out(params, y, z, cfg)
     if not return_cache:
         return out

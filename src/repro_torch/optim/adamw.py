@@ -9,19 +9,28 @@ never copied to fp32 whole.  Trees are
 flat ``{name: tensor}`` dicts (``dict(model.named_parameters())``).  Unlike
 the reference's pure update, :func:`adamw_update` writes the parameters and
 moments **in place**, so a step holds no second copy of either; the
-elementwise work runs as ``torch._foreach_*`` ops over all leaves at once.
+elementwise work runs as ``torch._foreach_*`` ops over slices of the tree:
+groups of leaves, a large leaf cut into runs of its elements, each slice at
+most :data:`CHUNK_ELEMS` elements, so the fp32 temporaries (``denom``, ``delta``
+and the fp32 copies of leaves kept in another dtype) stay bounded whatever
+the model's size.  The update is elementwise, so slicing changes no bit.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm", "clip_by_global_norm"]
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm", "clip_by_global_norm", "CHUNK_ELEMS"]
 
 Tree = Dict[str, torch.Tensor]
+
+#: elements a slice of the update holds: at bf16 leaves ~20 bytes of fp32
+#: temporaries an element (p, m and v in fp32, denom, delta), so ~1.3 GB a slice
+#: (chip_smoke.py's dense_train_full_width reads the update's peak)
+CHUNK_ELEMS = 1 << 26
 
 
 @dataclass(frozen=True)
@@ -71,38 +80,62 @@ def clip_by_global_norm(tree: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor
     return tree, norm
 
 
+def _slices(leaves: List[Tuple[torch.Tensor, ...]], chunk_elems: int) -> List[List[Tuple[torch.Tensor, ...]]]:
+    """Groups of at most ``chunk_elems`` elements of ``(g, p, m, v)`` rows,
+    in the tree's order: small leaves share a group; a contiguous leaf
+    larger than the budget is cut into flat views of ``chunk_elems``
+    elements (a non-contiguous one stays whole: a view of it cannot be
+    flattened in place)."""
+    groups: List[List[Tuple[torch.Tensor, ...]]] = [[]]
+    size = 0
+    for row in leaves:
+        n = row[0].numel()
+        if n > chunk_elems and all(t.is_contiguous() for t in row):
+            flat = [t.view(-1) for t in row]
+            pieces = [tuple(f[i : i + chunk_elems] for f in flat) for i in range(0, n, chunk_elems)]
+        else:
+            pieces = [row]
+        for piece in pieces:
+            n = piece[0].numel()
+            if groups[-1] and size + n > chunk_elems:
+                groups.append([])
+                size = 0
+            groups[-1].append(piece)
+            size += n
+    return groups
+
+
 @torch.no_grad()
 def adamw_update(
-    grads: Tree, opt_state: Dict[str, object], params: Tree, lr: float, cfg: AdamWConfig = AdamWConfig()
+    grads: Tree, opt_state: Dict[str, object], params: Tree, lr: float, cfg: AdamWConfig = AdamWConfig(),
 ) -> Dict[str, object]:
-    """One AdamW step, **in place** on ``params`` and the moments; returns
-    ``opt_state`` with ``step`` incremented."""
+    """One AdamW step, **in place** on ``params`` and the moments, slice by
+    slice (:func:`_slices`); returns ``opt_state`` with ``step`` incremented."""
     step = opt_state["step"] + 1
     stepf = step.to(torch.float32)
     c1 = float(1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** stepf)
     c2 = float(1.0 - torch.tensor(cfg.b2, dtype=torch.float32) ** stepf)
-    names = list(params)
-    p_store = [params[n] for n in names]
-    m_store = [opt_state["m"][n] for n in names]
-    v_store = [opt_state["v"][n] for n in names]
-    g = [grads[n] for n in names]  # a bf16 leaf (a bf16 accumulator's) promotes to fp32 op by op: no fp32 copy
-    p32 = [t.float() for t in p_store]  # the tensor itself when it is fp32
-    m32 = [t.float() for t in m_store]
-    v32 = [t.float() for t in v_store]
+    rows = [(grads[n], params[n], opt_state["m"][n], opt_state["v"][n]) for n in params]
+    for group in _slices(rows, CHUNK_ELEMS):
+        g, p_store, m_store, v_store = (list(col) for col in zip(*group))
+        # a bf16 gradient (a bf16 accumulator's) promotes to fp32 op by op: no fp32 copy
+        p32 = [t.float() for t in p_store]  # the tensor itself when it is fp32
+        m32 = [t.float() for t in m_store]
+        v32 = [t.float() for t in v_store]
 
-    torch._foreach_mul_(m32, cfg.b1)
-    torch._foreach_add_(m32, g, alpha=1.0 - cfg.b1)
-    torch._foreach_mul_(v32, cfg.b2)
-    torch._foreach_addcmul_(v32, g, g, value=1.0 - cfg.b2)
-    denom = torch._foreach_div(v32, c2)
-    torch._foreach_sqrt_(denom)
-    torch._foreach_add_(denom, cfg.eps)
-    delta = torch._foreach_div(m32, c1)
-    torch._foreach_div_(delta, denom)  # mhat / (sqrt(vhat) + eps)
-    torch._foreach_add_(delta, p32, alpha=cfg.weight_decay)
-    torch._foreach_add_(p32, delta, alpha=-float(lr))
+        torch._foreach_mul_(m32, cfg.b1)
+        torch._foreach_add_(m32, g, alpha=1.0 - cfg.b1)
+        torch._foreach_mul_(v32, cfg.b2)
+        torch._foreach_addcmul_(v32, g, g, value=1.0 - cfg.b2)
+        denom = torch._foreach_div(v32, c2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, cfg.eps)
+        delta = torch._foreach_div(m32, c1)
+        torch._foreach_div_(delta, denom)  # mhat / (sqrt(vhat) + eps)
+        torch._foreach_add_(delta, p32, alpha=cfg.weight_decay)
+        torch._foreach_add_(p32, delta, alpha=-float(lr))
 
-    for store, new in zip(p_store + m_store + v_store, p32 + m32 + v32):
-        if new is not store:  # a leaf kept in another dtype than fp32
-            store.copy_(new)
+        for store, new in zip(p_store + m_store + v_store, p32 + m32 + v32):
+            if new is not store:  # a leaf kept in another dtype than fp32
+                store.copy_(new)
     return {**opt_state, "step": step}

@@ -351,7 +351,7 @@ def count_cell(cell, device=None, args=None) -> StepCostSummary:
 
 #: device_profile's witnesses: the spin kernels on each side of the traced call, the host sleep between
 #: them and the trace window's edge (doubled on each retake), and the traces taken before it gives up
-PROFILE_SPINS, PROFILE_MARGIN_S, PROFILE_TRIES = 16, 0.05, 4
+PROFILE_SPINS, PROFILE_MARGIN_S, PROFILE_TRIES = 16, 0.05, 6
 
 
 def device_profile(fn: Callable[[], Any], *, wall_rounds: int = 3) -> Dict[str, Any]:
@@ -397,10 +397,13 @@ def device_profile(fn: Callable[[], Any], *, wall_rounds: int = 3) -> Dict[str, 
         events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
         own = [e for e in events if "spin_kernel" not in e.name]
+        spin_starts = [e.time_range.start for e in events if "spin_kernel" in e.name]
+        sides = f"{len(spin_starts)} spins and no event of the call"
         if own:
             first, last = own[0].time_range.start, own[-1].time_range.start
-            spin_starts = [e.time_range.start for e in events if "spin_kernel" in e.name]
-            if any(t < first for t in spin_starts) and any(t > last for t in spin_starts):
+            before, after = sum(t < first for t in spin_starts), sum(t > last for t in spin_starts)
+            sides = f"{before} spins before and {after} after {len(own)} events of the call"
+            if before and after:
                 by_kernel: Dict[str, float] = {}
                 for e in own:
                     name = re.sub(r"\(.*", "", e.name.replace("(anonymous namespace)::", ""))[:48]
@@ -412,8 +415,8 @@ def device_profile(fn: Callable[[], Any], *, wall_rounds: int = 3) -> Dict[str, 
                         "device_events": len(own), "lead_ms": events[0].time_range.start / 1e3 - margin * 1e3,
                         "retaken_margins_s": retaken}
         retaken.append(margin)
-        print(f"device_profile: a profiler trace lost every spin kernel of one side at a margin of {margin} s; "
-              "taking it again", file=sys.stderr, flush=True)
+        print(f"device_profile: a profiler trace lost every spin kernel of one side at a margin of {margin} s "
+              f"({sides} came through); taking it again", file=sys.stderr, flush=True)
         margin *= 2
     raise RuntimeError(f"{PROFILE_TRIES} profiler traces each lost every spin kernel on one side of the call, "
                        "so some of the call's events too")

@@ -168,11 +168,12 @@ def make_train_step(model: Transformer, tcfg: TrainConfig) -> Callable:
             if per_leaf:
                 acc = accumulate(acc, list(torch.autograd.grad(total, leaves)), ef)
             else:
-                grads = [g.float() for g in torch.autograd.grad(total, leaves)]
-                if acc:
+                grads = list(torch.autograd.grad(total, leaves))
+                if acc:  # a bf16 gradient adds into its fp32 accumulator op by op: no fp32 copy of it
                     torch._foreach_add_(acc, grads)
                 else:
-                    acc = grads
+                    acc = [g.float() for g in grads]
+                del grads
             loss = loss + metrics["loss"].detach()
             aux = aux + metrics["aux"].detach()
             tokens = tokens + metrics["tokens"]

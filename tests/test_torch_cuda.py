@@ -257,6 +257,37 @@ def test_pairs_without_a_kernel_raise_on_the_card(cuda):
     assert fa.flash_attention.launches == before
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,causal", [(2, 100, 100, 8, 2, True), (1, 77, 150, 4, 4, False),
+                                                   (1, 1, 1, 2, 1, True), (4, 32, 32, 8, 2, True)])
+def test_head_dim_16_runs_the_kernels_at_32_both_ways(cuda, B, Sq, Sk, Hq, Hkv, causal, dtype):
+    """Head dim 16 (qwen2-72b's and whisper-medium's smoke configs): each
+    direction one launch of the kernel its dtype routes to, at 32 on
+    zero-padded copies, recorded at 16, against the plain versions at 16."""
+    q, k, v = _qkv((B, Sq, Hq, Hkv, 16), dtype, cuda, seed=Sq + Sk, Sk=Sk)
+    before = (fa.flash_attention.launches, fa.flash_attention_backward.launches,
+              Counter(fa.flash_attention.shapes), Counter(fa.flash_attention_backward.shapes))
+    o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(Sq)).to(device=cuda, dtype=dtype)
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_backward.launches) == (before[0] + 1, before[1] + 1)
+    for now, was in ((fa.flash_attention.shapes, before[2]), (fa.flash_attention_backward.shapes, before[3])):
+        added = Counter(now) - was
+        assert list(added.values()) == [1] and next(iter(added)).D == next(iter(added)).Dv == 16
+    assert o.shape == (B, Sq, Hq, 16) and o.dtype == dtype
+    tol = dict(atol=2e-5, rtol=1e-4) if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(o.float(), attention_ref(q, k, v, causal=causal).float(), **tol)
+    torch.testing.assert_close(lse, attention_lse_ref(q, k, v, causal=causal), **LSE_TOL)
+    want = flash_backward_ref(q, k, v, o, lse, do, causal=causal)
+    assert all(g.dtype == dtype and g.shape == w.shape and g.is_contiguous() for g, w in zip(got, want))
+    if dtype == torch.float32:
+        for name, g, w in zip("qkv", got, want):
+            torch.testing.assert_close(g, w, **BWD_FP32_TOL, msg=lambda m: f"d{name}: {m}")
+    else:
+        _assert_grads_close(got, want)
+
+
 #: backward in fp32: the kernel and the plain version differ by the order of
 #: their fp32 sums over up to 200 rows or columns
 BWD_FP32_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -718,6 +749,41 @@ def test_encdec_and_prefix_lm_smokes_on_the_card_as_on_the_cpu(cuda, arch):
                                    rtol=0)
 
 
+def test_whisper_smoke_at_its_own_head_dim_16_within_the_cards_noise(cuda):
+    """whisper's smoke config at its own 4 heads of 16 (the kernels at 32 on
+    zero-padded copies), fp32: the card's forward logits against the CPU's
+    within the larger of 1e-4 and twice the card's own gap with the plain
+    attention (``chip_smoke.py``'s SMOKE_NOISE_FACTOR): at this width the
+    card's fp32 GEMMs alone move the logits past 1e-4 (3.0e-4 measured on
+    the H100), which is why the test above keeps 2 heads of 32; the kernels
+    against the plain attention on the card within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Transformer
+
+    cfg = get_smoke_config("whisper-medium")
+    assert cfg.resolved_head_dim == 16 and fa.PAD_D16 == 32
+    cpu_model = Transformer(cfg, device="cpu", seed=4)
+    gpu_model = Transformer(cfg, device="cpu", seed=4).to(cuda)
+    rng = np.random.default_rng(6)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 20)), dtype=torch.long)
+    enc = torch.as_tensor(rng.standard_normal((2, 70, cfg.d_model)), dtype=torch.float32)
+    before = fa.flash_attention.launches
+    with torch.no_grad():
+        want = cpu_model(toks, enc_embeds=enc)[0]
+        got = gpu_model(toks.to(cuda), enc_embeds=enc.to(cuda))[0]
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches - before == cfg.n_layers * 2 + cfg.n_enc_layers
+        flash = ops.flash_attention
+        ops.flash_attention = lambda *a, **kw: flash(*a, **{**kw, "impl": "plain"})
+        try:
+            plain = gpu_model(toks.to(cuda), enc_embeds=enc.to(cuda))[0]
+        finally:
+            ops.flash_attention = flash
+    gap, plain_gap = ((t.cpu() - want).abs().max().item() for t in (got, plain))
+    assert gap <= max(1e-4, 2.0 * plain_gap), (gap, plain_gap)
+    torch.testing.assert_close(got, plain, atol=1e-4, rtol=0)
+
+
 # --------------------------------------------------------------------------- SSD scan
 SSD_SHAPES = [(1, 64, 2, 16, 8, 1), (2, 128, 4, 8, 16, 2), (2, 96, 6, 8, 16, 3), (1, 100, 2, 48, 8, 1)]
 
@@ -811,6 +877,24 @@ def test_ssd_wgmma_kernel_matches_sequential_ref(cuda, S, h0):
     want_y, want_h = ssd_ref(x, dt, A, Bm, Cm, D, h, return_state=True)
     torch.testing.assert_close(y.float(), want_y.float(), atol=2e-2, rtol=2e-2)
     assert ((hf - want_h).norm() / want_h.norm()).item() <= 1e-3
+
+
+def test_ssd_wgmma_kernel_within_tolerance_on_trained_gate_decays(cuda):
+    """Decays as trained gates make them (|A| ~ 150, dt mixing ~2 and ~0.003;
+    tests/test_torch_ssd_tiled.py's case, where an fp32 prefix of A·dt puts
+    outputs past the bf16 tolerance): the kernel, which sums the prefix in
+    fp64, within SSD_BF16_TOL of the sequential plain scan everywhere."""
+    rng = np.random.default_rng(0)
+    B, S, H, P, N = 1, 256, 24, 64, 128
+    x = torch.from_numpy((rng.standard_normal((B, S, H, P)) * 30).astype(np.float32)).to(cuda, torch.bfloat16)
+    dt = np.where(rng.random((B, S, H)) < 0.5, rng.exponential(2.0, (B, S, H)), rng.exponential(0.003, (B, S, H)))
+    A = -np.exp(rng.standard_normal(H) * 0.5 + 5)
+    Bm, Cm = (torch.from_numpy((rng.standard_normal((B, S, 1, N)) * 0.3).astype(np.float32)).to(cuda, torch.bfloat16)
+              for _ in range(2))
+    dt, A = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (dt, A))
+    y, _ = ops.ssd_scan(x, dt, A, Bm, Cm, torch.ones(H, device=cuda), chunk=256)
+    want = ssd_ref(x, dt, A, Bm, Cm, torch.ones(H, device=cuda))
+    torch.testing.assert_close(y.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.parametrize("B,S,H,N,G", [(4, 256, 24, 128, 1), (1, 4096, 24, 128, 1), (2, 300, 4, 64, 2), (3, 130, 6, 128, 3)])
@@ -1209,6 +1293,82 @@ def test_adamw_on_bf16_gradients_equals_its_cpu_result(cuda):
         torch.testing.assert_close(b[n].cpu().float(), a[n].float(), rtol=2 ** -8, atol=1e-7)
         torch.testing.assert_close(sb["m"][n].cpu(), sa["m"][n], rtol=1e-5, atol=1e-7)
         torch.testing.assert_close(sb["v"][n].cpu(), sa["v"][n], rtol=1e-5, atol=1e-7)
+
+
+def test_adamw_slices_are_bit_for_bit_the_whole_tree_update_on_a_deepseek_7b_step(cuda, monkeypatch):
+    """One deepseek-7b (smoke config, bf16 weights and moments) step's
+    gradients through AdamW slice by slice (a small element budget: leaves
+    grouped and cut into runs) and as one group of whole leaves (the update
+    over the whole tree at once, as it was before it was sliced), three
+    times on the card: every parameter and moment bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, make_train_iter
+    from repro_torch.optim import adamw as adamw_module
+    from repro_torch.optim import adamw_update
+    from repro_torch.train import TrainConfig, init_train_state, make_loss_fn
+
+    cfg = dataclasses.replace(get_smoke_config("deepseek-7b"), param_dtype="bfloat16", compute_dtype="bfloat16",
+                              opt_state_dtype="bfloat16")
+    it = make_train_iter(DataConfig(global_batch=4, seq_len=64, vocab_size=cfg.vocab_size))
+    batch = next(it)
+    it.close()
+    tcfg = TrainConfig()
+    model, opt = init_train_state(cfg, tcfg, device="cuda")
+    params = dict(model.named_parameters())
+    total, _ = make_loss_fn(model, tcfg)(batch)
+    grads = {n: g.float() for n, g in zip(params, torch.autograd.grad(total, list(params.values())))}
+    runs = []
+    for chunk_elems in (1 << 40, 4099):
+        monkeypatch.setattr(adamw_module, "CHUNK_ELEMS", chunk_elems)
+        p = {n: t.detach().clone() for n, t in params.items()}
+        st = {"m": {n: t.clone() for n, t in opt["m"].items()}, "v": {n: t.clone() for n, t in opt["v"].items()},
+              "step": opt["step"].clone()}
+        for i in range(3):
+            st = adamw_update(grads, st, p, 1e-3 * (i + 1), tcfg.adamw)
+        runs.append((p, st))
+    torch.cuda.synchronize()
+    (p0, s0), (p1, s1) = runs
+    assert max(t.numel() for t in params.values()) > 4099
+    for n in params:
+        for a, b in ((p0[n], p1[n]), (s0["m"][n], s1["m"][n]), (s0["v"][n], s1["v"][n])):
+            assert a.dtype == torch.bfloat16 and torch.equal(a, b), n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_apply_continues_a_split_prefill_through_the_kernels_h0(cuda, dtype):
+    """A prefill split in two on the card, the second half given the first
+    half's conv windows and final state (the SSD kernel's ``h0``): against
+    the whole sequence's second half.  fp32 at the mamba2 smoke config's
+    width (the SIMT kernel), bf16 at mamba2-130m's published SSD width (P =
+    64, d_state 128: the tensor-core kernel), one layer, random weights."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import Transformer
+    from repro_torch.models.mamba import mamba_apply
+
+    cfg = get_smoke_config("mamba2-130m") if dtype == torch.float32 else dataclasses.replace(
+        get_config("mamba2-130m"), n_layers=1, param_dtype="bfloat16", compute_dtype="bfloat16")
+    lp = Transformer(cfg, device="cuda", seed=2).layers[0]["ssm"]
+    x = (torch.randn(2, 300, cfg.d_model, generator=torch.Generator().manual_seed(1))).to(device=cuda, dtype=dtype)
+    S1 = 131
+    before = sk.ssd_scan.launches
+    with torch.no_grad():
+        full = mamba_apply(lp, x, cfg)
+        _, cache = mamba_apply(lp, x[:, :S1], cfg, return_cache=True)
+        window = {"x": cache["conv_x"], "B": cache["conv_B"], "C": cache["conv_C"]}
+        got = mamba_apply(lp, x[:, S1:], cfg, conv_window=window, h0=cache["h"])
+        plain = mamba_apply(lp, x[:, S1:], cfg, conv_window=window, h0=cache["h"], ssd_impl="plain")
+    torch.cuda.synchronize()
+    assert sk.ssd_scan.launches == before + 3
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, full[:, S1:], atol=5e-5, rtol=1e-3)
+        torch.testing.assert_close(got, plain, atol=5e-5, rtol=1e-3)
+    else:  # bf16: y rounds to bf16 before the gate and the out projection, so a few roundings apart, in L2
+        for want in (full[:, S1:], plain):
+            assert ((got.float() - want.float()).norm() / want.float().norm()).item() <= 1e-2
 
 
 # --------------------------------------------------------------------------- the cost count (perf.cost)

@@ -131,9 +131,10 @@ def test_one_bf16_rounding_of_p_misses_the_tolerance_on_a_cancelling_row():
 def test_route_selection():
     """Forward and backward: bf16 at every head dim on the tensor-core kernels
     (head dim 256, gemma-7b's and paligemma-3b's, included), fp32 on the SIMT
-    ones."""
-    assert fa.SUPPORTED_HEAD_DIMS == (32, 64, 128, 256)
-    assert fa.FWD_PAIRS == ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
+    ones; head dim 16 (the qwen2 and whisper smoke configs') zero-padded to
+    32."""
+    assert fa.SUPPORTED_HEAD_DIMS == (16, 32, 64, 128, 256) and fa.PAD_D16 == 32
+    assert fa.FWD_PAIRS == ((16, 16), (32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
     for D in fa.SUPPORTED_HEAD_DIMS:
         assert fa.select_route(torch.bfloat16, D) == "wgmma"
         assert fa.select_route(torch.float32, D) == "simt"
@@ -143,7 +144,7 @@ def test_route_selection():
         for dtype in (torch.float16, torch.float64, torch.int32, torch.float8_e4m3fn):
             with pytest.raises(ValueError, match="float32 or bfloat16"):
                 select(dtype, 64)
-        for D in (16, 48, 96, 512):
+        for D in (8, 48, 96, 512):
             with pytest.raises(ValueError, match="head dim"):
                 select(torch.bfloat16, D)
     assert set(fa.ROUTES.values()) == {"wgmma", "simt"}

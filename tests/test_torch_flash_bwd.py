@@ -108,6 +108,30 @@ def test_plain_backward_matches_jax_vjp(B, Sq, Sk, Hq, Hkv, D, causal, impl):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **FP32, err_msg=name)
 
 
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,causal", [(2, 100, 100, 8, 2, True), (1, 77, 150, 4, 4, False)])
+def test_head_dim_16_zero_padded_to_32_is_the_true_width(B, Sq, Sk, Hq, Hkv, causal):
+    """A CUDA call at head dim 16 runs the kernels at 32 on zero-padded
+    copies with the true width's scale (``PAD_D16``): the plain
+    versions so padded, then sliced, against ``jax.vjp`` of the reference's
+    blocked form at 16 (qwen2-72b's and whisper-medium's smoke head dim)."""
+    q, k, v, do = _inputs(B, Sq, Sk, Hq, Hkv, 16, seed=Sq + Hq)
+    f = lambda q, k, v: ref_ops.flash_attention(q, k, v, causal=causal, impl="xla", q_block=64, kv_block=64)
+    jo, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    width, scale = fa.PAD_D16, 16 ** -0.5
+    tq, tk, tv, tdo = fa._pad_heads([torch.from_numpy(a) for a in (q, k, v, do)])
+    assert tq.shape[-1] == width and tq.is_contiguous() and not tq[..., 16:].any()
+    o = attention_ref(tq, tk, tv, causal=causal, scale=scale)
+    assert not o[..., 16:].any()
+    np.testing.assert_allclose(o[..., :16].numpy(), np.asarray(jo), **FP32)
+    lse = attention_lse_ref(tq, tk, tv, causal=causal, scale=scale)
+    np.testing.assert_allclose(lse.numpy(), _jax_lse(q, k, causal), **FP32)
+    got = flash_backward_ref(tq, tk, tv, o, lse, tdo, causal=causal, scale=scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert not g[..., 16:].any(), name
+        np.testing.assert_allclose(g[..., :16].numpy(), np.asarray(w), **FP32, err_msg=name)
+
+
 def test_plain_backward_gives_zero_for_rows_that_see_no_key():
     """A row that sees no key has lse = +inf, which the backward reads as no
     mass: zero gradients, not nan (``exp(s - inf)`` is 0)."""

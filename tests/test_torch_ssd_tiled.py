@@ -35,7 +35,7 @@ SSD_SHAPES = [  # tests/test_kernels.py's set (B, S, H, P, N, G, chunk), and a r
 FP32 = dict(atol=5e-5, rtol=1e-3)
 BF16 = dict(atol=2e-2, rtol=2e-2)
 H_REL = 1e-3
-KERNEL = dict(m_terms=2, h_terms=2, xw_terms=2)  # the rounding the tensor-core kernel does
+KERNEL = dict(m_terms=2, h_terms=2, xw_terms=2, cum64=True)  # the rounding the tensor-core kernel does
 
 
 def _inputs(B, S, H, P, N, G, seed=0, dt_shift=-1.0, dt_scale=1.0, x_scale=1.0, h0=False):
@@ -139,6 +139,32 @@ def test_one_bf16_term_misses_where_two_do_not(point):
 
     assert not misses(**KERNEL)
     assert misses(**{**KERNEL, f"{point}_terms": 1})
+
+
+def test_an_fp32_prefix_misses_where_the_kernels_fp64_prefix_does_not():
+    """Decays as trained gates make them (|A| ~ 150, dt mixing ~2 and ~0.003):
+    the prefix cum of A·dt reaches thousands inside a 64-row tile, where two
+    fp32 prefixes differ with an error of their spacing, and outputs where
+    large terms cancel fall outside the bf16 tolerance of the sequential
+    scan; the kernel's fp64 prefix keeps every output within it, as close to
+    the fp64 scan as the sequential fp32 one (ROADMAP queue 3, item 12)."""
+    rng = np.random.default_rng(0)
+    B, S, H, P, N = 1, 256, 24, 64, 128
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)  # noqa: E731
+    x = bf(rng.standard_normal((B, S, H, P)) * 30)
+    dt = np.where(rng.random((B, S, H)) < 0.5, rng.exponential(2.0, (B, S, H)), rng.exponential(0.003, (B, S, H)))
+    A = -np.exp(rng.standard_normal(H) * 0.5 + 5)
+    Bm, Cm = bf(rng.standard_normal((B, S, 1, N)) * 0.3), bf(rng.standard_normal((B, S, 1, N)) * 0.3)
+    t = [x, torch.from_numpy(dt.astype(np.float32)), torch.from_numpy(A.astype(np.float32)), Bm, Cm, torch.ones(H)]
+    sy, dy = ssd_ref(*t), ssd_ref(*[a.double() for a in t])
+
+    def outside(y, want):
+        return int((~torch.isclose(y.double(), want.double(), **BF16)).sum())
+
+    assert outside(sy, dy) == 0
+    for cum64, missed in ((False, True), (True, False)):
+        y, _ = ssd_tiled_ref(*t, tiles_per_chunk=2, **{**KERNEL, "cum64": cum64})
+        assert (outside(y, sy) > 0) == missed and (outside(y, dy) > 0) == missed, cum64
 
 
 def test_tiled_chunks_and_ragged_tiles_agree():

@@ -280,6 +280,40 @@ def test_causal_conv_with_a_left_window_matches_reference():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=1e-6)
 
 
+def test_mamba_apply_continues_a_split_prefill_like_the_reference(mamba):
+    """A prefill split in two: the second half, given the first half's conv
+    windows and final state (``conv_window``, ``h0``), against the
+    reference's ``mamba_apply`` given its own first half's, and against the
+    whole sequence's second half."""
+    from repro.models.mamba import mamba_apply as ref_mamba_apply
+    from repro_torch.models.mamba import mamba_apply
+
+    cfg, params, _, model = mamba
+    ref_lp = jax.tree_util.tree_map(lambda a: a[0], params["blocks"]["pos_0"]["ssm"])
+    lp = model.layers[0]["ssm"]
+    x = np.random.default_rng(11).standard_normal((2, 40, cfg.d_model)).astype(np.float32)
+    S1 = 24
+
+    def window(cache):
+        return {"x": cache["conv_x"], "B": cache["conv_B"], "C": cache["conv_C"]}
+
+    ref_full = np.asarray(ref_mamba_apply(ref_lp, jnp.asarray(x), cfg, ssd_impl="xla"))
+    _, ref_cache = ref_mamba_apply(ref_lp, jnp.asarray(x[:, :S1]), cfg, return_cache=True, ssd_impl="xla")
+    want, want_cache = ref_mamba_apply(ref_lp, jnp.asarray(x[:, S1:]), cfg, return_cache=True, ssd_impl="xla",
+                                       conv_window=window(ref_cache), h0=ref_cache["h"])
+    with torch.no_grad():
+        _, cache = mamba_apply(lp, _t(x[:, :S1]), cfg, return_cache=True)
+        got, got_cache = mamba_apply(lp, _t(x[:, S1:]), cfg, return_cache=True, conv_window=window(cache),
+                                     h0=cache["h"])
+        plain = mamba_apply(lp, _t(x[:, S1:]), cfg, ssd_impl="plain", conv_window=window(cache), h0=cache["h"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy(), ref_full[:, S1:], atol=5e-5, rtol=0)
+    assert torch.equal(plain, got)  # on the CPU "auto" is the plain version
+    h = np.asarray(want_cache["h"])
+    np.testing.assert_allclose(got_cache["h"].numpy(), h, atol=1e-5 * np.abs(h).max(), rtol=0)
+    assert not np.allclose(ref_full[:, S1:], np.asarray(ref_mamba_apply(ref_lp, jnp.asarray(x[:, S1:]), cfg)))
+
+
 def test_init_cache_matches_the_reference_layout(mamba):
     cfg, _, _, model = mamba
     cache = model.init_cache(3, 64)
