@@ -127,6 +127,15 @@ source, all started together) and drives the port's paths:
   accumulate entry timed at the replay's largest flush beside
   ``index_add_``; and deepseek-v2-lite's training cut run twice from one
   seed, bit for bit;
+* the sharded steps: ``build_cell``'s steps with their inputs placed as
+  DTensors at ``cell.in_shardings`` (``launch.steps.place``) on the
+  one-rank NCCL mesh, each held against the same cell's plain-tensor step
+  from one seed, every output leaf bit for bit by an exact digest and the
+  flash and SSD launches equal (the kernels run on the local shards):
+  deepseek-7b's prefill and decode cells above, its published width cut to
+  8 layers trained one step of 4 x 2,048 tokens, and mamba2-130m's train
+  cell at its widths cut to 12 layers; each run's ms, busy ms, idle share
+  and peak memory;
 * the simulator: the segment-scatter kernel (the batched sweep's stat
   landing), its accumulate entry and the sequential-fold kernel held bit for
   bit against their plain versions, on test shapes and on the sweep's real
@@ -4801,6 +4810,161 @@ def phase_step_cost(smi: str):
     return cells["prefill_2k"]["flash_forward_launches"], flash_row, scatter_row, scatter
 
 
+#: sharded_steps (and scripts/multi_card_dist.py's steps part, which reads this table): build_cell's steps with
+#: their inputs placed as DTensors (``launch.steps.place``) on the
+#: one-rank (data 1, model 1) NCCL mesh, each held against the same cell's plain-tensor step from the same
+#: seed: deepseek-7b's step_cost cells uncut, its published width cut to 8 layers trained
+#: one step of 4 rows of 2,048 tokens in 2 microbatches, and mamba2-130m's train cell at its published
+#: widths at the same shape, cut to 12 of its 24 layers as train_full_width's, which keeps the phase near a
+#: minute (its DTensor step is host-bound).  (arch, shape name, seq, rows, kind, layers or None for all)
+SHARDED_CELLS = (("deepseek-7b", "prefill_2k", 2048, 4, "prefill", None),
+                 ("deepseek-7b", "decode_2k", 2048, 4, "decode", None),
+                 ("deepseek-7b", "train_2k", 2048, 4, "train", 8),
+                 ("mamba2-130m", "train_2k", 2048, 4, "train", 12))
+SHARDED_SEED, SHARDED_MICRO = 7, 2
+#: elements a digest reads at once (its int64 products: 512 MB)
+DIGEST_CHUNK = 1 << 26
+
+
+def _digest(t) -> int:
+    """An exact fingerprint of a tensor's bits on the card: its words as
+    int64, each times its index mod a prime plus one, summed mod 2**64
+    (integer sums are exact in any order, so equal bits give equal digests
+    and a changed word changes it)."""
+    from repro_torch.launch.dtensors import local
+
+    t = local(t).detach().contiguous().reshape(-1)
+    words = t.view({1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    for i in range(0, words.numel(), DIGEST_CHUNK):
+        w = words[i:i + DIGEST_CHUNK].long()
+        total += (w * (torch.arange(i, i + w.numel(), device=t.device) % 1_000_003 + 1)).sum()
+    return int(total)
+
+
+def _digests(tree, path=""):
+    """``{path: digest}`` of every tensor leaf of nested dicts, tuples and
+    lists (the leaves of a step's outputs), and Python numbers as they are."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _digests(sub, f"{path}.{key}").items()}
+    if isinstance(tree, (tuple, list)):
+        return {k: v for i, sub in enumerate(tree) for k, v in _digests(sub, f"{path}[{i}]").items()}
+    return {path: _digest(tree) if isinstance(tree, torch.Tensor) else float(tree)}
+
+
+def kernel_launches():
+    """The flash forward, flash backward and SSD scan wrappers' launch counts."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
+
+    return {"flash_forward": fa.flash_attention.launches, "flash_backward": fa.flash_attention_backward.launches,
+            "ssd_scan": sk.ssd_scan.launches}
+
+
+def zero_launches():
+    """Every count :func:`kernel_launches` reads set to 0 (and the flash wrappers' recorded shapes cleared)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
+
+    fa.flash_attention.launches = fa.flash_attention_backward.launches = sk.ssd_scan.launches = 0
+    fa.flash_attention.shapes.clear()
+    fa.flash_attention_backward.shapes.clear()
+
+
+def _step_run(cell, args, smi):
+    """One main-path call of ``cell``'s step on ``args`` (launches counted
+    from 0, peak memory from a reset), then a warm profile of further calls
+    (``perf.cost.device_profile``: the median of HOST_ROUNDS warm
+    host-clock readings, busy ms, idle share);
+    returns its numbers and the first call's output digests."""
+    from repro_torch.launch.dtensors import local
+    from repro_torch.perf import device_profile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = cell.fn(*args)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = kernel_launches()
+    digests = _digests(out)
+    probe = out[2]["loss"] if cell.step_name == "train_step" else out[0]  # the loss, or the logits
+    finite = bool(torch.isfinite(local(probe)).all())
+    del out, probe
+    try:
+        prof = device_profile(lambda: cell.fn(*args), wall_rounds=HOST_ROUNDS)
+    except RuntimeError as err:
+        raise CheckFailed(f"sharded_steps {cell.step_name}: {err}") from err
+    BREAKDOWN_LEAD_MS.append(prof["lead_ms"])
+    BREAKDOWN_RETAKEN.extend(prof["retaken_margins_s"])
+    zero_launches()  # the profile's calls are not the main path's
+    return {"first_call_ms": first_ms, "step_ms": prof["wall_ms"], "device_busy_ms": prof["busy_ms"],
+            "idle_share": prof["idle_share"], "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "finite": finite, "smi": smi}, digests
+
+
+def phase_sharded_steps(smi: str):
+    """build_cell's steps on a one-rank NCCL mesh with DTensor inputs
+    (``launch.steps.place`` at ``cell.in_shardings``), each against the
+    plain-tensor step of the same cell and seed: every output leaf (logits,
+    cache, updated parameters and moments, metrics) bit for bit by an exact
+    digest, the kernels' launches equal (the DTensor run launches each
+    kernel on its local shard), and each run's first-call ms, warm step ms,
+    busy ms, idle share and peak memory beside the card's name and power
+    limit.  Returns the sharded runs' launches by kernel."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.mesh import make_tiny_mesh
+    from repro_torch.launch.shardings import PlanOverrides
+    from repro_torch.launch.steps import build_cell, materialize, place
+
+    cells, total = {}, {"flash_forward": 0, "flash_backward": 0, "ssd_scan": 0}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_tiny_mesh(data=1, model=1)
+        for arch, name, seq, rows, kind, layers in SHARDED_CELLS:
+            cfg = get_config(arch)
+            if layers is not None:
+                cfg = dataclasses.replace(cfg, n_layers=layers)
+            over = PlanOverrides(microbatches=SHARDED_MICRO) if kind == "train" else PlanOverrides()
+            cell = build_cell(arch, cfg, ShapeConfig(name, seq, rows, kind), mesh, overrides=over)
+            plain, plain_digests = _step_run(cell, materialize(cell, "cuda", SHARDED_SEED), smi)
+            torch.cuda.empty_cache()
+            sharded, digests = _step_run(cell, place(cell, materialize(cell, "cuda", SHARDED_SEED)), smi)
+            torch.cuda.empty_cache()
+            differ = sorted(k for k in plain_digests if digests.get(k) != plain_digests[k])
+            key = f"{arch} {name}" + (f" ({layers} layers)" if layers else "")
+            check(sorted(digests) == sorted(plain_digests) and not differ,
+                  f"sharded_steps {key}: the DTensor step differs from the plain one at {differ[:8]}")
+            check(sharded["launches"] == plain["launches"] and sharded["finite"] and plain["finite"],
+                  f"sharded_steps {key}: launches {sharded['launches']} against the plain step's "
+                  f"{plain['launches']}; finite {sharded['finite']} / {plain['finite']}")
+            want = {"prefill": ("flash_forward",), "decode": (), "train": ("flash_forward", "flash_backward")}[kind]
+            if cfg.ssm is not None:
+                want = ("ssd_scan",)
+            check(all(sharded["launches"][k] > 0 for k in want) and all(
+                sharded["launches"][k] == 0 for k in total if k not in want),
+                  f"sharded_steps {key}: launches {sharded['launches']}, want {want} launched")
+            for k in total:
+                total[k] += sharded["launches"][k]
+            cells[key] = {"step": cell.step_name, "rows": rows, "seq": seq, "n_layers": cfg.n_layers,
+                          "microbatches": SHARDED_MICRO if kind == "train" else None,
+                          "bit_for_bit": True, "leaves_compared": len(digests), "dtensor": sharded, "plain": plain}
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "sharded_steps", "mesh": "(data 1, model 1), one-rank NCCL", "seed": SHARDED_SEED, "smi": smi,
+          "cells": cells, "launches": total,
+          "note": "each cell's step run twice from one seed: its inputs as plain tensors, then as DTensors placed "
+                  "at cell.in_shardings; every output leaf compared by an exact digest of its bits; launches of "
+                  "the first call of each (the main path's), then a warm profile (host-clock median of "
+                  f"{HOST_ROUNDS} calls after a warm-up, and one torch.profiler trace); the DTensor run's kernels "
+                  "launch on its local shards "
+                  "(kernels/shards.py)"})
+    return total
+
+
 def phase_sim_sweep(numpy_sweep):
     """The simulator's batched divergent sweep over the full registry on the
     card, against the same jobs on NumPy; launches of each kernel equal the
@@ -4924,6 +5088,8 @@ def main() -> int:
     # (step_cost's prefill; jamba's SSD forward and backward, which lost them 4 times at 360 s in)
     step_fwd, step_flash, step_scatter, replay_launches = phase_step_cost(smi)
     torch.cuda.empty_cache()
+    sharded = phase_sharded_steps(smi)
+    torch.cuda.empty_cache()
     jamba_train = phase_jamba_train_full_width()
     torch.cuda.empty_cache()
     bf16_err, timings, d256 = phase_kernel(smi, served_prompt_lens())
@@ -5001,7 +5167,7 @@ def main() -> int:
                   "register blocks), timed in fp32 as fp32",
         "launches": (launches + mla_launches + hybrid_full["flash_launches"] + qwen2_full["flash_launches"]
                      + dense_fwd + gemma_fwd + moe_fwd + qwen2_fwd + encdec_fwd + encdec_prefill + prefix_fwd
-                     + prefix_prefill + dist_fwd + pipe_fwd + step_fwd),
+                     + prefix_prefill + dist_fwd + pipe_fwd + step_fwd + sharded["flash_forward"]),
         "launches_by_path": {"serving": launches, "moe_mla_serving": mla_launches,
                              "hybrid_serving": hybrid_full["flash_launches"],
                              "qwen2_serving": qwen2_full["flash_launches"], "qwen2_training": qwen2_fwd,
@@ -5009,7 +5175,8 @@ def main() -> int:
                              "gemma_training": gemma_fwd, "moe_mla_training": moe_fwd,
                              "encdec_training": encdec_fwd, "encdec_prefill": encdec_prefill,
                              "prefix_lm_training": prefix_fwd, "prefix_lm_prefill": prefix_prefill,
-                             "compressed_training": dist_fwd, "pipeline": pipe_fwd, "step_cost_prefill": step_fwd},
+                             "compressed_training": dist_fwd, "pipeline": pipe_fwd, "step_cost_prefill": step_fwd,
+                             "sharded_steps": sharded["flash_forward"]},
         "max_abs_err": max(bf16_err, op_err, *mla["max_abs_err"].values(), *d16["max_abs_err"].values(),
                            moe_full["attention_op_bf16"]["max_abs_err"], step_flash["max_abs_err"],
                            *(r["max_abs_err"] for r in qwen2_full["attention_op_bf16"]["layers"])),
@@ -5046,11 +5213,13 @@ def main() -> int:
                   "outputs and computing S and dP itself; fp32 runs the SIMT backward "
                   f"({fa.BWD_SIMT_SOURCE}: 8 x 4 score micro-tiles of S and dP, float4 reads of swizzled tiles, "
                   "cp.async double buffering), timed beside it as simt_ms",
-        "launches": dense_bwd + gemma_bwd + moe_bwd + qwen2_bwd + encdec_bwd + prefix_bwd + dist_bwd,
+        "launches": (dense_bwd + gemma_bwd + moe_bwd + qwen2_bwd + encdec_bwd + prefix_bwd + dist_bwd
+                     + sharded["flash_backward"]),
         "launches_by_path": {"dense_training": dense_bwd, "gemma_training": gemma_bwd, "moe_mla_training": moe_bwd,
                              "qwen2_training": qwen2_bwd,
                              "encdec_training": encdec_bwd, "prefix_lm_training": prefix_bwd,
-                             "compressed_training": dist_bwd, "pipeline": 0},
+                             "compressed_training": dist_bwd, "pipeline": 0,
+                             "sharded_steps": sharded["flash_backward"]},
         "kernels_per_launch": len(bwd_timing["device_us_by_kernel_10_calls"]["wgmma"]),
         "max_abs_err": max(bwd_err, dense_err, gemma_err, moe_err, qwen2_err, encdec_err, prefix_err, dist_err,
                            *mla_bwd["max_abs_err"].values()),
@@ -5089,9 +5258,11 @@ def main() -> int:
                   "tile a chunk, C B^T once per group and tile, tile states passed in fp32, y = [exp(cum) C | M] "
                   "[h^T ; X] in 8 x 4 register blocks over half the depth a half-block; fp32 FMAs on float4 reads), "
                   "timed beside it in bf16 as simt_ms and in fp32 as fp32",
-        "launches": ssd_launches + hybrid_full["ssd_launches"] + jamba_train["ssd_launches"]["calls"],
+        "launches": (ssd_launches + hybrid_full["ssd_launches"] + jamba_train["ssd_launches"]["calls"]
+                     + sharded["ssd_scan"]),
         "launches_by_path": {"ssm_training": ssd_launches, "hybrid_serving": hybrid_full["ssd_launches"],
-                             "hybrid_training": jamba_train["ssd_launches"]["calls"]},
+                             "hybrid_training": jamba_train["ssd_launches"]["calls"],
+                             "sharded_steps": sharded["ssd_scan"]},
         "max_abs_err": max(ssd_err, ssd_op_err),
         "kernels_per_launch": {"bfloat16": len(st["device_us_by_kernel"]),
                                "float32": routes["ssd_scan_fp32"]["kernels_per_call"]},

@@ -5,6 +5,7 @@ Run from the root of a checkout on a machine with two or more NVIDIA GPUs:
 
     python3 scripts/multi_card_dist.py                    # one rank a card (at most 4), NCCL
     python3 scripts/multi_card_dist.py --device cpu --world 4 --small   # the same on the host, gloo
+    python3 scripts/multi_card_dist.py --device cpu --world 4 --small steps   # only the sharded steps
 
 It starts one process a rank (a TCP rendezvous on a free localhost port;
 each process is given ``TIMEOUT_S`` and killed after) and checks, on every
@@ -25,9 +26,28 @@ rank:
   placements (scattered from rank 0): each rank's block equal to the slice
   its placements name, and ``full_tensor()`` bit for bit the parameter;
   twice, each pass timed (the first also opens the subgroups'
-  communicators).
+  communicators);
+* ``steps``: ``build_cell``'s steps on the (data 2, model world / 2) mesh,
+  their inputs placed as DTensors at ``cell.in_shardings``
+  (``launch.steps.place``): deepseek-7b's prefill of 4 rows of 2,048 tokens
+  and its decode step against a 2,048-row cache (uncut), its published
+  width cut to 8 layers trained one step of 4 × 2,048 tokens in 2
+  microbatches, and mamba2-130m's train cell at its published widths cut
+  to 12 layers (``--small``: the smoke configs, 32-token rows), each as an
+  fp32 control and then in its config's dtypes (``STEP_DTYPES``).  Rank 0
+  first runs each cell's plain-tensor step alone on its card from the
+  same seed (the one-card output); the sharded outputs, gathered, are
+  held against it (fp32: logits and each cache leaf within ``FP32_REL``
+  of their largest magnitude, a train step's loss, grad norm and each
+  leaf's first moment within its bound or twice the gap of the one-card
+  step rerun with its weights nudged by a unit in the last place; bf16:
+  the same outputs' gaps to the one-card fp32 step within twice the
+  one-card bf16 step's, plus one bf16 unit in the last place), and the
+  flash and SSD launches of each rank are counted.  Both are timed: the
+  first call and the median of two warm calls on the host clock.
 
-One JSON line a rank and a last line with ``"ok"``, beside the card's name
+Name parts to run only those (``pipeline``, ``mesh``, ``steps``; all by
+default).  One JSON line a rank and a last line with ``"ok"``, beside the card's name
 and power limit.  Exits non-zero when a check fails, a rank fails or hangs,
 or (on ``cuda``) there are fewer than two cards.
 """
@@ -46,13 +66,34 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
+
+from chip_smoke import SHARDED_CELLS, SHARDED_MICRO, SHARDED_SEED, kernel_launches, zero_launches  # noqa: E402
 
 TIMEOUT_S = 600
 TOY_TOL = 2e-5
 #: the full-width pipeline: layers a stage, microbatches, tokens a microbatch (--small: the smoke config's)
 LAYERS_A_STAGE, MICRO, SEQ, SMALL_SEQ = 2, 4, 2048, 32
+PARTS = ("pipeline", "mesh", "steps")
+#: each steps cell (chip_smoke.py's SHARDED_CELLS, seed and microbatches) runs as an fp32 control (parameters
+#: and compute in fp32), then in its config's dtypes (bf16 at full width).  The fp32 cells hold logits and
+#: cache within FP32_REL of scale, and a train step's loss, grad norm and each leaf's first moment (the clipped
+#: gradient; relative L2) within FP32_REL and FP32_GRAD_L2 (tests/test_torch_train.py's first-step bounds)
+#: or twice the gap of the one-card step rerun with every weight moved by one unit in its last place
+#: (``_nudge``), whichever is larger: a leaf whose gradient is a small sum of large terms (a norm's scale,
+#: attention's q and k at this init) moves by far more than a rounding under any change of its sums' order.
+#: A bf16 cell is held against its own rounding: the one-card bf16 step's gap to the one-card fp32 step of
+#: the same weights (bf16 weights are the fp32 draws rounded) is the floor, and the sharded bf16 step's gap
+#: to that fp32 step must lie within BF16_FLOOR_TIMES the floor plus BF16_SLACK, for the logits, each cache
+#: leaf, the loss, the grad norm and each leaf's first moment.  bf16 rounds each rank's partial products
+#: before the cross-rank sum, so the sharded step may stray from fp32 farther than the one-card step does;
+#: the bound lets it stray twice as far, and the slack (one unit in bf16's last place) keeps a floor that is
+#: near 0 by chance (a scalar: the loss, the grad norm) from failing a step that is one rounding off
+STEP_DTYPES = ("float32", "bfloat16")
+FP32_REL, FP32_GRAD_L2 = 1e-3, 2e-3
+BF16_FLOOR_TIMES, BF16_SLACK = 2.0, torch.finfo(torch.bfloat16).eps
 
 
 def _free_port() -> int:
@@ -193,6 +234,161 @@ def mesh_round_trip(model, world, device):
             "round_trip_s": seconds, "mismatched": bad, "ok": not bad and sharded > 0}
 
 
+def _rel_gap(got, want) -> float:
+    """Largest absolute gap over the largest magnitude."""
+    got, want = got.float(), want.float().to(got.device)
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+
+
+def _l2_gap(got, want) -> float:
+    got, want = got.float(), want.float().to(got.device)
+    return (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want).clamp(min=1e-30)).item()
+
+
+@torch.no_grad()
+def _nudge(tree, gen):
+    """Every leaf of ``tree`` times ``1 ± eps`` of its dtype, the sign drawn
+    from ``gen`` (about one unit in the last place, a rounding's worth)."""
+    for leaf in (tree.values() if isinstance(tree, dict) else ()):
+        if isinstance(leaf, dict):
+            _nudge(leaf, gen)
+            continue
+        up = torch.rand(leaf.shape, generator=gen, device=leaf.device) < 0.5
+        eps = torch.finfo(leaf.dtype).eps
+        leaf.copy_((leaf.float() * torch.where(up, 1 + eps, 1 - eps)).to(leaf.dtype))
+
+
+def _gaps(got, want):
+    """A step's gaps to ``want``: a train step's loss and grad norm
+    relative and each leaf's first moment (the clipped gradient,
+    ``m.<leaf>``) in relative L2; a serving step's logits and each cache
+    leaf (``cache.<leaf>``) relative to their largest magnitude."""
+    if "m" in want:
+        gaps = {k: abs(float(got[k]) - float(want[k])) / abs(float(want[k])) for k in ("loss", "grad_norm")}
+        gaps.update({f"m.{k}": _l2_gap(got["m"][k], want["m"][k]) for k in want["m"]})
+        return gaps
+    gaps = {"logits": _rel_gap(got["logits"], want["logits"])}
+    gaps.update({f"cache.{k}": _rel_gap(got["cache"][k], want["cache"][k]) for k in want["cache"]})
+    return gaps
+
+
+def _timed(fn, device, keep):
+    """``keep`` of the first call's output on the host (taken before the warm
+    calls, which update a train step's parameters and moments in place) and
+    its ms, then the median ms of two warm calls."""
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    first = (time.perf_counter() - t0) * 1e3
+    out = _host(keep(out))
+    warm = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        warm.append((time.perf_counter() - t0) * 1e3)
+    return out, first, sorted(warm)[0] / 2 + sorted(warm)[1] / 2
+
+
+def _host(tree):
+    """The outputs worth comparing, copied to the host: logits and cache, or
+    the metrics and first moments."""
+    from repro_torch.launch.steps import full_tensor
+
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_host(v) for v in tree)
+    return full_tensor(tree).detach().to("cpu", copy=True) if isinstance(tree, torch.Tensor) else tree
+
+
+def sharded_steps(args, device):
+    """The steps part (see the module docstring)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeConfig, get_config, get_smoke_config
+    from repro_torch.launch.mesh import make_tiny_mesh
+    from repro_torch.launch.shardings import PlanOverrides
+    from repro_torch.launch.steps import build_cell, materialize, place
+
+    mesh = make_tiny_mesh(data=2, model=args.world // 2, device_type=device.type)
+    seq = SMALL_SEQ if args.small else SEQ
+    rows, ok = {}, True
+    fp32_out = None  # rank 0's one-card fp32 output of the cell, the bf16 run's reference
+    for (arch, name, _, batch, kind, layers), dtype in ((c, d) for c in SHARDED_CELLS for d in STEP_DTYPES):
+        cfg = get_smoke_config(arch) if args.small else get_config(arch)
+        if layers is not None and not args.small:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        fp32 = dtype == "float32"
+        if fp32:
+            cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+        over = PlanOverrides(microbatches=SHARDED_MICRO) if kind == "train" else PlanOverrides()
+        cell = build_cell(arch, cfg, ShapeConfig(name, seq, batch, kind), mesh, overrides=over)
+        keep = (lambda o: {"loss": o[2]["loss"], "grad_norm": o[2]["grad_norm"], "m": o[1]["m"]}) \
+            if kind == "train" else (lambda o: {"logits": o[0], "cache": o[1]})
+        one = {}
+        if args.rank == 0:  # the one-card step, alone
+            plain = materialize(cell, device.type, SHARDED_SEED)
+            out, first, warm = _timed(lambda: cell.fn(*plain), device, keep)
+            one = {"out": out, "first_call_ms": first, "step_ms": warm}
+            del out, plain
+            if kind == "train" and fp32:  # the same step with every weight moved by about one unit in its last place
+                params, opt, batch_in = materialize(cell, device.type, SHARDED_SEED)
+                _nudge(params, torch.Generator(device=device).manual_seed(SHARDED_SEED + 2))
+                one["nudged"] = _host(keep(cell.fn(params, opt, batch_in)))
+                del params, opt, batch_in
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+        placed = place(cell, materialize(cell, device.type, SHARDED_SEED))
+        zero_launches()
+        got, first, warm = _timed(lambda: cell.fn(*placed), device, keep)
+        launches = {k: n // 3 for k, n in kernel_launches().items()}  # three calls, one a main-path call
+        del placed
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        row = {"step": cell.step_name, "rows": batch, "seq": seq, "n_layers": cfg.n_layers,
+               "sharded_first_call_ms": first, "sharded_step_ms": warm, "launches": launches}
+        if args.rank == 0:
+            want = one["out"]
+            gaps = _gaps(got, want)
+            if fp32:
+                # each gap within its bound, or twice the nudged one-card step's gap where that is larger
+                floor = _gaps(one["nudged"], want) if kind == "train" else {k: 0.0 for k in gaps}
+                bounds = {k: max(FP32_GRAD_L2 if k.startswith("m.") else FP32_REL, 2 * floor[k]) for k in gaps}
+                held_gaps = gaps
+                fp32_out = want
+            else:
+                # the sharded bf16 step's gap to the one-card fp32 step, within BF16_FLOOR_TIMES the one-card bf16
+                # step's gap to it, plus BF16_SLACK
+                floor = _gaps(want, fp32_out)
+                held_gaps = _gaps(got, fp32_out)
+                bounds = {k: BF16_FLOOR_TIMES * floor[k] + BF16_SLACK for k in gaps}
+                row["gaps_to_fp32"] = {k: v for k, v in held_gaps.items() if not k.startswith("m.")}
+                fp32_out = None
+            over = {k: held_gaps[k] / bounds[k] for k in gaps}
+            worst = max(gaps, key=lambda k: (over[k], held_gaps[k]))
+            row.update(gaps={k: v for k, v in gaps.items() if not k.startswith("m.")},
+                       floors={k: v for k, v in floor.items() if not k.startswith("m.")},
+                       worst=worst, worst_gap=held_gaps[worst], worst_floor=floor[worst], worst_bound=bounds[worst])
+            if kind == "train":
+                row["max_first_moment_gap"] = max(v for k, v in gaps.items() if k.startswith("m."))
+            probe = got["loss"] if kind == "train" else got["logits"]
+            row.update(one_card_first_call_ms=one["first_call_ms"], one_card_step_ms=one["step_ms"],
+                       held=all(v <= 1 for v in over.values()), ok=bool(torch.isfinite(probe).all()))
+            row["ok"] = row["ok"] and row["held"]
+            ok = ok and row["ok"]
+        want_kernels = ("ssd_scan",) if cfg.ssm is not None else \
+            {"prefill": ("flash_forward",), "decode": (), "train": ("flash_forward", "flash_backward")}[kind]
+        if device.type == "cuda":
+            ok = ok and all(launches[k] > 0 for k in want_kernels)
+        key = f"{arch} {name} {dtype}" + (f" ({cfg.n_layers} layers)" if layers and not args.small else "")
+        rows[key] = row
+        print(f"rank {args.rank}: {key} {json.dumps(row)}", file=sys.stderr, flush=True)  # kept if a later cell hangs
+    return {"mesh": list(mesh.mesh.shape), "axes": list(mesh.mesh_dim_names), "cells": rows, "ok": ok}
+
+
 def rank_main(args) -> int:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -212,11 +408,22 @@ def rank_main(args) -> int:
         base = get_smoke_config("deepseek-7b") if args.small else get_config("deepseek-7b")
         cfg = dataclasses.replace(base, n_layers=LAYERS_A_STAGE * args.world)
         out = {"rank": args.rank, "backend": backend, "device": str(device), "config": cfg.name,
-               "n_layers": cfg.n_layers, "d_model": cfg.d_model, "pipeline_toy": pipeline_toy(stage_mesh, device)}
-        model = _model(cfg, device)
-        out["pipeline_full_width"] = pipeline_full_width(model, stage_mesh, device, SMALL_SEQ if args.small else SEQ)
-        out["mesh"] = mesh_round_trip(model, args.world, device)
-        out["ok"] = all(out[k]["ok"] for k in ("pipeline_toy", "pipeline_full_width", "mesh"))
+               "n_layers": cfg.n_layers, "d_model": cfg.d_model}
+        if "pipeline" in args.parts:
+            out["pipeline_toy"] = pipeline_toy(stage_mesh, device)
+        if {"pipeline", "mesh"} & set(args.parts):
+            model = _model(cfg, device)
+            if "pipeline" in args.parts:
+                out["pipeline_full_width"] = pipeline_full_width(model, stage_mesh, device,
+                                                                 SMALL_SEQ if args.small else SEQ)
+            if "mesh" in args.parts:
+                out["mesh"] = mesh_round_trip(model, args.world, device)
+            del model
+        if "steps" in args.parts:
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            out["steps"] = sharded_steps(args, device)
+        out["ok"] = all(out[k]["ok"] for k in ("pipeline_toy", "pipeline_full_width", "mesh", "steps") if k in out)
         print(json.dumps(out), flush=True)
         return 0 if out["ok"] else 1
     finally:
@@ -228,6 +435,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--world", type=int, default=None, help="ranks (default: the cards, at most 4)")
     ap.add_argument("--small", action="store_true", help="the smoke config's widths and 32-token rows")
+    ap.add_argument("parts", nargs="*", choices=PARTS, default=list(PARTS), help="parts to run (default: all)")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -249,7 +457,7 @@ def main(argv=None) -> int:
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     cmd = [sys.executable, str(Path(__file__).resolve()), "--device", args.device, "--world", str(args.world),
-           "--port", str(port)] + (["--small"] if args.small else [])
+           "--port", str(port)] + (["--small"] if args.small else []) + list(args.parts)
     t0 = time.perf_counter()
     procs = [subprocess.Popen(cmd + ["--rank", str(r)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True) for r in range(args.world)]

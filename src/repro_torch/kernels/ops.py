@@ -21,6 +21,11 @@ they take.  A CUDA call that needs a gradient goes through
 :class:`FlashAttention`: the forward kernel with the rows' logsumexp, and
 the backward kernel, at every pair and mask the forward takes (MLA's (192,
 128) trains through both).
+
+A DTensor input (a step placed on a mesh) runs each op on every rank's
+local shard, forward and backward, and comes back a DTensor
+(:mod:`.shards`): the kernel launches on the shard, and the plain version
+runs only where the shard lies on the CPU.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ import torch
 from .flash_attention import flash_attention as flash_attention_cuda
 from .flash_attention import flash_attention_backward, is_fake
 from .ref import attention_ref, ssd_chunked_ref
+from ..launch.dtensors import is_dtensor, layout_grad
+from .shards import decode_attention_on_shards, flash_on_shards, ssd_on_shards
 from .ssd_scan import ssd_scan_autograd
 
 __all__ = ["flash_attention", "FlashAttention", "decode_attention", "ssd_scan", "ref_chunk"]
@@ -78,6 +85,8 @@ def flash_attention(
     the CPU, a call that needs a gradient goes through :class:`FlashAttention`."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown impl {impl!r} (want 'auto' or 'plain')")
+    if is_dtensor(q, k, v):
+        return flash_on_shards(flash_attention, q, k, v, causal=causal, scale=scale, prefix_len=prefix_len, impl=impl)
     if impl == "plain":
         return attention_ref(q, k, v, causal=causal, scale=scale, prefix_len=prefix_len)
     if (q.device.type != "cpu" or is_fake(q)) and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -96,7 +105,10 @@ def decode_attention(
     """Single-token attention over a KV cache (bandwidth-bound; plain torch,
     as the reference computes it outside any kernel).  An int ``cache_len``
     of the whole cache (cross-attention over an encoder's output) masks
-    nothing and copies nothing to the device."""
+    nothing and copies nothing to the device.  A DTensor cache is read on
+    each rank's shard (:func:`~.shards.decode_attention_on_shards`)."""
+    if is_dtensor(q, k_cache, v_cache):
+        return decode_attention_on_shards(decode_attention, q, k_cache, v_cache, cache_len, scale=scale)
     B, Hq, D = q.shape
     _, S, Hkv, _ = k_cache.shape
     G = Hq // Hkv
@@ -146,6 +158,11 @@ def ssd_scan(
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown impl {impl!r} (want 'auto' or 'plain')")
     chunk = ref_chunk(x.shape[1], chunk)
+    if is_dtensor(x, dt, A, Bm, Cm, D, h0):
+        return ssd_on_shards(ssd_scan, x, dt, A, Bm, Cm, D, h0, chunk=chunk, impl=impl)
     if impl == "plain" or (x.device.type == "cpu" and not is_fake(x)):
+        # autograd through the chunked form hands back permuted gradients: each comes back in its input's
+        # layout, as SSDScan's backward hands them back on the card
+        x, dt, A, Bm, Cm, D, h0 = (None if t is None else layout_grad(t) for t in (x, dt, A, Bm, Cm, D, h0))
         return ssd_chunked_ref(x, dt, A, Bm, Cm, D, h0, chunk=chunk, return_state=True)
     return ssd_scan_autograd(x, dt, A, Bm, Cm, D, h0, chunk=chunk)

@@ -81,6 +81,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..launch.dtensors import in_layout
 from . import build
 from .flash_attention import is_fake, tma_strides
 from .ref import ssd_chunked_ref
@@ -357,7 +358,8 @@ ssd_scan.fake_shapes = Counter()
 class SSDScan(torch.autograd.Function):
     """The SSD scan with a gradient: forward by :func:`ssd_scan` (the kernel
     on the card), backward by autograd through the chunked torch form,
-    recomputed from the saved inputs."""
+    recomputed from the saved inputs, each gradient handed back in its
+    input's layout (the chunked form's come permuted)."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, D, h0, chunk):
@@ -376,7 +378,7 @@ class SSDScan(torch.autograd.Function):
             with torch.enable_grad():
                 y, h = ssd_chunked_ref(*inputs, chunk=ctx.chunk, return_state=True)
                 grads = iter(torch.autograd.grad((y, h), wrt, (gy, gh), allow_unused=True))
-        return (*(next(grads) if n else None for n in need), None)
+        return (*(in_layout(next(grads), t.shape, t.stride()) if n else None for t, n in zip(saved, need)), None)
 
 
 def ssd_scan_autograd(x, dt, A, Bm, Cm, D=None, h0=None, *, chunk: int):

@@ -19,7 +19,11 @@ activation rules.  It builds its model over them
 (``Transformer.from_params``), so a train step updates them in place (the
 reference donates them) and a decode step writes its cache in place.
 :func:`materialize` turns a cell's abstract inputs into real tensors, so a
-cell can also run.
+cell can also run, and :func:`place` puts them on the plan's mesh as
+DTensors at ``cell.in_shardings`` (the reference's ``jax.jit(cell.fn,
+in_shardings=...)``): the step then runs sharded, each kernel on every
+rank's local shard (``kernels.shards``, built on ``launch.dtensors``),
+and :func:`full_tensor` gathers what it returns.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from .mesh import mesh_axis_sizes
 from .shardings import PlanOverrides, ShardingPlan, make_plan
 
 __all__ = ["CellSpec", "build_cell", "default_microbatches", "model_flops_for_cell", "abstract_params",
-           "materialize"]
+           "materialize", "place", "full_tensor"]
 
 
 @dataclass
@@ -244,3 +248,42 @@ def materialize(cell: CellSpec, device="cuda", seed: int = 0) -> Tuple[Any, ...]
     last = cell.shape.seq_len + (cfg.vision_tokens or 0) - 1
     pos = torch.full(cell.args[3].shape, last, dtype=torch.int32, device=device)
     return params, cache, tokens, pos
+
+
+def place(cell: CellSpec, args: Tuple[Any, ...]) -> Tuple[Any, ...]:
+    """``args`` (:func:`materialize`'s, on the mesh's device: the card for an
+    NCCL mesh) as DTensors on ``cell.plan.mesh`` at ``cell.in_shardings``.
+    Each rank must hold the same values (``materialize`` from one seed), so
+    each keeps its own shard and nothing is sent; a leaf that is a DTensor
+    already (an earlier step's cache, placed parameters) stays as it is.  A
+    dict of ``args`` is placed in place, leaf by leaf, each full tensor
+    dropped as its shard is made, so no full tree is held twice.  The
+    donation is the reference's: a train step updates the placed parameters
+    and optimizer state in place, a decode step writes the placed cache."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    mesh = cell.plan.mesh
+
+    def put(t: torch.Tensor, placements):
+        return t if isinstance(t, DTensor) else distribute_tensor(t, mesh, placements, src_data_rank=None)
+
+    def walk(tree, placements):
+        if not isinstance(tree, dict):
+            return put(tree, placements)
+        for key in list(tree):
+            tree[key] = walk(tree[key], placements[key])
+        return tree
+
+    return tuple(walk(a, p) for a, p in zip(args, cell.in_shardings))
+
+
+def full_tensor(tree):
+    """``tree`` (nested dicts, tuples or lists) with every DTensor gathered
+    into a plain tensor (``DTensor.full_tensor``); other leaves as they are."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return {k: full_tensor(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(full_tensor(v) for v in tree)
+    return tree.full_tensor() if isinstance(tree, DTensor) else tree

@@ -22,6 +22,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..launch.dtensors import is_dtensor, write_token
 from .act_sharding import constrain
 from .layers import rmsnorm, rmsnorm_defs, rope
 from .params import ParamDef
@@ -124,9 +125,13 @@ def gqa_decode(
     if cfg.use_rope:
         q = rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
         k = rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-    rows = torch.arange(x.shape[0], device=x.device)
-    cache["k"][rows, pos] = k.to(cache["k"].dtype)
-    cache["v"][rows, pos] = v.to(cache["v"].dtype)
+    if is_dtensor(cache["k"]):  # each rank writes its shard, rows local to its batch block
+        write_token(cache["k"], k, pos)
+        write_token(cache["v"], v, pos)
+    else:
+        rows = torch.arange(x.shape[0], device=x.device)
+        cache["k"][rows, pos] = k.to(cache["k"].dtype)
+        cache["v"][rows, pos] = v.to(cache["v"].dtype)
     o = ops.decode_attention(q, cache["k"], cache["v"], pos + 1)
     return _merge(o, params["wo"])
 

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..launch.dtensors import is_dtensor, like, lookup_on_shards, span
 from .act_sharding import constrain
 from .params import ParamDef
 
@@ -78,9 +79,11 @@ def lm_head_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 
 def embed_apply(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = params["embedding"][tokens].to(cfg.compute_tdtype())
+    table = params["embedding"]
+    # a DTensor table (a step on a mesh) is read on each rank's shard: DTensor's own index ops gather it whole
+    x = (lookup_on_shards(table, tokens) if is_dtensor(table) else table[tokens]).to(cfg.compute_tdtype())
     if cfg.scale_embedding:
-        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+        x = x * like(torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device), x)
     return x
 
 
@@ -95,8 +98,24 @@ def logits_apply(params, head_params, x: torch.Tensor, cfg: ModelConfig) -> torc
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
     if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e9
+        if is_dtensor(logits):
+            logits = _mask_padded_vocab(logits, cfg.vocab_size)
+        else:
+            logits[..., cfg.vocab_size:] = -1e9
     return constrain(logits, "batch", "seq", "vocab_logits")
+
+
+def _mask_padded_vocab(logits, vocab: int):
+    """A DTensor's padded columns (``>= vocab``) at ``-1e9`` on each rank's
+    block of the vocabulary, out of place: a view of a sharded dim cannot
+    be written through."""
+    from torch.distributed.tensor import DTensor
+
+    first, width = span(logits, logits.ndim - 1)
+    part = logits.to_local()
+    part = part.masked_fill(torch.arange(first, first + width, device=part.device) >= vocab, -1e9)
+    return DTensor.from_local(part, logits.device_mesh, logits.placements, run_check=False, shape=logits.shape,
+                              stride=logits.stride())
 
 
 # ----------------------------------------------------------------------- RoPE
@@ -115,10 +134,11 @@ def rope(
     # made on the device by a fill: a tensor copied from the host would wait for it in every decode step
     log_theta = torch.log(torch.full((), theta, dtype=torch.float32, device=x.device))
     freq = torch.exp(-log_theta * torch.arange(half, dtype=torch.float32, device=x.device) / half)
-    ang = positions.float()[..., None] * freq  # (..., S, half)
+    # the tables meet a DTensor x (a step on a mesh) replicated, each rank's shard taking its rows
+    ang = positions.float()[..., None] * like(freq, positions)  # (..., S, half)
     # broadcast over the head axis: x is (..., S, H, D)
-    sin = torch.sin(ang)[..., None, :]
-    cos = torch.cos(ang)[..., None, :]
+    sin = like(torch.sin(ang)[..., None, :], x)
+    cos = like(torch.cos(ang)[..., None, :], x)
     xr, xp = x[..., :rd], x[..., rd:]
     x1, x2 = xr[..., :half], xr[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..launch.dtensors import zeros_rows_like
 from .act_sharding import constrain
 from .layers import rmsnorm_defs
 from .params import ParamDef
@@ -53,9 +54,9 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, window: Optional[torch.Tensor
     ``window``: (B, W-1, ...) left context for chunked prefill / decode."""
     W, S = w.shape[0], u.shape[1]
     if window is None:
-        window = u.new_zeros((u.shape[0], W - 1) + tuple(u.shape[2:]))
+        window = zeros_rows_like(u, W - 1)
     ext = torch.cat([window.to(u.dtype), u], dim=1)  # (B, S+W-1, ...)
-    out = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
+    out = torch.zeros_like(u, dtype=torch.float32)
     for i in range(W):
         out = out + ext[:, i : i + S].float() * w[i].float()
     return F.silu(out).to(u.dtype)

@@ -14,6 +14,11 @@ groups of leaves, a large leaf cut into runs of its elements, each slice at
 most :data:`CHUNK_ELEMS` elements, so the fp32 temporaries (``denom``, ``delta``
 and the fp32 copies of leaves kept in another dtype) stay bounded whatever
 the model's size.  The update is elementwise, so slicing changes no bit.
+
+DTensor leaves (a step on a mesh, gradients at their parameters'
+placements) are updated on each rank's local shards; only
+:func:`global_norm` talks to the other ranks, with one all-reduce of the
+shards' squared norms, each divided by the ranks that hold a copy of it.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
 import torch
+
+from ..launch.dtensors import all_reduce_over, copies, is_dtensor, like, local
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm", "clip_by_global_norm", "CHUNK_ELEMS"]
 
@@ -55,12 +62,21 @@ def adamw_init(params: Tree, moment_dtype: torch.dtype = torch.float32) -> Dict[
 
 def global_norm(tree: Tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32 (a leaf in another
-    dtype is read in fp32 without an fp32 copy of it)."""
+    dtype is read in fp32 without an fp32 copy of it).  Of DTensor leaves:
+    each leaf's norm from its shards' squared norms, all-reduced once over
+    the mesh, each shard's divided by the ranks that hold a copy of it (on
+    one rank ``sqrt(n·n)``, which is ``n`` exactly)."""
     leaves = list(tree.values())
-    if all(t.dtype == torch.float32 for t in leaves):
-        norms = torch._foreach_norm(leaves)
+    parts = [local(t) for t in leaves]
+    if all(t.dtype == torch.float32 for t in parts):
+        norms = torch._foreach_norm(parts)
     else:
-        norms = [torch.linalg.vector_norm(t, dtype=torch.float32) for t in leaves]
+        norms = [torch.linalg.vector_norm(t, dtype=torch.float32) for t in parts]
+    if is_dtensor(*leaves):
+        mesh = leaves[0].device_mesh
+        held = torch.tensor([copies(t) for t in leaves], dtype=torch.float32, device=norms[0].device)
+        square = all_reduce_over(torch.stack(norms).square() / held, mesh, range(mesh.ndim))
+        return torch.linalg.vector_norm(square.sqrt())
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
@@ -71,10 +87,11 @@ def clip_by_global_norm(tree: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor
     stored back in its dtype, as the reference does."""
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
-    fp32 = [t for t in tree.values() if t.dtype == torch.float32]
+    parts = [local(t) for t in tree.values()]
+    fp32 = [t for t in parts if t.dtype == torch.float32]
     if fp32:
         torch._foreach_mul_(fp32, scale)
-    for t in tree.values():
+    for t in parts:
         if t.dtype != torch.float32:
             t.copy_(t.float() * scale)
     return tree, norm
@@ -110,12 +127,13 @@ def adamw_update(
     grads: Tree, opt_state: Dict[str, object], params: Tree, lr: float, cfg: AdamWConfig = AdamWConfig(),
 ) -> Dict[str, object]:
     """One AdamW step, **in place** on ``params`` and the moments, slice by
-    slice (:func:`_slices`); returns ``opt_state`` with ``step`` incremented."""
-    step = opt_state["step"] + 1
+    slice (:func:`_slices`; DTensor leaves on their local shards); returns
+    ``opt_state`` with ``step`` incremented."""
+    step = local(opt_state["step"]) + 1
     stepf = step.to(torch.float32)
     c1 = float(1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** stepf)
     c2 = float(1.0 - torch.tensor(cfg.b2, dtype=torch.float32) ** stepf)
-    rows = [(grads[n], params[n], opt_state["m"][n], opt_state["v"][n]) for n in params]
+    rows = [tuple(local(t) for t in (grads[n], params[n], opt_state["m"][n], opt_state["v"][n])) for n in params]
     for group in _slices(rows, CHUNK_ELEMS):
         g, p_store, m_store, v_store = (list(col) for col in zip(*group))
         # a bf16 gradient (a bf16 accumulator's) promotes to fp32 op by op: no fp32 copy
@@ -138,4 +156,4 @@ def adamw_update(
         for store, new in zip(p_store + m_store + v_store, p32 + m32 + v32):
             if new is not store:  # a leaf kept in another dtype than fp32
                 store.copy_(new)
-    return {**opt_state, "step": step}
+    return {**opt_state, "step": like(step, opt_state["step"])}

@@ -24,6 +24,8 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
+from ..launch.dtensors import is_dtensor
+
 __all__ = ["quantize_int8", "dequantize_int8", "ef_compress", "ef_state_init", "wire_bytes"]
 
 Tree = Dict[str, torch.Tensor]
@@ -62,6 +64,9 @@ def ef_compress(grads: Tree, ef_state: Tree, groups: Optional[Mapping[str, str]]
     buffers, updated **in place** (as ``adamw_update`` updates the
     moments): each buffer takes the corrected gradient ``e + g`` and then
     its residual, so a leaf needs no fp32 copy of its gradient."""
+    if is_dtensor(*grads.values(), *(ef_state[n] for n in grads)):
+        raise NotImplementedError("ef_compress runs on plain tensors; int8 compression of a sharded step is not "
+                                  "written yet (ROADMAP)")
     groups = groups or {}
     corrected = {n: ef_state[n].add_(g) for n, g in grads.items()}  # g.float() + e: fp32 addition commutes
     amax: Dict[str, torch.Tensor] = {}

@@ -23,6 +23,7 @@ import torch
 from ..configs.base import ModelConfig, torch_dtype
 from ..core import ReportSink, StepCost, StreamManager, StreamStats
 from ..core.query import StatsFrame
+from ..launch.dtensors import all_reduce_over, from_shard, is_dtensor, like, span, sum_over
 from ..models import Transformer, param_tree
 from ..models.convert import reference_leaf
 from ..optim import (
@@ -64,7 +65,10 @@ class TrainConfig:
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 0.0):
     """Token-mean CE over valid (label >= 0) positions, fp32, with z-loss.
-    Returns ``(loss, number of valid tokens)``."""
+    Returns ``(loss, number of valid tokens)``.  DTensor logits (a step on a
+    mesh, the vocabulary on ``model``) take :func:`sharded_cross_entropy`."""
+    if is_dtensor(logits):
+        return sharded_cross_entropy(logits, labels, z_loss)
     logits = logits.float()
     valid = labels >= 0
     safe = torch.where(valid, labels, 0)
@@ -75,6 +79,70 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 0.
     loss = nll.sum() / denom
     if z_loss > 0:
         loss = loss + z_loss * torch.where(valid, lse, 0.0).square().sum() / denom
+    return loss, denom
+
+
+class _ShardedLogSumExp(torch.autograd.Function):
+    """``logsumexp`` over the last dim of a local block of columns whose
+    other blocks lie on the ranks of ``axes``: the row maximum and then the
+    sum of exponentials all-reduced (torch's own ``logsumexp`` order: max,
+    infinite maxima set to 0, ``sum(exp(x - max))``, log, plus max), the
+    gradient ``g · exp(x - lse)`` on each block (torch's
+    ``logsumexp_backward``)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        m = all_reduce_over(x.amax(-1, keepdim=True), mesh, axes, torch.distributed.ReduceOp.MAX)
+        m = m.masked_fill(m.abs() == float("inf"), 0)
+        lse = all_reduce_over((x - m).exp().sum(-1), mesh, axes).log_().add_(m[..., 0])
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, lse = ctx.saved_tensors
+        return grad[..., None] * (x - lse[..., None]).exp(), None, None
+
+
+def sharded_cross_entropy(logits, labels, z_loss: float = 0.0):
+    """:func:`cross_entropy` of DTensor ``logits`` on each rank's block,
+    vocab-parallel where the vocabulary is sharded: the logsumexp's max and
+    sum all-reduced over those mesh dims (:class:`_ShardedLogSumExp`), each
+    label's logit taken on the rank whose columns hold it and all-reduced,
+    then the token sums (loss, z-loss, valid count) all-reduced over the
+    dims that shard the tokens.  Masked labels (< 0) and the z-loss as the
+    plain function has them; the loss and count come back as plain tensors,
+    alike on every rank.  On one rank it is the plain function's arithmetic,
+    op for op."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = logits.device_mesh
+    last = logits.ndim - 1
+    want = [Replicate() if isinstance(p, Partial) else p for p in logits.placements]
+    if list(logits.placements) != want:
+        logits = logits.redistribute(mesh, want)
+    vocab_axes = [i for i, p in enumerate(want) if isinstance(p, Shard) and p.dim == last]
+    token_axes = [i for i, p in enumerate(want) if isinstance(p, Shard) and p.dim != last]
+    label_place = [p if isinstance(p, Shard) and p.dim != last else Replicate() for p in want]
+    labels = like(labels, logits)
+    if list(labels.placements) != label_place:
+        labels = labels.redistribute(mesh, label_place)
+    labels = labels.to_local()
+    first, width = span(logits, last)  # this rank's columns of the vocabulary
+    # contiguous, so that the gradient handed back to the DTensor has the layout its metadata says
+    x = logits.contiguous().to_local().float()
+    valid = labels >= 0
+    safe = torch.where(valid, labels, 0)
+    lse = _ShardedLogSumExp.apply(x, mesh, tuple(vocab_axes))
+    at = safe - first
+    mine = (at >= 0) & (at < width)
+    picked = x.gather(-1, at.clamp(0, width - 1)[..., None])[..., 0]
+    ll = sum_over(torch.where(mine, picked, 0.0), mesh, vocab_axes) - lse
+    nll = -torch.where(valid, ll, 0.0)
+    denom = all_reduce_over(valid.sum(), mesh, token_axes).clamp(min=1)
+    loss = sum_over(nll.sum(), mesh, token_axes) / denom
+    if z_loss > 0:
+        loss = loss + z_loss * sum_over(torch.where(valid, lse, 0.0).square().sum(), mesh, token_axes) / denom
     return loss, denom
 
 
@@ -117,7 +185,15 @@ def make_train_step(model: Transformer, tcfg: TrainConfig) -> Callable:
     ``accum_dtype``, each addition ``(acc.float() + g).to(accum_dtype)`` and
     the mean taken in ``accum_dtype`` before the clip, as the reference
     does.  One microbatch has no accumulator: its fp32 gradient is clipped
-    as it is."""
+    as it is.
+
+    On a mesh (DTensor parameters, ``launch.steps.place``) each microbatch
+    is the reference's rows of the global batch, kept at the batch's
+    placements; each gradient is brought to its parameter's placements (a
+    replicated parameter used on batch-sharded rows has a ``Partial`` one,
+    reduced here), and the accumulation, the clip and AdamW run on the
+    local shards (the global norm all-reduces the shards' squared norms).
+    int8 compression (``compress_grads``) runs on plain tensors only."""
     loss_fn = make_loss_fn(model, tcfg)
     n_micro = tcfg.microbatches
     acc_dtype = torch_dtype(tcfg.accum_dtype)
@@ -155,6 +231,10 @@ def make_train_step(model: Transformer, tcfg: TrainConfig) -> Callable:
     def train_step(opt_state, batch):
         params = dict(model.named_parameters())
         leaves = list(params.values())
+        sharded = is_dtensor(*leaves)
+        if sharded and tcfg.compress_grads:
+            raise NotImplementedError("int8 gradient compression (compress_grads) runs on plain tensors; its "
+                                      "sharded form is not written yet (ROADMAP)")
         rows = len(batch["tokens"])
         if rows % n_micro:
             raise ValueError(f"batch of {rows} does not split into {n_micro} microbatches")
@@ -162,13 +242,18 @@ def make_train_step(model: Transformer, tcfg: TrainConfig) -> Callable:
         acc: List[torch.Tensor] = []
         ef = opt_state["ef"] if tcfg.compress_grads else None
         loss = aux = tokens = 0.0
+
+        def grads_of(total):
+            grads = list(torch.autograd.grad(total, leaves))
+            return [_shard_of(g, p) for g, p in zip(grads, leaves)] if sharded else grads
+
         for i in range(n_micro):
-            mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            mb = batch if n_micro == 1 else {k: _rows(v, i * size, size) for k, v in batch.items()}
             total, metrics = loss_fn(mb)
             if per_leaf:
-                acc = accumulate(acc, list(torch.autograd.grad(total, leaves)), ef)
+                acc = accumulate(acc, grads_of(total), ef)
             else:
-                grads = list(torch.autograd.grad(total, leaves))
+                grads = grads_of(total)
                 if acc:  # a bf16 gradient adds into its fp32 accumulator op by op: no fp32 copy of it
                     torch._foreach_add_(acc, grads)
                 else:
@@ -179,6 +264,8 @@ def make_train_step(model: Transformer, tcfg: TrainConfig) -> Callable:
             tokens = tokens + metrics["tokens"]
         if n_micro > 1:
             torch._foreach_div_(acc, float(n_micro))
+        if sharded:  # the local sums, as DTensors at their parameters' placements
+            acc = [from_shard(a, p.device_mesh, p.placements, p.shape) for a, p in zip(acc, leaves)]
         grads, gnorm = clip_by_global_norm(dict(zip(params, acc)), tcfg.adamw.grad_clip)
         lr = learning_rate(int(opt_state["step"]), tcfg.schedule)
         opt_state = adamw_update(grads, opt_state, params, lr, tcfg.adamw)
@@ -186,6 +273,23 @@ def make_train_step(model: Transformer, tcfg: TrainConfig) -> Callable:
         return opt_state, metrics
 
     return train_step
+
+
+def _rows(t, start: int, size: int):
+    """Rows ``[start, start + size)`` of a batch leaf; a DTensor's at its
+    own placements (the slice itself gathers the rows it cuts across)."""
+    part = t[start:start + size]
+    if is_dtensor(t) and part.placements != t.placements:
+        part = part.redistribute(t.device_mesh, t.placements)
+    return part
+
+
+def _shard_of(g, p) -> torch.Tensor:
+    """The local shard of gradient ``g`` at parameter ``p``'s placements
+    (a ``Partial`` gradient reduced, a replicated one cut)."""
+    if g.placements != p.placements:
+        g = g.redistribute(p.device_mesh, p.placements)
+    return g.to_local()
 
 
 def functional_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:

@@ -2,7 +2,8 @@
 forward (bf16 on wgmma at every head dim, fp32 on the CUDA cores at every
 head dim) and backward (bf16 on wgmma at every head dim; fp32 on the CUDA
 cores; both at MLA's (192, 128)), both directions with a prefix-LM prefix, the SSD scan (bf16 on wgmma, fp32 on the CUDA cores) and the
-simulator's landing.
+simulator's landing; the flash and SSD wrappers on DTensor inputs on a
+one-rank NCCL mesh (the kernels launched on the local shards).
 
 Imports torch and the port only (the card's machine has no JAX).  Every
 test needs an NVIDIA GPU and skips without one.  Run on the card:
@@ -1270,6 +1271,66 @@ def test_one_stage_pipeline_equals_the_sequential_stack(nccl_world):
             x = fn({"w": w[i], "b": b[i]}, x)
         want.append(x)
     assert torch.equal(out, torch.stack(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_on_dtensors_launches_both_kernels_on_the_shards(nccl_world, dtype):
+    """q, k and v as DTensors on the one-rank mesh (batch on ``data``, heads
+    on ``model``; k and v replicated, as GQA's kv heads are when they do not
+    divide ``model``): the forward and backward kernels launch once each on
+    the local shards, and the output (a DTensor at q's placements) and the
+    gradients are the plain tensors' call bit for bit."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import make_tiny_mesh
+
+    mesh = make_tiny_mesh(data=1, model=1)
+    q, k, v = _qkv((2, 128, 8, 2, 64), dtype, nccl_world, seed=3)
+    do = torch.randn_like(q)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*plain, causal=True)
+    out.backward(do)
+    placed = [distribute_tensor(q, mesh, [Shard(0), Shard(2)])] + [
+        distribute_tensor(t, mesh, [Shard(0), Replicate()]) for t in (k, v)]
+    placed = [t.requires_grad_() for t in placed]
+    fwd, bwd = fa.flash_attention.launches, fa.flash_attention_backward.launches
+    got = ops.flash_attention(*placed, causal=True)
+    assert isinstance(got, DTensor) and tuple(got.placements) == (Shard(0), Shard(2))
+    got.backward(distribute_tensor(do, mesh, [Shard(0), Shard(2)]))
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches - fwd, fa.flash_attention_backward.launches - bwd) == (1, 1)
+    assert torch.equal(got.full_tensor(), out.detach())
+    for a, b in zip(placed, plain):
+        assert torch.equal(a.grad.full_tensor(), b.grad)
+
+
+def test_ssd_on_dtensors_launches_the_kernel_on_the_shards(nccl_world):
+    """The SSD scan's inputs as DTensors on the one-rank mesh (x and dt on
+    batch and heads, A and D on heads, B and C replicated): the kernel
+    launches once on the shards; y and the state, and the gradients of the
+    autograd backward, are the plain tensors' call bit for bit."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import make_tiny_mesh
+
+    mesh = make_tiny_mesh(data=1, model=1)
+    x, dt, A, Bm, Cm, D, _ = _ssd((2, 256, 24, 64, 128, 1), torch.bfloat16, nccl_world, seed=5)
+    plain = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm, D)]
+    y, h = ops.ssd_scan(*plain, chunk=256)
+    gy = torch.randn(y.shape, dtype=y.dtype, device=y.device)  # contiguous, as the DTensor's shard is
+    y.backward(gy)
+    where = {0: [Shard(0), Shard(2)], 1: [Shard(0), Shard(2)], 2: [Replicate(), Shard(0)],
+             3: [Shard(0), Replicate()], 4: [Shard(0), Replicate()], 5: [Replicate(), Shard(0)]}
+    placed = [distribute_tensor(t, mesh, where[i]).requires_grad_() for i, t in enumerate((x, dt, A, Bm, Cm, D))]
+    before = sk.ssd_scan.launches
+    got_y, got_h = ops.ssd_scan(*placed, chunk=256)
+    assert isinstance(got_y, DTensor) and tuple(got_y.placements) == (Shard(0), Shard(2))
+    got_y.backward(distribute_tensor(gy, mesh, [Shard(0), Shard(2)]))
+    torch.cuda.synchronize()
+    assert sk.ssd_scan.launches == before + 1
+    assert torch.equal(got_y.full_tensor(), y.detach()) and torch.equal(got_h.full_tensor(), h.detach())
+    for a, b in zip(placed, plain):
+        assert torch.equal(a.grad.full_tensor(), b.grad)
 
 
 def test_adamw_on_bf16_gradients_equals_its_cpu_result(cuda):
