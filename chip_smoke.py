@@ -134,8 +134,14 @@ source, all started together) and drives the port's paths:
   flash and SSD launches equal (the kernels run on the local shards):
   deepseek-7b's prefill and decode cells above, its published width cut to
   8 layers trained one step of 4 x 2,048 tokens, and mamba2-130m's train
-  cell at its widths cut to 12 layers; each run's ms, busy ms, idle share
-  and peak memory;
+  cell at its widths cut to 12 layers; deepseek-v2-lite's prefill (4 x
+  2,048) and decode (a 2,048-row latent cache) uncut and its train cell
+  cut to 4 layers (MoE dispatch and combine and MLA on the shards, the
+  (192, 128) flash forward and backward), and llama4-scout's prefill and
+  decode at its widths cut to 8 of 48 layers (16 experts top-1, 40 query
+  heads on 8), whose MoE op makes no host sync in a decode step
+  (``torch.cuda.set_sync_debug_mode("error")``); each run's ms, busy ms,
+  idle share and peak memory;
 * the simulator: the segment-scatter kernel (the batched sweep's stat
   landing), its accumulate entry and the sequential-fold kernel held bit for
   bit against their plain versions, on test shapes and on the sweep's real
@@ -4816,11 +4822,24 @@ def phase_step_cost(smi: str):
 #: seed: deepseek-7b's step_cost cells uncut, its published width cut to 8 layers trained
 #: one step of 4 rows of 2,048 tokens in 2 microbatches, and mamba2-130m's train cell at its published
 #: widths at the same shape, cut to 12 of its 24 layers as train_full_width's, which keeps the phase near a
-#: minute (its DTensor step is host-bound).  (arch, shape name, seq, rows, kind, layers or None for all)
-SHARDED_CELLS = (("deepseek-7b", "prefill_2k", 2048, 4, "prefill", None),
-                 ("deepseek-7b", "decode_2k", 2048, 4, "decode", None),
-                 ("deepseek-7b", "train_2k", 2048, 4, "train", 8),
-                 ("mamba2-130m", "train_2k", 2048, 4, "train", 12))
+#: minute (its DTensor step is host-bound); deepseek-v2-lite's prefill and decode uncut (15.7 B parameters,
+#: ~31 GB in bf16, served uncut since moe_full_width) and its train cell at moe_train_full_width's cut of 4
+#: layers; llama4-scout's prefill and decode at its widths cut to 8 of 48 layers (~19.7 B parameters, ~39 GB).
+#: The last field is the depth of the cell on four cards (scripts/multi_card_dist.py), where rank 0 also runs
+#: the cell's one-card step in fp32, which must fit one card: deepseek-v2-lite at 8 layers (2 for training)
+#: and llama4-scout at 2 (~79 GB in fp32 at 8).  (arch, shape name, seq, rows, kind, layers or None for all,
+#: layers on four cards or None for the same)
+SHARDED_CELLS = (("deepseek-7b", "prefill_2k", 2048, 4, "prefill", None, None),
+                 ("deepseek-7b", "decode_2k", 2048, 4, "decode", None, None),
+                 ("deepseek-7b", "train_2k", 2048, 4, "train", 8, None),
+                 ("mamba2-130m", "train_2k", 2048, 4, "train", 12, None),
+                 ("deepseek-v2-lite-16b", "prefill_2k", 2048, 4, "prefill", None, 8),
+                 ("deepseek-v2-lite-16b", "decode_2k", 2048, 4, "decode", None, 8),
+                 ("deepseek-v2-lite-16b", "train_2k", 2048, 4, "train", 4, 2),
+                 ("llama4-scout-17b-a16e", "prefill_2k", 2048, 4, "prefill", 8, 2),
+                 ("llama4-scout-17b-a16e", "decode_2k", 2048, 4, "decode", 8, 2))
+#: the cell whose MoE op runs once more under torch.cuda.set_sync_debug_mode("error")
+SYNC_FREE_CELL = ("llama4-scout-17b-a16e", "decode_2k")
 SHARDED_SEED, SHARDED_MICRO = 7, 2
 #: elements a digest reads at once (its int64 products: 512 MB)
 DIGEST_CHUNK = 1 << 26
@@ -4904,6 +4923,41 @@ def _step_run(cell, args, smi):
             "launches": launches, "finite": finite, "smi": smi}, digests
 
 
+def _moe_makes_no_host_sync(cell, args):
+    """One more call of ``cell``'s step with the MoE op's local part (the
+    router and the dispatch and combine on the rank's shards) run under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises at any op that
+    waits on the device.  Returns how many local calls ran so."""
+    from repro_torch.models import moe
+
+    real = {name: getattr(moe, name) for name in ("router_topk", "_dispatch_combine")}
+    calls = []
+
+    def strict(fn):
+        def run(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            calls.append(fn.__name__)
+            return out
+
+        return run
+
+    for name, fn in real.items():
+        setattr(moe, name, strict(fn))
+    try:
+        cell.fn(*args)
+        torch.cuda.synchronize()
+    except RuntimeError as err:
+        raise CheckFailed(f"sharded_steps {cell.arch} {cell.shape.name}: the MoE op synchronised: {err}") from err
+    finally:
+        for name, fn in real.items():
+            setattr(moe, name, fn)
+    return len(calls)
+
+
 def phase_sharded_steps(smi: str):
     """build_cell's steps on a one-rank NCCL mesh with DTensor inputs
     (``launch.steps.place`` at ``cell.in_shardings``), each against the
@@ -4924,7 +4978,7 @@ def phase_sharded_steps(smi: str):
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:
         mesh = make_tiny_mesh(data=1, model=1)
-        for arch, name, seq, rows, kind, layers in SHARDED_CELLS:
+        for arch, name, seq, rows, kind, layers, _ in SHARDED_CELLS:
             cfg = get_config(arch)
             if layers is not None:
                 cfg = dataclasses.replace(cfg, n_layers=layers)
@@ -4932,7 +4986,14 @@ def phase_sharded_steps(smi: str):
             cell = build_cell(arch, cfg, ShapeConfig(name, seq, rows, kind), mesh, overrides=over)
             plain, plain_digests = _step_run(cell, materialize(cell, "cuda", SHARDED_SEED), smi)
             torch.cuda.empty_cache()
-            sharded, digests = _step_run(cell, place(cell, materialize(cell, "cuda", SHARDED_SEED)), smi)
+            placed = place(cell, materialize(cell, "cuda", SHARDED_SEED))
+            sharded, digests = _step_run(cell, placed, smi)
+            if (arch, name) == SYNC_FREE_CELL:
+                sharded["sync_free_moe_calls"] = _moe_makes_no_host_sync(cell, placed)
+                check(sharded["sync_free_moe_calls"] == 2 * cfg.n_layers,
+                      f"sharded_steps {arch} {name}: {sharded['sync_free_moe_calls']} MoE calls ran sync-free, "
+                      f"want {2 * cfg.n_layers}")
+            del placed
             torch.cuda.empty_cache()
             differ = sorted(k for k in plain_digests if digests.get(k) != plain_digests[k])
             key = f"{arch} {name}" + (f" ({layers} layers)" if layers else "")

@@ -32,15 +32,25 @@ rank:
   (``launch.steps.place``): deepseek-7b's prefill of 4 rows of 2,048 tokens
   and its decode step against a 2,048-row cache (uncut), its published
   width cut to 8 layers trained one step of 4 × 2,048 tokens in 2
-  microbatches, and mamba2-130m's train cell at its published widths cut
-  to 12 layers (``--small``: the smoke configs, 32-token rows), each as an
-  fp32 control and then in its config's dtypes (``STEP_DTYPES``).  Rank 0
+  microbatches, mamba2-130m's train cell at its published widths cut
+  to 12 layers, deepseek-v2-lite's prefill and decode cut to 8 layers and
+  its train cell to 2 (experts on ``model``, their FFN width and the batch
+  on ``data``; MLA's latent cache split over its sequence on ``model``),
+  and llama4-scout's prefill and decode cut to 2 layers: each new cell at
+  the depth where rank 0's one-card fp32 step fits one card (the last field
+  of ``chip_smoke.SHARDED_CELLS``) (``--small``: the smoke configs,
+  32-token rows), each as an fp32 control and then in its config's dtypes
+  (``STEP_DTYPES``).  Rank 0
   first runs each cell's plain-tensor step alone on its card from the
   same seed (the one-card output); the sharded outputs, gathered, are
-  held against it (fp32: logits and each cache leaf within ``FP32_REL``
-  of their largest magnitude, a train step's loss, grad norm and each
-  leaf's first moment within its bound or twice the gap of the one-card
-  step rerun with its weights nudged by a unit in the last place; bf16:
+  held against it (fp32: logits over the vocabulary and each cache leaf
+  within ``FP32_REL`` of their largest magnitude, the padded vocabulary
+  at -1e9, a train step's loss, grad norm and each leaf's first moment
+  within their bounds; in a train step each gap within its bound or
+  twice the gap of the one-card step rerun with its weights nudged by a
+  unit in the last place, whichever is larger; an MoE cell also reports
+  where each run first routes a token otherwise than the one-card step;
+  bf16:
   the same outputs' gaps to the one-card fp32 step within twice the
   one-card bf16 step's, plus one bf16 unit in the last place), and the
   flash and SSD launches of each rank are counted.  Both are timed: the
@@ -55,6 +65,7 @@ or (on ``cuda``) there are fewer than two cards.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -70,7 +81,13 @@ sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
-from chip_smoke import SHARDED_CELLS, SHARDED_MICRO, SHARDED_SEED, kernel_launches, zero_launches  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    SHARDED_CELLS,
+    SHARDED_MICRO,
+    SHARDED_SEED,
+    kernel_launches,
+    zero_launches,
+)
 
 TIMEOUT_S = 600
 TOY_TOL = 2e-5
@@ -94,6 +111,10 @@ PARTS = ("pipeline", "mesh", "steps")
 STEP_DTYPES = ("float32", "bfloat16")
 FP32_REL, FP32_GRAD_L2 = 1e-3, 2e-3
 BF16_FLOOR_TIMES, BF16_SLACK = 2.0, torch.finfo(torch.bfloat16).eps
+#: An MoE cell reports each run's first route difference from the one-card step (the router call, the
+#: tokens, their largest top-(k+1) margin) beside its gaps: at these cuts' init (the stacked layers' std,
+#: repeats^-0.5) a rounding's change of the router's input can send a token to other experts, which moves
+#: the later layers by far more than FP32_REL.
 
 
 def _free_port() -> int:
@@ -272,13 +293,76 @@ def _gaps(got, want):
     return gaps
 
 
-def _timed(fn, device, keep):
+@contextlib.contextmanager
+def _routes(calls):
+    """The port's ``moe.router_topk`` traced while open: each call's expert
+    indices and the smallest gap of its top-(k+1) probabilities (a second
+    call of the router, as chip_smoke.py's ``moe_parity`` takes it), kept on
+    the device and appended to ``calls``."""
+    from repro_torch.models import moe
+
+    real = moe.router_topk
+
+    def traced(params, x, cfg_moe, **kw):
+        w, idx, aux = real(params, x, cfg_moe, **kw)
+        more = dataclasses.replace(cfg_moe, top_k=min(cfg_moe.top_k + 1, cfg_moe.n_experts), router_scale=False)
+        top = real(params, x, more, **kw)[0].detach().float()
+        calls.append((idx.detach().clone(), (top[..., :-1] - top[..., 1:]).min(-1).values))
+        return w, idx, aux
+
+    moe.router_topk = traced
+    try:
+        yield
+    finally:
+        moe.router_topk = real
+
+
+def _first_route_difference(one, got):
+    """The first router call at which the sharded step routes a token to
+    other experts than the one-card step: ``{"call", "tokens", "margin"}``
+    (the largest of those tokens' top-(k+1) margins, over both runs), or
+    None where every call agrees."""
+    if len(one) != len(got):
+        return {"call": min(len(one), len(got)), "tokens": -1, "margin": float("inf")}
+    for n, ((oi, og), (gi, gg)) in enumerate(zip(one, got)):
+        differ = (oi != gi).any(-1)
+        if differ.any():
+            return {"call": n, "tokens": int(differ.sum()), "margin": float(torch.maximum(og, gg)[differ].max())}
+    return None
+
+
+def _gathered_routes(calls, mesh):
+    """This rank's router calls (its rows of the batch) gathered from every
+    rank, each call's rows in the batch's order (the ranks of ``model``
+    coordinate 0, by their ``data`` coordinate), on the host."""
+    import torch.distributed as dist
+
+    mine = [(i.cpu(), g.cpu()) for i, g in calls]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (mesh.get_local_rank("data"), mesh.get_local_rank("model"), mine))
+    blocks = [c for _, _, c in sorted((d, m, c) for d, m, c in every if m == 0)]
+    return [(torch.cat([b[n][0] for b in blocks]), torch.cat([b[n][1] for b in blocks])) for n in range(len(mine))]
+
+
+def _vocab_only(out, vocab):
+    """A serving step's kept outputs with its logits cut to the vocabulary
+    and the padded columns (``>= vocab``, at ``-1e9``) apart as
+    ``"padded"``: a gap relative to the largest magnitude would otherwise be
+    one relative to 1e9."""
+    if "logits" not in out:
+        return out
+    return {**out, "logits": out["logits"][..., :vocab], "padded": out["logits"][..., vocab:]}
+
+
+def _timed(fn, device, keep, trace=contextlib.nullcontext):
     """``keep`` of the first call's output on the host (taken before the warm
     calls, which update a train step's parameters and moments in place) and
-    its ms, then the median ms of two warm calls."""
+    its ms, then the median ms of two warm calls.  ``trace()`` is open
+    around the first call only."""
     _sync(device)
     t0 = time.perf_counter()
-    out = fn()
+    with trace():
+        out = fn()
     _sync(device)
     first = (time.perf_counter() - t0) * 1e3
     out = _host(keep(out))
@@ -316,8 +400,9 @@ def sharded_steps(args, device):
     seq = SMALL_SEQ if args.small else SEQ
     rows, ok = {}, True
     fp32_out = None  # rank 0's one-card fp32 output of the cell, the bf16 run's reference
-    for (arch, name, _, batch, kind, layers), dtype in ((c, d) for c in SHARDED_CELLS for d in STEP_DTYPES):
+    for (arch, name, _, batch, kind, layers, four), dtype in ((c, d) for c in SHARDED_CELLS for d in STEP_DTYPES):
         cfg = get_smoke_config(arch) if args.small else get_config(arch)
+        layers = four if four is not None else layers  # the depth at which rank 0's one-card fp32 step fits
         if layers is not None and not args.small:
             cfg = dataclasses.replace(cfg, n_layers=layers)
         fp32 = dtype == "float32"
@@ -327,35 +412,43 @@ def sharded_steps(args, device):
         cell = build_cell(arch, cfg, ShapeConfig(name, seq, batch, kind), mesh, overrides=over)
         keep = (lambda o: {"loss": o[2]["loss"], "grad_norm": o[2]["grad_norm"], "m": o[1]["m"]}) \
             if kind == "train" else (lambda o: {"logits": o[0], "cache": o[1]})
-        one = {}
+        vocab = cfg.vocab_size  # the logits' gaps over the vocabulary; the padded columns must hold -1e9
+        one, routed = {}, fp32 and cfg.moe is not None
+        nudged = fp32 and kind == "train"
+        one_routes, routes, nudged_routes = [], [], []
         if args.rank == 0:  # the one-card step, alone
             plain = materialize(cell, device.type, SHARDED_SEED)
-            out, first, warm = _timed(lambda: cell.fn(*plain), device, keep)
+            out, first, warm = _timed(lambda: cell.fn(*plain), device, keep,
+                                      (lambda: _routes(one_routes)) if routed else contextlib.nullcontext)
             one = {"out": out, "first_call_ms": first, "step_ms": warm}
             del out, plain
-            if kind == "train" and fp32:  # the same step with every weight moved by about one unit in its last place
-                params, opt, batch_in = materialize(cell, device.type, SHARDED_SEED)
-                _nudge(params, torch.Generator(device=device).manual_seed(SHARDED_SEED + 2))
-                one["nudged"] = _host(keep(cell.fn(params, opt, batch_in)))
-                del params, opt, batch_in
+            if nudged:  # the same step with every weight moved by about one unit in its last place
+                inputs = materialize(cell, device.type, SHARDED_SEED)
+                _nudge(inputs[0], torch.Generator(device=device).manual_seed(SHARDED_SEED + 2))
+                with _routes(nudged_routes) if routed else contextlib.nullcontext():
+                    one["nudged"] = _vocab_only(_host(keep(cell.fn(*inputs))), vocab)
+                del inputs
             if device.type == "cuda":
                 torch.cuda.empty_cache()
         dist.barrier()
         placed = place(cell, materialize(cell, device.type, SHARDED_SEED))
         zero_launches()
-        got, first, warm = _timed(lambda: cell.fn(*placed), device, keep)
+        got, first, warm = _timed(lambda: cell.fn(*placed), device, keep,
+                                  (lambda: _routes(routes)) if routed else contextlib.nullcontext)
         launches = {k: n // 3 for k, n in kernel_launches().items()}  # three calls, one a main-path call
         del placed
+        if routed:
+            routes = _gathered_routes(routes, mesh)
         if device.type == "cuda":
             torch.cuda.empty_cache()
         row = {"step": cell.step_name, "rows": batch, "seq": seq, "n_layers": cfg.n_layers,
                "sharded_first_call_ms": first, "sharded_step_ms": warm, "launches": launches}
         if args.rank == 0:
-            want = one["out"]
+            got, want = _vocab_only(got, vocab), _vocab_only(one["out"], vocab)
             gaps = _gaps(got, want)
             if fp32:
                 # each gap within its bound, or twice the nudged one-card step's gap where that is larger
-                floor = _gaps(one["nudged"], want) if kind == "train" else {k: 0.0 for k in gaps}
+                floor = _gaps(one["nudged"], want) if nudged else {k: 0.0 for k in gaps}
                 bounds = {k: max(FP32_GRAD_L2 if k.startswith("m.") else FP32_REL, 2 * floor[k]) for k in gaps}
                 held_gaps = gaps
                 fp32_out = want
@@ -375,8 +468,19 @@ def sharded_steps(args, device):
             if kind == "train":
                 row["max_first_moment_gap"] = max(v for k, v in gaps.items() if k.startswith("m."))
             probe = got["loss"] if kind == "train" else got["logits"]
+            held = all(v <= 1 for v in over.values())
+            if routed:  # where each run first routes a token otherwise than the one-card step (reported)
+                one_routes = [(i.cpu(), g.cpu()) for i, g in one_routes]
+                nudged_routes = [(i.cpu(), g.cpu()) for i, g in nudged_routes]
+                row.update(router_calls=len(one_routes),
+                           first_route_difference=_first_route_difference(one_routes, routes))
+                if nudged:
+                    row["nudged_first_route_difference"] = _first_route_difference(one_routes, nudged_routes)
+            if "padded" in got:
+                row["padded_columns_masked"] = bool((got["padded"] == -1e9).all() and (want["padded"] == -1e9).all())
+                held = held and row["padded_columns_masked"]
             row.update(one_card_first_call_ms=one["first_call_ms"], one_card_step_ms=one["step_ms"],
-                       held=all(v <= 1 for v in over.values()), ok=bool(torch.isfinite(probe).all()))
+                       held=held, ok=bool(torch.isfinite(probe).all()))
             row["ok"] = row["ok"] and row["held"]
             ok = ok and row["ok"]
         want_kernels = ("ssd_scan",) if cfg.ssm is not None else \

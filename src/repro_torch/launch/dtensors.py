@@ -7,7 +7,8 @@ layers share, none of it a kernel:
 * tests and conversions: :func:`is_dtensor`, :func:`mesh_of`,
   :func:`like` (a plain table met as replicated), :func:`local`,
   :func:`span` (a shard's offset and size), :func:`copies`;
-* collectives over mesh dims: :func:`all_reduce_over`, :func:`sum_over`;
+* collectives over mesh dims: :func:`all_reduce_over`, :func:`sum_over`,
+  :func:`grad_sum_over`;
 * placements of one tensor from another's: :func:`as_dtensor`,
   :func:`redistribute_to`, :func:`map_placements`, :func:`axes_on`,
   :func:`grad_placements`, :func:`local_shard` (its gradient in the
@@ -37,6 +38,7 @@ __all__ = [
     "copies",
     "all_reduce_over",
     "sum_over",
+    "grad_sum_over",
     "as_dtensor",
     "redistribute_to",
     "map_placements",
@@ -148,6 +150,28 @@ def sum_over(t: torch.Tensor, mesh, axes: Sequence[int]) -> torch.Tensor:
     """``t`` summed over the mesh dims ``axes``, with a gradient (identity:
     the sum is replicated over those dims)."""
     return _SumOver.apply(t, mesh, tuple(axes)) if axes else t
+
+
+class _GradSumOver(torch.autograd.Function):
+    """The other half of :class:`_SumOver`: the identity forward, the
+    gradient all-reduced over the mesh dims (each rank's gradient holds the
+    part of the work it did on a replicated input)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_over(grad.clone(), ctx.mesh, ctx.axes), None, None
+
+
+def grad_sum_over(t: torch.Tensor, mesh, axes: Sequence[int]) -> torch.Tensor:
+    """``t`` itself, its gradient summed over the mesh dims ``axes``: the
+    input of work split over those dims (each rank's experts) that every
+    rank holds whole."""
+    return _GradSumOver.apply(t, mesh, tuple(axes)) if axes and torch.is_grad_enabled() and t.requires_grad else t
 
 
 # ------------------------------------------------------------------ placements

@@ -12,17 +12,39 @@ depths.  Cross-attention (whisper's decoder over its encoder's output) has
 GQA's weights and no positional rotation: prefill and training run the
 flash kernel non-causally at ``(Sq, Sk)``, decode attends over the whole
 cross cache ``{"k", "v"}`` of ``(B, S_enc, Hkv, D)``.
+
+On a device mesh (DTensor inputs, a step placed by ``launch.steps.place``)
+every projection is a DTensor op, the heads split over ``model`` and the
+batch over ``data``; attention runs on each rank's shards
+(``kernels.shards``), and MLA's two layers of their own are written here:
+its prefill expands the shared rope key on each rank's heads, and its
+decode attends over a latent cache split over its sequence
+(:func:`mla_decode`).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from ..launch.dtensors import is_dtensor, write_token
+from ..launch.dtensors import (
+    all_reduce_over,
+    as_dtensor,
+    axes_on,
+    from_shard,
+    grad_placements,
+    is_dtensor,
+    local_shard,
+    map_placements,
+    mesh_of,
+    redistribute_to,
+    span,
+    write_token,
+)
 from .act_sharding import constrain
 from .layers import rmsnorm, rmsnorm_defs, rope
 from .params import ParamDef
@@ -177,6 +199,48 @@ def _mla_ckv(params, x, cfg: ModelConfig, positions) -> Tuple[torch.Tensor, torc
     return c, k_rope
 
 
+def _on_heads(t, head_dim: int = 2):
+    """A DTensor ``(B, S, H, D)`` (or ``(B, H, D)``, ``head_dim`` 1) at its
+    batch and head shards only (any other dim's shard or ``Partial`` made
+    whole)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    keep = (0, head_dim)
+    return redistribute_to(t, [p if isinstance(p, Shard) and p.dim in keep else Replicate() for p in t.placements])
+
+
+def _with_rope_key(k_nope: torch.Tensor, k_rope: torch.Tensor) -> torch.Tensor:
+    """MLA's keys ``(B, S, H, qk_nope + qk_rope)``: each head's ``k_nope``
+    beside the shared rope key ``k_rope`` ``(B, S, qk_rope)``.  On a mesh
+    the rope key, which has no head axis, meets the heads replicated over
+    the dims that split them and is expanded on each rank's own heads (its
+    gradient ``Partial`` there: each rank's heads' part)."""
+    if not is_dtensor(k_nope, k_rope):
+        H = k_nope.shape[2]
+        return torch.cat([k_nope, k_rope[:, :, None].expand(*k_rope.shape[:2], H, k_rope.shape[-1])], dim=-1)
+    mesh = mesh_of(k_nope, k_rope)
+    k_nope = _on_heads(as_dtensor(k_nope, mesh))
+    want = map_placements(k_nope.placements, {0: 0})
+    rope_l = local_shard(redistribute_to(as_dtensor(k_rope, mesh), want), grad_placements(k_nope, want))
+    nope_l = local_shard(k_nope)
+    k = torch.cat([nope_l, rope_l[:, :, None].expand(*rope_l.shape[:2], nope_l.shape[2], rope_l.shape[-1])], dim=-1)
+    return from_shard(k, mesh, k_nope.placements, (*k_nope.shape[:-1], k_nope.shape[-1] + k_rope.shape[-1]))
+
+
+def _seq_split(ckv: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """A DTensor ``ckv`` ``(B, S, C)`` at the decode cache's placements:
+    the batch as ``q``'s, the sequence over the mesh dims that split
+    ``q``'s heads where they divide it (the latent has no head axis), each
+    rank keeping its slice of what it holds (no collective)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    head_axes = axes_on(q.placements, 2)
+    split = math.prod(q.device_mesh.size(i) for i in head_axes)
+    seq = head_axes if ckv.shape[1] % split == 0 else []
+    return redistribute_to(ckv, [Shard(1) if i in seq else p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                                 for i, p in enumerate(q.placements)])
+
+
 def mla_apply(
     params,
     x: torch.Tensor,  # (B, S, d_model)
@@ -190,23 +254,103 @@ def mla_apply(
     latent, then flash attention at q/k width ``qk_nope + qk_rope`` and v
     width ``v_head_dim`` (on the card, deepseek-v2's (192, 128) kernel).
     Returns ``(out, {"ckv"})``, the latent and rope key of the whole
-    sequence for the decode cache."""
+    sequence for the decode cache.
+
+    On a mesh the query heads, ``k_nope`` and ``v`` are split over
+    ``model`` (DTensor projections; the latent and the rope key, which have
+    no head axis, are replicated there), the rope key is expanded on each
+    rank's heads (:func:`_with_rope_key`), attention runs on the local
+    heads (``flash_on_shards``: the (192, 128) kernel on the card), and
+    ``wo`` sums the heads' parts over ``model`` (one all-reduce of ``B · S
+    · d_model``).  ``ckv`` comes back at the cache's placements, the batch
+    on ``data`` and the sequence on ``model`` (a slice, no collective)."""
     m = cfg.mla
     q_nope, q_rope = _mla_q(params, x, cfg, positions)
     c, k_rope = _mla_ckv(params, x, cfg, positions)
     k_nope = _heads(c, params["w_uk"])
     v = _heads(c, params["w_uv"])
-    H = cfg.n_heads
-    k = torch.cat([k_nope, k_rope[:, :, None].expand(*k_rope.shape[:2], H, m.qk_rope_dim)], dim=-1)
+    k = _with_rope_key(k_nope, k_rope)
     q = torch.cat([q_nope, q_rope], dim=-1)
     scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
     o = ops.flash_attention(q, k, v, causal=causal, scale=scale, impl=attn_impl)
-    return _merge(o, params["wo"]), {"ckv": torch.cat([c, k_rope], dim=-1)}
+    ckv = torch.cat([c, k_rope], dim=-1)
+    if is_dtensor(ckv, q):
+        ckv = _seq_split(as_dtensor(ckv, mesh_of(ckv, q)), _on_heads(as_dtensor(q, mesh_of(ckv, q))))
+    return _merge(o, params["wo"]), {"ckv": ckv}
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> Dict[str, torch.Tensor]:
     m = cfg.mla
     return {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank + m.qk_rope_dim), dtype=dtype, device=device)}
+
+
+def _latent_scores(q_c, q_rope, ckv, cols, pos, cfg: ModelConfig, dtype):
+    """MLA decode's scores ``(B, H, S)`` over the latent rows ``ckv`` ``(B,
+    S, C + R)`` at positions ``cols`` ``(S,)``, in the reference's order:
+    in the compute dtype, then fp32 and the scale, the rows past ``pos``
+    masked at fp32's min; and the latent part of the rows in the compute
+    dtype."""
+    m = cfg.mla
+    c_cache = ckv[..., : m.kv_lora_rank].to(dtype)
+    r_cache = ckv[..., m.kv_lora_rank:].to(dtype)
+    s = torch.einsum("bhr,bsr->bhs", q_c, c_cache) + torch.einsum("bhk,bsk->bhs", q_rope, r_cache)
+    s = s.float() * ((m.qk_nope_dim + m.qk_rope_dim) ** -0.5)
+    valid = cols[None] < (pos + 1)[:, None]
+    return s.masked_fill(~valid[:, None], torch.finfo(torch.float32).min), c_cache
+
+
+def _latent_attention(s, c_cache, dtype):
+    """The weighted latent ``(B, H, C)``: the softmax of ``s`` cast to the
+    compute dtype, times the rows."""
+    return torch.einsum("bhs,bsr->bhr", torch.softmax(s, dim=-1).to(dtype), c_cache)
+
+
+def _mla_decode_on_shards(params, q_nope, q_rope, ckv, pos, cfg: ModelConfig, dtype):
+    """Weight-absorbed attention of DTensor queries ``(B, H, ·)`` over a
+    DTensor latent cache ``ckv`` ``(B, S, C + R)`` (the batch on ``data``,
+    the sequence on ``model``), the cache never moved → ``o`` ``(B, H,
+    v_head_dim)`` at the queries' batch and head placements.
+
+    ``q_c = q_nope · w_uk`` on each rank's heads; every head's ``q_c`` and
+    ``q_rope`` are then gathered over the heads' dims to the cache's batch
+    placements (``B · H · (C + R)`` values).  Each rank scores its own span
+    of the sequence (:func:`_latent_scores`); where the span is part of the
+    sequence, the softmax combines across the ranks that split it: the row
+    maximum all-reduced, then the sums of ``p · c`` and of ``p`` all-reduced
+    together (``B · H · (C + 1)`` values), divided and cast.  Each rank
+    keeps its heads' rows of ``o_c`` (a slice) and expands them through
+    ``w_uv`` once.  Where no mesh dim of more than one rank splits the
+    sequence, each rank runs the plain softmax on its rows: on one rank the
+    result is the plain step's, bit for bit."""
+    import torch.distributed as dist
+
+    m = cfg.mla
+    mesh = mesh_of(q_nope, q_rope, ckv)
+    q_nope = _on_heads(as_dtensor(q_nope, mesh), 1)
+    heads = q_nope.placements
+    w_uk = local_shard(redistribute_to(as_dtensor(params["w_uk"], mesh), map_placements(heads, {1: 1})))
+    q_c = torch.einsum("bhk,rhk->bhr", local_shard(q_nope), w_uk.to(dtype))
+    B, H = q_nope.shape[:2]
+    rows = map_placements(ckv.placements, {0: 0})  # the cache's batch shards, every head
+    q_c = redistribute_to(from_shard(q_c, mesh, heads, (B, H, m.kv_lora_rank)), rows).to_local()
+    q_r = redistribute_to(as_dtensor(q_rope, mesh), rows).to_local()
+    pos_l = redistribute_to(as_dtensor(pos, mesh), rows).to_local()
+    s0, n = span(ckv, 1)
+    s, c_cache = _latent_scores(q_c, q_r, ckv.to_local(), torch.arange(s0, s0 + n, device=q_c.device), pos_l, cfg,
+                                dtype)
+    seq_axes = [i for i in axes_on(ckv.placements, 1) if mesh.size(i) > 1]
+    if not seq_axes:
+        o_c = _latent_attention(s, c_cache, dtype)
+    else:
+        top = all_reduce_over(s.amax(-1, keepdim=True), mesh, seq_axes, dist.ReduceOp.MAX)
+        p = torch.exp(s - top)
+        parts = torch.cat([torch.einsum("bhs,bsr->bhr", p, c_cache.float()), p.sum(-1, keepdim=True)], dim=-1)
+        all_reduce_over(parts, mesh, seq_axes)
+        o_c = (parts[..., :-1] / parts[..., -1:]).to(dtype)
+    o_c = redistribute_to(from_shard(o_c, mesh, rows, (B, H, m.kv_lora_rank)), heads).to_local()
+    w_uv = local_shard(redistribute_to(as_dtensor(params["w_uv"], mesh), map_placements(heads, {1: 1})))
+    o = torch.einsum("bhr,rhv->bhv", o_c, w_uv.to(dtype))
+    return from_shard(o, mesh, heads, (B, H, m.v_head_dim))
 
 
 def mla_decode(
@@ -222,26 +366,30 @@ def mla_decode(
     ``q_c · c + q_rope · k_rope``, and the weighted latent is expanded
     through ``w_uv`` once.  The order is the reference's: scores in the
     compute dtype, then fp32, the scale, the mask at fp32's min, the softmax
-    and the cast back."""
+    and the cast back.
+
+    On a mesh (a DTensor cache: the batch on ``data``, the sequence on
+    ``model``, as the plan places MLA's latent, which has no head axis) the
+    new latent is written on the rank that holds its row
+    (``launch.dtensors.write_token``: in place, no host sync), and the
+    attention runs on the shards (:func:`_mla_decode_on_shards`: a gather of
+    the queries over ``model``, then the split softmax's two all-reduces);
+    ``wo`` sums the heads' parts over ``model``."""
     m = cfg.mla
     dtype = x.dtype
     q_nope, q_rope = _mla_q(params, x[:, None], cfg, pos[:, None])
     q_nope, q_rope = q_nope[:, 0], q_rope[:, 0]  # (B, H, ·)
     c_new, k_rope_new = _mla_ckv(params, x[:, None], cfg, pos[:, None])
     ckv = cache["ckv"]
+    new = torch.cat([c_new, k_rope_new], dim=-1)[:, 0]
+    if is_dtensor(ckv):
+        write_token(ckv, new, pos)
+        return _merge(_mla_decode_on_shards(params, q_nope, q_rope, ckv, pos, cfg, dtype), params["wo"])
     rows = torch.arange(x.shape[0], device=x.device)
-    ckv[rows, pos] = torch.cat([c_new, k_rope_new], dim=-1)[:, 0].to(ckv.dtype)
-    c_cache = ckv[..., : m.kv_lora_rank].to(dtype)
-    r_cache = ckv[..., m.kv_lora_rank:].to(dtype)
-
+    ckv[rows, pos] = new.to(ckv.dtype)
     q_c = torch.einsum("bhk,rhk->bhr", q_nope, params["w_uk"].to(dtype))
-    s = torch.einsum("bhr,bsr->bhs", q_c, c_cache) + torch.einsum("bhk,bsk->bhs", q_rope, r_cache)
-    s = s.float() * ((m.qk_nope_dim + m.qk_rope_dim) ** -0.5)
-    valid = torch.arange(ckv.shape[1], device=x.device)[None] < (pos + 1)[:, None]
-    s = s.masked_fill(~valid[:, None], torch.finfo(torch.float32).min)
-    p = torch.softmax(s, dim=-1).to(dtype)
-    o_c = torch.einsum("bhs,bsr->bhr", p, c_cache)
-    o = torch.einsum("bhr,rhv->bhv", o_c, params["w_uv"].to(dtype))
+    s, c_cache = _latent_scores(q_c, q_rope, ckv, torch.arange(ckv.shape[1], device=x.device), pos, cfg, dtype)
+    o = torch.einsum("bhr,rhv->bhv", _latent_attention(s, c_cache, dtype), params["w_uv"].to(dtype))
     return _merge(o, params["wo"])
 
 

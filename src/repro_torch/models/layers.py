@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..launch.dtensors import is_dtensor, like, lookup_on_shards, span
+from ..launch.dtensors import is_dtensor, like, lookup_on_shards, redistribute_to, span
 from .act_sharding import constrain
 from .params import ParamDef
 
@@ -108,9 +108,12 @@ def logits_apply(params, head_params, x: torch.Tensor, cfg: ModelConfig) -> torc
 def _mask_padded_vocab(logits, vocab: int):
     """A DTensor's padded columns (``>= vocab``) at ``-1e9`` on each rank's
     block of the vocabulary, out of place: a view of a sharded dim cannot
-    be written through."""
-    from torch.distributed.tensor import DTensor
+    be written through.  ``Partial`` logits (the head's product over a
+    ``d_model`` split on the mesh) are summed first: masked part by part,
+    the ranks' ``-1e9`` would add up."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
 
+    logits = redistribute_to(logits, [Replicate() if isinstance(p, Partial) else p for p in logits.placements])
     first, width = span(logits, logits.ndim - 1)
     part = logits.to_local()
     part = part.masked_fill(torch.arange(first, first + width, device=part.device) >= vocab, -1e9)
