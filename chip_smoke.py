@@ -140,8 +140,13 @@ source, all started together) and drives the port's paths:
   (192, 128) flash forward and backward), and llama4-scout's prefill and
   decode at its widths cut to 8 of 48 layers (16 experts top-1, 40 query
   heads on 8), whose MoE op makes no host sync in a decode step
-  (``torch.cuda.set_sync_debug_mode("error")``); each run's ms, busy ms,
-  idle share and peak memory;
+  (``torch.cuda.set_sync_debug_mode("error")``); whisper-medium's and
+  paligemma-3b's three cells uncut (the encoder, cross attention and its
+  cache; MQA at head dim 256 after a 256-token vision prefix), jamba's
+  prefill and decode cut to 5 layers (SSM, MoE and its attention layer) and
+  its train cell to 1; each run's ms, busy ms, idle share and peak memory,
+  each kernel's route; run last, in a fresh process of its own (its two
+  profiler traces a cell);
 * the simulator: the segment-scatter kernel (the batched sweep's stat
   landing), its accumulate entry and the sequential-fold kernel held bit for
   bit against their plain versions, on test shapes and on the sweep's real
@@ -4824,11 +4829,18 @@ def phase_step_cost(smi: str):
 #: widths at the same shape, cut to 12 of its 24 layers as train_full_width's, which keeps the phase near a
 #: minute (its DTensor step is host-bound); deepseek-v2-lite's prefill and decode uncut (15.7 B parameters,
 #: ~31 GB in bf16, served uncut since moe_full_width) and its train cell at moe_train_full_width's cut of 4
-#: layers; llama4-scout's prefill and decode at its widths cut to 8 of 48 layers (~19.7 B parameters, ~39 GB).
+#: layers; llama4-scout's prefill and decode at its widths cut to 8 of 48 layers (~19.7 B parameters, ~39 GB);
+#: whisper-medium (24 encoder and 24 decoder layers; its prefill and train cells' 2,048 frame embeddings) and
+#: paligemma-3b (18 layers, MQA at head dim 256 after 256 vision tokens) uncut, all three cells; jamba's
+#: prefill and decode at its widths cut to 5 layers, the shallowest cut with an SSM layer, two MoE layers and
+#: the attention layer at position 4 (~24 B parameters, ~48 GB: the plain step and the DTensor step run one
+#: after the other, the first freed before the second draws its inputs), and its train cell at
+#: jamba_train_full_width's first layer (~146 GB of weights and states at 2).
 #: The last field is the depth of the cell on four cards (scripts/multi_card_dist.py), where rank 0 also runs
-#: the cell's one-card step in fp32, which must fit one card: deepseek-v2-lite at 8 layers (2 for training)
-#: and llama4-scout at 2 (~79 GB in fp32 at 8).  (arch, shape name, seq, rows, kind, layers or None for all,
-#: layers on four cards or None for the same)
+#: the cell's one-card step in fp32, which must fit one card: deepseek-v2-lite at 8 layers (2 for training),
+#: llama4-scout at 2 (~79 GB in fp32 at 8) and jamba's prefill and decode at 2 (an SSM layer and an MoE layer,
+#: ~49 GB in fp32; ~96 GB at 5).  (arch, shape name, seq, rows, kind, layers or None for all, layers on four
+#: cards or None for the same)
 SHARDED_CELLS = (("deepseek-7b", "prefill_2k", 2048, 4, "prefill", None, None),
                  ("deepseek-7b", "decode_2k", 2048, 4, "decode", None, None),
                  ("deepseek-7b", "train_2k", 2048, 4, "train", 8, None),
@@ -4837,10 +4849,21 @@ SHARDED_CELLS = (("deepseek-7b", "prefill_2k", 2048, 4, "prefill", None, None),
                  ("deepseek-v2-lite-16b", "decode_2k", 2048, 4, "decode", None, 8),
                  ("deepseek-v2-lite-16b", "train_2k", 2048, 4, "train", 4, 2),
                  ("llama4-scout-17b-a16e", "prefill_2k", 2048, 4, "prefill", 8, 2),
-                 ("llama4-scout-17b-a16e", "decode_2k", 2048, 4, "decode", 8, 2))
+                 ("llama4-scout-17b-a16e", "decode_2k", 2048, 4, "decode", 8, 2),
+                 ("whisper-medium", "prefill_2k", 2048, 4, "prefill", None, None),
+                 ("whisper-medium", "decode_2k", 2048, 4, "decode", None, None),
+                 ("whisper-medium", "train_2k", 2048, 4, "train", None, None),
+                 ("paligemma-3b", "prefill_2k", 2048, 4, "prefill", None, None),
+                 ("paligemma-3b", "decode_2k", 2048, 4, "decode", None, None),
+                 ("paligemma-3b", "train_2k", 2048, 4, "train", None, None),
+                 ("jamba-1.5-large-398b", "prefill_2k", 2048, 4, "prefill", 5, 2),
+                 ("jamba-1.5-large-398b", "decode_2k", 2048, 4, "decode", 5, 2),
+                 ("jamba-1.5-large-398b", "train_2k", 2048, 4, "train", 1, None))
 #: the cell whose MoE op runs once more under torch.cuda.set_sync_debug_mode("error")
 SYNC_FREE_CELL = ("llama4-scout-17b-a16e", "decode_2k")
 SHARDED_SEED, SHARDED_MICRO = 7, 2
+#: the sharded steps' process is killed after this (it takes ~200 s, its start included)
+SHARDED_TIMEOUT_S = 600
 #: elements a digest reads at once (its int64 products: 512 MB)
 DIGEST_CHUNK = 1 << 26
 
@@ -4871,6 +4894,19 @@ def _digests(tree, path=""):
     return {path: _digest(tree) if isinstance(tree, torch.Tensor) else float(tree)}
 
 
+def expected_kernels(cfg, kind: str):
+    """The kernels a cell of ``kind`` launches on the card: the flash forward
+    where the config has an attention layer (an enc-dec model's encoder and
+    cross attention too) and the backward where it trains; the SSD scan
+    where it has an SSM layer; nothing in a decode step."""
+    if kind == "decode":
+        return ()
+    attn = any(cfg.layer_is_attn(i) for i in range(cfg.n_layers)) or cfg.encdec
+    ssm = cfg.ssm is not None and not all(cfg.layer_is_attn(i) for i in range(cfg.n_layers))
+    return (("flash_forward",) if attn else ()) + (("flash_backward",) if attn and kind == "train" else ()) + \
+        (("ssd_scan",) if ssm else ())
+
+
 def kernel_launches():
     """The flash forward, flash backward and SSD scan wrappers' launch counts."""
     from repro_torch.kernels import flash_attention as fa
@@ -4880,14 +4916,26 @@ def kernel_launches():
             "ssd_scan": sk.ssd_scan.launches}
 
 
+def launch_routes():
+    """The flash forward, flash backward and SSD scan wrappers' launches by
+    the route each launched, as its wrapper counted them at the launch."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
+
+    return {"flash_forward": dict(fa.flash_attention.routes),
+            "flash_backward": dict(fa.flash_attention_backward.routes), "ssd_scan": dict(sk.ssd_scan.routes)}
+
+
 def zero_launches():
-    """Every count :func:`kernel_launches` reads set to 0 (and the flash wrappers' recorded shapes cleared)."""
+    """Every count :func:`kernel_launches` and :func:`launch_routes` read set
+    to 0 (and the flash wrappers' recorded shapes cleared)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as sk
 
     fa.flash_attention.launches = fa.flash_attention_backward.launches = sk.ssd_scan.launches = 0
-    fa.flash_attention.shapes.clear()
-    fa.flash_attention_backward.shapes.clear()
+    for counter in (fa.flash_attention.shapes, fa.flash_attention_backward.shapes, fa.flash_attention.routes,
+                    fa.flash_attention_backward.routes, sk.ssd_scan.routes):
+        counter.clear()
 
 
 def _step_run(cell, args, smi):
@@ -4906,7 +4954,7 @@ def _step_run(cell, args, smi):
     out = cell.fn(*args)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
-    launches = kernel_launches()
+    launches, routes = kernel_launches(), launch_routes()
     digests = _digests(out)
     probe = out[2]["loss"] if cell.step_name == "train_step" else out[0]  # the loss, or the logits
     finite = bool(torch.isfinite(local(probe)).all())
@@ -4920,7 +4968,7 @@ def _step_run(cell, args, smi):
     zero_launches()  # the profile's calls are not the main path's
     return {"first_call_ms": first_ms, "step_ms": prof["wall_ms"], "device_busy_ms": prof["busy_ms"],
             "idle_share": prof["idle_share"], "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "launches": launches, "finite": finite, "smi": smi}, digests
+            "launches": launches, "routes": routes, "finite": finite, "smi": smi}, digests
 
 
 def _moe_makes_no_host_sync(cell, args):
@@ -4979,6 +5027,7 @@ def phase_sharded_steps(smi: str):
     try:
         mesh = make_tiny_mesh(data=1, model=1)
         for arch, name, seq, rows, kind, layers, _ in SHARDED_CELLS:
+            t0 = time.perf_counter()
             cfg = get_config(arch)
             if layers is not None:
                 cfg = dataclasses.replace(cfg, n_layers=layers)
@@ -5002,17 +5051,18 @@ def phase_sharded_steps(smi: str):
             check(sharded["launches"] == plain["launches"] and sharded["finite"] and plain["finite"],
                   f"sharded_steps {key}: launches {sharded['launches']} against the plain step's "
                   f"{plain['launches']}; finite {sharded['finite']} / {plain['finite']}")
-            want = {"prefill": ("flash_forward",), "decode": (), "train": ("flash_forward", "flash_backward")}[kind]
-            if cfg.ssm is not None:
-                want = ("ssd_scan",)
+            want = expected_kernels(cfg, kind)
             check(all(sharded["launches"][k] > 0 for k in want) and all(
                 sharded["launches"][k] == 0 for k in total if k not in want),
                   f"sharded_steps {key}: launches {sharded['launches']}, want {want} launched")
+            check(sharded["routes"] == plain["routes"] and all(list(sharded["routes"][k]) == ["wgmma"] for k in want),
+                  f"sharded_steps {key}: routes {sharded['routes']} (plain {plain['routes']}), want wgmma")
             for k in total:
                 total[k] += sharded["launches"][k]
             cells[key] = {"step": cell.step_name, "rows": rows, "seq": seq, "n_layers": cfg.n_layers,
                           "microbatches": SHARDED_MICRO if kind == "train" else None,
-                          "bit_for_bit": True, "leaves_compared": len(digests), "dtensor": sharded, "plain": plain}
+                          "bit_for_bit": True, "leaves_compared": len(digests), "dtensor": sharded, "plain": plain,
+                          "seconds": time.perf_counter() - t0}
     finally:
         dist.destroy_process_group()
     emit({"phase": "sharded_steps", "mesh": "(data 1, model 1), one-rank NCCL", "seed": SHARDED_SEED, "smi": smi,
@@ -5024,6 +5074,40 @@ def phase_sharded_steps(smi: str):
                   "launch on its local shards "
                   "(kernels/shards.py)"})
     return total
+
+
+def phase_sharded_steps_apart(smi: str):
+    """:func:`phase_sharded_steps` in a child process (this script with
+    ``--sharded-steps``, its stdout read here, its stderr passed through),
+    its phase line printed here and its launches returned.  The profiler's
+    traces lose the events at the start of their window by more the longer
+    the process has run (``perf.cost.device_profile`` retakes them at
+    twice the margin): with its 36 traces (two a cell) second in this
+    process, a later phase's trace lost them at every margin
+    (``qwen2_full_width``, 339 s in), so the phase runs last, its traces
+    in a fresh process, and every other phase runs earlier."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--sharded-steps", smi],
+                          stdout=subprocess.PIPE, text=True, timeout=SHARDED_TIMEOUT_S)
+    lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    check(proc.returncode == 0 and lines and "sharded_steps_result" in lines[-1],
+          f"sharded_steps: its process exited {proc.returncode}")
+    for line in lines[:-1]:
+        emit({**line, "parent_memory_reserved_gb": torch.cuda.memory_reserved() / 1e9})
+    result = lines[-1]["sharded_steps_result"]
+    BREAKDOWN_LEAD_MS.extend(result["lead_ms"])
+    BREAKDOWN_RETAKEN.extend(result["retaken_margins_s"])
+    return result["launches"]
+
+
+def sharded_steps_child(smi: str) -> int:
+    """The child of :func:`phase_sharded_steps_apart`: the phase's line,
+    then its launches and the profiler's leads and retakes on the last."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches = phase_sharded_steps(smi)
+    print(json.dumps({"sharded_steps_result": {"launches": launches, "lead_ms": BREAKDOWN_LEAD_MS,
+                                               "retaken_margins_s": BREAKDOWN_RETAKEN}}), flush=True)
+    return 0
 
 
 def phase_sim_sweep(numpy_sweep):
@@ -5146,10 +5230,9 @@ def main() -> int:
     smi = phase_device()
     sass = phase_build()
     # first, in a fresh process: late in a long one the profiler loses whole sides of these phases' traces
-    # (step_cost's prefill; jamba's SSD forward and backward, which lost them 4 times at 360 s in)
+    # (step_cost's prefill; jamba's SSD forward and backward, which lost them 4 times at 360 s in); the sharded
+    # steps run last, in a fresh process of their own
     step_fwd, step_flash, step_scatter, replay_launches = phase_step_cost(smi)
-    torch.cuda.empty_cache()
-    sharded = phase_sharded_steps(smi)
     torch.cuda.empty_cache()
     jamba_train = phase_jamba_train_full_width()
     torch.cuda.empty_cache()
@@ -5198,6 +5281,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     seg_err, seg_timings, acc_timing, numpy_sweep = phase_segment_kernel(smi)
     seg_launches = phase_sim_sweep(numpy_sweep)
+    torch.cuda.empty_cache()
+    sharded = phase_sharded_steps_apart(smi)
     t = timings[512]
     mt = mla["timing"][str(max(served_prompt_lens()))]
     mla_launches = moe_full["flash_launches"]
@@ -5377,7 +5462,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(sharded_steps_child(sys.argv[2]) if sys.argv[1:2] == ["--sharded-steps"] else main())
     except CheckFailed as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr, flush=True)
         sys.exit(1)

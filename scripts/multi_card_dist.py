@@ -6,6 +6,7 @@ Run from the root of a checkout on a machine with two or more NVIDIA GPUs:
     python3 scripts/multi_card_dist.py                    # one rank a card (at most 4), NCCL
     python3 scripts/multi_card_dist.py --device cpu --world 4 --small   # the same on the host, gloo
     python3 scripts/multi_card_dist.py --device cpu --world 4 --small steps   # only the sharded steps
+    python3 scripts/multi_card_dist.py steps --arch jamba-1.5-large-398b      # only one config's cells
 
 It starts one process a rank (a TCP rendezvous on a free localhost port;
 each process is given ``TIMEOUT_S`` and killed after) and checks, on every
@@ -36,9 +37,11 @@ rank:
   to 12 layers, deepseek-v2-lite's prefill and decode cut to 8 layers and
   its train cell to 2 (experts on ``model``, their FFN width and the batch
   on ``data``; MLA's latent cache split over its sequence on ``model``),
-  and llama4-scout's prefill and decode cut to 2 layers: each new cell at
-  the depth where rank 0's one-card fp32 step fits one card (the last field
-  of ``chip_smoke.SHARDED_CELLS``) (``--small``: the smoke configs,
+  llama4-scout's prefill and decode cut to 2 layers, whisper-medium's and
+  paligemma-3b's three cells uncut, jamba's prefill and decode cut to 2
+  layers (an SSM layer and an MoE layer) and its train cell to 1: each
+  cell at the depth where rank 0's one-card fp32 step fits one card (the
+  last field of ``chip_smoke.SHARDED_CELLS``) (``--small``: the smoke configs,
   32-token rows), each as an fp32 control and then in its config's dtypes
   (``STEP_DTYPES``).  Rank 0
   first runs each cell's plain-tensor step alone on its card from the
@@ -48,8 +51,10 @@ rank:
   at -1e9, a train step's loss, grad norm and each leaf's first moment
   within their bounds; in a train step each gap within its bound or
   twice the gap of the one-card step rerun with its weights nudged by a
-  unit in the last place, whichever is larger; an MoE cell also reports
-  where each run first routes a token otherwise than the one-card step;
+  unit in the last place, whichever is larger; an MoE cell is held against
+  the one-card step rerun on the sharded step's routes (``_pinned``; its
+  nudged rerun on those routes too), and reports its gaps to the unpinned one-card step and every token the two
+  route otherwise, with its top-(k+1) margin;
   bf16:
   the same outputs' gaps to the one-card fp32 step within twice the
   one-card bf16 step's, plus one bf16 unit in the last place), and the
@@ -85,11 +90,12 @@ from chip_smoke import (  # noqa: E402
     SHARDED_CELLS,
     SHARDED_MICRO,
     SHARDED_SEED,
+    expected_kernels,
     kernel_launches,
     zero_launches,
 )
 
-TIMEOUT_S = 600
+TIMEOUT_S = 1200
 TOY_TOL = 2e-5
 #: the full-width pipeline: layers a stage, microbatches, tokens a microbatch (--small: the smoke config's)
 LAYERS_A_STAGE, MICRO, SEQ, SMALL_SEQ = 2, 4, 2048, 32
@@ -111,10 +117,15 @@ PARTS = ("pipeline", "mesh", "steps")
 STEP_DTYPES = ("float32", "bfloat16")
 FP32_REL, FP32_GRAD_L2 = 1e-3, 2e-3
 BF16_FLOOR_TIMES, BF16_SLACK = 2.0, torch.finfo(torch.bfloat16).eps
-#: An MoE cell reports each run's first route difference from the one-card step (the router call, the
-#: tokens, their largest top-(k+1) margin) beside its gaps: at these cuts' init (the stacked layers' std,
-#: repeats^-0.5) a rounding's change of the router's input can send a token to other experts, which moves
-#: the later layers by far more than FP32_REL.
+#: An fp32 MoE cell is held on the sharded step's own routes: at these cuts' init (the stacked layers' std,
+#: repeats^-0.5) a rounding's change of the router's input can send a token to other experts than one card
+#: does, which moves the later layers by far more than FP32_REL whether or not the combine is right.  So rank
+#: 0 reruns the one-card fp32 step with the router's expert indices pinned to the sharded step's (gathered
+#: over the ranks; the gate weights the one-card router's own probabilities at them), and the sharded step is
+#: held against that pinned step within the bounds above (a train cell's nudged rerun, the floor of its bounds,
+#: pinned to the same routes).  The comparison with the unpinned one-card step is reported beside it, with
+#: every token the two route otherwise (router call, token, top-(k+1) margin).
+ROUTE_DIFFERENCES_SHOWN = 32
 
 
 def _free_port() -> int:
@@ -317,18 +328,64 @@ def _routes(calls):
         moe.router_topk = real
 
 
-def _first_route_difference(one, got):
-    """The first router call at which the sharded step routes a token to
-    other experts than the one-card step: ``{"call", "tokens", "margin"}``
-    (the largest of those tokens' top-(k+1) margins, over both runs), or
-    None where every call agrees."""
-    if len(one) != len(got):
-        return {"call": min(len(one), len(got)), "tokens": -1, "margin": float("inf")}
+@contextlib.contextmanager
+def _pinned(calls):
+    """The port's ``moe.router_topk`` while open choosing, at its n-th call,
+    the expert indices of ``calls[n]`` (the sharded step's, gathered): the
+    router's own code with its ``torch.topk`` swapped, for that call, for
+    the router's probabilities at those indices, so the gate weights and the
+    aux loss are ``router_topk``'s on the pinned routes."""
+    from repro_torch.models import moe
+
+    real, count = moe.router_topk, iter(range(len(calls)))
+
+    def pinned(params, x, cfg_moe, **kw):
+        idx, topk = calls[next(count)][0].to(x.device), torch.topk
+        torch.topk = lambda probs, k, dim=-1: (probs.gather(dim, idx), idx)
+        try:
+            return real(params, x, cfg_moe, **kw)
+        finally:
+            torch.topk = topk
+
+    moe.router_topk = pinned
+    try:
+        yield
+    finally:
+        moe.router_topk = real
+
+
+def _route_differences(one, got):
+    """Every token another run routes to other experts than the one-card
+    step (its router call, its index in the call's rows and its largest
+    top-(k+1) margin over both runs), the first ``ROUTE_DIFFERENCES_SHOWN``
+    of them in call order, their count, and both runs' router calls."""
+    shown, count = [], 0
     for n, ((oi, og), (gi, gg)) in enumerate(zip(one, got)):
-        differ = (oi != gi).any(-1)
-        if differ.any():
-            return {"call": n, "tokens": int(differ.sum()), "margin": float(torch.maximum(og, gg)[differ].max())}
-    return None
+        differ = (oi != gi).reshape(-1, oi.shape[-1]).any(-1)
+        margins = torch.maximum(og, gg).reshape(-1)
+        for t in torch.nonzero(differ).flatten().tolist():
+            count += 1
+            if len(shown) < ROUTE_DIFFERENCES_SHOWN:
+                shown.append({"call": n, "token": t, "margin": float(margins[t])})
+    return {"calls": [len(one), len(got)], "count": count, "shown": shown}
+
+
+def _first_miss(got, want, bounds):
+    """Where a serving step first misses its bound: the output (``logits``,
+    or the cache leaf whose first missing layer comes first, in the cache's
+    key order) and that layer, with its gap to the scale of the whole
+    leaf."""
+    if bounds.get("logits", 1) < _rel_gap(got["logits"], want["logits"]):
+        first = {"leaf": "logits", "layer": None, "gap": _rel_gap(got["logits"], want["logits"])}
+    else:
+        first = None
+    for k in want.get("cache", {}):
+        g, w = got["cache"][k].float(), want["cache"][k].float()
+        by_layer = (g - w).abs().reshape(w.shape[0], -1).amax(-1) / w.abs().max().clamp(min=1e-30)
+        over = torch.nonzero(by_layer > bounds[f"cache.{k}"]).flatten().tolist()
+        if over and (first is None or first["layer"] is None or over[0] < first["layer"]):
+            first = {"leaf": f"cache.{k}", "layer": over[0], "gap": float(by_layer[over[0]])}
+    return first
 
 
 def _gathered_routes(calls, mesh):
@@ -400,7 +457,8 @@ def sharded_steps(args, device):
     seq = SMALL_SEQ if args.small else SEQ
     rows, ok = {}, True
     fp32_out = None  # rank 0's one-card fp32 output of the cell, the bf16 run's reference
-    for (arch, name, _, batch, kind, layers, four), dtype in ((c, d) for c in SHARDED_CELLS for d in STEP_DTYPES):
+    cells = [c for c in SHARDED_CELLS if not args.arch or c[0] in args.arch]
+    for (arch, name, _, batch, kind, layers, four), dtype in ((c, d) for c in cells for d in STEP_DTYPES):
         cfg = get_smoke_config(arch) if args.small else get_config(arch)
         layers = four if four is not None else layers  # the depth at which rank 0's one-card fp32 step fits
         if layers is not None and not args.small:
@@ -413,21 +471,15 @@ def sharded_steps(args, device):
         keep = (lambda o: {"loss": o[2]["loss"], "grad_norm": o[2]["grad_norm"], "m": o[1]["m"]}) \
             if kind == "train" else (lambda o: {"logits": o[0], "cache": o[1]})
         vocab = cfg.vocab_size  # the logits' gaps over the vocabulary; the padded columns must hold -1e9
-        one, routed = {}, fp32 and cfg.moe is not None
+        one, routed = {}, fp32 and any(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
         nudged = fp32 and kind == "train"
-        one_routes, routes, nudged_routes = [], [], []
+        one_routes, routes = [], []
         if args.rank == 0:  # the one-card step, alone
             plain = materialize(cell, device.type, SHARDED_SEED)
             out, first, warm = _timed(lambda: cell.fn(*plain), device, keep,
                                       (lambda: _routes(one_routes)) if routed else contextlib.nullcontext)
             one = {"out": out, "first_call_ms": first, "step_ms": warm}
             del out, plain
-            if nudged:  # the same step with every weight moved by about one unit in its last place
-                inputs = materialize(cell, device.type, SHARDED_SEED)
-                _nudge(inputs[0], torch.Generator(device=device).manual_seed(SHARDED_SEED + 2))
-                with _routes(nudged_routes) if routed else contextlib.nullcontext():
-                    one["nudged"] = _vocab_only(_host(keep(cell.fn(*inputs))), vocab)
-                del inputs
             if device.type == "cuda":
                 torch.cuda.empty_cache()
         dist.barrier()
@@ -439,19 +491,37 @@ def sharded_steps(args, device):
         del placed
         if routed:
             routes = _gathered_routes(routes, mesh)
+        if routed and args.rank == 0:  # the one-card step again, on the sharded step's routes
+            inputs = materialize(cell, device.type, SHARDED_SEED)
+            with _pinned(routes):
+                one["pinned"] = _host(keep(cell.fn(*inputs)))
+            del inputs
+        if nudged and args.rank == 0:
+            # the one-card step with every weight moved by about one unit in its last place (an MoE cell's on the
+            # sharded step's routes too, so that its gaps are rounding's on the routes the sharded step is held on)
+            inputs = materialize(cell, device.type, SHARDED_SEED)
+            _nudge(inputs[0], torch.Generator(device=device).manual_seed(SHARDED_SEED + 2))
+            with _pinned(routes) if routed else contextlib.nullcontext():
+                one["nudged"] = _vocab_only(_host(keep(cell.fn(*inputs))), vocab)
+            del inputs
         if device.type == "cuda":
             torch.cuda.empty_cache()
+        dist.barrier()
         row = {"step": cell.step_name, "rows": batch, "seq": seq, "n_layers": cfg.n_layers,
                "sharded_first_call_ms": first, "sharded_step_ms": warm, "launches": launches}
         if args.rank == 0:
             got, want = _vocab_only(got, vocab), _vocab_only(one["out"], vocab)
+            if routed:  # held on the sharded step's routes; the unpinned one-card step's gaps reported
+                unpinned = want
+                want = _vocab_only(one["pinned"], vocab)
+                row["unpinned_gaps"] = {k: v for k, v in _gaps(got, unpinned).items() if not k.startswith("m.")}
             gaps = _gaps(got, want)
             if fp32:
                 # each gap within its bound, or twice the nudged one-card step's gap where that is larger
                 floor = _gaps(one["nudged"], want) if nudged else {k: 0.0 for k in gaps}
                 bounds = {k: max(FP32_GRAD_L2 if k.startswith("m.") else FP32_REL, 2 * floor[k]) for k in gaps}
                 held_gaps = gaps
-                fp32_out = want
+                fp32_out = unpinned if routed else want
             else:
                 # the sharded bf16 step's gap to the one-card fp32 step, within BF16_FLOOR_TIMES the one-card bf16
                 # step's gap to it, plus BF16_SLACK
@@ -469,13 +539,11 @@ def sharded_steps(args, device):
                 row["max_first_moment_gap"] = max(v for k, v in gaps.items() if k.startswith("m."))
             probe = got["loss"] if kind == "train" else got["logits"]
             held = all(v <= 1 for v in over.values())
-            if routed:  # where each run first routes a token otherwise than the one-card step (reported)
+            if fp32 and not held and kind != "train":
+                row["first_miss"] = _first_miss(got, want, bounds)
+            if routed:  # where the sharded step routes a token otherwise than the one-card step (reported)
                 one_routes = [(i.cpu(), g.cpu()) for i, g in one_routes]
-                nudged_routes = [(i.cpu(), g.cpu()) for i, g in nudged_routes]
-                row.update(router_calls=len(one_routes),
-                           first_route_difference=_first_route_difference(one_routes, routes))
-                if nudged:
-                    row["nudged_first_route_difference"] = _first_route_difference(one_routes, nudged_routes)
+                row.update(held_on="the sharded step's routes", route_differences=_route_differences(one_routes, routes))
             if "padded" in got:
                 row["padded_columns_masked"] = bool((got["padded"] == -1e9).all() and (want["padded"] == -1e9).all())
                 held = held and row["padded_columns_masked"]
@@ -483,10 +551,8 @@ def sharded_steps(args, device):
                        held=held, ok=bool(torch.isfinite(probe).all()))
             row["ok"] = row["ok"] and row["held"]
             ok = ok and row["ok"]
-        want_kernels = ("ssd_scan",) if cfg.ssm is not None else \
-            {"prefill": ("flash_forward",), "decode": (), "train": ("flash_forward", "flash_backward")}[kind]
         if device.type == "cuda":
-            ok = ok and all(launches[k] > 0 for k in want_kernels)
+            ok = ok and all(launches[k] > 0 for k in expected_kernels(cfg, kind))
         key = f"{arch} {name} {dtype}" + (f" ({cfg.n_layers} layers)" if layers and not args.small else "")
         rows[key] = row
         print(f"rank {args.rank}: {key} {json.dumps(row)}", file=sys.stderr, flush=True)  # kept if a later cell hangs
@@ -540,6 +606,8 @@ def main(argv=None) -> int:
     ap.add_argument("--world", type=int, default=None, help="ranks (default: the cards, at most 4)")
     ap.add_argument("--small", action="store_true", help="the smoke config's widths and 32-token rows")
     ap.add_argument("parts", nargs="*", choices=PARTS, default=list(PARTS), help="parts to run (default: all)")
+    ap.add_argument("--arch", action="append", default=[],
+                    help="the steps part's cells of this config only (repeatable; default: every cell)")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -561,7 +629,8 @@ def main(argv=None) -> int:
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     cmd = [sys.executable, str(Path(__file__).resolve()), "--device", args.device, "--world", str(args.world),
-           "--port", str(port)] + (["--small"] if args.small else []) + list(args.parts)
+           "--port", str(port)] + (["--small"] if args.small else []) + [f"--arch={a}" for a in args.arch] + \
+        list(args.parts)
     t0 = time.perf_counter()
     procs = [subprocess.Popen(cmd + ["--rank", str(r)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True) for r in range(args.world)]
@@ -579,10 +648,11 @@ def main(argv=None) -> int:
                 print(f"multi_card_dist: rank {r} exited {p.returncode}:\n{stderr[-3000:]}", file=sys.stderr)
             lines += [json.loads(x) for x in stdout.splitlines() if x.startswith("{")]
     finally:
-        for p in procs:
+        for r, p in enumerate(procs):
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+                print(f"multi_card_dist: rank {r} killed; its last stderr:\n{p.communicate()[1][-6000:]}",
+                      file=sys.stderr)
     for line in lines:
         print(json.dumps(line), flush=True)
     ok = ok and len(lines) == args.world and all(x["ok"] for x in lines)

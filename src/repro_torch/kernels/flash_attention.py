@@ -382,7 +382,8 @@ def flash_attention(
     dimension contiguous; for the tensor-core kernel also the alignment
     :func:`tma_strides` checks) and counts the launch in
     ``flash_attention.launches``, its :class:`FlashLaunch` in
-    ``flash_attention.shapes``; ``route="simt"`` asks for the SIMT kernel
+    ``flash_attention.shapes`` and its route in ``flash_attention.routes``;
+    ``route="simt"`` asks for the SIMT kernel
     on bf16 at D = 256 too (for timing it beside the tensor-core one;
     nothing on the main path passes it).  On a CPU tensor it computes the
     plain version, at any ``Dv``.  Anything the kernels do not take raises."""
@@ -429,6 +430,7 @@ def flash_attention(
         raise RuntimeError(f"flash_attention {route} kernel launch failed: {err_str(err).decode()}")
     flash_attention.launches += 1
     flash_attention.shapes[record] += 1
+    flash_attention.routes[route] += 1
     if D == 16:
         out = out[..., :D]
     return (out, lse) if return_lse else out
@@ -438,6 +440,8 @@ def flash_attention(
 flash_attention.launches = 0
 #: those launches by :class:`FlashLaunch` (shape, mask, element size)
 flash_attention.shapes = Counter()
+#: those launches by the route they launched (``"wgmma"``, ``"simt"``)
+flash_attention.routes = Counter()
 #: the launches that calls on fake tensors stood for, by :class:`FlashLaunch` (nothing launched)
 flash_attention.fake_shapes = Counter()
 
@@ -469,7 +473,8 @@ def flash_attention_backward(
     tensor-core one; nothing on the main path passes it).  It counts the call in
     ``flash_attention_backward.launches`` (each call launches
     :data:`BWD_LAUNCHES` CUDA kernels), its :class:`FlashLaunch` in
-    ``flash_attention_backward.shapes``.  On a CPU tensor it computes the
+    ``flash_attention_backward.shapes``, its route in
+    ``flash_attention_backward.routes``.  On a CPU tensor it computes the
     plain version (:func:`~repro_torch.kernels.ref.flash_backward_ref`).
     Anything the kernels do not take raises."""
     _check(q, k, v, causal, prefix_len)
@@ -521,6 +526,7 @@ def flash_attention_backward(
         raise RuntimeError(f"flash_attention_backward {route} kernel launch failed: {err_str(err).decode()}")
     flash_attention_backward.launches += 1
     flash_attention_backward.shapes[record] += 1
+    flash_attention_backward.routes[route] += 1
     if D == 16:
         return tuple(g[..., :D].contiguous() for g in (dq, dk, dv))
     return dq, dk, dv
@@ -530,5 +536,7 @@ def flash_attention_backward(
 flash_attention_backward.launches = 0
 #: those calls by :class:`FlashLaunch` (shape, mask, element size)
 flash_attention_backward.shapes = Counter()
+#: those calls by the route they launched (``"wgmma"``, ``"simt"``)
+flash_attention_backward.routes = Counter()
 #: the calls that fake tensors stood for, by :class:`FlashLaunch` (nothing launched)
 flash_attention_backward.fake_shapes = Counter()

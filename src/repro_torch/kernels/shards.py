@@ -153,7 +153,8 @@ def decode_attention_on_shards(fn: Callable, q, k_cache, v_cache, cache_len, *, 
     import torch.distributed as dist
 
     mesh = mesh_of(q, k_cache, v_cache)
-    cache = as_dtensor(k_cache, mesh)
+    cache = as_dtensor(k_cache, mesh)  # a cache's shards kept; a fresh projection's Partial summed
+    cache = redistribute_to(cache, _kernel_placements(cache.placements, (0, 1, 2)))
     v_cache = redistribute_to(as_dtensor(v_cache, mesh), cache.placements)
     qp = map_placements(cache.placements, {0: 0, 2: 1})
     q = redistribute_to(as_dtensor(q, mesh), qp)

@@ -243,9 +243,9 @@ def ssd_scan(
     for x's dtype (x, B, C fp32 or bf16 of one dtype with the last dimension
     contiguous; dt, A, D, h0 fp32; bf16 also with the shapes and alignment
     the tensor-core kernel takes) and counts the launch in
-    ``ssd_scan.launches``; ``route="simt"`` asks for the SIMT kernel on bf16
-    too (for timing it beside the tensor-core one; nothing on the main path
-    passes it).  On a CPU tensor it computes the plain chunked version at
+    ``ssd_scan.launches``, its route in ``ssd_scan.routes``;
+    ``route="simt"`` asks for the SIMT kernel on bf16 too (for timing it
+    beside the tensor-core one; nothing on the main path passes it).  On a CPU tensor it computes the plain chunked version at
     ``chunk`` (which must divide S).  Anything the kernels do not take
     raises.  No gradient flows through this function: :class:`SSDScan` is
     its differentiable form."""
@@ -308,6 +308,7 @@ def ssd_scan(
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: {err_str(err).decode()}")
     ssd_scan.launches += 1
+    ssd_scan.routes[route] += 1
     return y, h_out
 
 
@@ -351,6 +352,8 @@ def _wgmma_args(x, Bm, Cm, h0):
 
 #: launches of the CUDA kernel since the count was last set to 0
 ssd_scan.launches = 0
+#: those launches by the route they launched (``"wgmma"``, ``"simt"``)
+ssd_scan.routes = Counter()
 #: the calls that fake tensors stood for, by :class:`SSDLaunch` (nothing launched)
 ssd_scan.fake_shapes = Counter()
 

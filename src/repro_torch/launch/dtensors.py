@@ -13,7 +13,7 @@ layers share, none of it a kernel:
   :func:`redistribute_to`, :func:`map_placements`, :func:`axes_on`,
   :func:`grad_placements`, :func:`local_shard` (its gradient in the
   shard's layout, :func:`layout_grad`, :func:`in_layout`),
-  :func:`from_shard`;
+  :func:`from_shard`, :func:`unit_dims_whole`;
 * the model's own ops on shards: :func:`zeros_rows_like` (the conv's left
   context), :func:`lookup_on_shards` (the embedding), :func:`write_token`
   (the decode cache).
@@ -48,6 +48,7 @@ __all__ = [
     "layout_grad",
     "local_shard",
     "from_shard",
+    "unit_dims_whole",
     "zeros_rows_like",
     "lookup_on_shards",
     "write_token",
@@ -263,6 +264,25 @@ def from_shard(t: torch.Tensor, mesh, placements, shape):
 
     return DTensor.from_local(t.contiguous(), mesh, placements, run_check=False, shape=torch.Size(shape),
                               stride=_contiguous_stride(shape))
+
+
+def unit_dims_whole(t):
+    """``t`` with each ``Shard`` of a size-1 dim over a one-rank mesh dim
+    stated as ``Replicate``: the same local tensor, no collective, the
+    gradient handed back at ``t``'s placements.  DTensor's view rules treat
+    a size-1 dim as a singleton and refuse to reshape it while it is
+    sharded (MQA's one kv head, which the plan shards over a ``model`` dim
+    of one rank); a plain tensor is returned as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    want = [Replicate() if isinstance(p, Shard) and t.shape[p.dim] == 1 and mesh.size(i) == 1 else p
+            for i, p in enumerate(t.placements)]
+    if want == list(t.placements):
+        return t
+    return DTensor.from_local(t.to_local(), mesh, want, run_check=False, shape=t.shape, stride=t.stride())
 
 
 # ------------------------------------------------------------------ the model's ops

@@ -43,6 +43,7 @@ from ..launch.dtensors import (
     mesh_of,
     redistribute_to,
     span,
+    unit_dims_whole,
     write_token,
 )
 from .act_sharding import constrain
@@ -72,9 +73,13 @@ def gqa_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("...d,dhk->...hk")`` as one matmul; the result is contiguous."""
+    """``einsum("...d,dhk->...hk")`` as one matmul; the result is contiguous.
+    A DTensor weight's one head sharded over a one-rank mesh dim (MQA's kv
+    head on a ``model`` dim of one rank) is met as replicated there
+    (:func:`~repro_torch.launch.dtensors.unit_dims_whole`), the product's
+    arithmetic unchanged."""
     d, h, k = w.shape
-    return (x @ w.to(x.dtype).reshape(d, h * k)).view(*x.shape[:-1], h, k)
+    return (x @ unit_dims_whole(w).to(x.dtype).reshape(d, h * k)).view(*x.shape[:-1], h, k)
 
 
 def _merge(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:

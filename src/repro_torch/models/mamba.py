@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from ..launch.dtensors import zeros_rows_like
+from ..launch.dtensors import as_dtensor, from_shard, is_dtensor, map_placements, redistribute_to, zeros_rows_like
 from .act_sharding import constrain
 from .layers import rmsnorm_defs
 from .params import ParamDef
@@ -144,6 +144,20 @@ def _step_conv(win: torch.Tensor, new: torch.Tensor, w: torch.Tensor):
     return F.silu(out).to(new.dtype), ext[:, 1:]
 
 
+def _read_state(h: torch.Tensor, Ch: torch.Tensor) -> torch.Tensor:
+    """``C·h``: ``einsum("bhpn,bhn->bhp", h, Ch)``.  On a mesh the einsum
+    runs on each rank's (row, head, p) block, ``Ch`` brought to the same
+    rows and heads, and its result is wrapped at those placements:
+    DTensor's einsum flattens (b, h) into one batch dim, which it refuses
+    while both are sharded.  The local product is the plain one."""
+    if not is_dtensor(h):
+        return torch.einsum("bhpn,bhn->bhp", h, Ch)
+    out = map_placements(h.placements, {0: 0, 1: 1, 2: 2})
+    h = redistribute_to(h, out)
+    Ch = redistribute_to(as_dtensor(Ch, h.device_mesh), map_placements(out, {0: 0, 1: 1}))
+    return from_shard(torch.einsum("bhpn,bhn->bhp", h.to_local(), Ch.to_local()), h.device_mesh, out, h.shape[:3])
+
+
 def mamba_decode(params, x: torch.Tensor, cfg: ModelConfig, cache: Dict[str, torch.Tensor]):
     """One-token state update, ``h ← e^{A·dt}h + dt·(x⊗B)``, ``y = C·h + D·x``.
     x: (B, d_model).  Returns ``(out, new cache)``; ``cache`` is not changed."""
@@ -158,6 +172,6 @@ def mamba_decode(params, x: torch.Tensor, cfg: ModelConfig, cache: Dict[str, tor
     decay = torch.exp(A[None] * dt)  # (B,H)
     xf = xs_c.float()
     h = cache["h"] * decay[..., None, None] + dt[..., None, None] * xf[..., None] * Bh[:, :, None, :]
-    y = torch.einsum("bhpn,bhn->bhp", h, Ch) + params["D"].float()[None, :, None] * xf
+    y = _read_state(h, Ch) + params["D"].float()[None, :, None] * xf
     out = _gate_out(params, y.to(x.dtype), z, cfg)
     return out, {"conv_x": win_x, "conv_B": win_B, "conv_C": win_C, "h": h}

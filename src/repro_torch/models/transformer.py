@@ -56,6 +56,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig, torch_dtype
+from ..launch.dtensors import like
 from .act_sharding import constrain
 from .attention import (
     cross_attn_apply,
@@ -319,11 +320,12 @@ class Transformer(nn.Module):
     def _encode(self, enc_embeds: torch.Tensor, attn_impl: str = "auto") -> torch.Tensor:
         """The encoder over the (stub) frame embeddings ``(B, S_enc,
         d_model)``: cast to the compute dtype, sinusoidal positions added,
-        non-causal layers, the final norm."""
+        non-causal layers, the final norm.  On a mesh the table is met as
+        replicated (every rank computes it alike)."""
         cfg = self.cfg
         x = enc_embeds.to(cfg.compute_tdtype())
         B, S = x.shape[:2]
-        x = x + sinusoidal_positions(S, cfg.d_model, x.dtype, x.device)[None]
+        x = x + like(sinusoidal_positions(S, cfg.d_model, x.dtype, x.device)[None], x)
         positions = torch.arange(S, device=x.device).expand(B, S)
         for lp in self.encoder.layers:
             x = self._run_layer(lp, x, positions, attn_impl=attn_impl, causal=False)[0]
